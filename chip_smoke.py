@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises (nonzero exit):
+
+1. device  - nvidia-smi's name and power limit, torch's device name;
+2. build   - nvcc builds the three kernels from csrc/ (timed);
+3. kernels - bgemv, bgemm and flash attention, each against its plain
+             PyTorch version on the card at the stablelm-1.6b serving shapes,
+             in bf16 and f32, with times beside the card's bound;
+4. smoke   - stablelm-1.6b SMOKE served in f32 through the kernels and again
+             through the plain versions: equal greedy tokens;
+5. serve   - stablelm-1.6b FULL (published widths, seeded random weights),
+             bf16: 8 requests, batch 4, prompt 128, gen 32, all logits finite;
+6. forced  - prefill + 3 decode steps at full width, kernels vs plain on the
+             same tokens: logits within the stated bf16 tolerance;
+7. launches - each kernel's launch count from phase 5 (and 6);
+8. profile - torch.profiler over full-width decode steps: device time by
+             kernel and the device's idle share.
+
+Then a `kernels` summary line, and as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16
+dense (tensor cores), 67 TFLOP/s f32 (CUDA cores).  Detail (nvcc's ptxas
+report, every number printed) goes to build/chip_smoke/.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HERE = Path(__file__).resolve().parent
+OUT = HERE / "build" / "chip_smoke"
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# kernel vs plain version on the card: f32 differs in summation order only
+# (K up to 5632); bf16 outputs are rounded once, so a rounding flip is one
+# bf16 step (2^-8 relative) — allow four
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
+# full-width teacher-forced logits: max |kernel - plain| <= 5% of max |plain|
+# (bf16 activations between every projection, 24 layers deep)
+FORCED_REL_TOL = 0.05
+ARCH = "stablelm-1.6b"
+RESULTS = {}
+
+
+def emit(phase: str, **fields):
+    RESULTS.setdefault(phase, []).append(fields)
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+_flush = None
+SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's ~1.98 GHz boost clock
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Median device time of fn over `iters` launches, each with a cold L2
+    (a 256 MB write evicts the 50 MB cache first: on the serving path every
+    layer's weights arrive from HBM).  A device-side sleep before each
+    launch keeps the queue full while the host enqueues fn, so the events
+    time the device's work and not the host's Python overhead."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(iters):
+        _flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(bytes_moved: int, flops: float, dtype) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOP_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# --------------------------------------------------------------------------
+# phase 3: each kernel against its plain version at the serving shapes
+# --------------------------------------------------------------------------
+
+def kernel_cases(dtype):
+    """(kernel, case, call, library call or None, bytes, flops) at the
+    stablelm-1.6b FULL serving shapes, batch 4."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    d, f, b = 2048, 5632, 4
+    cases = []
+    # bgemv: decode projections, y[b] = epi(x[b] @ W)
+    x, xf = rnd(b, d), rnd(b, f)
+    w_qkv, bias = rnd(d, d, std=d ** -0.5), rnd(d)
+    w_g, w_u = rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5)
+    w_dn, res = rnd(f, d, std=f ** -0.5), rnd(b, d)
+    cases += [
+        ("bgemv", "qkv 4x2048->2048 +bias",
+         lambda: ops.bgemv(w_qkv, x, bias=bias),
+         lambda: torch.addmm(bias, x, w_qkv),
+         nbytes(w_qkv, x, bias) + b * d * x.element_size(), 2 * b * d * d),
+        ("bgemv", "gate_up 4x2048->5632 x2 silu-gate",
+         lambda: ops.bgemv(w_g, x, a2=w_u, activation="silu"), None,
+         nbytes(w_g, w_u, x) + b * f * x.element_size(), 4 * b * d * f),
+        ("bgemv", "down 4x5632->2048 +residual",
+         lambda: ops.bgemv(w_dn, xf, residual=res),
+         lambda: torch.addmm(res, xf, w_dn),
+         nbytes(w_dn, xf, res) + b * d * x.element_size(), 2 * b * f * d),
+    ]
+    # bgemm: admission-prefill projections, C[b] = epi(A[b] @ B)
+    a = rnd(b, 128, d)
+    a2d = a.view(-1, d)
+    ar, wr = rnd(b, 127, 2047), rnd(2047, 2001, std=2047 ** -0.5)
+    br, rr = rnd(2001), rnd(b, 127, 2001)
+    cases += [
+        ("bgemm", "gate_up (4,128,2048)@(2048,5632) x2 silu-gate",
+         lambda: ops.bgemm(a, w_g, b2=w_u, activation="silu"), None,
+         nbytes(a, w_g, w_u) + b * 128 * f * a.element_size(), 4 * b * 128 * d * f),
+        ("bgemm", "qkv (4,128,2048)@(2048,2048) +bias",
+         lambda: ops.bgemm(a, w_qkv, bias=bias),
+         lambda: torch.addmm(bias, a2d, w_qkv),
+         nbytes(a, w_qkv, bias) + b * 128 * d * a.element_size(), 2 * b * 128 * d * d),
+        ("bgemm", "ragged (4,127,2047)@(2047,2001) +bias gelu +residual",
+         lambda: ops.bgemm(ar, wr, bias=br, residual=rr, activation="gelu"), None,
+         nbytes(ar, wr, br, rr) + rr.numel() * rr.element_size(),
+         2 * b * 127 * 2047 * 2001),
+    ]
+    # flash attention over the cache layout, garbage past every kvl
+    h, hd, s = 32, 64, 160
+    for label, tq, lens in (("prefill B=4 Tq=128 H=32 D=64 S=160", 128, [128] * 4),
+                            ("decode B=4 Tq=1 H=32 D=64 S=160", 1, [129, 140, 150, 160])):
+        q = rnd(b, tq, h, hd)
+        k, v = rnd(b, s, h, hd), rnd(b, s, h, hd)
+        for i, n in enumerate(lens):
+            k[i, n:] = float("nan")
+            v[i, n:] = float("nan")
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+        pos = torch.arange(s, device="cuda")
+        qpos = torch.arange(tq, device="cuda")[None, :] + (torch.tensor(lens, device="cuda") - tq)[:, None]
+        mask = (pos[None, None, :] <= qpos[..., None]) & (pos[None, None, :] < torch.tensor(lens, device="cuda")[:, None, None])
+        mask = mask[:, None]                               # (B, 1, Tq, S)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = sum(min(t + n - tq + 1, n) for n in lens for t in range(tq)) * h
+        kv_read = sum(lens) * h * hd * 2 * q.element_size()
+        cases.append((
+            "attention", label,
+            lambda q=q, k=k, v=v, kv_lens=kv_lens: ops.flash_attention(q, k, v, kv_lens=kv_lens),
+            lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+            2 * nbytes(q) + kv_read + kv_lens.numel() * 4, 4 * pairs * hd))
+    return cases
+
+
+def phase_kernels():
+    from repro_torch.kernels import ops
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, case, call, lib, nb, flops in kernel_cases(dtype):
+            got = call()
+            with ops.reference_mode():
+                want = call()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), want.float(), **TOL[dtype])
+            ms = time_ms(call)
+            with ops.reference_mode():
+                plain_ms = time_ms(call)
+            lib_ms = time_ms(lib) if lib is not None else None
+            b_ms, by = bound(nb, flops, dtype)
+            row = dict(kernel=name, case=case, dtype=str(dtype).split(".")[1],
+                       max_abs_err=err, tol=TOL[dtype], within_tol=ok, kernel_ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=by, bytes=nb, flops=flops)
+            emit("kernels", **row)
+            if not ok:
+                raise AssertionError(f"{name} [{case}] {dtype}: max |kernel - plain| "
+                                     f"= {err} outside {TOL[dtype]}")
+            rows[(name, case, row["dtype"])] = row
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phases 4-7: the main path
+# --------------------------------------------------------------------------
+
+def phase_smoke():
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ARCH, "smoke")
+    params = tf.init_params(cfg, 0, "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
+    kw = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts,
+              params=params, verbose=False, device="cuda")
+    got = serve(ARCH, "smoke", **kw)
+    with ops.reference_mode():
+        want = serve(ARCH, "smoke", **kw)
+    equal = got["outputs"] == want["outputs"]
+    emit("smoke", dtype="float32", requests=len(prompts), completed=got["completed"],
+         tokens_equal=equal, outputs=got["outputs"])
+    if not equal or got["completed"] != len(prompts):
+        raise AssertionError(f"smoke serve: kernels {got['outputs']} != plain {want['outputs']}")
+
+
+def phase_serve(params, cfg):
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    finite = []
+    logits_chunk = tf._logits_chunk
+
+    def checked(*args, **kwargs):  # every logit of the run, checked on device
+        out = logits_chunk(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    tf._logits_chunk = checked
+    try:
+        stats = serve(ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32,
+                      seed=0, eos=-1, params=params, device="cuda")
+    finally:
+        tf._logits_chunk = logits_chunk
+    all_finite = bool(torch.stack(finite).all())
+    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
+    emit("serve", arch=ARCH, variant="full", dtype="bfloat16", requests=8, batch=4,
+         prompt_len=128, gen=32, completed=stats["completed"], tokens=stats["tokens"],
+         tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
+         ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
+         decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
+         logit_checks=len(finite), all_logits_finite=all_finite)
+    if stats["completed"] != 8 or not all_finite or not in_range:
+        raise AssertionError(f"full serve: completed {stats['completed']}/8, "
+                             f"finite {all_finite}, tokens in range {in_range}")
+    if any(len(o) != 32 for o in stats["outputs"]):
+        raise AssertionError("full serve: a request stopped before its budget")
+
+
+def _forced_run(params, cfg, tokens, steps):
+    """Prefill (4, 128) then decode the given tokens; returns the logits of
+    every step and device times (ms) of the prefill and each decode step."""
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    logits, times = [], []
+    feeds = [(tf.prefill, tokens)] + [(tf.decode_step, t) for t in steps]
+    for fn, tok in feeds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, cache = fn(params, tok, cache, cfg)
+        end.record()
+        logits.append(out)
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return logits, [s.elapsed_time(e) for s, e in times]
+
+
+def phase_forced(params, cfg):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
+    steps = [torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
+             for _ in range(3)]
+    got, t_kernel = _forced_run(params, cfg, tokens, steps)
+    with ops.reference_mode():
+        want, t_plain = _forced_run(params, cfg, tokens, steps)
+    errs, scales, agree = [], [], []
+    for gl, wl in zip(got, want):
+        errs.append((gl - wl).abs().max().item())
+        scales.append(wl.abs().max().item())
+        agree.append((gl.argmax(-1) == wl.argmax(-1)).float().mean().item())
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    ok = finite and all(e <= FORCED_REL_TOL * s for e, s in zip(errs, scales))
+    emit("forced", arch=ARCH, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
+         max_abs_err=errs, max_abs_logit=scales, rel_tol=FORCED_REL_TOL,
+         argmax_agreement=agree, all_finite=finite, within_tol=ok,
+         prefill_ms=t_kernel[0], decode_ms_per_step=statistics.mean(t_kernel[1:]),
+         plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]))
+    if not ok:
+        raise AssertionError(f"forced logits: errors {errs} vs scales {scales}")
+
+
+def phase_profile(params, cfg, steps: int = 5):
+    """Where a full-width decode step's time goes (batch 4, 128 cached
+    tokens): the wall clock per step without the profiler, then
+    torch.profiler over the same steps for device time per kernel name;
+    the idle share is 1 - device busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+    rng = np.random.default_rng(6)
+    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    _, cache = tf.prefill(params, torch.from_numpy(
+        rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda(), cache, cfg)
+    tok = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
+    for _ in range(2):
+        _, cache = tf.decode_step(params, tok, cache, cfg)
+    # wall clock without the profiler, whose host overhead would inflate it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, cache = tf.decode_step(params, tok, cache, cfg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, cache = tf.decode_step(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies): aten ops would count twice
+    by_name = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit("profile", what="full-width decode step, batch 4, 128 cached tokens",
+         wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy or None,
+         device_idle_share=(1 - busy / wall_ms) if busy else None,
+         device_events_per_step=sum(n for _, n in by_name.values()),
+         top=[{"name": k[:90], "ms_per_step": ms, "calls_per_step": n}
+              for k, (ms, n) in top])
+
+
+def check_launches(counts: dict, what: str):
+    layers_x_proj = 24 * 6
+    bad = [k for k, n in counts.items() if n == 0]
+    bad += [k for k in ("bgemv", "bgemm") if counts[k] % layers_x_proj]
+    if counts["attention"] % 24:
+        bad.append("attention")
+    if bad:
+        raise AssertionError(f"{what} launches {counts}: {bad} never launched or "
+                             f"not a whole number of 24-layer forwards")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs "
+              "a CUDA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, name=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
+         library=str(lib.relative_to(HERE)))
+    (OUT / "ptxas.txt").write_text(_build.build_log)
+
+    with torch.inference_mode():
+        rows = phase_kernels()
+        phase_smoke()
+
+        cfg = get_config(ARCH, "full")
+        params = tf.init_params(cfg, 0, "cuda")
+        ops.reset_launch_counts()
+        phase_serve(params, cfg)
+        serve_counts = ops.launch_counts()
+        emit("launches", run="serve", **serve_counts)
+        check_launches(serve_counts, "serve")
+        ops.reset_launch_counts()
+        phase_forced(params, cfg)
+        forced_counts = ops.launch_counts()
+        emit("launches", run="forced", **forced_counts)
+        check_launches(forced_counts, "forced")
+        phase_profile(params, cfg)
+
+    sources = {"bgemv": ("src/repro_torch/csrc/bgemv.cu", "src/repro/kernels/bgemv.py:230",
+                         "qkv 4x2048->2048 +bias"),
+               "bgemm": ("src/repro_torch/csrc/bgemm.cu", "src/repro/kernels/bgemm.py:217",
+                         "qkv (4,128,2048)@(2048,2048) +bias"),
+               "attention": ("src/repro_torch/csrc/attention.cu",
+                             "src/repro/kernels/attention.py:329",
+                             "decode B=4 Tq=1 H=32 D=64 S=160")}
+    summary = []
+    for name, (src, replaces, case) in sources.items():
+        r = rows[(name, case, "bfloat16")]
+        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": serve_counts[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": case, "dtype": "bfloat16"})
+    (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""Broadcast-weight batched GEMM: the prefill projection kernel.
+
+Replaces `repro/kernels/bgemm.py` (`_bgemm_kernel`, Pallas call at :217) in
+the broadcast-B "kn" form the prefill path uses: C[b] = epi(A[b] @ B
+[, A[b] @ B2]).  The CUDA kernel is `csrc/bgemm.cu`, a shared-memory tiled
+f32-FMA GEMM; its source note says what bounds it (the tensor-core rate) and
+how far this first version is from that.
+
+`reference` is the plain PyTorch version: CPU tensors use it, and on the
+card only comparisons (`ops.reference_mode`) do.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.epilogue import Epilogue
+from repro_torch.kernels import _build
+
+#: launches of the CUDA kernel in this process
+launches = 0
+
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
+    """C = epi(a @ b [, a @ b2]) in f32, cast once to a's dtype."""
+    epi = Epilogue(activation, bias is not None, b2 is not None, residual is not None)
+    af = a.float()
+    acc = af @ b.float()
+    acc2 = af @ b2.float() if b2 is not None else None
+    return epi.apply(acc, acc2=acc2, bias=bias, residual=residual).to(a.dtype)
+
+
+def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
+    """Launch `bgemm_launch` on the current stream; operands are validated
+    CUDA tensors (kernels/ops.py), `out` is (batch, M, N) and preallocated."""
+    global launches
+    batch, m, k = a.shape
+    n = b.shape[1]
+    fn = _build.function("bgemm_launch", _ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(dtype_code, a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                 _build.ptr(residual), out.data_ptr(), batch, m, k, n, act_code,
+                 stream)
+    if err:
+        raise RuntimeError(f"bgemm kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -1,0 +1,156 @@
+"""Kernel entry points: validate, then launch the CUDA kernel or, for CPU
+tensors, run its plain version.
+
+Mirrors `repro/kernels/ops.py` (`bgemv`, `bgemm`, `flash_attention`).  Every
+wrapper checks shapes, dtypes (float32 or bfloat16, all operands alike),
+devices and contiguity and raises on what the kernel does not take.  A CUDA
+tensor goes to the kernel; a failed build or launch raises.  Nothing falls
+back: the plain version runs on the card only inside `reference_mode()`,
+which comparisons (chip_smoke.py, tests) enter explicitly.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+from repro_torch.kernels import attention as _attention
+from repro_torch.kernels import bgemm as _bgemm
+from repro_torch.kernels import bgemv as _bgemv
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
+_HEAD_DIMS = (16, 32, 64, 128)
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def reference_mode():
+    """Send CUDA tensors to the plain PyTorch versions inside this block —
+    for comparing a kernel with its plain version on the card only."""
+    old = getattr(_state, "reference", False)
+    _state.reference = True
+    try:
+        yield
+    finally:
+        _state.reference = old
+
+
+def launch_counts() -> dict:
+    return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
+            "attention": _attention.launches}
+
+
+def reset_launch_counts() -> None:
+    _bgemv.launches = _bgemm.launches = _attention.launches = 0
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    """True: launch the CUDA kernel.  False: the plain version (a CPU
+    tensor, or a CUDA tensor inside reference_mode).  Other devices raise."""
+    if t.device.type == "cuda":
+        return not getattr(_state, "reference", False)
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _check(name: str, main: torch.Tensor, **operands) -> None:
+    if main.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got {main.dtype}")
+    for key, t in operands.items():
+        if t is None:
+            continue
+        if t.dtype != main.dtype:
+            raise TypeError(f"{name}: {key} dtype {t.dtype} != {main.dtype}")
+        if t.device != main.device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {main.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if not main.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check_shape(name: str, what: str, t, shape) -> None:
+    if t is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _act_code(activation) -> int:
+    if activation not in _ACTS:
+        raise ValueError(f"activation must be one of {sorted(a for a in _ACTS if a)} "
+                         f"or None, got {activation!r}")
+    return _ACTS[activation]
+
+
+def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
+          transpose_a=True):
+    """epilogue(a^T x[b] [, a2^T x[b]]) -> (batch, m) with a (n, m) broadcast
+    across the batch, streamed in its stored layout; x (batch, n), bias
+    (m,), residual (batch, m).  Only the transpose_a form is ported (the one
+    the decode path uses)."""
+    if not transpose_a:
+        raise NotImplementedError("bgemv: only transpose_a=True (the decode "
+                                  "projection form) is ported")
+    if a.ndim != 2 or x.ndim != 2 or a.shape[0] != x.shape[1]:
+        raise ValueError(f"bgemv shape mismatch: {tuple(a.shape)} @ {tuple(x.shape)}")
+    n, m = a.shape
+    _check_shape("bgemv", "a2", a2, a.shape)
+    _check_shape("bgemv", "bias", bias, (m,))
+    _check_shape("bgemv", "residual", residual, (x.shape[0], m))
+    _check("bgemv", x, a=a, a2=a2, bias=bias, residual=residual)
+    act = _act_code(activation)
+    if not _use_kernel(x):
+        return _bgemv.reference(a, x, w2=a2, bias=bias, residual=residual,
+                                activation=activation)
+    out = torch.empty((x.shape[0], m), dtype=x.dtype, device=x.device)
+    return _bgemv.launch(a, x, out, w2=a2, bias=bias, residual=residual,
+                         act_code=act, dtype_code=_DTYPES[x.dtype])
+
+
+def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
+    """epilogue(a (batch, m, k) @ b (k, n) [, a @ b2]) -> (batch, m, n); b
+    broadcasts across the batch, bias (n,), residual (batch, m, n)."""
+    if a.ndim != 3 or b.ndim != 2 or a.shape[2] != b.shape[0]:
+        raise ValueError(f"bgemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    batch, m, _ = a.shape
+    n = b.shape[1]
+    _check_shape("bgemm", "b2", b2, b.shape)
+    _check_shape("bgemm", "bias", bias, (n,))
+    _check_shape("bgemm", "residual", residual, (batch, m, n))
+    _check("bgemm", a, b=b, b2=b2, bias=bias, residual=residual)
+    act = _act_code(activation)
+    if not _use_kernel(a):
+        return _bgemm.reference(a, b, b2=b2, bias=bias, residual=residual,
+                                activation=activation)
+    out = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
+    return _bgemm.launch(a, b, out, b2=b2, bias=bias, residual=residual,
+                         act_code=act, dtype_code=_DTYPES[a.dtype])
+
+
+def flash_attention(q, k, v, *, kv_lens, kv_groups=1):
+    """Causal attention of q (B, Tq, H, D) over the cache layout k/v
+    (B, S, H // kv_groups, D) -> (B, Tq, H, D).  kv_lens (B*H,) int32 is
+    each (slot, head) row's real KV length (pos + Tq on the cached paths);
+    keys at or past it are masked and their V rows zeroed."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants 4-D cache-layout operands, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[2] * kv_groups != h:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} with kv_groups={kv_groups}")
+    _check_shape("flash_attention", "kv_lens", kv_lens, (b * h,))
+    if kv_lens.dtype != torch.int32 or kv_lens.device != q.device:
+        raise TypeError("flash_attention: kv_lens must be int32 on q's device")
+    _check("flash_attention", q, k=k, v=v)
+    if not kv_lens.is_contiguous():
+        raise ValueError("flash_attention: kv_lens must be contiguous")
+    if not _use_kernel(q):
+        return _attention.reference(q, k, v, kv_lens)
+    if d not in _HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention kernel: head dim {d} not in {_HEAD_DIMS}")
+    out = torch.empty_like(q)
+    return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPES[q.dtype])

@@ -34,3 +34,8 @@ def _install_hypothesis_shim() -> None:
 
 
 _install_hypothesis_shim()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips inside the test without one")
