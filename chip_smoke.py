@@ -6,7 +6,7 @@
 Phases, each printing one JSON line; any failure raises (nonzero exit):
 
 1. device  - nvidia-smi's name and power limit, torch's device name;
-2. build   - nvcc builds the three kernels from csrc/ (timed);
+2. build   - nvcc builds the kernels from csrc/, one process a file (timed);
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes,
              in bf16 and f32, with times beside the card's bound;
@@ -16,14 +16,20 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              bf16: 8 requests, batch 4, prompt 128, gen 32, all logits finite;
 6. forced  - prefill + 3 decode steps at full width, kernels vs plain on the
              same tokens: logits within the stated bf16 tolerance;
-7. launches - each kernel's launch count from phase 5 (and 6);
+7. launches - each serving kernel's launch count from phase 5 (and 6);
 8. profile - torch.profiler over full-width decode steps: device time by
-             kernel and the device's idle share.
+             kernel and the device's idle share;
+9. blas    - the BLAS library (`repro_torch.core.blas`: gemm, gemv, dot,
+             nrm2, axpy) at full size in f64, f32 and bf16, each call held
+             against its plain version and counted as one launch of its
+             kernel (gemm, gemv, blas1 reduce, blas1 axpy); then each timed
+             beside its bound and one PyTorch library call.
 
 Then a `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16
-dense (tensor cores), 67 TFLOP/s f32 (CUDA cores).  Detail (nvcc's ptxas
+dense (tensor cores), 67 TFLOP/s f32 (CUDA cores), 67 TFLOP/s f64 (tensor
+cores; the CUDA cores' DFMA peaks at 34).  Detail (nvcc's ptxas
 report, every number printed) goes to build/chip_smoke/.
 """
 
@@ -43,17 +49,30 @@ import torch.nn.functional as F
 HERE = Path(__file__).resolve().parent
 OUT = HERE / "build" / "chip_smoke"
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# kernel vs plain version on the card: f32 differs in summation order only
-# (K up to 5632); bf16 outputs are rounded once, so a rounding flip is one
-# bf16 step (2^-8 relative) — allow four
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 67e12}
+# kernel vs plain version on the card: f32 and f64 differ in summation order
+# only (K up to 8192); bf16 outputs are rounded once, so a rounding flip is
+# one bf16 step (2^-8 relative) — allow four.
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-       torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
+       torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2),
+       torch.float64: dict(rtol=1e-10, atol=1e-10)}
+# dot and nrm2 return one number: |kernel - plain| <= out * |plain| + acc * cond,
+# cond = sum |x_i y_i| (nrm2: ||x||).  `acc` is the accumulator's summation
+# error (f32 for f32 and bf16, f64 for f64); `out` is one rounding flip of the
+# output in its dtype.
+SUM_TOL = {torch.float32: dict(out=2 ** -23, acc=1e-7),
+           torch.bfloat16: dict(out=2 ** -7, acc=1e-7),
+           torch.float64: dict(out=2 ** -52, acc=1e-14)}
+SLOW_MS = 50.0  # launches above this are timed 5 times, not 20
 # full-width teacher-forced logits: max |kernel - plain| <= 5% of max |plain|
 # (bf16 activations between every projection, 24 layers deep)
 FORCED_REL_TOL = 0.05
 ARCH = "stablelm-1.6b"
 RESULTS = {}
+
+
+def sum_limit(dtype, want: float, cond: float) -> float:
+    return SUM_TOL[dtype]["out"] * abs(want) + SUM_TOL[dtype]["acc"] * cond
 
 
 def emit(phase: str, **fields):
@@ -92,6 +111,17 @@ def time_ms(fn, iters: int = 20) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def time_auto(fn) -> float:
+    """time_ms with 20 launches, or 5 where one launch takes over SLOW_MS."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return time_ms(fn, iters=5 if start.elapsed_time(end) > SLOW_MS else 20)
 
 
 def nbytes(*tensors) -> int:
@@ -349,9 +379,172 @@ def phase_profile(params, cfg, steps: int = 5):
               for k, (ms, n) in top])
 
 
+# --------------------------------------------------------------------------
+# phase 9: the BLAS library at full size
+# --------------------------------------------------------------------------
+
+D8K, N16K, N26 = 8192, 16384, 2 ** 26
+DTYPES = (torch.float64, torch.float32, torch.bfloat16)
+
+
+def blas_cases():
+    """(kernel counter, routine, case, dtype, make) for every BLAS case;
+    make() builds the inputs from a seeded generator and returns (call
+    through core.blas, library call or None, bytes, flops, sums), where sums
+    is None (elementwise tolerance) or, for dot and nrm2, (cond, the same
+    call on the first half of each vector: a planted fault)."""
+    from repro_torch.core import blas
+
+    def rnd(g, dtype, *shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    def gemm_case(dtype, m, k, n, seed, epi=None, fused=False):
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
+            out_b = m * n * a.element_size()
+            if fused:  # stablelm gate+up on a flattened (512-token) prefill
+                b2 = rnd(g, dtype, k, n, std=k ** -0.5)
+                return (lambda: blas.matmul_fused(a, b, w2=b2, activation="silu"), None,
+                        nbytes(a, b, b2) + out_b, 4 * m * n * k, None)
+            if epi:
+                bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
+                return (lambda: blas.gemm(a, b, bias=bias, residual=res, epilogue=epi), None,
+                        nbytes(a, b, bias, res) + out_b, 2 * m * n * k, None)
+            return (lambda: blas.gemm(a, b), lambda: torch.matmul(a, b),
+                    nbytes(a, b) + out_b, 2 * m * n * k, None)
+        return make
+
+    def gemv_case(dtype, m, n, seed, trans=False):
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            a = rnd(g, dtype, n, m, std=m ** -0.5) if trans else rnd(g, dtype, m, n, std=n ** -0.5)
+            x = rnd(g, dtype, n)
+            at = a.t() if trans else a
+            return (lambda: blas.gemv(a, x, trans=trans), lambda: torch.mv(at, x),
+                    nbytes(a, x) + m * a.element_size(), 2 * m * n, None)
+        return make
+
+    def level1_case(routine, dtype, n, seed):
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            x, y = rnd(g, dtype, n), rnd(g, dtype, n)
+            size, h = x.element_size(), n // 2
+            if routine == "dot":
+                cond = (x.double() * y.double()).abs().sum().item()
+                return (lambda: blas.dot(x, y), lambda: torch.dot(x, y),
+                        nbytes(x, y) + size, 2 * n, (cond, lambda: blas.dot(x[:h], y[:h])))
+            if routine == "nrm2":
+                cond = x.double().norm().item()
+                return (lambda: blas.nrm2(x), lambda: torch.linalg.vector_norm(x),
+                        nbytes(x) + size, 2 * n, (cond, lambda: blas.nrm2(x[:h])))
+            return (lambda: blas.axpy(0.75, x, y), lambda: torch.add(y, x, alpha=0.75),
+                    nbytes(x, y) + n * size, 2 * n, None)
+        return make
+
+    cases = []
+    for i, dt in enumerate(DTYPES):
+        cases.append(("gemm", "gemm", f"{D8K}x{D8K}x{D8K}", dt, gemm_case(dt, D8K, D8K, D8K, 10 + i)))
+    cases += [
+        ("gemm", "gemm", "ragged (4095,4097)@(4097,4093) +bias gelu +residual", torch.float32,
+         gemm_case(torch.float32, 4095, 4097, 4093, 13, epi="gelu")),
+        ("gemm", "matmul_fused", "2-D (512,2048)@(2048,5632) x2 silu-gate", torch.bfloat16,
+         gemm_case(torch.bfloat16, 512, 2048, 5632, 14, fused=True)),
+    ]
+    for i, dt in enumerate(DTYPES):
+        cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
+    cases += [
+        ("gemv", "gemv", "ragged 16383x16385", torch.float32,
+         gemv_case(torch.float32, 16383, 16385, 23)),
+        ("gemv", "gemv", f"trans=True {N16K}x{N16K} (transpose materialised)", torch.float32,
+         gemv_case(torch.float32, N16K, N16K, 24, trans=True)),
+    ]
+    for r, routine in enumerate(("dot", "nrm2")):
+        for i, dt in enumerate(DTYPES):
+            cases.append(("blas1_reduce", routine, "n=2^26", dt, level1_case(routine, dt, N26, 30 + 10 * r + i)))
+        cases.append(("blas1_reduce", routine, "ragged n=2^26-3", torch.float32,
+                      level1_case(routine, torch.float32, N26 - 3, 33 + 10 * r)))
+    for i, dt in enumerate(DTYPES):
+        cases.append(("blas1_axpy", "axpy", "n=2^26", dt, level1_case("axpy", dt, N26, 50 + i)))
+    return cases
+
+
+def phase_blas():
+    """Drive every case once through core.blas with the launch counts reset
+    just before (each call must add exactly one launch to its kernel's
+    count), hold it against its plain version, then time it."""
+    from repro_torch.kernels import ops
+    cases = blas_cases()
+    checked = []
+    ops.reset_launch_counts()
+    for kernel, routine, case, dtype, make in cases:
+        call, _, _, _, sums = make()
+        before = ops.launch_counts()
+        got = call()
+        after = ops.launch_counts()
+        with ops.reference_mode():
+            want = call()
+            planted = None if sums is None else sums[1]()
+        torch.cuda.synchronize()
+        rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        diff = (got.double() - want.double()).abs()
+        err = diff.max().item()
+        finite = bool(torch.isfinite(got).all())
+        chk = dict(err=err, cond=None, tol=TOL[dtype])
+        if sums is None:
+            tol = TOL[dtype]
+            ok = finite and bool((diff <= tol["atol"] + tol["rtol"] * want.double().abs()).all())
+        else:
+            # the limit must reject a kernel that returns 0 or drops half the vector
+            w = want.double().item()
+            limit = sum_limit(dtype, w, sums[0])
+            rejects = {"zero": abs(w) > limit, "half": abs(planted.double().item() - w) > limit}
+            chk.update(cond=sums[0], tol=SUM_TOL[dtype], limit=limit, planted_rejected=rejects)
+            if not all(rejects.values()):
+                raise AssertionError(f"blas {routine} [{case}] {dtype}: the limit {limit} "
+                                     f"passes a planted fault {rejects}")
+            ok = finite and err <= limit
+        ok = ok and got.dtype == dtype and got.shape == want.shape
+        chk["ok"] = ok
+        checked.append(chk)
+        if not ok or rose != {kernel: 1}:
+            emit("blas", kernel=kernel, routine=routine, case=case, dtype=str(dtype).split(".")[1],
+                 max_abs_err=err, tol=chk["tol"], within_tol=ok, launches_added=rose)
+            raise AssertionError(f"blas {routine} [{case}] {dtype}: within_tol={ok}, "
+                                 f"launches added {rose} (want {{{kernel!r}: 1}})")
+        del call, got, want, diff, planted
+    counts = ops.launch_counts()
+    emit("launches", run="blas", **counts)
+    for kernel in ("gemm", "gemv", "blas1_reduce", "blas1_axpy"):
+        expected = sum(c[0] == kernel for c in cases)
+        if counts[kernel] != expected:
+            raise AssertionError(f"blas launches {counts}: {kernel} {counts[kernel]} != {expected}")
+
+    rows = {}
+    for (kernel, routine, case, dtype, make), chk in zip(cases, checked):
+        call, lib, nb, flops, _ = make()
+        ms = time_auto(call)
+        with ops.reference_mode():
+            plain_ms = time_auto(call)
+        lib_ms = time_auto(lib) if lib is not None else None
+        b_ms, by = bound(nb, flops, dtype)
+        row = dict(kernel=kernel, routine=routine, case=case, dtype=str(dtype).split(".")[1],
+                   max_abs_err=chk["err"], tol=chk["tol"],
+                   tol_scale="out*|plain| + acc*cond" if chk["cond"] is not None else "elementwise",
+                   cond=chk["cond"], limit=chk.get("limit"),
+                   planted_rejected=chk.get("planted_rejected"), within_tol=chk["ok"],
+                   kernel_ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                   bytes=nb, flops=flops)
+        emit("blas", **row)
+        rows[(routine, case, row["dtype"])] = row
+        del call, lib
+    return rows, counts
+
+
 def check_launches(counts: dict, what: str):
     layers_x_proj = 24 * 6
-    bad = [k for k, n in counts.items() if n == 0]
+    bad = [k for k in ("bgemv", "bgemm", "attention") if counts[k] == 0]
     bad += [k for k in ("bgemv", "bgemm") if counts[k] % layers_x_proj]
     if counts["attention"] % 24:
         bad.append("attention")
@@ -405,10 +598,12 @@ def main() -> int:
         emit("launches", run="forced", **forced_counts)
         check_launches(forced_counts, "forced")
         phase_profile(params, cfg)
+        del params
+        blas_rows, blas_counts = phase_blas()
 
     sources = {"bgemv": ("src/repro_torch/csrc/bgemv.cu", "src/repro/kernels/bgemv.py:230",
                          "qkv 4x2048->2048 +bias"),
-               "bgemm": ("src/repro_torch/csrc/bgemm.cu", "src/repro/kernels/bgemm.py:217",
+               "bgemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/bgemm.py:217",
                          "qkv (4,128,2048)@(2048,2048) +bias"),
                "attention": ("src/repro_torch/csrc/attention.cu",
                              "src/repro/kernels/attention.py:329",
@@ -421,6 +616,25 @@ def main() -> int:
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": case, "dtype": "bfloat16"})
+    # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
+    # launches from the blas phase
+    blas_sources = {
+        "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
+                 ("gemm", f"{D8K}x{D8K}x{D8K}")),
+        "gemv": ("src/repro_torch/csrc/gemv.cu", "src/repro/kernels/gemv.py:146",
+                 ("gemv", f"{N16K}x{N16K}")),
+        "blas1_reduce": ("src/repro_torch/csrc/blas1.cu", "src/repro/kernels/blas1.py:55",
+                         ("dot", "n=2^26")),
+        "blas1_axpy": ("src/repro_torch/csrc/blas1.cu", "src/repro/kernels/blas1.py:92",
+                       ("axpy", "n=2^26")),
+    }
+    for name, (src, replaces, (routine, case)) in blas_sources.items():
+        r = blas_rows[(routine, case, "float64")]
+        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": blas_counts[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": f"{routine} {case}", "dtype": "float64"})
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,9 +28,7 @@
 //    bytes at N = K = 2048 and less at the wider projections.
 // Later work (not here): TMA bulk loads, fusing the second pass into the
 // last block of each column tile.
-#include <stdint.h>
-
-#include "common.cuh"
+#include "vec.cuh"
 
 using namespace rt;
 
@@ -40,27 +38,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int BMAX = 4;
 constexpr int UNROLL = 4;
-
-// 16 bytes of a W row as f32: bf16 -> f32 is exact (the high half of a word)
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void unpack(const uint4& r, float (&f)[N]) {
-    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(const uint4& r, float (&f)[N]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // little endian: element 2j is the low half
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-};
 
 // Rows [r, r1) step WARPS of this lane's VEC columns, 16-byte loads.
 template <typename T, bool GATE>

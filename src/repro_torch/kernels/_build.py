@@ -14,12 +14,15 @@ machines without nvcc.  A missing nvcc or a failed compile raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -86,6 +89,12 @@ def build() -> Path:
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (grid sizing)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def ptr(t):

@@ -2,9 +2,11 @@
 
 Replaces `repro/kernels/bgemm.py` (`_bgemm_kernel`, Pallas call at :217) in
 the broadcast-B "kn" form the prefill path uses: C[b] = epi(A[b] @ B
-[, A[b] @ B2]).  The CUDA kernel is `csrc/bgemm.cu`, a shared-memory tiled
-f32-FMA GEMM; its source note says what bounds it (the tensor-core rate) and
-how far this first version is from that.
+[, A[b] @ B2]).  With A contiguous this is one GEMM over the batch * M rows,
+so the CUDA entry point `bgemm_launch` runs the dense GEMM kernel of
+`csrc/gemm.cu` (a shared-memory tiled GEMM on the CUDA cores) over them;
+that source note says what bounds it (the tensor-core rate) and how far it
+is from that.  It keeps its own entry point and launch count.
 
 `reference` is the plain PyTorch version: CPU tensors use it, and on the
 card only comparisons (`ops.reference_mode`) do.

@@ -15,7 +15,6 @@ card only comparisons (`ops.reference_mode`) do.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -38,11 +37,6 @@ def splits_for(k: int, n: int, batch: int, elem_size: int, sms: int) -> int:
     return max(1, min(-(-2 * sms // blocks), k // 64))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def reference(w, x, *, w2=None, bias=None, residual=None, activation=None):
     """y = epi(x @ w [, x @ w2]) in f32, cast once to x's dtype."""
     epi = Epilogue(activation, bias is not None, w2 is not None, residual is not None)
@@ -58,7 +52,7 @@ def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int):
     global launches
     k, n = w.shape
     b = x.shape[0]
-    splits = splits_for(k, n, b, x.element_size(), _sm_count(x.device.index))
+    splits = splits_for(k, n, b, x.element_size(), _build.sm_count(x.device.index))
     # f32 partial sums of every K split, summed in order by the second pass
     ws = torch.empty((2 if w2 is not None else 1) * splits * b * n,
                      dtype=torch.float32, device=x.device)

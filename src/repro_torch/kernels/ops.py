@@ -1,12 +1,15 @@
 """Kernel entry points: validate, then launch the CUDA kernel or, for CPU
 tensors, run its plain version.
 
-Mirrors `repro/kernels/ops.py` (`bgemv`, `bgemm`, `flash_attention`).  Every
-wrapper checks shapes, dtypes (float32 or bfloat16, all operands alike),
-devices and contiguity and raises on what the kernel does not take.  A CUDA
-tensor goes to the kernel; a failed build or launch raises.  Nothing falls
-back: the plain version runs on the card only inside `reference_mode()`,
-which comparisons (chip_smoke.py, tests) enter explicitly.
+Mirrors `repro/kernels/ops.py` (`bgemv`, `bgemm`, `flash_attention`, and the
+BLAS kernels `gemm`, `gemv`, `dot`, `nrm2`, `axpy`).  Every wrapper checks
+shapes, dtypes (each wrapper's own set, all operands alike), devices and
+contiguity and raises on what the kernel does not take.  The serving
+kernels take float32 and bfloat16; the BLAS kernels also take float64.  A
+CUDA tensor goes to the kernel; a failed build or launch raises.  Nothing
+falls back: the plain version runs on the card only inside
+`reference_mode()`, which comparisons (chip_smoke.py, tests) enter
+explicitly.
 """
 
 from __future__ import annotations
@@ -19,8 +22,13 @@ import torch
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import bgemm as _bgemm
 from repro_torch.kernels import bgemv as _bgemv
+from repro_torch.kernels import blas1 as _blas1
+from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import gemv as _gemv
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_SERVE_DTYPES = (torch.float32, torch.bfloat16)
+_BLAS_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 _HEAD_DIMS = (16, 32, 64, 128)
 _state = threading.local()
@@ -40,11 +48,15 @@ def reference_mode():
 
 def launch_counts() -> dict:
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
-            "attention": _attention.launches}
+            "attention": _attention.launches, "gemm": _gemm.launches,
+            "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
+            "blas1_axpy": _blas1.axpy_launches}
 
 
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
+    _gemm.launches = _gemv.launches = 0
+    _blas1.reduce_launches = _blas1.axpy_launches = 0
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -57,9 +69,10 @@ def _use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def _check(name: str, main: torch.Tensor, **operands) -> None:
-    if main.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got {main.dtype}")
+def _check(name: str, main: torch.Tensor, dtypes=_SERVE_DTYPES, **operands) -> None:
+    if main.dtype not in dtypes:
+        names = " or ".join(str(d).split(".")[1] for d in dtypes)
+        raise TypeError(f"{name}: dtype must be {names}, got {main.dtype}")
     for key, t in operands.items():
         if t is None:
             continue
@@ -107,7 +120,7 @@ def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
                                 activation=activation)
     out = torch.empty((x.shape[0], m), dtype=x.dtype, device=x.device)
     return _bgemv.launch(a, x, out, w2=a2, bias=bias, residual=residual,
-                         act_code=act, dtype_code=_DTYPES[x.dtype])
+                         act_code=act, dtype_code=_DTYPE_CODES[x.dtype])
 
 
 def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
@@ -127,7 +140,7 @@ def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
                                 activation=activation)
     out = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
     return _bgemm.launch(a, b, out, b2=b2, bias=bias, residual=residual,
-                         act_code=act, dtype_code=_DTYPES[a.dtype])
+                         act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
 
 
 def flash_attention(q, k, v, *, kv_lens, kv_groups=1):
@@ -153,4 +166,78 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1):
     if d not in _HEAD_DIMS:
         raise NotImplementedError(f"flash_attention kernel: head dim {d} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
-    return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPES[q.dtype])
+    return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype])
+
+
+# --------------------------------------------------------------------------
+# BLAS kernels: f32, bf16 and f64
+# --------------------------------------------------------------------------
+
+def gemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
+    """epilogue(a (m, k) @ b (k, n) [, a @ b2]) -> (m, n) in a's dtype;
+    bias (n,), residual (m, n)."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    m, n = a.shape[0], b.shape[1]
+    _check_shape("gemm", "b2", b2, b.shape)
+    _check_shape("gemm", "bias", bias, (n,))
+    _check_shape("gemm", "residual", residual, (m, n))
+    _check("gemm", a, _BLAS_DTYPES, b=b, b2=b2, bias=bias, residual=residual)
+    act = _act_code(activation)
+    if not _use_kernel(a):
+        return _gemm.reference(a, b, b2=b2, bias=bias, residual=residual,
+                               activation=activation)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out  # an empty grid: nothing to launch
+    return _gemm.launch(a, b, out, b2=b2, bias=bias, residual=residual,
+                        act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
+
+
+def gemv(a, x):
+    """a (m, n) @ x (n,) -> (m,) in a's dtype."""
+    if a.ndim != 2 or x.ndim != 1 or a.shape[1] != x.shape[0]:
+        raise ValueError(f"gemv shape mismatch: {tuple(a.shape)} @ {tuple(x.shape)}")
+    _check("gemv", a, _BLAS_DTYPES, x=x)
+    if not _use_kernel(a):
+        return _gemv.reference(a, x)
+    out = torch.empty(a.shape[0], dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out  # an empty grid: nothing to launch
+    return _gemv.launch(a, x, out, dtype_code=_DTYPE_CODES[a.dtype])
+
+
+def _check_vectors(name, x, y=None):
+    if x.ndim != 1 or (y is not None and y.shape != x.shape):
+        raise ValueError(f"{name} wants 1-D operands of one length, got {tuple(x.shape)}"
+                         + ("" if y is None else f" and {tuple(y.shape)}"))
+    _check(name, x, _BLAS_DTYPES, y=y)
+
+
+def dot(x, y):
+    """x . y -> 0-d tensor in x's dtype, summed in max(f32, dtype)."""
+    _check_vectors("dot", x, y)
+    if not _use_kernel(x):
+        return _blas1.dot_reference(x, y)
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    return _blas1.reduce_launch(x, y, out, nrm2=False, dtype_code=_DTYPE_CODES[x.dtype])
+
+
+def nrm2(x):
+    """sqrt(x . x) -> 0-d tensor in x's dtype, summed in max(f32, dtype)."""
+    _check_vectors("nrm2", x)
+    if not _use_kernel(x):
+        return _blas1.nrm2_reference(x)
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    return _blas1.reduce_launch(x, None, out, nrm2=True, dtype_code=_DTYPE_CODES[x.dtype])
+
+
+def axpy(alpha, x, y):
+    """alpha * x + y -> (n,) in x's dtype, computed in max(f32, dtype);
+    alpha is a host scalar."""
+    _check_vectors("axpy", x, y)
+    alpha = float(alpha)
+    if not _use_kernel(x):
+        return _blas1.axpy_reference(alpha, x, y)
+    out = torch.empty_like(x)
+    return _blas1.axpy_launch(alpha, x, y, out, dtype_code=_DTYPE_CODES[x.dtype])

@@ -8,7 +8,12 @@ the CPU container).  On the GPU machine, which has no jax:
 Small ragged and aligned shapes, so both the vector and the element-load
 paths of each kernel run (chip_smoke.py holds them at the serving shapes).
 Tolerances: f32 rtol = atol = 1e-4 (summation order), bf16 1.6e-2 (one
-output rounding step at |y| ~ 4).
+output rounding step at |y| ~ 4), f64 1e-10 (summation order).  dot and
+nrm2 return one number, held to out * |plain| + acc * sum |x_i y_i| (nrm2:
+||x||): `acc` the accumulator's summation error (1e-7 for the f32
+accumulator of f32 and bf16, 1e-14 for f64), `out` one rounding flip of
+the output (2^-7 bf16, 2^-23 f32, 2^-52 f64).  A kernel that returns 0 or drops half the vector falls
+outside that limit (test_sum_limit_rejects_planted_faults, on the CPU).
 """
 
 import pytest
@@ -17,7 +22,16 @@ import torch
 from repro_torch.kernels import ops
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-       torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
+       torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2),
+       torch.float64: dict(rtol=1e-10, atol=1e-10)}
+SUM_TOL = {torch.float32: (2 ** -23, 1e-7), torch.bfloat16: (2 ** -7, 1e-7),
+           torch.float64: (2 ** -52, 1e-14)}
+BLAS_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+
+
+def _sum_limit(dtype, want: float, cond: float) -> float:
+    out, acc = SUM_TOL[dtype]
+    return out * abs(want) + acc * cond
 
 
 @pytest.fixture
@@ -77,6 +91,86 @@ def test_kernels_count_their_launches(cuda):
     w, x = _rand(cuda, torch.float32, 64, 32), _rand(cuda, torch.float32, 2, 64)
     ops.bgemv(w, x)
     ops.bgemm(x[None], w)
+    ops.gemm(x, w)
+    ops.gemv(w, x[0, :32])
+    ops.dot(x[0], x[1])
+    ops.nrm2(x[0])
+    ops.axpy(2.0, x[0], x[1])
     with ops.reference_mode():
         ops.bgemv(w, x)
-    assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0}
+        ops.gemm(x, w)
+        ops.dot(x[0], x[1])
+    assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0, "gemm": 1,
+                                   "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("m,k,n", [(13, 37, 53), (128, 64, 256), (130, 9, 67), (1, 300, 5),
+                                   (0, 8, 3)])
+def test_gemm_kernel_matches_plain(cuda, dtype, m, k, n):
+    """Ragged and whole tiles, K below one k-step, a single row, no rows."""
+    a, b, b2 = (_rand(cuda, dtype, m, k), _rand(cuda, dtype, k, n, std=k ** -0.5),
+                _rand(cuda, dtype, k, n, std=k ** -0.5))
+    bias, res = _rand(cuda, dtype, n), _rand(cuda, dtype, m, n)
+    _against_plain(lambda: ops.gemm(a, b), dtype)
+    _against_plain(lambda: ops.gemm(a, b, b2=b2, bias=bias, residual=res, activation="silu"),
+                   dtype)
+    _against_plain(lambda: ops.gemm(a, b, bias=bias, residual=res, activation="gelu"), dtype)
+    _against_plain(lambda: ops.gemm(a, b, b2=b2, activation="relu"), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("m,n", [(37, 53), (256, 512), (1000, 264), (5, 4099), (3, 16384),
+                                 (0, 16)])
+def test_gemv_kernel_matches_plain(cuda, dtype, m, n):
+    """Aligned rows (16-byte loads), ragged rows (element loads), few long
+    rows (several warps a row), and an x that starts off 16 bytes."""
+    a = _rand(cuda, dtype, m, n, std=n ** -0.5)
+    xbuf = _rand(cuda, dtype, n + 1)
+    _against_plain(lambda: ops.gemv(a, xbuf[:n]), dtype)
+    _against_plain(lambda: ops.gemv(a, xbuf[1:]), dtype)
+
+
+def _against_plain_sum(call, dtype, cond):
+    """dot / nrm2: |kernel - plain| within _sum_limit, which a zero result
+    would not meet."""
+    got = call()
+    with ops.reference_mode():
+        want = call()
+    torch.cuda.synchronize()
+    assert got.shape == () and got.dtype == dtype
+    want = want.double().item()
+    limit = _sum_limit(dtype, want, cond)
+    assert abs(got.double().item() - want) <= limit < abs(want), (got, want, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("n", [1, 37, 4096, 100003])
+def test_blas1_kernels_match_plain(cuda, dtype, n):
+    """dot, nrm2 and axpy on aligned vectors and on views that start one
+    element in (element loads)."""
+    buf_x, buf_y = _rand(cuda, dtype, n + 1), _rand(cuda, dtype, n + 1)
+    for x, y in ((buf_x[:n], buf_y[:n]), (buf_x[1:], buf_y[1:])):
+        cond = (x.double() * y.double()).abs().sum().item()
+        _against_plain_sum(lambda: ops.dot(x, y), dtype, cond)
+        _against_plain_sum(lambda: ops.nrm2(x), dtype, x.double().norm().item())
+        _against_plain(lambda: ops.axpy(-1.75, x, y), dtype)
+
+
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+def test_sum_limit_rejects_planted_faults(dtype):
+    """On the CPU (plain versions): the dot/nrm2 limit above passes the
+    result but not a zero result or one that drops half the vector."""
+    gen = torch.Generator().manual_seed(1)
+    n = 100003
+    x, y = (torch.randn(n, generator=gen).to(dtype) for _ in range(2))
+    cases = ((ops.dot, (x, y), (x.double() * y.double()).abs().sum().item()),
+             (ops.nrm2, (x,), x.double().norm().item()))
+    for fn, args, cond in cases:
+        want = fn(*args).double().item()
+        half = fn(*(a[: n // 2] for a in args)).double().item()
+        limit = _sum_limit(dtype, want, cond)
+        assert abs(want) > limit and abs(half - want) > limit, (fn, want, half, limit)

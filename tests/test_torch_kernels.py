@@ -161,7 +161,8 @@ def test_cpu_tensors_take_the_plain_versions():
     lens = torch.tensor([3, 3, 8, 8], dtype=torch.int32)
     assert torch.equal(ops.flash_attention(q, kv, kv, kv_lens=lens),
                        tattention.reference(q, kv, kv, lens))
-    assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0}
+    assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0, "gemm": 0,
+                                   "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
