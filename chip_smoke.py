@@ -23,7 +23,24 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              nrm2, axpy) at full size in f64, f32 and bf16, each call held
              against its plain version and counted as one launch of its
              kernel (gemm, gemv, blas1 reduce, blas1 axpy); then each timed
-             beside its bound and one PyTorch library call.
+             beside its bound and one PyTorch library call;
+10. quant_kernels - block-scaled int8 weights through core.blas: the decode
+             projections (packed bgemv), the prefill projections (int8-B
+             bgemm, "nk"), gemm "kn"/"nk" 8192^3 and gemv 16384^2 with packed
+             operands, and ragged awkward-block cases; each counted as one
+             launch of its packed kernel, held against its plain version,
+             then timed beside its bound and the dense kernel at the same
+             shape;
+11. quantize - `layers.quantize_weights` on the full stablelm-1.6b weights on
+             the card, one layer bitwise equal to the CPU's quantize;
+12. smoke_int8 - the SMOKE serve with --quantize int8: kernels and plain
+             versions give equal greedy tokens;
+13. serve_int8, forced_int8, launches, profile_int8 - the FULL serve with
+             --quantize int8 (8/8 complete, greedy agreement with the bf16
+             serve), the teacher-forced run (logits within 5% of max |logit|
+             of the plain path), the launch counts of both (every projection
+             on the packed kernels, 144 a decode step and 144 a prefill, none
+             dense), and phase 8's profile of the int8 decode step.
 
 Then a `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -294,6 +311,7 @@ def phase_serve(params, cfg):
                              f"finite {all_finite}, tokens in range {in_range}")
     if any(len(o) != 32 for o in stats["outputs"]):
         raise AssertionError("full serve: a request stopped before its budget")
+    return stats["outputs"]
 
 
 def _forced_run(params, cfg, tokens, steps):
@@ -315,7 +333,7 @@ def _forced_run(params, cfg, tokens, steps):
     return logits, [s.elapsed_time(e) for s, e in times]
 
 
-def phase_forced(params, cfg):
+def phase_forced(params, cfg, phase="forced"):
     from repro_torch.kernels import ops
     rng = np.random.default_rng(5)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
@@ -331,16 +349,16 @@ def phase_forced(params, cfg):
         agree.append((gl.argmax(-1) == wl.argmax(-1)).float().mean().item())
     finite = all(bool(torch.isfinite(x).all()) for x in got)
     ok = finite and all(e <= FORCED_REL_TOL * s for e, s in zip(errs, scales))
-    emit("forced", arch=ARCH, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
+    emit(phase, arch=ARCH, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
          max_abs_err=errs, max_abs_logit=scales, rel_tol=FORCED_REL_TOL,
          argmax_agreement=agree, all_finite=finite, within_tol=ok,
          prefill_ms=t_kernel[0], decode_ms_per_step=statistics.mean(t_kernel[1:]),
          plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]))
     if not ok:
-        raise AssertionError(f"forced logits: errors {errs} vs scales {scales}")
+        raise AssertionError(f"{phase} logits: errors {errs} vs scales {scales}")
 
 
-def phase_profile(params, cfg, steps: int = 5):
+def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
     """Where a full-width decode step's time goes (batch 4, 128 cached
     tokens): the wall clock per step without the profiler, then
     torch.profiler over the same steps for device time per kernel name;
@@ -371,7 +389,7 @@ def phase_profile(params, cfg, steps: int = 5):
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("profile", what="full-width decode step, batch 4, 128 cached tokens",
+    emit(phase, what="full-width decode step, batch 4, 128 cached tokens",
          wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
@@ -542,6 +560,255 @@ def phase_blas():
     return rows, counts
 
 
+# --------------------------------------------------------------------------
+# phases 10-13: block-scaled int8 weights
+# --------------------------------------------------------------------------
+
+SERVE_SPEC = dict(block_m=64, block_n=None)   # layers.quantize_weights' spec
+AWKWARD_SPEC = dict(block_m=61, block_n=None)  # _fit_block shrinks 61 to a divisor
+
+
+def quant_cases():
+    """(packed kernel counter, dense counter, case, dtype, make) for every
+    int8 case; make() builds the inputs from a seeded generator and returns
+    (call through core.blas, the same call on the dense weight, bytes,
+    flops).  Bytes count the int8 values, the f32 scales, the activations
+    and the output once each."""
+    from repro_torch.core import blas, quant
+
+    def rnd(g, dtype, *shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    def pack(w, spec, transpose):
+        return quant.quantize(w, quant.QuantSpec(transpose=transpose, **spec))
+
+    def proj_case(dtype, rows, d, f, seed, epi, spec=SERVE_SPEC):
+        """a serving projection x (4, rows, d) through matmul_fused; rows == 1
+        is the decode bgemv, else the prefill bgemm, weights output-major"""
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            x = rnd(g, dtype, 4, rows, d)
+            w, w2 = rnd(g, dtype, d, f, std=d ** -0.5), rnd(g, dtype, d, f, std=d ** -0.5)
+            kw, dense_kw, extra = {}, {}, 0
+            if epi == "gate":
+                qw2 = pack(w2, spec, True)
+                kw, dense_kw = dict(w2=qw2, activation="silu"), dict(w2=w2, activation="silu")
+                extra = nbytes(qw2.values, qw2.scales)
+            elif epi == "bias":
+                b = rnd(g, dtype, f)
+                kw = dense_kw = dict(bias=b)
+                extra = nbytes(b)
+            elif epi == "residual":
+                r = rnd(g, dtype, 4, rows, f)
+                kw = dense_kw = dict(residual=r)
+                extra = nbytes(r)
+            elif epi == "all":
+                b, r = rnd(g, dtype, f), rnd(g, dtype, 4, rows, f)
+                kw = dense_kw = dict(bias=b, residual=r, activation="gelu")
+                extra = nbytes(b, r)
+            qw = pack(w, spec, True)
+            out = 4 * rows * f * x.element_size()
+            return (lambda: blas.matmul_fused(x, qw, **kw),
+                    lambda: blas.matmul_fused(x, w, **dense_kw),
+                    nbytes(x, qw.values, qw.scales) + extra + out,
+                    2 * 4 * rows * d * f * (2 if epi == "gate" else 1))
+        return make
+
+    def gemm_case(dtype, m, k, n, seed, transpose, spec=SERVE_SPEC, epi=False):
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
+            qb = pack(b, spec, transpose)
+            kw, extra = {}, 0
+            if epi:
+                bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
+                kw, extra = dict(bias=bias, residual=res, epilogue="gelu"), nbytes(bias, res)
+            return (lambda: blas.gemm(a, qb, **kw), lambda: blas.gemm(a, b, **kw),
+                    nbytes(a, qb.values, qb.scales) + extra + m * n * a.element_size(),
+                    2 * m * n * k)
+        return make
+
+    def gemv_case(dtype, m, n, seed, spec=SERVE_SPEC):
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            a, x = rnd(g, dtype, m, n, std=n ** -0.5), rnd(g, dtype, n)
+            qa = pack(a, spec, False)
+            return (lambda: blas.gemv(qa, x), lambda: blas.gemv(a, x),
+                    nbytes(qa.values, qa.scales, x) + m * x.element_size(), 2 * m * n)
+        return make
+
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    cases = []
+    for rows, kernel, dense, what in ((1, "bgemv_int8", "bgemv", "decode"),
+                                      (128, "gemm_int8", "bgemm", "prefill")):
+        shape = f"4x{rows}x"
+        cases += [
+            (kernel, dense, f"{what} qkv {shape}2048->2048 +bias", bf16,
+             proj_case(bf16, rows, 2048, 2048, 60 + rows, "bias")),
+            (kernel, dense, f"{what} wo {shape}2048->2048 +residual", bf16,
+             proj_case(bf16, rows, 2048, 2048, 61 + rows, "residual")),
+            (kernel, dense, f"{what} gate_up {shape}2048->5632 x2 silu-gate", bf16,
+             proj_case(bf16, rows, 2048, 5632, 62 + rows, "gate")),
+            (kernel, dense, f"{what} down {shape}5632->2048 +residual", bf16,
+             proj_case(bf16, rows, 5632, 2048, 63 + rows, "residual")),
+        ]
+    for i, (dt, transpose) in enumerate(((f32, False), (f32, True), (bf16, False), (bf16, True))):
+        layout = "nk" if transpose else "kn"
+        cases.append(("gemm_int8", "gemm", f'gemm "{layout}" {D8K}x{D8K}x{D8K}', dt,
+                      gemm_case(dt, D8K, D8K, D8K, 70 + i, transpose)))
+    for i, dt in enumerate((f32, f64)):
+        cases.append(("gemv_int8", "gemv", f"gemv {N16K}x{N16K}", dt,
+                      gemv_case(dt, N16K, N16K, 80 + i)))
+    cases += [
+        ("bgemv_int8", "bgemv", "ragged decode 4x4097->4095 block (61->45, K) +bias gelu +res", f32,
+         proj_case(f32, 1, 4097, 4095, 90, "all", AWKWARD_SPEC)),
+        ("gemm_int8", "gemm", 'ragged gemm "kn" (4095,4097)@(4097,4093) block (61->17, N) '
+         "+bias gelu +res", f32, gemm_case(f32, 4095, 4097, 4093, 91, False, AWKWARD_SPEC, True)),
+        ("gemv_int8", "gemv", "ragged gemv 4095x4097 block (61->45, K)", f32,
+         gemv_case(f32, 4095, 4097, 92, AWKWARD_SPEC)),
+    ]
+    return cases
+
+
+def phase_quant_kernels():
+    """Drive every int8 case once through core.blas with the launch counts
+    reset just before (each call must add exactly one launch to its packed
+    kernel's count), hold it against its plain version, then time it beside
+    its bound, its plain version and the dense kernel at the same shape."""
+    from repro_torch.kernels import ops
+    cases = quant_cases()
+    errs = []
+    ops.reset_launch_counts()
+    for kernel, _, case, dtype, make in cases:
+        call, _, _, _ = make()
+        before = ops.launch_counts()
+        got = call()
+        after = ops.launch_counts()
+        with ops.reference_mode():
+            want = call()
+        torch.cuda.synchronize()
+        rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        err = (got.double() - want.double()).abs().max().item()
+        tol = TOL[dtype]
+        ok = (bool(torch.isfinite(got).all()) and got.dtype == dtype and got.shape == want.shape
+              and torch.allclose(got.double(), want.double(), **tol))
+        errs.append((err, ok))
+        if not ok or rose != {kernel: 1}:
+            emit("quant_kernels", kernel=kernel, case=case, dtype=str(dtype).split(".")[1],
+                 max_abs_err=err, tol=tol, within_tol=ok, launches_added=rose)
+            raise AssertionError(f"int8 [{case}] {dtype}: within_tol={ok}, launches added "
+                                 f"{rose} (want {{{kernel!r}: 1}})")
+        del call, got, want
+    counts = ops.launch_counts()
+    emit("launches", run="quant_kernels", **counts)
+    for kernel in ("bgemv_int8", "gemm_int8", "gemv_int8"):
+        expected = sum(c[0] == kernel for c in cases)
+        if counts[kernel] != expected:
+            raise AssertionError(f"int8 launches {counts}: {kernel} {counts[kernel]} != {expected}")
+
+    rows = {}
+    for (kernel, dense, case, dtype, make), (err, ok) in zip(cases, errs):
+        call, dense_call, nb, flops = make()
+        ms = time_auto(call)
+        with ops.reference_mode():
+            plain_ms = time_auto(call)
+        dense_ms = time_auto(dense_call)
+        b_ms, by = bound(nb, flops, dtype)
+        row = dict(kernel=kernel, case=case, dtype=str(dtype).split(".")[1], max_abs_err=err,
+                   tol=TOL[dtype], within_tol=ok, kernel_ms=ms, plain_ms=plain_ms,
+                   dense_kernel=dense, dense_ms=dense_ms, bound_ms=b_ms, bound_by=by,
+                   share_of_bound=b_ms / ms, bytes=nb, flops=flops)
+        emit("quant_kernels", **row)
+        rows[(kernel, case, row["dtype"])] = row
+        del call, dense_call
+    return rows, counts
+
+
+def phase_quantize(params):
+    """Pack the full model's projections on the card (timed), then hold one
+    layer's packed weights bitwise against quantize on the CPU."""
+    from repro_torch.core import quant
+    from repro_torch.models import layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = layers.quantize_weights(params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    spec = quant.QuantSpec(transpose=True, **SERVE_SPEC)
+    mism = []
+    layer, qlayer = params["layers"][11], qparams["layers"][11]
+    for group, key in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                       ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")):
+        want = quant.quantize(layer[group][key].cpu(), spec)
+        got = qlayer[group][key]
+        if not (torch.equal(got.values.cpu(), want.values)
+                and torch.equal(got.scales.cpu(), want.scales) and got.block == want.block):
+            mism.append(key)
+    packed = sum(q.values.numel() + 4 * q.scales.numel() for lp in qparams["layers"]
+                 for grp in ("attn", "ffn") for q in lp[grp].values() if quant.is_quantized(q))
+    dense = sum(nbytes(w) for lp in params["layers"] for grp in ("attn", "ffn")
+                for k, w in lp[grp].items() if k in layers.QUANT_WEIGHT_KEYS)
+    emit("quantize", what="layers.quantize_weights, stablelm-1.6b FULL bf16, on the card",
+         seconds=seconds, layer_checked=11, bitwise_equal_to_cpu=not mism, mismatched=mism,
+         packed_projection_bytes=packed, bf16_projection_bytes=dense)
+    if mism:
+        raise AssertionError(f"quantize on the card differs from the CPU for {mism}")
+    return qparams
+
+
+def phase_smoke_int8():
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ARCH, "smoke")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
+    kw = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts, quantize="int8",
+              params=tf.init_params(cfg, 0, "cuda"), verbose=False, device="cuda")
+    got = serve(ARCH, "smoke", **kw)
+    with ops.reference_mode():
+        want = serve(ARCH, "smoke", **kw)
+    equal = got["outputs"] == want["outputs"]
+    emit("smoke_int8", dtype="float32", quantize="int8", requests=len(prompts),
+         completed=got["completed"], tokens_equal=equal, outputs=got["outputs"])
+    if not equal or got["completed"] != len(prompts):
+        raise AssertionError(f"int8 smoke serve: kernels {got['outputs']} != plain "
+                             f"{want['outputs']}")
+
+
+def phase_serve_int8(params, cfg, bf16_outputs):
+    """The full-width serve with --quantize int8 (serve() packs `params`
+    before its timed region); counts are read by the caller."""
+    from repro_torch.launch.serve import serve
+    stats = serve(ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0, eos=-1,
+                  params=params, quantize="int8", device="cuda")
+    same = [a == b for o, p in zip(stats["outputs"], bf16_outputs) for a, b in zip(o, p)]
+    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
+    emit("serve_int8", arch=ARCH, variant="full", dtype="bfloat16", quantize="int8",
+         requests=8, batch=4, prompt_len=128, gen=32, completed=stats["completed"],
+         tokens=stats["tokens"], tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
+         ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
+         decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
+         greedy_agreement_with_bf16=sum(same) / len(same))
+    if stats["completed"] != 8 or not in_range or any(len(o) != 32 for o in stats["outputs"]):
+        raise AssertionError(f"int8 full serve: completed {stats['completed']}/8, "
+                             f"tokens in range {in_range}")
+    return stats
+
+
+def check_int8_launches(counts: dict, what: str, prefills: int, decode_steps: int):
+    """Every projection on the packed kernels: 6 a layer (q, k, v, wo,
+    gate+up, down) x 24 layers for each prefill and each decode step, and
+    no dense projection launch."""
+    per = 24 * 6
+    want = {"bgemv_int8": per * decode_steps, "gemm_int8": per * prefills,
+            "bgemv": 0, "bgemm": 0, "attention": 24 * (prefills + decode_steps)}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{what} launches {counts}: (got, want) {bad}")
+
+
 def check_launches(counts: dict, what: str):
     layers_x_proj = 24 * 6
     bad = [k for k in ("bgemv", "bgemm", "attention") if counts[k] == 0]
@@ -588,7 +855,7 @@ def main() -> int:
         cfg = get_config(ARCH, "full")
         params = tf.init_params(cfg, 0, "cuda")
         ops.reset_launch_counts()
-        phase_serve(params, cfg)
+        bf16_outputs = phase_serve(params, cfg)
         serve_counts = ops.launch_counts()
         emit("launches", run="serve", **serve_counts)
         check_launches(serve_counts, "serve")
@@ -598,8 +865,24 @@ def main() -> int:
         emit("launches", run="forced", **forced_counts)
         check_launches(forced_counts, "forced")
         phase_profile(params, cfg)
-        del params
+        qparams = phase_quantize(params)
+        phase_smoke_int8()
+        ops.reset_launch_counts()
+        int8_stats = phase_serve_int8(params, cfg, bf16_outputs)
+        int8_counts = ops.launch_counts()
+        emit("launches", run="serve_int8", **int8_counts)
+        # the serve's warm-up runs one prefill and one decode step first
+        check_int8_launches(int8_counts, "serve_int8", int8_stats["prefills"] + 1,
+                            int8_stats["decode_steps"] + 1)
+        ops.reset_launch_counts()
+        phase_forced(qparams, cfg, phase="forced_int8")
+        forced_int8 = ops.launch_counts()
+        emit("launches", run="forced_int8", **forced_int8)
+        check_int8_launches(forced_int8, "forced_int8", 1, 3)
+        phase_profile(qparams, cfg, phase="profile_int8")
+        del params, qparams
         blas_rows, blas_counts = phase_blas()
+        quant_rows, quant_counts = phase_quant_kernels()
 
     sources = {"bgemv": ("src/repro_torch/csrc/bgemv.cu", "src/repro/kernels/bgemv.py:230",
                          "qkv 4x2048->2048 +bias"),
@@ -635,6 +918,23 @@ def main() -> int:
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": f"{routine} {case}", "dtype": "float64"})
+    # the packed kernels: launches from the int8 serve (bgemv_int8, gemm_int8)
+    # and from the packed BLAS run of phase 10 (gemv_int8)
+    quant_sources = {
+        "bgemv_int8": ("src/repro_torch/csrc/qgemv.cu", "src/repro/kernels/bgemv.py:230",
+                       "decode qkv 4x1x2048->2048 +bias", "bfloat16", int8_counts),
+        "gemm_int8": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/bgemm.py:217",
+                      "prefill qkv 4x128x2048->2048 +bias", "bfloat16", int8_counts),
+        "gemv_int8": ("src/repro_torch/csrc/qgemv.cu", "src/repro/kernels/gemv.py:146",
+                      f"gemv {N16K}x{N16K}", "float32", quant_counts),
+    }
+    for name, (src, replaces, case, dtype, counts) in quant_sources.items():
+        r = quant_rows[(name, case, dtype)]
+        summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "dense_ms": r["dense_ms"], "shape": case, "dtype": dtype})
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,6 +14,15 @@ blas.py:451-592): a 1-D or 2-D input is one `gemm` launch; a decode-shaped
 its stored (d, f) layout; any other input is one bgemm launch with w
 broadcast across the batch.  The epilogue (bias, activation, dual-GEMM
 gate, residual) is fused into that launch.
+
+A block-scaled int8 weight (`core.quant.QuantizedTensor`, from
+`models.layers.quantize_weights`) takes the same routes through the packed
+kernels (blas.py:468-499, 539-570): decode-shaped inputs one packed bgemv
+over the output-major stored rows, other 3-D inputs one packed bgemm, 2-D
+inputs one packed gemm.  A packed weight NOT stored output-major is
+dequantized to x's dtype for the decode route and runs the dense bgemv,
+as the reference does.  `gemv`, `gemm` and `batched_gemm` take a packed A
+or B in its stored layout and refuse the transpose flags.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import epilogue as _epilogue
+from repro_torch.core import quant as _quant
 from repro_torch.core.epilogue import Epilogue
 from repro_torch.kernels import ops
 
@@ -88,7 +98,11 @@ def scal(alpha, x: torch.Tensor) -> torch.Tensor:
 def gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
          alpha=1.0, beta=0.0, trans: bool = False) -> torch.Tensor:
     """dgemv: y = alpha * op(A) x + beta * y (op = A or A^T).  trans=True
-    materialises A^T before the kernel, as the reference does."""
+    materialises A^T before the kernel, as the reference does.  A packed A
+    streams in its stored (m, n) layout: no trans, no transposed storage."""
+    if _quant.is_quantized(A) and (trans or A.transposed):
+        raise ValueError("quantized gemv streams A in its stored (m, n) layout; "
+                         "quantize the transpose instead of passing trans=True")
     if trans:
         A = _t(A)
     return _alpha_beta(ops.gemv(A, x), alpha, beta, y)
@@ -97,7 +111,10 @@ def gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
 def batched_gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                  alpha=1.0, beta=0.0, trans: bool = False) -> torch.Tensor:
     """y[b] = alpha * A^T x[b] + beta * y[b] -> (batch, m) for a 2-D A
-    broadcast across the batch, streamed in its stored layout (bgemv)."""
+    broadcast across the batch, streamed in its stored layout (bgemv).  A
+    packed A must be stored as the op (QuantSpec(transpose=trans))."""
+    if _quant.is_quantized(A):
+        return _alpha_beta(ops.bgemv(A, x, transpose_a=trans), alpha, beta, y)
     if A.ndim != 2 or not trans:
         raise NotImplementedError(
             "batched_gemv: only a broadcast 2-D A with trans=True is ported "
@@ -113,6 +130,9 @@ def _gemm_like(kernel, what, A, B, C, alpha, beta, transpose_a, transpose_b, B2,
                residual, epilogue) -> torch.Tensor:
     """gemm's semantics over one kernel wrapper (ops.gemm or ops.bgemm):
     transposes materialised, the epilogue fused, alpha/beta/C after."""
+    if _quant.is_quantized(B) and (transpose_a or transpose_b):
+        raise ValueError(f"quantized {what} streams B in its stored layout; fold the "
+                         "transpose into QuantSpec(transpose=...) instead")
     if transpose_a:
         A = _t(A)
     if transpose_b:
@@ -159,9 +179,9 @@ def batched_gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = N
 
 def matmul_fused(
     x: torch.Tensor,                          # (..., d)
-    w: torch.Tensor,                          # (d, f)
+    w,                                        # (d, f) tensor or QuantizedTensor
     *,
-    w2: Optional[torch.Tensor] = None,        # (d, f) dual-GEMM gate operand
+    w2=None,                                  # (d, f) dual-GEMM gate operand
     bias: Optional[torch.Tensor] = None,      # (f,)
     residual: Optional[torch.Tensor] = None,  # (..., f)
     activation: Optional[str] = None,         # "silu" | "gelu" | "relu"
@@ -175,7 +195,11 @@ def matmul_fused(
         out = ops.gemm(x2, w, b2=w2, bias=bias, residual=r2, activation=activation)
     elif x.shape[-2] == 1:
         # decode-shaped: y[b] = w^T x[b], w streamed in its stored layout
+        # (packed: output-major rows; other packed storage dequantized first)
         rb = None if residual is None else residual.reshape(-1, f)
+        if _quant.is_quantized(w) and not w.transposed:
+            w = w.dequantize(x.dtype)
+            w2 = None if w2 is None else w2.dequantize(x.dtype)
         out = ops.bgemv(w, x.reshape(-1, d), a2=w2, bias=bias, residual=rb,
                         activation=activation, transpose_a=True)
     else:
@@ -186,6 +210,6 @@ def matmul_fused(
     return out.reshape(*lead, f)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x (..., d) @ w (d, f) -> (..., f) through the same routing."""
     return matmul_fused(x, w)

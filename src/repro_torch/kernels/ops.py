@@ -10,6 +10,13 @@ CUDA tensor goes to the kernel; a failed build or launch raises.  Nothing
 falls back: the plain version runs on the card only inside
 `reference_mode()`, which comparisons (chip_smoke.py, tests) enter
 explicitly.
+
+A block-scaled int8 `core.quant.QuantizedTensor` weight (bgemv's `a`,
+gemm/bgemm's `b`, gemv's `a`) takes the packed kernels: bgemv and gemv the
+row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm gemm.cu's
+int8-B variant in the "nk" layout if the weight is stored transposed, else
+"kn".  Outputs are in the activation's dtype, summed and dequantized in
+max(f32, dtype); the two operands of a dual GEMM must share one spec.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import threading
 
 import torch
 
+from repro_torch.core import quant as _quant
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import bgemm as _bgemm
 from repro_torch.kernels import bgemv as _bgemv
@@ -47,16 +55,22 @@ def reference_mode():
 
 
 def launch_counts() -> dict:
+    """Kernel launches since the last reset; gemm_int8 counts the int8-B
+    variant reached from gemm and from bgemm."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "gemm": _gemm.launches,
             "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
-            "blas1_axpy": _blas1.axpy_launches}
+            "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
+            "gemv_int8": _gemv.launches_int8,
+            "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8}
 
 
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
     _gemm.launches = _gemv.launches = 0
     _blas1.reduce_launches = _blas1.axpy_launches = 0
+    _bgemv.launches_int8 = _gemv.launches_int8 = 0
+    _gemm.launches_int8 = _bgemm.launches_int8 = 0
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -91,6 +105,32 @@ def _check_shape(name: str, what: str, t, shape) -> None:
         raise ValueError(f"{name}: {what} shape {tuple(t.shape)} != {tuple(shape)}")
 
 
+def _check_packed(name: str, qa, qa2, main: torch.Tensor) -> None:
+    """A packed weight (and its dual-GEMM partner) the kernels can stream:
+    int8 values and f32 scales of the block grid, contiguous, on main's
+    device; the partner shares the spec."""
+    if qa2 is not None and (not _quant.is_quantized(qa2) or qa2.block != qa.block
+                            or qa2.transposed != qa.transposed
+                            or qa2.stored_shape != qa.stored_shape):
+        raise ValueError(f"{name}: dual-GEMM operands must share one quantization spec")
+    for key, q in (("weight", qa), ("gate weight", qa2)):
+        if q is None:
+            continue
+        v, sc = q.values, q.scales
+        (m, n), (qm, qn) = v.shape[-2:], q.block
+        if v.dtype != torch.int8 or sc.dtype != torch.float32:
+            raise TypeError(f"{name}: packed {key} must be int8 values with float32 "
+                            f"scales, got {v.dtype} and {sc.dtype}")
+        if m % qm or n % qn or tuple(sc.shape) != tuple(v.shape[:-2]) + (m // qm, n // qn):
+            raise ValueError(f"{name}: packed {key} scales {tuple(sc.shape)} do not tile "
+                             f"values {tuple(v.shape)} in blocks {q.block}")
+        for t in (v, sc):
+            if t.device != main.device:
+                raise ValueError(f"{name}: packed {key} on {t.device}, expected {main.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: packed {key} must be contiguous")
+
+
 def _act_code(activation) -> int:
     if activation not in _ACTS:
         raise ValueError(f"activation must be one of {sorted(a for a in _ACTS if a)} "
@@ -104,6 +144,8 @@ def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
     across the batch, streamed in its stored layout; x (batch, n), bias
     (m,), residual (batch, m).  Only the transpose_a form is ported (the one
     the decode path uses)."""
+    if _quant.is_quantized(a):
+        return _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a)
     if not transpose_a:
         raise NotImplementedError("bgemv: only transpose_a=True (the decode "
                                   "projection form) is ported")
@@ -123,9 +165,40 @@ def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
                          act_code=act, dtype_code=_DTYPE_CODES[x.dtype])
 
 
+def _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a):
+    """Packed bgemv: a's stored layout already encodes the op (transposed
+    storage = transpose_a), so every output is a dot over a stored row."""
+    if transpose_a != a.transposed:
+        raise ValueError("quantized bgemv streams the stored layout; quantize with "
+                         f"transpose={transpose_a} to request op=A^T={transpose_a}")
+    if a.values.ndim != 2:
+        raise NotImplementedError("bgemv: only a broadcast 2-D packed weight is ported "
+                                  "(ROADMAP §2 item 1: batched A)")
+    m, n = a.values.shape  # stored (outputs, contraction)
+    if x.ndim != 2 or x.shape[1] != n:
+        raise ValueError(f"bgemv shape mismatch: packed {a.shape} @ {tuple(x.shape)}")
+    _check_shape("bgemv", "bias", bias, (m,))
+    _check_shape("bgemv", "residual", residual, (x.shape[0], m))
+    _check("bgemv", x, _BLAS_DTYPES, bias=bias, residual=residual)
+    _check_packed("bgemv", a, a2, x)
+    act = _act_code(activation)
+    if not _use_kernel(x):
+        return _bgemv.reference_int8(a, x, qw2=a2, bias=bias, residual=residual,
+                                     activation=activation)
+    out = torch.empty((x.shape[0], m), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    return _bgemv.launch_int8(a, x, out, qw2=a2, bias=bias, residual=residual, act_code=act,
+                              dtype_code=_DTYPE_CODES[x.dtype])
+
+
 def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
     """epilogue(a (batch, m, k) @ b (k, n) [, a @ b2]) -> (batch, m, n); b
-    broadcasts across the batch, bias (n,), residual (batch, m, n)."""
+    broadcasts across the batch, bias (n,), residual (batch, m, n).  A packed
+    b (and b2) runs the int8-B kernel."""
+    if _quant.is_quantized(b) and b.ndim != 2:
+        raise NotImplementedError("bgemm: only a broadcast 2-D packed B is ported "
+                                  "(ROADMAP §2 item 3: batched B)")
     if a.ndim != 3 or b.ndim != 2 or a.shape[2] != b.shape[0]:
         raise ValueError(f"bgemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     batch, m, _ = a.shape
@@ -133,8 +206,19 @@ def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
     _check_shape("bgemm", "b2", b2, b.shape)
     _check_shape("bgemm", "bias", bias, (n,))
     _check_shape("bgemm", "residual", residual, (batch, m, n))
-    _check("bgemm", a, b=b, b2=b2, bias=bias, residual=residual)
     act = _act_code(activation)
+    if _quant.is_quantized(b):
+        _check("bgemm", a, bias=bias, residual=residual)
+        _check_packed("bgemm", b, b2, a)
+        if not _use_kernel(a):
+            return _bgemm.reference_int8(a, b, qb2=b2, bias=bias, residual=residual,
+                                         activation=activation)
+        out = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
+        if out.numel() == 0:
+            return out
+        return _bgemm.launch_int8(a, b, out, qb2=b2, bias=bias, residual=residual,
+                                  act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
+    _check("bgemm", a, b=b, b2=b2, bias=bias, residual=residual)
     if not _use_kernel(a):
         return _bgemm.reference(a, b, b2=b2, bias=bias, residual=residual,
                                 activation=activation)
@@ -175,15 +259,27 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1):
 
 def gemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
     """epilogue(a (m, k) @ b (k, n) [, a @ b2]) -> (m, n) in a's dtype;
-    bias (n,), residual (m, n)."""
+    bias (n,), residual (m, n).  A packed b (and b2) runs the int8-B
+    kernel; its logical shape is (k, n) in either stored layout."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     m, n = a.shape[0], b.shape[1]
     _check_shape("gemm", "b2", b2, b.shape)
     _check_shape("gemm", "bias", bias, (n,))
     _check_shape("gemm", "residual", residual, (m, n))
-    _check("gemm", a, _BLAS_DTYPES, b=b, b2=b2, bias=bias, residual=residual)
     act = _act_code(activation)
+    if _quant.is_quantized(b):
+        _check("gemm", a, _BLAS_DTYPES, bias=bias, residual=residual)
+        _check_packed("gemm", b, b2, a)
+        if not _use_kernel(a):
+            return _gemm.reference_int8(a, b, qb2=b2, bias=bias, residual=residual,
+                                        activation=activation)
+        out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+        if out.numel() == 0:
+            return out
+        return _gemm.launch_int8(a, b, out, qb2=b2, bias=bias, residual=residual,
+                                 act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
+    _check("gemm", a, _BLAS_DTYPES, b=b, b2=b2, bias=bias, residual=residual)
     if not _use_kernel(a):
         return _gemm.reference(a, b, b2=b2, bias=bias, residual=residual,
                                activation=activation)
@@ -195,9 +291,23 @@ def gemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
 
 
 def gemv(a, x):
-    """a (m, n) @ x (n,) -> (m,) in a's dtype."""
+    """a (m, n) @ x (n,) -> (m,) in a's dtype.  A packed a (stored (m, n),
+    not transposed) runs the packed row-dot kernel; the output is then in
+    x's dtype."""
     if a.ndim != 2 or x.ndim != 1 or a.shape[1] != x.shape[0]:
         raise ValueError(f"gemv shape mismatch: {tuple(a.shape)} @ {tuple(x.shape)}")
+    if _quant.is_quantized(a):
+        if a.transposed:
+            raise ValueError("gemv streams A in its stored layout; quantize with "
+                             "transpose=False")
+        _check("gemv", x, _BLAS_DTYPES)
+        _check_packed("gemv", a, None, x)
+        if not _use_kernel(x):
+            return _gemv.reference_int8(a, x)
+        out = torch.empty(a.shape[0], dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        return _gemv.launch_int8(a, x, out, dtype_code=_DTYPE_CODES[x.dtype])
     _check("gemv", a, _BLAS_DTYPES, x=x)
     if not _use_kernel(a):
         return _gemv.reference(a, x)

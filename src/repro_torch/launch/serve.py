@@ -11,6 +11,12 @@ into the freed slots; decode is one masked step over every slot.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
 
+`quantize="int8"` (`--quantize int8`) packs every projection weight as
+block-scaled int8 (`models.layers.quantize_weights`) once, on the device,
+before the timed region: decode then streams 1 byte a weight through the
+packed bgemv kernel and prefill runs the int8-B bgemm, both dequantizing in
+f32 (W8A16, as the reference's pallas backend).
+
 Runs on the card unless asked for the CPU (`device="cpu"`, `--device cpu`),
 where every kernel is replaced by its plain PyTorch version.
 """
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.models.registry import get_config
 
@@ -54,14 +61,13 @@ def _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size,
         raise ValueError(f"kv_cache must be 'model' or 'int8', got {kv_cache!r}")
     unported = [
         (scheduler == "batch", "scheduler='batch'", 1),
-        (quantize == "int8", "quantize='int8'", 2),
-        (kv_cache == "int8", "kv_cache='int8'", 3),
-        (kv_page_size is not None, "kv_page_size", 3),
-        (prefill_chunk is not None, "prefill_chunk", 4),
-        (speculate is not None, "speculate", 4),
-        (faults is not None, "faults", 4),
-        (deadline_ms is not None, "deadline_ms", 4),
-        (tp != 1, "tp > 1", 5),
+        (kv_cache == "int8", "kv_cache='int8'", 2),
+        (kv_page_size is not None, "kv_page_size", 2),
+        (prefill_chunk is not None, "prefill_chunk", 3),
+        (speculate is not None, "speculate", 3),
+        (faults is not None, "faults", 3),
+        (deadline_ms is not None, "deadline_ms", 3),
+        (tp != 1, "tp > 1", 4),
     ]
     for hit, what, item in unported:
         if hit:
@@ -82,7 +88,9 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
 
     Arguments follow the reference's serve(); `params` (the port's layout,
     e.g. from models.convert) replaces the seeded random init, which
-    otherwise mirrors the reference's distributions.  gen_lens gives
+    otherwise mirrors the reference's distributions.  quantize="int8" packs
+    the projection weights (validated: a NaN/Inf weight raises) before the
+    timed region, as the reference's _quantize_params does.  gen_lens gives
     per-request budgets (a budget < 1 still yields the prefill token);
     eos=-1 disables early stopping.
 
@@ -115,6 +123,8 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
     with torch.inference_mode():
         if params is None:
             params = tf.init_params(cfg, seed, dev)
+        if quantize == "int8":
+            params = layers.quantize_weights(params)
         stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev)
     if verbose:
         print(f"[serve] {arch} ({scheduler}): {stats['completed']} requests, "
@@ -245,12 +255,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", default="continuous", choices=("continuous", "batch"),
                     help="continuous: slot-level admission (batch: not ported yet)")
+    ap.add_argument("--quantize", default="none", choices=("none", "int8"),
+                    help="int8: block-scaled int8 projection weights (W8A16)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
     return serve(args.arch, args.variant, args.requests, args.batch,
                  args.prompt_len, args.gen, seed=args.seed,
-                 scheduler=args.scheduler, device=args.device)
+                 scheduler=args.scheduler, quantize=args.quantize, device=args.device)
 
 
 if __name__ == "__main__":

@@ -16,8 +16,50 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import blas
+from repro_torch.core import blas, quant
 from repro_torch.kernels import ops
+
+
+# --------------------------------------------------------------------------
+# Weight quantization pass (block-scaled int8 serving weights, core.quant)
+# --------------------------------------------------------------------------
+
+#: projection weights the serving quantization pass packs; norms, biases,
+#: router logits and the embedding/unembedding tables stay as they are
+QUANT_WEIGHT_KEYS = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+
+
+def quantize_weights(params: dict, spec: Optional[quant.QuantSpec] = None) -> dict:
+    """Replace every projection weight with a block-scaled int8
+    `QuantizedTensor`, validated (a NaN/Inf weight raises here).
+
+    2-D projection weights are stored output-major (`QuantSpec.transpose`),
+    the layout the decode kernel streams.  Expert stacks (a dict holding a
+    "router", weights with an extra expert axis) keep the GEMM orientation,
+    as the reference's walk does.  Lists (the port's per-layer dicts) are
+    walked element by element; a leaf already packed passes through."""
+    spec = spec or quant.QuantSpec(block_m=64, block_n=None, transpose=True)
+
+    def walk(node, in_expert: bool):
+        if isinstance(node, list):
+            return [walk(v, in_expert) for v in node]
+        if isinstance(node, dict):
+            expert = in_expert or "router" in node
+            return {k: (walk(v, expert and k != "shared") if isinstance(v, (dict, list))
+                        else _quantize_leaf(k, v, spec, expert and k != "shared"))
+                    for k, v in node.items()}
+        return node
+
+    return walk(params, False)
+
+
+def _quantize_leaf(key, leaf, spec: quant.QuantSpec, in_expert: bool):
+    if key not in QUANT_WEIGHT_KEYS or not isinstance(leaf, torch.Tensor):
+        return leaf
+    if in_expert and leaf.ndim >= 3:
+        espec = quant.QuantSpec(block_m=spec.block_m, block_n=spec.block_n, transpose=False)
+        return quant.quantize(leaf, espec, validate=True)
+    return quant.quantize(leaf, spec, validate=True)
 
 
 # --------------------------------------------------------------------------

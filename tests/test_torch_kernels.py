@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.core import quant
 from repro_torch.kernels import attention as tattention
 from repro_torch.kernels import bgemm as tbgemm
 from repro_torch.kernels import bgemv as tbgemv
@@ -161,8 +162,12 @@ def test_cpu_tensors_take_the_plain_versions():
     lens = torch.tensor([3, 3, 8, 8], dtype=torch.int32)
     assert torch.equal(ops.flash_attention(q, kv, kv, kv_lens=lens),
                        tattention.reference(q, kv, kv, lens))
+    qw = quant.quantize(w, quant.QuantSpec(8, None, transpose=True))
+    assert torch.equal(ops.bgemv(qw, x), tbgemv.reference_int8(qw, x))
+    assert torch.equal(ops.bgemm(a, qw), tbgemm.reference_int8(a, qw))
     assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0, "gemm": 0,
-                                   "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0}
+                                   "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
+                                   "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
