@@ -40,7 +40,30 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              serve), the teacher-forced run (logits within 5% of max |logit|
              of the plain path), the launch counts of both (every projection
              on the packed kernels, 144 a decode step and 144 a prefill, none
-             dense), and phase 8's profile of the int8 decode step.
+             dense), and phase 8's profile of the int8 decode step;
+14. attention_kv - the int8-K/V and paged forms of flash attention: full-width
+             decode (B=4, H=32, D=64, S=160, page 16, shuffled table), the
+             int8 prefill (Tq=128), long context (S=4096, bf16 and int8,
+             dense and paged) and a ragged f32 case (page 7, GQA 32/8,
+             D=128); each one launch of its form, against its plain version,
+             a paged launch bitwise the dense launch on the gathered cache,
+             then timed beside its bound, sdpa and the dense kernel;
+15. smoke_kv - SMOKE f32 serves with --kv-cache int8 and --kv-page-size 4
+             (prefix reuse on and off, a 7-page pool that preempts): kernels
+             and plain versions give equal tokens, paged equal dense, the
+             small pool equal the default pool;
+16. serve_paged - FULL bf16, 8 requests sharing a 96-token system prompt,
+             page 16: tokens equal the dense serve's, pages shared, then a
+             pool of ~2/3 the peak pages that preempts: every stretch
+             between two admissions equals a dense serve started from that
+             admission's prompt + emitted tokens (the agreement with the
+             unpressured tokens is recorded, not required: see PERF.md);
+17. serve_kv_int8, forced_kv_int8 - FULL --kv-cache int8, dense and paged,
+             bf16 and int8 weights: paged tokens equal dense; forced logits
+             within 5% of max |logit| of the plain path; pool bytes;
+18. profile_kv_int8 - phase 8's profile with the int8 KV cache.  Every serve
+             above checks its attention launches by form: a paged decode
+             runs only the paged form, an int8 cache only the int8 one.
 
 Then a `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,6 +75,7 @@ report, every number printed) goes to build/chip_smoke/.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -390,7 +414,10 @@ def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     emit(phase, what="full-width decode step, batch 4, 128 cached tokens",
-         wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy or None,
+         kv_cache=cfg.kv_cache_dtype, wall_ms_per_step=wall_ms,
+         attention_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
+                                   if "attention_kernel" in k),
+         device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
          top=[{"name": k[:90], "ms_per_step": ms, "calls_per_step": n}
@@ -820,6 +847,356 @@ def check_launches(counts: dict, what: str):
                              f"not a whole number of 24-layer forwards")
 
 
+# --------------------------------------------------------------------------
+# phases 14-18: the int8 and paged KV cache
+# --------------------------------------------------------------------------
+
+def kv_case(dtype, int8, page_size, *, b=4, tq=1, h=32, kvh=32, d=64, lens=(129, 140, 150, 160),
+            s=None, seed=0):
+    """One attention case on the card: q (B, Tq, H, D) and a dense cache
+    (B, S, KVH, D) in `dtype` or int8 with per-(token, head) f32 scales,
+    garbage past each slot's length (NaN values, or random int8 under NaN
+    scales).  With page_size the same keys also sit in a pool under a
+    shuffled table whose dead entries point at the trash page 0.  Returns
+    (q, kv_lens, form operands, the dense operands the table gathers, the
+    gathered cache dequantized to q's dtype)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.attention import gather_pages
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = s or max(lens)
+    q = torch.randn(b, tq, h, d, generator=g, device="cuda").to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+    dense = {}
+    for name in "kv":
+        x = torch.randn(b, s, kvh, d, generator=g, device="cuda")
+        if int8:
+            qt = quant.quantize_kv(x)
+            dense[name], dense[name + "_scales"] = qt.values, qt.scales
+            for i, n in enumerate(lens):
+                qt.values[i, n:] = torch.randint(-127, 128, qt.values[i, n:].shape, generator=g,
+                                                 device="cuda", dtype=torch.int8)
+                qt.scales[i, n:] = float("nan")
+        else:
+            x = x.to(dtype)
+            for i, n in enumerate(lens):
+                x[i, n:] = float("nan")
+            dense[name] = x
+    form = dict(dense)
+    if page_size:
+        max_pages = -(-s // page_size)
+        num_pages = 1 + b * max_pages
+        table = (torch.randperm(num_pages - 1, generator=g, device="cuda") + 1).reshape(
+            b, max_pages).to(torch.int32)
+        for i, n in enumerate(lens):
+            table[i, -(-n // page_size):] = 0
+        live = table != 0
+        form = {"page_table": table}
+        for name, t in dense.items():
+            tail = tuple(t.shape[2:])
+            pool = (torch.randint(-127, 128, (num_pages, page_size) + tail, generator=g,
+                                  device="cuda", dtype=torch.int8) if int8 and t.dtype == torch.int8
+                    else torch.full((num_pages, page_size) + tail, float("nan"), device="cuda",
+                                    dtype=t.dtype))
+            padded = torch.zeros((b, max_pages * page_size) + tail, dtype=t.dtype, device="cuda")
+            padded[:, :s] = t
+            pool[table[live].long()] = padded.reshape((b, max_pages, page_size) + tail)[live]
+            form[name] = pool
+        dense = {k: gather_pages(v, table).contiguous() for k, v in form.items()
+                 if k != "page_table"}
+    if int8:
+        deq = {n: (dense[n].float() * dense[n + "_scales"]).to(dtype) for n in "kv"}
+    else:
+        deq = {n: dense[n] for n in "kv"}
+    return q, kv_lens, form, dense, deq
+
+
+def attend(q, kv_lens, ops_kw):
+    from repro_torch.kernels import ops
+    g = q.shape[2] // ops_kw["k"].shape[2]
+    return ops.flash_attention(q, ops_kw["k"], ops_kw["v"], kv_lens=kv_lens, kv_groups=g,
+                               k_scales=ops_kw.get("k_scales"), v_scales=ops_kw.get("v_scales"),
+                               page_table=ops_kw.get("page_table"))
+
+
+KV_CASES = [  # (label, q dtype, int8, page size, kv_case keywords)
+    ("decode bf16 paged P=16 B=4 H=32 D=64 S=160", torch.bfloat16, False, 16, {}),
+    ("decode int8 dense B=4 H=32 D=64 S=160", torch.bfloat16, True, None, {}),
+    ("decode int8 paged P=16 B=4 H=32 D=64 S=160", torch.bfloat16, True, 16, {}),
+    ("prefill int8 dense B=4 Tq=128 H=32 D=64 S=160", torch.bfloat16, True, None,
+     dict(tq=128, lens=(128,) * 4, s=160)),
+    ("long bf16 dense B=4 Tq=1 S=4096", torch.bfloat16, False, None, dict(lens=(4096,) * 4)),
+    ("long bf16 paged P=16 B=4 Tq=1 S=4096", torch.bfloat16, False, 16, dict(lens=(4096,) * 4)),
+    ("long int8 dense B=4 Tq=1 S=4096", torch.bfloat16, True, None, dict(lens=(4096,) * 4)),
+    ("long int8 paged P=16 B=4 Tq=1 S=4096", torch.bfloat16, True, 16, dict(lens=(4096,) * 4)),
+    ("ragged f32 paged P=7 GQA H=32/KVH=8 D=128 lens 2048/1031/517/75", torch.float32, False, 7,
+     dict(kvh=8, d=128, lens=(2048, 1031, 517, 75))),
+]
+
+
+def phase_attention_kv():
+    """Each int8 / paged attention case once with the counts reset (one
+    launch of its form), against its plain version (and, paged, bitwise
+    against the dense launch on the cache its table gathers), then timed
+    (cold L2, median of 20) beside its bound, its plain version, sdpa on the
+    gathered dequantized cache and the dense kernel at the same shape."""
+    from repro_torch.kernels import ops
+    rows = {}
+    for i, (label, dtype, int8, page_size, kw) in enumerate(KV_CASES):
+        q, kv_lens, form, dense, deq = kv_case(dtype, int8, page_size, seed=100 + i, **kw)
+        ops.reset_launch_counts()
+        got = attend(q, kv_lens, form)
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            want = attend(q, kv_lens, form)
+        same_as_dense = None
+        if page_size:
+            same_as_dense = bool(torch.equal(got, attend(q, kv_lens, dense)))
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
+                                                                **TOL[dtype])
+        want_counts = {"attention": int(not int8 and not page_size),
+                       "attention_int8": int(int8), "attention_paged": int(bool(page_size))}
+        rose = {k: counts[k] for k in want_counts}
+        b, tq, h, d = q.shape
+        lens = kw.get("lens", (129, 140, 150, 160))
+        kvh = kw.get("kvh", 32)
+        kv_bytes = sum(lens) * kvh * d * 2 * (1 if int8 else q.element_size())
+        if int8:
+            kv_bytes += sum(lens) * kvh * 2 * 4
+        nb = kv_bytes + 2 * nbytes(q) + nbytes(kv_lens, form.get("page_table"))
+        pairs = sum(min(t + n - tq + 1, n) for n in lens for t in range(tq)) * h
+        b_ms, by = bound(nb, 4 * pairs * d, dtype)
+        fields = dict(case=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
+                      tol=TOL[dtype], within_tol=ok, launches_added=rose,
+                      bitwise_equal_to_dense_on_gathered=same_as_dense)
+        if not ok or rose != want_counts or same_as_dense is False:
+            emit("attention_kv", **fields)
+            raise AssertionError(f"attention [{label}]: within_tol={ok}, launches {rose} "
+                                 f"(want {want_counts}), paged == dense {same_as_dense}")
+        del got, want
+        ms = time_ms(lambda: attend(q, kv_lens, form))
+        with ops.reference_mode():
+            plain_ms = time_ms(lambda: attend(q, kv_lens, form))
+        dense_ms = time_ms(lambda: attend(q, kv_lens, deq))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, deq["k"], deq["v"]))
+        s = kt.shape[2]
+        kpos = torch.arange(s, device="cuda")
+        lens_t = torch.tensor(lens, device="cuda")
+        qpos = torch.arange(tq, device="cuda")[None, :] + (lens_t - tq)[:, None]
+        mask = ((kpos[None, None, :] <= qpos[..., None])
+                & (kpos[None, None, :] < lens_t[:, None, None]))[:, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh))
+        row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="sdpa on the gathered, dequantized cache", dense_kernel_ms=dense_ms,
+                   bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
+                   flops=4 * pairs * d)
+        emit("attention_kv", **row)
+        rows[label] = row
+        del q, form, dense, deq, qt, kt, vt, mask
+    return rows
+
+
+def check_kv_launches(counts: dict, what: str, n_layers: int, prefills: int, steps: int,
+                      int8: bool, paged: bool):
+    """Attention launches by form over `prefills` prefills and `steps`
+    decode steps (a serve adds its warm-up: one of each).  Prefill always
+    runs over the dense admission cache; a paged decode runs only the paged
+    form."""
+    pre, dec = n_layers * prefills, n_layers * steps
+    want = {"attention": 0 if int8 else pre + (0 if paged else dec),
+            "attention_int8": pre + dec if int8 else 0,
+            "attention_paged": dec if paged else 0}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{what} attention launches {counts}: (got, want) {bad}")
+
+
+def shared_prefix_prompts(vocab, n=6, sys_len=10, tail=3, seed=11):
+    """tests/test_paged.py's prompts: even requests share a system prompt."""
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(3, vocab, size=(sys_len,), dtype=np.int32)
+    return [np.concatenate([sysp, rng.integers(3, vocab, size=(tail,), dtype=np.int32)])
+            if i % 2 == 0 else rng.integers(3, vocab, size=(sys_len + tail,), dtype=np.int32)
+            for i in range(n)]
+
+
+def phase_smoke_kv():
+    """SMOKE f32 serves with the int8 and paged KV cache: kernels against
+    the plain versions (equal tokens), paged against dense, a pressured
+    pool against the default one; every attention launch by form."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config(ARCH, "smoke")
+    params = tf.init_params(cfg, 0, "cuda")
+    shared = dict(batch=3, prompts=shared_prefix_prompts(cfg.vocab),
+                  gen_lens=[4, 2, 5, 3, 4, 2])
+    rng = np.random.default_rng(0)
+    ci_prompts = [rng.integers(3, 256, size=(10,), dtype=np.int32) for _ in range(6)]
+    ci = dict(batch=2, prompts=ci_prompts, gen_lens=rng.integers(4, 9, size=6).tolist(),
+              kv_page_size=4)
+    runs = [("model dense", shared, {}), ("model paged reuse", shared, dict(kv_page_size=4)),
+            ("model paged no-reuse", shared, dict(kv_page_size=4, prefix_reuse=False)),
+            ("int8 dense", shared, dict(kv_cache="int8")),
+            ("int8 paged reuse", shared, dict(kv_cache="int8", kv_page_size=4)),
+            ("ci default pool", ci, {}), ("ci pool_pages=7", ci, dict(pool_pages=7))]
+    out = {}
+    for name, base, kw in runs:
+        args = dict(base, **kw, eos=-1, params=params, verbose=False, device="cuda")
+        ops.reset_launch_counts()
+        got = serve(ARCH, "smoke", **args)
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            want = serve(ARCH, "smoke", **args)
+        check_kv_launches(counts, f"smoke_kv {name}", cfg.n_layers, got["prefills"] + 1,
+                          got["decode_steps"] + 1, args.get("kv_cache") == "int8",
+                          "kv_page_size" in args)
+        fields = {k: got.get(k) for k in ("pages_live", "pages_shared", "cow_copies",
+                                          "paged_capacity_multiplier", "preemptions",
+                                          "rejections")}
+        equal = got["outputs"] == want["outputs"]
+        emit("smoke_kv", run=name, dtype="float32", tokens_equal_plain=equal,
+             completed=got["completed"], status=got["status"], **fields,
+             launches={k: counts[k] for k in ("attention", "attention_int8", "attention_paged")})
+        if not equal:
+            raise AssertionError(f"smoke_kv {name}: kernels {got['outputs']} != plain "
+                                 f"{want['outputs']}")
+        out[name] = got
+    pairs = [("model paged reuse", "model dense"), ("model paged no-reuse", "model dense"),
+             ("int8 paged reuse", "int8 dense"), ("ci pool_pages=7", "ci default pool")]
+    for a, b in pairs:
+        if out[a]["outputs"] != out[b]["outputs"]:
+            raise AssertionError(f"smoke_kv: {a} tokens differ from {b}")
+    if out["ci pool_pages=7"]["preemptions"] < 1 or out["model paged reuse"]["pages_shared"] < 1:
+        raise AssertionError("smoke_kv: the small pool never preempted, or nothing was shared")
+
+
+def resume_segments(prompts, stats):
+    """A serve's output split at each admission of each request: (request,
+    first token, end, admission prompt = prompt + the tokens emitted before
+    it).  One segment a request unless it was preempted."""
+    segs = []
+    for rid, starts in enumerate(stats["admitted_at"]):
+        out = stats["outputs"][rid]
+        for i, n in enumerate(starts):
+            end = starts[i + 1] if i + 1 < len(starts) else len(out)
+            segs.append((rid, n, end, np.concatenate([prompts[rid], np.asarray(out[:n], np.int32)])))
+    return segs
+
+
+def phase_serve_paged(params, cfg):
+    """FULL bf16, 8 requests of a 96-token shared system prompt + 32 unique
+    tokens, gen 32, batch 4: dense, paged (page 16), and paged in a pool of
+    about 2/3 of the paged run's peak pages.  The paged run must give the
+    dense run's tokens.  The pressured run resumes each preempted request
+    by prefilling its prompt + emitted tokens, which the unpressured runs
+    decoded one by one: every segment between two admissions must equal a
+    dense serve started from that admission's prompt (exact), and its
+    agreement with the unpressured tokens is recorded.  Returns the paged
+    run's stats and launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    rng = np.random.default_rng(7)
+    sysp = rng.integers(3, cfg.vocab, size=96, dtype=np.int32)
+    prompts = [np.concatenate([sysp, rng.integers(3, cfg.vocab, size=32, dtype=np.int32)])
+               for _ in range(8)]
+    kw = dict(batch=4, eos=-1, params=params, verbose=False, device="cuda")
+    dense = serve(ARCH, "full", prompts=prompts, gen=32, **kw)
+    ops.reset_launch_counts()
+    paged = serve(ARCH, "full", prompts=prompts, gen=32, kv_page_size=16, **kw)
+    counts = ops.launch_counts()
+    check_kv_launches(counts, "serve_paged", cfg.n_layers, paged["prefills"] + 1,
+                      paged["decode_steps"] + 1, False, True)
+    pool = max(10, round(2 * paged["pages_live"] / 3))
+    pressed = serve(ARCH, "full", prompts=prompts, gen=32, kv_page_size=16, pool_pages=pool, **kw)
+    segs = resume_segments(prompts, pressed)
+    recomputed = serve(ARCH, "full", prompts=[sg[3] for sg in segs],
+                       gen_lens=[sg[2] - sg[1] for sg in segs], **kw)
+    seg_equal = [recomputed["outputs"][j] == pressed["outputs"][rid][n:end]
+                 for j, (rid, n, end, _) in enumerate(segs)]
+    first = [pressed["admitted_at"][r][1] if len(pressed["admitted_at"][r]) > 1 else 32
+             for r in range(8)]
+    agree = [a == b for o, p in zip(pressed["outputs"], dense["outputs"]) for a, b in zip(o, p)]
+    for name, st in (("paged", paged), ("pressured", pressed)):
+        extra = {}
+        if st is pressed:
+            extra = dict(pool_pages=pool, resume_segments=len(segs),
+                         segments_equal_dense_recompute=sum(seg_equal),
+                         token_agreement_with_dense=sum(agree) / len(agree),
+                         tokens_before_first_resume_equal_dense=all(
+                             o[:f] == p[:f] for o, p, f in
+                             zip(pressed["outputs"], dense["outputs"], first)),
+                         recompute_tok_s=recomputed["tok_s"])
+        emit("serve_paged", run=name, arch=ARCH, variant="full", dtype="bfloat16", requests=8,
+             batch=4, prompt="96 shared + 32 unique", gen=32, kv_page_size=16,
+             completed=st["completed"], tokens_equal_dense=st["outputs"] == dense["outputs"],
+             tok_s=st["tok_s"], ttft_p50_s=statistics.median(st["ttft"]),
+             prefills=st["prefills"], decode_steps=st["decode_steps"],
+             pages_live=st["pages_live"], pages_shared=st["pages_shared"],
+             cow_copies=st["cow_copies"],
+             paged_capacity_multiplier=st["paged_capacity_multiplier"],
+             preemptions=st["preemptions"], status=st["status"],
+             dense_tok_s=dense["tok_s"], dense_ttft_p50_s=statistics.median(dense["ttft"]),
+             **extra)
+    if paged["outputs"] != dense["outputs"] or paged["completed"] != 8:
+        raise AssertionError("serve_paged: paged tokens differ from the dense serve's")
+    if paged["pages_shared"] < 1 or paged["paged_capacity_multiplier"] <= 1:
+        raise AssertionError(f"serve_paged: nothing shared ({paged['pages_shared']} pages, "
+                             f"x{paged['paged_capacity_multiplier']})")
+    if (pressed["preemptions"] < 1 or not all(seg_equal) or pressed["completed"] != 8
+            or any(len(o) != 32 for o in pressed["outputs"])):
+        raise AssertionError(f"serve_paged pool {pool}: {pressed['preemptions']} preemptions, "
+                             f"{sum(seg_equal)}/{len(segs)} segments equal their dense "
+                             f"recompute, completed {pressed['completed']}")
+    return paged, counts
+
+
+def phase_serve_kv_int8(params, qparams, cfg):
+    """FULL --kv-cache int8, dense and paged (page 16), with bf16 and with
+    int8 weights: paged tokens equal dense tokens; the pools' bytes against
+    the bf16 cache's.  Returns the bf16-weight dense run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    kw = dict(requests=8, batch=4, prompt_len=128, gen=32, seed=0, eos=-1, verbose=False,
+              kv_cache="int8", device="cuda")
+    main_counts = None
+    for weights, p in (("bf16", params), ("int8", qparams)):
+        runs = {}
+        for page_size in (None, 16):
+            ops.reset_launch_counts()
+            st = serve(ARCH, "full", params=p, kv_page_size=page_size, **kw)
+            counts = ops.launch_counts()
+            check_kv_launches(counts, f"serve_kv_int8 {weights} weights", cfg.n_layers,
+                              st["prefills"] + 1, st["decode_steps"] + 1, True,
+                              page_size is not None)
+            if weights == "bf16" and page_size is None:
+                main_counts = counts
+            runs[page_size] = st
+            emit("serve_kv_int8", weights=weights, kv_cache="int8", kv_page_size=page_size,
+                 completed=st["completed"], tok_s=st["tok_s"], elapsed_s=st["elapsed_s"],
+                 ttft_p50_s=statistics.median(st["ttft"]), prefills=st["prefills"],
+                 decode_steps=st["decode_steps"], pages_live=st.get("pages_live"),
+                 launches={k: counts[k] for k in ("attention", "attention_int8",
+                                                  "attention_paged")})
+            if st["completed"] != 8 or any(len(o) != 32 for o in st["outputs"]):
+                raise AssertionError(f"serve_kv_int8 {weights}/{page_size}: incomplete")
+        if runs[16]["outputs"] != runs[None]["outputs"]:
+            raise AssertionError(f"serve_kv_int8 {weights} weights: paged int8 tokens differ "
+                                 "from dense int8 tokens")
+    int8_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    pools = {name: sum(nbytes(t) for k, t in tf.init_cache(c, 4, 160, device="cuda").items()
+                       if k != "pos")
+             for name, c in (("bf16", cfg), ("int8", int8_cfg))}
+    emit("serve_kv_int8", what="dense KV cache bytes, batch 4, 160 positions, 24 layers",
+         bf16_bytes=pools["bf16"], int8_bytes=pools["int8"],
+         ratio=pools["int8"] / pools["bf16"])
+    return main_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
@@ -880,6 +1257,19 @@ def main() -> int:
         emit("launches", run="forced_int8", **forced_int8)
         check_int8_launches(forced_int8, "forced_int8", 1, 3)
         phase_profile(qparams, cfg, phase="profile_int8")
+        kv_rows = phase_attention_kv()
+        phase_smoke_kv()
+        paged_stats, paged_counts = phase_serve_paged(params, cfg)
+        emit("launches", run="serve_paged", **paged_counts)
+        kv_int8_counts = phase_serve_kv_int8(params, qparams, cfg)
+        emit("launches", run="serve_kv_int8", **kv_int8_counts)
+        kv_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        ops.reset_launch_counts()
+        phase_forced(params, kv_cfg, phase="forced_kv_int8")
+        forced_kv = ops.launch_counts()
+        emit("launches", run="forced_kv_int8", **forced_kv)
+        check_kv_launches(forced_kv, "forced_kv_int8", cfg.n_layers, 1, 3, True, False)
+        phase_profile(params, kv_cfg, phase="profile_kv_int8")
         del params, qparams
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
@@ -935,6 +1325,22 @@ def main() -> int:
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "dense_ms": r["dense_ms"], "shape": case, "dtype": dtype})
+    # the int8 and paged forms of the attention kernel: launches from the
+    # paged bf16 serve and the int8-KV serve (bf16 weights, dense cache)
+    kv_sources = {
+        "attention_paged": ("src/repro/kernels/attention.py:316",
+                            "decode bf16 paged P=16 B=4 H=32 D=64 S=160", paged_counts),
+        "attention_int8": ("src/repro/kernels/attention.py:329",
+                           "decode int8 dense B=4 H=32 D=64 S=160", kv_int8_counts),
+    }
+    for name, (replaces, case, counts) in kv_sources.items():
+        r = kv_rows[case]
+        summary.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "dense_ms": r["dense_kernel_ms"], "shape": case, "dtype": "bfloat16"})
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

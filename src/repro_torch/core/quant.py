@@ -1,8 +1,9 @@
-"""Block-scaled int8 weights: the bandwidth lever of the GEMV-class kernels.
+"""Block-scaled int8 weights and KV cache: the bandwidth lever of the
+GEMV-class kernels and of decode attention.
 
-Mirrors the weight half of `repro.core.quant`.  A weight is packed as int8
-values plus one f32 scale per (block_m, block_n) block of its STORED layout,
-symmetric (scale = max|block| / 127, values rounded half to even), so a
+Mirrors the weight and KV halves of `repro.core.quant`.  A weight is packed
+as int8 values plus one f32 scale per (block_m, block_n) block of its STORED
+layout, symmetric (scale = max|block| / 127, values rounded half to even), so a
 decode projection streams 1 byte per weight instead of 2 (bf16) or 4 (f32)
 and the kernels dequantize on the fly against their accumulator (W8A16).
 
@@ -192,3 +193,31 @@ def weight_traffic_ratio(shape: tuple, *, full_bytes_per_elem: int = 4,
     for d in shape[:-2]:
         lead *= d
     return lead * m * n * full_bytes_per_elem / packed_weight_bytes(shape, block)
+
+
+# --------------------------------------------------------------------------
+# KV-cache quantization (per-(token, head) block scales)
+# --------------------------------------------------------------------------
+#
+# The decode step's other large byte term after the weights is the KV cache
+# read inside attention.  A cache entry (..., T, H, hd) quantizes its last
+# two dims with block (1, hd): one f32 scale per (token, head), so scales
+# are (..., T, H, 1) and the attention kernel dequantizes each staged key or
+# value row with one multiply.
+
+#: the per-(token, head) KV spec: one scale per head vector
+KV_SPEC = QuantSpec(block_m=1, block_n=None)
+
+
+def quantize_kv(x: torch.Tensor) -> QuantizedTensor:
+    """Per-(token, head) symmetric int8 quantization of a K or V block x
+    (..., H, hd), typically (B, T, H, hd): values (..., H, hd) int8 and
+    scales (..., H, 1) f32, block (1, hd), bitwise the reference's."""
+    return quantize(x, KV_SPEC)
+
+
+def dequantize_kv(values: torch.Tensor, scales: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """values (..., H, hd) int8 * scales (..., H, 1) in f32, cast once to
+    `dtype`: the semantics every attention path is held to."""
+    return (values.float() * scales.float()).to(dtype)

@@ -1,31 +1,47 @@
-// Causal flash attention over the KV cache's native layout, for Hopper
-// (sm_90a).
+// Causal flash attention over the KV cache's native layout, dense or paged,
+// with K/V in the model dtype or packed int8, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `repro/kernels/attention.py` (`_flash_kernel`,
-// the dense cache-layout form with per-row `kv_lens` and GQA folding that
-// prefill and ragged slot decode use):
+// the cache-layout form with per-row `kv_lens` and GQA folding that prefill
+// and ragged slot decode use): the dense call (:329) and the paged call
+// (:316, the page table as a scalar-prefetch operand), each with K/V in the
+// model dtype or int8 with per-(token, head) f32 scales (:130-134):
 //
 //     q (B, Tq, H, D), k/v (B, S, KVH, D), kv_lens (B*H,) -> out (B, Tq, H, D)
+//     paged: k/v the pool (num_pages, P, KVH, D), page_table (B, max_pages),
+//            logical key s of slot b at pool[page_table[b, s / P], s % P]
+//     int8:  k/v int8, k_scales/v_scales in k's layout with D -> 1, f32
 //
 // Query head h reads KV head h / (H / KVH).  Row r = b*H + h sees keys
-// [0, kvl) with kvl = min(kv_lens[r], S), causally aligned to the END of that
-// range: query t sits at absolute position t + kvl - Tq.  Scores use
-// q * D^-0.5 in f32 and a finite NEG_INF mask, as the reference does.
+// [0, kvl) with kvl = min(kv_lens[r], S) (S = max_pages * P when paged),
+// causally aligned to the END of that range: query t sits at absolute
+// position t + kvl - Tq.  Scores use q * D^-0.5 in f32 and a finite NEG_INF
+// mask, as the reference does.  An int8 K or V row is multiplied in f32 by
+// its row's scale as it is staged, before either product, where the Pallas
+// body does it.
 //
 // Bound: bytes.  Decode reads each cached key and value once per KV head for
 // 2 FLOPs per element per query head, and a 128-token prefill is below the
-// ridge too at D = 64, so the time is the K/V (and Q/O) stream.
+// ridge too at D = 64, so the time is the K/V (and Q/O) stream: int8 K/V
+// (1 byte an element and 4 bytes of scale a row) halves the bf16 stream.
 //
 // Design: one block per (row, 32-query tile) with a loop over 32-key tiles
 // inside the block; the online-softmax statistics (m, l) and the output
 // accumulator stay in registers across the key sweep, so the score matrix
 // never reaches device memory.  Key tiles that no query of the block can see
-// (past kvl, or above the causal diagonal) are never loaded.  K and V rows at
-// or past kvl are loaded as zeros: the cache may hold garbage there
-// (uninitialised or stale slots) and a masked score alone would still let
-// 0 * NaN poison P.V (attention.py:135-141).  Four threads share a query row
-// (eight when D = 128) and meet through warp shuffles.
-// Later work (not here): split-KV for decode, mma/wgmma for the two products.
+// (past kvl, or above the causal diagonal) are never loaded.  Each thread
+// finds its staged rows' offsets itself (64-bit): the dense row, or the one
+// page-table lookup per four elements (`stage_tile`).  Rows at or
+// past kvl are staged as zeros and neither their table entry, values nor
+// scales are read: the cache may hold garbage there (uninitialised or stale
+// slots, a NaN scale) and a masked score alone would still let 0 * NaN
+// poison P.V (attention.py:135-141).  The paged form runs the dense form's
+// tiles and arithmetic; only the row offset differs, so a paged launch is
+// bitwise the dense launch on the gathered cache, at any page size.  Four
+// threads share a query row (eight when D = 128) and meet through warp
+// shuffles.
+// Later work (not here): split-KV for decode, 16-byte K/V loads in every
+// form, mma/wgmma for the two products.
 #include "common.cuh"
 
 using namespace rt;
@@ -34,11 +50,89 @@ namespace {
 
 constexpr int THREADS = 128;
 
-template <typename T, int D, int BQ, int BK>
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;  // int8 K/V: one scale a (token, KV head) row
+  const int *kv_lens, *page_table;
+  void* out;
+  int B, Tq, H, S, KVH, page_size, max_pages;
+  float scale;
+};
+
+// Four consecutive K/V elements in one load (4, 8 or 16 bytes), as f32.
+__device__ __forceinline__ void load4(const int8_t* p, float (&f)[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // bf16 -> f32: the high half
+  f[0] = __uint_as_float(u.x << 16); f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16); f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+
+// Stage key tile [k0, k0 + BK) of one (slot, KV head) into shared memory as
+// f32, zeros at or past kvl.  The dense model-dtype form loads one element
+// a thread, straight-line code whose loads the compiler issues together.
+// The paged and int8 forms load four elements a thread, so each thread
+// looks up a row's page-table entry (key s in pool row table_row[s / P] * P
+// + s % P) and its scales once per four elements; dead rows read no entry,
+// value or scale.  An int8 value is multiplied by its row's scale in f32.
+template <bool PAGED, typename KV, int D, int BK>
+__device__ __forceinline__ void stage_tile(const KV* __restrict__ k, const KV* __restrict__ v,
+                                           const float* __restrict__ ks,
+                                           const float* __restrict__ vs,
+                                           const int* __restrict__ table_row, long long base,
+                                           int page_size, int KVH, int kh, int k0, int kvl,
+                                           float (&Ks)[BK][D + 1], float (&Vs)[BK][D]) {
+  constexpr bool INT8 = sizeof(KV) == 1;
+  if constexpr (!PAGED && !INT8) {
+    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
+      const int kj = e / D, d = e % D, s = k0 + kj;
+      const bool ok = s < kvl;
+      const long long idx = ((base + s) * KVH + kh) * D + d;
+      Ks[kj][d] = ok ? to_f(k[idx]) : 0.f;
+      Vs[kj][d] = ok ? to_f(v[idx]) : 0.f;
+    }
+  } else {
+    constexpr int D4 = D / 4;
+    for (int e = threadIdx.x; e < BK * D4; e += THREADS) {
+      const int kj = e / D4, d = (e % D4) * 4, s = k0 + kj;
+      float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s < kvl) {
+        long long row = base + s;
+        if constexpr (PAGED) row = (long long)table_row[s / page_size] * page_size + s % page_size;
+        const long long ro = row * KVH + kh;
+        load4(k + ro * D + d, kf);
+        load4(v + ro * D + d, vf);
+        if constexpr (INT8) {
+          const float sk = ks[ro], sv = vs[ro];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kf[i] *= sk;
+            vf[i] *= sv;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        Ks[kj][d + i] = kf[i];
+        Vs[kj][d + i] = vf[i];
+      }
+    }
+  }
+}
+
+template <typename T, typename KV, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 T* __restrict__ out, int Tq, int H, int S, int KVH,
+attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, const float* __restrict__ ks,
+                 const float* __restrict__ vs, const int* __restrict__ kv_lens,
+                 const int* __restrict__ page_table, T* __restrict__ out, int Tq,
+                 int H, int S, int KVH, int page_size, int max_pages,
                  float scale) {
   constexpr int TPR = THREADS / BQ;  // threads per query row
   constexpr int CPT = BK / TPR;      // score columns per thread
@@ -60,7 +154,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int qi = e / D, d = e % D, t = q0 + qi;
-    Qs[qi][d] = t < Tq ? to_f(q[(((long)b * Tq + t) * H + h) * D + d]) * scale : 0.f;
+    Qs[qi][d] = t < Tq ? to_f(q[(((long long)b * Tq + t) * H + h) * D + d]) * scale : 0.f;
   }
 
   float m_run = NEG_INF, l_run = 0.f;
@@ -73,13 +167,12 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int kj = e / D, d = e % D, s = k0 + kj;
-      const bool ok = s < kvl;
-      const long idx = (((long)b * S + s) * KVH + kh) * D + d;
-      Ks[kj][d] = ok ? to_f(k[idx]) : 0.f;
-      Vs[kj][d] = ok ? to_f(v[idx]) : 0.f;
-    }
+    if (page_table)
+      stage_tile<true, KV, D, BK>(k, v, ks, vs, page_table + (long long)b * max_pages, 0,
+                                  page_size, KVH, kh, k0, kvl, Ks, Vs);
+    else
+      stage_tile<false, KV, D, BK>(k, v, ks, vs, nullptr, (long long)b * S, page_size, KVH,
+                                   kh, k0, kvl, Ks, Vs);
     __syncthreads();
 
     float sc[CPT];
@@ -123,52 +216,64 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int t = q0 + r;
   if (t < Tq) {
-    const long base = (((long)b * Tq + t) * H + h) * D;
+    const long long base = (((long long)b * Tq + t) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) out[base + sub + j * TPR] = from_f<T>(acc[j] / l_run);
   }
 }
 
-template <typename T, int D>
-void run(const void* q, const void* k, const void* v, const int* kv_lens,
-         void* out, int B, int Tq, int H, int S, int KVH, float scale,
-         cudaStream_t stream) {
+template <typename T, typename KV, int D>
+void run(const Args& a, cudaStream_t stream) {
   constexpr int BT = D <= 64 ? 32 : 16;  // query and key tile
-  const dim3 grid(B * H, (Tq + BT - 1) / BT);
-  attention_kernel<T, D, BT, BT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_lens, static_cast<T*>(out), Tq, H, S, KVH,
-      scale);
+  const dim3 grid(a.B * a.H, (a.Tq + BT - 1) / BT);
+  attention_kernel<T, KV, D, BT, BT><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.ks, a.vs, a.kv_lens, a.page_table,
+      static_cast<T*>(a.out), a.Tq, a.H, a.S, a.KVH, a.page_size, a.max_pages,
+      a.scale);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* kv_lens,
-             void* out, int B, int Tq, int H, int S, int KVH, int D,
-             float scale, cudaStream_t s) {
+template <typename T, typename KV>
+int dispatch(const Args& a, int D, cudaStream_t s) {
   switch (D) {
-    case 16: run<T, 16>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, scale, s); break;
-    case 32: run<T, 32>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, scale, s); break;
-    case 64: run<T, 64>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, scale, s); break;
-    case 128: run<T, 128>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, scale, s); break;
+    case 16: run<T, KV, 16>(a, s); break;
+    case 32: run<T, KV, 32>(a, s); break;
+    case 64: run<T, KV, 64>(a, s); break;
+    case 128: run<T, KV, 128>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
+template <typename T>
+int dispatch_kv(const Args& a, int kv_int8, int D, cudaStream_t s) {
+  return kv_int8 ? dispatch<T, int8_t>(a, D, s) : dispatch<T, T>(a, D, s);
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported dtype or head dim).
-extern "C" int attention_launch(int dtype, const void* q, const void* k,
-                                const void* v, const int* kv_lens, void* out,
-                                int B, int Tq, int H, int S, int KVH, int D,
-                                float scale, void* stream) {
+// K/V in q's dtype (kv_int8 = 0) or int8 with f32 k_scales/v_scales
+// (kv_int8 = 1).  page_table NULL: k/v are the dense cache (B, S, KVH, D);
+// otherwise the pool (num_pages, page_size, KVH, D) and S = max_pages *
+// page_size.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported dtype, head dim or page size).
+extern "C" int attention_launch(int dtype, int kv_int8, const void* q,
+                                const void* k, const void* v,
+                                const float* k_scales, const float* v_scales,
+                                const int* kv_lens, const int* page_table,
+                                void* out, int B, int Tq, int H, int S, int KVH,
+                                int D, int page_size, int max_pages, float scale,
+                                void* stream) {
+  if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, k_scales, v_scales, kv_lens, page_table, out,
+               B, Tq, H, S, KVH, page_size, max_pages, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == DT_F32)
-    err = dispatch<float>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, D, scale, s);
+    err = dispatch_kv<float>(a, kv_int8, D, s);
   else if (dtype == DT_BF16)
-    err = dispatch<__nv_bfloat16>(q, k, v, kv_lens, out, B, Tq, H, S, KVH, D, scale, s);
+    err = dispatch_kv<__nv_bfloat16>(a, kv_int8, D, s);
   else
     err = static_cast<int>(cudaErrorInvalidValue);
   if (err) return err;

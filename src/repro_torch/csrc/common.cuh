@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace rt {
 
@@ -25,6 +26,7 @@ template <> struct Acc<double> { using type = double; };
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ double to_f(double v) { return v; }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }  // exact
 
 // accumulator -> storage, rounded once (to nearest even, as torch's cast)
 template <typename T, typename A> __device__ __forceinline__ T from_f(A v) { return v; }

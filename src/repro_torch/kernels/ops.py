@@ -17,6 +17,10 @@ row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm gemm.cu's
 int8-B variant in the "nk" layout if the weight is stored transposed, else
 "kn".  Outputs are in the activation's dtype, summed and dequantized in
 max(f32, dtype); the two operands of a dual GEMM must share one spec.
+
+`flash_attention` also takes int8 K/V with per-(token, head) f32 scales and
+a page table over a page pool: a CUDA tensor goes to the one attention
+kernel in every form, a CPU tensor to its plain version.
 """
 
 from __future__ import annotations
@@ -56,9 +60,13 @@ def reference_mode():
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset; gemm_int8 counts the int8-B
-    variant reached from gemm and from bgemm."""
+    variant reached from gemm and from bgemm.  attention counts the dense
+    cache in the model dtype, attention_paged every launch through a page
+    table and attention_int8 every launch with int8 K/V (a paged int8
+    launch counts in both)."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
-            "attention": _attention.launches, "gemm": _gemm.launches,
+            "attention": _attention.launches, "attention_paged": _attention.launches_paged,
+            "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
             "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
             "gemv_int8": _gemv.launches_int8,
@@ -67,6 +75,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
+    _attention.launches_paged = _attention.launches_int8 = 0
     _gemm.launches = _gemv.launches = 0
     _blas1.reduce_launches = _blas1.axpy_launches = 0
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
@@ -227,30 +236,67 @@ def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
                          act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
 
 
-def flash_attention(q, k, v, *, kv_lens, kv_groups=1):
+def _check_side(name: str, what: str, t, dtype, device) -> None:
+    """An int32 or f32 side operand of the kernel: dtype, device, contiguity."""
+    if t.dtype != dtype or t.device != device:
+        raise TypeError(f"{name}: {what} must be {str(dtype).split('.')[1]} on {device}, "
+                        f"got {t.dtype} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=None,
+                    page_table=None):
     """Causal attention of q (B, Tq, H, D) over the cache layout k/v
     (B, S, H // kv_groups, D) -> (B, Tq, H, D).  kv_lens (B*H,) int32 is
     each (slot, head) row's real KV length (pos + Tq on the cached paths);
-    keys at or past it are masked and their V rows zeroed."""
+    keys at or past it are masked and their V rows zeroed.
+
+    page_table (B, max_pages) int32: k/v are the page pool
+    (num_pages, P, H // kv_groups, D) and slot b's logical key s lives at
+    pool[page_table[b, s // P], s % P].  int8 k/v need both k_scales and
+    v_scales, f32 in k's layout with D -> 1; otherwise k/v are q's dtype."""
+    name = "flash_attention"
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention wants 4-D cache-layout operands, got "
+        raise ValueError(f"{name} wants 4-D cache-layout operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, tq, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or k.shape[2] * kv_groups != h:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q "
+    if (page_table is None and k.shape[0] != b) or k.shape[3] != d or k.shape[2] * kv_groups != h:
+        raise ValueError(f"{name}: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)} with kv_groups={kv_groups}")
-    _check_shape("flash_attention", "kv_lens", kv_lens, (b * h,))
-    if kv_lens.dtype != torch.int32 or kv_lens.device != q.device:
-        raise TypeError("flash_attention: kv_lens must be int32 on q's device")
-    _check("flash_attention", q, k=k, v=v)
-    if not kv_lens.is_contiguous():
-        raise ValueError("flash_attention: kv_lens must be contiguous")
+    _check_shape(name, "kv_lens", kv_lens, (b * h,))
+    _check_side(name, "kv_lens", kv_lens, torch.int32, q.device)
+    if page_table is not None:
+        if page_table.ndim != 2 or page_table.shape[0] != b:
+            raise ValueError(f"{name}: page_table {tuple(page_table.shape)} is not "
+                             f"(B={b}, max_pages)")
+        _check_side(name, "page_table", page_table, torch.int32, q.device)
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: int8 K/V need both k_scales and v_scales")
+    if k_scales is not None:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError(f"{name}: k_scales/v_scales come with int8 k/v, got "
+                            f"{k.dtype} and {v.dtype}")
+        for what, t, vals in (("k_scales", k_scales, k), ("v_scales", v_scales, v)):
+            _check_shape(name, what, t, tuple(vals.shape[:3]) + (1,))
+            _check_side(name, what, t, torch.float32, q.device)
+            _check_side(name, what[0], vals, torch.int8, q.device)
+        _check(name, q)
+    else:
+        _check(name, q, k=k, v=v)
+    if page_table is not None or k_scales is not None:
+        for what, t in (("k", k), ("v", v)):  # the kernel stages 4 elements a load
+            if t.data_ptr() % (4 * t.element_size()):
+                raise ValueError(f"{name}: paged or int8 {what} must start on a "
+                                 f"{4 * t.element_size()}-byte boundary")
     if not _use_kernel(q):
-        return _attention.reference(q, k, v, kv_lens)
+        return _attention.reference(q, k, v, kv_lens, k_scales=k_scales, v_scales=v_scales,
+                                    page_table=page_table)
     if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention kernel: head dim {d} not in {_HEAD_DIMS}")
+        raise NotImplementedError(f"{name} kernel: head dim {d} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
-    return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype])
+    return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype],
+                             k_scales=k_scales, v_scales=v_scales, page_table=page_table)
 
 
 # --------------------------------------------------------------------------

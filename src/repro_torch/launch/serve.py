@@ -1,12 +1,12 @@
 """Batched greedy serving driver: the continuous-batching scheduler.
 
-Mirrors `repro.launch.serve` (`serve`, `_serve_continuous`, the CLI) for a
-dense KV cache in the model dtype at tp=1.  A fixed grid of `batch` slots
-shares one (batch x max_len) KV cache; the moment a sequence finishes its
-slot is freed and the next pending request (strict FIFO) is admitted at the
-next step boundary.  Admission runs one prefill on the fixed grid shape per
-distinct prompt length, padding rows included, and grafts the prefilled rows
-into the freed slots; decode is one masked step over every slot.
+Mirrors `repro.launch.serve` (`serve`, `_serve_continuous`, the CLI) at
+tp=1.  A fixed grid of `batch` slots shares one KV cache; the moment a
+sequence finishes its slot is freed and the next pending request (strict
+FIFO) is admitted at the next step boundary.  Admission runs one prefill on
+the fixed grid shape per distinct prompt length, padding rows included, and
+grafts the prefilled rows into the freed slots; decode is one masked step
+over every slot.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
@@ -17,6 +17,24 @@ before the timed region: decode then streams 1 byte a weight through the
 packed bgemv kernel and prefill runs the int8-B bgemm, both dequantizing in
 f32 (W8A16, as the reference's pallas backend).
 
+`kv_cache="int8"` (`--kv-cache int8`) stores K and V as int8 with one f32
+scale per (token, head) (`core.quant.quantize_kv`), the admission prefill's
+cache included, and attention dequantizes them in-kernel.
+
+`kv_page_size=P` (`--kv-page-size P`) stores the cache PAGED: a pool of
+P-token pages and a (batch, max_pages) page table, with the reference's
+admission policy (`launch/paging.py` keeps the books on the host).  A prompt
+is hashed page by page against the prompts admitted before it
+(`prefix_reuse`, `--prefix-reuse on|off`): a matched prefix is backed by
+the same physical pages, only the unshared suffix is grafted into the pool,
+and the first write into a shared page copies it.  Slots grow their page
+run on demand; admission blocks at the allocator's watermark, a failed
+growth preempts the newest admission, whose request is re-queued and
+recomputed bit for bit from prompt + emitted tokens, and a request no pool
+could hold is "rejected".  `pool_pages` (`--pool-pages`) shrinks the pool
+to make that happen.  Every paged serve ends with the allocator's leak
+check.
+
 Runs on the card unless asked for the CPU (`device="cpu"`, `--device cpu`),
 where every kernel is replaced by its plain PyTorch version.
 """
@@ -25,12 +43,14 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.launch import paging
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf
@@ -49,25 +69,31 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size,
-                 deadline_ms, faults, speculate, tp) -> None:
-    """Options of the reference's serve() that this port does not run yet
-    raise, naming the ROADMAP §1 item that will port them."""
+def _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size, pool_pages,
+                 deadline_ms, faults, speculate, check_invariants, tp) -> None:
+    """Validate the options; those of the reference's serve() that this port
+    does not run yet raise, naming the ROADMAP §1 item that will port them."""
     if scheduler not in ("continuous", "batch"):
         raise ValueError(f"scheduler must be 'continuous' or 'batch', got {scheduler!r}")
     if quantize not in ("none", "int8"):
         raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
     if kv_cache not in ("model", "int8"):
         raise ValueError(f"kv_cache must be 'model' or 'int8', got {kv_cache!r}")
+    if kv_page_size is not None and kv_page_size < 1:
+        raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
+    if pool_pages is not None:
+        if kv_page_size is None:
+            raise ValueError("pool_pages sizes the paged pool and needs kv_page_size")
+        if pool_pages < 2:
+            raise ValueError(f"pool_pages needs >= 2 (trash + 1 allocatable), got {pool_pages}")
     unported = [
         (scheduler == "batch", "scheduler='batch'", 1),
-        (kv_cache == "int8", "kv_cache='int8'", 2),
-        (kv_page_size is not None, "kv_page_size", 2),
-        (prefill_chunk is not None, "prefill_chunk", 3),
-        (speculate is not None, "speculate", 3),
-        (faults is not None, "faults", 3),
-        (deadline_ms is not None, "deadline_ms", 3),
-        (tp != 1, "tp > 1", 4),
+        (prefill_chunk is not None, "prefill_chunk", 2),
+        (speculate is not None, "speculate", 2),
+        (faults is not None, "faults", 2),
+        (deadline_ms is not None, "deadline_ms", 2),
+        (check_invariants, "check_invariants", 2),
+        (tp != 1, "tp > 1", 3),
     ]
     for hit, what, item in unported:
         if hit:
@@ -81,7 +107,9 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
           prompts: Optional[Sequence[np.ndarray]] = None,
           quantize: str = "none", kv_cache: str = "model",
           prefill_chunk: Optional[int] = None,
-          kv_page_size: Optional[int] = None, deadline_ms=None, faults=None,
+          kv_page_size: Optional[int] = None, prefix_reuse: bool = True,
+          deadline_ms=None, pool_pages: Optional[int] = None,
+          check_invariants: bool = False, faults=None,
           speculate: Optional[int] = None, tp: int = 1,
           params: Optional[dict] = None, device="cuda"):
     """Serve `requests` prompts through greedy decode on `device`.
@@ -90,19 +118,32 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
     e.g. from models.convert) replaces the seeded random init, which
     otherwise mirrors the reference's distributions.  quantize="int8" packs
     the projection weights (validated: a NaN/Inf weight raises) before the
-    timed region, as the reference's _quantize_params does.  gen_lens gives
-    per-request budgets (a budget < 1 still yields the prefill token);
-    eos=-1 disables early stopping.
+    timed region, as the reference's _quantize_params does.
+    kv_cache="int8" stores the KV cache as int8 with one f32 scale per
+    (token, head), written in lockstep and read by the int8 attention body.
+    kv_page_size stores it paged (see the module docstring); prefix_reuse
+    shares matched prompt prefixes, pool_pages sizes the pool (default: no
+    exhaustion possible).  gen_lens gives per-request budgets (a budget < 1
+    still yields the prefill token); eos=-1 disables early stopping.
 
     Returns stats: completed / tokens / prefills / decode_steps counters,
     tok_s, elapsed_s, mean live-slot `occupancy`, per-request `ttft`
     (seconds to the first token), `outputs` (greedy token ids per request,
-    in submission order) and per-request admit/finish decode-step indices.
-    Kernel builds and first launches run before the timed region.
+    in submission order), per-request admit/finish decode-step indices and
+    terminal `status` ("ok", "preempted_resumed" or "rejected"), the
+    `preemptions` / `rejections` counts, and per request `admitted_at`, the
+    number of tokens it had emitted at each of its admissions ([0] unless
+    preempted).  A paged serve adds
+    `kv_page_size` and the run's peak `pages_live`, `pages_shared` and
+    `paged_capacity_multiplier` (logical / physical pages), and
+    `cow_copies`.  Kernel builds and first launches run before the timed
+    region.
     """
     cfg = get_config(arch, variant)
-    _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size,
-                 deadline_ms, faults, speculate, tp)
+    _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size, pool_pages,
+                 deadline_ms, faults, speculate, check_invariants, tp)
+    if kv_cache == "int8":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     if prompts is not None:
@@ -125,76 +166,320 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
             params = tf.init_params(cfg, seed, dev)
         if quantize == "int8":
             params = layers.quantize_weights(params)
-        stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev)
+        stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev,
+                                  page_size=kv_page_size, prefix_reuse=prefix_reuse,
+                                  pool_pages=pool_pages)
     if verbose:
+        paged_info = ""
+        if "pages_live" in stats:
+            paged_info = (f", pages {stats['pages_live']} live / {stats['pages_shared']} "
+                          f"shared, {stats['cow_copies']} CoW, capacity "
+                          f"x{stats['paged_capacity_multiplier']:.2f}")
+        if stats["preemptions"] or stats["rejections"]:
+            paged_info += (f", {stats['preemptions']} preemptions / "
+                           f"{stats['rejections']} rejections")
         print(f"[serve] {arch} ({scheduler}): {stats['completed']} requests, "
               f"{stats['tokens']} tokens in {stats['elapsed_s']:.2f}s -> "
               f"{stats['tok_s']:.1f} tok/s ({stats['prefills']} prefills, "
               f"{stats['decode_steps']} decode steps, "
-              f"occupancy {stats['occupancy']:.2f})", flush=True)
+              f"occupancy {stats['occupancy']:.2f}{paged_info})", flush=True)
     return stats
 
 
 def _new_stats(nreq: int) -> dict:
     return {"completed": 0, "tokens": 0, "prefills": 0, "decode_steps": 0,
             "outputs": [[] for _ in range(nreq)], "ttft": [None] * nreq,
-            "admit_step": [None] * nreq, "finish_step": [None] * nreq}
+            "admit_step": [None] * nreq, "finish_step": [None] * nreq,
+            "status": [None] * nreq, "preemptions": 0, "rejections": 0,
+            "admitted_at": [[] for _ in range(nreq)]}
 
 
-def _record_token(stats: dict, rid: int, tok_val: int, eos: int, remaining: int) -> bool:
+def _record_token(stats: dict, rid: int, tok_val: int, eos: int, remaining: int,
+                  preempted: bool = False) -> bool:
     """Append one generated token; True if the request just finished (EOS,
-    or `remaining` <= 0 tokens of budget left after this one)."""
+    or `remaining` <= 0 tokens of budget left after this one), with status
+    "preempted_resumed" if it was ever preempted, else "ok"."""
     stats["outputs"][rid].append(tok_val)
     stats["tokens"] += 1
     if tok_val == eos or remaining <= 0:
         stats["finish_step"][rid] = stats["decode_steps"]
         stats["completed"] += 1
+        stats["status"][rid] = "preempted_resumed" if preempted else "ok"
         return True
     return False
 
 
-def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev) -> dict:
+def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None,
+                      prefix_reuse=True, pool_pages=None) -> dict:
     nreq = len(prompts)
     cache_len = max(len(p) + g for p, g in zip(prompts, gen_lens))
     prefill_fn = steps_lib.make_prefill_step(cfg)
     decode_fn = steps_lib.make_decode_step_slots(cfg)
-    # the admission prefill's scalar-pos cache: one buffer reused every
-    # round (keys past the prompt are masked by kv_lens, never read)
+    # the admission prefill's scalar-pos cache (int8 for an int8 KV cache):
+    # one buffer reused every round (keys past the prompt are masked by
+    # kv_lens, never read)
     mini_buf = tf.init_cache(cfg, batch, cache_len, device=dev)
 
     def mini():
-        return {"k": mini_buf["k"], "v": mini_buf["v"], "pos": 0}
+        return {**mini_buf, "pos": 0}
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    paged = page_size is not None
+    slot_kw = {}
+    if paged:
+        max_pages = -(-cache_len // page_size)
+        # the default pool cannot run out (every slot's capacity + slack);
+        # growth on demand means live pages track actual tokens, and a
+        # smaller pool_pages turns page pressure into backpressure and
+        # preemption
+        num_pages = pool_pages if pool_pages is not None else 1 + batch * (max_pages + 1)
+        slot_kw = dict(page_size=page_size, num_pages=num_pages)
+        alloc = paging.PageAllocator(num_pages, page_size)
+        slot_pages = [[] for _ in range(batch)]
+        # host mirror of the page table, copied to the card once per decode
+        # step when it changed
+        table = np.zeros((batch, max_pages), np.int32)
+        table_dirty = [False]
+
     # warm-up outside the timed region (kernel build, first launches) on a
     # throwaway slot cache; all-padding slots graft nothing
-    warm = tf.init_cache(cfg, batch, cache_len, per_slot=True, device=dev)
+    warm = tf.init_cache(cfg, batch, cache_len, per_slot=True, device=dev, **slot_kw)
     _, warm_mini = prefill_fn(params, zeros((batch, len(prompts[0])), torch.int32), mini())
-    tf.insert_slots_cache(warm, warm_mini, np.full(batch, -1))
+    if paged:
+        zc = zeros(1, torch.int64)
+        tf.graft_pages(warm, warm_mini, zc, zc, zc, zc)
+        tf.copy_pages(warm, zc, zc)
+    else:
+        tf.insert_slots_cache(warm, warm_mini, np.full(batch, -1))
     warm_tok, _ = decode_fn(params, zeros((batch, 1), torch.int32), warm,
                             zeros(batch, torch.bool))
     warm_tok.cpu()
     del warm, warm_mini, warm_tok
 
     pending = collections.deque(enumerate(prompts))  # FIFO
-    cache = tf.init_cache(cfg, batch, cache_len, per_slot=True, device=dev)
+    cache = tf.init_cache(cfg, batch, cache_len, per_slot=True, device=dev, **slot_kw)
     tok_dev = zeros((batch, 1), torch.int32)
     active = np.zeros(batch, bool)
     active_dev = zeros(batch, torch.bool)
     slot_req = np.full(batch, -1)
     slot_left = np.zeros(batch, np.int64)
+    slot_pos = np.zeros(batch, np.int64)        # next decode write position
+    slot_admit_seq = np.zeros(batch, np.int64)  # admission order (victim choice)
+    admit_seq = 0
+    preempted_ever = [False] * nreq
     stats = _new_stats(nreq)
+    if paged:
+        stats.update({"kv_page_size": page_size, "pages_live": 0, "pages_shared": 0,
+                      "paged_capacity_multiplier": 0.0, "cow_copies": 0})
     occ = []
+
+    def sample_pages():
+        """Fold the allocator's current occupancy into the run's peaks."""
+        stats["pages_live"] = max(stats["pages_live"], alloc.pages_live())
+        stats["pages_shared"] = max(stats["pages_shared"], alloc.pages_shared())
+        stats["paged_capacity_multiplier"] = max(stats["paged_capacity_multiplier"],
+                                                 alloc.capacity_multiplier())
+        stats["cow_copies"] = alloc.cow_copies
+
+    def set_table_row(s, pages):
+        table[s] = paging.TRASH_PAGE
+        table[s, :len(pages)] = pages
+        table_dirty[0] = True
+
+    def free_slot(s):
+        """Finish or preemption: release slot s's pages and point its table
+        row at the trash page, so its frozen masked writes never land in a
+        recycled page."""
+        active[s] = False
+        slot_req[s] = -1
+        if paged:
+            alloc.release(slot_pages[s])
+            slot_pages[s] = []
+            set_table_row(s, [])
+
+    def pick_victim():
+        """The newest admission among active slots that own a non-shared
+        page (releasing an all-shared slot reclaims nothing)."""
+        best, best_seq = None, -1
+        for s in range(batch):
+            if not active[s] or all(alloc.shared(p) for p in slot_pages[s]):
+                continue
+            if slot_admit_seq[s] > best_seq:
+                best, best_seq = s, slot_admit_seq[s]
+        return best
+
+    def preempt(s):
+        """Evict slot s and put its request back at the HEAD of the queue;
+        its re-admission prefills prompt + emitted tokens and goes on from
+        there (bit for bit only where prefill and decode round alike:
+        ROADMAP §3)."""
+        vid = slot_req[s]
+        stats["preemptions"] += 1
+        preempted_ever[vid] = True
+        free_slot(s)
+        pending.appendleft((vid, prompts[vid]))
+
+    def free_up(n_pages):
+        """Preempt victims until n_pages pages are free; False if no victim
+        is left."""
+        while alloc.free_pages() < n_pages:
+            v = pick_victim()
+            if v is None:
+                return False
+            preempt(v)
+        return True
+
+    def ensure_page(s):
+        """Grow slot s's page run to cover this step's write at slot_pos[s];
+        a failed allocation preempts a victim, possibly s itself."""
+        last_idx = int(slot_pos[s]) // page_size
+        while len(slot_pages[s]) <= last_idx:
+            while not alloc.free_pages():
+                v = pick_victim()
+                if v is None:
+                    raise paging.PoolExhausted(f"growth for slot {s}: no free page and no victim")
+                preempt(v)
+                if v == s:
+                    return
+            slot_pages[s].append(alloc.alloc(1)[0])
+            set_table_row(s, slot_pages[s])
+
+    def reclaimable():
+        """Pages preemption could free now: active slots' non-shared pages."""
+        return sum(1 for s in range(batch) if active[s]
+                   for p in slot_pages[s] if not alloc.shared(p))
+
+    def place_paged(group, slots, plen):
+        """Page-pointer admission of one prefilled group: match each prompt
+        against the registered prefixes, take fresh pages for the rest and
+        list the unshared suffix tokens to graft; then, once every member
+        has matched and registered, resolve each member's first-write page
+        (copy a shared one on write, unpublish an owned one).  Returns
+        (placed flags, requeued request ids, graft coordinates, CoW pairs)."""
+        need = plen // page_size + 1  # through the first decode write
+        placed, requeue = [True] * len(group), []
+        coords = ([], [], [], [])
+        cow = ([], [])
+        cow_reserve = 0  # pages earlier members' second-pass copies will take
+        for i, (s, rid, adm, n_em) in enumerate(group):
+            will_decode = gen_lens[rid] - n_em - 1 > 0
+            while True:
+                matched, covered = alloc.match_prefix(adm) if prefix_reuse else ([], 0)
+                # a matched partial page is an exact tail: it covers the
+                # whole prompt, so the graft never appends into a shared page
+                assert covered == plen or covered % page_size == 0, (covered, plen)
+                cow_tail = will_decode and covered == plen and plen % page_size != 0
+                need_new = need - len(matched) + (1 if cow_tail else 0)
+                if need_new + cow_reserve <= alloc.free_pages():
+                    break
+                if not free_up(need_new + cow_reserve):
+                    matched = None
+                    break
+                # victims may have freed registered pages: match again
+            if matched is None:
+                slots[i] = -1
+                placed[i] = False
+                requeue.append(rid)
+                continue
+            alloc.retain(matched)
+            plist = matched + alloc.alloc(need - len(matched))
+            if cow_tail:
+                cow_reserve += 1
+            if prefix_reuse:
+                alloc.register_prefix(adm, plist[:-(-plen // page_size)])
+            slot_pages[s] = plist
+            for p in range(covered, plen):
+                for c, val in zip(coords, (i, p, plist[p // page_size], p % page_size)):
+                    c.append(val)
+        widx = plen // page_size
+        for i, (s, rid, adm, n_em) in enumerate(group):
+            if not placed[i] or gen_lens[rid] - n_em - 1 <= 0:
+                continue
+            p = slot_pages[s][widx]
+            if alloc.shared(p):
+                newp = alloc.cow(p)
+                cow[0].append(p)
+                cow[1].append(newp)
+                slot_pages[s][widx] = newp
+            else:
+                alloc.invalidate(p)
+        for i, (s, _, _, _) in enumerate(group):
+            if placed[i]:
+                set_table_row(s, slot_pages[s])
+        return placed, requeue, coords, cow
+
+    def decode_round():
+        """One masked decode step over the slot grid, then the host's
+        bookkeeping.  A paged slot first grows its page run for this step's
+        write (which may preempt)."""
+        nonlocal tok_dev, cache, active_dev
+        if paged:
+            for s in range(batch):
+                if active[s]:
+                    ensure_page(s)
+            if table_dirty[0]:
+                cache["page_table"].copy_(torch.from_numpy(table))
+                table_dirty[0] = False
+        stepped = active.copy()
+        if not stepped.any():
+            return
+        if not np.array_equal(stepped, active_up):
+            active_dev = torch.from_numpy(stepped).to(dev)
+            active_up[:] = stepped
+        occ.append(stepped.sum() / batch)
+        tok_dev, cache = decode_fn(params, tok_dev, cache, active_dev)
+        tok_np = tok_dev.cpu().numpy()[:, 0]
+        stats["decode_steps"] += 1
+        for s in np.flatnonzero(stepped):
+            rid = slot_req[s]
+            slot_pos[s] += 1
+            slot_left[s] -= 1
+            if _record_token(stats, rid, int(tok_np[s]), eos, slot_left[s],
+                             preempted=preempted_ever[rid]):
+                free_slot(s)
+        if paged:
+            sample_pages()
+
+    active_up = active.copy()  # the mask last copied to active_dev
     t0 = time.time()
     while pending or active.any():
-        # admission: every free slot takes the next pending request
-        admits = []
+        # admission: every free slot takes the next pending request (strict
+        # FIFO).  Paged: the head blocks at the allocator's watermark (free
+        # + reclaimable pages: backpressure, never skip-ahead), and a
+        # request no pool could hold is rejected.  A preempted request is
+        # admitted again with its prompt + emitted tokens.
+        admits = []  # (slot, rid, admission prompt, tokens already emitted)
+        reserved = 0  # pages this round's earlier picks will allocate
+        blocked = False
         for s in range(batch):
-            if not active[s] and pending:
-                rid, prompt = pending.popleft()
-                admits.append((s, rid, prompt))
+            if active[s] or blocked:
+                continue
+            while pending:
+                rid, base = pending[0]
+                em = stats["outputs"][rid]
+                adm = np.concatenate([base, np.asarray(em, np.int32)]) if em else base
+                if paged:
+                    need = len(adm) // page_size + 1
+                    if need > num_pages - 1:
+                        pending.popleft()
+                        stats["status"][rid] = "rejected"
+                        stats["rejections"] += 1
+                        continue
+                    matched, covered = (alloc.match_prefix(adm) if prefix_reuse
+                                        else ([], 0))
+                    need_new = need - len(matched)
+                    if covered == len(adm) and len(adm) % page_size:
+                        need_new += 1  # the first decode write copies the tail
+                    if not alloc.can_admit(page_size * (need_new + reserved),
+                                           reclaimable=reclaimable()):
+                        blocked = True
+                        break
+                    reserved += need_new
+                pending.popleft()
+                admits.append((s, rid, adm, len(em)))
+                break
         by_len = {}
         for adm in admits:
             by_len.setdefault(len(adm[2]), []).append(adm)
@@ -202,41 +487,60 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev) -> dict:
             group = by_len[plen]
             block = np.zeros((batch, plen), np.int32)
             slots = np.full(batch, -1, np.int64)
-            for i, (s, _, prompt) in enumerate(group):
-                block[i] = prompt
+            for i, (s, _, adm, _) in enumerate(group):
+                block[i] = adm
                 slots[i] = s
             tok0, filled = prefill_fn(params, torch.from_numpy(block).to(dev), mini())
             stats["prefills"] += 1
-            tf.insert_slots_cache(cache, filled, slots)
-            g = len(group)
-            tok_dev[torch.from_numpy(slots[:g]).to(dev)] = tok0[:g]
+            placed = [True] * len(group)
+            if paged:
+                placed, requeue, coords, cow = place_paged(group, slots, plen)
+                rows = [i for i in range(len(group)) if placed[i]]
+                if rows:
+                    cache["pos"][torch.from_numpy(slots[rows]).to(dev)] = plen
+                if cow[0]:
+                    # matched pages are resident: copy before the graft,
+                    # which only writes fresh pages
+                    tf.copy_pages(cache, *(torch.tensor(c, device=dev) for c in cow))
+                if coords[0]:
+                    tf.graft_pages(cache, filled,
+                                   *(torch.tensor(c, device=dev) for c in coords))
+                for rid in reversed(requeue):
+                    pending.appendleft((rid, prompts[rid]))
+            else:
+                rows = list(range(len(group)))
+                tf.insert_slots_cache(cache, filled, slots)
+            rows_dev = torch.tensor(rows, device=dev)
+            tok_dev[torch.from_numpy(slots[rows]).to(dev)] = tok0[rows_dev]
             tok0_np = tok0.cpu().numpy()[:, 0]  # sync before stamping TTFT
             t_first = time.time() - t0
-            for i, (s, rid, _) in enumerate(group):
-                stats["ttft"][rid] = t_first
-                stats["admit_step"][rid] = stats["decode_steps"]
-                rem = gen_lens[rid] - 1
-                if not _record_token(stats, rid, int(tok0_np[i]), eos, rem):
+            for i, (s, rid, _, n_em) in enumerate(group):
+                if not placed[i]:
+                    continue
+                stats["admitted_at"][rid].append(n_em)
+                if stats["ttft"][rid] is None:  # a resumed request keeps its first
+                    stats["ttft"][rid] = t_first
+                    stats["admit_step"][rid] = stats["decode_steps"]
+                rem = gen_lens[rid] - n_em - 1
+                if not _record_token(stats, rid, int(tok0_np[i]), eos, rem,
+                                     preempted=preempted_ever[rid]):
                     active[s] = True
                     slot_req[s] = rid
                     slot_left[s] = rem
-            active_dev = torch.from_numpy(active.copy()).to(dev)
+                    slot_pos[s] = plen
+                    slot_admit_seq[s] = admit_seq
+                    admit_seq += 1
+                elif paged:
+                    free_slot(s)  # finished on its prefill token
+            if paged:
+                sample_pages()
         if not active.any():
             continue  # every admitted request finished on its prefill token
-        # one masked decode step over the whole slot grid
-        stepped = active.copy()
-        occ.append(stepped.sum() / batch)
-        tok_dev, cache = decode_fn(params, tok_dev, cache, active_dev)
-        tok_np = tok_dev.cpu().numpy()[:, 0]
-        stats["decode_steps"] += 1
-        for s in np.flatnonzero(stepped):
-            slot_left[s] -= 1
-            if _record_token(stats, slot_req[s], int(tok_np[s]), eos, slot_left[s]):
-                active[s] = False
-                slot_req[s] = -1
-        if not np.array_equal(active, stepped):
-            active_dev = torch.from_numpy(active.copy()).to(dev)
+        decode_round()
     dt = time.time() - t0
+    if paged:
+        sample_pages()
+        alloc.leak_check()  # every page back on the free list
     stats["elapsed_s"] = dt
     stats["tok_s"] = stats["tokens"] / dt if dt > 0 else 0.0
     stats["occupancy"] = float(np.mean(occ)) if occ else 0.0
@@ -257,13 +561,25 @@ def main(argv=None):
                     help="continuous: slot-level admission (batch: not ported yet)")
     ap.add_argument("--quantize", default="none", choices=("none", "int8"),
                     help="int8: block-scaled int8 projection weights (W8A16)")
+    ap.add_argument("--kv-cache", default="model", choices=("model", "int8"),
+                    help="int8: int8 KV cache with one f32 scale per (token, head)")
+    ap.add_argument("--kv-page-size", type=int, default=0,
+                    help="store the KV cache paged, pages of this many tokens "
+                         "(0 = dense per-slot cache)")
+    ap.add_argument("--prefix-reuse", default="on", choices=("on", "off"),
+                    help="paged: back a matched prompt prefix with the same pages")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="paged pool size (0 = sized so it cannot run out); small "
+                         "pools block admission and preempt")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
     return serve(args.arch, args.variant, args.requests, args.batch,
                  args.prompt_len, args.gen, seed=args.seed,
-                 scheduler=args.scheduler, quantize=args.quantize, device=args.device)
-
+                 scheduler=args.scheduler, quantize=args.quantize, kv_cache=args.kv_cache,
+                 kv_page_size=args.kv_page_size or None,
+                 prefix_reuse=args.prefix_reuse == "on",
+                 pool_pages=args.pool_pages or None, device=args.device)
 
 if __name__ == "__main__":
     main()

@@ -29,6 +29,9 @@ def make_decode_step_slots(cfg: ModelConfig):
     every projection stays one broadcast-weight bgemv launch at any
     occupancy.  Inactive slots' positions are frozen: a freed slot neither
     advances nor overflows its KV row while it waits for the next admission.
+    The cache may be dense or paged, in the model dtype or int8; a freed
+    paged slot's table row points at the trash page (the scheduler's job),
+    so its masked write lands there.
     """
 
     def decode_step_slots(params, token, cache, active):

@@ -1,11 +1,13 @@
 """Transformer layers of the dense family.  Every projection routes through
 core.blas, every attention through the flash kernel.
 
-Mirrors `repro.models.layers` (norms, rope, GQA attention over a dense
-cache, SwiGLU MLP, embedding).  Params are plain dicts of tensors with the
-reference's names and layouts: weights (d_in, d_out), cache (B, S, KVH, hd),
-q/k/v (B, T, H, hd).  Unlike the reference, the KV cache is written IN
-PLACE (`_cache_write`): the returned cache holds the same buffers.
+Mirrors `repro.models.layers` (norms, rope, GQA attention over a dense or
+paged KV cache in the model dtype or int8, SwiGLU MLP, embedding).  Params
+are plain dicts of tensors with the reference's names and layouts: weights
+(d_in, d_out), cache (B, S, KVH, hd) or a page pool (num_pages, page_size,
+KVH, hd), q/k/v (B, T, H, hd).  Unlike the reference, the KV cache is
+written IN PLACE (`_cache_write`, `_paged_cache_write`): the returned cache
+holds the same buffers.
 """
 
 from __future__ import annotations
@@ -163,6 +165,50 @@ def _cache_write(buf, new, pos) -> None:
     buf[torch.arange(b, device=buf.device)[:, None], idx] = new
 
 
+def _cache_write_kv(bufs: tuple, qt: quant.QuantizedTensor, pos) -> None:
+    """Write a freshly quantized K or V block (quant.quantize_kv of the new
+    (B, T, H, hd) block) into the int8 value buffer and its f32 scale buffer
+    (B, S, H, 1) IN PLACE, at the same offsets: a value row never lands
+    without its scale."""
+    vbuf, sbuf = bufs
+    _cache_write(vbuf, qt.values, pos)
+    _cache_write(sbuf, qt.scales, pos)
+
+
+def _paged_write_coords(page_table, pos, t: int, page_size: int) -> tuple:
+    """(pages, offs) flat scatter coordinates (B*T,) for writing a (B, T)
+    token block through the page table: token (b, i) at logical position
+    pos_b + i lands in pool page page_table[b, (pos_b + i) // page_size] at
+    row (pos_b + i) % page_size.  An int pos broadcasts (prefill), a (B,)
+    pos is the ragged slot grid.  The page index is clipped to the table
+    (the reference's mode="clip"), so even an at-capacity frozen slot
+    writes in bounds; dead entries point at the trash page."""
+    b, max_pages = page_table.shape
+    steps = torch.arange(t, device=page_table.device)
+    if isinstance(pos, int):
+        posk = (steps + pos)[None, :].expand(b, t)
+    else:
+        posk = pos.to(torch.int64)[:, None] + steps[None, :]
+    idx = torch.clamp(posk // page_size, 0, max_pages - 1)
+    pages = torch.gather(page_table.to(torch.int64), 1, idx)
+    return pages.reshape(-1), (posk % page_size).reshape(-1)
+
+
+def _paged_cache_write(buf, new, pages, offs) -> None:
+    """Scatter `new` (B, T, H, ...) into the page pool `buf`
+    (num_pages, page_size, H, ...) IN PLACE at the flat (pages, offs)
+    coordinates."""
+    buf[pages, offs] = new.reshape((-1,) + tuple(new.shape[2:])).to(buf.dtype)
+
+
+def _paged_cache_write_kv(bufs: tuple, qt: quant.QuantizedTensor, pages, offs) -> None:
+    """Paged `_cache_write_kv`: int8 values and their scales scatter through
+    the same page-table coordinates."""
+    vbuf, sbuf = bufs
+    _paged_cache_write(vbuf, qt.values, pages, offs)
+    _paged_cache_write(sbuf, qt.scales, pages, offs)
+
+
 def _expand_kv_lens(pos, t: int, b: int, h: int, device):
     """Per-(slot, head) real KV length after this step's write: pos + t."""
     if isinstance(pos, int):
@@ -172,11 +218,20 @@ def _expand_kv_lens(pos, t: int, b: int, h: int, device):
 
 def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
                     cache: Optional[dict] = None, residual=None):
-    """Returns (out, new_cache).  With a cache {"k", "v": (B, S, KVH, hd),
-    "pos": int | (B,)}, x is the new-token block appended at pos (each slot
-    at its own position for a (B,) pos); the write is in place and
-    new_cache["pos"] is pos + T.  `residual` is added in the output
-    projection's epilogue, so `out` already includes it."""
+    """Returns (out, new_cache).  With a cache {"k", "v", "pos": int | (B,)},
+    x is the new-token block appended at pos (each slot at its own position
+    for a (B,) pos); writes are in place and new_cache["pos"] is pos + T.
+    The cache is one of three forms, as in the reference:
+
+    - paged: "page_table" (B, max_pages) int32 and k/v the page pool
+      (num_pages, page_size, KVH, hd); int8 pools carry "k_scale"/"v_scale"
+      (num_pages, page_size, KVH, 1) f32 beside them;
+    - dense int8: k/v (B, S, KVH, hd) int8 with "k_scale"/"v_scale";
+    - dense in the model dtype: k/v (B, S, KVH, hd).
+
+    The roped, un-expanded (B, T, KVH, hd) K/V blocks reach the write; int8
+    caches quantize them per (token, head) first.  `residual` is added in
+    the output projection's epilogue, so `out` already includes it."""
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     if cfg.use_bias:
@@ -192,17 +247,38 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
     v = v.reshape(b, t, kv, hd)
 
     new_cache = None
+    scales = {}
+    page_table = None
     if cache is not None:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        _cache_write(ck, k.to(ck.dtype), pos)
-        _cache_write(cv, v.to(cv.dtype), pos)
-        new_cache = {"k": ck, "v": cv, "pos": pos + t}
+        int8 = ck.dtype == torch.int8
+        if int8:
+            kq, vq = quant.quantize_kv(k), quant.quantize_kv(v)
+            scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+        page_table = cache.get("page_table")
+        if page_table is not None:
+            pages, offs = _paged_write_coords(page_table, pos, t, ck.shape[1])
+            if int8:
+                _paged_cache_write_kv((ck, scales["k_scale"]), kq, pages, offs)
+                _paged_cache_write_kv((cv, scales["v_scale"]), vq, pages, offs)
+            else:
+                _paged_cache_write(ck, k, pages, offs)
+                _paged_cache_write(cv, v, pages, offs)
+        elif int8:
+            _cache_write_kv((ck, scales["k_scale"]), kq, pos)
+            _cache_write_kv((cv, scales["v_scale"]), vq, pos)
+        else:
+            _cache_write(ck, k.to(ck.dtype), pos)
+            _cache_write(cv, v.to(cv.dtype), pos)
+        new_cache = {"k": ck, "v": cv, **scales, "pos": pos + t}
         lens = _expand_kv_lens(pos, t, b, h, x.device)
     else:
         ck, cv = k, v
         lens = torch.full((b * h,), t, dtype=torch.int32, device=x.device)
-    out = ops.flash_attention(q, ck, cv, kv_lens=lens, kv_groups=h // kv)
+    out = ops.flash_attention(q, ck, cv, kv_lens=lens, kv_groups=h // kv,
+                              k_scales=scales.get("k_scale"),
+                              v_scales=scales.get("v_scale"), page_table=page_table)
     out = blas.matmul_fused(out.reshape(b, t, h * hd), params["wo"], residual=residual)
     return out, new_cache
 

@@ -3,13 +3,16 @@
 Mirrors `repro.models.transformer` for the dense family.  Params are a dict
 with the reference's leaf names; where the reference stacks layers along a
 leading axis for `lax.scan`, the port keeps a Python list of per-layer dicts
-and loops over it.  The cache keeps the reference layout, (L, B, S, KVH, hd)
-per K and V, and is updated IN PLACE: every function that takes a cache
-returns a dict over the same buffers.
+and loops over it.  The cache keeps the reference layouts: (L, B, S, KVH,
+hd) per K and V dense, or (L, num_pages, page_size, KVH, hd) paged with a
+(B, max_pages) page table; int8 values with (..., 1) f32 scales when
+cfg.kv_cache_dtype is "int8".  It is updated IN PLACE: every function that
+takes a cache returns a dict over the same buffers.
 
 Public API:
     init_params(cfg, seed, device)        -> params
-    init_cache(cfg, batch, max_len, ...)  -> cache
+    init_cache(cfg, batch, max_len, ...)  -> cache (dense or paged)
+    insert_slots_cache / graft_pages / copy_pages -> admission and CoW
     forward(params, tokens, cfg, cache)   -> (hidden (B, T, d), cache)
     prefill(params, tokens, cache, cfg)   -> (last-position logits (B, V), cache)
     decode_step(params, token, cache, cfg)-> (logits (B, V), cache)
@@ -30,7 +33,7 @@ def check_supported(cfg: ModelConfig) -> None:
         "family": cfg.family != "dense",
         "qk_norm": cfg.qk_norm,
         "parallel_block": cfg.parallel_block,
-        "kv_cache_dtype": cfg.kv_cache_dtype != "model",
+        "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
         "weight_dtype": cfg.weight_dtype != "model",
     }
     bad = [k for k, v in unported.items() if v]
@@ -99,10 +102,17 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
     else:
         # per-slot serving cache: each slot at its own ragged position
         positions = pos.to(torch.int64)[:, None] + steps[None, :]
+    keys = [k for k in _KV_KEYS if cache is not None and k in cache]
     for i, lp in enumerate(params["layers"]):
-        lc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
+        lc = None
+        if cache is not None:
+            # one page table serves every layer; each layer sees its slice
+            # of the buffers
+            lc = {**{k: cache[k][i] for k in keys}, "pos": pos}
+            if "page_table" in cache:
+                lc["page_table"] = cache["page_table"]
         x, _ = dense_block(lp, x, cfg, positions=positions, cache=lc)
-    new_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "pos": pos + t}
+    new_cache = None if cache is None else {**cache, "pos": pos + t}
     return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
 
 
@@ -121,31 +131,76 @@ def _logits_chunk(params, x, cfg: ModelConfig):
 # Decode path
 # --------------------------------------------------------------------------
 
+#: per-layer cache buffers: values, and the int8 cache's f32 scales
+_KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
-               device="cuda") -> dict:
-    """Zeroed dense KV cache.  per_slot=True gives a (batch,) int32 "pos"
+               page_size: int = 0, num_pages=None, device="cuda") -> dict:
+    """Zeroed KV cache.  per_slot=True gives a (batch,) int32 "pos"
     (continuous batching: every slot at its own position); otherwise "pos"
-    is a Python int shared by every row."""
+    is a Python int shared by every row.
+
+    page_size > 0 gives the paged form: a pool (L, num_pages, page_size,
+    KVH, hd) per K and V and a (batch, ceil(max_len / page_size)) int32
+    "page_table" whose entries start at the trash page 0; num_pages
+    defaults to 1 + batch * max_pages, dense capacity plus the trash page.
+    cfg.kv_cache_dtype == "int8" stores int8 values with "k_scale" /
+    "v_scale" buffers of the same shape with hd -> 1, f32."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "pos": torch.zeros(batch, dtype=torch.int32, device=device) if per_slot else 0,
-    }
+    if page_size:
+        max_pages = -(-max_len // page_size)
+        if num_pages is None:
+            num_pages = 1 + batch * max_pages
+        shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv, cfg.hd)
+    else:
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        cache = {key: torch.zeros(shape, dtype=torch.int8, device=device) for key in "kv"}
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)
+    else:
+        cache = {key: torch.zeros(shape, dtype=cfg.torch_dtype, device=device) for key in "kv"}
+    if page_size:
+        cache["page_table"] = torch.zeros((batch, max_pages), dtype=torch.int32, device=device)
+    cache["pos"] = torch.zeros(batch, dtype=torch.int32, device=device) if per_slot else 0
+    return cache
 
 
 def insert_slots_cache(cache: dict, mini: dict, slots) -> dict:
     """Graft rows of a freshly prefilled scalar-pos cache into serving slots,
-    IN PLACE.  Row i of `mini` replaces slot slots[i] wholesale and sets that
-    slot's pos to mini's pos; slots[i] < 0 marks a padding row, dropped."""
+    IN PLACE.  Row i of `mini` replaces slot slots[i] wholesale (values and,
+    for an int8 cache, scales) and sets that slot's pos to mini's pos;
+    slots[i] < 0 marks a padding row, dropped."""
     slots = torch.as_tensor(slots, dtype=torch.int64)
     rows = torch.nonzero(slots >= 0).flatten()
     dst = slots[rows].to(cache["k"].device)
     rows = rows.to(cache["k"].device)
-    for key in ("k", "v"):
-        cache[key][:, dst] = mini[key][:, rows].to(cache[key].dtype)
+    for key in _KV_KEYS:
+        if key in cache:
+            cache[key][:, dst] = mini[key][:, rows].to(cache[key].dtype)
     cache["pos"][dst] = mini["pos"]
+    return cache
+
+
+def graft_pages(cache: dict, mini: dict, rows, toks, pages, offs) -> dict:
+    """Graft admission-prefill tokens into the paged pool, IN PLACE, token by
+    token: token i copies mini row rows[i], position toks[i] (every layer,
+    values and scales alike) into pool page pages[i] at row offs[i].  The
+    scheduler lists only the unshared suffix of each admitted prompt: a
+    matched prefix is page-table pointers and never touches the pool."""
+    for key in _KV_KEYS:
+        if key in cache:
+            cache[key][:, pages, offs] = mini[key][:, rows, toks].to(cache[key].dtype)
+    return cache
+
+
+def copy_pages(cache: dict, src, dst) -> dict:
+    """Copy-on-write: duplicate pool pages `src` into `dst` across every
+    layer (values and scales alike), IN PLACE."""
+    for key in _KV_KEYS:
+        if key in cache:
+            cache[key][:, dst] = cache[key][:, src]
     return cache
 
 

@@ -87,6 +87,101 @@ def test_attention_kernel_matches_plain(cuda, dtype, d):
     _against_plain(lambda: ops.flash_attention(q, kv, kv, kv_lens=lens, kv_groups=2), dtype)
 
 
+def _kv_case(gen, dtype, int8, page_size, *, tq=1, h=4, kvh=2, d=64, lens=(37, 20, 9)):
+    """q (B, Tq, H, D) and a dense cache (B, S, KVH, D), S = max(lens), in
+    `dtype` or int8 with per-(token, head) scales, garbage past each slot's
+    length (NaN values, or random int8 under NaN scales).  With page_size
+    the same keys also sit in a pool under a shuffled table whose dead
+    entries, like serving's, point at the trash page 0 (garbage too).
+    Returns (q, cache operands, paged operands or None, kv_lens)."""
+    b, s = len(lens), max(lens)
+    q = _rand(gen, dtype, b, tq, h, d)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+    dense = {}
+    for name in "kv":
+        x = _rand(gen, torch.float32, b, s, kvh, d)
+        if int8:
+            qt = quant.quantize_kv(x)
+            vals, sc = qt.values, qt.scales
+            for i, n in enumerate(lens):
+                vals[i, n:] = torch.randint(-127, 128, vals[i, n:].shape, generator=gen,
+                                            device="cuda", dtype=torch.int8)
+                sc[i, n:] = float("nan")
+            dense[name], dense[name + "_scales"] = vals, sc
+        else:
+            x = x.to(dtype)
+            for i, n in enumerate(lens):
+                x[i, n:] = float("nan")
+            dense[name] = x
+    if page_size is None:
+        return q, dense, None, kv_lens
+    max_pages = -(-s // page_size)
+    num_pages = 1 + b * max_pages + 3  # spare pages hold garbage too
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda")[:b * max_pages] + 1
+    table = perm.reshape(b, max_pages).to(torch.int32)
+    for i, n in enumerate(lens):
+        table[i, -(-n // page_size):] = 0
+    paged = {"page_table": table}
+    for name, t in dense.items():
+        pool = torch.full((num_pages, page_size) + tuple(t.shape[2:]), float("nan"),
+                          device="cuda")
+        pool = pool.to(t.dtype) if t.dtype != torch.int8 else torch.randint(
+            -127, 128, pool.shape, generator=gen, device="cuda", dtype=torch.int8)
+        padded = torch.zeros((b, max_pages * page_size) + tuple(t.shape[2:]),
+                             dtype=t.dtype, device="cuda")
+        padded[:, :s] = t
+        for i, n in enumerate(lens):
+            for j in range(-(-n // page_size)):
+                pool[table[i, j]] = padded[i, j * page_size:(j + 1) * page_size]
+        paged[name] = pool
+    return q, dense, paged, kv_lens
+
+
+def _attend(q, ops_kw, kv_lens, groups):
+    return ops.flash_attention(q, ops_kw["k"], ops_kw["v"], kv_lens=kv_lens, kv_groups=groups,
+                               k_scales=ops_kw.get("k_scales"), v_scales=ops_kw.get("v_scales"),
+                               page_table=ops_kw.get("page_table"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [None, 1, 4, 7, 16])
+@pytest.mark.parametrize("d,kvh,tq", [(64, 2, 1), (128, 2, 1), (64, 4, 6), (16, 1, 9)])
+def test_attention_kv_forms_match_plain(cuda, dtype, int8, page_size, d, kvh, tq):
+    """int8 K/V and the paged pool, alone and together: GQA, D = 128, a
+    prefill block (Tq > 1), page sizes 1, 4, 7 and 16.  Each form within
+    tolerance of its plain version; a paged launch bitwise the dense launch
+    on the cache its table gathers."""
+    h = 4
+    lens = (37, 20, 9) if tq < 9 else (37, 20, 10)
+    q, dense, paged, kv_lens = _kv_case(cuda, dtype, int8, page_size, tq=tq, h=h, kvh=kvh,
+                                        d=d, lens=lens)
+    ops_kw = paged if paged is not None else dense
+    _against_plain(lambda: _attend(q, ops_kw, kv_lens, h // kvh), dtype)
+    if paged is not None:
+        from repro_torch.kernels.attention import gather_pages
+        table = paged["page_table"]
+        gathered = {k: gather_pages(v, table).contiguous() for k, v in paged.items()
+                    if k != "page_table"}
+        assert torch.equal(_attend(q, paged, kv_lens, h // kvh),
+                           _attend(q, gathered, kv_lens, h // kvh))
+
+
+@pytest.mark.cuda
+def test_attention_forms_count_their_launches(cuda):
+    q, dense, paged, kv_lens = _kv_case(cuda, torch.bfloat16, True, 4)
+    _, plain, _, _ = _kv_case(cuda, torch.bfloat16, False, None)
+    ops.reset_launch_counts()
+    _attend(q, dense, kv_lens, 2)
+    _attend(q, paged, kv_lens, 2)
+    _attend(q, plain, kv_lens, 2)
+    with ops.reference_mode():
+        _attend(q, paged, kv_lens, 2)
+    counts = ops.launch_counts()
+    assert (counts["attention"], counts["attention_int8"], counts["attention_paged"]) == (1, 2, 1)
+
+
 @pytest.mark.cuda
 def test_kernels_count_their_launches(cuda):
     ops.reset_launch_counts()
@@ -109,7 +204,8 @@ def test_kernels_count_their_launches(cuda):
         ops.dot(x[0], x[1])
         ops.bgemv(qt, x)
         ops.gemm(x, qn)
-    assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0, "gemm": 1,
+    assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0,
+                                   "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2}
 

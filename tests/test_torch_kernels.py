@@ -165,7 +165,8 @@ def test_cpu_tensors_take_the_plain_versions():
     qw = quant.quantize(w, quant.QuantSpec(8, None, transpose=True))
     assert torch.equal(ops.bgemv(qw, x), tbgemv.reference_int8(qw, x))
     assert torch.equal(ops.bgemm(a, qw), tbgemm.reference_int8(a, qw))
-    assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0, "gemm": 0,
+    assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0,
+                                   "attention_paged": 0, "attention_int8": 0, "gemm": 0,
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0}
 

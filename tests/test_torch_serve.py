@@ -69,8 +69,9 @@ def test_eos_and_degenerate_budgets_match_jax_serve():
 
 
 def test_unported_options_raise():
-    for kw in ({"scheduler": "batch"}, {"kv_page_size": 4},
-               {"speculate": 2}, {"tp": 2}):
+    for kw in ({"scheduler": "batch"}, {"prefill_chunk": 4}, {"speculate": 2},
+               {"faults": "exhaust@0"}, {"deadline_ms": 50.0}, {"check_invariants": True},
+               {"tp": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve(ARCH, "smoke", requests=1, verbose=False, device="cpu", **kw)
 
