@@ -63,7 +63,32 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              within 5% of max |logit| of the plain path; pool bytes;
 18. profile_kv_int8 - phase 8's profile with the int8 KV cache.  Every serve
              above checks its attention launches by form: a paged decode
-             runs only the paged form, an int8 cache only the int8 one.
+             runs only the paged form, an int8 cache only the int8 one;
+19. serve_batch - the batch scheduler (--scheduler batch): SMOKE f32 serves
+             (dense, int8 KV, paged page 4, a 7-page pool that preempts),
+             kernels vs plain versions equal tokens, the small pool the
+             default pool's; stablelm-1.6b FULL bf16, 8/8 complete, its
+             tokens' agreement with phase 5's continuous serve and its tok/s;
+20. wkv6   - the chunked WKV6 kernel against its plain version: the prefill
+             shape (BH=128, T=128, bf16 r/k/v, f32 w/u) from zero and from a
+             state, long (T=4096), ragged (T=100), f32 at the smoke widths,
+             strong decay; each one launch, y and the final state within
+             TOL, timed beside its bound, its exp count and the plain version;
+21. rwkv_kernels - bgemv and bgemm at the shapes rwkv6-1.6b adds (the decay
+             LoRA 2048->64->2048, the channel mix 2048<->7168), decode and
+             prefill, against their plain versions, timed;
+22. smoke_rwkv, serve_rwkv - rwkv6-1.6b SMOKE (f32) under --scheduler batch,
+             kernels vs plain equal tokens at batch 2 and batch 1; FULL bf16 (seeded random
+             weights), 8 requests, batch 4, prompt 128, gen 32: 8/8, finite
+             logits, one rwkv6 launch a layer a prefill and none at decode,
+             240 bgemv a decode step and 240 bgemm a prefill, no attention;
+23. forced_rwkv, profile_rwkv - prefill + 3 decode steps at full width:
+             every rwkv6 launch against the plain version on its inputs (y
+             bf16 TOL, state f32 TOL), every block teacher-forced on the
+             plain path's activations within 2% of max |plain| (state
+             0.2%), the end-to-end logits no further from the f32 path than
+             the plain bf16 path's plus 2% of max |logit|; phase 8's
+             profile of the rwkv decode step.
 
 Then a `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -108,6 +133,15 @@ SLOW_MS = 50.0  # launches above this are timed 5 times, not 20
 # full-width teacher-forced logits: max |kernel - plain| <= 5% of max |plain|
 # (bf16 activations between every projection, 24 layers deep)
 FORCED_REL_TOL = 0.05
+# rwkv6 FULL bf16 (forced_rwkv), set from three runs on an H100 80GB HBM3 at
+# 700 W that read the same numbers (PERF.md, section 6): a teacher-forced
+# block's output within 2% of max |plain| (measured at most 0.94%), its new
+# state within 0.2% (measured at most 0.090%); end to end, the kernel path's
+# logits no further from the f32 path's than the plain bf16 path's are, plus
+# 2% of max |logit| (measured excess at most 0.64%).
+RWKV_TF_OUT_TOL = 0.02
+RWKV_TF_STATE_TOL = 0.002
+RWKV_E2E_MARGIN = 0.02
 ARCH = "stablelm-1.6b"
 RESULTS = {}
 
@@ -999,15 +1033,17 @@ def phase_attention_kv():
 
 
 def check_kv_launches(counts: dict, what: str, n_layers: int, prefills: int, steps: int,
-                      int8: bool, paged: bool):
+                      int8: bool, paged: bool, paged_prefill: bool = False):
     """Attention launches by form over `prefills` prefills and `steps`
-    decode steps (a serve adds its warm-up: one of each).  Prefill always
-    runs over the dense admission cache; a paged decode runs only the paged
-    form."""
+    decode steps (a serve adds its warm-up: one of each).  The continuous
+    scheduler prefills over the dense admission cache; the batch scheduler
+    (paged_prefill) prefills into the group's paged cache.  A paged decode
+    runs only the paged form."""
     pre, dec = n_layers * prefills, n_layers * steps
-    want = {"attention": 0 if int8 else pre + (0 if paged else dec),
+    paged_pre = pre if paged and paged_prefill else 0
+    want = {"attention": 0 if int8 else pre - paged_pre + (0 if paged else dec),
             "attention_int8": pre + dec if int8 else 0,
-            "attention_paged": dec if paged else 0}
+            "attention_paged": paged_pre + dec if paged else 0}
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if bad:
         raise AssertionError(f"{what} attention launches {counts}: (got, want) {bad}")
@@ -1197,6 +1233,466 @@ def phase_serve_kv_int8(params, qparams, cfg):
     return main_counts
 
 
+# --------------------------------------------------------------------------
+# phases 19-25: rwkv6-1.6b under the batch scheduler, and the dense batch
+# scheduler
+# --------------------------------------------------------------------------
+
+RWKV = "rwkv6-1.6b"
+# exp evaluations a second on the special-function units: 16 a clock on each
+# of the 132 SMs at the ~1.98 GHz boost clock (reported beside the bound,
+# not part of it)
+SFU_EXP_S = 132 * 16 * 1.98e9
+
+WKV6_CASES = [  # (label, BH, T, K = V, r/k/v dtype, from s0, log-decay range, chunk)
+    ("prefill B=4 H=32 T=128 K=V=64 bf16 from zero", 128, 128, 64, torch.bfloat16, False,
+     (-6.0, 0.0), 32),
+    ("prefill B=4 H=32 T=128 K=V=64 bf16 from s0", 128, 128, 64, torch.bfloat16, True,
+     (-6.0, 0.0), 32),
+    ("long B=1 H=32 T=4096 K=V=64 bf16 from s0", 32, 4096, 64, torch.bfloat16, True,
+     (-6.0, 0.0), 32),
+    ("ragged B=4 H=32 T=100 K=V=64 bf16 from s0", 128, 100, 64, torch.bfloat16, True,
+     (-6.0, 0.0), 32),
+    ("smoke f32 B=4 H=4 T=10 K=V=16 chunk 8 from s0", 16, 10, 16, torch.float32, True,
+     (-6.0, 0.0), 8),
+    ("strong decay w_log in [-20, -15] B=4 H=32 T=128 bf16 from s0", 128, 128, 64,
+     torch.bfloat16, True, None, 32),
+]
+
+
+def wkv6_work(bh: int, t: int, kk: int, vv: int, chunk: int) -> tuple:
+    """(f32 operations, exp evaluations) of the chunked algorithm over the
+    chunks this T runs (the last one padded): per chunk (C rows, P = C(C-1)/2
+    pairs) r~ S and the state update 2CKV each, A 3PK (a product, a scale
+    and a sum per pair and channel), A v 2PV, the bonus 2CK + 2CV, the
+    scalings of r and k 2CK and of S KV; exps PK for A, 2CK for r~ and k~,
+    K for the decay."""
+    c = min(chunk, t)
+    nc = -(-t // c)
+    p = c * (c - 1) // 2
+    flops = 4 * c * kk * vv + 3 * p * kk + 2 * p * vv + 4 * c * kk + 2 * c * vv + kk * vv
+    exps = p * kk + 2 * c * kk + kk
+    return bh * nc * flops, bh * nc * exps
+
+
+def wkv6_inputs(bh, t, kk, dtype, with_s0, decay, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    r, k, v = (rnd(bh, t, kk).to(dtype) for _ in range(3))
+    lo, hi = decay if decay is not None else (None, None)
+    if decay is None:  # strong decay: the log-decay itself near the -20 clamp
+        w = -15.0 - 5.0 * torch.rand(bh, t, kk, generator=g, device="cuda")
+    else:  # -exp(U(lo, hi)), the model's form w = -exp(w0 + lora)
+        w = -torch.exp(lo + (hi - lo) * torch.rand(bh, t, kk, generator=g, device="cuda"))
+    u = rnd(bh, kk, std=0.1)
+    s0 = rnd(bh, kk, kk) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+def phase_wkv6():
+    """Each WKV6 case once with the counts reset (one rwkv6 launch), y
+    against the plain version within the r/k/v dtype's TOL and s_fin within
+    f32 TOL, then timed (cold L2, median) beside its bound, its exp count
+    and the plain version.  No PyTorch call computes WKV6 (library: none)."""
+    from repro_torch.kernels import ops
+    rows = {}
+    for i, (label, bh, t, kk, dtype, with_s0, decay, chunk) in enumerate(WKV6_CASES):
+        r, k, v, w, u, s0 = wkv6_inputs(bh, t, kk, dtype, with_s0, decay, 200 + i)
+
+        def call(r=r, k=k, v=v, w=w, u=u, s0=s0, chunk=chunk):
+            return ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+
+        ops.reset_launch_counts()
+        y, s_fin = call()
+        launched = ops.launch_counts()["rwkv6"]
+        with ops.reference_mode():
+            want_y, want_s = call()
+        torch.cuda.synchronize()
+        err_y = (y.float() - want_y.float()).abs().max().item()
+        err_s = (s_fin - want_s).abs().max().item()
+        finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_fin).all())
+        ok = (finite and y.dtype == dtype and tuple(s_fin.shape) == (bh, kk, kk)
+              and torch.allclose(y.float(), want_y.float(), **TOL[dtype])
+              and torch.allclose(s_fin, want_s, **TOL[torch.float32]))
+        fields = dict(case=label, dtype=str(dtype).split(".")[1], chunk=chunk,
+                      max_abs_err_y=err_y, max_abs_y=want_y.float().abs().max().item(),
+                      tol_y=TOL[dtype], max_abs_err_s=err_s,
+                      max_abs_s=want_s.abs().max().item(), tol_s=TOL[torch.float32],
+                      all_finite=finite, within_tol=ok, launches_added=launched)
+        if not ok or launched != 1:
+            emit("wkv6", **fields)
+            raise AssertionError(f"wkv6 [{label}]: within_tol={ok}, finite={finite}, "
+                                 f"{launched} rwkv6 launches (want 1)")
+        del y, s_fin, want_y, want_s
+        ms = time_auto(call)
+        with ops.reference_mode():
+            plain_ms = time_auto(call)
+        nb = nbytes(r, k, v, w, u, s0) + r.numel() * r.element_size() + bh * kk * kk * 4
+        flops, exps = wkv6_work(bh, t, kk, kk, chunk)
+        b_ms, by = bound(nb, flops, torch.float32)
+        row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops,
+                   exp_evaluations=exps, sfu_exp_ms=exps / SFU_EXP_S * 1e3)
+        emit("wkv6", **row)
+        rows[label] = row
+        del r, k, v, w, u, s0
+    return rows
+
+
+def phase_rwkv_kernels():
+    """bgemv and bgemm at the shapes rwkv6-1.6b adds (batch 4): the decay
+    LoRA 2048 -> 64 -> 2048 and the channel mix 2048 <-> 7168, decode
+    (B, 1, d) and prefill (B, 128, d), through core.blas.matmul: each call
+    one launch of its kernel, against its plain version, then timed beside
+    its bound, its plain version and torch.matmul."""
+    from repro_torch.core import blas
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(300)
+    rows = {}
+    for rows_t, kernel in ((1, "bgemv"), (128, "bgemm")):
+        for d_in, d_out in ((2048, 64), (64, 2048), (2048, 7168), (7168, 2048)):
+            x = torch.randn(4, rows_t, d_in, generator=g, device="cuda").to(torch.bfloat16)
+            w = (torch.randn(d_in, d_out, generator=g, device="cuda") * d_in ** -0.5).to(
+                torch.bfloat16)
+            label = f"{'decode' if rows_t == 1 else 'prefill'} (4,{rows_t},{d_in})@({d_in},{d_out})"
+            ops.reset_launch_counts()
+            got = blas.matmul(x, w)
+            counts = ops.launch_counts()
+            with ops.reference_mode():
+                want = blas.matmul(x, w)
+            torch.cuda.synchronize()
+            rose = {k: n for k, n in counts.items() if n}
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), want.float(), **TOL[torch.bfloat16])
+            fields = dict(kernel=kernel, case=label, dtype="bfloat16", max_abs_err=err,
+                          tol=TOL[torch.bfloat16], within_tol=ok, launches_added=rose)
+            if not ok or rose != {kernel: 1}:
+                emit("rwkv_kernels", **fields)
+                raise AssertionError(f"rwkv_kernels [{label}]: within_tol={ok}, launches "
+                                     f"{rose} (want {{{kernel!r}: 1}})")
+            ms = time_ms(lambda: blas.matmul(x, w))
+            with ops.reference_mode():
+                plain_ms = time_ms(lambda: blas.matmul(x, w))
+            lib_ms = time_ms(lambda: torch.matmul(x, w))
+            nb = nbytes(x, w) + 4 * rows_t * d_out * 2
+            b_ms, by = bound(nb, 2 * 4 * rows_t * d_in * d_out, torch.bfloat16)
+            row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
+                       flops=2 * 4 * rows_t * d_in * d_out)
+            emit("rwkv_kernels", **row)
+            rows[label] = row
+    return rows
+
+
+def check_rwkv_launches(counts: dict, what: str, n_layers: int, prefills: int, steps: int):
+    """rwkv: one rwkv6 launch a layer a prefill and none at decode; every
+    projection (10 a layer) on bgemv at decode and on bgemm at prefill; no
+    attention of any form."""
+    want = {"rwkv6": n_layers * prefills, "bgemv": 10 * n_layers * steps,
+            "bgemm": 10 * n_layers * prefills, "attention": 0, "attention_paged": 0,
+            "attention_int8": 0}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{what} launches {counts}: (got, want) {bad}")
+
+
+def phase_smoke_rwkv():
+    """rwkv6 SMOKE (f32) under the batch scheduler through the kernels and
+    again through the plain versions: equal greedy tokens, at batch 2 and
+    at batch 1 (where a prefill's head split is a strided view)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config(RWKV, "smoke")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab, size=(10,), dtype=np.int32) for _ in range(5)]
+    params = tf.init_params(cfg, 0, "cuda")
+    for batch in (2, 1):
+        kw = dict(batch=batch, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts,
+                  scheduler="batch", params=params, verbose=False, device="cuda")
+        ops.reset_launch_counts()
+        got = serve(RWKV, "smoke", **kw)
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            want = serve(RWKV, "smoke", **kw)
+        equal = got["outputs"] == want["outputs"]
+        emit("smoke_rwkv", arch=RWKV, dtype="float32", scheduler="batch", batch=batch,
+             requests=len(prompts), completed=got["completed"], tokens_equal=equal,
+             outputs=got["outputs"], launches={k: counts[k] for k in ("rwkv6", "bgemv", "bgemm")})
+        if not equal or got["completed"] != len(prompts):
+            raise AssertionError(f"rwkv smoke serve, batch {batch}: kernels {got['outputs']} "
+                                 f"!= plain {want['outputs']}")
+        # the serve's warm-up runs one prefill and one decode step first
+        check_rwkv_launches(counts, f"smoke_rwkv batch {batch}", cfg.n_layers,
+                            got["prefills"] + 1, got["decode_steps"] + 1)
+
+
+def phase_serve_rwkv(params, cfg):
+    """rwkv6 FULL bf16 under the batch scheduler: 8 requests, batch 4,
+    prompt 128, gen 32, every logit finite; returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    finite = []
+    logits_chunk = tf._logits_chunk
+
+    def checked(*args, **kwargs):
+        out = logits_chunk(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    tf._logits_chunk = checked
+    ops.reset_launch_counts()
+    try:
+        stats = serve(RWKV, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
+                      eos=-1, scheduler="batch", params=params, device="cuda")
+    finally:
+        tf._logits_chunk = logits_chunk
+    counts = ops.launch_counts()
+    all_finite = bool(torch.stack(finite).all())
+    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
+    emit("serve_rwkv", arch=RWKV, variant="full", dtype="bfloat16", scheduler="batch",
+         requests=8, batch=4, prompt_len=128, gen=32, completed=stats["completed"],
+         tokens=stats["tokens"], tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
+         ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
+         decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
+         logit_checks=len(finite), all_logits_finite=all_finite)
+    emit("launches", run="serve_rwkv", **counts)
+    if stats["completed"] != 8 or not all_finite or not in_range:
+        raise AssertionError(f"rwkv full serve: completed {stats['completed']}/8, "
+                             f"finite {all_finite}, tokens in range {in_range}")
+    if any(len(o) != 32 for o in stats["outputs"]):
+        raise AssertionError("rwkv full serve: a request stopped before its budget")
+    check_rwkv_launches(counts, "serve_rwkv", cfg.n_layers, stats["prefills"] + 1,
+                        stats["decode_steps"] + 1)
+    return counts
+
+
+def _forced_rwkv_run(params, cfg, tokens, steps):
+    """Prefill (4, 128) then decode the given tokens on the rwkv state;
+    returns the logits of every step, the per-layer state after the
+    prefill, and device times (ms) of the prefill and each decode step."""
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    logits, times, state = [], [], None
+    feeds = [(tf.prefill, tokens)] + [(tf.decode_step, t) for t in steps]
+    for fn, tok in feeds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, cache = fn(params, tok, cache, cfg)
+        end.record()
+        logits.append(out)
+        times.append((start, end))
+        if state is None:
+            state = cache["tm"]["s"].clone()
+    torch.cuda.synchronize()
+    return logits, state, [s.elapsed_time(e) for s, e in times]
+
+
+def _map_tensors(tree, fn):
+    """fn over every tensor of a params tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tensors(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _teacher_forced_rwkv(params, cfg, feeds):
+    """Layer by layer on the plain path's activations: at every step (the
+    prefill, then each decode token) each block runs twice on the same
+    input x and state, through the kernels and through the plain versions,
+    and the plain output and state go on to the next block.  Returns the
+    per-(step, layer) errors of the block output and of the new WKV state,
+    each over max |plain|."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, rwkv
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    states = [{grp: {k: v[i] for k, v in cache[grp].items()} for grp in ("tm", "cm")}
+              for i in range(cfg.n_layers)]
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    out_rel, state_rel = [], []
+    for tok in feeds:
+        x = layers.embed(params["embed"], tok)
+        for i, lp in enumerate(params["layers"]):
+            got, got_st = rwkv.rwkv_block(lp, x, cfg, states[i])
+            with ops.reference_mode():
+                x, states[i] = rwkv.rwkv_block(lp, x, cfg, states[i])
+            out_rel.append(rel(got, x))
+            state_rel.append(rel(got_st["tm"]["s"], states[i]["tm"]["s"]))
+    return out_rel, state_rel
+
+
+def phase_forced_rwkv(params, cfg):
+    """rwkv6 FULL bf16: prefill + 3 decode steps on the same tokens.
+
+    Gated: (1) every rwkv6 launch of the kernel path against the plain
+    version on the same inputs, y within bf16 TOL and the final state within
+    f32 TOL; (2) teacher-forced, every block at every step through the
+    kernels against the plain versions on the same input and state: output
+    within RWKV_TF_OUT_TOL and new state within RWKV_TF_STATE_TOL of max
+    |plain|; (3) end to end, at every step, the kernel path's logits no
+    further from the plain path in f32 on the same weights (upcast) than the
+    plain bf16 path's logits are, plus RWKV_E2E_MARGIN of max |logit|;
+    (4) every logit and state finite.  The kernel path is not held to the
+    plain bf16 path's logits directly: the random-weight model amplifies a
+    rounding difference from layer to layer, so two faithful bf16 paths part
+    by tens of percent of max |logit| at 24 layers (PERF.md, section 6);
+    that distance is recorded."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
+    steps = [torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
+             for _ in range(3)]
+    captured = []
+    rwkv6 = ops.rwkv6
+
+    def capture(*args, **kwargs):
+        out = rwkv6(*args, **kwargs)
+        captured.append((args, kwargs, out))
+        return out
+
+    ops.rwkv6 = capture
+    try:
+        ops.reset_launch_counts()
+        got, got_state, t_kernel = _forced_rwkv_run(params, cfg, tokens, steps)
+        counts = ops.launch_counts()
+    finally:
+        ops.rwkv6 = rwkv6
+    with ops.reference_mode():
+        want, want_state, t_plain = _forced_rwkv_run(params, cfg, tokens, steps)
+    layer_err_y, layer_err_s, layer_ok = [], [], []
+    for args, kwargs, (y, s_fin) in captured:
+        with ops.reference_mode():
+            wy, ws = rwkv6(*args, **kwargs)
+        layer_err_y.append((y.float() - wy.float()).abs().max().item())
+        layer_err_s.append((s_fin - ws).abs().max().item())
+        layer_ok.append(torch.allclose(y.float(), wy.float(), **TOL[torch.bfloat16])
+                        and torch.allclose(s_fin, ws, **TOL[torch.float32]))
+    del captured
+    state_err = (got_state - want_state).abs().amax(dim=(1, 2, 3, 4))
+    state_rel = (state_err / want_state.abs().amax(dim=(1, 2, 3, 4))).tolist()
+    errs, scales, agree = [], [], []
+    for gl, wl in zip(got, want):
+        errs.append((gl - wl).abs().max().item())
+        scales.append(wl.abs().max().item())
+        agree.append((gl.argmax(-1) == wl.argmax(-1)).float().mean().item())
+    tf_out, tf_state = _teacher_forced_rwkv(params, cfg, [tokens] + steps)
+    params32 = _map_tensors(params, lambda t: t.float())
+    with ops.reference_mode():
+        want32, _, _ = _forced_rwkv_run(params32, dataclasses.replace(cfg, dtype="float32"),
+                                        tokens, steps)
+    del params32
+
+    def rel32(logits):
+        return [((x.float() - w).abs().max() / w.abs().max()).item()
+                for x, w in zip(logits, want32)]
+
+    finite = all(bool(torch.isfinite(x).all()) for x in got) and bool(
+        torch.isfinite(got_state).all())
+    kernel32, plain32 = rel32(got), rel32(want)
+    e2e_ok = all(k <= p + RWKV_E2E_MARGIN for k, p in zip(kernel32, plain32))
+    ok = (finite and len(layer_ok) == cfg.n_layers and all(layer_ok) and e2e_ok
+          and max(tf_out) <= RWKV_TF_OUT_TOL and max(tf_state) <= RWKV_TF_STATE_TOL)
+    emit("forced_rwkv", arch=RWKV, variant="full", dtype="bfloat16",
+         steps=["prefill", 1, 2, 3], max_abs_err=errs, max_abs_logit=scales,
+         rel_err=[e / s for e, s in zip(errs, scales)], argmax_agreement=agree,
+         kernel_rel_err_to_f32=kernel32, plain_rel_err_to_f32=plain32,
+         e2e_margin=RWKV_E2E_MARGIN, e2e_within_margin=e2e_ok,
+         state_rel_err_by_layer=state_rel, all_finite=finite,
+         layer_launches_checked=len(layer_ok), layer_max_abs_err_y=max(layer_err_y),
+         layer_max_abs_err_s=max(layer_err_s), layers_within_tol=sum(layer_ok),
+         teacher_forced_rel_tol_out=RWKV_TF_OUT_TOL,
+         teacher_forced_rel_tol_state=RWKV_TF_STATE_TOL, teacher_forced_blocks=len(tf_out),
+         teacher_forced_max_rel_out=max(tf_out), teacher_forced_max_rel_state=max(tf_state),
+         teacher_forced_rel_out_prefill=tf_out[:cfg.n_layers], within_tol=ok,
+         prefill_ms=t_kernel[0], decode_ms_per_step=statistics.mean(t_kernel[1:]),
+         plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]),
+         launches={k: counts[k] for k in ("rwkv6", "bgemv", "bgemm")})
+    if not ok:
+        raise AssertionError(f"forced_rwkv: finite {finite}, rwkv6 launches within tol "
+                             f"{sum(layer_ok)}/{len(layer_ok)}, teacher-forced blocks max rel "
+                             f"out {max(tf_out)} / state {max(tf_state)}, to f32: kernel "
+                             f"{kernel32} vs plain {plain32} + {RWKV_E2E_MARGIN}")
+    check_rwkv_launches(counts, "forced_rwkv", cfg.n_layers, 1, 3)
+
+
+def phase_serve_batch(params, cfg, continuous_outputs):
+    """The dense batch scheduler: SMOKE f32 serves (dense, int8 KV, paged
+    page 4, and a 7-page pool that preempts) through the kernels and the
+    plain versions give equal tokens, the small pool the default pool's;
+    then stablelm-1.6b FULL bf16 under --scheduler batch, 8/8 complete, and
+    its tokens' agreement with the continuous serve of phase 5."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    smoke = get_config(ARCH, "smoke")
+    smoke_params = tf.init_params(smoke, 0, "cuda")
+    rng = np.random.default_rng(0)
+    base = dict(batch=3, prompts=[rng.integers(3, 256, size=(10,), dtype=np.int32)
+                                  for _ in range(6)],
+                gen_lens=rng.integers(4, 9, size=6).tolist())
+    runs = [("dense", {}), ("int8 KV", dict(kv_cache="int8")),
+            ("paged P=4", dict(kv_page_size=4)),
+            ("paged P=4 pool_pages=7", dict(kv_page_size=4, pool_pages=7))]
+    out = {}
+    for name, kw in runs:
+        args = dict(base, **kw, eos=-1, scheduler="batch", params=smoke_params,
+                    verbose=False, device="cuda")
+        ops.reset_launch_counts()
+        got = serve(ARCH, "smoke", **args)
+        counts = ops.launch_counts()
+        with ops.reference_mode():
+            want = serve(ARCH, "smoke", **args)
+        check_kv_launches(counts, f"serve_batch {name}", smoke.n_layers, got["prefills"] + 1,
+                          got["decode_steps"] + 1, kw.get("kv_cache") == "int8",
+                          "kv_page_size" in kw, paged_prefill=True)
+        equal = got["outputs"] == want["outputs"]
+        emit("serve_batch", run=name, arch=ARCH, variant="smoke", dtype="float32",
+             tokens_equal_plain=equal, completed=got["completed"], status=got["status"],
+             prefills=got["prefills"], decode_steps=got["decode_steps"],
+             preemptions=got["preemptions"], pages_live=got.get("pages_live"))
+        if not equal:
+            raise AssertionError(f"serve_batch {name}: kernels {got['outputs']} != plain "
+                                 f"{want['outputs']}")
+        out[name] = got
+    if out["paged P=4 pool_pages=7"]["outputs"] != out["paged P=4"]["outputs"]:
+        raise AssertionError("serve_batch: the 7-page pool's tokens differ from the default pool's")
+    if out["paged P=4 pool_pages=7"]["preemptions"] < 1:
+        raise AssertionError("serve_batch: the 7-page pool never preempted")
+    if out["paged P=4"]["outputs"] != out["dense"]["outputs"]:
+        raise AssertionError("serve_batch: paged tokens differ from dense tokens")
+    ops.reset_launch_counts()
+    stats = serve(ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0, eos=-1,
+                  scheduler="batch", params=params, device="cuda")
+    counts = ops.launch_counts()
+    same = [a == b for o, p in zip(stats["outputs"], continuous_outputs) for a, b in zip(o, p)]
+    emit("serve_batch", run="full", arch=ARCH, variant="full", dtype="bfloat16",
+         scheduler="batch", requests=8, batch=4, prompt_len=128, gen=32,
+         completed=stats["completed"], tokens=stats["tokens"], tok_s=stats["tok_s"],
+         elapsed_s=stats["elapsed_s"], ttft_p50_s=statistics.median(stats["ttft"]),
+         prefills=stats["prefills"], decode_steps=stats["decode_steps"],
+         occupancy=stats["occupancy"],
+         token_agreement_with_continuous=sum(same) / len(same),
+         requests_equal_continuous=sum(o == p for o, p in zip(stats["outputs"],
+                                                               continuous_outputs)))
+    emit("launches", run="serve_batch", **counts)
+    if stats["completed"] != 8 or any(len(o) != 32 for o in stats["outputs"]):
+        raise AssertionError(f"serve_batch full: completed {stats['completed']}/8")
+    check_launches(counts, "serve_batch")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
@@ -1270,7 +1766,17 @@ def main() -> int:
         emit("launches", run="forced_kv_int8", **forced_kv)
         check_kv_launches(forced_kv, "forced_kv_int8", cfg.n_layers, 1, 3, True, False)
         phase_profile(params, kv_cfg, phase="profile_kv_int8")
+        phase_serve_batch(params, cfg, bf16_outputs)
         del params, qparams
+        wkv6_rows = phase_wkv6()
+        phase_rwkv_kernels()
+        phase_smoke_rwkv()
+        rwkv_cfg = get_config(RWKV, "full")
+        rwkv_params = tf.init_params(rwkv_cfg, 0, "cuda")
+        rwkv_counts = phase_serve_rwkv(rwkv_params, rwkv_cfg)
+        phase_forced_rwkv(rwkv_params, rwkv_cfg)
+        phase_profile(rwkv_params, rwkv_cfg, phase="profile_rwkv")
+        del rwkv_params
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
 
@@ -1341,6 +1847,15 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "dense_ms": r["dense_kernel_ms"], "shape": case, "dtype": "bfloat16"})
+    # the WKV6 kernel: the prefill case's times, launches from the rwkv serve
+    r = wkv6_rows[WKV6_CASES[0][0]]
+    summary.append({"name": "rwkv6", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6.cu",
+                    "replaces": "src/repro/kernels/rwkv6.py:99",
+                    "launches": rwkv_counts["rwkv6"], "max_abs_err": r["max_abs_err_y"],
+                    "max_abs_err_s": r["max_abs_err_s"], "ms": r["kernel_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None, "shape": r["case"],
+                    "dtype": "bfloat16"})
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

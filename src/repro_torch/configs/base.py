@@ -1,4 +1,4 @@
-"""Model config schema (the dense subset of `repro.configs.base`).
+"""Model config schema (the dense and rwkv subset of `repro.configs.base`).
 
 The port keeps its own copy so it imports nothing of the JAX package; the
 fields and defaults are the reference's.  `torch_dtype` replaces the
@@ -14,9 +14,16 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora_rank: int = 64
+    chunk: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense (the only family ported so far)
+    family: str                      # dense | rwkv (the families ported so far)
     d_model: int
     n_layers: int
     n_heads: int
@@ -36,6 +43,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False
     logit_softcap: float = 0.0
+    rwkv: Optional[RWKVConfig] = None
     dtype: str = "bfloat16"
     kv_cache_dtype: str = "model"
     weight_dtype: str = "model"

@@ -21,6 +21,9 @@ max(f32, dtype); the two operands of a dual GEMM must share one spec.
 `flash_attention` also takes int8 K/V with per-(token, head) f32 scales and
 a page table over a page pool: a CUDA tensor goes to the one attention
 kernel in every form, a CPU tensor to its plain version.
+
+`rwkv6` is the chunked WKV6 recurrence (`csrc/rwkv6.cu`) with the model's
+contract: an optional f32 initial state in, the final state out.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from repro_torch.kernels import bgemv as _bgemv
 from repro_torch.kernels import blas1 as _blas1
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemv as _gemv
+from repro_torch.kernels import rwkv6 as _rwkv6
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _SERVE_DTYPES = (torch.float32, torch.bfloat16)
@@ -70,7 +74,8 @@ def launch_counts() -> dict:
             "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
             "gemv_int8": _gemv.launches_int8,
-            "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8}
+            "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
+            "rwkv6": _rwkv6.launches}
 
 
 def reset_launch_counts() -> None:
@@ -80,6 +85,7 @@ def reset_launch_counts() -> None:
     _blas1.reduce_launches = _blas1.axpy_launches = 0
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
+    _rwkv6.launches = 0
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -297,6 +303,40 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
     out = torch.empty_like(q)
     return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype],
                              k_scales=k_scales, v_scales=v_scales, page_table=page_table)
+
+
+def rwkv6(r, k, v, w_log, u, *, s0=None, chunk: int = 32):
+    """Chunked WKV6 over r, k, w_log (BH, T, K), v (BH, T, V), u (BH, K)
+    from the state s0 (BH, K, V) (None: zeros) -> (y (BH, T, V) in r's
+    dtype, s_fin (BH, K, V) f32).  r/k/v share one dtype (f32 or bf16);
+    w_log, u and s0 are f32.  T is cut into chunks of min(chunk, T), the
+    last padded with zero rows."""
+    name = "rwkv6"
+    if r.ndim != 3 or v.ndim != 3:
+        raise ValueError(f"{name} wants (BH, T, K) operands, got {tuple(r.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, t, kk = r.shape
+    vv = v.shape[2]
+    if t < 1 or chunk < 1:
+        raise ValueError(f"{name}: needs T >= 1 and chunk >= 1, got T={t}, chunk={chunk}")
+    _check_shape(name, "k", k, r.shape)
+    _check_shape(name, "v", v, (bh, t, vv))
+    _check_shape(name, "w_log", w_log, r.shape)
+    _check_shape(name, "u", u, (bh, kk))
+    _check_shape(name, "s0", s0, (bh, kk, vv))
+    _check(name, r, k=k, v=v)
+    for what, side in (("w_log", w_log), ("u", u), ("s0", s0)):
+        if side is not None:
+            _check_side(name, what, side, torch.float32, r.device)
+    if not _use_kernel(r):
+        return _rwkv6.reference(r, k, v, w_log, u, s0=s0, chunk=chunk)
+    if kk > _rwkv6.MAX_HEAD_DIM or vv > _rwkv6.MAX_HEAD_DIM or min(chunk, t) > _rwkv6.MAX_CHUNK:
+        raise NotImplementedError(f"{name} kernel: K, V <= {_rwkv6.MAX_HEAD_DIM} and chunk "
+                                  f"<= {_rwkv6.MAX_CHUNK}, got K={kk}, V={vv}, chunk={chunk}")
+    y = torch.empty((bh, t, vv), dtype=r.dtype, device=r.device)
+    s_fin = torch.empty((bh, kk, vv), dtype=torch.float32, device=r.device)
+    return _rwkv6.launch(r, k, v, w_log, u, s0, y, s_fin, chunk=chunk,
+                         dtype_code=_DTYPE_CODES[r.dtype])
 
 
 # --------------------------------------------------------------------------

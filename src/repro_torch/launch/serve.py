@@ -1,12 +1,19 @@
-"""Batched greedy serving driver: the continuous-batching scheduler.
+"""Batched greedy serving: the continuous and the batch scheduler.
 
-Mirrors `repro.launch.serve` (`serve`, `_serve_continuous`, the CLI) at
-tp=1.  A fixed grid of `batch` slots shares one KV cache; the moment a
-sequence finishes its slot is freed and the next pending request (strict
-FIFO) is admitted at the next step boundary.  Admission runs one prefill on
-the fixed grid shape per distinct prompt length, padding rows included, and
+Mirrors `repro.launch.serve` (`serve`, `_serve_continuous`, `_serve_batch`,
+the CLI) at tp=1.  Continuous (`--scheduler continuous`, the default): a
+fixed grid of `batch` slots shares one KV cache; the moment a sequence
+finishes its slot is freed and the next pending request (strict FIFO) is
+admitted at the next step boundary.  Admission runs one prefill on the
+fixed grid shape per distinct prompt length, padding rows included, and
 grafts the prefilled rows into the freed slots; decode is one masked step
 over every slot.
+
+Batch (`--scheduler batch`): requests of one prompt length are served in
+FIFO groups of `batch`; each group runs one (batch, T) prefill, padding
+rows included, and decodes in lockstep until every member has finished.
+It is the only scheduler of the rwkv family, whose cache is a recurrent
+state with no per-slot form.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
@@ -33,7 +40,11 @@ growth preempts the newest admission, whose request is re-queued and
 recomputed bit for bit from prompt + emitted tokens, and a request no pool
 could hold is "rejected".  `pool_pages` (`--pool-pages`) shrinks the pool
 to make that happen.  Every paged serve ends with the allocator's leak
-check.
+check.  Under the batch scheduler a paged group takes fresh pages per
+member (prompt + first decode write), grows them on demand, and a failed
+growth preempts the group's newest live member, which is re-served from
+its original prompt in a later group (a full recompute); each group drain
+runs the leak check.
 
 Runs on the card unless asked for the CPU (`device="cpu"`, `--device cpu`),
 where every kernel is replaced by its plain PyTorch version.
@@ -69,25 +80,50 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size, pool_pages,
-                 deadline_ms, faults, speculate, check_invariants, tp) -> None:
-    """Validate the options; those of the reference's serve() that this port
-    does not run yet raise, naming the ROADMAP §1 item that will port them."""
+def _check_scope(cfg, scheduler, quantize, kv_cache, prefill_chunk, kv_page_size,
+                 pool_pages, deadline_ms, faults, speculate, check_invariants, tp) -> None:
+    """Validate the options with the reference's ValueErrors, in its order;
+    then those of the reference's serve() that this port does not run yet
+    raise NotImplementedError, naming the ROADMAP §1 item that will port
+    them."""
     if scheduler not in ("continuous", "batch"):
         raise ValueError(f"scheduler must be 'continuous' or 'batch', got {scheduler!r}")
     if quantize not in ("none", "int8"):
         raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
     if kv_cache not in ("model", "int8"):
         raise ValueError(f"kv_cache must be 'model' or 'int8', got {kv_cache!r}")
-    if kv_page_size is not None and kv_page_size < 1:
-        raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+    if prefill_chunk is not None and scheduler != "continuous":
+        raise ValueError("prefill_chunk interleaves admission chunks with "
+                         "decode steps and needs --scheduler continuous")
+    slot_families = tf.SLOT_CACHE_FAMILIES
+    if speculate is not None:
+        if speculate < 1:
+            raise ValueError(f"speculate needs >= 1 draft tokens, got {speculate}")
+        if cfg.family not in slot_families:
+            raise ValueError(
+                f"speculative decoding rewinds per-slot KV positions and "
+                f"supports {slot_families} families; {cfg.family!r} "
+                f"has recurrent state that cannot roll back")
+    if kv_page_size is not None:
+        if kv_page_size < 1:
+            raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
+        if cfg.family not in slot_families:
+            raise ValueError(
+                f"paged KV cache supports {slot_families} families "
+                f"(per-slot KV caches); {cfg.family!r} keeps the dense cache")
     if pool_pages is not None:
         if kv_page_size is None:
             raise ValueError("pool_pages sizes the paged pool and needs kv_page_size")
         if pool_pages < 2:
             raise ValueError(f"pool_pages needs >= 2 (trash + 1 allocatable), got {pool_pages}")
+    if scheduler == "continuous" and cfg.family not in slot_families:
+        raise ValueError(
+            f"continuous scheduler supports {slot_families} "
+            f"families (per-slot KV caches); {cfg.family!r} needs "
+            f"--scheduler batch")
     unported = [
-        (scheduler == "batch", "scheduler='batch'", 1),
         (prefill_chunk is not None, "prefill_chunk", 2),
         (speculate is not None, "speculate", 2),
         (faults is not None, "faults", 2),
@@ -140,7 +176,7 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
     region.
     """
     cfg = get_config(arch, variant)
-    _check_scope(scheduler, quantize, kv_cache, prefill_chunk, kv_page_size, pool_pages,
+    _check_scope(cfg, scheduler, quantize, kv_cache, prefill_chunk, kv_page_size, pool_pages,
                  deadline_ms, faults, speculate, check_invariants, tp)
     if kv_cache == "int8":
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
@@ -166,9 +202,13 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
             params = tf.init_params(cfg, seed, dev)
         if quantize == "int8":
             params = layers.quantize_weights(params)
-        stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev,
-                                  page_size=kv_page_size, prefix_reuse=prefix_reuse,
-                                  pool_pages=pool_pages)
+        if scheduler == "continuous":
+            stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev,
+                                      page_size=kv_page_size, prefix_reuse=prefix_reuse,
+                                      pool_pages=pool_pages)
+        else:
+            stats = _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev,
+                                 page_size=kv_page_size, pool_pages=pool_pages)
     if verbose:
         paged_info = ""
         if "pages_live" in stats:
@@ -192,6 +232,14 @@ def _new_stats(nreq: int) -> dict:
             "admit_step": [None] * nreq, "finish_step": [None] * nreq,
             "status": [None] * nreq, "preemptions": 0, "rejections": 0,
             "admitted_at": [[] for _ in range(nreq)]}
+
+
+def _finalize(stats: dict, occ: list, dt: float) -> dict:
+    """The run's wall time, tok/s and mean live-slot occupancy."""
+    stats["elapsed_s"] = dt
+    stats["tok_s"] = stats["tokens"] / dt if dt > 0 else 0.0
+    stats["occupancy"] = float(np.mean(occ)) if occ else 0.0
+    return stats
 
 
 def _record_token(stats: dict, rid: int, tok_val: int, eos: int, remaining: int,
@@ -541,10 +589,195 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
     if paged:
         sample_pages()
         alloc.leak_check()  # every page back on the free list
-    stats["elapsed_s"] = dt
-    stats["tok_s"] = stats["tokens"] / dt if dt > 0 else 0.0
-    stats["occupancy"] = float(np.mean(occ)) if occ else 0.0
-    return stats
+    return _finalize(stats, occ, dt)
+
+
+def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None,
+                 pool_pages=None) -> dict:
+    """Batch-at-a-time: FIFO groups of `batch` requests, one (batch, T)
+    prefill each (padding rows included), then lockstep decode on a
+    scalar-pos cache until the whole group has finished; a finished row
+    idles until then.
+
+    Paged (page_size): each group gets a fresh pool and allocator; its live
+    rows take the pages prompt + first decode write need, grow on demand at
+    page boundaries, and the group is capped so every member's reservation
+    fits the pool.  A growth that finds no free page preempts the newest
+    live member: its emitted tokens are discarded and its request re-served
+    from the original prompt in a later group (a full recompute).  A row
+    that already owns the whole pool and needs more is rejected; a prompt no
+    pool could hold rejects every request.  Every group drain runs the
+    allocator's leak check.  No prefix sharing: the capacity multiplier
+    stays 1.0."""
+    nreq = len(prompts)
+    prompt_len = len(prompts[0])
+    if any(len(p) != prompt_len for p in prompts):
+        raise ValueError(
+            "batch scheduler stacks prompts into one (batch, T) prefill and "
+            "needs uniform prompt lengths; ragged prompts need --scheduler "
+            "continuous (per-slot prefill)")
+    cache_len = max(len(p) + g for p, g in zip(prompts, gen_lens))
+    prefill_fn = steps_lib.make_prefill_step(cfg)
+    decode_fn = steps_lib.make_serve_step(cfg)
+    paged = page_size is not None
+    if paged:
+        max_pages = -(-cache_len // page_size)
+        num_pages = pool_pages if pool_pages is not None else 1 + batch * max_pages
+        # pages through the first decode write; later writes grow on demand
+        need_admit = prompt_len // page_size + 1
+
+    pending = collections.deque(enumerate(prompts))  # FIFO
+    stats = _new_stats(nreq)
+    preempted_ever = [False] * nreq
+    if paged:
+        stats.update({"kv_page_size": page_size, "pages_live": 0, "pages_shared": 0,
+                      "paged_capacity_multiplier": 0.0, "cow_copies": 0})
+
+    def group_cache(nact):
+        """A fresh cache for one group and, paged, its allocator and the
+        live rows' page runs (padding rows point at the trash page)."""
+        if not paged:
+            return tf.init_cache(cfg, batch, cache_len, device=dev), None, None
+        cache = tf.init_cache(cfg, batch, cache_len, page_size=page_size,
+                              num_pages=num_pages, device=dev)
+        galloc = paging.PageAllocator(num_pages, page_size)
+        row_pages = [galloc.alloc(need_admit) if i < nact else [] for i in range(batch)]
+        table = np.zeros(tuple(cache["page_table"].shape), np.int32)
+        for i in range(nact):
+            table[i, :len(row_pages[i])] = row_pages[i]
+        cache["page_table"].copy_(torch.from_numpy(table))
+        stats["pages_live"] = max(stats["pages_live"], galloc.pages_live())
+        stats["paged_capacity_multiplier"] = max(stats["paged_capacity_multiplier"],
+                                                 galloc.capacity_multiplier())
+        return cache, galloc, row_pages
+
+    # warm-up outside the timed region (kernel build, first launches) with
+    # ZERO live rows: a pool too small for any group must reject at
+    # admission, not fail allocating the warm-up cache
+    warm_tok, warm_cache = prefill_fn(
+        params, torch.zeros((batch, prompt_len), dtype=torch.int32, device=dev),
+        group_cache(0)[0])
+    warm_tok, warm_cache = decode_fn(params, warm_tok, warm_cache)
+    warm_tok.cpu()
+    del warm_tok, warm_cache
+
+    occ = []
+    t0 = time.time()
+    while pending:
+        if paged:
+            if need_admit > num_pages - 1:
+                # no request fits even an empty pool (uniform prompt
+                # lengths: if one cannot, none can): reject, never hang
+                while pending:
+                    rid, _ = pending.popleft()
+                    stats["status"][rid] = "rejected"
+                    stats["rejections"] += 1
+                break
+            # every member's reservation fits up front; growth pressure
+            # during the drain is resolved by preemption
+            gsize = min(batch, (num_pages - 1) // need_admit, len(pending))
+        else:
+            gsize = min(batch, len(pending))
+        group = [pending.popleft() for _ in range(gsize)]
+        nact = len(group)
+        block = np.stack([p for _, p in group]
+                         + [np.zeros(prompt_len, np.int32)] * (batch - nact))
+        cache, galloc, row_pages = group_cache(nact)
+        if paged:
+            # host mirror of the page table, copied to the card before a
+            # decode step whenever it changed
+            table = cache["page_table"].cpu().numpy()
+            table_dirty = False
+        tok, cache = prefill_fn(params, torch.from_numpy(block).to(dev), cache)
+        stats["prefills"] += 1
+        tok_np = tok.cpu().numpy()[:, 0]  # sync before stamping TTFT
+        done = np.zeros(batch, bool)
+        done[nact:] = True
+        left = np.zeros(batch, np.int64)
+        row_pos = np.full(batch, prompt_len, np.int64)  # next write position
+
+        def release_row(i):
+            nonlocal table_dirty
+            galloc.release(row_pages[i])
+            row_pages[i] = []
+            table[i] = paging.TRASH_PAGE
+            table_dirty = True
+
+        def preempt_row(i):
+            """Full recompute: discard the victim's emitted tokens and
+            re-serve its original prompt in a later group."""
+            rid = group[i][0]
+            stats["preemptions"] += 1
+            preempted_ever[rid] = True
+            stats["tokens"] -= len(stats["outputs"][rid])
+            stats["outputs"][rid] = []
+            done[i] = True
+            if paged:
+                release_row(i)
+            pending.appendleft(group[i])
+
+        t_first = time.time() - t0
+        for i, (rid, _) in enumerate(group):
+            if stats["ttft"][rid] is None:  # a re-served request keeps its first
+                stats["ttft"][rid] = t_first
+                stats["admit_step"][rid] = stats["decode_steps"]
+            stats["admitted_at"][rid].append(0)
+            left[i] = gen_lens[rid] - 1
+            done[i] = _record_token(stats, rid, int(tok_np[i]), eos, left[i],
+                                    preempted=preempted_ever[rid])
+            if done[i] and paged:
+                release_row(i)
+        while not done.all():
+            if paged:
+                # grow every live row's run to cover this step's write
+                for i in range(nact):
+                    last_idx = int(row_pos[i]) // page_size
+                    while not done[i] and len(row_pages[i]) <= last_idx:
+                        widx = len(row_pages[i])
+                        while not galloc.free_pages() and not done[i]:
+                            live = [j for j in range(nact) if not done[j]]
+                            if live == [i]:
+                                # i owns every page and needs more: a
+                                # recompute cannot help, the sequence does
+                                # not fit the pool
+                                rid = group[i][0]
+                                stats["tokens"] -= len(stats["outputs"][rid])
+                                stats["outputs"][rid] = []
+                                stats["status"][rid] = "rejected"
+                                stats["rejections"] += 1
+                                done[i] = True
+                                release_row(i)
+                                break
+                            preempt_row(live[-1])
+                        if done[i]:
+                            break
+                        newp = galloc.alloc(1)[0]
+                        row_pages[i].append(newp)
+                        table[i, widx] = newp
+                        table_dirty = True
+                if table_dirty:
+                    cache["page_table"].copy_(torch.from_numpy(table))
+                    table_dirty = False
+            if done.all():
+                break
+            occ.append((~done).sum() / batch)
+            tok, cache = decode_fn(params, tok, cache)
+            tok_np = tok.cpu().numpy()[:, 0]
+            stats["decode_steps"] += 1
+            for i, (rid, _) in enumerate(group):
+                if done[i]:
+                    continue
+                row_pos[i] += 1
+                left[i] -= 1
+                done[i] = _record_token(stats, rid, int(tok_np[i]), eos, left[i],
+                                        preempted=preempted_ever[rid])
+                if done[i] and paged:
+                    release_row(i)
+            if paged:
+                stats["pages_live"] = max(stats["pages_live"], galloc.pages_live())
+        if paged:
+            galloc.leak_check()  # every page of the group back on the free list
+    return _finalize(stats, occ, time.time() - t0)
 
 
 def main(argv=None):
@@ -558,7 +791,8 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", default="continuous", choices=("continuous", "batch"),
-                    help="continuous: slot-level admission (batch: not ported yet)")
+                    help="continuous: slot-level admission; batch: FIFO groups that "
+                         "drain together (the rwkv family's scheduler)")
     ap.add_argument("--quantize", default="none", choices=("none", "int8"),
                     help="int8: block-scaled int8 projection weights (W8A16)")
     ap.add_argument("--kv-cache", default="model", choices=("model", "int8"),

@@ -1,6 +1,8 @@
-"""Step functions for serving: greedy prefill and the masked slot decode.
+"""Step functions for serving: greedy prefill, the batch scheduler's decode
+step and the masked slot decode.
 
-Mirrors `repro.launch.steps` (`make_prefill_step`, `make_decode_step_slots`).
+Mirrors `repro.launch.steps` (`make_prefill_step`, `make_serve_step`,
+`make_decode_step_slots`).
 PyTorch runs eagerly, so a step is a plain closure; the cache it is given is
 updated in place and returned.
 """
@@ -19,6 +21,17 @@ def make_prefill_step(cfg: ModelConfig):
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One greedy decode step on a scalar-pos cache (the batch scheduler):
+    (params, token (B, 1), cache) -> (token, cache).  Every row advances."""
+
+    def serve_step(params, token, cache):
+        logits, cache = tf.decode_step(params, token, cache, cfg)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
+
+    return serve_step
 
 
 def make_decode_step_slots(cfg: ModelConfig):

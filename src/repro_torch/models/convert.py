@@ -49,11 +49,13 @@ def _tree(node, fn):
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """`tree` is the dense-family params pytree of
+    """`tree` is the dense- or rwkv-family params pytree of
     `repro.models.transformer.init_params` with every leaf a numpy array
     (e.g. `jax.tree.map(np.asarray, params)`), projection weights optionally
     packed by `layers.quantize_weights`.  Returns the port's params on
-    `device`: the same leaf names, with "layers" a list of per-layer dicts."""
+    `device`: the same leaf names and dtypes (an rwkv block's f32 decay_w0
+    and u stay f32), with "layers" a list of per-layer dicts whose nested
+    dicts (rwkv's "tm" / "cm") are sliced per layer too."""
     check_supported(cfg)
     out = {k: _tree(v, lambda a: to_tensor(a, device))
            for k, v in tree.items() if k != "layers"}

@@ -1,13 +1,15 @@
-"""Dense-family model assembly: params, forward, KV cache, prefill, decode.
+"""Model assembly for the dense and rwkv families: params, forward, cache,
+prefill, decode.
 
-Mirrors `repro.models.transformer` for the dense family.  Params are a dict
+Mirrors `repro.models.transformer` for those families.  Params are a dict
 with the reference's leaf names; where the reference stacks layers along a
 leading axis for `lax.scan`, the port keeps a Python list of per-layer dicts
 and loops over it.  The cache keeps the reference layouts: (L, B, S, KVH,
 hd) per K and V dense, or (L, num_pages, page_size, KVH, hd) paged with a
 (B, max_pages) page table; int8 values with (..., 1) f32 scales when
 cfg.kv_cache_dtype is "int8".  It is updated IN PLACE: every function that
-takes a cache returns a dict over the same buffers.
+takes a cache returns a dict over the same buffers.  The rwkv family keeps
+a recurrent state instead (`init_cache`), which forward replaces.
 
 Public API:
     init_params(cfg, seed, device)        -> params
@@ -23,14 +25,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv
 from repro_torch.models.layers import AttnConfig
+
+#: families whose cache has one row per slot (the continuous scheduler, the
+#: paged cache and speculation need it), as the reference lists them; rwkv
+#: keeps a recurrent state.  Of these the port runs dense (check_supported).
+SLOT_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for config options this slice of the port does not run."""
     unported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in ("dense", "rwkv"),
         "qk_norm": cfg.qk_norm,
         "parallel_block": cfg.parallel_block,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
@@ -77,6 +84,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
               "final_norm": layers.init_norm(d, cfg.norm, dtype, device)}
     if not cfg.tie_embeddings:
         params["head"] = {"w": layers._normal(gen, (d, cfg.vocab), d ** -0.5, dtype, device)}
+    if cfg.family == "rwkv":
+        params["layers"] = [rwkv.init_rwkv_block(gen, cfg, dtype, device)
+                            for _ in range(cfg.n_layers)]
+        return params
     params["layers"] = [
         {"ln1": layers.init_norm(d, cfg.norm, dtype, device),
          "attn": layers.init_attention(gen, _attn_cfg(cfg), dtype, device),
@@ -96,6 +107,19 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
     b, t = tokens.shape
     x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
     pos = cache["pos"] if cache is not None else 0
+    if cfg.family == "rwkv":
+        states = []
+        for i, lp in enumerate(params["layers"]):
+            lc = None if cache is None else {"tm": {k: v[i] for k, v in cache["tm"].items()},
+                                             "cm": {k: v[i] for k, v in cache["cm"].items()}}
+            x, st = rwkv.rwkv_block(lp, x, cfg, lc)
+            states.append(st)
+        new_cache = None
+        if cache is not None:
+            new_cache = {grp: {k: torch.stack([st[grp][k] for st in states])
+                               for k in cache[grp]} for grp in ("tm", "cm")}
+            new_cache["pos"] = pos + t
+        return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
     steps = torch.arange(t, device=tokens.device)
     if isinstance(pos, int):
         positions = steps + pos
@@ -146,8 +170,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fals
     "page_table" whose entries start at the trash page 0; num_pages
     defaults to 1 + batch * max_pages, dense capacity plus the trash page.
     cfg.kv_cache_dtype == "int8" stores int8 values with "k_scale" /
-    "v_scale" buffers of the same shape with hd -> 1, f32."""
+    "v_scale" buffers of the same shape with hd -> 1, f32.
+
+    The rwkv family's cache is its recurrent state, per layer: "tm"
+    {"x_prev": (L, B, d) in the model dtype, "s": (L, B, H, hd, hd) f32},
+    "cm" {"x_prev": (L, B, d)}, and a scalar "pos"; it has no per-slot or
+    paged form (ValueError), and kv_cache_dtype does not touch it."""
     check_supported(cfg)
+    if per_slot and cfg.family not in SLOT_CACHE_FAMILIES:
+        raise ValueError(f"per-slot cache supports families {SLOT_CACHE_FAMILIES}, "
+                         f"got {cfg.family!r}")
+    if page_size and cfg.family not in SLOT_CACHE_FAMILIES:
+        raise ValueError(f"paged KV cache supports families {SLOT_CACHE_FAMILIES}, "
+                         f"got {cfg.family!r}")
+    if cfg.family == "rwkv":
+        d, hd, n = cfg.d_model, cfg.rwkv.head_dim, cfg.n_layers
+        return {"tm": {"x_prev": torch.zeros((n, batch, d), dtype=cfg.torch_dtype, device=device),
+                       "s": torch.zeros((n, batch, d // hd, hd, hd), dtype=torch.float32,
+                                        device=device)},
+                "cm": {"x_prev": torch.zeros((n, batch, d), dtype=cfg.torch_dtype, device=device)},
+                "pos": 0}
     if page_size:
         max_pages = -(-max_len // page_size)
         if num_pages is None:

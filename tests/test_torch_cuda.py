@@ -207,7 +207,8 @@ def test_kernels_count_their_launches(cuda):
     assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
-                                   "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2}
+                                   "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
+                                   "rwkv6": 0}
 
 
 @pytest.mark.cuda
@@ -386,3 +387,85 @@ def test_int8_smoke_serve_matches_plain_path(cuda):
     assert got["outputs"] == want["outputs"]
     assert counts["bgemv_int8"] > 0 and counts["gemm_int8"] > 0
     assert counts["bgemv"] == counts["bgemm"] == 0
+
+
+# --------------------------------------------------------------------------
+# rwkv6: the chunked WKV6 kernel
+# --------------------------------------------------------------------------
+
+def _wkv6_case(gen, dtype, bh, t, kk, with_s0, strong=False):
+    """r/k/v in `dtype`, w_log/u/s0 f32: the log-decay -exp(U(-6, 0)) (the
+    model's form), or near the -20 clamp when `strong`."""
+    r, k, v = (_rand(gen, dtype, bh, t, kk) for _ in range(3))
+    if strong:
+        w = -15.0 - 5.0 * torch.rand(bh, t, kk, generator=gen, device="cuda")
+    else:
+        w = -torch.exp(-6.0 * torch.rand(bh, t, kk, generator=gen, device="cuda"))
+    u = _rand(gen, torch.float32, bh, kk, std=0.1)
+    s0 = _rand(gen, torch.float32, bh, kk, kk) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,kk,chunk", [(4, 64, 64, 32), (3, 100, 64, 32), (2, 5, 16, 8),
+                                           (5, 37, 16, 8), (2, 48, 32, 16), (1, 1, 64, 32),
+                                           (2, 300, 64, 32)])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_kernel_matches_plain(cuda, dtype, bh, t, kk, chunk, with_s0):
+    """y within the r/k/v dtype's tolerance, the final state within f32's
+    (bf16 r/k/v with f32 w, u and state is the full-width model's mix)."""
+    r, k, v, w, u, s0 = _wkv6_case(cuda, dtype, bh, t, kk, with_s0)
+    got_y, got_s = ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    with ops.reference_mode():
+        want_y, want_s = ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got_y.dtype == dtype and got_s.dtype == torch.float32
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_s).all()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(got_s, want_s, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_strong_decay_stays_finite(cuda):
+    r, k, v, w, u, s0 = _wkv6_case(cuda, torch.bfloat16, 8, 128, 64, True, strong=True)
+    got_y, got_s = ops.rwkv6(r, k, v, w, u, s0=s0)
+    with ops.reference_mode():
+        want_y, want_s = ops.rwkv6(r, k, v, w, u, s0=s0)
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_s).all()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(got_s, want_s, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u, _ = _wkv6_case(cuda, torch.float32, 2, 8, 128, False)
+    with pytest.raises(NotImplementedError, match="K, V <= 64"):
+        ops.rwkv6(r, k, v, w, u)
+    r, k, v, w, u, _ = _wkv6_case(cuda, torch.float32, 2, 80, 16, False)
+    with pytest.raises(NotImplementedError, match="chunk"):
+        ops.rwkv6(r, k, v, w, u, chunk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 1])
+def test_rwkv_model_routes_one_wkv6_launch_a_layer_a_prefill(cuda, batch):
+    """The smoke rwkv model on the card: each prefill launches the WKV6
+    kernel once a layer and every projection on bgemm; a decode step
+    launches no WKV6 kernel and every projection on bgemv.  Batch 1 too,
+    where the head split of the prefill's activations is a strided view."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config("rwkv6-1.6b", "smoke")
+    params = tf.init_params(cfg, 0, "cuda")
+    cache = tf.init_cache(cfg, batch, 32, device="cuda")
+    toks = torch.randint(3, cfg.vocab, (batch, 11), dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    _, cache = tf.prefill(params, toks, cache, cfg)
+    after_prefill = ops.launch_counts()
+    _, cache = tf.decode_step(params, toks[:, :1], cache, cfg)
+    after_decode = ops.launch_counts()
+    n = cfg.n_layers
+    assert (after_prefill["rwkv6"], after_prefill["bgemm"], after_prefill["bgemv"]) == (n, 10 * n, 0)
+    assert (after_decode["rwkv6"], after_decode["bgemm"], after_decode["bgemv"]) == (n, 10 * n, 10 * n)
+    assert after_decode["attention"] == 0

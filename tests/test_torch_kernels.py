@@ -19,6 +19,7 @@ from repro_torch.kernels import attention as tattention
 from repro_torch.kernels import bgemm as tbgemm
 from repro_torch.kernels import bgemv as tbgemv
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6 as trwkv6
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -165,10 +166,17 @@ def test_cpu_tensors_take_the_plain_versions():
     qw = quant.quantize(w, quant.QuantSpec(8, None, transpose=True))
     assert torch.equal(ops.bgemv(qw, x), tbgemv.reference_int8(qw, x))
     assert torch.equal(ops.bgemm(a, qw), tbgemm.reference_int8(a, qw))
+    r = torch.randn(2, 5, 16, generator=g)
+    w_log = -torch.rand(2, 5, 16, generator=g)
+    u = r[:, 0].contiguous()
+    got = ops.rwkv6(r, r, r, w_log, u, chunk=4)
+    want = trwkv6.reference(r, r, r, w_log, u, chunk=4)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, want))
     assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 0,
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
-                                   "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0}
+                                   "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
+                                   "rwkv6": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

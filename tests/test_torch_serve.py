@@ -69,7 +69,7 @@ def test_eos_and_degenerate_budgets_match_jax_serve():
 
 
 def test_unported_options_raise():
-    for kw in ({"scheduler": "batch"}, {"prefill_chunk": 4}, {"speculate": 2},
+    for kw in ({"scheduler": "batch", "speculate": 2}, {"prefill_chunk": 4}, {"speculate": 2},
                {"faults": "exhaust@0"}, {"deadline_ms": 50.0}, {"check_invariants": True},
                {"tp": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
