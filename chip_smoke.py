@@ -88,7 +88,27 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              plain path's activations within 2% of max |plain| (state
              0.2%), the end-to-end logits no further from the f32 path than
              the plain bf16 path's plus 2% of max |logit|; phase 8's
-             profile of the rwkv decode step.
+             profile of the rwkv decode step;
+24. ssd     - the chunked Mamba2 SSD kernel against its plain version: the
+             zamba2 prefill shape (BH=256, T=128, P=N=64, chunk 64, bf16
+             x/b/c, f32 a/h) from zero and from h0, long (T=4096, B=1),
+             ragged (T=100), f32 at the smoke widths (P=N=16, chunk 8),
+             strong decay; each one launch, y and the final state within
+             TOL, timed beside its bound and the plain version;
+25. smoke_zamba - zamba2-1.2b SMOKE (f32) under --scheduler batch, kernels
+             vs plain equal tokens at batch 2 and batch 1;
+26. serve_zamba - zamba2-1.2b FULL bf16 (seeded random weights), 8
+             requests, batch 4, prompt 128, gen 32: 8/8, finite logits, one
+             mamba2_ssd launch a Mamba2 block a prefill and none at decode,
+             112 bgemm a prefill and 112 bgemv a decode step, 18 LoRA-merge
+             gemm and 6 attention launches every forward;
+27. forced_zamba, profile_zamba - prefill + 3 decode steps at full width:
+             every mamba2_ssd launch against the plain version on its
+             inputs, every Mamba2 block and shared-block occurrence
+             teacher-forced on the plain path's activations within 2% of max
+             |plain| (SSD state 1%), the end-to-end logits no further from
+             the f32 path than the plain bf16 path's plus 2%; phase 8's
+             profile of the zamba2 decode step.
 
 Then a `kernels` summary line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -142,6 +162,14 @@ FORCED_REL_TOL = 0.05
 RWKV_TF_OUT_TOL = 0.02
 RWKV_TF_STATE_TOL = 0.002
 RWKV_E2E_MARGIN = 0.02
+# zamba2-1.2b FULL bf16 (forced_zamba), stated before its first run as
+# forced_rwkv's limits: a teacher-forced Mamba2 block's output (and a shared
+# block occurrence's) within 2% of max |plain|, its new SSD state within
+# 1%; end to end no further from the f32 path than the plain bf16 path's
+# logits are, plus 2% of max |logit|.
+ZAMBA_TF_OUT_TOL = 0.02
+ZAMBA_TF_STATE_TOL = 0.01
+ZAMBA_E2E_MARGIN = 0.02
 ARCH = "stablelm-1.6b"
 RESULTS = {}
 
@@ -1292,52 +1320,58 @@ def wkv6_inputs(bh, t, kk, dtype, with_s0, decay, seed):
     return r, k, v, w, u, s0
 
 
+def state_kernel_case(phase: str, kernel: str, label: str, call, dtype, chunk: int,
+                      nb: int, flops: int, **extra) -> dict:
+    """One case of a chunked-recurrence kernel (`kernel`, an ops function
+    returning (y, final f32 state)): run once with the counts reset (one
+    launch), y against the plain version within the y dtype's TOL and the
+    state within f32 TOL, then timed (cold L2, median) beside its bound (nb
+    bytes, flops f32 operations) and the plain version.  No PyTorch call
+    computes either recurrence (library: none)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    y, s_fin = call()
+    launched = ops.launch_counts()[kernel]
+    with ops.reference_mode():
+        want_y, want_s = call()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_fin).all())
+    ok = (finite and y.dtype == dtype and s_fin.shape == want_s.shape
+          and torch.allclose(y.float(), want_y.float(), **TOL[dtype])
+          and torch.allclose(s_fin, want_s, **TOL[torch.float32]))
+    fields = dict(case=label, dtype=str(dtype).split(".")[1], chunk=chunk,
+                  max_abs_err_y=(y.float() - want_y.float()).abs().max().item(),
+                  max_abs_y=want_y.float().abs().max().item(), tol_y=TOL[dtype],
+                  max_abs_err_state=(s_fin - want_s).abs().max().item(),
+                  max_abs_state=want_s.abs().max().item(), tol_state=TOL[torch.float32],
+                  all_finite=finite, within_tol=ok, launches_added=launched)
+    if not ok or launched != 1:
+        emit(phase, **fields)
+        raise AssertionError(f"{phase} [{label}]: within_tol={ok}, finite={finite}, "
+                             f"{launched} {kernel} launches (want 1)")
+    del y, s_fin, want_y, want_s
+    ms = time_auto(call)
+    with ops.reference_mode():
+        plain_ms = time_auto(call)
+    b_ms, by = bound(nb, flops, torch.float32)
+    row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops, **extra)
+    emit(phase, **row)
+    return row
+
+
 def phase_wkv6():
-    """Each WKV6 case once with the counts reset (one rwkv6 launch), y
-    against the plain version within the r/k/v dtype's TOL and s_fin within
-    f32 TOL, then timed (cold L2, median) beside its bound, its exp count
-    and the plain version.  No PyTorch call computes WKV6 (library: none)."""
+    """Each WKV6 case through state_kernel_case, with its exp count."""
     from repro_torch.kernels import ops
     rows = {}
     for i, (label, bh, t, kk, dtype, with_s0, decay, chunk) in enumerate(WKV6_CASES):
         r, k, v, w, u, s0 = wkv6_inputs(bh, t, kk, dtype, with_s0, decay, 200 + i)
-
-        def call(r=r, k=k, v=v, w=w, u=u, s0=s0, chunk=chunk):
-            return ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
-
-        ops.reset_launch_counts()
-        y, s_fin = call()
-        launched = ops.launch_counts()["rwkv6"]
-        with ops.reference_mode():
-            want_y, want_s = call()
-        torch.cuda.synchronize()
-        err_y = (y.float() - want_y.float()).abs().max().item()
-        err_s = (s_fin - want_s).abs().max().item()
-        finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_fin).all())
-        ok = (finite and y.dtype == dtype and tuple(s_fin.shape) == (bh, kk, kk)
-              and torch.allclose(y.float(), want_y.float(), **TOL[dtype])
-              and torch.allclose(s_fin, want_s, **TOL[torch.float32]))
-        fields = dict(case=label, dtype=str(dtype).split(".")[1], chunk=chunk,
-                      max_abs_err_y=err_y, max_abs_y=want_y.float().abs().max().item(),
-                      tol_y=TOL[dtype], max_abs_err_s=err_s,
-                      max_abs_s=want_s.abs().max().item(), tol_s=TOL[torch.float32],
-                      all_finite=finite, within_tol=ok, launches_added=launched)
-        if not ok or launched != 1:
-            emit("wkv6", **fields)
-            raise AssertionError(f"wkv6 [{label}]: within_tol={ok}, finite={finite}, "
-                                 f"{launched} rwkv6 launches (want 1)")
-        del y, s_fin, want_y, want_s
-        ms = time_auto(call)
-        with ops.reference_mode():
-            plain_ms = time_auto(call)
         nb = nbytes(r, k, v, w, u, s0) + r.numel() * r.element_size() + bh * kk * kk * 4
         flops, exps = wkv6_work(bh, t, kk, kk, chunk)
-        b_ms, by = bound(nb, flops, torch.float32)
-        row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops,
-                   exp_evaluations=exps, sfu_exp_ms=exps / SFU_EXP_S * 1e3)
-        emit("wkv6", **row)
-        rows[label] = row
+        rows[label] = state_kernel_case(
+            "wkv6", "rwkv6", label, lambda: ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk),
+            dtype, chunk, nb, flops, exp_evaluations=exps,
+            sfu_exp_ms=exps / SFU_EXP_S * 1e3)
         del r, k, v, w, u, s0
     return rows
 
@@ -1388,27 +1422,28 @@ def phase_rwkv_kernels():
     return rows
 
 
-def check_rwkv_launches(counts: dict, what: str, n_layers: int, prefills: int, steps: int):
+def check_rwkv_launches(counts: dict, what: str, cfg, prefills: int, steps: int):
     """rwkv: one rwkv6 launch a layer a prefill and none at decode; every
     projection (10 a layer) on bgemv at decode and on bgemm at prefill; no
     attention of any form."""
-    want = {"rwkv6": n_layers * prefills, "bgemv": 10 * n_layers * steps,
-            "bgemm": 10 * n_layers * prefills, "attention": 0, "attention_paged": 0,
-            "attention_int8": 0}
+    n = cfg.n_layers
+    want = {"rwkv6": n * prefills, "bgemv": 10 * n * steps, "bgemm": 10 * n * prefills,
+            "attention": 0, "attention_paged": 0, "attention_int8": 0}
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if bad:
         raise AssertionError(f"{what} launches {counts}: (got, want) {bad}")
 
 
-def phase_smoke_rwkv():
-    """rwkv6 SMOKE (f32) under the batch scheduler through the kernels and
-    again through the plain versions: equal greedy tokens, at batch 2 and
-    at batch 1 (where a prefill's head split is a strided view)."""
+def phase_smoke_batch(arch: str, phase: str, check):
+    """A recurrent-state model's SMOKE (f32) under the batch scheduler
+    through the kernels and again through the plain versions: equal greedy
+    tokens, at batch 2 and at batch 1 (where a prefill's head split is a
+    strided view); `check` holds the kernel run's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tf
     from repro_torch.models.registry import get_config
-    cfg = get_config(RWKV, "smoke")
+    cfg = get_config(arch, "smoke")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, cfg.vocab, size=(10,), dtype=np.int32) for _ in range(5)]
     params = tf.init_params(cfg, 0, "cuda")
@@ -1416,66 +1451,88 @@ def phase_smoke_rwkv():
         kw = dict(batch=batch, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts,
                   scheduler="batch", params=params, verbose=False, device="cuda")
         ops.reset_launch_counts()
-        got = serve(RWKV, "smoke", **kw)
+        got = serve(arch, "smoke", **kw)
         counts = ops.launch_counts()
         with ops.reference_mode():
-            want = serve(RWKV, "smoke", **kw)
+            want = serve(arch, "smoke", **kw)
         equal = got["outputs"] == want["outputs"]
-        emit("smoke_rwkv", arch=RWKV, dtype="float32", scheduler="batch", batch=batch,
+        emit(phase, arch=arch, dtype="float32", scheduler="batch", batch=batch,
              requests=len(prompts), completed=got["completed"], tokens_equal=equal,
-             outputs=got["outputs"], launches={k: counts[k] for k in ("rwkv6", "bgemv", "bgemm")})
+             outputs=got["outputs"], launches={k: n for k, n in counts.items() if n})
         if not equal or got["completed"] != len(prompts):
-            raise AssertionError(f"rwkv smoke serve, batch {batch}: kernels {got['outputs']} "
-                                 f"!= plain {want['outputs']}")
+            raise AssertionError(f"{phase}, batch {batch}: kernels {got['outputs']} != "
+                                 f"plain {want['outputs']}")
         # the serve's warm-up runs one prefill and one decode step first
-        check_rwkv_launches(counts, f"smoke_rwkv batch {batch}", cfg.n_layers,
-                            got["prefills"] + 1, got["decode_steps"] + 1)
+        check(counts, f"{phase} batch {batch}", cfg, got["prefills"] + 1,
+              got["decode_steps"] + 1)
 
 
-def phase_serve_rwkv(params, cfg):
-    """rwkv6 FULL bf16 under the batch scheduler: 8 requests, batch 4,
-    prompt 128, gen 32, every logit finite; returns the launch counts."""
+def phase_serve_recurrent(arch: str, phase: str, params, cfg, check):
+    """A recurrent-state model FULL bf16 under the batch scheduler: 8
+    requests, batch 4, prompt 128, gen 32, every logit finite, launches
+    held by `check`; reports tok/s, TTFT and the prefill's and decode
+    step's stream time (CUDA events around each call, warm-up excluded);
+    returns the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tf
     finite = []
-    logits_chunk = tf._logits_chunk
+    events = {"prefill": [], "decode_step": []}
+    originals = {name: getattr(tf, name) for name in ("_logits_chunk", *events)}
 
     def checked(*args, **kwargs):
-        out = logits_chunk(*args, **kwargs)
+        out = originals["_logits_chunk"](*args, **kwargs)
         finite.append(torch.isfinite(out).all())
         return out
 
+    def timed(name):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[name](*args, **kwargs)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
     tf._logits_chunk = checked
+    for name in events:
+        setattr(tf, name, timed(name))
     ops.reset_launch_counts()
     try:
-        stats = serve(RWKV, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
+        stats = serve(arch, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
                       eos=-1, scheduler="batch", params=params, device="cuda")
     finally:
-        tf._logits_chunk = logits_chunk
+        for name, fn in originals.items():
+            setattr(tf, name, fn)
     counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    ms = {name: [s.elapsed_time(e) for s, e in pairs[1:]]  # [0]: the warm-up
+          for name, pairs in events.items()}
     all_finite = bool(torch.stack(finite).all())
     in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
-    emit("serve_rwkv", arch=RWKV, variant="full", dtype="bfloat16", scheduler="batch",
+    emit(phase, arch=arch, variant="full", dtype="bfloat16", scheduler="batch",
          requests=8, batch=4, prompt_len=128, gen=32, completed=stats["completed"],
          tokens=stats["tokens"], tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
          ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
          decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
+         prefill_ms=statistics.mean(ms["prefill"]),
+         decode_ms_per_step=statistics.median(ms["decode_step"]),
          logit_checks=len(finite), all_logits_finite=all_finite)
-    emit("launches", run="serve_rwkv", **counts)
+    emit("launches", run=phase, **counts)
     if stats["completed"] != 8 or not all_finite or not in_range:
-        raise AssertionError(f"rwkv full serve: completed {stats['completed']}/8, "
+        raise AssertionError(f"{phase}: completed {stats['completed']}/8, "
                              f"finite {all_finite}, tokens in range {in_range}")
     if any(len(o) != 32 for o in stats["outputs"]):
-        raise AssertionError("rwkv full serve: a request stopped before its budget")
-    check_rwkv_launches(counts, "serve_rwkv", cfg.n_layers, stats["prefills"] + 1,
-                        stats["decode_steps"] + 1)
+        raise AssertionError(f"{phase}: a request stopped before its budget")
+    check(counts, phase, cfg, stats["prefills"] + 1, stats["decode_steps"] + 1)
     return counts
 
 
-def _forced_rwkv_run(params, cfg, tokens, steps):
-    """Prefill (4, 128) then decode the given tokens on the rwkv state;
-    returns the logits of every step, the per-layer state after the
+def _forced_state_run(params, cfg, tokens, steps, state_of):
+    """Prefill (4, 128) then decode the given tokens on the recurrent cache;
+    returns the logits of every step, a copy of `state_of(cache)` after the
     prefill, and device times (ms) of the prefill and each decode step."""
     from repro_torch.models import transformer as tf
     cache = tf.init_cache(cfg, 4, 160, device="cuda")
@@ -1490,7 +1547,7 @@ def _forced_rwkv_run(params, cfg, tokens, steps):
         logits.append(out)
         times.append((start, end))
         if state is None:
-            state = cache["tm"]["s"].clone()
+            state = state_of(cache).clone()
     torch.cuda.synchronize()
     return logits, state, [s.elapsed_time(e) for s, e in times]
 
@@ -1504,127 +1561,261 @@ def _map_tensors(tree, fn):
     return fn(tree)
 
 
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
 def _teacher_forced_rwkv(params, cfg, feeds):
     """Layer by layer on the plain path's activations: at every step (the
     prefill, then each decode token) each block runs twice on the same
     input x and state, through the kernels and through the plain versions,
     and the plain output and state go on to the next block.  Returns the
-    per-(step, layer) errors of the block output and of the new WKV state,
-    each over max |plain|."""
+    per-(step, layer) errors of the block output ("out") and of the new WKV
+    state ("state"), each over max |plain|."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers, rwkv
     from repro_torch.models import transformer as tf
     cache = tf.init_cache(cfg, 4, 160, device="cuda")
     states = [{grp: {k: v[i] for k, v in cache[grp].items()} for grp in ("tm", "cm")}
               for i in range(cfg.n_layers)]
-
-    def rel(got, want):
-        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
-
-    out_rel, state_rel = [], []
+    rel = {"out": [], "state": []}
     for tok in feeds:
         x = layers.embed(params["embed"], tok)
         for i, lp in enumerate(params["layers"]):
             got, got_st = rwkv.rwkv_block(lp, x, cfg, states[i])
             with ops.reference_mode():
                 x, states[i] = rwkv.rwkv_block(lp, x, cfg, states[i])
-            out_rel.append(rel(got, x))
-            state_rel.append(rel(got_st["tm"]["s"], states[i]["tm"]["s"]))
-    return out_rel, state_rel
+            rel["out"].append(_rel(got, x))
+            rel["state"].append(_rel(got_st["tm"]["s"], states[i]["tm"]["s"]))
+    return rel
 
 
-def phase_forced_rwkv(params, cfg):
-    """rwkv6 FULL bf16: prefill + 3 decode steps on the same tokens.
+def phase_forced_recurrent(phase: str, arch: str, params, cfg, *, kernel: str, seed: int,
+                           state_of, teacher_forced, limits: dict, margin: float, check):
+    """A recurrent-state model FULL bf16: prefill + 3 decode steps on the
+    same tokens.
 
-    Gated: (1) every rwkv6 launch of the kernel path against the plain
-    version on the same inputs, y within bf16 TOL and the final state within
-    f32 TOL; (2) teacher-forced, every block at every step through the
-    kernels against the plain versions on the same input and state: output
-    within RWKV_TF_OUT_TOL and new state within RWKV_TF_STATE_TOL of max
-    |plain|; (3) end to end, at every step, the kernel path's logits no
-    further from the plain path in f32 on the same weights (upcast) than the
-    plain bf16 path's logits are, plus RWKV_E2E_MARGIN of max |logit|;
-    (4) every logit and state finite.  The kernel path is not held to the
-    plain bf16 path's logits directly: the random-weight model amplifies a
-    rounding difference from layer to layer, so two faithful bf16 paths part
-    by tens of percent of max |logit| at 24 layers (PERF.md, section 6);
-    that distance is recorded."""
+    Gated: (1) every launch of `kernel` (an ops function returning (y,
+    final state)) on the kernel path against the plain version on the same
+    inputs, y within bf16 TOL and the state within f32 TOL; (2)
+    teacher-forced (`teacher_forced`), every block at every step through
+    the kernels against the plain versions on the same input and state,
+    each error series within its `limits` share of max |plain|; (3) end to
+    end, at every step, the kernel path's logits no further from the plain
+    path in f32 on the same weights (upcast) than the plain bf16 path's
+    logits are, plus `margin` of max |logit|; (4) every logit and state
+    finite.  The kernel path is not held to the plain bf16 path's logits
+    directly: a random-weight model amplifies a rounding difference from
+    layer to layer, so two faithful bf16 paths can part by tens of percent
+    of max |logit| (rwkv6-1.6b, PERF.md section 6); that distance is
+    recorded."""
     from repro_torch.kernels import ops
-    rng = np.random.default_rng(8)
+    rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
     steps = [torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
              for _ in range(3)]
     captured = []
-    rwkv6 = ops.rwkv6
+    launch = getattr(ops, kernel)
 
     def capture(*args, **kwargs):
-        out = rwkv6(*args, **kwargs)
+        # copies: an initial state may be a view of a cache that the
+        # forward then overwrites with the new state in place
+        args = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        kwargs = {k: v.clone() if torch.is_tensor(v) else v for k, v in kwargs.items()}
+        out = launch(*args, **kwargs)
         captured.append((args, kwargs, out))
         return out
 
-    ops.rwkv6 = capture
+    setattr(ops, kernel, capture)
     try:
         ops.reset_launch_counts()
-        got, got_state, t_kernel = _forced_rwkv_run(params, cfg, tokens, steps)
+        got, got_state, t_kernel = _forced_state_run(params, cfg, tokens, steps, state_of)
         counts = ops.launch_counts()
     finally:
-        ops.rwkv6 = rwkv6
+        setattr(ops, kernel, launch)
     with ops.reference_mode():
-        want, want_state, t_plain = _forced_rwkv_run(params, cfg, tokens, steps)
+        want, want_state, t_plain = _forced_state_run(params, cfg, tokens, steps, state_of)
     layer_err_y, layer_err_s, layer_ok = [], [], []
     for args, kwargs, (y, s_fin) in captured:
         with ops.reference_mode():
-            wy, ws = rwkv6(*args, **kwargs)
+            wy, ws = launch(*args, **kwargs)
         layer_err_y.append((y.float() - wy.float()).abs().max().item())
         layer_err_s.append((s_fin - ws).abs().max().item())
         layer_ok.append(torch.allclose(y.float(), wy.float(), **TOL[torch.bfloat16])
                         and torch.allclose(s_fin, ws, **TOL[torch.float32]))
     del captured
-    state_err = (got_state - want_state).abs().amax(dim=(1, 2, 3, 4))
-    state_rel = (state_err / want_state.abs().amax(dim=(1, 2, 3, 4))).tolist()
+    dims = tuple(range(1, got_state.ndim))
+    state_rel = ((got_state - want_state).abs().amax(dim=dims)
+                 / want_state.abs().amax(dim=dims)).tolist()
     errs, scales, agree = [], [], []
     for gl, wl in zip(got, want):
         errs.append((gl - wl).abs().max().item())
         scales.append(wl.abs().max().item())
         agree.append((gl.argmax(-1) == wl.argmax(-1)).float().mean().item())
-    tf_out, tf_state = _teacher_forced_rwkv(params, cfg, [tokens] + steps)
+    tf_rel = teacher_forced(params, cfg, [tokens] + steps)
     params32 = _map_tensors(params, lambda t: t.float())
     with ops.reference_mode():
-        want32, _, _ = _forced_rwkv_run(params32, dataclasses.replace(cfg, dtype="float32"),
-                                        tokens, steps)
+        want32, _, _ = _forced_state_run(params32, dataclasses.replace(cfg, dtype="float32"),
+                                         tokens, steps, state_of)
     del params32
 
     def rel32(logits):
-        return [((x.float() - w).abs().max() / w.abs().max()).item()
-                for x, w in zip(logits, want32)]
+        return [_rel(x, w) for x, w in zip(logits, want32)]
 
     finite = all(bool(torch.isfinite(x).all()) for x in got) and bool(
         torch.isfinite(got_state).all())
     kernel32, plain32 = rel32(got), rel32(want)
-    e2e_ok = all(k <= p + RWKV_E2E_MARGIN for k, p in zip(kernel32, plain32))
-    ok = (finite and len(layer_ok) == cfg.n_layers and all(layer_ok) and e2e_ok
-          and max(tf_out) <= RWKV_TF_OUT_TOL and max(tf_state) <= RWKV_TF_STATE_TOL)
-    emit("forced_rwkv", arch=RWKV, variant="full", dtype="bfloat16",
-         steps=["prefill", 1, 2, 3], max_abs_err=errs, max_abs_logit=scales,
+    e2e_ok = all(k <= p + margin for k, p in zip(kernel32, plain32))
+    tf_max = {k: max(v) for k, v in tf_rel.items()}
+    tf_ok = all(tf_max[k] <= limits[k] for k in tf_rel)
+    ok = finite and len(layer_ok) == cfg.n_layers and all(layer_ok) and e2e_ok and tf_ok
+    emit(phase, arch=arch, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
+         max_abs_err=errs, max_abs_logit=scales,
          rel_err=[e / s for e, s in zip(errs, scales)], argmax_agreement=agree,
          kernel_rel_err_to_f32=kernel32, plain_rel_err_to_f32=plain32,
-         e2e_margin=RWKV_E2E_MARGIN, e2e_within_margin=e2e_ok,
-         state_rel_err_by_layer=state_rel, all_finite=finite,
-         layer_launches_checked=len(layer_ok), layer_max_abs_err_y=max(layer_err_y),
-         layer_max_abs_err_s=max(layer_err_s), layers_within_tol=sum(layer_ok),
-         teacher_forced_rel_tol_out=RWKV_TF_OUT_TOL,
-         teacher_forced_rel_tol_state=RWKV_TF_STATE_TOL, teacher_forced_blocks=len(tf_out),
-         teacher_forced_max_rel_out=max(tf_out), teacher_forced_max_rel_state=max(tf_state),
-         teacher_forced_rel_out_prefill=tf_out[:cfg.n_layers], within_tol=ok,
-         prefill_ms=t_kernel[0], decode_ms_per_step=statistics.mean(t_kernel[1:]),
-         plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]),
-         launches={k: counts[k] for k in ("rwkv6", "bgemv", "bgemm")})
+         e2e_margin=margin, e2e_within_margin=e2e_ok, state_rel_err_by_layer=state_rel,
+         all_finite=finite, layer_launches_checked=len(layer_ok),
+         layer_max_abs_err_y=max(layer_err_y), layer_max_abs_err_state=max(layer_err_s),
+         layers_within_tol=sum(layer_ok), teacher_forced_limits=limits,
+         teacher_forced_runs={k: len(v) for k, v in tf_rel.items()},
+         teacher_forced_max_rel=tf_max, teacher_forced_rel_out_prefill=tf_rel["out"][
+             :cfg.n_layers], within_tol=ok, prefill_ms=t_kernel[0],
+         decode_ms_per_step=statistics.mean(t_kernel[1:]), plain_prefill_ms=t_plain[0],
+         plain_decode_ms_per_step=statistics.mean(t_plain[1:]),
+         launches={k: n for k, n in counts.items() if n})
     if not ok:
-        raise AssertionError(f"forced_rwkv: finite {finite}, rwkv6 launches within tol "
-                             f"{sum(layer_ok)}/{len(layer_ok)}, teacher-forced blocks max rel "
-                             f"out {max(tf_out)} / state {max(tf_state)}, to f32: kernel "
-                             f"{kernel32} vs plain {plain32} + {RWKV_E2E_MARGIN}")
-    check_rwkv_launches(counts, "forced_rwkv", cfg.n_layers, 1, 3)
+        raise AssertionError(f"{phase}: finite {finite}, {kernel} launches within tol "
+                             f"{sum(layer_ok)}/{len(layer_ok)}, teacher-forced max rel "
+                             f"{tf_max} (limits {limits}), to f32: kernel {kernel32} vs "
+                             f"plain {plain32} + {margin}")
+    check(counts, phase, cfg, 1, 3)
+
+
+# --------------------------------------------------------------------------
+# phases 24-27: zamba2-1.2b (hybrid Mamba2 + shared attention) and the SSD
+# --------------------------------------------------------------------------
+
+ZAMBA = "zamba2-1.2b"
+
+SSD_CASES = [  # (label, BH, T, P, N, x/b/c dtype, from h0, strong decay, chunk)
+    ("prefill B=4 NH=64 T=128 P=N=64 bf16 from zero", 256, 128, 64, 64, torch.bfloat16,
+     False, False, 64),
+    ("prefill B=4 NH=64 T=128 P=N=64 bf16 from h0", 256, 128, 64, 64, torch.bfloat16,
+     True, False, 64),
+    ("long B=1 NH=64 T=4096 P=N=64 bf16 from h0", 64, 4096, 64, 64, torch.bfloat16, True,
+     False, 64),
+    ("ragged B=4 NH=64 T=100 P=N=64 bf16 from h0", 256, 100, 64, 64, torch.bfloat16, True,
+     False, 64),
+    ("smoke f32 B=4 NH=8 T=10 P=N=16 chunk 8 from h0", 32, 10, 16, 16, torch.float32, True,
+     False, 8),
+    ("strong decay a_log in [-40, 0] B=4 NH=64 T=128 bf16 from h0", 256, 128, 64, 64,
+     torch.bfloat16, True, True, 64),
+]
+
+
+def ssd_flops(bh: int, t: int, p: int, n: int, chunk: int) -> int:
+    """The fewest f32 operations that compute the SSD on these inputs: the
+    lesser of the chunked form's, counting only the causal lower triangle
+    of c b^T and A x (C(C+1) N and C(C+1) P a chunk and head) beside c H and
+    b^T x (2 C N P each), and the token recurrence's (H <- e^a H + b x^T,
+    3 N P; y = c^T H, 2 N P; a token and head).  At the shapes here the
+    recurrence's is the lesser, also when c b^T (bf16 operands, exact) is
+    charged at the bf16 tensor-core rate.  Both count the T live rows only
+    (a ragged last chunk as its own length)."""
+    c = min(chunk, t)
+    sizes = [c] * (t // c) + ([t % c] if t % c else [])
+    chunked = bh * sum(k * (k + 1) * (n + p) + 4 * k * n * p for k in sizes)
+    return min(chunked, bh * t * 5 * n * p)
+
+
+def ssd_inputs(bh, t, p, n, dtype, with_h0, strong, seed):
+    """x of unit scale, b and c of scale 0.5; the log-decay -exp(N(0, 1)) *
+    0.3 (slow, so the carried state matters), or U(-40, 0) a step when
+    `strong` (L falls past -10^3 within a 64-row chunk); h0 f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    x = rnd(bh, t, p).to(dtype)
+    b, c = (rnd(bh, t, n, std=0.5).to(dtype) for _ in range(2))
+    if strong:
+        a = -40.0 * torch.rand(bh, t, generator=g, device="cuda")
+    else:
+        a = -torch.exp(rnd(bh, t)) * 0.3
+    h0 = rnd(bh, n, p) if with_h0 else None
+    return x, a, b, c, h0
+
+
+def phase_ssd():
+    """Each SSD case through state_kernel_case."""
+    from repro_torch.kernels import ops
+    rows = {}
+    for i, (label, bh, t, p, n, dtype, with_h0, strong, chunk) in enumerate(SSD_CASES):
+        x, a, b, c, h0 = ssd_inputs(bh, t, p, n, dtype, with_h0, strong, 400 + i)
+        nb = nbytes(x, a, b, c, h0) + x.numel() * x.element_size() + bh * n * p * 4
+        rows[label] = state_kernel_case(
+            "ssd", "mamba2_ssd", label,
+            lambda: ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk), dtype, chunk, nb,
+            ssd_flops(bh, t, p, n, chunk))
+        del x, a, b, c, h0
+    return rows
+
+
+def check_zamba_launches(counts: dict, what: str, cfg, prefills: int, steps: int):
+    """zamba2: one mamba2_ssd launch a Mamba2 block a prefill and none at
+    decode; every projection (2 a block, 6 a shared-block occurrence) on
+    bgemm at prefill and on bgemv at decode; the 3 LoRA merges of each
+    occurrence on gemm and one attention launch an occurrence, every
+    forward; no paged, int8 or WKV6 launch."""
+    n = cfg.n_layers
+    occ = n // cfg.ssm.shared_attn_every
+    proj = 2 * n + 6 * occ
+    want = {"mamba2_ssd": n * prefills, "bgemm": proj * prefills, "bgemv": proj * steps,
+            "gemm": 3 * occ * (prefills + steps), "attention": occ * (prefills + steps),
+            "attention_paged": 0, "attention_int8": 0, "rwkv6": 0}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{what} launches {counts}: (got, want) {bad}")
+
+
+def _teacher_forced_zamba(params, cfg, feeds):
+    """Block by block on the plain path's activations: at every step (the
+    prefill, then each decode token) each Mamba2 block and each shared-block
+    occurrence runs twice on the same input and state (or cache), through
+    the kernels and through the plain versions, and the plain output and
+    state go on.  Returns the per-(step, block) errors of the Mamba2 block
+    output ("out"), of its new SSD state ("state") and of the shared
+    block's output ("shared"), each over max |plain|."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, mamba
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    n = cfg.n_layers
+    every = cfg.ssm.shared_attn_every
+    states = [{k: cache["mamba"][k][i] for k in ("conv", "h")} for i in range(n)]
+    rel = {"out": [], "state": [], "shared": []}
+    pos = 0
+    for tok in feeds:
+        t = tok.shape[1]
+        positions = torch.arange(t, device="cuda") + pos
+        x = layers.embed(params["embed"], tok)
+        occ = 0
+        for i, lp in enumerate(params["layers"]):
+            got, got_st = mamba.mamba_block(lp, x, cfg, states[i])
+            with ops.reference_mode():
+                x, states[i] = mamba.mamba_block(lp, x, cfg, states[i])
+            rel["out"].append(_rel(got, x))
+            rel["state"].append(_rel(got_st["h"], states[i]["h"]))
+            if (i + 1) % every == 0 and occ < n // every:
+                ac = {"k": cache["attn"]["k"][occ], "v": cache["attn"]["v"][occ], "pos": pos}
+                got, _ = tf._shared_attn_block(params, x, cfg, positions, occ, ac)
+                with ops.reference_mode():  # rewrites this step's K/V with the plain path's
+                    x, _ = tf._shared_attn_block(params, x, cfg, positions, occ, ac)
+                rel["shared"].append(_rel(got, x))
+                occ += 1
+        pos += t
+    return rel
 
 
 def phase_serve_batch(params, cfg, continuous_outputs):
@@ -1770,13 +1961,32 @@ def main() -> int:
         del params, qparams
         wkv6_rows = phase_wkv6()
         phase_rwkv_kernels()
-        phase_smoke_rwkv()
+        phase_smoke_batch(RWKV, "smoke_rwkv", check_rwkv_launches)
         rwkv_cfg = get_config(RWKV, "full")
         rwkv_params = tf.init_params(rwkv_cfg, 0, "cuda")
-        rwkv_counts = phase_serve_rwkv(rwkv_params, rwkv_cfg)
-        phase_forced_rwkv(rwkv_params, rwkv_cfg)
+        rwkv_counts = phase_serve_recurrent(RWKV, "serve_rwkv", rwkv_params, rwkv_cfg,
+                                            check_rwkv_launches)
+        phase_forced_recurrent(
+            "forced_rwkv", RWKV, rwkv_params, rwkv_cfg, kernel="rwkv6", seed=8,
+            state_of=lambda cache: cache["tm"]["s"], teacher_forced=_teacher_forced_rwkv,
+            limits={"out": RWKV_TF_OUT_TOL, "state": RWKV_TF_STATE_TOL},
+            margin=RWKV_E2E_MARGIN, check=check_rwkv_launches)
         phase_profile(rwkv_params, rwkv_cfg, phase="profile_rwkv")
         del rwkv_params
+        ssd_rows = phase_ssd()
+        phase_smoke_batch(ZAMBA, "smoke_zamba", check_zamba_launches)
+        zamba_cfg = get_config(ZAMBA, "full")
+        zamba_params = tf.init_params(zamba_cfg, 0, "cuda")
+        zamba_counts = phase_serve_recurrent(ZAMBA, "serve_zamba", zamba_params, zamba_cfg,
+                                             check_zamba_launches)
+        phase_forced_recurrent(
+            "forced_zamba", ZAMBA, zamba_params, zamba_cfg, kernel="mamba2_ssd", seed=12,
+            state_of=lambda cache: cache["mamba"]["h"], teacher_forced=_teacher_forced_zamba,
+            limits={"out": ZAMBA_TF_OUT_TOL, "state": ZAMBA_TF_STATE_TOL,
+                    "shared": ZAMBA_TF_OUT_TOL},
+            margin=ZAMBA_E2E_MARGIN, check=check_zamba_launches)
+        phase_profile(zamba_params, zamba_cfg, phase="profile_zamba")
+        del zamba_params
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
 
@@ -1852,7 +2062,17 @@ def main() -> int:
     summary.append({"name": "rwkv6", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6.cu",
                     "replaces": "src/repro/kernels/rwkv6.py:99",
                     "launches": rwkv_counts["rwkv6"], "max_abs_err": r["max_abs_err_y"],
-                    "max_abs_err_s": r["max_abs_err_s"], "ms": r["kernel_ms"],
+                    "max_abs_err_state": r["max_abs_err_state"], "ms": r["kernel_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None, "shape": r["case"],
+                    "dtype": "bfloat16"})
+    # the SSD kernel: the prefill case's times, launches from the zamba serve
+    r = ssd_rows[SSD_CASES[0][0]]
+    summary.append({"name": "mamba2_ssd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/mamba2.cu",
+                    "replaces": "src/repro/kernels/mamba2.py:84",
+                    "launches": zamba_counts["mamba2_ssd"], "max_abs_err": r["max_abs_err_y"],
+                    "max_abs_err_state": r["max_abs_err_state"], "ms": r["kernel_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None, "shape": r["case"],
                     "dtype": "bfloat16"})

@@ -1,4 +1,5 @@
-"""Model config schema (the dense and rwkv subset of `repro.configs.base`).
+"""Model config schema (the dense, rwkv and hybrid subset of
+`repro.configs.base`).
 
 The port keeps its own copy so it imports nothing of the JAX package; the
 fields and defaults are the reference's.  `torch_dtype` replaces the
@@ -14,6 +15,20 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    conv_kernel: int = 4
+    expansion: int = 2
+    head_dim: int = 64              # P
+    n_groups: int = 1
+    chunk: int = 64
+    # Zamba-style hybrid: a single shared attention block applied every k
+    # SSM blocks (0 = pure SSM stack)
+    shared_attn_every: int = 0
+    shared_attn_lora_rank: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64
     decay_lora_rank: int = 64
@@ -23,7 +38,7 @@ class RWKVConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense | rwkv (the families ported so far)
+    family: str                      # dense | rwkv | hybrid (the families ported so far)
     d_model: int
     n_layers: int
     n_heads: int
@@ -31,7 +46,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None   # default d_model // n_heads
-    act: str = "swiglu"              # swiglu | geglu
+    act: str = "swiglu"              # swiglu | geglu | gelu
     norm: str = "rms"                # rms | ln
     use_bias: bool = False
     qk_norm: bool = False
@@ -43,6 +58,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False
     logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     dtype: str = "bfloat16"
     kv_cache_dtype: str = "model"

@@ -118,7 +118,7 @@ def batched_gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = N
     if A.ndim != 2 or not trans:
         raise NotImplementedError(
             "batched_gemv: only a broadcast 2-D A with trans=True is ported "
-            "(ROADMAP §2 item 1: batched A and trans=False)")
+            "(ROADMAP §2: batched A, trans=False)")
     return _alpha_beta(ops.bgemv(A, x, transpose_a=True), alpha, beta, y)
 
 
@@ -168,7 +168,7 @@ def batched_gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = N
     across the batch (one bgemm launch), or the fused epilogue as `gemm`."""
     if B.ndim != 2:
         raise NotImplementedError(
-            "batched_gemm: only a broadcast 2-D B is ported (ROADMAP §2 item 3: batched B)")
+            "batched_gemm: only a broadcast 2-D B is ported (ROADMAP §2: batched B)")
     return _gemm_like(ops.bgemm, "batched_gemm", A, B, C, alpha, beta, transpose_a,
                       transpose_b, B2, bias, residual, epilogue)
 

@@ -22,8 +22,9 @@ max(f32, dtype); the two operands of a dual GEMM must share one spec.
 a page table over a page pool: a CUDA tensor goes to the one attention
 kernel in every form, a CPU tensor to its plain version.
 
-`rwkv6` is the chunked WKV6 recurrence (`csrc/rwkv6.cu`) with the model's
-contract: an optional f32 initial state in, the final state out.
+`rwkv6` is the chunked WKV6 recurrence (`csrc/rwkv6.cu`) and `mamba2_ssd`
+the chunked Mamba2 SSD (`csrc/mamba2.cu`), each with the model's contract:
+an optional f32 initial state in, the final state out.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from repro_torch.kernels import bgemv as _bgemv
 from repro_torch.kernels import blas1 as _blas1
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemv as _gemv
+from repro_torch.kernels import mamba2 as _mamba2
 from repro_torch.kernels import rwkv6 as _rwkv6
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
@@ -75,7 +77,7 @@ def launch_counts() -> dict:
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
-            "rwkv6": _rwkv6.launches}
+            "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches}
 
 
 def reset_launch_counts() -> None:
@@ -85,7 +87,7 @@ def reset_launch_counts() -> None:
     _blas1.reduce_launches = _blas1.axpy_launches = 0
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
-    _rwkv6.launches = 0
+    _rwkv6.launches = _mamba2.launches = 0
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -188,7 +190,7 @@ def _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a):
                          f"transpose={transpose_a} to request op=A^T={transpose_a}")
     if a.values.ndim != 2:
         raise NotImplementedError("bgemv: only a broadcast 2-D packed weight is ported "
-                                  "(ROADMAP §2 item 1: batched A)")
+                                  "(ROADMAP §2: batched A)")
     m, n = a.values.shape  # stored (outputs, contraction)
     if x.ndim != 2 or x.shape[1] != n:
         raise ValueError(f"bgemv shape mismatch: packed {a.shape} @ {tuple(x.shape)}")
@@ -213,7 +215,7 @@ def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
     b (and b2) runs the int8-B kernel."""
     if _quant.is_quantized(b) and b.ndim != 2:
         raise NotImplementedError("bgemm: only a broadcast 2-D packed B is ported "
-                                  "(ROADMAP §2 item 3: batched B)")
+                                  "(ROADMAP §2: batched B)")
     if a.ndim != 3 or b.ndim != 2 or a.shape[2] != b.shape[0]:
         raise ValueError(f"bgemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     batch, m, _ = a.shape
@@ -337,6 +339,40 @@ def rwkv6(r, k, v, w_log, u, *, s0=None, chunk: int = 32):
     s_fin = torch.empty((bh, kk, vv), dtype=torch.float32, device=r.device)
     return _rwkv6.launch(r, k, v, w_log, u, s0, y, s_fin, chunk=chunk,
                          dtype_code=_DTYPE_CODES[r.dtype])
+
+
+def mamba2_ssd(x, a_log, b, c, *, h0=None, chunk: int = 64):
+    """Chunked Mamba2 SSD over x (BH, T, P), a_log (BH, T) (every value <=
+    0), b, c (BH, T, N) from the state h0 (BH, N, P) (None: zeros) ->
+    (y (BH, T, P) in x's dtype, h_fin (BH, N, P) f32).  x/b/c share one
+    dtype (f32 or bf16); a_log and h0 are f32.  T is cut into chunks of
+    min(chunk, T), the last padded with rows that leave the state exact."""
+    name = "mamba2_ssd"
+    if x.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"{name} wants (BH, T, P) and (BH, T, N) operands, got "
+                         f"{tuple(x.shape)}, {tuple(b.shape)}")
+    bh, t, p = x.shape
+    n = b.shape[2]
+    if t < 1 or chunk < 1:
+        raise ValueError(f"{name}: needs T >= 1 and chunk >= 1, got T={t}, chunk={chunk}")
+    _check_shape(name, "a_log", a_log, (bh, t))
+    _check_shape(name, "b", b, (bh, t, n))
+    _check_shape(name, "c", c, (bh, t, n))
+    _check_shape(name, "h0", h0, (bh, n, p))
+    _check(name, x, b=b, c=c)
+    _check_side(name, "a_log", a_log, torch.float32, x.device)
+    if h0 is not None:
+        _check_side(name, "h0", h0, torch.float32, x.device)
+    if not _use_kernel(x):
+        return _mamba2.reference(x, a_log, b, c, h0=h0, chunk=chunk)
+    if n > _mamba2.MAX_STATE or p > _mamba2.MAX_HEAD_DIM or min(chunk, t) > _mamba2.MAX_CHUNK:
+        raise NotImplementedError(
+            f"{name} kernel: N <= {_mamba2.MAX_STATE}, P <= {_mamba2.MAX_HEAD_DIM} and "
+            f"chunk <= {_mamba2.MAX_CHUNK}, got N={n}, P={p}, chunk={chunk}")
+    y = torch.empty((bh, t, p), dtype=x.dtype, device=x.device)
+    h_fin = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
+    return _mamba2.launch(x, a_log, b, c, h0, y, h_fin, chunk=chunk,
+                          dtype_code=_DTYPE_CODES[x.dtype])
 
 
 # --------------------------------------------------------------------------

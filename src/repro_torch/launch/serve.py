@@ -12,17 +12,21 @@ over every slot.
 Batch (`--scheduler batch`): requests of one prompt length are served in
 FIFO groups of `batch`; each group runs one (batch, T) prefill, padding
 rows included, and decodes in lockstep until every member has finished.
-It is the only scheduler of the rwkv family, whose cache is a recurrent
-state with no per-slot form.
+It is the only scheduler of the rwkv and hybrid (zamba2) families, whose
+caches hold recurrent state with no per-slot form.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --scheduler batch --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
 
 `quantize="int8"` (`--quantize int8`) packs every projection weight as
 block-scaled int8 (`models.layers.quantize_weights`) once, on the device,
 before the timed region: decode then streams 1 byte a weight through the
 packed bgemv kernel and prefill runs the int8-B bgemm, both dequantizing in
-f32 (W8A16, as the reference's pallas backend).
+f32 (W8A16, as the reference's pallas backend).  The hybrid family refuses
+it: the reference crashes there (its shared block's LoRA merge adds to a
+packed wq; ROADMAP §3), and the port serves nothing the reference cannot.
 
 `kv_cache="int8"` (`--kv-cache int8`) stores K and V as int8 with one f32
 scale per (token, head) (`core.quant.quantize_kv`), the admission prefill's
@@ -123,6 +127,11 @@ def _check_scope(cfg, scheduler, quantize, kv_cache, prefill_chunk, kv_page_size
             f"continuous scheduler supports {slot_families} "
             f"families (per-slot KV caches); {cfg.family!r} needs "
             f"--scheduler batch")
+    if quantize == "int8" and cfg.family == "hybrid":
+        raise ValueError(
+            "quantize='int8' is not supported for the hybrid family: the shared "
+            "attention block's LoRA merge adds an f32 delta to a packed wq, where the "
+            "reference raises AttributeError (ROADMAP §3)")
     unported = [
         (prefill_chunk is not None, "prefill_chunk", 2),
         (speculate is not None, "speculate", 2),
@@ -792,7 +801,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scheduler", default="continuous", choices=("continuous", "batch"),
                     help="continuous: slot-level admission; batch: FIFO groups that "
-                         "drain together (the rwkv family's scheduler)")
+                         "drain together (the rwkv and hybrid families' scheduler)")
     ap.add_argument("--quantize", default="none", choices=("none", "int8"),
                     help="int8: block-scaled int8 projection weights (W8A16)")
     ap.add_argument("--kv-cache", default="model", choices=("model", "int8"),

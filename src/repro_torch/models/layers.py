@@ -1,13 +1,13 @@
-"""Transformer layers of the dense family.  Every projection routes through
-core.blas, every attention through the flash kernel.
+"""Transformer layers.  Every projection routes through core.blas, every
+attention through the flash kernel.
 
 Mirrors `repro.models.layers` (norms, rope, GQA attention over a dense or
-paged KV cache in the model dtype or int8, SwiGLU MLP, embedding).  Params
-are plain dicts of tensors with the reference's names and layouts: weights
-(d_in, d_out), cache (B, S, KVH, hd) or a page pool (num_pages, page_size,
-KVH, hd), q/k/v (B, T, H, hd).  Unlike the reference, the KV cache is
-written IN PLACE (`_cache_write`, `_paged_cache_write`): the returned cache
-holds the same buffers.
+paged KV cache in the model dtype or int8, the SwiGLU and plain gelu MLPs,
+embedding).  Params are plain dicts of tensors with the reference's names
+and layouts: weights (d_in, d_out), cache (B, S, KVH, hd) or a page pool
+(num_pages, page_size, KVH, hd), q/k/v (B, T, H, hd).  Unlike the
+reference, the KV cache is written IN PLACE (`_cache_write`,
+`_paged_cache_write`): the returned cache holds the same buffers.
 """
 
 from __future__ import annotations
@@ -288,23 +288,34 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
 # --------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, dtype, device) -> dict:
-    if kind not in ("swiglu", "geglu"):
+    """Weights only: no ported config has a biased MLP (`mlp` reads the
+    optional gelu biases of converted params)."""
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+            "w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+            "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device),
+        }
+    if kind != "gelu":
         raise NotImplementedError(f"mlp kind {kind!r} is not ported (ROADMAP §1)")
-    return {
-        "w_gate": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
-        "w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
-        "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device),
-    }
+    return {"w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+            "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device)}
 
 
 def mlp(params: dict, x, kind: str = "swiglu", residual=None):
     """Gated MLP: act(x @ w_gate) * (x @ w_up) is ONE dual-GEMM launch, and
-    the down projection carries the block residual."""
-    if kind not in ("swiglu", "geglu"):
+    the down projection carries the block residual.  The plain two-matrix
+    "gelu" MLP fuses bias + gelu into the up projection and bias + residual
+    into the down projection."""
+    if kind in ("swiglu", "geglu"):
+        act = "silu" if kind == "swiglu" else "gelu"
+        mid = blas.matmul_fused(x, params["w_gate"], w2=params["w_up"], activation=act)
+        return blas.matmul_fused(mid, params["w_down"], residual=residual)
+    if kind != "gelu":
         raise NotImplementedError(f"mlp kind {kind!r} is not ported (ROADMAP §1)")
-    act = "silu" if kind == "swiglu" else "gelu"
-    mid = blas.matmul_fused(x, params["w_gate"], w2=params["w_up"], activation=act)
-    return blas.matmul_fused(mid, params["w_down"], residual=residual)
+    hdn = blas.matmul_fused(x, params["w_up"], bias=params.get("b_up"), activation="gelu")
+    return blas.matmul_fused(hdn, params["w_down"], bias=params.get("b_down"),
+                             residual=residual)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly for the dense and rwkv families: params, forward, cache,
-prefill, decode.
+"""Model assembly for the dense, rwkv and hybrid families: params, forward,
+cache, prefill, decode.
 
 Mirrors `repro.models.transformer` for those families.  Params are a dict
 with the reference's leaf names; where the reference stacks layers along a
@@ -9,7 +9,9 @@ hd) per K and V dense, or (L, num_pages, page_size, KVH, hd) paged with a
 (B, max_pages) page table; int8 values with (..., 1) f32 scales when
 cfg.kv_cache_dtype is "int8".  It is updated IN PLACE: every function that
 takes a cache returns a dict over the same buffers.  The rwkv family keeps
-a recurrent state instead (`init_cache`), which forward replaces.
+a recurrent state instead (`init_cache`), which forward replaces.  The
+hybrid family (zamba2) keeps per-layer Mamba2 states and one KV cache per
+occurrence of its shared attention block, all written in place.
 
 Public API:
     init_params(cfg, seed, device)        -> params
@@ -25,19 +27,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, rwkv
+from repro_torch.core import blas
+from repro_torch.models import layers, mamba, rwkv
 from repro_torch.models.layers import AttnConfig
 
 #: families whose cache has one row per slot (the continuous scheduler, the
 #: paged cache and speculation need it), as the reference lists them; rwkv
-#: keeps a recurrent state.  Of these the port runs dense (check_supported).
+#: and hybrid keep a recurrent state.  Of these the port runs dense
+#: (check_supported).
 SLOT_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for config options this slice of the port does not run."""
     unported = {
-        "family": cfg.family not in ("dense", "rwkv"),
+        "family": cfg.family not in ("dense", "rwkv", "hybrid"),
         "qk_norm": cfg.qk_norm,
         "parallel_block": cfg.parallel_block,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
@@ -88,6 +92,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         params["layers"] = [rwkv.init_rwkv_block(gen, cfg, dtype, device)
                             for _ in range(cfg.n_layers)]
         return params
+    if cfg.family == "hybrid":
+        return _init_hybrid(gen, cfg, params, dtype, device)
     params["layers"] = [
         {"ln1": layers.init_norm(d, cfg.norm, dtype, device),
          "attn": layers.init_attention(gen, _attn_cfg(cfg), dtype, device),
@@ -95,6 +101,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
          "ln2": layers.init_norm(d, cfg.norm, dtype, device)}
         for _ in range(cfg.n_layers)
     ]
+    return params
+
+
+def _init_hybrid(gen: torch.Generator, cfg: ModelConfig, params: dict, dtype, device) -> dict:
+    """Mamba2 blocks, the shared attention block (gelu MLP) and its
+    per-occurrence LoRA factors, stacked over the n_layers // every
+    occurrences; the "*b" factors start at zero, as in the reference."""
+    params["layers"] = [mamba.init_mamba_block(gen, cfg, dtype, device)
+                        for _ in range(cfg.n_layers)]
+    s = cfg.ssm
+    if not s.shared_attn_every:
+        return params
+    d = cfg.d_model
+    params["shared_attn"] = {
+        "ln1": layers.init_norm(d, cfg.norm, dtype, device),
+        "ln2": layers.init_norm(d, cfg.norm, dtype, device),
+        "attn": layers.init_attention(gen, _attn_cfg(cfg), dtype, device),
+        "ffn": layers.init_mlp(gen, d, cfg.d_ff, "gelu", dtype, device),
+    }
+    if s.shared_attn_lora_rank:
+        n_occ, r = cfg.n_layers // s.shared_attn_every, s.shared_attn_lora_rank
+        widths = {"q": cfg.n_heads * cfg.hd, "k": cfg.n_kv * cfg.hd, "v": cfg.n_kv * cfg.hd}
+        lora = {}
+        for name, width in widths.items():
+            lora[name + "a"] = layers._normal(gen, (n_occ, d, r), d ** -0.5, dtype, device)
+            lora[name + "b"] = torch.zeros((n_occ, r, width), dtype=dtype, device=device)
+        params["shared_lora"] = lora
     return params
 
 
@@ -126,6 +159,9 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
     else:
         # per-slot serving cache: each slot at its own ragged position
         positions = pos.to(torch.int64)[:, None] + steps[None, :]
+    if cfg.family == "hybrid":
+        x, new_cache = _hybrid_forward(params, x, cfg, positions, cache)
+        return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
     keys = [k for k in _KV_KEYS if cache is not None and k in cache]
     for i, lp in enumerate(params["layers"]):
         lc = None
@@ -138,6 +174,59 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
         x, _ = dense_block(lp, x, cfg, positions=positions, cache=lc)
     new_cache = None if cache is None else {**cache, "pos": pos + t}
     return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
+
+
+def _hybrid_forward(params, x, cfg: ModelConfig, positions, cache=None):
+    """Zamba2: the Mamba2 stack with the shared attention block after every
+    `every` blocks while occurrences remain (FULL: after blocks 5, 11, ...,
+    35; blocks 36-37 have none).  Each block's state and each occurrence's
+    K/V are written into the cache IN PLACE."""
+    s = cfg.ssm
+    every = s.shared_attn_every or (cfg.n_layers + 1)
+    n_occ = cfg.n_layers // every if s.shared_attn_every else 0
+    pos = cache["pos"] if cache is not None else None
+    occ = 0
+    for i, lp in enumerate(params["layers"]):
+        lc = None
+        if cache is not None:
+            lc = {k: cache["mamba"][k][i] for k in ("conv", "h")}
+        x, st = mamba.mamba_block(lp, x, cfg, lc)
+        if cache is not None:
+            for k in ("conv", "h"):
+                cache["mamba"][k][i].copy_(st[k])
+        if (i + 1) % every == 0 and occ < n_occ:
+            ac = None
+            if cache is not None:
+                ac = {"k": cache["attn"]["k"][occ], "v": cache["attn"]["v"][occ], "pos": pos}
+            x, _ = _shared_attn_block(params, x, cfg, positions, occ, ac)
+            occ += 1
+    if cache is None:
+        return x, None
+    # the reference advances pos through the shared block's cache: a stack
+    # with no occurrence keeps it
+    return x, {**cache, "pos": pos + x.shape[1] if occ else pos}
+
+
+def _shared_attn_block(params, x, cfg: ModelConfig, positions, occ: int, cache=None):
+    """The shared block at occurrence `occ`: wq/wk/wv plus that occurrence's
+    LoRA delta (an f32 product rounded to the weight dtype before the add),
+    attention with the residual x, the gelu MLP with the residual a."""
+    sp = params["shared_attn"]
+    attn_params = sp["attn"]
+    if "shared_lora" in params:
+        lo = params["shared_lora"]
+
+        def lora(base, a, b):
+            return base + blas.matmul(a[occ].float(), b[occ].float()).to(base.dtype)
+
+        attn_params = dict(attn_params, wq=lora(attn_params["wq"], lo["qa"], lo["qb"]),
+                           wk=lora(attn_params["wk"], lo["ka"], lo["kb"]),
+                           wv=lora(attn_params["wv"], lo["va"], lo["vb"]))
+    a, new_cache = layers.attention_layer(
+        attn_params, layers.apply_norm(sp["ln1"], x, cfg.norm), _attn_cfg(cfg),
+        positions=positions, cache=cache, residual=x)
+    x = layers.mlp(sp["ffn"], layers.apply_norm(sp["ln2"], a, cfg.norm), "gelu", residual=a)
+    return x, new_cache
 
 
 def _logits_chunk(params, x, cfg: ModelConfig):
@@ -175,7 +264,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fals
     The rwkv family's cache is its recurrent state, per layer: "tm"
     {"x_prev": (L, B, d) in the model dtype, "s": (L, B, H, hd, hd) f32},
     "cm" {"x_prev": (L, B, d)}, and a scalar "pos"; it has no per-slot or
-    paged form (ValueError), and kv_cache_dtype does not touch it."""
+    paged form (ValueError), and kv_cache_dtype does not touch it.
+
+    The hybrid family's: "mamba" {"conv": (L, B, K-1, d_xbc) in the model
+    dtype, "h": (L, B, NH, N, P) f32}, "attn" {"k", "v": (max(n_occ, 1),
+    B, max_len, KVH, hd) in the model dtype} and a scalar "pos"; no
+    per-slot or paged form, and kv_cache_dtype="int8" leaves it in the
+    model dtype, as the reference builds it."""
     check_supported(cfg)
     if per_slot and cfg.family not in SLOT_CACHE_FAMILIES:
         raise ValueError(f"per-slot cache supports families {SLOT_CACHE_FAMILIES}, "
@@ -189,6 +284,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fals
                        "s": torch.zeros((n, batch, d // hd, hd, hd), dtype=torch.float32,
                                         device=device)},
                 "cm": {"x_prev": torch.zeros((n, batch, d), dtype=cfg.torch_dtype, device=device)},
+                "pos": 0}
+    if cfg.family == "hybrid":
+        s, _, nh, d_xbc = mamba._dims(cfg)
+        n, dt = cfg.n_layers, cfg.torch_dtype
+        n_occ = n // s.shared_attn_every if s.shared_attn_every else 0
+        kv_shape = (max(n_occ, 1), batch, max_len, cfg.n_kv, cfg.hd)
+        return {"mamba": {"conv": torch.zeros((n, batch, s.conv_kernel - 1, d_xbc), dtype=dt,
+                                              device=device),
+                          "h": torch.zeros((n, batch, nh, s.d_state, s.head_dim),
+                                           dtype=torch.float32, device=device)},
+                "attn": {key: torch.zeros(kv_shape, dtype=dt, device=device) for key in "kv"},
                 "pos": 0}
     if page_size:
         max_pages = -(-max_len // page_size)

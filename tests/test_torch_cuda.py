@@ -208,7 +208,7 @@ def test_kernels_count_their_launches(cuda):
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
-                                   "rwkv6": 0}
+                                   "rwkv6": 0, "mamba2_ssd": 0}
 
 
 @pytest.mark.cuda
@@ -469,3 +469,97 @@ def test_rwkv_model_routes_one_wkv6_launch_a_layer_a_prefill(cuda, batch):
     assert (after_prefill["rwkv6"], after_prefill["bgemm"], after_prefill["bgemv"]) == (n, 10 * n, 0)
     assert (after_decode["rwkv6"], after_decode["bgemm"], after_decode["bgemv"]) == (n, 10 * n, 10 * n)
     assert after_decode["attention"] == 0
+
+
+# --------------------------------------------------------------------------
+# mamba2: the chunked SSD kernel
+# --------------------------------------------------------------------------
+
+def _ssd_case(gen, dtype, bh, t, p, n, with_h0, strong=False):
+    """x/b/c in `dtype`, a_log/h0 f32: the log-decay -exp(N(0, 1)) * 0.3
+    (the model's -exp(A) * dt), or down to -40 a step when `strong`."""
+    x = _rand(gen, dtype, bh, t, p)
+    b, c = (_rand(gen, dtype, bh, t, n, std=0.5) for _ in range(2))
+    if strong:
+        a = -40.0 * torch.rand(bh, t, generator=gen, device="cuda")
+    else:
+        a = -torch.exp(torch.randn(bh, t, generator=gen, device="cuda")) * 0.3
+    h0 = _rand(gen, torch.float32, bh, n, p) if with_h0 else None
+    return x, a, b, c, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,p,n,chunk", [(4, 128, 64, 64, 64), (3, 100, 64, 64, 64),
+                                             (2, 10, 16, 16, 8), (5, 37, 16, 16, 8),
+                                             (2, 48, 8, 16, 16), (2, 70, 24, 40, 32),
+                                             (1, 1, 64, 64, 64), (2, 300, 64, 64, 64)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba2_ssd_kernel_matches_plain(cuda, dtype, bh, t, p, n, chunk, with_h0):
+    """y within the x/b/c dtype's tolerance, the final state within f32's;
+    N != P and P not a multiple of the kernel's 16-column slice included."""
+    x, a, b, c, h0 = _ssd_case(cuda, dtype, bh, t, p, n, with_h0)
+    ops.reset_launch_counts()
+    got_y, got_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
+    with ops.reference_mode():
+        want_y, want_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_ssd"] == 1
+    assert got_y.dtype == dtype and got_h.dtype == torch.float32
+    assert tuple(got_h.shape) == (bh, n, p)
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_h).all()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(got_h, want_h, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_kernel_strong_decay_stays_finite(cuda):
+    x, a, b, c, h0 = _ssd_case(cuda, torch.bfloat16, 8, 128, 64, 64, True, strong=True)
+    got_y, got_h = ops.mamba2_ssd(x, a, b, c, h0=h0)
+    with ops.reference_mode():
+        want_y, want_h = ops.mamba2_ssd(x, a, b, c, h0=h0)
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_h).all()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(got_h, want_h, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, a, b, c, _ = _ssd_case(cuda, torch.float32, 2, 8, 128, 16, False)
+    with pytest.raises(NotImplementedError, match="P <= 64"):
+        ops.mamba2_ssd(x, a, b, c)
+    x, a, b, c, _ = _ssd_case(cuda, torch.float32, 2, 8, 16, 96, False)
+    with pytest.raises(NotImplementedError, match="N <= 64"):
+        ops.mamba2_ssd(x, a, b, c)
+    x, a, b, c, _ = _ssd_case(cuda, torch.float32, 2, 160, 16, 16, False)
+    with pytest.raises(NotImplementedError, match="chunk"):
+        ops.mamba2_ssd(x, a, b, c, chunk=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 1])
+def test_zamba_model_routes_one_ssd_launch_a_layer_a_prefill(cuda, batch):
+    """The smoke zamba2 model on the card: each prefill launches the SSD
+    kernel once a Mamba2 block, and every projection on bgemm (2 a block, 6
+    a shared-block occurrence); a decode step launches no SSD kernel and
+    every projection on bgemv; the LoRA merges run on gemm every forward.
+    Batch 1 too, where the head split of the prefill's activations is a
+    strided view."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cfg = get_config("zamba2-1.2b", "smoke")
+    params = tf.init_params(cfg, 0, "cuda")
+    cache = tf.init_cache(cfg, batch, 32, device="cuda")
+    toks = torch.randint(3, cfg.vocab, (batch, 11), dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    _, cache = tf.prefill(params, toks, cache, cfg)
+    after_prefill = ops.launch_counts()
+    _, cache = tf.decode_step(params, toks[:, :1], cache, cfg)
+    after_decode = ops.launch_counts()
+    n, occ = cfg.n_layers, cfg.n_layers // cfg.ssm.shared_attn_every
+    proj = 2 * n + 6 * occ
+    assert (after_prefill["mamba2_ssd"], after_prefill["bgemm"], after_prefill["bgemv"],
+            after_prefill["gemm"], after_prefill["attention"]) == (n, proj, 0, 3 * occ, occ)
+    assert (after_decode["mamba2_ssd"], after_decode["bgemm"], after_decode["bgemv"],
+            after_decode["gemm"], after_decode["attention"]) == (n, proj, proj, 6 * occ,
+                                                                 2 * occ)

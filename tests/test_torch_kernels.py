@@ -18,6 +18,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import attention as tattention
 from repro_torch.kernels import bgemm as tbgemm
 from repro_torch.kernels import bgemv as tbgemv
+from repro_torch.kernels import mamba2 as tmamba2
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6 as trwkv6
 
@@ -172,11 +173,14 @@ def test_cpu_tensors_take_the_plain_versions():
     got = ops.rwkv6(r, r, r, w_log, u, chunk=4)
     want = trwkv6.reference(r, r, r, w_log, u, chunk=4)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(got, want))
+    got = ops.mamba2_ssd(r, w_log[:, :, 0].contiguous(), r, r, chunk=4)
+    want = tmamba2.reference(r, w_log[:, :, 0].contiguous(), r, r, chunk=4)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, want))
     assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 0,
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
-                                   "rwkv6": 0}
+                                   "rwkv6": 0, "mamba2_ssd": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

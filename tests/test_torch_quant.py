@@ -302,7 +302,7 @@ def test_packed_wrappers_check_their_operands():
         ops.gemm(x, quant.QuantizedTensor(qn.values, qn.scales[:1], qn.block))
     with pytest.raises(ValueError, match="shape"):
         ops.bgemv(qt, torch.randn(2, 9))
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="§2: batched A"):
         ops.bgemv(quant.quantize(torch.randn(2, 16, 8), quant.QuantSpec(transpose=True)), x)
 
 
