@@ -1,27 +1,29 @@
-// Dense GEMM with a fused epilogue for Hopper (sm_90a), f32, bf16 and f64.
+// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32, f64,
+// unaligned bf16, and the int8-B forms the tensor cores do not take.
 //
-// Replaces two Pallas kernels with one body and two entry points:
+// Replaces, for the forms `kernels/gemm.py::plan` routes to "ffma", two
+// Pallas kernels with one body and two entry points (bf16 operands that TMA
+// can address run `csrc/gemm_sm90.cu` instead):
 //  - `gemm_launch`: `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
 //    :184) in its dense "kn" form, C = epi( A @ B  [, A @ B2] ), with A
 //    (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
 //    (M, N) in A's dtype; the sums and the epilogue run in max(f32, dtype).
-//  - `bgemm_launch`: `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call
-//    at :217) in the broadcast-B "kn" form the prefill path uses, C[b] =
-//    epi( A[b] @ B  [, A[b] @ B2] ) with A (batch, M, K) contiguous: that is
-//    the same GEMM over the batch * M rows of A, residual and C, so it runs
-//    this kernel with M' = batch * M (f32 and bf16 only, as the serving path).
+//    `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call at :217) in its
+//    broadcast-B form is the same GEMM over the batch * M rows of A, so the
+//    f32 prefill projections take this entry point too;
 //  - `gemm_q8_launch`: the packed bodies of both (`gemm.py:63-76`,
 //    `bgemm.py:80-90`): B (and B2) block-scaled int8 with f32 scales
 //    (core/quant.py), in the "kn" layout (stored (K, N), scale blocks
 //    (qa, qb) over it) or the output-major "nk" layout (stored (N, K), blocks
-//    (qa, qb) over that), the decode weights of `serve --quantize int8`.  B
-//    is dequantized in the accumulator type, deq = value * scale, as
-//    `dequant_tile(..., dtype=acc)` does: never rounded to A's dtype.
+//    (qa, qb) over that).  B is dequantized in the accumulator type, deq =
+//    value * scale, as `dequant_tile(..., dtype=acc)` does: never rounded to
+//    A's dtype.  Here: f32 and f64 activations, "kn", and "nk" whose scales
+//    vary along K.
 //
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB (f64),
 // ~700 flops per byte, far above the ridge of the card.  This kernel runs on
-// the CUDA cores (FFMA, and DFMA for f64), not the tensor cores, so bf16 and
-// f64 sit far above their tensor-core bounds; see PERF.md.
+// the CUDA cores (FFMA, and DFMA for f64), not the tensor cores, so f64 sits
+// far above its tensor-core bound; see PERF.md.
 //
 // Design: the paper's processing element mapped onto an SM.  Its 4 x 4
 // register block (the DOT4 PE) is each thread's unit of work: a thread owns
@@ -44,8 +46,8 @@
 //    a few contiguous bytes of one stored row) and written transposed into
 //    Bs[k][n], so the multiply loop is the dense one.  A scale index costs a
 //    division only along an axis with more than one scale block.
-// Later work (not here): wgmma for bf16 and f32 (TF32 changes the result,
-// so f32 stays on FFMA), DMMA (mma.sync m8n8k4 f64) for f64, TMA loads.
+// Later work (not here): DMMA (mma.sync m8n8k4 f64) for f64; f32 stays on
+// FFMA (TF32 would change the result).
 #include <stdint.h>
 
 #include <type_traits>
@@ -302,7 +304,7 @@ int run(const void* a, const void* b, const void* b2, const void* bias, const vo
 
 }  // namespace
 
-// b2, bias and res may be NULL.  Each returns cudaGetLastError() after the launch.
+// b2, bias and res may be NULL.  Returns cudaGetLastError() after the launch.
 extern "C" int gemm_launch(int dtype, const void* a, const void* b, const void* b2,
                            const void* bias, const void* res, void* c, int M, int K, int N,
                            int act, void* stream) {
@@ -310,16 +312,6 @@ extern "C" int gemm_launch(int dtype, const void* a, const void* b, const void* 
   if (dtype == DT_F32) return run<float>(a, b, b2, bias, res, c, M, K, N, act, s);
   if (dtype == DT_BF16) return run<__nv_bfloat16>(a, b, b2, bias, res, c, M, K, N, act, s);
   if (dtype == DT_F64) return run<double>(a, b, b2, bias, res, c, M, K, N, act, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int bgemm_launch(int dtype, const void* a, const void* b, const void* b2,
-                            const void* bias, const void* res, void* c, int batch, int M,
-                            int K, int N, int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32) return run<float>(a, b, b2, bias, res, c, batch * M, K, N, act, s);
-  if (dtype == DT_BF16)
-    return run<__nv_bfloat16>(a, b, b2, bias, res, c, batch * M, K, N, act, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,587 @@
+// Tensor-core GEMM with a fused epilogue for Hopper (sm_90a): bf16 operands,
+// f32 accumulators, bf16 output.  wgmma fed by TMA.
+//
+// Replaces, for bf16 operands, two Pallas kernels with one body:
+//  - `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at :184), dense
+//    "kn": C = epi(A @ B [, A @ B2]), A (M, K) and B, B2 (K, N) row-major;
+//  - `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call at :217) in the
+//    broadcast-B form of every prefill projection: C[b] = epi(A[b] @ B
+//    [, A[b] @ B2]) with A (batch, M, K) contiguous, the same GEMM over its
+//    batch * M rows;
+//  - and the int8 body of both (`gemm.py:63-76`, `bgemm.py:80-90`) in the
+//    output-major "nk" layout of `serve --quantize int8`: B and B2 stored
+//    (N, K) int8 with one f32 scale for every `qa` output columns across all
+//    of K (`QuantSpec(block_m=64, block_n=None, transpose=True)`).
+// bias (N,), residual (M, N) and C (M, N) are bf16.  The epilogue is
+// common.cuh's `epilogue<T>` on the f32 accumulator (bias, then silu, gelu
+// or relu, then the gate multiply, then the residual), rounded once to bf16;
+// an int8 column's scale multiplies its accumulator first (the reference
+// dequantizes B in the f32 accumulator: the two differ at f32 rounding).
+// Every other form (f32, f64, unaligned bf16, int8 "kn" or with scales that
+// vary along K) stays on gemm.cu's CUDA-core loop; `kernels/gemm.py::plan`
+// picks the route, the tile and the K split from the shape alone.
+//
+// Bound: operations at most served shapes (512 prefill rows: 340-440 flops
+// a byte against the card's ridge of ~295; 8192^3: ~2700), bytes at rwkv's
+// decay LoRA (2048 -> 64 -> 2048) and, by a hair, at wo with its residual.
+// The tensor cores give 989 TFLOP/s in bf16, 15x the CUDA cores' f32 FMA
+// rate that gemm.cu runs at.
+//
+// Design against that bound:
+//  - a block owns a BM x BN tile of C: 128 x 128, 128 x 64 or 64 x 64 (the
+//    gate's two products take the last two).  One or two consumer
+//    warpgroups each own 64 of its rows in f32 registers; one producer
+//    thread keeps TMA loads in flight.  (256-wide tiles and the 128 x 128
+//    gate tile ran slower at every served shape and at 8192^3, PERF.md);
+//  - a k-step's four wgmma.m64nBNk16 of each B operand accumulate in the
+//    tensor core into a partial that is then added to the f32 registers
+//    with round-to-nearest.  The tensor core's own f32 accumulation is less
+//    exact than an FMA chain: left to run over all of K it rounded 5-7x more
+//    outputs away from the exact product than FFMA does (0.41% against 0.06%
+//    at K = 7168, PERF.md); promoted every 64 k it does better than FFMA;
+//  - the K sweep runs in steps of BK = 64 (one 128-byte row of bf16) through
+//    a ring of 3-4 shared-memory stages, 128-byte swizzled as wgmma reads
+//    them, each guarded by a full and an empty mbarrier.  A consumer waits on
+//    a k-step's products before it releases the stage; with two consumer
+//    warpgroups one issues while the other drains;
+//  - A is K-major (wgmma's native layout); the dense B (K, N) is N-major and
+//    enters through wgmma's transpose bit, in 64-column TMA boxes; the int8
+//    "nk" B (N, K) is K-major: TMA brings it into a staging buffer and the
+//    consumers convert it to bf16 (exact: |v| <= 127) into the swizzled
+//    layout, so the same wgmma reads both;
+//  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
+//    K need no padding; the stores skip the fringe.  TMA needs 16-byte row
+//    strides and base addresses: K % 8 == 0 (K % 16 for int8) and N % 8 == 0;
+//  - narrow outputs split K (`splits` slices of whole k-steps, grid.y): each
+//    slice writes f32 partials to a workspace and a second pass sums the
+//    slices in a fixed order and applies the epilogue, so two launches on
+//    the same inputs give the same bits (no atomics), as bgemv.cu does;
+//  - tiles are visited in groups of 8 tile rows, so blocks that run together
+//    share their B panel in L2.
+// Later work (not here): a persistent, warp-specialized loop that overlaps
+// one tile's epilogue with the next tile's loads; TMA stores; f64 on DMMA.
+#include <cuda.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "common.cuh"
+
+using namespace rt;
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64;             // k per stage: one 128-byte swizzled row of bf16
+constexpr int GROUP = 8;           // tile rows of the grouped raster
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use (227 KB)
+constexpr int SW = 1024;           // the 128-byte swizzle repeats every 8 rows
+
+template <int BM_, int BN_, bool GATE_, bool Q_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr bool GATE = GATE_, Q = Q_;
+  static constexpr int NC = BM / 64;                  // consumer warpgroups
+  static constexpr int THREADS = 128 * (NC + 1);      // + the producer warpgroup
+  static constexpr int NB = GATE ? 2 : 1;             // B operands
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;         // one bf16 B tile
+  static constexpr int Q_BYTES = Q ? BN * BK : 0;     // one int8 staging tile
+  static constexpr int STAGE = A_BYTES + NB * (B_BYTES + Q_BYTES);
+  static constexpr int TX = A_BYTES + NB * (Q ? Q_BYTES : B_BYTES);  // bytes TMA brings
+  static constexpr int STAGES = (SMEM_MAX - 2 * SW) / STAGE < 4 ? (SMEM_MAX - 2 * SW) / STAGE : 4;
+  static constexpr int SMEM = STAGES * STAGE + SW + 2 * STAGES * 8;
+  // two at least: with int8 B a warpgroup converts into stage s while the
+  // other may still be one step behind, multiplying from the stage before
+  static_assert(STAGES >= 2, "tile too large for the shared-memory ring");
+  static_assert(STAGE % SW == 0, "every bf16 tile must start on a swizzle period");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// returns once the phase of the given parity has completed; a wait that
+// never completes (a broken pipeline) traps after 2^26 polls (seconds)
+// rather than holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// ---- TMA: one 2-D box into shared memory, completion counted on `bar` -----
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1): start
+// address, leading and stride byte offsets, each >> 4.  K-major tiles (A, and
+// the converted int8 B) are rows of 128 bytes: 8-row groups 1024 bytes apart
+// (stride), the leading offset unused (1); a k16 step advances the start by
+// 32 bytes inside the swizzled row.  The N-major dense B is 64-column boxes
+// of 64 k-rows: 8-k-row groups 1024 bytes apart (stride), boxes BK * 128
+// bytes apart along N (leading); a k16 step advances 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// The accumulators are written by asynchronous wgmma: this keeps the
+// compiler from moving their reads across a wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) = A (64 x 16, K-major) * B (16 x N) [+ D if acc]; TB = 1:
+// B N-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_n64<TB>(d, da, db, acc);
+  else wgmma_n128<TB>(d, da, db, acc);
+}
+
+// int8 staging tile (BN rows of 64 k-bytes, as TMA wrote it) -> bf16 in the
+// K-major swizzled layout: 16 values a thread a step, two 16-byte chunks.
+template <int BN, int THREADS>
+__device__ __forceinline__ void convert_int8(const int8_t* __restrict__ src, uint8_t* dst,
+                                             int tid) {
+#pragma unroll
+  for (int u = tid; u < BN * 4; u += THREADS) {
+    const int n = u >> 2, kc = u & 3;
+    const int4 raw = *reinterpret_cast<const int4*>(src + n * BK + kc * 16);
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+    uint32_t packed[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(static_cast<float>(v[2 * e]),
+                                                     static_cast<float>(v[2 * e + 1]));
+      packed[e] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int chunk = (kc * 2 + h) ^ (n & 7);
+      *reinterpret_cast<int4*>(dst + n * 128 + chunk * 16) =
+          make_int4(packed[4 * h], packed[4 * h + 1], packed[4 * h + 2], packed[4 * h + 3]);
+    }
+  }
+}
+
+// One C tile, or one K slice of it (grid.y = split).  Q: B, B2 int8 "nk"
+// through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); else bf16
+// (K, N).  splits > 1: f32 partials to ws [(GATE ? 2 : 1) * splits][M][N]
+// (the gate's after B's) and splitk_epilogue finishes.
+template <int BM, int BN, bool GATE, bool Q>
+__global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS, 1)
+gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bs,
+               const float* __restrict__ b2s, int qa, const bf16* __restrict__ bias,
+               const bf16* __restrict__ res, bf16* __restrict__ c, float* __restrict__ ws,
+               int M, int K, int N, int act, int splits) {
+  using C = Cfg<BM, BN, GATE, Q>;
+  constexpr int NC = C::NC, STAGES = C::STAGES;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((SW - (smem_u32(smem_raw) & (SW - 1))) & (SW - 1));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = base + STAGES * C::STAGE, empty0 = full0 + STAGES * 8;
+  // stage s: A | B | B2 | int8 staging of B | of B2
+  auto a_at = [&](int s) { return base + s * C::STAGE; };
+  auto b_at = [&](int s, int j) { return a_at(s) + C::A_BYTES + j * C::B_BYTES; };
+  auto q_at = [&](int s, int j) { return b_at(s, C::NB) + j * C::Q_BYTES; };
+
+  // grouped raster: GROUP tile rows sweep the tile columns together
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int per_group = GROUP * tiles_n;
+  const int first = blockIdx.x / per_group * GROUP;
+  const int rows_here = min(tiles_m - first, GROUP);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first + in_group % rows_here) * BM;
+  const int n0 = (in_group / rows_here) * BN;
+  // this block's K slice: whole k-steps [kt0, kt1)
+  const int split = blockIdx.y, kts = (K + BK - 1) / BK;
+  const int kt0 = static_cast<int>(static_cast<long>(split) * kts / splits);
+  const int kt1 = static_cast<int>(static_cast<long>(split + 1) * kts / splits);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // ---- producer: one thread keeps the ring full ----
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == NC * 128) {
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int i = kt - kt0, s = i % STAGES;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, C::TX);
+        const int k0 = kt * BK;
+        tma_load(a_at(s), &ta, full, k0, m0);
+        if constexpr (Q) {
+          tma_load(q_at(s, 0), &tb, full, k0, n0);
+          if constexpr (GATE) tma_load(q_at(s, 1), &tb2, full, k0, n0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) {
+            tma_load(b_at(s, 0) + j * BK * 128, &tb, full, n0 + 64 * j, k0);
+            if constexpr (GATE) tma_load(b_at(s, 1) + j * BK * 128, &tb2, full, n0 + 64 * j, k0);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg multiplies rows wg*64 .. wg*64+63 ----
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // A k-step's four k16 products of each B operand accumulate in the tensor
+    // core into `part` (`part2`), which is then added to the f32 accumulator
+    // with round-to-nearest (promotion): the tensor core's own f32
+    // accumulation is less exact than an FMA chain, and over a long K it left
+    // 5-7x more outputs off the correctly rounded product than the CUDA cores
+    // do (PERF.md).
+    constexpr int R = BN / 2;  // accumulators a thread
+    float acc[R], acc2[GATE ? R : 1], part[R], part2[GATE ? R : 1];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      acc[i] = 0.f;
+      if constexpr (GATE) acc2[i] = 0.f;
+    }
+    constexpr int TB = Q ? 0 : 1;
+    constexpr uint32_t B_LEAD = Q ? 16 : BK * 128;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int i = kt - kt0, s = i % STAGES;
+      mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+      if constexpr (Q) {
+#pragma unroll
+        for (int j = 0; j < C::NB; ++j)
+          convert_int8<BN, NC * 128>(reinterpret_cast<const int8_t*>(smem + (q_at(s, j) - base)),
+                                     smem + (b_at(s, j) - base), threadIdx.x);
+        // generic-proxy writes, read next by wgmma (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, %0;" ::"n"(NC * 128) : "memory");
+      }
+      fence_acc(part);
+      if constexpr (GATE) fence_acc(part2);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW);
+        const uint32_t koff = Q ? kk * 32 : kk * 16 * 128;
+        wgmma<BN, TB>(part, da, sw128_desc(b_at(s, 0) + koff, B_LEAD, SW), kk > 0);
+        if constexpr (GATE)
+          wgmma<BN, TB>(part2, da, sw128_desc(b_at(s, 1) + koff, B_LEAD, SW), kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(part);
+      if constexpr (GATE) fence_acc(part2);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        acc[j] += part[j];
+        if constexpr (GATE) acc2[j] += part2[j];
+      }
+      // this step's products are done: free its stage.  (Keeping a group in
+      // flight across the loop's back edge, where the compiler may move
+      // registers, makes ptxas serialize every wgmma, C7515.)
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    // ---- epilogue from the registers: thread (warp w, lane l) holds rows
+    // 16w + l/4 (+8) and column pairs 8j + 2(l%4) of its warpgroup's 64 rows
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
+    const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+    const long plane = static_cast<long>(M) * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane & 3) * 2;
+      if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= M) continue;
+        const long o = static_cast<long>(row) * N + col;
+        const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        float g0 = 0.f, g1 = 0.f;
+        if constexpr (GATE) {
+          g0 = acc2[4 * j + 2 * h];
+          g1 = acc2[4 * j + 2 * h + 1];
+        }
+        if (splits > 1) {
+          *reinterpret_cast<float2*>(ws + split * plane + o) = make_float2(v0, v1);
+          if constexpr (GATE)
+            *reinterpret_cast<float2*>(ws + (splits + split) * plane + o) = make_float2(g0, g1);
+          continue;
+        }
+        float s0 = 1.f, s1 = 1.f, t0 = 1.f, t1 = 1.f;
+        if constexpr (Q) {
+          s0 = bs[col / qa];
+          s1 = bs[(col + 1) / qa];
+          if constexpr (GATE) {
+            t0 = b2s[col / qa];
+            t1 = b2s[(col + 1) / qa];
+          }
+        }
+        const float h0 = epilogue<bf16>(v0 * s0, g0 * t0, bias, res, col, o, act, GATE);
+        const float h1 = epilogue<bf16>(v1 * s1, g1 * t1, bias, res, col + 1, o + 1, act, GATE);
+        *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
+      }
+    }
+  }
+}
+
+// The split-K second pass: each thread sums one column pair over the slices
+// in slice order (deterministic), scales (int8), applies the epilogue.
+template <bool GATE, bool Q>
+__global__ void __launch_bounds__(256)
+splitk_epilogue(const float* __restrict__ ws, int splits, const float* __restrict__ bs,
+                const float* __restrict__ b2s, int qa, const bf16* __restrict__ bias,
+                const bf16* __restrict__ res, bf16* __restrict__ c, int M, int N, int act) {
+  const long plane = static_cast<long>(M) * N;
+  const long o = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) * 2;
+  if (o >= plane) return;
+  const int col = static_cast<int>(o % N);
+  float v0 = 0.f, v1 = 0.f, g0 = 0.f, g1 = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 p = *reinterpret_cast<const float2*>(ws + s * plane + o);
+    v0 += p.x;
+    v1 += p.y;
+    if constexpr (GATE) {
+      const float2 q = *reinterpret_cast<const float2*>(ws + (splits + s) * plane + o);
+      g0 += q.x;
+      g1 += q.y;
+    }
+  }
+  if constexpr (Q) {
+    v0 *= bs[col / qa];
+    v1 *= bs[(col + 1) / qa];
+    if constexpr (GATE) {
+      g0 *= b2s[col / qa];
+      g1 *= b2s[(col + 1) / qa];
+    }
+  }
+  const float h0 = epilogue<bf16>(v0, g0, bias, res, col, o, act, GATE);
+  const float h1 = epilogue<bf16>(v1, g1, bias, res, col + 1, o + 1, act, GATE);
+  *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
+}
+
+// ---- host side -------------------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's driver entry point, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (outer, inner) matrix as boxes of (box_outer, box_inner);
+// out-of-bounds elements load as zeros.  Returns 0 or a nonzero CUresult.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+           int elem, long inner, long outer, int box_inner, int box_outer,
+           CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t step[2] = {1, 1};
+  return static_cast<int>(fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+struct Args {
+  const void *a, *b, *b2;
+  const float *bs, *b2s;
+  int qa;
+  const bf16 *bias, *res;
+  bf16* c;
+  float* ws;
+  int M, K, N, act, splits;
+  cudaStream_t stream;
+};
+
+constexpr int ENCODE_FAILED = 1000;  // + the CUresult
+
+template <class C>
+int run(const Args& g) {
+  constexpr int BM = C::BM, BN = C::BN;
+  constexpr bool GATE = C::GATE, Q = C::Q;
+  const EncodeTiled fn = encoder();
+  if (!fn) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap ta, tb, tb2;
+  memset(&tb2, 0, sizeof(tb2));
+  int err = encode(fn, &ta, g.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.K, g.M, BK, BM,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int j = 0; j < (GATE ? 2 : 1) && !err; ++j) {
+    CUtensorMap* map = j ? &tb2 : &tb;
+    const void* ptr = j ? g.b2 : g.b;
+    err = Q ? encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.N, BK, BN,
+                     CU_TENSOR_MAP_SWIZZLE_NONE)
+            : encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N, g.K, 64, BK,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err) return ENCODE_FAILED + err;
+  auto kernel = gemm_tc_kernel<BM, BN, GATE, Q>;
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const long tiles = static_cast<long>((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits));
+  kernel<<<grid, C::THREADS, C::SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.bias, g.res,
+                                                  g.c, g.ws, g.M, g.K, g.N, g.act, g.splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || g.splits == 1) return static_cast<int>(e);
+  const long pairs = static_cast<long>(g.M) * g.N / 2;
+  splitk_epilogue<GATE, Q><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, g.stream>>>(
+      g.ws, g.splits, g.bs, g.b2s, g.qa, g.bias, g.res, g.c, g.M, g.N, g.act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(Cfg<...>{}) for the instantiated configuration, or -1 if there is none
+template <bool GATE, bool Q, class F>
+int by_tile(int bm, int bn, F f) {
+  if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, Q>{});
+  if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, Q>{});
+  if constexpr (!GATE) {  // the gate's four register tiles stop at BN = 64
+    if (bm == 128 && bn == 128) return f(Cfg<128, 128, GATE, Q>{});
+  }
+  return -1;
+}
+
+template <class F>
+int by_config(int bm, int bn, bool gate, bool q, F f) {
+  if (q) return gate ? by_tile<true, true>(bm, bn, f) : by_tile<false, true>(bm, bn, f);
+  return gate ? by_tile<true, false>(bm, bn, f) : by_tile<false, false>(bm, bn, f);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+// C (M, N) = epi(A (M, K) @ B [, A @ B2]) in bf16 on the tensor cores, over
+// a bm x bn tile grid with K cut into `splits` slices (ws: (b2 ? 2 : 1) *
+// splits * M * N f32 when splits > 1, else unused).  bs == NULL: B, B2 bf16
+// (K, N).  Else B, B2 int8 stored (N, K) with f32 scales bs, b2s, one for
+// every qa columns.  b2/b2s, bias and res may be NULL.  Returns
+// cudaErrorInvalidValue for a shape, tile or address the kernel does not
+// take, 1000 + a CUresult if a TMA descriptor is refused, else
+// cudaGetLastError() after the launches.
+extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, const void* bs,
+                              const void* b2s, int qa, const void* bias, const void* res,
+                              void* c, void* ws, int M, int K, int N, int act, int bm, int bn,
+                              int splits, void* stream) {
+  const bool q = bs != nullptr, gate = b2 != nullptr;
+  const int kts = (K + BK - 1) / BK;
+  const bool ok = M > 0 && N > 0 && K > 0 && K % (q ? 16 : 8) == 0 && N % 8 == 0 &&
+                  aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) && aligned16(c) &&
+                  splits >= 1 && splits <= kts && (splits == 1 || ws != nullptr) &&
+                  (!q || (qa >= 1 && N % qa == 0 && (!gate || b2s != nullptr)));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa,
+               static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+               static_cast<bf16*>(c), static_cast<float*>(ws), M, K, N, act, splits,
+               static_cast<cudaStream_t>(stream)};
+  const int err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
+  return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
+}
+
+// Dynamic shared memory a block of that configuration takes (its ring of
+// stages), or -1 if it is not instantiated.
+extern "C" int gemm_tc_smem_bytes(int bm, int bn, int gate, int q) {
+  return by_config(bm, bn, gate, q, [](auto cfg) { return decltype(cfg)::SMEM; });
+}

@@ -2,19 +2,31 @@
 
 Replaces `repro/kernels/gemm.py` (`_gemm_kernel`, Pallas call at :184) in
 its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
-(K, N), in f32, bf16 and f64.  The CUDA kernel is `csrc/gemm.cu`, a
-shared-memory tiled GEMM on the CUDA cores whose threads each own 4 x 4
-register blocks (the paper's DOT4 PE); its source note says what bounds it
-and how far it is from that.  Ragged edges are masked in the kernel, where
-the reference pads in `ops._gemm_call`.
+(K, N), in f32, bf16 and f64.  Two CUDA kernels carry it, and `plan` picks
+one from the shape, dtype and addresses alone:
+
+- "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for bf16
+  operands TMA can address (16-byte row strides and base addresses: K % 8
+  == 0, N % 8 == 0), over a (BM, BN) tile grid chosen to fill the card's
+  SMs, with K split into deterministic slices where the grid is too small;
+- "ffma": `csrc/gemm.cu`, a shared-memory tiled GEMM on the CUDA cores
+  whose threads each own 4 x 4 register blocks (the paper's DOT4 PE), for
+  f32 and f64 (TF32 would change the result), unaligned bf16 and the packed
+  forms the tensor-core kernel does not take.
+
+Each source note says what bounds its kernel.  Ragged edges are masked in
+the kernels, where the reference pads in `ops._gemm_call`.
 
 A packed B (`core.quant.QuantizedTensor`: int8 with f32 block scales, the
-int8 body of `_gemm_kernel`, gemm.py:63-76) runs gemm.cu's int8-B variant
-(`gemm_q8_launch`) in the "kn" layout (stored (K, N)) or the output-major
-"nk" layout (stored (N, K), `QuantSpec.transpose`), dequantized in the
-accumulator type on the way into shared memory.  `launch_int8` binds it
-(its own launch count; `kernels/bgemm.py` reaches it too) and
-`reference_int8` is its plain version.
+int8 body of `_gemm_kernel`, gemm.py:63-76) in the output-major "nk" layout
+with one scale block across K (`serve --quantize int8`'s) takes the wgmma
+route in bf16, converted to bf16 in shared memory (exact) and scaled in the
+accumulator.  Every other packed form (the "kn" layout, scales that vary
+along K, f32 or f64 activations) runs gemm.cu's int8-B variant
+(`gemm_q8_launch`), dequantized in the accumulator type on the way into
+shared memory.  `launch_int8` binds both (its own launch count;
+`kernels/bgemm.py` reaches them too) and `reference_int8` is their plain
+version.
 
 `reference` and `reference_int8` are the plain PyTorch versions: CPU
 tensors use them, and on the card only comparisons (`ops.reference_mode`)
@@ -24,6 +36,8 @@ do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -31,10 +45,33 @@ from repro_torch.core.epilogue import make
 from repro_torch.core.quant import dequantize_in
 from repro_torch.kernels import _build
 
-#: launches of the CUDA kernel in this process
+#: launches through `launch` in this process (either kernel)
 launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
+#: every launch of `launch` and `launch_int8`, by the route its plan named
+launches_by_route = {"wgmma": 0, "ffma": 0}
+
+#: the H100's streaming multiprocessors: the plan's default card
+H100_SMS = 132
+#: k per main-loop step of the tensor-core kernel (BK in csrc/gemm_sm90.cu)
+BK = 64
+#: (BM, BN) tiles of the tensor-core kernel, largest first.  Measured on the
+#: H100 (PERF.md, PR 17): 128 x 128 runs 8192^3 fastest (2.08 ms; 128 x 64
+#: 2.72, 64 x 64 3.77), the smaller tiles tie it at the prefill shapes, and
+#: 256-wide tiles lost everywhere; the gate's two products take BN = 64.
+TC_TILES = ((128, 128), (128, 64), (64, 64))
+GATE_TILES = ((128, 64), (64, 64))
+#: the CUDA-core kernel's fixed tile (csrc/gemm.cu), without and with a gate
+FFMA_TILE = {False: (128, 128), True: (128, 64)}
+#: the largest tile whose grid fills this share of the SMs is taken (q/k/v's
+#: 128 tiles of 128 x 64 on 132 SMs rather than 64 of 128 x 128) ...
+FILL = 0.9
+#: ... and K is split where even the smallest leaves more than this share
+#: of them idle ...
+IDLE = 0.5
+#: ... and K is at least this long (a shorter K is a short loop already)
+SPLIT_MIN_K = 1024
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -49,12 +86,104 @@ def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
     return epi.apply(h, acc2=h2, bias=bias, residual=residual).to(a.dtype)
 
 
-def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
-    """Launch `gemm_launch` on the current stream; operands are validated
-    CUDA tensors (kernels/ops.py), `out` is (M, N) and preallocated."""
-    global launches
-    m, k = a.shape
-    n = b.shape[1]
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one GEMM runs: the route ("wgmma" or "ffma"), the (BM, BN) output
+    tile and the number of K slices (wgmma only; the slices' partials are
+    summed in slice order by a second pass)."""
+
+    route: str
+    tile: tuple
+    splits: int = 1
+
+    def k_slices(self, k: int) -> list:
+        """[(k0, k1), ...]: each slice whole BK-steps of K, in the kernel's
+        order (slice s covers steps s * steps // splits up to the next)."""
+        steps = -(-k // BK)
+        cuts = [s * steps // self.splits for s in range(self.splits + 1)]
+        return [(a * BK, min(b * BK, k)) for a, b in zip(cuts, cuts[1:])]
+
+
+@functools.lru_cache(maxsize=4096)  # a serve plans a few dozen shapes
+def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
+         aligned: bool = True, sms: int = H100_SMS) -> Plan:
+    """The route, tile and K split of C (m, n) = A (m, k) @ B, from the shape,
+    the dtype and the addresses alone.
+
+    packed_layout: None for a dense B; for a packed B "nk" when it is stored
+    output-major with one scale block across all of K (the serving layout),
+    "kn" when stored (K, N), "nk-kblocks" when output-major with scales that
+    vary along K.  aligned: every operand's base address is 16-byte aligned.
+
+    bf16 takes "wgmma" when TMA can address A and B (K % 8 == 0, 16 for int8,
+    and N % 8 == 0) and B is dense or "nk"; everything else "ffma".  The tile
+    is the largest of TC_TILES (GATE_TILES) whose grid fills FILL of the
+    `sms` SMs, else the smallest; where that grid leaves more than IDLE of
+    them idle and K >= SPLIT_MIN_K, K is split so that tiles x splits is
+    about half a wave (at least 2 slices, at most one per 2 k-steps: the
+    second pass reads every slice's partials)."""
+    tc = (dtype == torch.bfloat16 and aligned and min(m, k, n) > 0 and n % 8 == 0
+          and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
+    if not tc:
+        return Plan("ffma", FFMA_TILE[bool(gate)])
+    for bm, bn in GATE_TILES if gate else TC_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        if tiles >= FILL * sms:
+            break
+    splits = 1
+    if tiles < (1 - IDLE) * sms and k >= SPLIT_MIN_K:
+        splits = max(2, min(-(-sms // (2 * tiles)), -(-k // BK) // 2))
+    return Plan("wgmma", (bm, bn), splits)
+
+
+def aligned(*tensors) -> bool:
+    """Every given tensor starts on a 16-byte boundary (TMA's requirement)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def packed_layout(qb) -> str:
+    """plan's `packed_layout` of a packed B (logical (K, N))."""
+    if not qb.transposed:
+        return "kn"
+    return "nk" if qb.block[1] == qb.values.shape[1] else "nk-kblocks"
+
+
+_TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
+       scales=None, scales2=None, qa: int = 1):
+    """Launch `gemm_tc_launch` (csrc/gemm_sm90.cu) on the current stream over
+    m rows of a, with p's tile and K slices; b (b2) are bf16 (k, n), or int8
+    stored (n, k) with f32 `scales` one per qa columns.  The split-K
+    workspace is allocated here."""
+    bm, bn = p.tile
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty((2 if b2 is not None else 1) * p.splits * m * n,
+                         dtype=torch.float32, device=a.device)
+    fn = _build.function("gemm_tc_launch", _TC_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(scales),
+                 _build.ptr(scales2), qa, _build.ptr(bias), _build.ptr(residual),
+                 out.data_ptr(), _build.ptr(ws), m, k, n, act_code, bm, bn, p.splits, stream)
+    if err:
+        raise RuntimeError(f"gemm tensor-core kernel launch failed ({p}): CUDA error {err}")
+    return out
+
+
+def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> str:
+    """C (m, n) = epi(A @ B [, A @ B2]) over m rows of a (the batch * M rows
+    of bgemm's broadcast form) through the kernel `plan` names; returns the
+    route.  Operands are validated CUDA tensors (kernels/ops.py)."""
+    k, n = b.shape
+    p = plan(m, k, n, a.dtype, gate=b2 is not None, aligned=aligned(a, b, b2, out),
+             sms=_build.sm_count(a.device.index or 0))
+    if p.route == "wgmma":
+        tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
+        return p.route
     fn = _build.function("gemm_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -62,7 +191,18 @@ def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
                  _build.ptr(residual), out.data_ptr(), m, k, n, act_code, stream)
     if err:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {err}")
+    return p.route
+
+
+def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
+    """One launch of the kernel `plan` names, counted; operands are
+    validated CUDA tensors (kernels/ops.py), `out` is (M, N) and
+    preallocated."""
+    global launches
+    route = dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
+                  dtype_code=dtype_code, m=a.shape[0])
     launches += 1
+    launches_by_route[route] += 1
     return out
 
 
@@ -79,29 +219,38 @@ def reference_int8(a, qb, *, qb2=None, bias=None, residual=None, activation=None
                      activation=activation)
 
 
-def q8(a, qb, out, *, qb2, bias, residual, m: int, act_code: int, dtype_code: int):
-    """Launch `gemm_q8_launch` on the current stream over m rows of a
-    (the batch * M rows of bgemm's broadcast form); operands are validated
-    CUDA tensors (kernels/ops.py)."""
+def q8(a, qb, out, *, qb2, bias, residual, m: int, act_code: int, dtype_code: int) -> str:
+    """One int8-B launch over m rows of a (the batch * M rows of bgemm's
+    broadcast form) through the kernel `plan` names: the tensor-core kernel
+    for bf16 activations and "nk" weights with one scale block across K,
+    else `gemm_q8_launch`.  Returns the route; operands are validated CUDA
+    tensors (kernels/ops.py)."""
     k, n = qb.shape
     qa, qbk = qb.block
+    b2v = None if qb2 is None else qb2.values
+    p = plan(m, k, n, a.dtype, gate=qb2 is not None, packed_layout=packed_layout(qb),
+             aligned=aligned(a, qb.values, b2v, out), sms=_build.sm_count(a.device.index or 0))
+    if p.route == "wgmma":
+        tc(a, qb.values, out, p, b2=b2v, bias=bias, residual=residual, act_code=act_code,
+           m=m, k=k, n=n, scales=qb.scales, scales2=None if qb2 is None else qb2.scales, qa=qa)
+        return p.route
     fn = _build.function("gemm_q8_launch", _Q_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(dtype_code, a.data_ptr(), qb.values.data_ptr(), qb.scales.data_ptr(),
-                 None if qb2 is None else qb2.values.data_ptr(),
-                 None if qb2 is None else qb2.scales.data_ptr(), qa, qbk, int(qb.transposed),
-                 _build.ptr(bias), _build.ptr(residual), out.data_ptr(), m, k, n, act_code,
-                 stream)
+                 _build.ptr(b2v), None if qb2 is None else qb2.scales.data_ptr(), qa, qbk,
+                 int(qb.transposed), _build.ptr(bias), _build.ptr(residual), out.data_ptr(),
+                 m, k, n, act_code, stream)
     if err:
         raise RuntimeError(f"gemm int8 kernel launch failed: CUDA error {err}")
-    return out
+    return p.route
 
 
 def launch_int8(a, qb, out, *, qb2, bias, residual, act_code: int, dtype_code: int):
     """C (M, N) = epi(A @ deq(B) [, A @ deq(B2)]): one int8-B launch, counted."""
     global launches_int8
-    q8(a, qb, out, qb2=qb2, bias=bias, residual=residual, m=a.shape[0], act_code=act_code,
-       dtype_code=dtype_code)
+    route = q8(a, qb, out, qb2=qb2, bias=bias, residual=residual, m=a.shape[0],
+               act_code=act_code, dtype_code=dtype_code)
     launches_int8 += 1
+    launches_by_route[route] += 1
     return out

@@ -69,7 +69,10 @@ def launch_counts() -> dict:
     variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
-    launch counts in both)."""
+    launch counts in both).  gemm_wgmma / gemm_ffma split every launch of
+    `gemm` (dense and int8) by the route its plan named (the tensor-core
+    kernel or the CUDA-core one), bgemm_wgmma / bgemm_ffma every launch of
+    `bgemm`."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "attention_paged": _attention.launches_paged,
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
@@ -77,7 +80,9 @@ def launch_counts() -> dict:
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
-            "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches}
+            "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
+            **{f"{name}_{route}": n for name, mod in (("gemm", _gemm), ("bgemm", _bgemm))
+               for route, n in mod.launches_by_route.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -88,6 +93,8 @@ def reset_launch_counts() -> None:
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
+    for mod in (_gemm, _bgemm):
+        mod.launches_by_route.update(wgmma=0, ffma=0)
 
 
 def _use_kernel(t: torch.Tensor) -> bool:

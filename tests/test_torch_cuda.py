@@ -208,7 +208,8 @@ def test_kernels_count_their_launches(cuda):
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
-                                   "rwkv6": 0, "mamba2_ssd": 0}
+                                   "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
+                                   "gemm_ffma": 2, "bgemm_wgmma": 0, "bgemm_ffma": 2}
 
 
 @pytest.mark.cuda
@@ -563,3 +564,127 @@ def test_zamba_model_routes_one_ssd_launch_a_layer_a_prefill(cuda, batch):
     assert (after_decode["mamba2_ssd"], after_decode["bgemm"], after_decode["bgemv"],
             after_decode["gemm"], after_decode["attention"]) == (n, proj, proj, 6 * occ,
                                                                  2 * occ)
+
+
+# --------------------------------------------------------------------------
+# the tensor-core GEMM (csrc/gemm_sm90.cu): the "wgmma" route of gemm.plan
+# --------------------------------------------------------------------------
+
+# (activation, bias, gate, residual): each epilogue stage alone and combined
+TC_EPILOGUES = [(None, False, False, False), (None, True, False, False),
+                ("silu", False, True, False), (None, False, False, True),
+                ("gelu", True, False, True), ("relu", True, True, True)]
+
+
+def _tc_operands(gen, batch, m, k, n, epi, weights=None):
+    """a (batch, m, k) bf16 and ops keywords for one epilogue; weights(k, n)
+    makes B (and B2), by default dense bf16 at the model's fan_in^-0.5."""
+    act, bias, gate, res = epi
+    make = weights or (lambda: _rand(gen, torch.bfloat16, k, n, std=k ** -0.5))
+    a, b = _rand(gen, torch.bfloat16, batch, m, k), make()
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = make()
+    if bias:
+        kw["bias"] = _rand(gen, torch.bfloat16, n)
+    if res:
+        kw["residual"] = _rand(gen, torch.bfloat16, batch, m, n)
+    return a, b, kw
+
+
+def _routes():
+    c = ops.launch_counts()
+    return {k: c[k] for k in ("gemm_wgmma", "gemm_ffma", "bgemm_wgmma", "bgemm_ffma")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("batch,m,k,n", [(4, 127, 256, 192),   # ragged M: 4 x 127 rows
+                                         (2, 33, 72, 136),     # K = 72, not a multiple of 64
+                                         (3, 40, 512, 8),      # N = 8
+                                         (1, 1, 2048, 264),    # M = 1 (K split)
+                                         (4, 128, 2048, 64)])  # the split-K shape
+def test_wgmma_route_matches_plain(cuda, epi, batch, m, k, n):
+    """bgemm over batch * m rows and gemm over the same rows as a 2-D A, each
+    one launch on the wgmma route, within bf16 TOL of the plain version."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _tc_operands(cuda, batch, m, k, n, epi)
+    assert gemm.plan(batch * m, k, n, torch.bfloat16, gate="b2" in kw).route == "wgmma"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.bgemm(a, b, **kw), torch.bfloat16)
+    kw2 = dict(kw, residual=kw["residual"].view(batch * m, n)) if "residual" in kw else kw
+    _against_plain(lambda: ops.gemm(a.view(batch * m, k), b, **kw2), torch.bfloat16)
+    assert _routes() == {"gemm_wgmma": 1, "gemm_ffma": 0, "bgemm_wgmma": 1, "bgemm_ffma": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [False, True])
+def test_wgmma_split_k_is_deterministic(cuda, gate):
+    """512 x 2048 -> 64 (rwkv's decay LoRA) splits K; the slices are summed
+    in a fixed order, so two launches on the same inputs give the same bits."""
+    from repro_torch.kernels import gemm
+    epi = ("silu", True, gate, True)
+    a, b, kw = _tc_operands(cuda, 4, 128, 2048, 64, epi)
+    assert gemm.plan(512, 2048, 64, torch.bfloat16, gate=gate).splits > 1
+    first, second = ops.bgemm(a, b, **kw), ops.bgemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _against_plain(lambda: ops.bgemm(a, b, **kw), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("batch,m,k,n,block", [(4, 127, 256, 192, 64), (4, 128, 2048, 64, 64),
+                                               (2, 33, 80, 136, 8), (1, 1, 2048, 264, 64)])
+def test_wgmma_int8_nk_matches_plain(cuda, epi, batch, m, k, n, block):
+    """int8 B stored output-major with one scale block across K (the layout
+    of serve --quantize int8), one scale every `block` columns or fewer
+    (264 -> 44), on the wgmma route."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(block_m=block, block_n=None, transpose=True)
+
+    def weights():
+        return quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5), spec)
+
+    a, qb, kw = _tc_operands(cuda, batch, m, k, n, epi, weights)
+    assert gemm.packed_layout(qb) == "nk"
+    assert gemm.plan(batch * m, k, n, torch.bfloat16, gate="b2" in kw,
+                     packed_layout="nk").route == "wgmma"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.bgemm(a, qb, **kw), torch.bfloat16)
+    assert _routes()["bgemm_wgmma"] == 1 and ops.launch_counts()["gemm_int8"] == 1
+
+
+@pytest.mark.cuda
+def test_unaligned_bf16_takes_the_ffma_route(cuda):
+    """K % 8 != 0, and an aligned shape whose A starts 2 bytes off a 16-byte
+    boundary: both run the CUDA-core kernel, and the counts say so."""
+    b, b37 = _rand(cuda, torch.bfloat16, 64, 128, std=0.125), _rand(cuda, torch.bfloat16, 37, 128)
+    ragged = _rand(cuda, torch.bfloat16, 2, 5, 37)
+    buf = _rand(cuda, torch.bfloat16, 2 * 5 * 64 + 1)
+    shifted = buf[1:].view(2, 5, 64)
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.bgemm(ragged, b37), torch.bfloat16)
+    _against_plain(lambda: ops.bgemm(shifted, b), torch.bfloat16)
+    assert _routes() == {"gemm_wgmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 2}
+
+
+@pytest.mark.cuda
+def test_a_launch_the_wgmma_kernel_refuses_raises(cuda):
+    """Tiles and addresses the kernel does not take come back as an error
+    code, and the wrapper raises: the gate's BN stops at 64, there is no
+    96-row tile, A must start on a 16-byte boundary."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.bfloat16, 128, 64), _rand(cuda, torch.bfloat16, 64, 256)
+    out = torch.empty(128, 256, dtype=torch.bfloat16, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=128, k=64, n=256)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 128), 1), b2=b, **kw)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (96, 64), 1), b2=None, **kw)
+    shifted = _rand(cuda, torch.bfloat16, 128 * 64 + 1)[1:].view(128, 64)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(shifted, b, out, gemm.Plan("wgmma", (128, 64), 1), b2=None, **kw)
+    gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 64), 1), b2=None, **kw)  # the same, aligned
+    torch.testing.assert_close(out.float(), (a.float() @ b.float()).bfloat16().float(),
+                               **TOL[torch.bfloat16])

@@ -1,0 +1,201 @@
+"""The GEMM plan (`repro_torch.kernels.gemm.plan`): route, tile and K split.
+
+The plan decides from the shape, the dtype and the addresses alone which
+kernel runs a GEMM: the tensor-core kernel (`csrc/gemm_sm90.cu`, "wgmma")
+or the CUDA-core one (`csrc/gemm.cu`, "ffma").  These tests hold it to its
+contract on the CPU: every served projection shape routes to "wgmma"; f32,
+f64, unaligned bf16 and the packed forms the tensor cores do not take route
+to "ffma"; the K slices cover K exactly in whole k-steps; the grid fills at
+least half the card or K is split.
+
+The split-K path sums f32 partials of each K slice in slice order and then
+applies the epilogue.  `_split_k_emulation` does that on the CPU, and is
+held to the JAX package's `ops.bgemm` (Pallas interpret mode, as
+tests/test_torch_kernels.py runs it) and to the port's plain version.
+Tolerances: f32 rtol = atol = 1e-5 (only the summation order differs);
+bf16 one bf16 rounding step of the output (rtol = atol = 2e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.core import quant
+from repro_torch.core.epilogue import make
+from repro_torch.kernels import bgemm as tbgemm
+from repro_torch.kernels import gemm
+
+BF16, F32, F64 = torch.bfloat16, torch.float32, torch.float64
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+# every bf16 prefill projection of the served models at 4 x 128 prompt
+# tokens: (what, K, N, gate)
+SERVED = [
+    ("stablelm q/k/v +bias, wo +residual", 2048, 2048, False),
+    ("stablelm gate+up silu-gate", 2048, 5632, True),
+    ("stablelm down +residual", 5632, 2048, False),
+    ("rwkv r/k/v/g/o", 2048, 2048, False),
+    ("rwkv channel-mix key", 2048, 7168, False),
+    ("rwkv channel-mix value", 7168, 2048, False),
+    ("rwkv decay LoRA down", 2048, 64, False),
+    ("rwkv decay LoRA up", 64, 2048, False),
+    ("zamba2 in_proj", 2048, 8384, False),
+    ("zamba2 out_proj", 4096, 2048, False),
+    ("zamba2 shared q/k/v/o", 2048, 2048, False),
+    ("zamba2 shared up gelu", 2048, 8192, False),
+    ("zamba2 shared down", 8192, 2048, False),
+]
+
+
+@pytest.mark.parametrize("what,k,n,gate", SERVED)
+@pytest.mark.parametrize("rows", [4 * 128, 4 * 127, 4 * 160])
+def test_every_served_projection_routes_to_wgmma(what, k, n, gate, rows):
+    p = gemm.plan(rows, k, n, BF16, gate=gate)
+    assert p.route == "wgmma", what
+    assert p.tile in (gemm.GATE_TILES if gate else gemm.TC_TILES)
+    assert 1 <= p.splits <= -(-k // gemm.BK)
+
+
+@pytest.mark.parametrize("k,n,gate", [(2048, 2048, False), (2048, 5632, True), (5632, 2048, False)])
+def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
+    """`serve --quantize int8` packs every projection output-major with one
+    scale block across K (`layers.quantize_weights`' spec)."""
+    w = torch.randn(64, 128)
+    qw = quant.quantize(w, quant.QuantSpec(block_m=64, block_n=None, transpose=True))
+    assert gemm.packed_layout(qw) == "nk"
+    assert gemm.plan(512, k, n, BF16, gate=gate, packed_layout="nk").route == "wgmma"
+
+
+@pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned", [
+    (512, 2048, 2048, F32, False, None, True),       # TF32 would change the result
+    (512, 2048, 2048, F64, False, None, True),
+    (4 * 127, 2047, 2001, BF16, False, None, True),  # the BLAS ragged case
+    (512, 2048, 2001, BF16, True, None, True),       # N % 8
+    (512, 2044, 2048, BF16, False, None, True),      # K % 8
+    (512, 2048, 2048, BF16, False, None, False),     # a base address off 16 bytes
+    (512, 2048, 2048, BF16, False, "kn", True),      # int8 stored (K, N)
+    (512, 2048, 2048, BF16, False, "nk-kblocks", True),  # scales vary along K
+    (512, 2056, 2048, BF16, False, "nk", True),      # int8 K % 16
+    (512, 2048, 2048, F32, True, "nk", True),        # f32 activations
+    (0, 2048, 2048, BF16, False, None, True),        # nothing to compute
+])
+def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
+    p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
+    assert p == gemm.Plan("ffma", gemm.FFMA_TILE[gate], 1)
+
+
+def test_packed_layouts():
+    w = torch.randn(128, 64)  # logical (K, N)
+    spec = dict(block_m=16, block_n=None)
+    assert gemm.packed_layout(quant.quantize(w, quant.QuantSpec(**spec))) == "kn"
+    assert gemm.packed_layout(quant.quantize(w, quant.QuantSpec(**spec, transpose=True))) == "nk"
+    kblocks = quant.quantize(w, quant.QuantSpec(block_m=16, block_n=32, transpose=True))
+    assert gemm.packed_layout(kblocks) == "nk-kblocks"
+
+
+# (k, splits) with at least one k-step a slice, as the plan splits
+K_SPLITS = [(k, s) for k in (1, 8, 63, 64, 65, 72, 1000, 1024, 2048, 2047 * 8, 8192)
+            for s in (1, 2, 3, 7, 16, 32) if s <= -(-k // 64)]
+
+
+@pytest.mark.parametrize("k,splits", K_SPLITS)
+def test_k_slices_cover_k_in_whole_steps(k, splits):
+    cuts = gemm.Plan("wgmma", (64, 64), splits).k_slices(k)
+    assert len(cuts) == splits
+    assert cuts[0][0] == 0 and cuts[-1][1] == k
+    for (a0, a1), (b0, _) in zip(cuts, cuts[1:]):
+        assert a1 == b0
+    for k0, k1 in cuts:
+        assert k0 < k1 and k0 % gemm.BK == 0 and (k1 % gemm.BK == 0 or k1 == k)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m", [1, 64, 4 * 127, 512, 4096, 8192])
+@pytest.mark.parametrize("k,n", [(2048, 64), (2048, 2048), (64, 2048), (8192, 8), (1024, 8192),
+                                 (8192, 8192), (512, 512), (4096, 264)])
+def test_grid_fills_half_the_card_or_splits_k(sms, m, k, n):
+    """The largest tile whose grid fills 90% of the SMs, else the smallest;
+    at least half a wave of blocks, or, where the tiles alone leave more than
+    half the SMs idle and K >= 1024, K split (at least 2 slices, at most one
+    per 2 k-steps) into about half a wave."""
+    p = gemm.plan(m, k, n, BF16, sms=sms)
+    bm, bn = p.tile
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // gemm.BK)
+    larger = gemm.TC_TILES[:gemm.TC_TILES.index(p.tile)]
+    assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * sms for b0, b1 in larger)
+    assert tiles >= gemm.FILL * sms or p.tile == gemm.TC_TILES[-1]
+    if tiles >= sms / 2:
+        assert p.splits == 1
+    elif k >= gemm.SPLIT_MIN_K:
+        assert 2 <= p.splits <= max(2, steps // 2)
+        assert tiles * p.splits >= sms / 2 or p.splits == steps // 2
+        assert tiles * p.splits <= 1.5 * sms
+    else:
+        assert p.splits == 1
+
+
+def test_plan_prefers_one_full_wave_of_large_tiles():
+    """The big GEMMs take the largest tile; q/k/v's 512 rows take 128 tiles
+    of 128 x 64 rather than 64 tiles of 128 x 128 (half the card idle); the
+    gate takes 128 x 64; rwkv's 2048 -> 64 takes 8 tiles of 64 x 64 and 9
+    K slices."""
+    assert gemm.plan(8192, 8192, 8192, BF16) == gemm.Plan("wgmma", (128, 128), 1)
+    assert gemm.plan(512, 2048, 8384, BF16) == gemm.Plan("wgmma", (128, 128), 1)
+    assert gemm.plan(512, 2048, 2048, BF16) == gemm.Plan("wgmma", (128, 64), 1)
+    assert gemm.plan(512, 2048, 5632, BF16, gate=True) == gemm.Plan("wgmma", (128, 64), 1)
+    assert gemm.plan(512, 2048, 64, BF16) == gemm.Plan("wgmma", (64, 64), 9)
+
+
+def _split_k_emulation(a, b, p, *, b2=None, bias=None, residual=None, activation=None):
+    """The split-K path on the CPU: f32 partials of each K slice, summed in
+    slice order, then the epilogue in f32, rounded once to a's dtype."""
+    af = a.float()
+    acc = acc2 = None
+    for k0, k1 in p.k_slices(a.shape[-1]):
+        part = af[..., k0:k1] @ b[k0:k1].float()
+        acc = part if acc is None else acc + part
+        if b2 is not None:
+            part2 = af[..., k0:k1] @ b2[k0:k1].float()
+            acc2 = part2 if acc2 is None else acc2 + part2
+    epi = make(activation, bias=bias, gate=b2, residual=residual)
+    return epi.apply(acc, acc2=acc2, bias=bias, residual=residual).to(a.dtype)
+
+
+def _pair(x, dtype):
+    x = np.asarray(x, np.float32)
+    if dtype == "bfloat16":
+        return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(BF16)
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,bias,gate,res", [(None, False, False, False),
+                                               ("silu", True, True, False),
+                                               ("gelu", True, False, True)])
+def test_split_k_emulation_matches_pallas_and_plain(dtype, act, bias, gate, res):
+    """(2, 32, 1024) @ (1024, 72): one 64 x 128 tile, so the plan splits K
+    into 8 slices of 2 k-steps."""
+    batch, m, k, n = 2, 32, 1024, 72
+    p = gemm.plan(batch * m, k, n, BF16, gate=gate)
+    assert p.route == "wgmma" and p.splits == 8
+    rng = np.random.default_rng(17)
+    a_j, a_t = _pair(rng.standard_normal((batch, m, k)), dtype)
+    b_j, b_t = _pair(rng.standard_normal((k, n)) * k ** -0.5, dtype)
+    kj, kt = {}, {}
+    if gate:
+        kj["b2"], kt["b2"] = _pair(rng.standard_normal((k, n)) * k ** -0.5, dtype)
+    if bias:
+        kj["bias"], kt["bias"] = _pair(rng.standard_normal(n), dtype)
+    if res:
+        kj["residual"], kt["residual"] = _pair(rng.standard_normal((batch, m, n)), dtype)
+    kj["activation"] = kt["activation"] = act
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    got = _split_k_emulation(a_t, b_t, p, **kt)
+    want = jops.bgemm(a_j, b_j, out_dtype=a_j.dtype, **kj)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+    plain = tbgemm.reference(a_t, b_t, **kt)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), **tol)

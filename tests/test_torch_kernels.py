@@ -180,7 +180,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 0,
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
-                                   "rwkv6": 0, "mamba2_ssd": 0}
+                                   "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
+                                   "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
