@@ -10,7 +10,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
    sass    - the HGMMA (wgmma) instructions cuobjdump finds in each
              tensor-core GEMM kernel (csrc/gemm_sm90.cu; none fails the
              run), with ptxas's registers, spills and notes and the kernel's
-             dynamic shared memory;
+             dynamic shared memory; the same for the HMMA (mma.sync) of each
+             tensor-core attention kernel (csrc/attention_mma.cu; none fails
+             the run), and ptxas's registers and spills for the split-KV
+             decode kernels (csrc/attention_splitkv.cu);
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
              (bgemm also at zamba2-1.2b's), in bf16 and f32, with times beside
@@ -18,7 +21,12 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              plan `kernels.gemm.plan` gives it (route, tile, K slices) and,
              where that is the tensor cores, the time of the CUDA-core kernel
              it replaced (csrc/gemm.cu on the same inputs); a split-K case is
-             also held bitwise against a second launch;
+             also held bitwise against a second launch; each attention case
+             prints its plan (`kernels.attention.plan`: route "splitkv" at
+             decode, "mma" for the bf16 prefill, "ffma" for f32; splits) and
+             the time of the CUDA-core kernel csrc/attention.cu on the same
+             inputs (ffma_ms), a split-KV case held bitwise against a second
+             launch;
    gemm_precision - the share of bf16 outputs of the tensor-core GEMM,
              the CUDA-core one and the plain version that equal the
              correctly rounded f64 product, at five prefill shapes; the
@@ -34,9 +42,12 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              bf16 prefill projection counted on the tensor-core route (also
              for serve_int8, serve_rwkv and serve_zamba: "routes" lines);
 8. profile - torch.profiler over full-width decode steps: device time by
-             kernel and the device's idle share; profile_prefill the same
-             over full-width prefills (wall, device busy, the tensor-core
-             GEMM's share);
+             kernel (attention's apart) and the device's idle share;
+             profile_prefill the same over full-width prefills (wall, device
+             busy, the tensor-core GEMM's and attention's shares); every
+             serve's attention launches are checked by route ("routes"
+             lines: the bf16 serves' prefills on "mma" and decode steps on
+             "splitkv", the f32 smoke serve's prefills on "ffma");
 9. blas    - the BLAS library (`repro_torch.core.blas`: gemm, gemv, dot,
              nrm2, axpy) at full size in f64, f32 and bf16, each call held
              against its plain version and counted as one launch of its
@@ -61,12 +72,14 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              on the packed kernels, 144 a decode step and 144 a prefill, none
              dense), and phase 8's profile of the int8 decode step;
 14. attention_kv - the int8-K/V and paged forms of flash attention: full-width
-             decode (B=4, H=32, D=64, S=160, page 16, shuffled table), the
-             int8 prefill (Tq=128), long context (S=4096, bf16 and int8,
-             dense and paged) and a ragged f32 case (page 7, GQA 32/8,
-             D=128); each one launch of its form, against its plain version,
-             a paged launch bitwise the dense launch on the gathered cache,
-             then timed beside its bound, sdpa and the dense kernel;
+             decode (B=4, H=32, D=64, S=160, page 16, shuffled table; GQA
+             32/8), the int8 prefill and the bf16 prefill over the page pool
+             (Tq=128), long context (S=4096, bf16 and int8, dense and paged)
+             and a ragged f32 case (page 7, GQA 32/8, D=128); each one launch
+             of its form on its plan's route, against its plain version, a
+             paged launch bitwise the dense launch on the gathered cache, two
+             launches bitwise equal, then timed beside its bound, sdpa, the
+             dense kernel and the CUDA-core kernel csrc/attention.cu;
 15. smoke_kv - SMOKE f32 serves with --kv-cache int8 and --kv-page-size 4
              (prefix reuse on and off, a 7-page pool that preempts): kernels
              and plain versions give equal tokens, paged equal dense, the
@@ -278,36 +291,63 @@ def _tc_name(mangled: str) -> str:
     return f"{bm}x{bn}" + (" gate" if gate else "") + (" int8" if q else "")
 
 
+def _attn_name(mangled: str):
+    """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' for an attention kernel
+    instantiation (csrc/attention_mma.cu, csrc/attention_splitkv.cu), else
+    None."""
+    types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32", "a": "int8"}
+    m = re.search(r"attention_mma_kernelI(13__nv_bfloat16|a)Li(\d+)EE", mangled)
+    if m:
+        return f"mma {types[m.group(1)]} D={m.group(2)}"
+    m = re.search(r"attention_splitkv_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)EE",
+                  mangled)
+    if m:
+        return f"splitkv {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} G{m.group(4)}"
+    return None
+
+
 def phase_sass(lib: Path) -> dict:
-    """HGMMA (wgmma) instructions in each tensor-core kernel of the built
-    library (cuobjdump -sass), and ptxas's registers, shared memory, spills
-    and performance notes for them (this process's build log).  Fails if a
-    tensor-core kernel holds no HGMMA."""
+    """HGMMA (wgmma) instructions in each tensor-core GEMM kernel and HMMA
+    (mma.sync) in each tensor-core attention kernel of the built library
+    (cuobjdump -sass), and ptxas's registers, shared memory, spills and
+    performance notes for them and for the split-KV attention kernels (this
+    process's build log).  Fails if a tensor-core kernel holds no HGMMA or
+    HMMA."""
     from repro_torch.kernels import _build
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    hgmma, fn = {}, None
+    hgmma, hmma, fn = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             if "gemm_tc_kernel" in fn:
                 hgmma[_tc_name(fn)] = 0
+            elif (_attn_name(fn) or "").startswith("mma"):
+                hmma[_attn_name(fn)] = 0
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
+        elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
+            hmma[_attn_name(fn)] += 1
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
-    ptxas, notes, fn = {}, [], None
+    attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
+    ptxas, attn_ptxas, notes, entry = {}, {}, [], None
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = m.group(1) if "gemm_tc_kernel" in m.group(1) else None
-            if fn:
-                ptxas[_tc_name(fn)] = {"dynamic_smem_bytes": smem(*_tc_config(fn))}
+            fn, entry = m.group(1), None
+            if "gemm_tc_kernel" in fn:
+                entry = ptxas[_tc_name(fn)] = {"dynamic_smem_bytes": smem(*_tc_config(fn))}
+            elif _attn_name(fn):
+                name = _attn_name(fn)
+                entry = attn_ptxas[name] = {}
+                if name.startswith("mma"):
+                    entry["dynamic_smem_bytes"] = attn_smem(int("int8" in name),
+                                                            int(name.split("D=")[1]))
             continue
-        if fn is None:
+        if entry is None:
             continue
-        entry = ptxas[_tc_name(fn)]
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
@@ -321,12 +361,21 @@ def phase_sass(lib: Path) -> dict:
         if re.search(r"\(C75\d\d\)", line):
             notes.append(line.split("ptxas info    :")[-1].strip()[:220])
     (OUT / "sass_hgmma.json").write_text(json.dumps({"hgmma": hgmma, "ptxas": ptxas,
+                                                     "hmma": hmma, "attention_ptxas": attn_ptxas,
                                                      "notes": notes}, indent=1))
     emit("sass", what="HGMMA in csrc/gemm_sm90.cu's kernels (cuobjdump -sass)",
          hgmma_total=sum(hgmma.values()), hgmma_per_kernel=hgmma,
          ptxas=ptxas or "not built in this process", ptxas_notes=sorted(set(notes)))
+    spills = {k: v.get("spill_stores", 0) for k, v in attn_ptxas.items()
+              if v.get("spill_stores", 0)}
+    emit("sass", what="HMMA in csrc/attention_mma.cu's kernels (cuobjdump -sass); ptxas for "
+         "them and csrc/attention_splitkv.cu's", hmma_total=sum(hmma.values()),
+         hmma_per_kernel=hmma, ptxas=attn_ptxas or "not built in this process",
+         attention_kernels_with_spills=spills)
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
+    if not hmma or min(hmma.values()) == 0:
+        raise AssertionError(f"tensor-core attention kernels without HMMA: {hmma}")
     return hgmma
 
 
@@ -370,9 +419,10 @@ def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None) -> d
 def kernel_cases(dtype):
     """Cases (dicts: kernel, case, call, lib and lib_call (one PyTorch call
     on the same inputs, or None), bytes, flops; for the GEMMs also plan and
-    ffma, csrc/gemm.cu on the same inputs where the plan names wgmma) at the
+    ffma, csrc/gemm.cu on the same inputs where the plan names wgmma; for
+    attention its plan and ffma, csrc/attention.cu on the same inputs) at the
     stablelm-1.6b and zamba2-1.2b FULL serving shapes, batch 4."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import attention, ops
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape, std=1.0):
@@ -472,12 +522,16 @@ def kernel_cases(dtype):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = sum(min(t + n - tq + 1, n) for n in lens for t in range(tq)) * h
         kv_read = sum(lens) * h * hd * 2 * q.element_size()
+        p = attention.plan_for(q, k)
         cases.append(case(
             "attention", label,
             lambda q=q, k=k, v=v, kv_lens=kv_lens: ops.flash_attention(q, k, v, kv_lens=kv_lens),
             lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
             "scaled_dot_product_attention",
-            2 * nbytes(q) + kv_read + kv_lens.numel() * 4, 4 * pairs * hd))
+            2 * nbytes(q) + kv_read + kv_lens.numel() * 4, 4 * pairs * hd,
+            plan=dict(route=p.route, splits=p.splits, chunk=p.chunk, per_block=p.per_block),
+            ffma=lambda q=q, k=k, v=v, kv_lens=kv_lens: attention.ffma(
+                q, k, v, kv_lens, torch.empty_like(q), dtype_code=ops._DTYPE_CODES[dtype])))
     return cases
 
 
@@ -544,7 +598,8 @@ def phase_kernels():
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
                 got.float(), want.float(), **TOL[dtype])
             plan = c.get("plan")
-            same = split_deterministic(call, got) if plan and plan["splits"] > 1 else None
+            twice = plan and (plan["splits"] > 1 or name == "attention")
+            same = split_deterministic(call, got) if twice else None
             ms = time_ms(call)
             with ops.reference_mode():
                 plain_ms = time_ms(call)
@@ -562,7 +617,7 @@ def phase_kernels():
                 raise AssertionError(f"{name} [{label}] {dtype}: max |kernel - plain| "
                                      f"= {err} outside {TOL[dtype]}")
             if same is False:
-                raise AssertionError(f"{name} [{label}] {dtype}: two split-K launches differ")
+                raise AssertionError(f"{name} [{label}] {dtype}: two launches differ")
             rows[(name, label, row["dtype"])] = row
     return rows
 
@@ -582,7 +637,9 @@ def phase_smoke():
     prompts = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
     kw = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts,
               params=params, verbose=False, device="cuda")
+    ops.reset_launch_counts()
     got = serve(ARCH, "smoke", **kw)
+    routes = check_attention_routes("smoke", cfg.n_layers, f32=True)
     with ops.reference_mode():
         want = serve(ARCH, "smoke", **kw)
     equal = got["outputs"] == want["outputs"]
@@ -590,6 +647,7 @@ def phase_smoke():
          tokens_equal=equal, outputs=got["outputs"])
     if not equal or got["completed"] != len(prompts):
         raise AssertionError(f"smoke serve: kernels {got['outputs']} != plain {want['outputs']}")
+    return routes
 
 
 def phase_serve(params, cfg):
@@ -703,7 +761,9 @@ def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
     emit(phase, what="full-width decode step, batch 4, 128 cached tokens",
          kv_cache=cfg.kv_cache_dtype, wall_ms_per_step=wall_ms,
          attention_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
-                                   if "attention_kernel" in k),
+                                   if re.search(r"attention\w*_kernel", k)),
+         attention_launches_per_step=sum(n for k, (_, n) in by_name.items()
+                                         if re.search(r"attention\w*_kernel", k)),
          device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
@@ -744,6 +804,10 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
          wall_ms_per_prefill=wall_ms,
          tensor_core_gemm_ms=sum(ms for k, (ms, _) in by_name.items()
                                  if "gemm_tc_kernel" in k or "splitk_epilogue" in k),
+         attention_ms_per_prefill=sum(ms for k, (ms, _) in by_name.items()
+                                      if re.search(r"attention\w*_kernel", k)),
+         attention_launches_per_prefill=sum(n for k, (_, n) in by_name.items()
+                                            if re.search(r"attention\w*_kernel", k)),
          device_busy_ms_per_prefill=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_prefill=sum(n for _, n in by_name.values()),
@@ -1211,6 +1275,22 @@ def check_prefill_routes(counts: dict, what: str):
                              "not all on wgmma")
 
 
+def check_attention_routes(what: str, layers: int, f32: bool = False) -> dict:
+    """Every attention launch since the last reset on the route its shape
+    takes: each prefill (Tq > 1) on "mma" in bf16 or "ffma" in f32, each
+    decode step on "splitkv"; both a whole number of forwards of `layers`
+    attention launches.  Emits a "routes" line; returns the counts."""
+    from repro_torch.kernels import ops
+    routes = ops.attention_routes()
+    prefill, other = ("ffma", "mma") if f32 else ("mma", "ffma")
+    emit("routes", run=what, attention=routes)
+    if (routes[other] or not routes[prefill] or not routes["splitkv"]
+            or routes[prefill] % layers or routes["splitkv"] % layers):
+        raise AssertionError(f"{what}: attention routes {routes}: prefills not all on "
+                             f"{prefill!r} or decode steps not all on 'splitkv'")
+    return routes
+
+
 # --------------------------------------------------------------------------
 # phases 14-18: the int8 and paged KV cache
 # --------------------------------------------------------------------------
@@ -1288,6 +1368,9 @@ KV_CASES = [  # (label, q dtype, int8, page size, kv_case keywords)
     ("decode int8 paged P=16 B=4 H=32 D=64 S=160", torch.bfloat16, True, 16, {}),
     ("prefill int8 dense B=4 Tq=128 H=32 D=64 S=160", torch.bfloat16, True, None,
      dict(tq=128, lens=(128,) * 4, s=160)),
+    ("prefill bf16 paged P=16 B=4 Tq=128 H=32 D=64 S=160", torch.bfloat16, False, 16,
+     dict(tq=128, lens=(128,) * 4, s=160)),
+    ("decode bf16 GQA H=32/KVH=8 B=4 D=64 S=160", torch.bfloat16, False, None, dict(kvh=8)),
     ("long bf16 dense B=4 Tq=1 S=4096", torch.bfloat16, False, None, dict(lens=(4096,) * 4)),
     ("long bf16 paged P=16 B=4 Tq=1 S=4096", torch.bfloat16, False, 16, dict(lens=(4096,) * 4)),
     ("long int8 dense B=4 Tq=1 S=4096", torch.bfloat16, True, None, dict(lens=(4096,) * 4)),
@@ -1299,29 +1382,37 @@ KV_CASES = [  # (label, q dtype, int8, page size, kv_case keywords)
 
 def phase_attention_kv():
     """Each int8 / paged attention case once with the counts reset (one
-    launch of its form), against its plain version (and, paged, bitwise
-    against the dense launch on the cache its table gathers), then timed
-    (cold L2, median of 20) beside its bound, its plain version, sdpa on the
-    gathered dequantized cache and the dense kernel at the same shape."""
-    from repro_torch.kernels import ops
+    launch of its form, on the route its plan names), against its plain
+    version (and, paged, bitwise against the dense launch on the cache its
+    table gathers; bitwise against a second launch), then timed (cold L2,
+    median of 20) beside its bound, its plain version, sdpa on the gathered
+    dequantized cache, the dense kernel at the same shape and the CUDA-core
+    kernel csrc/attention.cu on the same inputs."""
+    from repro_torch.kernels import attention, ops
     rows = {}
     for i, (label, dtype, int8, page_size, kw) in enumerate(KV_CASES):
         q, kv_lens, form, dense, deq = kv_case(dtype, int8, page_size, seed=100 + i, **kw)
+        p = attention.plan_for(q, form["k"], form.get("page_table"), int8)
         ops.reset_launch_counts()
         got = attend(q, kv_lens, form)
         counts = ops.launch_counts()
+        routes = ops.attention_routes()
         with ops.reference_mode():
             want = attend(q, kv_lens, form)
         same_as_dense = None
         if page_size:
             same_as_dense = bool(torch.equal(got, attend(q, kv_lens, dense)))
+        same_twice = bool(torch.equal(got, attend(q, kv_lens, form)))
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
                                                                 **TOL[dtype])
         want_counts = {"attention": int(not int8 and not page_size),
-                       "attention_int8": int(int8), "attention_paged": int(bool(page_size))}
-        rose = {k: counts[k] for k in want_counts}
+                       "attention_int8": int(int8), "attention_paged": int(bool(page_size)),
+                       "route_" + p.route: 1}
+        rose = {k: counts[k] if k in counts else routes[k[6:]] for k in want_counts}
+        if sum(routes.values()) != 1:
+            rose["other_routes"] = routes
         b, tq, h, d = q.shape
         lens = kw.get("lens", (129, 140, 150, 160))
         kvh = kw.get("kvh", 32)
@@ -1331,18 +1422,27 @@ def phase_attention_kv():
         nb = kv_bytes + 2 * nbytes(q) + nbytes(kv_lens, form.get("page_table"))
         pairs = sum(min(t + n - tq + 1, n) for n in lens for t in range(tq)) * h
         b_ms, by = bound(nb, 4 * pairs * d, dtype)
-        fields = dict(case=label, dtype=str(dtype).split(".")[1], max_abs_err=err,
-                      tol=TOL[dtype], within_tol=ok, launches_added=rose,
-                      bitwise_equal_to_dense_on_gathered=same_as_dense)
-        if not ok or rose != want_counts or same_as_dense is False:
+        fields = dict(case=label, dtype=str(dtype).split(".")[1], route=p.route,
+                      splits=p.splits, chunk=p.chunk, per_block=p.per_block,
+                      max_abs_err=err, tol=TOL[dtype],
+                      within_tol=ok, launches_added=rose,
+                      bitwise_equal_to_dense_on_gathered=same_as_dense,
+                      bitwise_equal_second_launch=same_twice)
+        if not ok or rose != want_counts or same_as_dense is False or not same_twice:
             emit("attention_kv", **fields)
             raise AssertionError(f"attention [{label}]: within_tol={ok}, launches {rose} "
-                                 f"(want {want_counts}), paged == dense {same_as_dense}")
+                                 f"(want {want_counts}), paged == dense {same_as_dense}, "
+                                 f"second launch equal {same_twice}")
         del got, want
         ms = time_ms(lambda: attend(q, kv_lens, form))
         with ops.reference_mode():
             plain_ms = time_ms(lambda: attend(q, kv_lens, form))
         dense_ms = time_ms(lambda: attend(q, kv_lens, deq))
+        out = torch.empty_like(q)
+        ffma_ms = time_ms(lambda: attention.ffma(
+            q, form["k"], form["v"], kv_lens, out, dtype_code=ops._DTYPE_CODES[dtype],
+            k_scales=form.get("k_scales"), v_scales=form.get("v_scales"),
+            page_table=form.get("page_table")))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, deq["k"], deq["v"]))
         s = kt.shape[2]
         kpos = torch.arange(s, device="cuda")
@@ -1354,11 +1454,12 @@ def phase_attention_kv():
             qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh))
         row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library="sdpa on the gathered, dequantized cache", dense_kernel_ms=dense_ms,
+                   ffma_ms=ffma_ms,
                    bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
                    flops=4 * pairs * d)
         emit("attention_kv", **row)
         rows[label] = row
-        del q, form, dense, deq, qt, kt, vt, mask
+        del q, form, dense, deq, qt, kt, vt, mask, out
     return rows
 
 
@@ -1474,6 +1575,7 @@ def phase_serve_paged(params, cfg):
     ops.reset_launch_counts()
     paged = serve(ARCH, "full", prompts=prompts, gen=32, kv_page_size=16, **kw)
     counts = ops.launch_counts()
+    check_attention_routes("serve_paged", cfg.n_layers)
     check_kv_launches(counts, "serve_paged", cfg.n_layers, paged["prefills"] + 1,
                       paged["decode_steps"] + 1, False, True)
     pool = max(10, round(2 * paged["pages_live"] / 3))
@@ -1536,6 +1638,8 @@ def phase_serve_kv_int8(params, qparams, cfg):
             ops.reset_launch_counts()
             st = serve(ARCH, "full", params=p, kv_page_size=page_size, **kw)
             counts = ops.launch_counts()
+            check_attention_routes(f"serve_kv_int8 {weights} weights page {page_size}",
+                                   cfg.n_layers)
             check_kv_launches(counts, f"serve_kv_int8 {weights} weights", cfg.n_layers,
                               st["prefills"] + 1, st["decode_steps"] + 1, True,
                               page_size is not None)
@@ -2178,6 +2282,7 @@ def phase_serve_batch(params, cfg, continuous_outputs):
     stats = serve(ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0, eos=-1,
                   scheduler="batch", params=params, device="cuda")
     counts = ops.launch_counts()
+    check_attention_routes("serve_batch", cfg.n_layers)
     same = [a == b for o, p in zip(stats["outputs"], continuous_outputs) for a, b in zip(o, p)]
     emit("serve_batch", run="full", arch=ARCH, variant="full", dtype="bfloat16",
          scheduler="batch", requests=8, batch=4, prompt_len=128, gen=32,
@@ -2227,7 +2332,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = phase_kernels()
         phase_gemm_precision()
-        phase_smoke()
+        smoke_routes = phase_smoke()
 
         cfg = get_config(ARCH, "full")
         params = tf.init_params(cfg, 0, "cuda")
@@ -2237,12 +2342,14 @@ def main() -> int:
         emit("launches", run="serve", **serve_counts)
         check_launches(serve_counts, "serve")
         check_prefill_routes(serve_counts, "serve")
+        serve_routes = check_attention_routes("serve", cfg.n_layers)
         ops.reset_launch_counts()
         phase_forced(params, cfg)
         forced_counts = ops.launch_counts()
         emit("launches", run="forced", **forced_counts)
         check_launches(forced_counts, "forced")
         check_prefill_routes(forced_counts, "forced")
+        check_attention_routes("forced", cfg.n_layers)
         phase_profile(params, cfg)
         phase_profile_prefill(params, cfg)
         qparams = phase_quantize(params)
@@ -2255,6 +2362,7 @@ def main() -> int:
         check_int8_launches(int8_counts, "serve_int8", int8_stats["prefills"] + 1,
                             int8_stats["decode_steps"] + 1)
         check_prefill_routes(int8_counts, "serve_int8")
+        check_attention_routes("serve_int8", cfg.n_layers)
         ops.reset_launch_counts()
         phase_forced(qparams, cfg, phase="forced_int8")
         forced_int8 = ops.launch_counts()
@@ -2299,6 +2407,8 @@ def main() -> int:
         zamba_counts = phase_serve_recurrent(ZAMBA, "serve_zamba", zamba_params, zamba_cfg,
                                              check_zamba_launches)
         check_prefill_routes(zamba_counts, "serve_zamba")
+        check_attention_routes("serve_zamba",
+                               zamba_cfg.n_layers // zamba_cfg.ssm.shared_attn_every)
         phase_forced_recurrent(
             "forced_zamba", ZAMBA, zamba_params, zamba_cfg, kernel="mamba2_ssd", seed=12,
             state_of=lambda cache: cache["mamba"]["h"], teacher_forced=_teacher_forced_zamba,
@@ -2316,17 +2426,36 @@ def main() -> int:
                          "qkv 4x2048->2048 +bias"),
                "bgemm": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/bgemm.py:217",
                          "qkv (4,128,2048)@(2048,2048) +bias"),
-               "attention": ("src/repro_torch/csrc/attention.cu",
+               "attention": ("src/repro_torch/csrc/attention_splitkv.cu",
                              "src/repro/kernels/attention.py:329",
                              "decode B=4 Tq=1 H=32 D=64 S=160")}
     summary = []
     for name, (src, replaces, case) in sources.items():
         r = rows[(name, case, "bfloat16")]
+        launches = serve_routes["splitkv"] if name == "attention" else serve_counts[name]
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": serve_counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": launches, "max_abs_err": r["max_abs_err"],
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ffma_ms": r["ffma_ms"], "shape": case, "dtype": "bfloat16"})
+                        "ffma_ms": r["ffma_ms"], "shape": case, "dtype": "bfloat16",
+                        **({"attention_route": "splitkv"} if name == "attention" else {})})
+    # the attention prefill's two routes: the bf16 serve's prefills on the
+    # tensor cores, the f32 smoke serve's on the CUDA-core kernel
+    prefill = "prefill B=4 Tq=128 H=32 D=64 S=160"
+    for name, src, dtype, launches in (
+            ("attention_mma", "src/repro_torch/csrc/attention_mma.cu", "bfloat16",
+             serve_routes["mma"]),
+            ("attention_ffma", "src/repro_torch/csrc/attention.cu", "float32",
+             smoke_routes["ffma"])):
+        r = rows[("attention", prefill, dtype)]
+        summary.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": "src/repro/kernels/attention.py:329", "launches": launches,
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "ffma_ms": r["ffma_ms"], "shape": prefill, "dtype": dtype,
+                        "attention_route": name.split("_")[1],
+                        "launches_from": "serve" if dtype == "bfloat16" else "smoke (f32)"})
     # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
     # launches from the blas phase; gemm's two routes apart: f64 on the CUDA
     # cores, bf16 on the tensor cores
@@ -2384,12 +2513,14 @@ def main() -> int:
     }
     for name, (replaces, case, counts) in kv_sources.items():
         r = kv_rows[case]
-        summary.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+        summary.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/attention_{r['route']}.cu",
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "dense_ms": r["dense_kernel_ms"], "shape": case, "dtype": "bfloat16"})
+                        "dense_ms": r["dense_kernel_ms"], "ffma_ms": r["ffma_ms"],
+                        "shape": case, "dtype": "bfloat16", "attention_route": r["route"]})
     # the WKV6 kernel: the prefill case's times, launches from the rwkv serve
     r = wkv6_rows[WKV6_CASES[0][0]]
     summary.append({"name": "rwkv6", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6.cu",

@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""End-to-end numbers of one tree of the port, for comparing two trees on
+one GPU in one session.
+
+    python3 scripts/torch_serve_compare.py [TREE]
+
+TREE (default: this repository) is a checkout of the port; its kernels are
+built from its own csrc/ into its own build/kernels/.  Serves stablelm-1.6b
+FULL (seeded random weights, bf16; 8 requests, batch 4, prompt 128, gen 32,
+greedy, no EOS) and then profiles a decode step and a prefill as
+chip_smoke.py's profile phases do.  Prints one JSON line: tok/s, TTFT p50,
+wall and device ms per decode step and per prefill, the device's idle
+share, attention's device ms.  Run it for the parent and the change in
+turns (parent, change, change, parent) and compare within one session.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+from pathlib import Path
+
+import torch
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 1
+    tree = Path(sys.argv[1] if len(sys.argv) > 1 else Path(__file__).resolve().parents[1])
+    sys.path[:0] = [str(tree / "src"), str(tree)]
+    import chip_smoke as cs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    cs.OUT.mkdir(parents=True, exist_ok=True)
+    with torch.inference_mode():
+        cfg = get_config(cs.ARCH, "full")
+        params = tf.init_params(cfg, 0, "cuda")
+        stats = serve(cs.ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
+                      eos=-1, params=params, verbose=False, device="cuda")
+        cs.phase_profile(params, cfg)
+        cs.phase_profile_prefill(params, cfg)
+    prof, pre = cs.RESULTS["profile"][-1], cs.RESULTS["profile_prefill"][-1]
+    print(json.dumps({
+        "tree": str(tree), "tok_s": stats["tok_s"],
+        "ttft_p50_s": statistics.median(stats["ttft"]),
+        "decode_wall_ms": prof["wall_ms_per_step"],
+        "decode_device_ms": prof["device_busy_ms_per_step"],
+        "decode_idle_share": prof["device_idle_share"],
+        "decode_attention_ms": prof["attention_ms_per_step"],
+        "prefill_wall_ms": pre["wall_ms_per_prefill"],
+        "prefill_device_ms": pre["device_busy_ms_per_prefill"],
+        "prefill_attention_ms": pre.get("attention_ms_per_prefill", sum(
+            t["ms_per_prefill"] for t in pre["top"] if "attention" in t["name"]))}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

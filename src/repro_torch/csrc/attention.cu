@@ -1,5 +1,11 @@
-// Causal flash attention over the KV cache's native layout, dense or paged,
-// with K/V in the model dtype or packed int8, for Hopper (sm_90a).
+// Route "ffma" of flash attention: a query block on the CUDA cores, over the
+// KV cache's native layout, dense or paged, with K/V in the model dtype or
+// packed int8, for Hopper (sm_90a).  `kernels/attention.py::plan` sends the
+// f32 prefill (Tq > 1) here: TF32 tensor cores would change f32 results,
+// which the f32 smoke serves gate bitwise in their tokens.  Decode takes
+// csrc/attention_splitkv.cu and the bf16 prefill csrc/attention_mma.cu; this
+// kernel takes every form and dtype, so chip_smoke.py also times it on their
+// inputs (ffma_ms) as the loop they replaced.
 //
 // Replaces the Pallas kernel `repro/kernels/attention.py` (`_flash_kernel`,
 // the cache-layout form with per-row `kv_lens` and GQA folding that prefill
@@ -20,28 +26,25 @@
 // its row's scale as it is staged, before either product, where the Pallas
 // body does it.
 //
-// Bound: bytes.  Decode reads each cached key and value once per KV head for
-// 2 FLOPs per element per query head, and a 128-token prefill is below the
-// ridge too at D = 64, so the time is the K/V (and Q/O) stream: int8 K/V
-// (1 byte an element and 4 bytes of scale a row) halves the bf16 stream.
+// Bound: bytes, then latency.  A 128-token prefill is below the ridge at
+// D = 64, so the floor is the K/V (and Q/O) stream; this kernel runs both
+// products as f32 FMAs from shared memory and sits far above it.
 //
 // Design: one block per (row, 32-query tile) with a loop over 32-key tiles
-// inside the block; the online-softmax statistics (m, l) and the output
-// accumulator stay in registers across the key sweep, so the score matrix
-// never reaches device memory.  Key tiles that no query of the block can see
-// (past kvl, or above the causal diagonal) are never loaded.  Each thread
-// finds its staged rows' offsets itself (64-bit): the dense row, or the one
-// page-table lookup per four elements (`stage_tile`).  Rows at or
-// past kvl are staged as zeros and neither their table entry, values nor
-// scales are read: the cache may hold garbage there (uninitialised or stale
-// slots, a NaN scale) and a masked score alone would still let 0 * NaN
-// poison P.V (attention.py:135-141).  The paged form runs the dense form's
-// tiles and arithmetic; only the row offset differs, so a paged launch is
-// bitwise the dense launch on the gathered cache, at any page size.  Four
-// threads share a query row (eight when D = 128) and meet through warp
-// shuffles.
-// Later work (not here): split-KV for decode, 16-byte K/V loads in every
-// form, mma/wgmma for the two products.
+// at fixed absolute positions inside the block; the online-softmax
+// statistics (m, l) and the output accumulator stay in registers across the
+// key sweep, so the score matrix never reaches device memory.  Key tiles
+// that no query of the block can see (past kvl, or above the causal
+// diagonal) are never loaded.  Each thread finds its staged rows' offsets
+// itself (64-bit): the dense row, or the one page-table lookup per four
+// elements (`stage_tile`).  Rows at or past kvl are staged as zeros and
+// neither their table entry, values nor scales are read: the cache may hold
+// garbage there (uninitialised or stale slots, a NaN scale) and a masked
+// score alone would still let 0 * NaN poison P.V (attention.py:135-141).
+// The paged form runs the dense form's tiles and arithmetic; only the row
+// offset differs, so a paged launch is bitwise the dense launch on the
+// gathered cache, at any page size.  Four threads share a query row (eight
+// when D = 128) and meet through warp shuffles.
 #include "common.cuh"
 
 using namespace rt;

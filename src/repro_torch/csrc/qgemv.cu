@@ -54,18 +54,6 @@ constexpr int ROWS = 4;   // stored rows a block owns
 constexpr int BMAX = 4;   // batch members a block reads each row for
 constexpr int CHUNK = 16; // int8 values in one 16-byte load
 
-// int8 -> float, exact: bias each byte to unsigned (xor 0x80), place it in
-// the mantissa of 2^23 and subtract 2^23 + 128.
-__device__ __forceinline__ void unpack_i8(const uint4& r, float (&f)[CHUNK]) {
-  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
-                         r.w ^ 0x80808080u};
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f[4 * j + e] = __int_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540u + e)) - 8388736.f;
-}
-
 // x[k0 .. k0 + 15] of one batch member in the accumulator type, 16-byte loads
 template <typename T>
 __device__ __forceinline__ void load_x16(const T* __restrict__ p,

@@ -1,7 +1,8 @@
 // 16-byte vector loads and stores for the streaming kernels (bgemv.cu,
-// blas1.cu, gemv.cu): N elements of T in one transaction, unpacked to the
-// accumulator type (bf16 -> f32 is exact: the high half of a word).  The
-// caller checks 16-byte alignment.
+// blas1.cu, gemv.cu, qgemv.cu, attention_splitkv.cu): N elements of T in
+// one transaction, unpacked to the accumulator type (bf16 -> f32 is exact:
+// the high half of a word; int8 through unpack_i8).  The caller checks
+// 16-byte alignment.
 #pragma once
 
 #include <stdint.h>
@@ -55,6 +56,18 @@ template <> struct Vec<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+
+// 16 int8 values -> float, exact: bias each byte to unsigned (xor 0x80),
+// place it in the mantissa of 2^23 and subtract 2^23 + 128.
+__device__ __forceinline__ void unpack_i8(const uint4& r, float (&f)[16]) {
+  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
+                         r.w ^ 0x80808080u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[4 * j + e] = __int_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540u + e)) - 8388736.f;
+}
 
 // One 16-byte load through the read-only path, unpacked.
 template <typename T>

@@ -10,10 +10,26 @@ h // (H // KVH)).  k/v are the dense cache (B, S, KVH, D) or, with a
 in which logical key s of slot b lives at pool[page_table[b, s // P],
 s % P].  int8 k/v come with f32 `k_scales`/`v_scales` in their layout with
 D -> 1 (one scale a (token, head) row, core.quant.quantize_kv) and are
-dequantized as values * scale in f32.  The CUDA kernel is
-`csrc/attention.cu`; its source note says what bounds it (the K/V stream)
-and what the design does about it.  The prefix-LM / non-causal masks and
-the flat (BH, T, D) layout are not ported yet.
+dequantized as values * scale in f32.  The prefix-LM / non-causal masks,
+the flat (BH, T, D) layout and head dim 256 are not ported yet.
+
+Three CUDA kernels carry it, and `plan` picks one from host-known shapes
+alone (it never reads `kv_lens`):
+
+- "splitkv" (`csrc/attention_splitkv.cu`) for Tq = 1 in every dtype and
+  form: the keys cut at fixed absolute positions into chunks of CHUNK, one
+  block per (chunk, slot, KV head) holding all query heads of the group, the
+  chunks' partials combined in order inside the same launch;
+- "mma" (`csrc/attention_mma.cu`) for a bf16 query block (Tq > 1), K/V
+  bf16 or int8: both products on the tensor cores (mma.sync), P rounded to
+  bf16 for P V;
+- "ffma" (`csrc/attention.cu`) for an f32 query block: f32 FMAs from shared
+  memory (TF32 would change f32 results).
+
+Each source note says what bounds its kernel and what its design does about
+it.  Every route reads keys in tiles or chunks at fixed absolute positions,
+so a row's bits depend on its kv length and not on S or the page size: a
+paged launch is bitwise the dense launch on the gathered cache.
 
 `reference` is the plain PyTorch version: CPU tensors use it, and on the
 card only comparisons (`ops.reference_mode`) do.
@@ -22,6 +38,8 @@ card only comparisons (`ops.reference_mode`) do.
 from __future__ import annotations
 
 import ctypes
+import functools
+import typing
 
 import torch
 
@@ -36,9 +54,73 @@ NEG_INF = -1e30
 launches = 0
 launches_paged = 0
 launches_int8 = 0
+#: every launch by the route its plan named
+launches_by_route = {"splitkv": 0, "mma": 0, "ffma": 0}
+
+#: head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)
+#: keys of a "splitkv" split: split j covers [j * CHUNK, (j + 1) * CHUNK).
+#: Measured on the H100 (PERF.md §6, scripts/torch_attention_study.py): 64
+#: and 128 tie at S = 160 (~13 us), 128 runs S = 4096 9-24% faster than 64
+#: (each split ends in a merge of its row groups), and 256 and up leave a
+#: GQA decode at S = 160 too few blocks
+CHUNK = 128
+#: the H100's streaming multiprocessors: the plan's default card
+H100_SMS = 132
+#: a "splitkv" block streams consecutive splits until the grid is down to
+#: about this many blocks an SM (a short cache: one split a block)
+BLOCKS_PER_SM = 8
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
+_SPLITKV_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+                     + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+_MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                 + [ctypes.c_float, ctypes.c_void_p])
+#: the "splitkv" combine's tickets, one int a (slot, KV head), by device:
+#: zero between launches (the last block of a row resets its ticket)
+_tickets = {}
+
+
+class Plan(typing.NamedTuple):
+    """How one attention call runs: the route ("splitkv", "mma" or "ffma")
+    and, for "splitkv", the chunk of keys a split covers, the number of
+    splits (ceil(S / chunk); splits at or past a row's kv length load
+    nothing and its combine skips them) and the consecutive splits a block
+    streams (the grid; a split's arithmetic does not depend on it)."""
+
+    route: str
+    splits: int = 1
+    chunk: int = 0
+    per_block: int = 1
+
+
+@functools.lru_cache(maxsize=1024)  # a serve plans a handful of shapes
+def plan(b: int, tq: int, h: int, kvh: int, d: int, s: int, dtype, int8: bool,
+         chunk: int = CHUNK, sms: int = H100_SMS) -> Plan:
+    """The route and key split of q (b, tq, h, d) over a cache of s logical
+    keys (the dense cache's S, or max_pages * P of a page pool) with kvh KV
+    heads, K/V int8 or q's dtype.  Host-known shapes only: no device value
+    is read.  Tq = 1 takes "splitkv" in every dtype and form; a bf16 block
+    "mma"; an f32 block "ffma".  Head dims outside HEAD_DIMS raise.
+
+    "splitkv" cuts S into ceil(s / chunk) splits; a block streams
+    per_block of them, so that the grid of b * kvh rows is about
+    BLOCKS_PER_SM blocks an SM of `sms` (one split a block where that
+    leaves fewer)."""
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention kernel: head dim {d} not in {HEAD_DIMS}")
+    if min(b, tq, h, kvh, s) < 1 or h % kvh:
+        raise ValueError(f"flash_attention: no plan for b={b}, tq={tq}, h={h}, kvh={kvh}, s={s}")
+    if tq == 1:
+        splits = -(-s // chunk)
+        return Plan("splitkv", splits, chunk,
+                    max(1, splits * b * kvh // (BLOCKS_PER_SM * sms)))
+    if dtype == torch.bfloat16:
+        return Plan("mma")
+    if dtype == torch.float32:
+        return Plan("ffma")
+    raise TypeError(f"flash_attention: no route for dtype {dtype}")
 
 
 def gather_pages(pool, page_table):
@@ -84,32 +166,91 @@ def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None):
     return (p @ vf).permute(0, 2, 1, 3).to(q.dtype)
 
 
-def launch(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
-           page_table=None):
-    """Launch `attention_launch` on the current stream; operands are
-    validated CUDA tensors (kernels/ops.py), kv_lens is int32 (B*H,)."""
-    global launches, launches_paged, launches_int8
+def plan_for(q, k, page_table=None, int8: bool = False, sms: int = H100_SMS) -> Plan:
+    """`plan` of a call's operands, from their shapes and q's dtype alone."""
     b, tq, h, d = q.shape
-    kvh = k.shape[2]
-    if page_table is None:
-        s, page_size, max_pages = k.shape[1], 0, 0
-    else:
-        page_size, max_pages = k.shape[1], page_table.shape[1]
-        s = page_size * max_pages
-    int8 = k_scales is not None
+    return plan(b, tq, h, k.shape[2], d, _logical(k, page_table)[0], q.dtype, int8,
+                sms=sms)
+
+
+def _tickets_for(device, n: int) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
+def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
+         page_table=None):
+    """`attention_launch` (csrc/attention.cu, the CUDA-core kernel) on the
+    current stream, uncounted; it takes every form and both dtypes."""
+    b, tq, h, d = q.shape
+    s, page_size, max_pages = _logical(k, page_table)
     fn = _build.function("attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(dtype_code, int(int8), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
-                 _build.ptr(page_table), out.data_ptr(), b, tq, h, s, kvh, d, page_size,
+        err = fn(dtype_code, int(k_scales is not None), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
+                 _build.ptr(page_table), out.data_ptr(), b, tq, h, s, k.shape[2], d, page_size,
                  max_pages, float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _logical(k, page_table):
+    """(S, page size, max pages): the logical cache length the kernels see."""
+    if page_table is None:
+        return k.shape[1], 0, 0
+    return k.shape[1] * page_table.shape[1], k.shape[1], page_table.shape[1]
+
+
+def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_scales=None,
+        page_table=None):
+    """One launch of p's route on the current stream, uncounted; operands
+    are validated CUDA tensors (kernels/ops.py), kv_lens is int32 (B*H,).
+    The "splitkv" partials' workspace is allocated here."""
+    if p.route == "ffma":
+        return ffma(q, k, v, kv_lens, out, dtype_code=dtype_code, k_scales=k_scales,
+                    v_scales=v_scales, page_table=page_table)
+    b, tq, h, d = q.shape
+    kvh = k.shape[2]
+    s, page_size, max_pages = _logical(k, page_table)
+    int8 = int(k_scales is not None)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _build.ptr(k_scales),
+              _build.ptr(v_scales), kv_lens.data_ptr(), _build.ptr(page_table), out.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if p.route == "splitkv":
+            work = torch.empty(b * kvh * p.splits * (h // kvh) * (d + 2), dtype=torch.float32,
+                               device=q.device)
+            fn = _build.function("attention_splitkv_launch", _SPLITKV_ARGTYPES)
+            err = fn(dtype_code, int8, *common, work.data_ptr(),
+                     _tickets_for(q.device, b * kvh).data_ptr(), b, h, s, kvh, d, page_size,
+                     max_pages, p.chunk, p.splits, p.per_block, float(d ** -0.5), stream)
+        else:
+            fn = _build.function("attention_mma_launch", _MMA_ARGTYPES)
+            err = fn(int8, *common, b, tq, h, s, kvh, d, page_size, max_pages,
+                     float(d ** -0.5), stream)
+    if err:
+        raise RuntimeError(f"attention {p.route} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def launch(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
+           page_table=None):
+    """One launch of the kernel `plan` names, counted by form and route;
+    operands are validated CUDA tensors (kernels/ops.py)."""
+    global launches, launches_paged, launches_int8
+    int8 = k_scales is not None
+    p = plan_for(q, k, page_table, int8, _build.sm_count(q.device.index or 0))
+    run(q, k, v, kv_lens, out, p, dtype_code=dtype_code, k_scales=k_scales, v_scales=v_scales,
+        page_table=page_table)
     if page_table is not None:
         launches_paged += 1
     if int8:
         launches_int8 += 1
     if page_table is None and not int8:
         launches += 1
+    launches_by_route[p.route] += 1
     return out

@@ -19,8 +19,10 @@ int8-B variant in the "nk" layout if the weight is stored transposed, else
 max(f32, dtype); the two operands of a dual GEMM must share one spec.
 
 `flash_attention` also takes int8 K/V with per-(token, head) f32 scales and
-a page table over a page pool: a CUDA tensor goes to the one attention
-kernel in every form, a CPU tensor to its plain version.
+a page table over a page pool: a CUDA tensor goes to the kernel of the
+route `kernels.attention.plan` names ("splitkv" for decode, "mma" for a
+bf16 prefill, "ffma" for an f32 one) in every form, a CPU tensor to its
+plain version.
 
 `rwkv6` is the chunked WKV6 recurrence (`csrc/rwkv6.cu`) and `mamba2_ssd`
 the chunked Mamba2 SSD (`csrc/mamba2.cu`), each with the model's contract:
@@ -48,7 +50,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _SERVE_DTYPES = (torch.float32, torch.bfloat16)
 _BLAS_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-_HEAD_DIMS = (16, 32, 64, 128)
 _state = threading.local()
 
 
@@ -85,6 +86,13 @@ def launch_counts() -> dict:
                for route, n in mod.launches_by_route.items()}}
 
 
+def attention_routes() -> dict:
+    """Attention launches since the last reset by the route their plan
+    named (`kernels.attention.plan`): "splitkv", "mma" and "ffma".  Beside
+    launch_counts(), whose attention keys count by form."""
+    return dict(_attention.launches_by_route)
+
+
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
     _attention.launches_paged = _attention.launches_int8 = 0
@@ -95,6 +103,7 @@ def reset_launch_counts() -> None:
     _rwkv6.launches = _mamba2.launches = 0
     for mod in (_gemm, _bgemm):
         mod.launches_by_route.update(wgmma=0, ffma=0)
+    _attention.launches_by_route.update(splitkv=0, mma=0, ffma=0)
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -270,7 +279,13 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
     page_table (B, max_pages) int32: k/v are the page pool
     (num_pages, P, H // kv_groups, D) and slot b's logical key s lives at
     pool[page_table[b, s // P], s % P].  int8 k/v need both k_scales and
-    v_scales, f32 in k's layout with D -> 1; otherwise k/v are q's dtype."""
+    v_scales, f32 in k's layout with D -> 1; otherwise k/v are q's dtype.
+
+    A CUDA tensor runs the kernel of the route `kernels.attention.plan`
+    names from the shapes alone: "splitkv" at Tq = 1, "mma" (tensor cores,
+    P rounded to bf16) for a bf16 query block, "ffma" for an f32 one.
+    q, k and v start on 16-byte boundaries (the kernels' 16-byte loads and
+    cp.async copies)."""
     name = "flash_attention"
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name} wants 4-D cache-layout operands, got "
@@ -299,16 +314,12 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
         _check(name, q)
     else:
         _check(name, q, k=k, v=v)
-    if page_table is not None or k_scales is not None:
-        for what, t in (("k", k), ("v", v)):  # the kernel stages 4 elements a load
-            if t.data_ptr() % (4 * t.element_size()):
-                raise ValueError(f"{name}: paged or int8 {what} must start on a "
-                                 f"{4 * t.element_size()}-byte boundary")
+    for what, t in (("q", q), ("k", k), ("v", v)):  # 16-byte loads and cp.async copies
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
     if not _use_kernel(q):
         return _attention.reference(q, k, v, kv_lens, k_scales=k_scales, v_scales=v_scales,
                                     page_table=page_table)
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(f"{name} kernel: head dim {d} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
     return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype],
                              k_scales=k_scales, v_scales=v_scales, page_table=page_table)

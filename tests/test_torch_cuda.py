@@ -182,6 +182,109 @@ def test_attention_forms_count_their_launches(cuda):
     assert (counts["attention"], counts["attention_int8"], counts["attention_paged"]) == (1, 2, 1)
 
 
+# (route, q dtype, Tq, kv lengths): decode lengths below, at and above the
+# split chunk (128); prefill blocks over two query tiles and three key tiles
+ATTENTION_ROUTES = [("splitkv", torch.float32, 1, (150, 128, 9, 70)),
+                    ("splitkv", torch.bfloat16, 1, (150, 128, 9, 70)),
+                    ("mma", torch.bfloat16, 70, (150, 70, 133, 71)),
+                    ("ffma", torch.float32, 70, (150, 70, 133, 71))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype,tq,lens", ATTENTION_ROUTES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [None, 7])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("groups", [1, 4])
+def test_attention_route_matches_plain(cuda, route, dtype, tq, lens, int8, page_size, d, groups):
+    """Each route of `kernels.attention.plan` in every form (dense, paged,
+    int8, paged int8; D 16-128; G = H / KVH of 1 and 4): one launch counted
+    on the planned route, within TOL of the plain version, two launches
+    bitwise equal, a paged launch bitwise the dense launch on the gathered
+    cache."""
+    from repro_torch.kernels import attention
+    h = 8
+    q, dense, paged, kv_lens = _kv_case(cuda, dtype, int8, page_size, tq=tq, h=h,
+                                        kvh=h // groups, d=d, lens=lens)
+    ops_kw = paged if paged is not None else dense
+    s = max(lens) if paged is None else paged["k"].shape[1] * paged["page_table"].shape[1]
+    assert attention.plan(len(lens), tq, h, h // groups, d, s, dtype, int8).route == route
+    ops.reset_launch_counts()
+    got = _attend(q, ops_kw, kv_lens, groups)
+    assert ops.attention_routes() == {"splitkv": 0, "mma": 0, "ffma": 0, route: 1}
+    with ops.reference_mode():
+        want = _attend(q, ops_kw, kv_lens, groups)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, _attend(q, ops_kw, kv_lens, groups))
+    if paged is not None:
+        from repro_torch.kernels.attention import gather_pages
+        table = paged["page_table"]
+        gathered = {k: gather_pages(v, table).contiguous() for k, v in paged.items()
+                    if k != "page_table"}
+        assert torch.equal(got, _attend(q, gathered, kv_lens, groups))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tq", [(torch.float32, 1), (torch.bfloat16, 1),
+                                      (torch.bfloat16, 5), (torch.float32, 5)])
+def test_attention_bits_do_not_depend_on_the_cache_length(cuda, dtype, tq):
+    """A cache four times longer than every kv length (garbage past them)
+    gives the bits of the same call on the cache cut to the longest."""
+    lens = (100, 37, 64)
+    q, dense, _, kv_lens = _kv_case(cuda, dtype, False, None, tq=tq, h=4, kvh=2, lens=lens)
+    long = {}
+    for name in "kv":
+        t = torch.full((3, 4 * max(lens), 2, 64), float("nan"), dtype=dtype, device="cuda")
+        t[:, :max(lens)] = dense[name]
+        long[name] = t
+    assert torch.equal(_attend(q, dense, kv_lens, 2), _attend(q, long, kv_lens, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,page_size,groups", [(torch.bfloat16, False, None, 1),
+                                                         (torch.bfloat16, True, 16, 1),
+                                                         (torch.float32, False, 7, 4)])
+def test_splitkv_bits_do_not_depend_on_the_splits_a_block_streams(cuda, dtype, int8,
+                                                                   page_size, groups):
+    """A "splitkv" block computes each split's partials as if it were
+    alone: one split a block, 3 or 64 consecutive ones give the same bits."""
+    from repro_torch.kernels import attention
+    h = 8
+    q, dense, paged, kv_lens = _kv_case(cuda, dtype, int8, page_size, h=h, kvh=h // groups,
+                                        lens=(700, 64, 1000, 129))
+    kw = paged if paged is not None else dense
+    p = attention.plan_for(q, kw["k"], kw.get("page_table"), int8)
+    outs = []
+    for per_block in (1, 3, 64):
+        out = torch.empty_like(q)
+        attention.run(q, kw["k"], kw["v"], kv_lens, out, p._replace(per_block=per_block),
+                      dtype_code=ops._DTYPE_CODES[dtype], k_scales=kw.get("k_scales"),
+                      v_scales=kw.get("v_scales"), page_table=kw.get("page_table"))
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    torch.testing.assert_close(outs[0].float(), _attend(q, kw, kv_lens, groups).float(), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tq", [(torch.float32, 1), (torch.bfloat16, 1),
+                                      (torch.bfloat16, 3), (torch.float32, 3)])
+def test_attention_masks_each_head_by_its_own_length(cuda, dtype, tq):
+    """The query heads of one KV head with different kv lengths (the API
+    allows it): each head sees its own keys only."""
+    h, kvh, s = 8, 2, 90
+    q = _rand(cuda, dtype, 2, tq, h, 64)
+    k, v = _rand(cuda, dtype, 2, s, kvh, 64), _rand(cuda, dtype, 2, s, kvh, 64)
+    k[:, 80:] = float("nan")  # past every length
+    v[:, 80:] = float("nan")
+    kv_lens = torch.tensor([80, 3, 64, 65, 12, 40, 70, 5, 9, 10, 11, 12, 66, 67, 68, 80],
+                           dtype=torch.int32, device="cuda")
+    _against_plain(lambda: ops.flash_attention(q, k, v, kv_lens=kv_lens, kv_groups=4), dtype)
+
+
 @pytest.mark.cuda
 def test_kernels_count_their_launches(cuda):
     ops.reset_launch_counts()
