@@ -13,11 +13,16 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              dynamic shared memory; the same for the HMMA (mma.sync) of each
              tensor-core attention kernel (csrc/attention_mma.cu; none fails
              the run), and ptxas's registers and spills for the split-KV
-             decode kernels (csrc/attention_splitkv.cu);
+             decode kernels (csrc/attention_splitkv.cu); the DMMA (f64
+             mma.sync) in each f64 GEMM kernel (csrc/gemm_f64.cu; none, or a
+             spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu);
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
-             (bgemm also at zamba2-1.2b's), in bf16 and f32, with times beside
-             the card's bound and one PyTorch call; each GEMM case prints the
+             (bgemv and bgemm also at zamba2-1.2b's), in bf16 and f32, with
+             times beside the card's bound and one PyTorch call; each bgemv
+             case prints its plan (`kernels.bgemv.plan`: tile, K splits,
+             rows) and a split one is held bitwise against a second launch;
+             each GEMM case prints the
              plan `kernels.gemm.plan` gives it (route, tile, K slices) and,
              where that is the tensor cores, the time of the CUDA-core kernel
              it replaced (csrc/gemm.cu on the same inputs); a split-K case is
@@ -42,7 +47,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              bf16 prefill projection counted on the tensor-core route (also
              for serve_int8, serve_rwkv and serve_zamba: "routes" lines);
 8. profile - torch.profiler over full-width decode steps: device time by
-             kernel (attention's apart) and the device's idle share;
+             kernel (attention's and bgemv's apart) and the device's idle
+             share; one bgemv device launch a bgemv call (144 a stablelm
+             step, 240 rwkv6, 112 zamba2), or the run fails;
              profile_prefill the same over full-width prefills (wall, device
              busy, the tensor-core GEMM's and attention's shares); every
              serve's attention launches are checked by route ("routes"
@@ -52,8 +59,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              nrm2, axpy) at full size in f64, f32 and bf16, each call held
              against its plain version and counted as one launch of its
              kernel (gemm, gemv, blas1 reduce, blas1 axpy; a gemm also on
-             its route); then each timed beside its bound and one PyTorch
-             library call (bf16 gemm also beside the CUDA-core kernel);
+             the route its plan names: f64 with even K and N on the f64
+             tensor cores, odd ones on the CUDA cores); then each timed
+             beside its bound and one PyTorch library call (a tensor-core
+             gemm also beside the CUDA-core kernel);
 10. quant_kernels - block-scaled int8 weights through core.blas: the decode
              projections (packed bgemv), the prefill projections (int8-B
              bgemm, "nk"), gemm "kn"/"nk" 8192^3 and gemv 16384^2 with packed
@@ -147,8 +156,9 @@ the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16
 dense (tensor cores), 67 TFLOP/s f32 (CUDA cores), 67 TFLOP/s f64 (tensor
-cores; the CUDA cores' DFMA peaks at 34).  Detail (nvcc's ptxas
-report, every number printed) goes to build/chip_smoke/.
+cores; the CUDA cores' DFMA peaks at 34).  Every time is taken with a
+cold L2 (time_ms: a read of 256 MB before each launch).  Detail (nvcc's
+ptxas report, every number printed) goes to build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -226,20 +236,26 @@ _flush = None
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's ~1.98 GHz boost clock
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Median device time of fn over `iters` launches, each with a cold L2
-    (a 256 MB write evicts the 50 MB cache first: on the serving path every
-    layer's weights arrive from HBM).  A device-side sleep before each
-    launch keeps the queue full while the host enqueues fn, so the events
-    time the device's work and not the host's Python overhead."""
+def time_ms(fn, iters: int = 20, flush: str = "read") -> float:
+    """Median device time of fn over `iters` launches, each with a cold L2:
+    a pass over 256 MB evicts the 50 MB cache first (on the serving path
+    every layer's weights arrive from HBM).  `flush` "read" sums the buffer,
+    leaving clean lines; "write" zeroes it, and the timed launch then pays
+    for writing those dirty lines back: measured on the H100
+    (scripts/torch_gemm_study.py flush, PERF.md), the qkv bgemv took 15.8 us
+    and addmm 11.5 after the write, 14.8 and 10.4 after the read (2^26 f64
+    axpy 0.550 / 0.541 ms).  A device-side sleep before each launch keeps
+    the queue full while the host enqueues fn, so the events time the
+    device's work and not the host's Python overhead."""
     global _flush
     if _flush is None:
-        _flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+        _flush = torch.zeros(64 * 2**20, dtype=torch.float32, device="cuda")
+    evict = _flush.sum if flush == "read" else _flush.zero_
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
-        _flush.zero_()
+        evict()
         torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -306,18 +322,37 @@ def _attn_name(mangled: str):
     return None
 
 
+def _f64_config(mangled: str):
+    """(BM, BN, BK, STAGES, MI, KI, GATE) of a gemm_f64_kernel instantiation,
+    else None."""
+    m = re.search(r"gemm_f64_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
+                  mangled)
+    return tuple(int(v) for v in m.groups()) if m else None
+
+
+def _f64_name(mangled: str):
+    """'BMxBN [gate] mMIn8kKI BK=.. S=..' for a gemm_f64_kernel instantiation,
+    else None."""
+    cfg = _f64_config(mangled)
+    if cfg is None:
+        return None
+    bm, bn, bk, stages, mi, ki, gate = cfg
+    return f"{bm}x{bn}" + (" gate" if gate else "") + f" m{mi}n8k{ki} BK={bk} S={stages}"
+
+
 def phase_sass(lib: Path) -> dict:
-    """HGMMA (wgmma) instructions in each tensor-core GEMM kernel and HMMA
-    (mma.sync) in each tensor-core attention kernel of the built library
-    (cuobjdump -sass), and ptxas's registers, shared memory, spills and
-    performance notes for them and for the split-KV attention kernels (this
-    process's build log).  Fails if a tensor-core kernel holds no HGMMA or
-    HMMA."""
+    """HGMMA (wgmma) instructions in each tensor-core GEMM kernel, HMMA
+    (mma.sync) in each tensor-core attention kernel and DMMA (f64 mma.sync)
+    in each f64 GEMM kernel of the built library (cuobjdump -sass), and
+    ptxas's registers, shared memory, spills and performance notes for them,
+    for the split-KV attention kernels and for bgemv (this process's build
+    log).  Fails if a tensor-core kernel holds no HGMMA, HMMA or DMMA, or an
+    f64 one spills."""
     from repro_torch.kernels import _build
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    hgmma, hmma, fn = {}, {}, None
+    hgmma, hmma, dmma, fn = {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -326,19 +361,29 @@ def phase_sass(lib: Path) -> dict:
                 hgmma[_tc_name(fn)] = 0
             elif (_attn_name(fn) or "").startswith("mma"):
                 hmma[_attn_name(fn)] = 0
+            elif _f64_name(fn):
+                dmma[_f64_name(fn)] = 0
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
         elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
             hmma[_attn_name(fn)] += 1
+        elif fn and _f64_name(fn) in dmma and re.search(r"\bDMMA\b", line):
+            dmma[_f64_name(fn)] += 1
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
-    ptxas, attn_ptxas, notes, entry = {}, {}, [], None
+    ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, notes, entry = {}, {}, {}, {}, [], None
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn, entry = m.group(1), None
             if "gemm_tc_kernel" in fn:
                 entry = ptxas[_tc_name(fn)] = {"dynamic_smem_bytes": smem(*_tc_config(fn))}
+            elif _f64_config(fn):
+                bm, bn, bk, stages, _, _, gate = _f64_config(fn)
+                ring = stages * (bm * (bk + 4) + (1 + gate) * bk * (bn + 4)) * 8  # padded rows
+                entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
+            elif "bgemv_kernel" in fn:
+                entry = bgemv_ptxas[re.sub(r".*bgemv_kernelI", "", fn)[:24]] = {}
             elif _attn_name(fn):
                 name = _attn_name(fn)
                 entry = attn_ptxas[name] = {}
@@ -372,10 +417,22 @@ def phase_sass(lib: Path) -> dict:
          "them and csrc/attention_splitkv.cu's", hmma_total=sum(hmma.values()),
          hmma_per_kernel=hmma, ptxas=attn_ptxas or "not built in this process",
          attention_kernels_with_spills=spills)
+    f64_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                  for k, v in f64_ptxas.items()}
+    emit("sass", what="DMMA in csrc/gemm_f64.cu's kernels (cuobjdump -sass); ptxas for them "
+         "and csrc/bgemv.cu's", dmma_total=sum(dmma.values()), dmma_per_kernel=dmma,
+         ptxas=f64_ptxas or "not built in this process", bgemv_ptxas=bgemv_ptxas,
+         f64_spill_bytes=f64_spills)
+    (OUT / "sass_dmma.json").write_text(json.dumps({"dmma": dmma, "ptxas": f64_ptxas,
+                                                    "bgemv_ptxas": bgemv_ptxas}, indent=1))
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
     if not hmma or min(hmma.values()) == 0:
         raise AssertionError(f"tensor-core attention kernels without HMMA: {hmma}")
+    if not dmma or min(dmma.values()) == 0:
+        raise AssertionError(f"f64 tensor-core kernels without DMMA: {dmma}")
+    if any(f64_spills.values()):
+        raise AssertionError(f"f64 tensor-core kernels spill: {f64_spills}")
     return hgmma
 
 
@@ -421,8 +478,9 @@ def kernel_cases(dtype):
     on the same inputs, or None), bytes, flops; for the GEMMs also plan and
     ffma, csrc/gemm.cu on the same inputs where the plan names wgmma; for
     attention its plan and ffma, csrc/attention.cu on the same inputs) at the
-    stablelm-1.6b and zamba2-1.2b FULL serving shapes, batch 4."""
-    from repro_torch.kernels import attention, ops
+    stablelm-1.6b and zamba2-1.2b FULL serving shapes, batch 4; bgemv cases
+    carry their plan (`kernels.bgemv.plan`: tile, splits, rows)."""
+    from repro_torch.kernels import attention, bgemv, ops
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape, std=1.0):
@@ -434,23 +492,41 @@ def kernel_cases(dtype):
 
     d, f, b = 2048, 5632, 4
     cases = []
-    # bgemv: decode projections, y[b] = epi(x[b] @ W)
+    # bgemv: decode projections, y[b] = epi(x[b] @ W), of stablelm and zamba2
+    # (its Mamba2 in/out projections and the shared block's gelu MLP)
     x, xf = rnd(b, d), rnd(b, f)
     w_qkv, bias = rnd(d, d, std=d ** -0.5), rnd(d)
     w_g, w_u = rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5)
+    w_gu = torch.cat([w_g, w_u], dim=1)
     w_dn, res = rnd(f, d, std=f ** -0.5), rnd(b, d)
+
+    def gemv_case(label, w, xx, lib, lib_call, *, w2=None, **kw):
+        k, n = w.shape
+        p = bgemv.plan(b, k, n, dtype, gate=w2 is not None)
+        return case("bgemv", label, lambda: ops.bgemv(w, xx, a2=w2, **kw), lib, lib_call,
+                    nbytes(w, w2, xx, kw.get("bias"), kw.get("residual"))
+                    + b * n * xx.element_size(), 2 * b * k * n * (2 if w2 is not None else 1),
+                    plan=dict(tile=p.tile, splits=p.splits, rows=p.rows))
+
+    din, dz, dff = 8384, 4096, 8192
+    xz, xh = rnd(b, dz), rnd(b, dff)
+    wz_in, wz_out = rnd(d, din, std=d ** -0.5), rnd(dz, d, std=dz ** -0.5)
+    wz_up, wz_down = rnd(d, dff, std=d ** -0.5), rnd(dff, d, std=dff ** -0.5)
     cases += [
-        case("bgemv", "qkv 4x2048->2048 +bias",
-             lambda: ops.bgemv(w_qkv, x, bias=bias),
-             lambda: torch.addmm(bias, x, w_qkv), "addmm",
-             nbytes(w_qkv, x, bias) + b * d * x.element_size(), 2 * b * d * d),
-        case("bgemv", "gate_up 4x2048->5632 x2 silu-gate",
-             lambda: ops.bgemv(w_g, x, a2=w_u, activation="silu"), None, None,
-             nbytes(w_g, w_u, x) + b * f * x.element_size(), 4 * b * d * f),
-        case("bgemv", "down 4x5632->2048 +residual",
-             lambda: ops.bgemv(w_dn, xf, residual=res),
-             lambda: torch.addmm(res, xf, w_dn), "addmm",
-             nbytes(w_dn, xf, res) + b * d * x.element_size(), 2 * b * f * d),
+        gemv_case("qkv 4x2048->2048 +bias", w_qkv, x, lambda: torch.addmm(bias, x, w_qkv),
+                  "addmm", bias=bias),
+        gemv_case("gate_up 4x2048->5632 x2 silu-gate", w_g, x, lambda: torch.matmul(x, w_gu),
+                  "matmul [W_g|W_u] (products only)", w2=w_u, activation="silu"),
+        gemv_case("down 4x5632->2048 +residual", w_dn, xf, lambda: torch.addmm(res, xf, w_dn),
+                  "addmm", residual=res),
+        gemv_case("zamba2 in_proj 4x2048->8384", wz_in, x, lambda: torch.matmul(x, wz_in),
+                  "matmul"),
+        gemv_case("zamba2 out_proj 4x4096->2048", wz_out, xz, lambda: torch.matmul(xz, wz_out),
+                  "matmul"),
+        gemv_case("zamba2 shared up 4x2048->8192 gelu", wz_up, x,
+                  lambda: torch.matmul(x, wz_up), "matmul (products only)", activation="gelu"),
+        gemv_case("zamba2 shared down 4x8192->2048 +residual", wz_down, xh,
+                  lambda: torch.addmm(res, xh, wz_down), "addmm", residual=res),
     ]
     # bgemm: admission-prefill projections, C[b] = epi(A[b] @ B), over the
     # 4 x 128 prompt rows: every prefill shape of stablelm and zamba2
@@ -468,7 +544,6 @@ def kernel_cases(dtype):
     a, af = rnd(b, 128, d), rnd(b, 128, f)
     a2d, af2d = a.view(-1, d), af.view(-1, f)
     res3 = rnd(b, 128, d)
-    w_gu = torch.cat([w_g, w_u], dim=1)
     cases += [
         gemm_case("gate_up (4,128,2048)@(2048,5632) x2 silu-gate", d, f, a, w_g,
                   lambda: torch.matmul(a2d, w_gu), "matmul [W_g|W_u] (products only)",
@@ -727,13 +802,18 @@ def phase_forced(params, cfg, phase="forced"):
         raise AssertionError(f"{phase} logits: errors {errs} vs scales {scales}")
 
 
-def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
+def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5,
+                  phase: str = "profile"):
     """Where a full-width decode step's time goes (batch 4, 128 cached
     tokens): the wall clock per step without the profiler, then
     torch.profiler over the same steps for device time per kernel name;
-    the idle share is 1 - device busy / wall."""
+    the idle share is 1 - device busy / wall.  Fails unless the device runs
+    one bgemv kernel a bgemv call (csrc/bgemv.cu combines its K splits in
+    the same launch) and, where `bgemv_per_step` is given, the profiled
+    steps call bgemv that many times a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(6)
     cache = tf.init_cache(cfg, 4, 160, device="cuda")
@@ -749,16 +829,21 @@ def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
         _, cache = tf.decode_step(params, tok, cache, cfg)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    calls_before = ops.launch_counts()["bgemv"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             _, cache = tf.decode_step(params, tok, cache, cfg)
         torch.cuda.synchronize()
+    bgemv_calls = (ops.launch_counts()["bgemv"] - calls_before) / steps
     # device-side events only (kernels, copies): aten ops would count twice
     by_name = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    bgemv_launches = sum(n for k, (_, n) in by_name.items() if "bgemv_kernel" in k)
     emit(phase, what="full-width decode step, batch 4, 128 cached tokens",
+         bgemv_calls_per_step=bgemv_calls, bgemv_device_launches_per_step=bgemv_launches,
+         bgemv_ms_per_step=sum(ms for k, (ms, _) in by_name.items() if "bgemv_kernel" in k),
          kv_cache=cfg.kv_cache_dtype, wall_ms_per_step=wall_ms,
          attention_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
                                    if re.search(r"attention\w*_kernel", k)),
@@ -769,6 +854,9 @@ def phase_profile(params, cfg, steps: int = 5, phase: str = "profile"):
          device_events_per_step=sum(n for _, n in by_name.values()),
          top=[{"name": k[:90], "ms_per_step": ms, "calls_per_step": n}
               for k, (ms, n) in top])
+    if bgemv_launches != bgemv_calls or bgemv_per_step not in (None, bgemv_calls):
+        raise AssertionError(f"{phase}: {bgemv_calls} bgemv calls a decode step (want "
+                             f"{bgemv_per_step}) ran {bgemv_launches} device launches")
 
 
 def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_prefill"):
@@ -826,32 +914,43 @@ DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 def blas_cases():
     """(kernel counter, routine, case, dtype, make) for every BLAS case;
     make() builds the inputs from a seeded generator and returns (call
-    through core.blas, library call or None, bytes, flops, sums, ffma), where
-    sums is None (elementwise tolerance) or, for dot and nrm2, (cond, the same
-    call on the first half of each vector: a planted fault), and ffma the
-    CUDA-core kernel on the same inputs where the tensor cores run the call."""
+    through core.blas, library call or None, bytes, flops, sums, ffma,
+    route), where sums is None (elementwise tolerance) or, for dot and nrm2,
+    (cond, the same call on the first half of each vector: a planted fault),
+    ffma the CUDA-core kernel on the same inputs where the tensor cores run
+    the call, and route the gemm route `kernels.gemm.plan` names (None for
+    the other routines)."""
     from repro_torch.core import blas
+    from repro_torch.kernels import gemm
 
     def rnd(g, dtype, *shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
     def gemm_case(dtype, m, k, n, seed, epi=None, fused=False):
+        route = gemm.plan(m, k, n, dtype, gate=fused).route
+
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
             a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
             out_b = m * n * a.element_size()
+            on_tc = route != "ffma"
             if fused:  # stablelm gate+up on a flattened (512-token) prefill
                 b2 = rnd(g, dtype, k, n, std=k ** -0.5)
-                return (lambda: blas.matmul_fused(a, b, w2=b2, activation="silu"), None,
+                both = torch.cat([b, b2], dim=1)  # the library's products, no epilogue
+                return (lambda: blas.matmul_fused(a, b, w2=b2, activation="silu"),
+                        lambda: torch.matmul(a, both),
                         nbytes(a, b, b2) + out_b, 4 * m * n * k, None,
-                        lambda: ffma_launch(a, b, b2=b2, activation="silu"))
+                        (lambda: ffma_launch(a, b, b2=b2, activation="silu")) if on_tc else None,
+                        route)
             if epi:
                 bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
                 return (lambda: blas.gemm(a, b, bias=bias, residual=res, epilogue=epi), None,
-                        nbytes(a, b, bias, res) + out_b, 2 * m * n * k, None, None)
+                        nbytes(a, b, bias, res) + out_b, 2 * m * n * k, None,
+                        (lambda: ffma_launch(a, b, bias=bias, residual=res, activation=epi))
+                        if on_tc else None, route)
             return (lambda: blas.gemm(a, b), lambda: torch.matmul(a, b),
                     nbytes(a, b) + out_b, 2 * m * n * k, None,
-                    (lambda: ffma_launch(a, b)) if dtype == torch.bfloat16 else None)
+                    (lambda: ffma_launch(a, b)) if on_tc else None, route)
         return make
 
     def gemv_case(dtype, m, n, seed, trans=False):
@@ -861,7 +960,7 @@ def blas_cases():
             x = rnd(g, dtype, n)
             at = a.t() if trans else a
             return (lambda: blas.gemv(a, x, trans=trans), lambda: torch.mv(at, x),
-                    nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None)
+                    nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None, None)
         return make
 
     def level1_case(routine, dtype, n, seed):
@@ -872,23 +971,33 @@ def blas_cases():
             if routine == "dot":
                 cond = (x.double() * y.double()).abs().sum().item()
                 return (lambda: blas.dot(x, y), lambda: torch.dot(x, y),
-                        nbytes(x, y) + size, 2 * n, (cond, lambda: blas.dot(x[:h], y[:h])), None)
+                        nbytes(x, y) + size, 2 * n, (cond, lambda: blas.dot(x[:h], y[:h])), None,
+                        None)
             if routine == "nrm2":
                 cond = x.double().norm().item()
                 return (lambda: blas.nrm2(x), lambda: torch.linalg.vector_norm(x),
-                        nbytes(x) + size, 2 * n, (cond, lambda: blas.nrm2(x[:h])), None)
+                        nbytes(x) + size, 2 * n, (cond, lambda: blas.nrm2(x[:h])), None, None)
             return (lambda: blas.axpy(0.75, x, y), lambda: torch.add(y, x, alpha=0.75),
-                    nbytes(x, y) + n * size, 2 * n, None, None)
+                    nbytes(x, y) + n * size, 2 * n, None, None, None)
         return make
 
     cases = []
     for i, dt in enumerate(DTYPES):
         cases.append(("gemm", "gemm", f"{D8K}x{D8K}x{D8K}", dt, gemm_case(dt, D8K, D8K, D8K, 10 + i)))
+    ragged = "ragged (4095,4097)@(4097,4093) +bias gelu +residual"
     cases += [
-        ("gemm", "gemm", "ragged (4095,4097)@(4097,4093) +bias gelu +residual", torch.float32,
+        ("gemm", "gemm", ragged, torch.float32,
          gemm_case(torch.float32, 4095, 4097, 4093, 13, epi="gelu")),
         ("gemm", "matmul_fused", "2-D (512,2048)@(2048,5632) x2 silu-gate", torch.bfloat16,
          gemm_case(torch.bfloat16, 512, 2048, 5632, 14, fused=True)),
+        # f64: odd K and N take the CUDA-core kernel, even ragged ones the
+        # f64 tensor cores, the gate too
+        ("gemm", "gemm", ragged, torch.float64,
+         gemm_case(torch.float64, 4095, 4097, 4093, 15, epi="gelu")),
+        ("gemm", "gemm", "ragged (4095,4098)@(4098,4094) +bias gelu +residual", torch.float64,
+         gemm_case(torch.float64, 4095, 4098, 4094, 16, epi="gelu")),
+        ("gemm", "matmul_fused", "2-D (4096,4096)@(4096,4096) x2 silu-gate", torch.float64,
+         gemm_case(torch.float64, 4096, 4096, 4096, 17, fused=True)),
     ]
     for i, dt in enumerate(DTYPES):
         cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
@@ -917,7 +1026,7 @@ def phase_blas():
     checked = []
     ops.reset_launch_counts()
     for kernel, routine, case, dtype, make in cases:
-        call, _, _, _, sums, _ = make()
+        call, _, _, _, sums, _, route = make()
         before = ops.launch_counts()
         got = call()
         after = ops.launch_counts()
@@ -927,8 +1036,8 @@ def phase_blas():
         torch.cuda.synchronize()
         rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         want_rose = {kernel: 1}
-        if kernel == "gemm":  # every bf16 case here is aligned: the tensor cores
-            want_rose[f"gemm_{'wgmma' if dtype == torch.bfloat16 else 'ffma'}"] = 1
+        if kernel == "gemm":  # the route its plan names
+            want_rose[f"gemm_{route}"] = 1
         diff = (got.double() - want.double()).abs()
         err = diff.max().item()
         finite = bool(torch.isfinite(got).all())
@@ -965,7 +1074,7 @@ def phase_blas():
 
     rows = {}
     for (kernel, routine, case, dtype, make), chk in zip(cases, checked):
-        call, lib, nb, flops, _, ffma = make()
+        call, lib, nb, flops, _, ffma, _ = make()
         ms = time_auto(call)
         with ops.reference_mode():
             plain_ms = time_auto(call)
@@ -1789,9 +1898,10 @@ def phase_rwkv_kernels():
     one launch of its kernel (a prefill one on the tensor-core route),
     against its plain version (a split-K plan also bitwise against a second
     launch), then timed beside its bound, its plain version, torch.matmul
-    and, for a prefill, the CUDA-core kernel it replaced."""
+    and, for a prefill, the CUDA-core kernel it replaced; a decode case
+    prints its bgemv plan (tile, splits, rows)."""
     from repro_torch.core import blas
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bgemv, ops
     g = torch.Generator(device="cuda").manual_seed(300)
     rows = {}
     for rows_t, kernel in ((1, "bgemv"), (128, "bgemm")):
@@ -1808,9 +1918,13 @@ def phase_rwkv_kernels():
             torch.cuda.synchronize()
             rose = {k: n for k, n in counts.items() if n}
             want_rose = {kernel: 1, **({"bgemm_wgmma": 1} if kernel == "bgemm" else {})}
-            plan = plan_of(4 * rows_t, d_in, d_out, torch.bfloat16) if rows_t > 1 else None
+            if rows_t > 1:
+                plan = plan_of(4 * rows_t, d_in, d_out, torch.bfloat16)
+            else:
+                p = bgemv.plan(4, d_in, d_out, torch.bfloat16)
+                plan = dict(tile=p.tile, splits=p.splits, rows=p.rows)
             same = (split_deterministic(lambda: blas.matmul(x, w), got)
-                    if plan and plan["splits"] > 1 else None)
+                    if plan["splits"] > 1 else None)
             err = (got.float() - want.float()).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
                 got.float(), want.float(), **TOL[torch.bfloat16])
@@ -2350,7 +2464,7 @@ def main() -> int:
         check_launches(forced_counts, "forced")
         check_prefill_routes(forced_counts, "forced")
         check_attention_routes("forced", cfg.n_layers)
-        phase_profile(params, cfg)
+        phase_profile(params, cfg, 6 * cfg.n_layers)
         phase_profile_prefill(params, cfg)
         qparams = phase_quantize(params)
         phase_smoke_int8()
@@ -2369,7 +2483,7 @@ def main() -> int:
         emit("launches", run="forced_int8", **forced_int8)
         check_int8_launches(forced_int8, "forced_int8", 1, 3)
         check_prefill_routes(forced_int8, "forced_int8")
-        phase_profile(qparams, cfg, phase="profile_int8")
+        phase_profile(qparams, cfg, 0, phase="profile_int8")  # the packed kernel
         kv_rows = phase_attention_kv()
         phase_smoke_kv()
         paged_stats, paged_counts = phase_serve_paged(params, cfg)
@@ -2382,7 +2496,7 @@ def main() -> int:
         forced_kv = ops.launch_counts()
         emit("launches", run="forced_kv_int8", **forced_kv)
         check_kv_launches(forced_kv, "forced_kv_int8", cfg.n_layers, 1, 3, True, False)
-        phase_profile(params, kv_cfg, phase="profile_kv_int8")
+        phase_profile(params, kv_cfg, 6 * cfg.n_layers, phase="profile_kv_int8")
         phase_serve_batch(params, cfg, bf16_outputs)
         del params, qparams
         wkv6_rows = phase_wkv6()
@@ -2398,7 +2512,7 @@ def main() -> int:
             state_of=lambda cache: cache["tm"]["s"], teacher_forced=_teacher_forced_rwkv,
             limits={"out": RWKV_TF_OUT_TOL, "state": RWKV_TF_STATE_TOL},
             margin=RWKV_E2E_MARGIN, check=check_rwkv_launches)
-        phase_profile(rwkv_params, rwkv_cfg, phase="profile_rwkv")
+        phase_profile(rwkv_params, rwkv_cfg, 10 * rwkv_cfg.n_layers, phase="profile_rwkv")
         del rwkv_params
         ssd_rows = phase_ssd()
         phase_smoke_batch(ZAMBA, "smoke_zamba", check_zamba_launches)
@@ -2415,7 +2529,9 @@ def main() -> int:
             limits={"out": ZAMBA_TF_OUT_TOL, "state": ZAMBA_TF_STATE_TOL,
                     "shared": ZAMBA_TF_OUT_TOL},
             margin=ZAMBA_E2E_MARGIN, check=check_zamba_launches)
-        phase_profile(zamba_params, zamba_cfg, phase="profile_zamba")
+        zamba_occ = zamba_cfg.n_layers // zamba_cfg.ssm.shared_attn_every
+        phase_profile(zamba_params, zamba_cfg, 2 * zamba_cfg.n_layers + 6 * zamba_occ,
+                      phase="profile_zamba")
         del zamba_params
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
@@ -2457,11 +2573,13 @@ def main() -> int:
                         "attention_route": name.split("_")[1],
                         "launches_from": "serve" if dtype == "bfloat16" else "smoke (f32)"})
     # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
-    # launches from the blas phase; gemm's two routes apart: f64 on the CUDA
-    # cores, bf16 on the tensor cores
+    # launches from the blas phase; gemm's three routes apart: f64 on the f64
+    # tensor cores, bf16 on the bf16 ones, f32 on the CUDA cores
     blas_sources = {
         "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
                  ("gemm", f"{D8K}x{D8K}x{D8K}")),
+        "gemm_dmma": ("src/repro_torch/csrc/gemm_f64.cu", "src/repro/kernels/gemm.py:184",
+                      ("gemm", f"{D8K}x{D8K}x{D8K}")),
         "gemm_wgmma": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/gemm.py:184",
                        ("gemm", f"{D8K}x{D8K}x{D8K}")),
         "gemv": ("src/repro_torch/csrc/gemv.cu", "src/repro/kernels/gemv.py:146",
@@ -2472,7 +2590,7 @@ def main() -> int:
                        ("axpy", "n=2^26")),
     }
     for name, (src, replaces, (routine, case)) in blas_sources.items():
-        dtype = "bfloat16" if name == "gemm_wgmma" else "float64"
+        dtype = {"gemm_wgmma": "bfloat16", "gemm": "float32"}.get(name, "float64")
         r = blas_rows[(routine, case, dtype)]
         launches = blas_counts["gemm_ffma" if name == "gemm" else name]
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

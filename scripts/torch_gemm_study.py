@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Two measurements behind the tensor-core GEMM's plan and gates, on one GPU.
+"""The measurements behind the GEMM and bgemv plans and gates, on one GPU.
 
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py tiles
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py witness [--ffma]
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f64
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py flush
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -17,6 +20,24 @@ seed first.  With --ffma the kernel path is also run with every plan forced
 to the CUDA-core kernel (the loop the tensor cores replaced), in this
 process only.  One JSON line per seed: each path's distance to the f32 path
 per step, and each kernel path's distance to the plain path.
+
+f64: the f64 tensor-core kernel (csrc/gemm_f64.cu) at 8192^3 with each mma
+shape it carries (m8n8k4, m16n8k4, m16n8k8, m16n8k16) and with BK = 32 in 3
+stages, at 128 x 128, then at every tile of `gemm.DMMA_TILES` and, with the
+gate, `DMMA_GATE_TILES`, and on a ragged (4095, 4098) @ (4098, 4094);
+beside the CUDA-core kernel (csrc/gemm.cu) and torch.matmul.  The kernel's
+default mma shape and k-step and the plan's tile tables come from these.
+
+bgemv: csrc/bgemv.cu at every decode projection shape of stablelm-1.6b,
+rwkv6-1.6b and zamba2-1.2b (batch 4, bf16) under K splits from one to one
+per 32 rows, each checked against the plain version; beside the plan's
+choice and torch.matmul.  `bgemv.BLOCKS_PER_SM` and `MIN_ROWS` come from
+these.
+
+flush: the stablelm qkv bgemv and the 2^26 f64 axpy (kernel and library
+call) timed after a write flush of L2 and after a read flush (clean lines),
+20 launches each, twice in turns; chip_smoke.time_ms's default flush comes
+from these.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
@@ -71,6 +92,118 @@ def tiles():
                           "fastest": min(us, key=us.get), "us": us}), flush=True)
 
 
+def f64():
+    from repro_torch.kernels import gemm, ops
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for m, k, n, gate in ((8192, 8192, 8192, False), (8192, 8192, 8192, True),
+                          (4095, 4098, 4094, False)):
+        a = torch.randn(m, k, generator=g, device="cuda", dtype=torch.float64)
+        b = torch.randn(k, n, generator=g, device="cuda", dtype=torch.float64) * k ** -0.5
+        b2 = (torch.randn(k, n, generator=g, device="cuda", dtype=torch.float64) * k ** -0.5
+              if gate else None)
+        act = "silu" if gate else None
+        with ops.reference_mode():
+            want = ops.gemm(a, b, b2=b2, activation=act)
+        out = torch.empty(m, n, dtype=torch.float64, device="cuda")
+        ms = {}
+        runs = [(f"{bm}x{bn}", (bm, bn), 0)
+                for bm, bn in (gemm.DMMA_GATE_TILES if gate else gemm.DMMA_TILES)]
+        if not gate and m == 8192:
+            runs += [(f"128x128 {name}", (128, 128), code) for code, name in
+                     ((1, "m8n8k4"), (2, "m16n8k4"), (3, "m16n8k8"), (4, "m16n8k16"),
+                      (5, "BK=32 3 stages"))]
+        for label, tile, code in runs:
+            def call(tile=tile, code=code):
+                return gemm.dmma(a, b, out, gemm.Plan("dmma", tile), b2=b2, bias=None,
+                                 residual=None, act_code=ops._ACTS[act], m=m, k=k, n=n,
+                                 variant=code)
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out, want, **cs.TOL[torch.float64]):
+                err = (out - want).abs().max().item()
+                raise AssertionError(f"f64: {label} at {(m, k, n)} disagrees with plain ({err})")
+            ms[label] = cs.time_ms(call, iters=5)
+        ms["ffma (csrc/gemm.cu)"] = cs.time_ms(lambda: cs.ffma_launch(a, b, b2=b2,
+                                                                      activation=act), iters=5)
+        if not gate:
+            ms["torch.matmul"] = cs.time_ms(lambda: torch.matmul(a, b), iters=5)
+        flops = 2 * m * k * n * (2 if gate else 1)
+        print(json.dumps({"shape": f"({m},{k})@({k},{n})" + (" gate" if gate else ""),
+                          "plan": str(gemm.plan(m, k, n, torch.float64, gate=gate)),
+                          "bound_ms": flops / cs.PEAK_FLOP_S[torch.float64] * 1e3,
+                          "ms": ms}), flush=True)
+        del a, b, b2, want, out
+
+
+# the decode projections of the served models at batch 4: (what, K, N, gate)
+BGEMV_SHAPES = [("stablelm qkv", 2048, 2048, False), ("stablelm gate+up", 2048, 5632, True),
+                ("stablelm down", 5632, 2048, False), ("rwkv lora down", 2048, 64, False),
+                ("rwkv lora up", 64, 2048, False), ("rwkv key", 2048, 7168, False),
+                ("rwkv value", 7168, 2048, False), ("zamba2 in_proj", 2048, 8384, False),
+                ("zamba2 out_proj", 4096, 2048, False), ("zamba2 up", 2048, 8192, False),
+                ("zamba2 down", 8192, 2048, False)]
+
+
+def bgemv_sweep():
+    from repro_torch.kernels import bgemv, ops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dt = torch.bfloat16
+    for what, k, n, gate in BGEMV_SHAPES:
+        x = torch.randn(4, k, generator=g, device="cuda").to(dt)
+        w = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dt)
+        w2 = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dt) if gate else None
+        act = "silu" if gate else None
+        with ops.reference_mode():
+            want = ops.bgemv(w, x, a2=w2, activation=act)
+        out = torch.empty(4, n, dtype=dt, device="cuda")
+        chosen = bgemv.plan(4, k, n, dt, gate=gate)
+        plans = {}
+        for s in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64):
+            rows = bgemv._cdiv(bgemv._cdiv(k, s), bgemv.ROW_STEP) * bgemv.ROW_STEP
+            if rows <= bgemv.MAX_ROWS and s <= bgemv._cdiv(k, bgemv.ROW_STEP):
+                plans[bgemv.Plan(chosen.tile, bgemv._cdiv(k, rows), rows)] = True
+        us = {}
+        for p in plans:
+            def call(p=p):
+                return bgemv.run(w, x, out, p, w2=w2, bias=None, residual=None,
+                                 act_code=ops._ACTS[act], dtype_code=ops._DTYPE_CODES[dt])
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.float(), want.float(), **cs.TOL[dt]):
+                raise AssertionError(f"bgemv: {p} at {what} disagrees with plain")
+            us[f"{p.splits}x{p.rows} ({p.blocks(4, n)} blocks)"] = cs.time_ms(call) * 1e3
+        lib = (lambda: torch.matmul(x, torch.cat([w, w2], 1))) if gate else (
+            lambda: torch.matmul(x, w))
+        nb = (w.numel() * (2 if gate else 1) + x.numel() + 4 * n) * 2
+        print(json.dumps({"shape": f"{what} 4x{k}->{n}" + (" gate" if gate else ""),
+                          "plan": f"{chosen.splits}x{chosen.rows}",
+                          "fastest": min(us, key=us.get), "us": us,
+                          "matmul_us": cs.time_ms(lib) * 1e3,
+                          "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
+
+
+def flush():
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(4, 2048, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(2048, 2048, generator=g, device="cuda") * 2048 ** -0.5).bfloat16()
+    bias = torch.randn(2048, generator=g, device="cuda").bfloat16()
+    u = torch.randn(2 ** 26, generator=g, device="cuda", dtype=torch.float64)
+    v = torch.randn(2 ** 26, generator=g, device="cuda", dtype=torch.float64)
+    calls = {"bgemv qkv 4x2048->2048 +bias": lambda: ops.bgemv(w, x, bias=bias),
+             "addmm qkv": lambda: torch.addmm(bias, x, w),
+             "axpy f64 2^26": lambda: ops.axpy(0.75, u, v),
+             "add f64 2^26": lambda: torch.add(v, u, alpha=0.75)}
+    for name, call in calls.items():
+        ms = {kind: [] for kind in ("write", "read")}
+        for kind in ("write", "read", "read", "write"):
+            ms[kind].append(cs.time_ms(call, flush=kind))
+        print(json.dumps({"call": name, "ms_write_flush": ms["write"],
+                          "ms_read_flush": ms["read"]}), flush=True)
+
+
 def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -118,8 +251,9 @@ def witness(with_ffma: bool):
 
 
 def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in ("tiles",
-                                                                                "witness"):
+    runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
+            "bgemv": bgemv_sweep, "flush": flush}
+    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,10 +261,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
     with torch.inference_mode():
-        if sys.argv[1] == "tiles":
-            tiles()
-        else:
-            witness("--ffma" in sys.argv)
+        runs[sys.argv[1]]()
     return 0
 
 

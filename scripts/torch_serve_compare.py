@@ -10,7 +10,8 @@ FULL (seeded random weights, bf16; 8 requests, batch 4, prompt 128, gen 32,
 greedy, no EOS) and then profiles a decode step and a prefill as
 chip_smoke.py's profile phases do.  Prints one JSON line: tok/s, TTFT p50,
 wall and device ms per decode step and per prefill, the device's idle
-share, attention's device ms.  Run it for the parent and the change in
+share, attention's device ms, the decode step's device events and the
+bgemv kernels' device ms and launches (among the step's top 12).  Run it for the parent and the change in
 turns (parent, change, change, parent) and compare within one session.
 """
 
@@ -50,6 +51,10 @@ def main() -> int:
         "decode_device_ms": prof["device_busy_ms_per_step"],
         "decode_idle_share": prof["device_idle_share"],
         "decode_attention_ms": prof["attention_ms_per_step"],
+        "decode_events": prof["device_events_per_step"],
+        "decode_bgemv_ms": sum(t["ms_per_step"] for t in prof["top"] if "bgemv" in t["name"]),
+        "decode_bgemv_launches": sum(t["calls_per_step"] for t in prof["top"]
+                                     if "bgemv" in t["name"]),
         "prefill_wall_ms": pre["wall_ms_per_prefill"],
         "prefill_device_ms": pre["device_busy_ms_per_prefill"],
         "prefill_attention_ms": pre.get("attention_ms_per_prefill", sum(

@@ -1,9 +1,11 @@
-// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32, f64,
-// unaligned bf16, and the int8-B forms the tensor cores do not take.
+// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32, f64 with
+// odd K or N or unaligned operands, unaligned bf16, and the int8-B forms the
+// tensor cores do not take.
 //
 // Replaces, for the forms `kernels/gemm.py::plan` routes to "ffma", two
 // Pallas kernels with one body and two entry points (bf16 operands that TMA
-// can address run `csrc/gemm_sm90.cu` instead):
+// can address run `csrc/gemm_sm90.cu` instead, and f64 with even K and N on
+// 16-byte boundaries `csrc/gemm_f64.cu`, the f64 tensor cores):
 //  - `gemm_launch`: `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
 //    :184) in its dense "kn" form, C = epi( A @ B  [, A @ B2] ), with A
 //    (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
@@ -22,8 +24,8 @@
 //
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB (f64),
 // ~700 flops per byte, far above the ridge of the card.  This kernel runs on
-// the CUDA cores (FFMA, and DFMA for f64), not the tensor cores, so f64 sits
-// far above its tensor-core bound; see PERF.md.
+// the CUDA cores (FFMA, and DFMA for f64, whose 34 TFLOP/s peak is half the
+// f64 tensor cores'), so f64 here sits far above its bound; see PERF.md.
 //
 // Design: the paper's processing element mapped onto an SM.  Its 4 x 4
 // register block (the DOT4 PE) is each thread's unit of work: a thread owns
@@ -46,8 +48,7 @@
 //    a few contiguous bytes of one stored row) and written transposed into
 //    Bs[k][n], so the multiply loop is the dense one.  A scale index costs a
 //    division only along an axis with more than one scale block.
-// Later work (not here): DMMA (mma.sync m8n8k4 f64) for f64; f32 stays on
-// FFMA (TF32 would change the result).
+// f32 stays on FFMA (TF32 would change the result).
 #include <stdint.h>
 
 #include <type_traits>

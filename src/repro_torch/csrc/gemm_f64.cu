@@ -1,0 +1,331 @@
+// Dense f64 GEMM with a fused epilogue on the H100's f64 tensor cores
+// (DMMA, mma.sync .f64), for Hopper (sm_90a).
+//
+// Replaces, for the forms `kernels/gemm.py::plan` routes to "dmma", the
+// Pallas kernel `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
+// :184) in its dense "kn" form in f64:
+//
+//     C = epi( A @ B  [, A @ B2] )
+//
+// with A (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
+// (M, N), all f64; the products accumulate in f64 and the epilogue
+// (common.cuh: bias -> activation -> gate -> residual) runs in f64 from the
+// registers.  K and N are even and every operand starts on a 16-byte
+// boundary (the plan's rule: 16-byte copies of whole row pairs); odd K or
+// N, unaligned operands and packed B stay on csrc/gemm.cu ("ffma").
+//
+// Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB,
+// ~700 flops per byte, far above the card's ridge.  The H100's f64 peak is
+// 67 TFLOP/s on the tensor cores and 34 on the CUDA cores (DFMA), so a
+// kernel on DFMA (csrc/gemm.cu) cannot pass half the bound.
+//
+// Design against it:
+//  - every product is an `mma.sync.aligned` f64 instruction (f64 in, f64
+//    accumulate), one DMMA each.  The shape is a template parameter:
+//    Hopper's m16n8k4 / m16n8k8 / m16n8k16 (PTX ISA 7.8, sm_90) and
+//    Ampere's m8n8k4.  At 8192^3 on the H100 (scripts/torch_gemm_study.py
+//    f64, PERF.md) m16n8k4 took 24.0 ms, m16n8k16 24.3, m16n8k8 24.5 and
+//    m8n8k4 40.4 (half the rate), BK = 32 in 3 stages 25.8: the defaults
+//    below are the fastest, and the launch takes the others at 128 x 128
+//    for that sweep;
+//  - a block of 8 warps (2 x 4) owns a BM x BN tile of C (128 x 128, 128 x
+//    64 or 64 x 64; the gate's two accumulators take BN <= 64), each warp a
+//    (BM/2) x (BN/4) sub-tile of mma tiles in registers;
+//  - operand tiles of BK = 16 come through a STAGES-deep cp.async ring in
+//    dynamic shared memory, 16-byte copies: the copies of the next three
+//    k-steps fly while this one is multiplied, one barrier a k-step;
+//  - shared rows are padded by 4 doubles (32 bytes), so each half-warp's
+//    8-byte fragment loads (A: row g, column t; B: row t, column g, with
+//    g = lane / 4, t = lane % 4) fall on 16 distinct 8-byte bank pairs;
+//  - the ragged M, N and K edges are zero-filled through cp.async's
+//    src-size operand, in BOTH A and B (0 x garbage is NaN), and the stores
+//    skip the fringe;
+//  - tiles are visited in groups of 8 tile rows (gemm.cu's grouped raster),
+//    so blocks that run together share their A and B panels in L2;
+//  - element offsets are 64-bit.
+// No split-K: the f64 calls are BLAS calls, large enough to fill the card,
+// and each output is summed over all of K in one order (two launches give
+// the same bits).
+#include "vec.cuh"
+
+using namespace rt;
+
+namespace {
+
+constexpr int THREADS = 256, GROUP = 8, PAD = 4;
+constexpr int WARPS_M = 2, WARPS_N = 4;
+// gemm_f64_launch's `variant`: the plan's kernels, or one of the sweep's
+enum { PLANNED = 0, M8N8K4 = 1, M16N8K4 = 2, M16N8K8 = 3, M16N8K16 = 4, BK32 = 5 };
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled (and src not read) unless live
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One f64 mma.sync shape, MI x 8 x KI, C += A B.  Fragments (PTX ISA, the
+// f64 mma shapes; CuTe's mma_traits_sm80/sm90 layouts), g = lane / 4,
+// t = lane % 4:  A[i] at (row g + 8 (i % (MI / 8)), col t + 4 (i / (MI / 8))),
+// B[i] at (k t + 4 i, col g), C[i] at (row g + 8 (i / 2), col 2 t + i % 2).
+template <int MI, int KI> struct Mma;
+
+template <> struct Mma<8, 4> {
+  static constexpr int A = 1, B = 1, C = 2;
+  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
+                                             const double (&b)[B]) {
+    asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+                 "{%0, %1};\n"
+                 : "+d"(c[0]), "+d"(c[1])
+                 : "d"(a[0]), "d"(b[0]));
+  }
+};
+
+template <> struct Mma<16, 4> {
+  static constexpr int A = 2, B = 1, C = 4;
+  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
+                                             const double (&b)[B]) {
+    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+                 "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  }
+};
+
+template <> struct Mma<16, 8> {
+  static constexpr int A = 4, B = 2, C = 4;
+  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
+                                             const double (&b)[B]) {
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+                 "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  }
+};
+
+template <> struct Mma<16, 16> {
+  static constexpr int A = 8, B = 4, C = 4;
+  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
+                                             const double (&b)[B]) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+                 "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+                 "{%0, %1, %2, %3};\n"
+                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+                   "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+  }
+};
+
+// what the plan's launches take (the sweep's fastest): the mma shape, k per
+// stage and the ring's depth
+constexpr int DEFAULT_MI = 16, DEFAULT_KI = 4, DEFAULT_BK = 16, DEFAULT_STAGES = 4;
+
+template <int BM, int BN, int BK, int STAGES, bool GATE>
+constexpr int smem_bytes() {
+  return STAGES * (BM * (BK + PAD) + (GATE ? 2 : 1) * BK * (BN + PAD)) * 8;
+}
+
+template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE>
+__global__ void __launch_bounds__(THREADS)
+gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
+                const double* __restrict__ b2, const double* __restrict__ bias,
+                const double* __restrict__ res, double* __restrict__ c, int M, int K, int N,
+                int act) {
+  using MMA = Mma<MI, KI>;
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  constexpr int MT = WM / MI, NT = WN / 8, RB = MI / 8;  // RB: 8-row halves of an mma tile
+  constexpr int LDA = BK + PAD, LDB = BN + PAD;
+  constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  constexpr int STAGE = A_ELEMS + (GATE ? 2 : 1) * B_ELEMS;
+  constexpr int CH_A = BM * BK / 2 / THREADS, CH_B = BK * BN / 2 / THREADS;  // copies a thread
+  static_assert(WM % MI == 0 && WN % 8 == 0 && BK % KI == 0, "tile / mma shape mismatch");
+  static_assert(CH_A * THREADS * 2 == BM * BK && CH_B * THREADS * 2 == BK * BN, "copy split");
+  extern __shared__ __align__(16) double smem[];
+
+  // grouped raster: GROUP tile rows sweep the tile columns together
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int per_group = GROUP * tiles_n;
+  const int group = blockIdx.x / per_group;
+  const int first = group * GROUP;
+  const int rows_here = min(tiles_m - first, GROUP);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first + in_group % rows_here) * BM;
+  const int n0 = (in_group / rows_here) * BN;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+
+  // one k-step's tiles into ring slot s: 16-byte chunks (2 doubles; K and N
+  // even, so a chunk is all in or all out of the matrix)
+  auto stage = [&](int s, int k0) {
+    double* As = smem + s * STAGE;
+    double* Bs = As + A_ELEMS;
+#pragma unroll
+    for (int j = 0; j < CH_A; ++j) {
+      const int e = tid + j * THREADS, r = e / (BK / 2), ch = e % (BK / 2);
+      const int gm = m0 + r, gk = k0 + 2 * ch;
+      const bool live = gm < M && gk < K;
+      cp_async16(As + r * LDA + 2 * ch, live ? a + (long long)gm * K + gk : a, live);
+    }
+#pragma unroll
+    for (int j = 0; j < CH_B; ++j) {
+      const int e = tid + j * THREADS, r = e / (BN / 2), ch = e % (BN / 2);
+      const int gk = k0 + r, gn = n0 + 2 * ch;
+      const bool live = gk < K && gn < N;
+      const long long off = live ? (long long)gk * N + gn : 0;
+      cp_async16(Bs + r * LDB + 2 * ch, b + off, live);
+      if constexpr (GATE) cp_async16(Bs + B_ELEMS + r * LDB + 2 * ch, b2 + off, live);
+    }
+  };
+
+  double acc[MT][NT][MMA::C], acc2[GATE ? MT : 1][GATE ? NT : 1][MMA::C];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < MMA::C; ++i) {
+        acc[m][n][i] = 0.0;
+        if constexpr (GATE) acc2[m][n][i] = 0.0;
+      }
+
+  const int KT = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) stage(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this k-step's copies have landed ...
+    __syncthreads();              // ... for every thread, and slot kt-1 is free
+    const int next = kt + STAGES - 1;
+    if (next < KT) stage(next % STAGES, next * BK);
+    cp_async_commit();
+    const double* As = smem + (kt % STAGES) * STAGE + (wm + g) * LDA + t;
+    const double* Bs = smem + (kt % STAGES) * STAGE + A_ELEMS + t * LDB + wn + g;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += KI) {
+      double bf[NT][MMA::B], bf2[GATE ? NT : 1][MMA::B];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < MMA::B; ++i) {
+          bf[n][i] = Bs[(kk + 4 * i) * LDB + n * 8];
+          if constexpr (GATE) bf2[n][i] = Bs[B_ELEMS + (kk + 4 * i) * LDB + n * 8];
+        }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        double af[MMA::A];
+#pragma unroll
+        for (int i = 0; i < MMA::A; ++i)
+          af[i] = As[(m * MI + 8 * (i % RB)) * LDA + kk + 4 * (i / RB)];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          MMA::run(acc[m][n], af, bf[n]);
+          if constexpr (GATE) MMA::run(acc2[m][n], af, bf2[n]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; drained before exit
+
+  // epilogue from the registers: C[i] and C[i + 1] are two adjacent columns
+  // (col even and N even: both in range together, one 16-byte store)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < RB; ++h) {
+      const int row = m0 + wm + m * MI + g + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = n0 + wn + n * 8 + 2 * t;
+        if (col >= N) continue;
+        const long long o = (long long)row * N + col;
+        double v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          double gv = 0.0;
+          if constexpr (GATE) gv = acc2[m][n][2 * h + j];
+          v[j] = epilogue<double>(acc[m][n][2 * h + j], gv, bias, res, col + j, o + j, act, GATE);
+        }
+        *reinterpret_cast<double2*>(c + o) = make_double2(v[0], v[1]);
+      }
+    }
+}
+
+template <int BM, int BN, bool GATE, int MI = DEFAULT_MI, int KI = DEFAULT_KI,
+          int BK = DEFAULT_BK, int STAGES = DEFAULT_STAGES>
+int run(const double* a, const double* b, const double* b2, const double* bias,
+        const double* res, double* c, int M, int K, int N, int act, cudaStream_t s) {
+  constexpr int bytes = smem_bytes<BM, BN, BK, STAGES, GATE>();
+  auto kernel = gemm_f64_kernel<BM, BN, BK, STAGES, MI, KI, GATE>;
+  static bool configured = false;  // the opt-in above 48 KB, once per instantiation
+  if (!configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  kernel<<<(unsigned)tiles, THREADS, bytes, s>>>(a, b, b2, bias, res, c, M, K, N, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C (M, N) = epi(A (M, K) @ B [, A @ B2]) in f64.  b2, bias and res may be
+// NULL.  (bm, bn): 128 x 128 or 64 x 64 (the gate: 128 x 64 or 64 x 64).
+// variant: 0 for the plan's kernels; for the sweep, at 128 x 128 without
+// the gate, 1-4 the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 (BK = 16,
+// 4 stages) and 5 the default shape with BK = 32 and 3 stages.  K and N must
+// be even and a, b, b2 and c 16-byte aligned.  Returns cudaErrorInvalidValue
+// for what the kernel does not take, else cudaGetLastError() after the
+// launch.
+extern "C" int gemm_f64_launch(const void* a, const void* b, const void* b2, const void* bias,
+                               const void* res, void* c, int M, int K, int N, int act, int bm,
+                               int bn, int variant, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double* at = static_cast<const double*>(a);
+  const double* bt = static_cast<const double*>(b);
+  const double* b2t = static_cast<const double*>(b2);
+  const double* biast = static_cast<const double*>(bias);
+  const double* rest = static_cast<const double*>(res);
+  double* ct = static_cast<double*>(c);
+  const bool aligned = aligned16(at) && aligned16(bt) && aligned16(b2t) && aligned16(ct);
+  if (M < 1 || K < 1 || N < 1 || K % 2 || N % 2 || !aligned)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = bm * 1000 + bn;
+#define F64_ARGS at, bt, b2t, biast, rest, ct, M, K, N, act, s
+  if (variant != PLANNED) {
+    if (b2 || tile != 128128) return static_cast<int>(cudaErrorInvalidValue);
+    switch (variant) {
+      case M8N8K4: return run<128, 128, false, 8, 4, 16, 4>(F64_ARGS);
+      case M16N8K4: return run<128, 128, false, 16, 4, 16, 4>(F64_ARGS);
+      case M16N8K8: return run<128, 128, false, 16, 8, 16, 4>(F64_ARGS);
+      case M16N8K16: return run<128, 128, false, 16, 16, 16, 4>(F64_ARGS);
+      case BK32: return run<128, 128, false, DEFAULT_MI, DEFAULT_KI, 32, 3>(F64_ARGS);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (b2) {
+    if (tile == 128064) return run<128, 64, true>(F64_ARGS);
+    if (tile == 64064) return run<64, 64, true>(F64_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile == 128128) return run<128, 128, false>(F64_ARGS);
+  if (tile == 64064) return run<64, 64, false>(F64_ARGS);
+#undef F64_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -31,6 +31,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _lib = None
 _functions = {}
+_tickets = {}
 #: seconds the last build in this process took (None: loaded as built)
 build_seconds = None
 #: nvcc's output of the last build (ptxas registers, shared memory, spills)
@@ -95,6 +96,18 @@ def build() -> Path:
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of a CUDA device (grid sizing)."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def tickets(device, n: int) -> torch.Tensor:
+    """At least n int32 tickets on `device`, zero: one persistent buffer a
+    device for the kernels whose last block combines the others' partials
+    (csrc/attention_splitkv.cu, csrc/bgemv.cu).  Each launch leaves every
+    ticket it takes at zero again, and launches on one stream run in order,
+    so the kernels share it."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def ptr(t):

@@ -77,9 +77,6 @@ _SPLITKV_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                      + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_void_p])
-#: the "splitkv" combine's tickets, one int a (slot, KV head), by device:
-#: zero between launches (the last block of a row resets its ticket)
-_tickets = {}
 
 
 class Plan(typing.NamedTuple):
@@ -173,13 +170,6 @@ def plan_for(q, k, page_table=None, int8: bool = False, sms: int = H100_SMS) -> 
                 sms=sms)
 
 
-def _tickets_for(device, n: int) -> torch.Tensor:
-    t = _tickets.get(device)
-    if t is None or t.numel() < n:
-        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return t
-
-
 def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
          page_table=None):
     """`attention_launch` (csrc/attention.cu, the CUDA-core kernel) on the
@@ -226,7 +216,7 @@ def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_sca
                                device=q.device)
             fn = _build.function("attention_splitkv_launch", _SPLITKV_ARGTYPES)
             err = fn(dtype_code, int8, *common, work.data_ptr(),
-                     _tickets_for(q.device, b * kvh).data_ptr(), b, h, s, kvh, d, page_size,
+                     _build.tickets(q.device, b * kvh).data_ptr(), b, h, s, kvh, d, page_size,
                      max_pages, p.chunk, p.splits, p.per_block, float(d ** -0.5), stream)
         else:
             fn = _build.function("attention_mma_launch", _MMA_ARGTYPES)

@@ -33,7 +33,7 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma": 0}
 
 
 def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):

@@ -3,10 +3,12 @@
 Replaces `repro/kernels/bgemv.py` (`_bgemv_kernel`, Pallas call at :230) in
 the `transpose_a=True` form the decode path uses: y[b] = epi(x[b] @ W
 [, x[b] @ W2]) with W (d_in, d_out) streamed in its stored layout.  The CUDA
-kernel is `csrc/bgemv.cu`; its source note says what bounds it on the card
-(the weight stream over HBM) and what the design does about it (each weight
-element read once for the whole batch, the K sweep split across warps and
-across blocks, whose partials a second pass sums before the epilogue).
+kernel is `csrc/bgemv.cu`, one launch a call; its source note says what
+bounds it on the card (the weight stream over HBM) and what the design does
+about it (each weight element read once for the whole batch, column tiles of
+128 bytes, K split across blocks whose partials the last block of each
+column tile sums in split order before the epilogue).  `plan` picks the
+split from the shapes alone.
 
 The packed form (`_bgemv_kernel`'s int8 body, bgemv.py:80-83) is
 `csrc/qgemv.cu`: W is a `core.quant.QuantizedTensor` stored output-major
@@ -23,6 +25,8 @@ do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -36,16 +40,63 @@ launches = 0
 #: launches of the packed kernel (csrc/qgemv.cu) through `launch_int8`
 launches_int8 = 0
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BATCH_CHUNK = 4   # batch members per block (BMAX in csrc/bgemv.cu)
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: the H100's streaming multiprocessors: the plan's default card
+H100_SMS = 132
+#: batch members a block (BMAX in csrc/bgemv.cu)
+BATCH_CHUNK = 4
+#: rows a block takes a step (4 a warp, 8 warps) and at most (x's slice in
+#: shared memory): ROW_STEP and MAX_ROWS in csrc/bgemv.cu
+ROW_STEP, MAX_ROWS = 32, 1024
+#: rows a split at least, where K allows two, without and with the gate:
+#: the two batches of loads a lane keeps in flight (2 x UNROLL steps of 32
+#: rows; UNROLL in csrc/bgemv.cu is 4, 2 under the gate's second weight)
+MIN_ROWS = {False: 256, True: 128}
+#: blocks per SM the K split stays within.  Measured on the H100
+#: (scripts/torch_gemm_study.py bgemv, PERF.md), the fastest split at every
+#: served decode shape fills about 2 blocks an SM: qkv 2048 -> 2048 8 x 256
+#: rows (256 blocks) 11.7 us against 13.0 at 4 x 512 and 14.7 at 16 x 128;
+#: rwkv 2048 -> 7168 2 x 1024 (224 blocks) 20.6 us against 23.1 at 4 x 512;
+#: 2048 -> 64 8 x 256 (8 blocks) 8.4 us against 9.9 at 64 x 32
+BLOCKS_PER_SM = 2
 
 
-def splits_for(k: int, n: int, batch: int, elem_size: int, sms: int) -> int:
-    """Blocks along K: about two blocks per SM over the whole grid, and at
-    least 64 rows (8 per warp) per block."""
-    tile = 32 * (16 // elem_size)                      # columns per block
-    blocks = -(-n // tile) * -(-batch // _BATCH_CHUNK)
-    return max(1, min(-(-2 * sms // blocks), k // 64))
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one bgemv runs: `tile` columns a block (128 bytes of a row), K cut
+    into `splits` slices of `rows` rows (a multiple of ROW_STEP; the last
+    may be short), each slice one block per column tile and batch chunk."""
+
+    tile: int
+    splits: int
+    rows: int
+
+    def k_slices(self, k: int) -> list:
+        """[(k0, k1), ...]: the rows of each split, in the order the last
+        block of a column tile sums their partials."""
+        return [(s * self.rows, min(k, (s + 1) * self.rows)) for s in range(self.splits)]
+
+    def blocks(self, b: int, n: int) -> int:
+        """Blocks of the launch over b batch rows and n columns."""
+        return _cdiv(n, self.tile) * self.splits * _cdiv(b, BATCH_CHUNK)
+
+
+@functools.lru_cache(maxsize=1024)  # a serve plans a few dozen shapes
+def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS) -> Plan:
+    """The column tile and K split of y (b, n) = x (b, k) @ W (k, n) [with
+    W2], from the shapes and the dtype alone: as many splits as keep column
+    tiles x batch chunks x splits within BLOCKS_PER_SM blocks an SM, with at
+    least MIN_ROWS[gate] rows each and at most MAX_ROWS; the rows of a split
+    are K / splits rounded up to whole 32-row steps."""
+    tile = 128 // (torch.finfo(dtype).bits // 8)
+    base = _cdiv(n, tile) * _cdiv(b, BATCH_CHUNK)
+    splits = max(1, min(BLOCKS_PER_SM * sms // max(base, 1), k // MIN_ROWS[bool(gate)]))
+    rows = min(MAX_ROWS, max(ROW_STEP, _cdiv(_cdiv(k, splits), ROW_STEP) * ROW_STEP))
+    return Plan(tile, max(1, _cdiv(k, rows)), rows)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def reference(w, x, *, w2=None, bias=None, residual=None, activation=None):
@@ -76,24 +127,36 @@ def reference_int8(qw, x, *, qw2=None, bias=None, residual=None, activation=None
                      activation=activation)
 
 
-def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int):
-    """Launch `bgemv_launch` on the current stream; operands are validated
-    CUDA tensors (kernels/ops.py), `out` is (B, N) and preallocated."""
-    global launches
+def run(w, x, out, p: Plan, *, w2, bias, residual, act_code: int, dtype_code: int):
+    """Launch `bgemv_launch` on the current stream with plan p, uncounted;
+    the workspace is allocated here.  Operands are validated CUDA tensors
+    (kernels/ops.py), `out` is (B, N) and preallocated."""
     k, n = w.shape
     b = x.shape[0]
-    splits = splits_for(k, n, b, x.element_size(), _build.sm_count(x.device.index))
-    # f32 partial sums of every K split, summed in order by the second pass
-    ws = torch.empty((2 if w2 is not None else 1) * splits * b * n,
-                     dtype=torch.float32, device=x.device)
+    ws = tickets = None
+    if p.splits > 1:  # f32 partials of every K split, summed in order by the last block
+        ws = torch.empty((2 if w2 is not None else 1) * p.splits * b * n,
+                         dtype=torch.float32, device=x.device)
+        tickets = _build.tickets(x.device, _cdiv(n, p.tile) * _cdiv(b, BATCH_CHUNK))
     fn = _build.function("bgemv_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
-                 _build.ptr(residual), out.data_ptr(), ws.data_ptr(), b, k, n, splits,
-                 act_code, stream)
+                 _build.ptr(residual), out.data_ptr(), _build.ptr(ws), _build.ptr(tickets), b,
+                 k, n, p.splits, p.rows, act_code, stream)
     if err:
-        raise RuntimeError(f"bgemv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"bgemv kernel launch failed ({p}): CUDA error {err}")
+    return out
+
+
+def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int):
+    """One launch of the kernel over the plan of the shapes, counted."""
+    global launches
+    k, n = w.shape
+    p = plan(x.shape[0], k, n, x.dtype, gate=w2 is not None,
+             sms=_build.sm_count(x.device.index or 0))
+    run(w, x, out, p, w2=w2, bias=bias, residual=residual, act_code=act_code,
+        dtype_code=dtype_code)
     launches += 1
     return out
 

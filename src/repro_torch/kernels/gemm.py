@@ -2,17 +2,22 @@
 
 Replaces `repro/kernels/gemm.py` (`_gemm_kernel`, Pallas call at :184) in
 its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
-(K, N), in f32, bf16 and f64.  Two CUDA kernels carry it, and `plan` picks
+(K, N), in f32, bf16 and f64.  Three CUDA kernels carry it, and `plan` picks
 one from the shape, dtype and addresses alone:
 
 - "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for bf16
   operands TMA can address (16-byte row strides and base addresses: K % 8
   == 0, N % 8 == 0), over a (BM, BN) tile grid chosen to fill the card's
   SMs, with K split into deterministic slices where the grid is too small;
+- "dmma": `csrc/gemm_f64.cu`, the f64 tensor cores (mma.sync .f64) fed by
+  a cp.async ring, for dense f64 whose rows 16-byte copies can address (K %
+  2 == 0, N % 2 == 0, 16-byte base addresses), the gate's two products
+  included, over the tile grid chosen as for "wgmma" (no K split);
 - "ffma": `csrc/gemm.cu`, a shared-memory tiled GEMM on the CUDA cores
   whose threads each own 4 x 4 register blocks (the paper's DOT4 PE), for
-  f32 and f64 (TF32 would change the result), unaligned bf16 and the packed
-  forms the tensor-core kernel does not take.
+  f32 (TF32 would change the result), odd-K/N or unaligned f64 and bf16,
+  and the packed forms the tensor-core kernels do not take (every packed
+  f64 call among them).
 
 Each source note says what bounds its kernel.  Ragged edges are masked in
 the kernels, where the reference pads in `ops._gemm_call`.
@@ -50,7 +55,7 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma": 0}
 
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
@@ -62,6 +67,14 @@ BK = 64
 #: 256-wide tiles lost everywhere; the gate's two products take BN = 64.
 TC_TILES = ((128, 128), (128, 64), (64, 64))
 GATE_TILES = ((128, 64), (64, 64))
+#: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
+#: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
+#: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
+#: in 23.7-24.4 ms, 64 x 64 in 26.1-26.4; 128 x 64 was slower than 64 x 64
+#: there and on a ragged 4095 x 4094, so it serves only the gate (46.8-48.5
+#: ms against 49.7-55.8 at 64 x 64)
+DMMA_TILES = ((128, 128), (64, 64))
+DMMA_GATE_TILES = ((128, 64), (64, 64))
 #: the CUDA-core kernel's fixed tile (csrc/gemm.cu), without and with a gate
 FFMA_TILE = {False: (128, 128), True: (128, 64)}
 #: the largest tile whose grid fills this share of the SMs is taken (q/k/v's
@@ -88,9 +101,9 @@ def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one GEMM runs: the route ("wgmma" or "ffma"), the (BM, BN) output
-    tile and the number of K slices (wgmma only; the slices' partials are
-    summed in slice order by a second pass)."""
+    """How one GEMM runs: the route ("wgmma", "dmma" or "ffma"), the (BM, BN)
+    output tile and the number of K slices (wgmma only; the slices' partials
+    are summed in slice order by a second pass)."""
 
     route: str
     tile: tuple
@@ -116,24 +129,38 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     vary along K.  aligned: every operand's base address is 16-byte aligned.
 
     bf16 takes "wgmma" when TMA can address A and B (K % 8 == 0, 16 for int8,
-    and N % 8 == 0) and B is dense or "nk"; everything else "ffma".  The tile
-    is the largest of TC_TILES (GATE_TILES) whose grid fills FILL of the
-    `sms` SMs, else the smallest; where that grid leaves more than IDLE of
-    them idle and K >= SPLIT_MIN_K, K is split so that tiles x splits is
-    about half a wave (at least 2 slices, at most one per 2 k-steps: the
-    second pass reads every slice's partials)."""
-    tc = (dtype == torch.bfloat16 and aligned and min(m, k, n) > 0 and n % 8 == 0
+    and N % 8 == 0) and B is dense or "nk"; dense f64 takes "dmma" when
+    16-byte copies can address A and B (K % 2 == 0 and N % 2 == 0, the gate
+    too); everything else "ffma".  The tile is the largest of the route's
+    tiles (TC_TILES, DMMA_TILES; with the gate GATE_TILES, DMMA_GATE_TILES)
+    whose grid fills FILL of the `sms` SMs, else the smallest; on "wgmma",
+    where that grid leaves more than IDLE of them idle and K >= SPLIT_MIN_K,
+    K is split so that tiles x splits is about half a wave (at least 2
+    slices, at most one per 2 k-steps: the second pass reads every slice's
+    partials)."""
+    some = aligned and min(m, k, n) > 0
+    if (dtype == torch.float64 and some and packed_layout is None and k % 2 == 0
+            and n % 2 == 0):
+        return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0])
+    tc = (dtype == torch.bfloat16 and some and n % 8 == 0
           and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
     if not tc:
         return Plan("ffma", FFMA_TILE[bool(gate)])
-    for bm, bn in GATE_TILES if gate else TC_TILES:
-        tiles = -(-m // bm) * -(-n // bn)
-        if tiles >= FILL * sms:
-            break
+    (bm, bn), tiles = _fill(m, n, GATE_TILES if gate else TC_TILES, sms)
     splits = 1
     if tiles < (1 - IDLE) * sms and k >= SPLIT_MIN_K:
         splits = max(2, min(-(-sms // (2 * tiles)), -(-k // BK) // 2))
     return Plan("wgmma", (bm, bn), splits)
+
+
+def _fill(m: int, n: int, tiles_largest_first, sms: int):
+    """(the largest tile whose grid fills FILL of the SMs, else the smallest;
+    that tile's grid size)."""
+    for bm, bn in tiles_largest_first:
+        tiles = -(-m // bm) * -(-n // bn)
+        if tiles >= FILL * sms:
+            break
+    return (bm, bn), tiles
 
 
 def aligned(*tensors) -> bool:
@@ -174,6 +201,27 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
     return out
 
 
+_DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
+         variant: int = 0):
+    """Launch `gemm_f64_launch` (csrc/gemm_f64.cu) on the current stream over
+    m rows of f64 a with p's tile; `variant` 0 is the plan's kernel (1-4:
+    the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK = 32 in 3
+    stages, at 128 x 128 without the gate, for the sweep)."""
+    bm, bn = p.tile
+    fn = _build.function("gemm_f64_launch", _DMMA_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, variant,
+                 stream)
+    if err:
+        raise RuntimeError(f"gemm f64 tensor-core kernel launch failed ({p}): CUDA error {err}")
+    return out
+
+
 def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> str:
     """C (m, n) = epi(A @ B [, A @ B2]) over m rows of a (the batch * M rows
     of bgemm's broadcast form) through the kernel `plan` names; returns the
@@ -183,6 +231,10 @@ def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: i
              sms=_build.sm_count(a.device.index or 0))
     if p.route == "wgmma":
         tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
+        return p.route
+    if p.route == "dmma":
+        dmma(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
+             n=n)
         return p.route
     fn = _build.function("gemm_launch", _ARGTYPES)
     with torch.cuda.device(a.device):

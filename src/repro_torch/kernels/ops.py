@@ -70,10 +70,11 @@ def launch_counts() -> dict:
     variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
-    launch counts in both).  gemm_wgmma / gemm_ffma split every launch of
-    `gemm` (dense and int8) by the route its plan named (the tensor-core
-    kernel or the CUDA-core one), bgemm_wgmma / bgemm_ffma every launch of
-    `bgemm`."""
+    launch counts in both).  gemm_wgmma / gemm_dmma / gemm_ffma split every
+    launch of `gemm` (dense and int8) by the route its plan named (the bf16
+    tensor-core kernel, the f64 one, or the CUDA-core one), bgemm_wgmma /
+    bgemm_dmma / bgemm_ffma every launch of `bgemm` (whose f32 and bf16
+    operands never take "dmma": the key is there for the same dict shape)."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "attention_paged": _attention.launches_paged,
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
@@ -102,7 +103,7 @@ def reset_launch_counts() -> None:
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
     for mod in (_gemm, _bgemm):
-        mod.launches_by_route.update(wgmma=0, ffma=0)
+        mod.launches_by_route.update(wgmma=0, dmma=0, ffma=0)
     _attention.launches_by_route.update(splitkv=0, mma=0, ffma=0)
 
 
@@ -194,6 +195,8 @@ def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
         return _bgemv.reference(a, x, w2=a2, bias=bias, residual=residual,
                                 activation=activation)
     out = torch.empty((x.shape[0], m), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out  # an empty grid: nothing to launch
     return _bgemv.launch(a, x, out, w2=a2, bias=bias, residual=residual,
                          act_code=act, dtype_code=_DTYPE_CODES[x.dtype])
 

@@ -312,7 +312,8 @@ def test_kernels_count_their_launches(cuda):
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_ffma": 2, "bgemm_wgmma": 0, "bgemm_ffma": 2}
+                                   "gemm_dmma": 0, "gemm_ffma": 2, "bgemm_wgmma": 0,
+                                   "bgemm_dmma": 0, "bgemm_ffma": 2}
 
 
 @pytest.mark.cuda
@@ -791,3 +792,192 @@ def test_a_launch_the_wgmma_kernel_refuses_raises(cuda):
     gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 64), 1), b2=None, **kw)  # the same, aligned
     torch.testing.assert_close(out.float(), (a.float() @ b.float()).bfloat16().float(),
                                **TOL[torch.bfloat16])
+
+
+# --------------------------------------------------------------------------
+# the f64 tensor-core GEMM (csrc/gemm_f64.cu): the "dmma" route of gemm.plan
+# --------------------------------------------------------------------------
+
+def _f64_operands(gen, m, k, n, epi):
+    act, bias, gate, res = epi
+    a, b = _rand(gen, torch.float64, m, k), _rand(gen, torch.float64, k, n, std=k ** -0.5)
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = _rand(gen, torch.float64, k, n, std=k ** -0.5)
+    if bias:
+        kw["bias"] = _rand(gen, torch.float64, n)
+    if res:
+        kw["residual"] = _rand(gen, torch.float64, m, n)
+    return a, b, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n", [(130, 36, 66),     # ragged M, N and K (K < one k-step x 3)
+                                   (1, 300, 6),       # one row, N below an mma tile
+                                   (257, 1000, 130),  # ragged everything, many k-steps
+                                   (128, 16, 128),    # one whole tile, one k-step
+                                   (300, 2, 2)])      # K = N = 2
+def test_dmma_route_matches_plain(cuda, epi, m, k, n):
+    """Dense f64 with even K and N: one launch on the "dmma" route, within
+    f64 TOL of the plain version, two launches bitwise equal."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _f64_operands(cuda, m, k, n, epi)
+    assert gemm.plan(m, k, n, torch.float64, gate="b2" in kw).route == "dmma"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, b, **kw), torch.float64)
+    assert _routes() == {"gemm_wgmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 0}
+    assert ops.launch_counts()["gemm_dmma"] == 1
+    first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,tile,gate", [(1, (128, 128), False), (2, (128, 128), False),
+                                               (3, (128, 128), False), (4, (128, 128), False),
+                                               (5, (128, 128), False), (0, (128, 128), False),
+                                               (0, (64, 64), False), (0, (128, 64), True),
+                                               (0, (64, 64), True)])
+def test_dmma_every_variant_and_tile_matches_plain(cuda, variant, tile, gate):
+    """Each kernel of the sweep (1-4: m8n8k4, m16n8k4, m16n8k8, m16n8k16; 5:
+    BK = 32 in 3 stages) at 128 x 128, and every tile of the plan (0), on a
+    ragged (200, 100) @ (100, 202) + bias gelu [gate] + residual."""
+    from repro_torch.kernels import gemm
+    m, k, n = 200, 100, 202
+    a, b, kw = _f64_operands(cuda, m, k, n, ("gelu", True, gate, True))
+    out = torch.empty(m, n, dtype=torch.float64, device="cuda")
+    gemm.dmma(a, b, out, gemm.Plan("dmma", tile), b2=kw.get("b2"), bias=kw["bias"],
+              residual=kw["residual"], act_code=ops._ACTS["gelu"], m=m, k=k, n=n,
+              variant=variant)
+    with ops.reference_mode():
+        want = ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL[torch.float64])
+
+
+@pytest.mark.cuda
+def test_odd_unaligned_or_packed_f64_takes_the_ffma_route(cuda):
+    """Odd K, odd N, an A one element off a 16-byte boundary and a packed B:
+    the CUDA-core kernel, and the counts say so."""
+    a, a37 = _rand(cuda, torch.float64, 9, 64), _rand(cuda, torch.float64, 9, 37)
+    b, b37 = _rand(cuda, torch.float64, 64, 64, std=0.125), _rand(cuda, torch.float64, 37, 64)
+    b_odd_n = _rand(cuda, torch.float64, 64, 37, std=0.125)
+    shifted = _rand(cuda, torch.float64, 9 * 64 + 1)[1:].view(9, 64)
+    qb = quant.quantize(_rand(cuda, torch.float32, 64, 64),
+                        quant.QuantSpec(16, None, transpose=True))
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a37, b37), torch.float64)
+    _against_plain(lambda: ops.gemm(a, b_odd_n), torch.float64)
+    _against_plain(lambda: ops.gemm(shifted, b), torch.float64)
+    _against_plain(lambda: ops.gemm(a, qb), torch.float64)
+    c = ops.launch_counts()
+    assert (c["gemm_dmma"], c["gemm_ffma"], c["gemm_int8"]) == (0, 4, 1)
+
+
+@pytest.mark.cuda
+def test_a_launch_the_dmma_kernel_refuses_raises(cuda):
+    """Shapes, tiles and addresses the f64 kernel does not take come back as
+    an error code, and the wrapper raises: odd K, the gate at BN = 128, a
+    128 x 64 tile without it, a sweep variant off 128 x 128, an A off a
+    16-byte boundary."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.float64, 64, 32), _rand(cuda, torch.float64, 32, 64)
+    out = torch.empty(64, 64, dtype=torch.float64, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=64, k=32, n=64)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **dict(kw, k=31))
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 128)), b2=b, **kw)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 64)), b2=None, **kw)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, variant=1, **kw)
+    shifted = _rand(cuda, torch.float64, 64 * 32 + 1)[1:].view(64, 32)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(shifted, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **kw)
+    gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **kw)  # the same, aligned
+    torch.testing.assert_close(out, a @ b, **TOL[torch.float64])
+
+
+# --------------------------------------------------------------------------
+# bgemv (csrc/bgemv.cu): one launch a call, K split by kernels.bgemv.plan
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 8, 9])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (300, 72), (64, 2050), (2048, 64), (5632, 130)])
+def test_bgemv_one_launch_matches_plain(cuda, dtype, batch, k, n):
+    """Batches 1-9 (chunks of 4), ragged N and K, split and unsplit plans,
+    with and without the gate: within TOL, two launches bitwise equal."""
+    from repro_torch.kernels import bgemv
+    w, w2 = _rand(cuda, dtype, k, n, std=k ** -0.5), _rand(cuda, dtype, k, n, std=k ** -0.5)
+    x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
+    for kw in (dict(bias=bias), dict(a2=w2, activation="silu", residual=res)):
+        ops.reset_launch_counts()
+        _against_plain(lambda: ops.bgemv(w, x, **kw), dtype)
+        assert ops.launch_counts()["bgemv"] == 1
+        first, second = ops.bgemv(w, x, **kw), ops.bgemv(w, x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), bgemv.plan(batch, k, n, dtype, gate="a2" in kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits,rows", [(1, 1024), (2, 512), (7, 160), (32, 32)])
+def test_bgemv_every_split_matches_plain(cuda, dtype, splits, rows):
+    """Plans other than the chosen one (one split, a short last split, 32
+    rows a split) over K = 1000 give the same function."""
+    from repro_torch.kernels import bgemv
+    k, n, b = 1000, 200, 6
+    w, w2 = _rand(cuda, dtype, k, n, std=k ** -0.5), _rand(cuda, dtype, k, n, std=k ** -0.5)
+    x, res = _rand(cuda, dtype, b, k), _rand(cuda, dtype, b, n)
+    p = bgemv.Plan(128 // (torch.finfo(dtype).bits // 8), splits, rows)
+    assert p.k_slices(k)[-1][1] == k
+    out = torch.empty(b, n, dtype=dtype, device="cuda")
+    bgemv.run(w, x, out, p, w2=w2, bias=None, residual=res, act_code=ops._ACTS["silu"],
+              dtype_code=ops._DTYPE_CODES[dtype])
+    with ops.reference_mode():
+        want = ops.bgemv(w, x, a2=w2, residual=res, activation="silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_bgemv_is_one_device_launch_a_call(cuda):
+    """The profiler sees one bgemv kernel a call (the split partials are
+    combined in the same launch), for split and unsplit plans."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import bgemv
+    w, x = _rand(cuda, torch.bfloat16, 2048, 2048, std=2048 ** -0.5), _rand(cuda, torch.bfloat16, 4, 2048)
+    w_small, x_small = _rand(cuda, torch.bfloat16, 32, 64), _rand(cuda, torch.bfloat16, 4, 32)
+    assert bgemv.plan(4, 2048, 2048, torch.bfloat16).splits > 1
+    assert bgemv.plan(4, 32, 64, torch.bfloat16).splits == 1
+    ops.bgemv(w, x)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.bgemv(w, x)
+            ops.bgemv(w_small, x_small)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("bgemv_kernel" in e.name for e in kernels) == 6
+    assert not [e.name for e in kernels if "bgemv" in e.name and "bgemv_kernel" not in e.name]
+
+
+@pytest.mark.cuda
+def test_a_launch_the_bgemv_kernel_refuses_raises(cuda):
+    """A plan that does not cover K, a slice that is not whole 32-row steps
+    or longer than 1024 rows, an empty last slice: an error code, and the
+    wrapper raises."""
+    from repro_torch.kernels import bgemv
+    w, x = _rand(cuda, torch.float32, 256, 64), _rand(cuda, torch.float32, 2, 256)
+    out = torch.empty(2, 64, device="cuda")
+    kw = dict(w2=None, bias=None, residual=None, act_code=0, dtype_code=0)
+    for p in (bgemv.Plan(32, 2, 64), bgemv.Plan(32, 2, 130), bgemv.Plan(32, 1, 2048),
+              bgemv.Plan(32, 9, 32)):
+        with pytest.raises(RuntimeError, match="bgemv kernel"):
+            bgemv.run(w, x, out, p, **kw)
+    bgemv.run(w, x, out, bgemv.Plan(32, 2, 128), **kw)
+    torch.testing.assert_close(out, x @ w, **TOL[torch.float32])

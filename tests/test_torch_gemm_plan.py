@@ -1,12 +1,14 @@
 """The GEMM plan (`repro_torch.kernels.gemm.plan`): route, tile and K split.
 
 The plan decides from the shape, the dtype and the addresses alone which
-kernel runs a GEMM: the tensor-core kernel (`csrc/gemm_sm90.cu`, "wgmma")
-or the CUDA-core one (`csrc/gemm.cu`, "ffma").  These tests hold it to its
-contract on the CPU: every served projection shape routes to "wgmma"; f32,
-f64, unaligned bf16 and the packed forms the tensor cores do not take route
-to "ffma"; the K slices cover K exactly in whole k-steps; the grid fills at
-least half the card or K is split.
+kernel runs a GEMM: the bf16 tensor-core kernel (`csrc/gemm_sm90.cu`,
+"wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma") or the CUDA-core one
+(`csrc/gemm.cu`, "ffma").  These tests hold it to its contract on the CPU:
+every served projection shape routes to "wgmma"; dense f64 with even K and
+N on 16-byte boundaries to "dmma"; f32, odd-K/N or unaligned f64 and bf16,
+and the packed forms the tensor cores do not take (every packed f64 call)
+route to "ffma"; the K slices cover K exactly in whole k-steps; the grid
+fills at least half the card or K is split.
 
 The split-K path sums f32 partials of each K slice in slice order and then
 applies the epilogue.  `_split_k_emulation` does that on the CPU, and is
@@ -71,7 +73,12 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 
 @pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned", [
     (512, 2048, 2048, F32, False, None, True),       # TF32 would change the result
-    (512, 2048, 2048, F64, False, None, True),
+    (512, 2047, 2048, F64, False, None, True),       # f64, odd K (16-byte copies)
+    (512, 2048, 2047, F64, True, None, True),        # f64, odd N
+    (4095, 4097, 4093, F64, False, None, True),      # the BLAS ragged f64 case
+    (512, 2048, 2048, F64, False, None, False),      # f64, a base address off 16 bytes
+    (512, 2048, 2048, F64, False, "kn", True),       # f64 activations, packed B
+    (512, 2048, 2048, F64, True, "nk", True),
     (4 * 127, 2047, 2001, BF16, False, None, True),  # the BLAS ragged case
     (512, 2048, 2001, BF16, True, None, True),       # N % 8
     (512, 2044, 2048, BF16, False, None, True),      # K % 8
@@ -85,6 +92,21 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
     p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
     assert p == gemm.Plan("ffma", gemm.FFMA_TILE[gate], 1)
+
+
+@pytest.mark.parametrize("m,k,n,gate", [(8192, 8192, 8192, False), (4095, 4098, 4094, False),
+                                        (512, 2048, 5632, True), (1, 2, 2, False),
+                                        (130, 36, 66, True), (300, 2, 2, False)])
+def test_aligned_f64_routes_to_dmma(m, k, n, gate):
+    """Dense f64 with even K and N on 16-byte boundaries: the f64 tensor
+    cores, with the gate, on the largest tile whose grid fills FILL of the
+    card, else the smallest; no K split."""
+    p = gemm.plan(m, k, n, F64, gate=gate)
+    tiles = gemm.DMMA_GATE_TILES if gate else gemm.DMMA_TILES
+    assert p.route == "dmma" and p.splits == 1 and p.tile in tiles
+    larger = tiles[:tiles.index(p.tile)]
+    assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
+    assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
 
 
 def test_packed_layouts():

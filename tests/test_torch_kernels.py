@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.core import quant
+from repro_torch.core.epilogue import Epilogue
 from repro_torch.kernels import attention as tattention
 from repro_torch.kernels import bgemm as tbgemm
 from repro_torch.kernels import bgemv as tbgemv
@@ -181,7 +182,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 0}
+                                   "gemm_dmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0,
+                                   "bgemm_dmma": 0, "bgemm_ffma": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -208,11 +210,89 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 @pytest.mark.parametrize("k,n,elem", [(2048, 2048, 2), (2048, 5632, 2), (5632, 2048, 2),
-                                      (2048, 2048, 4), (37, 53, 4)])
-def test_bgemv_split_plan(k, n, elem):
-    """The K split fills the card (~2 blocks per SM at batch 4) without
-    going below 64 rows (8 per warp) per block; tiny K takes one split."""
-    splits = tbgemv.splits_for(k, n, 4, elem, sms=132)
-    tiles = -(-n // (32 * (16 // elem)))
-    assert 1 <= splits <= max(1, k // 64)
-    assert splits == 1 or tiles * splits >= min(2 * 132, tiles * (k // 64))
+                                      (2048, 2048, 4), (37, 53, 4), (64, 2048, 2),
+                                      (2048, 64, 2), (8192, 2048, 2), (0, 16, 4)])
+@pytest.mark.parametrize("batch", [1, 4, 9])
+@pytest.mark.parametrize("gate", [False, True])
+def test_bgemv_split_plan(k, n, elem, batch, gate):
+    """The plan covers K exactly, split after split in order, in whole 32-row
+    steps, at least MIN_ROWS[gate] (less a step of rounding), at most MAX_ROWS
+    rows a split; its column tiles are 128 bytes, so at least as many as the
+    first design's 512-byte tiles (N = 2048: 32 / 64 against 8 / 16); the K
+    split takes the grid as close to BLOCKS_PER_SM blocks an SM as those
+    limits allow, past it only where MAX_ROWS forces more slices."""
+    dtype = torch.bfloat16 if elem == 2 else torch.float32
+    p = tbgemv.plan(batch, k, n, dtype, gate=gate, sms=132)
+    slices = p.k_slices(k)
+    assert p.tile * elem == 128
+    assert -(-n // p.tile) >= -(-n // (32 * (16 // elem)))
+    assert len(slices) == p.splits >= 1
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(slices, slices[1:]))
+    assert all(k0 < k1 for k0, k1 in slices) or k == 0
+    assert p.rows % tbgemv.ROW_STEP == 0 and p.rows <= tbgemv.MAX_ROWS
+    assert p.splits == 1 or p.rows >= tbgemv.MIN_ROWS[gate] - tbgemv.ROW_STEP
+    base = p.blocks(batch, n) // p.splits
+    most = tbgemv.BLOCKS_PER_SM * 132
+    assert p.blocks(batch, n) <= max(most, base) or p.rows == tbgemv.MAX_ROWS
+    # one more split would pass the blocks or the rows limit (or K)
+    assert (base * (p.splits + 1) > most or k // tbgemv.MIN_ROWS[gate] <= p.splits
+            or p.rows == tbgemv.MAX_ROWS)
+
+
+def test_bgemv_plan_reads_no_tensor():
+    """The plan comes from the shapes and the dtype alone: meta tensors (no
+    data, no device) give the plan of real ones, and a repeated shape is a
+    cache hit."""
+    w = torch.empty(2048, 5632, dtype=torch.bfloat16, device="meta")
+    x = torch.empty(4, 2048, dtype=torch.bfloat16, device="meta")
+    tbgemv.plan.cache_clear()
+    p = tbgemv.plan(x.shape[0], *w.shape, x.dtype, gate=True)
+    assert p == tbgemv.plan(4, 2048, 5632, torch.bfloat16, gate=True)
+    assert tbgemv.plan.cache_info().hits == 1
+
+
+def _bgemv_emulation(w, x, p, *, w2=None, bias=None, residual=None, activation=None):
+    """The kernel's arithmetic on the CPU: f32 partials of each K slice of
+    the plan, summed in split order, then the epilogue in f32, rounded once
+    to x's dtype."""
+    xf = x.float()
+    acc = acc2 = None
+    for k0, k1 in p.k_slices(x.shape[1]):
+        part = xf[:, k0:k1] @ w[k0:k1].float()
+        acc = part if acc is None else acc + part
+        if w2 is not None:
+            part2 = xf[:, k0:k1] @ w2[k0:k1].float()
+            acc2 = part2 if acc2 is None else acc2 + part2
+    epi = Epilogue(activation, bias is not None, w2 is not None, residual is not None)
+    return epi.apply(acc, acc2=acc2, bias=bias, residual=residual).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,bias,gate,res", EPILOGUES)
+@pytest.mark.parametrize("batch,k,n", [(4, 1000, 72), (9, 600, 130)])
+def test_bgemv_split_emulation_matches_pallas_and_plain(dtype, act, bias, gate, res, batch,
+                                                         k, n):
+    """The plan splits these K into several slices; their ordered sum and
+    the f32 epilogue stay within the tolerance of the Pallas kernel
+    (interpret mode) and of the plain version."""
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    p = tbgemv.plan(batch, k, n, tdt, gate=gate)
+    assert p.splits > 1
+    rng = np.random.default_rng(batch * 100 + n)
+    w_j, w_t = _pair(rng.standard_normal((k, n)) * k ** -0.5, dtype)
+    x_j, x_t = _pair(rng.standard_normal((batch, k)), dtype)
+    kj, kt = {}, {}
+    if gate:
+        kj["a2"], kt["w2"] = _pair(rng.standard_normal((k, n)) * k ** -0.5, dtype)
+    if bias:
+        kj["bias"], kt["bias"] = _pair(rng.standard_normal(n), dtype)
+    if res:
+        kj["residual"], kt["residual"] = _pair(rng.standard_normal((batch, n)), dtype)
+    kj["activation"] = kt["activation"] = act
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    got = _bgemv_emulation(w_t, x_t, p, **kt)
+    want = jops.bgemv(w_j, x_j, transpose_a=True, **kj)
+    _close(got, want.astype(jnp.float32), tol)
+    plain = tbgemv.reference(w_t, x_t, **kt)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), **tol)
