@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              the run), and ptxas's registers and spills for the split-KV
              decode kernels (csrc/attention_splitkv.cu); the DMMA (f64
              mma.sync) in each f64 GEMM kernel (csrc/gemm_f64.cu; none, or a
-             spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu);
+             spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu); the
+             FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
+             with its ptxas registers and spills (none, or a spill, fails);
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
              (bgemv and bgemm also at zamba2-1.2b's), in bf16 and f32, with
@@ -23,10 +25,11 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              case prints its plan (`kernels.bgemv.plan`: tile, K splits,
              rows) and a split one is held bitwise against a second launch;
              each GEMM case prints the
-             plan `kernels.gemm.plan` gives it (route, tile, K slices) and,
-             where that is the tensor cores, the time of the CUDA-core kernel
-             it replaced (csrc/gemm.cu on the same inputs); a split-K case is
-             also held bitwise against a second launch; each attention case
+             plan `kernels.gemm.plan` gives it (route, tile, K slices), adds
+             one launch on that route, and, where that is not the first
+             CUDA-core kernel, the time of that kernel (csrc/gemm.cu on the
+             same inputs); a split-K or "ffma_sm90" case is also held
+             bitwise against a second launch; each attention case
              prints its plan (`kernels.attention.plan`: route "splitkv" at
              decode, "mma" for the bf16 prefill, "ffma" for f32; splits) and
              the time of the CUDA-core kernel csrc/attention.cu on the same
@@ -38,7 +41,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              tensor-core kernel may not fall below the plain version's share
              by more than ROUNDING_SLACK;
 4. smoke   - stablelm-1.6b SMOKE served in f32 through the kernels and again
-             through the plain versions: equal greedy tokens;
+             through the plain versions: equal greedy tokens, every gemm and
+             bgemm launch on the f32 TMA-ring route "ffma_sm90" (also for
+             every f32 serve of smoke_kv, serve_batch, smoke_rwkv and
+             smoke_zamba);
 5. serve   - stablelm-1.6b FULL (published widths, seeded random weights),
              bf16: 8 requests, batch 4, prompt 128, gen 32, all logits finite;
 6. forced  - prefill + 3 decode steps at full width, kernels vs plain on the
@@ -60,9 +66,12 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              against its plain version and counted as one launch of its
              kernel (gemm, gemv, blas1 reduce, blas1 axpy; a gemm also on
              the route its plan names: f64 with even K and N on the f64
-             tensor cores, odd ones on the CUDA cores); then each timed
-             beside its bound and one PyTorch library call (a tensor-core
-             gemm also beside the CUDA-core kernel);
+             tensor cores, f32 with K and N multiples of 4 on the TMA ring
+             (8192^3, an aligned ragged case, zamba2's LoRA merge), odd ones
+             on the first CUDA-core kernel; axpy, also ragged and one
+             element in, bitwise the plain version); then each timed beside
+             its bound and one PyTorch library call (a gemm off "ffma" also
+             beside the first CUDA-core kernel);
 10. quant_kernels - block-scaled int8 weights through core.blas: the decode
              projections (packed bgemv), the prefill projections (int8-B
              bgemm, "nk"), gemm "kn"/"nk" 8192^3 and gemv 16384^2 with packed
@@ -142,21 +151,24 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              requests, batch 4, prompt 128, gen 32: 8/8, finite logits, one
              mamba2_ssd launch a Mamba2 block a prefill and none at decode,
              112 bgemm a prefill and 112 bgemv a decode step, 18 LoRA-merge
-             gemm and 6 attention launches every forward;
+             gemm (f32, on "ffma_sm90") and 6 attention launches every
+             forward;
 27. forced_zamba, profile_zamba - prefill + 3 decode steps at full width:
              every mamba2_ssd launch against the plain version on its
              inputs, every Mamba2 block and shared-block occurrence
              teacher-forced on the plain path's activations within 2% of max
              |plain| (SSD state 1%), the end-to-end logits no further from
              the f32 path than the plain bf16 path's plus 2%; phase 8's
-             profile of the zamba2 decode step.
+             profile of the zamba2 decode step (every profile line also
+             gives the f32 ring GEMM's device ms and launches a step: the
+             LoRA merges).
 
 Then a `done` line (the script's seconds), a `kernels` summary line, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s HBM, 989 TFLOP/s bf16
-dense (tensor cores), 67 TFLOP/s f32 (CUDA cores), 67 TFLOP/s f64 (tensor
-cores; the CUDA cores' DFMA peaks at 34).  Every time is taken with a
+dense (tensor cores), 67 TFLOP/s f32 (CUDA cores: FFMA), 67 TFLOP/s f64
+(tensor cores; the CUDA cores' DFMA peaks at 34).  Every time is taken with a
 cold L2 (time_ms: a read of 256 MB before each launch).  Detail (nvcc's
 ptxas report, every number printed) goes to build/chip_smoke/.
 """
@@ -340,19 +352,31 @@ def _f64_name(mangled: str):
     return f"{bm}x{bn}" + (" gate" if gate else "") + f" m{mi}n8k{ki} BK={bk} S={stages}"
 
 
+def _f32_name(mangled: str):
+    """'BMxBN TMxTN [gate]' for a gemm_f32_kernel instantiation
+    (csrc/gemm_f32.cu), else None."""
+    m = re.search(r"gemm_f32_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", mangled)
+    if m is None:
+        return None
+    bm, bn, tm, tn, gate = (int(v) for v in m.groups())
+    return f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "")
+
+
 def phase_sass(lib: Path) -> dict:
     """HGMMA (wgmma) instructions in each tensor-core GEMM kernel, HMMA
     (mma.sync) in each tensor-core attention kernel and DMMA (f64 mma.sync)
     in each f64 GEMM kernel of the built library (cuobjdump -sass), and
     ptxas's registers, shared memory, spills and performance notes for them,
     for the split-KV attention kernels and for bgemv (this process's build
-    log).  Fails if a tensor-core kernel holds no HGMMA, HMMA or DMMA, or an
-    f64 one spills."""
+    log); FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
+    with its ptxas registers and spills.  Fails if a tensor-core kernel holds
+    no HGMMA, HMMA or DMMA, an f32 ring kernel no FFMA, or an f64 or f32 one
+    spills."""
     from repro_torch.kernels import _build
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    hgmma, hmma, dmma, fn = {}, {}, {}, None
+    hgmma, hmma, dmma, ffma, fn = {}, {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -363,15 +387,20 @@ def phase_sass(lib: Path) -> dict:
                 hmma[_attn_name(fn)] = 0
             elif _f64_name(fn):
                 dmma[_f64_name(fn)] = 0
+            elif _f32_name(fn):
+                ffma[_f32_name(fn)] = 0
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
         elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
             hmma[_attn_name(fn)] += 1
         elif fn and _f64_name(fn) in dmma and re.search(r"\bDMMA\b", line):
             dmma[_f64_name(fn)] += 1
+        elif fn and _f32_name(fn) in ffma and re.search(r"\bFFMA\b", line):
+            ffma[_f32_name(fn)] += 1
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
-    ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, notes, entry = {}, {}, {}, {}, [], None
+    ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, f32_ptxas = {}, {}, {}, {}, {}
+    notes, entry = [], None
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -382,6 +411,8 @@ def phase_sass(lib: Path) -> dict:
                 bm, bn, bk, stages, _, _, gate = _f64_config(fn)
                 ring = stages * (bm * (bk + 4) + (1 + gate) * bk * (bn + 4)) * 8  # padded rows
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
+            elif _f32_name(fn):
+                entry = f32_ptxas[_f32_name(fn)] = {}
             elif "bgemv_kernel" in fn:
                 entry = bgemv_ptxas[re.sub(r".*bgemv_kernelI", "", fn)[:24]] = {}
             elif _attn_name(fn):
@@ -425,6 +456,16 @@ def phase_sass(lib: Path) -> dict:
          f64_spill_bytes=f64_spills)
     (OUT / "sass_dmma.json").write_text(json.dumps({"dmma": dmma, "ptxas": f64_ptxas,
                                                     "bgemv_ptxas": bgemv_ptxas}, indent=1))
+    f32_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                  for k, v in f32_ptxas.items()}
+    emit("sass", what="FFMA in csrc/gemm_f32.cu's kernels (cuobjdump -sass); ptxas for them",
+         ffma_total=sum(ffma.values()), ffma_per_kernel=ffma,
+         ptxas=f32_ptxas or "not built in this process", f32_spill_bytes=f32_spills)
+    (OUT / "sass_ffma.json").write_text(json.dumps({"ffma": ffma, "ptxas": f32_ptxas}, indent=1))
+    if not ffma or min(ffma.values()) == 0:
+        raise AssertionError(f"f32 ring kernels without FFMA: {ffma}")
+    if any(f32_spills.values()):
+        raise AssertionError(f"f32 ring kernels spill: {f32_spills}")
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
     if not hmma or min(hmma.values()) == 0:
@@ -441,10 +482,11 @@ def phase_sass(lib: Path) -> dict:
 # --------------------------------------------------------------------------
 
 def ffma_launch(a, b, *, b2=None, bias=None, residual=None, activation=None):
-    """The CUDA-core kernel of csrc/gemm.cu on the same inputs, launched
+    """The first CUDA-core kernel (csrc/gemm.cu) on the same inputs, launched
     straight through its C entry point and counted nowhere: the loop the
-    wgmma route took over, timed beside it in the same run.  b (and b2) are
-    dense (K, N) or packed (`gemm_q8_launch`); a is (..., K)."""
+    "wgmma", "dmma" and "ffma_sm90" routes took over, timed beside them in
+    the same run.  b (and b2) are dense (K, N) or packed (`gemm_q8_launch`);
+    a is (..., K)."""
     from repro_torch.core import quant
     from repro_torch.kernels import _build, gemm, ops
     k, n = b.shape
@@ -536,7 +578,7 @@ def kernel_cases(dtype):
         out_b = rows * n * a.element_size()
         wb = nbytes(w, kw.get("b2"), kw.get("bias"), kw.get("residual"))
         p = plan_of(rows, k, n, dtype, gate=gate)
-        ffma = (lambda: ffma_launch(a, w, **kw)) if p["route"] == "wgmma" else None
+        ffma = (lambda: ffma_launch(a, w, **kw)) if p["route"] != "ffma" else None
         return case("bgemm", label, lambda: ops.bgemm(a, w, **kw), lib, lib_call,
                     nbytes(a) + wb + out_b, 2 * rows * k * n * (2 if gate else 1),
                     plan=p, ffma=ffma)
@@ -665,15 +707,23 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         for c in kernel_cases(dtype):
             name, label, call = c["kernel"], c["case"], c["call"]
+            plan = c.get("plan")
+            before = ops.launch_counts()
             got = call()
+            if name == "bgemm":  # one launch, on the route its plan names
+                after = ops.launch_counts()
+                rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                if rose != {"bgemm": 1, f"bgemm_{plan['route']}": 1}:
+                    raise AssertionError(f"bgemm [{label}] {dtype}: launches added {rose}, "
+                                         f"plan {plan}")
             with ops.reference_mode():
                 want = call()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
                 got.float(), want.float(), **TOL[dtype])
-            plan = c.get("plan")
-            twice = plan and (plan["splits"] > 1 or name == "attention")
+            twice = plan and (plan["splits"] > 1 or name == "attention"
+                              or plan["route"] == "ffma_sm90")
             same = split_deterministic(call, got) if twice else None
             ms = time_ms(call)
             with ops.reference_mode():
@@ -714,6 +764,7 @@ def phase_smoke():
               params=params, verbose=False, device="cuda")
     ops.reset_launch_counts()
     got = serve(ARCH, "smoke", **kw)
+    check_f32_routes(ops.launch_counts(), "smoke")
     routes = check_attention_routes("smoke", cfg.n_layers, f32=True)
     with ops.reference_mode():
         want = serve(ARCH, "smoke", **kw)
@@ -849,6 +900,10 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
                                    if re.search(r"attention\w*_kernel", k)),
          attention_launches_per_step=sum(n for k, (_, n) in by_name.items()
                                          if re.search(r"attention\w*_kernel", k)),
+         f32_gemm_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
+                                  if "gemm_f32_kernel" in k),
+         f32_gemm_launches_per_step=sum(n for k, (_, n) in by_name.items()
+                                        if "gemm_f32_kernel" in k),
          device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
@@ -963,10 +1018,10 @@ def blas_cases():
                     nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None, None)
         return make
 
-    def level1_case(routine, dtype, n, seed):
+    def level1_case(routine, dtype, n, seed, offset=0):
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
-            x, y = rnd(g, dtype, n), rnd(g, dtype, n)
+            x, y = rnd(g, dtype, n + offset)[offset:], rnd(g, dtype, n + offset)[offset:]
             size, h = x.element_size(), n // 2
             if routine == "dot":
                 cond = (x.double() * y.double()).abs().sum().item()
@@ -998,6 +1053,12 @@ def blas_cases():
          gemm_case(torch.float64, 4095, 4098, 4094, 16, epi="gelu")),
         ("gemm", "matmul_fused", "2-D (4096,4096)@(4096,4096) x2 silu-gate", torch.float64,
          gemm_case(torch.float64, 4096, 4096, 4096, 17, fused=True)),
+        # f32: K and N multiples of 4 take the TMA ring ("ffma_sm90"), odd
+        # ones (above) the first CUDA-core kernel; zamba2's LoRA merge
+        ("gemm", "gemm", "aligned ragged (4095,4096)@(4096,4092) +bias gelu +residual",
+         torch.float32, gemm_case(torch.float32, 4095, 4096, 4092, 18, epi="gelu")),
+        ("gemm", "gemm", "zamba2 LoRA merge (2048,128)@(128,2048)", torch.float32,
+         gemm_case(torch.float32, 2048, 128, 2048, 19)),
     ]
     for i, dt in enumerate(DTYPES):
         cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
@@ -1014,6 +1075,12 @@ def blas_cases():
                       level1_case(routine, torch.float32, N26 - 3, 33 + 10 * r)))
     for i, dt in enumerate(DTYPES):
         cases.append(("blas1_axpy", "axpy", "n=2^26", dt, level1_case("axpy", dt, N26, 50 + i)))
+    cases += [
+        ("blas1_axpy", "axpy", "ragged n=2^26-3", torch.float64,
+         level1_case("axpy", torch.float64, N26 - 3, 53)),
+        ("blas1_axpy", "axpy", "n=2^26, views one element in", torch.float32,
+         level1_case("axpy", torch.float32, N26, 54, offset=1)),
+    ]
     return cases
 
 
@@ -1042,7 +1109,10 @@ def phase_blas():
         err = diff.max().item()
         finite = bool(torch.isfinite(got).all())
         chk = dict(err=err, cond=None, tol=TOL[dtype])
-        if sums is None:
+        if routine == "axpy":  # the plain version's two roundings: the same bits
+            chk["tol"] = "bitwise"
+            ok = bool(torch.equal(got, want))
+        elif sums is None:
             tol = TOL[dtype]
             ok = finite and bool((diff <= tol["atol"] + tol["rtol"] * want.double().abs()).all())
         else:
@@ -1083,7 +1153,8 @@ def phase_blas():
         b_ms, by = bound(nb, flops, dtype)
         row = dict(kernel=kernel, routine=routine, case=case, dtype=str(dtype).split(".")[1],
                    route=chk["route"], max_abs_err=chk["err"], tol=chk["tol"],
-                   tol_scale="out*|plain| + acc*cond" if chk["cond"] is not None else "elementwise",
+                   tol_scale=("out*|plain| + acc*cond" if chk["cond"] is not None
+                              else "bitwise" if routine == "axpy" else "elementwise"),
                    cond=chk["cond"], limit=chk.get("limit"),
                    planted_rejected=chk.get("planted_rejected"), within_tol=chk["ok"],
                    kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ffma_ms=ffma_ms,
@@ -1384,6 +1455,19 @@ def check_prefill_routes(counts: dict, what: str):
                              "not all on wgmma")
 
 
+def check_f32_routes(counts: dict, what: str):
+    """An f32 serve's dense GEMMs: every gemm and bgemm launch on the
+    "ffma_sm90" route (the smoke widths are multiples of 4 and every operand
+    starts on a 16-byte boundary), none on the first CUDA-core kernel."""
+    routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_ffma", "bgemm",
+                                     "bgemm_ffma_sm90", "bgemm_ffma")}
+    emit("routes", run=what, **routes)
+    if (counts["bgemm"] == 0 or counts["bgemm_ffma_sm90"] != counts["bgemm"]
+            or counts["gemm_ffma_sm90"] != counts["gemm"] or counts["gemm_ffma"]
+            or counts["bgemm_ffma"]):
+        raise AssertionError(f"{what}: f32 GEMM routes {routes}: not all on 'ffma_sm90'")
+
+
 def check_attention_routes(what: str, layers: int, f32: bool = False) -> dict:
     """Every attention launch since the last reset on the route its shape
     takes: each prefill (Tq > 1) on "mma" in bf16 or "ffma" in f32, each
@@ -1630,6 +1714,7 @@ def phase_smoke_kv():
         check_kv_launches(counts, f"smoke_kv {name}", cfg.n_layers, got["prefills"] + 1,
                           got["decode_steps"] + 1, args.get("kv_cache") == "int8",
                           "kv_page_size" in args)
+        check_f32_routes(counts, f"smoke_kv {name}")
         fields = {k: got.get(k) for k in ("pages_live", "pages_shared", "cow_copies",
                                           "paged_capacity_multiplier", "preemptions",
                                           "rejections")}
@@ -1993,6 +2078,7 @@ def phase_smoke_batch(arch: str, phase: str, check):
         # the serve's warm-up runs one prefill and one decode step first
         check(counts, f"{phase} batch {batch}", cfg, got["prefills"] + 1,
               got["decode_steps"] + 1)
+        check_f32_routes(counts, f"{phase} batch {batch}")
 
 
 def phase_serve_recurrent(arch: str, phase: str, params, cfg, check):
@@ -2294,13 +2380,14 @@ def check_zamba_launches(counts: dict, what: str, cfg, prefills: int, steps: int
     """zamba2: one mamba2_ssd launch a Mamba2 block a prefill and none at
     decode; every projection (2 a block, 6 a shared-block occurrence) on
     bgemm at prefill and on bgemv at decode; the 3 LoRA merges of each
-    occurrence on gemm and one attention launch an occurrence, every
-    forward; no paged, int8 or WKV6 launch."""
+    occurrence on gemm (f32, the "ffma_sm90" route) and one attention launch
+    an occurrence, every forward; no paged, int8 or WKV6 launch."""
     n = cfg.n_layers
     occ = n // cfg.ssm.shared_attn_every
     proj = 2 * n + 6 * occ
     want = {"mamba2_ssd": n * prefills, "bgemm": proj * prefills, "bgemv": proj * steps,
-            "gemm": 3 * occ * (prefills + steps), "attention": occ * (prefills + steps),
+            "gemm": 3 * occ * (prefills + steps), "gemm_ffma_sm90": 3 * occ * (prefills + steps),
+            "attention": occ * (prefills + steps),
             "attention_paged": 0, "attention_int8": 0, "rwkv6": 0}
     bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if bad:
@@ -2377,6 +2464,7 @@ def phase_serve_batch(params, cfg, continuous_outputs):
         check_kv_launches(counts, f"serve_batch {name}", smoke.n_layers, got["prefills"] + 1,
                           got["decode_steps"] + 1, kw.get("kv_cache") == "int8",
                           "kv_page_size" in kw, paged_prefill=True)
+        check_f32_routes(counts, f"serve_batch {name}")
         equal = got["outputs"] == want["outputs"]
         emit("serve_batch", run=name, arch=ARCH, variant="smoke", dtype="float32",
              tokens_equal_plain=equal, completed=got["completed"], status=got["status"],
@@ -2573,31 +2661,40 @@ def main() -> int:
                         "attention_route": name.split("_")[1],
                         "launches_from": "serve" if dtype == "bfloat16" else "smoke (f32)"})
     # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
-    # launches from the blas phase; gemm's three routes apart: f64 on the f64
-    # tensor cores, bf16 on the bf16 ones, f32 on the CUDA cores
+    # launches from the blas phase; gemm's four routes apart: f64 on the f64
+    # tensor cores, bf16 on the bf16 ones, aligned f32 on the CUDA cores fed
+    # by the TMA ring (also at zamba2's LoRA merge, launches from its serve),
+    # odd-K/N f32 on the first CUDA-core kernel
+    f32_ragged = "ragged (4095,4097)@(4097,4093) +bias gelu +residual"
+    lora = "zamba2 LoRA merge (2048,128)@(128,2048)"
     blas_sources = {
         "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
-                 ("gemm", f"{D8K}x{D8K}x{D8K}")),
+                 ("gemm", f32_ragged), "float32", blas_counts["gemm_ffma"]),
+        "gemm_ffma_sm90": ("src/repro_torch/csrc/gemm_f32.cu", "src/repro/kernels/gemm.py:184",
+                           ("gemm", f"{D8K}x{D8K}x{D8K}"), "float32",
+                           blas_counts["gemm_ffma_sm90"]),
+        "gemm_ffma_sm90_lora": ("src/repro_torch/csrc/gemm_f32.cu",
+                                "src/repro/kernels/gemm.py:184", ("gemm", lora), "float32",
+                                zamba_counts["gemm_ffma_sm90"]),
         "gemm_dmma": ("src/repro_torch/csrc/gemm_f64.cu", "src/repro/kernels/gemm.py:184",
-                      ("gemm", f"{D8K}x{D8K}x{D8K}")),
+                      ("gemm", f"{D8K}x{D8K}x{D8K}"), "float64", blas_counts["gemm_dmma"]),
         "gemm_wgmma": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/gemm.py:184",
-                       ("gemm", f"{D8K}x{D8K}x{D8K}")),
+                       ("gemm", f"{D8K}x{D8K}x{D8K}"), "bfloat16", blas_counts["gemm_wgmma"]),
         "gemv": ("src/repro_torch/csrc/gemv.cu", "src/repro/kernels/gemv.py:146",
-                 ("gemv", f"{N16K}x{N16K}")),
+                 ("gemv", f"{N16K}x{N16K}"), "float64", blas_counts["gemv"]),
         "blas1_reduce": ("src/repro_torch/csrc/blas1.cu", "src/repro/kernels/blas1.py:55",
-                         ("dot", "n=2^26")),
+                         ("dot", "n=2^26"), "float64", blas_counts["blas1_reduce"]),
         "blas1_axpy": ("src/repro_torch/csrc/blas1.cu", "src/repro/kernels/blas1.py:92",
-                       ("axpy", "n=2^26")),
+                       ("axpy", "n=2^26"), "float64", blas_counts["blas1_axpy"]),
     }
-    for name, (src, replaces, (routine, case)) in blas_sources.items():
-        dtype = {"gemm_wgmma": "bfloat16", "gemm": "float32"}.get(name, "float64")
+    for name, (src, replaces, (routine, case), dtype, launches) in blas_sources.items():
         r = blas_rows[(routine, case, dtype)]
-        launches = blas_counts["gemm_ffma" if name == "gemm" else name]
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": r["max_abs_err"],
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ffma_ms": r["ffma_ms"], "shape": f"{routine} {case}", "dtype": dtype})
+                        "ffma_ms": r["ffma_ms"], "shape": f"{routine} {case}", "dtype": dtype,
+                        **({"launches_from": "serve_zamba"} if name.endswith("_lora") else {})})
     # the packed kernels: launches from the int8 serve (bgemv_int8, gemm_int8:
     # every prefill projection on the tensor cores) and from the packed BLAS
     # run of phase 10 (gemv_int8; gemm_int8_ffma, the int8-B forms the tensor

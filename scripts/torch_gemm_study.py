@@ -6,6 +6,10 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f64
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py flush
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py axpy
+    PYTHONPATH=TREE/src:TREE python3 scripts/torch_gemm_study.py axpy
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py host
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -39,6 +43,27 @@ call) timed after a write flush of L2 and after a read flush (clean lines),
 20 launches each, twice in turns; chip_smoke.time_ms's default flush comes
 from these.
 
+f32: the f32 CUDA-core kernel on a TMA ring (csrc/gemm_f32.cu) at 8192^3,
+zamba2's LoRA merge (2048, 128) @ (128, 2048), an aligned ragged (4095,
+4096) @ (4096, 4092), the stablelm prefill's qkv and down at 512 rows and
+the f32 smoke serves' prefill shapes, at every
+tile of `gemm.FFMA_SM90_TILES` (with the gate, at (512, 2048) @ (2048,
+5632), `FFMA_SM90_GATE_TILES`); beside the first CUDA-core kernel
+(csrc/gemm.cu) and torch.matmul (TF32 off).  The plan's tile table comes
+from these.
+
+axpy: ops.axpy in f64, f32 and bf16 at 2^26 (16-byte loads), 2^26 - 3 (and
+an element tail) and 2^26 one element in (element loads), each checked
+bitwise against the plain version, beside torch.add(y, x, alpha=alpha).
+With TREE (another checkout of the port, e.g. the parent commit unpacked
+by `git archive`) first on the path, the same cases run that tree's kernel
+and timing helpers: run parent, change, change, parent in one session.
+
+host: the host's time to issue one ops.gemm at zamba2's LoRA merge shape
+(2048, 128) @ (128, 2048) in f32 (what a host-bound serve pays for each of
+its 18 merges a forward): 100 calls without a sync, median of 7 runs; with
+TREE first on the path as for axpy.
+
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
 """
@@ -47,8 +72,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -204,6 +232,102 @@ def flush():
                           "ms_read_flush": ms["read"]}), flush=True)
 
 
+# (what, M, K, N, gate)
+F32_SHAPES = [("8192^3", 8192, 8192, 8192, False),
+              ("zamba2 LoRA merge", 2048, 128, 2048, False),
+              ("aligned ragged", 4095, 4096, 4092, False),
+              ("gate 512x2048->5632", 512, 2048, 5632, True),
+              ("prefill qkv 512x2048->2048", 512, 2048, 2048, False),
+              ("prefill down 512x5632->2048", 512, 5632, 2048, False),
+              ("smoke qkv 28x64->64", 28, 64, 64, False),
+              ("smoke in_proj 20x64->296", 20, 64, 296, False),
+              ("smoke gate+up 28x64->128", 28, 64, 128, True)]
+
+
+def f32():
+    from repro_torch.kernels import gemm, ops
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for what, m, k, n, gate in F32_SHAPES:
+        a = torch.randn(m, k, generator=g, device="cuda")
+        b = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        b2 = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5 if gate else None
+        act = "silu" if gate else None
+        with ops.reference_mode():
+            want = ops.gemm(a, b, b2=b2, activation=act)
+        out = torch.empty(m, n, device="cuda")
+        iters = 5 if m * n * k > 2 ** 36 else 20
+        us = {}
+        for tile in gemm.FFMA_SM90_GATE_TILES if gate else gemm.FFMA_SM90_TILES:
+            def call(tile=tile):
+                return gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", tile), b2=b2, bias=None,
+                                      residual=None, act_code=ops._ACTS[act], m=m, k=k, n=n)
+
+            label = f"{tile[0]}x{tile[1]}"
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out, want, **cs.TOL[torch.float32]):
+                err = (out - want).abs().max().item()
+                raise AssertionError(f"f32: {label} at {(m, k, n)} disagrees with plain ({err})")
+            us[label] = cs.time_ms(call, iters=iters) * 1e3
+        us["ffma (csrc/gemm.cu)"] = cs.time_ms(lambda: cs.ffma_launch(a, b, b2=b2, activation=act),
+                                               iters=iters) * 1e3
+        both = torch.cat([b, b2], 1) if gate else b
+        us["torch.matmul" + (" [B|B2]" if gate else "")] = cs.time_ms(
+            lambda: torch.matmul(a, both), iters=iters) * 1e3
+        flops = 2 * m * k * n * (2 if gate else 1)
+        print(json.dumps({"shape": f"{what} ({m},{k})@({k},{n})",
+                          "plan": str(gemm.plan(m, k, n, torch.float32, gate=gate)),
+                          "bound_us": cs.bound(4 * (m * k + k * n * (2 if gate else 1) + m * n),
+                                               flops, torch.float32)[0] * 1e3,
+                          "us": us}), flush=True)
+        del a, b, b2, want, out
+
+
+def axpy_sweep():
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(10)
+    tree = str(Path(ops.__file__).resolve().parents[3])
+    n = 2 ** 26
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        for what, size, offset in (("2^26", n, 0), ("2^26-3", n - 3, 0),
+                                   ("2^26 one element in", n, 1)):
+            x = torch.randn(size + offset, generator=g, device="cuda").to(dt)[offset:]
+            y = torch.randn(size + offset, generator=g, device="cuda").to(dt)[offset:]
+            with ops.reference_mode():
+                want = ops.axpy(0.75, x, y)
+            got = ops.axpy(0.75, x, y)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"axpy: {what} {dt} differs from the plain version")
+            ms = {"ops.axpy": cs.time_ms(lambda: ops.axpy(0.75, x, y)),
+                  "torch.add": cs.time_ms(lambda: torch.add(y, x, alpha=0.75))}
+            print(json.dumps({"tree": tree, "axpy": f"{what} {str(dt).split('.')[1]}",
+                              "bound_ms": 3 * size * x.element_size() / cs.HBM_BYTES_S * 1e3,
+                              "ms": ms}), flush=True)
+            del x, y, got, want
+
+
+def host():
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn(2048, 128, generator=g, device="cuda")
+    b = torch.randn(128, 2048, generator=g, device="cuda") * 128 ** -0.5
+    ops.gemm(a, b)
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            ops.gemm(a, b)
+        per_call.append((time.perf_counter() - t0) / 100 * 1e6)
+        torch.cuda.synchronize()
+    print(json.dumps({"tree": str(Path(ops.__file__).resolve().parents[3]),
+                      "host_us_per_call": statistics.median(per_call),
+                      "runs_us": per_call,
+                      "routes": {k: v for k, v in ops.launch_counts().items()
+                                 if k.startswith("gemm_")}}), flush=True)
+
+
 def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -252,7 +376,8 @@ def witness(with_ffma: bool):
 
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
-            "bgemv": bgemv_sweep, "flush": flush}
+            "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
+            "host": host}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

@@ -2,17 +2,21 @@
 """End-to-end numbers of one tree of the port, for comparing two trees on
 one GPU in one session.
 
-    python3 scripts/torch_serve_compare.py [TREE]
+    python3 scripts/torch_serve_compare.py [TREE [ARCH]]
 
 TREE (default: this repository) is a checkout of the port; its kernels are
-built from its own csrc/ into its own build/kernels/.  Serves stablelm-1.6b
-FULL (seeded random weights, bf16; 8 requests, batch 4, prompt 128, gen 32,
-greedy, no EOS) and then profiles a decode step and a prefill as
-chip_smoke.py's profile phases do.  Prints one JSON line: tok/s, TTFT p50,
-wall and device ms per decode step and per prefill, the device's idle
-share, attention's device ms, the decode step's device events and the
-bgemv kernels' device ms and launches (among the step's top 12).  Run it for the parent and the change in
-turns (parent, change, change, parent) and compare within one session.
+built from its own csrc/ into its own build/kernels/.  Serves ARCH (default
+stablelm-1.6b; rwkv6-1.6b and zamba2-1.2b under --scheduler batch) FULL
+(seeded random weights, bf16; 8 requests, batch 4, prompt 128, gen 32,
+greedy, no EOS) and then profiles a decode step (and, for stablelm, a
+prefill) as chip_smoke.py's profile phases do.  Prints one JSON line:
+tok/s, TTFT p50, wall and device ms per decode step (and per prefill), the
+device's idle share, attention's device ms, the decode step's device
+events, the bgemv kernels' and the f32 GEMM kernels' (zamba2's LoRA
+merges: csrc/gemm.cu's float instantiations or csrc/gemm_f32.cu) device ms
+and launches (among the step's top 12).  Run it for the parent and the
+change in turns (parent, change, change, parent) and compare within one
+session.
 """
 
 from __future__ import annotations
@@ -36,27 +40,36 @@ def main() -> int:
     from repro_torch.models import transformer as tf
     from repro_torch.models.registry import get_config
     cs.OUT.mkdir(parents=True, exist_ok=True)
+    arch = sys.argv[2] if len(sys.argv) > 2 else cs.ARCH
+    dense = arch == cs.ARCH
     with torch.inference_mode():
-        cfg = get_config(cs.ARCH, "full")
+        cfg = get_config(arch, "full")
         params = tf.init_params(cfg, 0, "cuda")
-        stats = serve(cs.ARCH, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
-                      eos=-1, params=params, verbose=False, device="cuda")
+        stats = serve(arch, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
+                      eos=-1, params=params, verbose=False, device="cuda",
+                      **({} if dense else {"scheduler": "batch"}))
         cs.phase_profile(params, cfg)
-        cs.phase_profile_prefill(params, cfg)
-    prof, pre = cs.RESULTS["profile"][-1], cs.RESULTS["profile_prefill"][-1]
+        if dense:
+            cs.phase_profile_prefill(params, cfg)
+    prof = cs.RESULTS["profile"][-1]
+    pre = cs.RESULTS["profile_prefill"][-1] if dense else {"top": []}
+
+    def top(*names):  # (device ms, launches) a step of the top-12 kernels named
+        rows = [t for t in prof["top"] if any(n in t["name"] for n in names)]
+        return sum(t["ms_per_step"] for t in rows), sum(t["calls_per_step"] for t in rows)
+
     print(json.dumps({
-        "tree": str(tree), "tok_s": stats["tok_s"],
+        "tree": str(tree), "arch": arch, "tok_s": stats["tok_s"],
         "ttft_p50_s": statistics.median(stats["ttft"]),
         "decode_wall_ms": prof["wall_ms_per_step"],
         "decode_device_ms": prof["device_busy_ms_per_step"],
         "decode_idle_share": prof["device_idle_share"],
         "decode_attention_ms": prof["attention_ms_per_step"],
         "decode_events": prof["device_events_per_step"],
-        "decode_bgemv_ms": sum(t["ms_per_step"] for t in prof["top"] if "bgemv" in t["name"]),
-        "decode_bgemv_launches": sum(t["calls_per_step"] for t in prof["top"]
-                                     if "bgemv" in t["name"]),
-        "prefill_wall_ms": pre["wall_ms_per_prefill"],
-        "prefill_device_ms": pre["device_busy_ms_per_prefill"],
+        "decode_bgemv_ms_launches": top("bgemv"),
+        "decode_f32_gemm_ms_launches": top("gemm_kernel<float", "gemm_f32_kernel"),
+        "prefill_wall_ms": pre.get("wall_ms_per_prefill"),
+        "prefill_device_ms": pre.get("device_busy_ms_per_prefill"),
         "prefill_attention_ms": pre.get("attention_ms_per_prefill", sum(
             t["ms_per_prefill"] for t in pre["top"] if "attention" in t["name"]))}),
         flush=True)

@@ -10,10 +10,17 @@
 // is the vectors over HBM: 2^26 doubles are 0.16 ms a vector at 3.35 TB/s.
 //
 // Design against that bound:
-//  - 16-byte loads (4 f32, 8 bf16, 2 f64 a lane), UNROLL of them issued
-//    before any arithmetic, over a grid-stride loop of ~8 blocks per SM, so
-//    enough bytes are in flight to cover HBM latency; a ragged tail (or
-//    unaligned operands) takes element loads;
+//  - the reduction: 16-byte loads (4 f32, 8 bf16, 2 f64 a lane), UNROLL of
+//    them issued before any arithmetic, over a grid-stride loop of ~8 blocks
+//    per SM, so enough bytes are in flight to cover HBM latency; a ragged
+//    tail (or unaligned operands) takes element loads;
+//  - axpy on 16-byte operands: one block a contiguous chunk of the vectors,
+//    one 16-byte vector a thread, as many blocks as chunks (a warp's loads
+//    are 512 contiguous bytes of x and of y, and the grid streams the
+//    vectors front to back); the grid-stride design above, whose warps kept
+//    12 streams a whole grid apart, ran 4-5% slower than `add` (PERF.md
+//    lists the other designs measured and dropped).  Unaligned operands
+//    take element loads over the grid-stride grid;
 //  - the sum runs in the accumulator type (f32 for f32/bf16, f64 for f64):
 //    each thread, then the warp (shuffles), then the block (shared memory),
 //    into one partial per block; a second one-block pass sums the partials
@@ -110,6 +117,11 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// axpy: out[i] = alpha * x[i] + y[i].  vec_ok (x, y and out on 16-byte
+// boundaries): thread t of block b takes 16-byte vector b * THREADS + t of
+// each (the host gives one block a chunk of THREADS vectors), then the
+// elements after the last whole vector; else one element a thread over a
+// grid-stride loop.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 axpy_kernel(typename Acc<T>::type alpha, const T* __restrict__ x, const T* __restrict__ y,
@@ -121,22 +133,7 @@ axpy_kernel(typename Acc<T>::type alpha, const T* __restrict__ x, const T* __res
   long done = 0;
   if (vec_ok) {
     const long nv = n / V;
-    long i = tid;
-    for (; i + (UNROLL - 1) * stride < nv; i += UNROLL * stride) {
-      A xv[UNROLL][V], yv[UNROLL][V];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        load16(x + (i + u * stride) * V, xv[u]);
-        load16(y + (i + u * stride) * V, yv[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) xv[u][e] = add_rn(mul_rn(alpha, xv[u][e]), yv[u][e]);
-        Vec<T>::store(out + (i + u * stride) * V, xv[u]);
-      }
-    }
-    for (; i < nv; i += stride) {
+    for (long i = tid; i < nv; i += stride) {
       A xv[V], yv[V];
       load16(x + i * V, xv);
       load16(y + i * V, yv);
@@ -197,7 +194,8 @@ extern "C" int blas1_reduce_launch(int dtype, const void* x, const void* y, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out = alpha * x + y over n elements, alpha rounded to the accumulator type.
+// out = alpha * x + y over n elements, alpha rounded to the accumulator type,
+// over `blocks` blocks (kernels/blas1.py::axpy_blocks).
 extern "C" int blas1_axpy_launch(int dtype, double alpha, const void* x, const void* y,
                                  void* out, long long n, int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -60,11 +60,11 @@
 //    share their B panel in L2.
 // Later work (not here): a persistent, warp-specialized loop that overlaps
 // one tile's epilogue with the next tile's loads; TMA stores; f64 on DMMA.
-#include <cuda.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 using namespace rt;
 
@@ -96,48 +96,6 @@ struct Cfg {
   static_assert(STAGES >= 2, "tile too large for the shared-memory ring");
   static_assert(STAGE % SW == 0, "every bf16 tile must start on a swizzle period");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers -------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// returns once the phase of the given parity has completed; a wait that
-// never completes (a broken pipeline) traps after 2^26 polls (seconds)
-// rather than holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// ---- TMA: one 2-D box into shared memory, completion counted on `bar` -----
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // ---- wgmma ----------------------------------------------------------------
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1): start
@@ -280,7 +238,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, NC);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -443,42 +401,6 @@ splitk_epilogue(const float* __restrict__ ws, int splits, const float* __restric
 }
 
 // ---- host side -------------------------------------------------------------
-
-// cuTensorMapEncodeTiled is a driver-API function: reached through the
-// runtime's driver entry point, so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major (outer, inner) matrix as boxes of (box_outer, box_inner);
-// out-of-bounds elements load as zeros.  Returns 0 or a nonzero CUresult.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-           int elem, long inner, long outer, int box_inner, int box_outer,
-           CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t step[2] = {1, 1};
-  return static_cast<int>(fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
-                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
-}
 
 struct Args {
   const void *a, *b, *b2;

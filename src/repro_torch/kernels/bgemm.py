@@ -5,8 +5,9 @@ the broadcast-B "kn" form the prefill path uses: C[b] = epi(A[b] @ B
 [, A[b] @ B2]).  With A contiguous this is one GEMM over the batch * M rows,
 so it runs `kernels/gemm.py`'s kernels over them, through the route that
 `gemm.plan` names: in bf16 (every served prefill projection) the
-tensor-core kernel of `csrc/gemm_sm90.cu`, in f32 the CUDA-core kernel of
-`csrc/gemm.cu`; each source note says what bounds it.  It keeps its own
+tensor-core kernel of `csrc/gemm_sm90.cu`, in f32 the CUDA-core kernel on
+a TMA ring of `csrc/gemm_f32.cu` (odd K or N: the first design,
+`csrc/gemm.cu`); each source note says what bounds it.  It keeps its own
 launch counts.
 
 A packed B (`core.quant.QuantizedTensor`, the int8 body of
@@ -33,7 +34,7 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "dmma": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 
 
 def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):

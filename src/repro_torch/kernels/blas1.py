@@ -63,6 +63,15 @@ def grid_blocks(n: int, elem_size: int, sms: int) -> int:
     return max(1, min(-(-n // per_block), _BLOCKS_PER_SM * sms))
 
 
+def axpy_blocks(n: int, elem_size: int, sms: int, aligned: bool) -> int:
+    """axpy's grid: on 16-byte operands one block a chunk of _THREADS
+    16-byte vectors (a single pass, front to back), else the grid-stride
+    grid of `grid_blocks` for the element loads."""
+    if not aligned:
+        return grid_blocks(n, elem_size, sms)
+    return max(1, -(-n // (_THREADS * (16 // elem_size))))
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -88,7 +97,8 @@ def axpy_launch(alpha: float, x, y, out, *, dtype_code: int):
     """Launch `blas1_axpy_launch`: out = alpha * x + y."""
     global axpy_launches
     n = x.numel()
-    blocks = grid_blocks(n, x.element_size(), _build.sm_count(x.device.index))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, out))
+    blocks = axpy_blocks(n, x.element_size(), _build.sm_count(x.device.index), aligned)
     fn = _build.function("blas1_axpy_launch", _AXPY_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(dtype_code, float(alpha), x.data_ptr(), y.data_ptr(), out.data_ptr(), n,

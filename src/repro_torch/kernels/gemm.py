@@ -2,7 +2,7 @@
 
 Replaces `repro/kernels/gemm.py` (`_gemm_kernel`, Pallas call at :184) in
 its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
-(K, N), in f32, bf16 and f64.  Three CUDA kernels carry it, and `plan` picks
+(K, N), in f32, bf16 and f64.  Four CUDA kernels carry it, and `plan` picks
 one from the shape, dtype and addresses alone:
 
 - "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for bf16
@@ -13,11 +13,17 @@ one from the shape, dtype and addresses alone:
   a cp.async ring, for dense f64 whose rows 16-byte copies can address (K %
   2 == 0, N % 2 == 0, 16-byte base addresses), the gate's two products
   included, over the tile grid chosen as for "wgmma" (no K split);
-- "ffma": `csrc/gemm.cu`, a shared-memory tiled GEMM on the CUDA cores
-  whose threads each own 4 x 4 register blocks (the paper's DOT4 PE), for
-  f32 (TF32 would change the result), odd-K/N or unaligned f64 and bf16,
-  and the packed forms the tensor-core kernels do not take (every packed
-  f64 call among them).
+- "ffma_sm90": `csrc/gemm_f32.cu`, FFMA on the CUDA cores (TF32 would
+  change the result) fed by a TMA ring, for dense f32 whose rows TMA can
+  address (K % 4 == 0, N % 4 == 0, 16-byte base addresses), the gate's two
+  products included, over a (BM, BN) tile grid chosen as for "wgmma" (no K
+  split): the BLAS f32 gemm, zamba2's LoRA merges and the f32 prefill
+  projections of kernel 3's broadcast-B form;
+- "ffma": `csrc/gemm.cu`, the first design: a shared-memory tiled GEMM on
+  the CUDA cores whose threads each own 4 x 4 register blocks (the paper's
+  DOT4 PE), for odd-K/N or unaligned f32, f64 and bf16, and every packed
+  form the tensor-core kernels do not take (packed f32 and f64 calls, int8
+  "kn", scales that vary along K).
 
 Each source note says what bounds its kernel.  Ragged edges are masked in
 the kernels, where the reference pads in `ops._gemm_call`.
@@ -55,7 +61,7 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "dmma": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
@@ -75,7 +81,15 @@ GATE_TILES = ((128, 64), (64, 64))
 #: ms against 49.7-55.8 at 64 x 64)
 DMMA_TILES = ((128, 128), (64, 64))
 DMMA_GATE_TILES = ((128, 64), (64, 64))
-#: the CUDA-core kernel's fixed tile (csrc/gemm.cu), without and with a gate
+#: (BM, BN) tiles of the f32 CUDA-core kernel on the TMA ring
+#: (csrc/gemm_f32.cu), largest first, and its gate's (two accumulators: BN
+#: <= 64).  Measured on the H100 (`scripts/torch_gemm_study.py f32`,
+#: PERF.md): 128 x 128 runs 8192^3 and the LoRA merge fastest, 128 x 64 the
+#: 512-row prefill shapes, 64 x 64 the smoke serves' few rows
+FFMA_SM90_TILES = ((128, 128), (128, 64), (64, 64))
+FFMA_SM90_GATE_TILES = ((128, 64), (64, 64))
+#: the first CUDA-core kernel's fixed tile (csrc/gemm.cu), without and with
+#: a gate
 FFMA_TILE = {False: (128, 128), True: (128, 64)}
 #: the largest tile whose grid fills this share of the SMs is taken (q/k/v's
 #: 128 tiles of 128 x 64 on 132 SMs rather than 64 of 128 x 128) ...
@@ -101,9 +115,9 @@ def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one GEMM runs: the route ("wgmma", "dmma" or "ffma"), the (BM, BN)
-    output tile and the number of K slices (wgmma only; the slices' partials
-    are summed in slice order by a second pass)."""
+    """How one GEMM runs: the route ("wgmma", "dmma", "ffma_sm90" or "ffma"),
+    the (BM, BN) output tile and the number of K slices (wgmma only; the
+    slices' partials are summed in slice order by a second pass)."""
 
     route: str
     tile: tuple
@@ -131,17 +145,24 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     bf16 takes "wgmma" when TMA can address A and B (K % 8 == 0, 16 for int8,
     and N % 8 == 0) and B is dense or "nk"; dense f64 takes "dmma" when
     16-byte copies can address A and B (K % 2 == 0 and N % 2 == 0, the gate
-    too); everything else "ffma".  The tile is the largest of the route's
-    tiles (TC_TILES, DMMA_TILES; with the gate GATE_TILES, DMMA_GATE_TILES)
-    whose grid fills FILL of the `sms` SMs, else the smallest; on "wgmma",
-    where that grid leaves more than IDLE of them idle and K >= SPLIT_MIN_K,
-    K is split so that tiles x splits is about half a wave (at least 2
-    slices, at most one per 2 k-steps: the second pass reads every slice's
-    partials)."""
+    too); dense f32 takes "ffma_sm90" when TMA can address A and B (K % 4 ==
+    0 and N % 4 == 0, the gate too); everything else "ffma" (odd-K/N or
+    unaligned operands of any dtype, every packed form but bf16 "nk").  The
+    tile is the largest of the route's tiles (TC_TILES, DMMA_TILES,
+    FFMA_SM90_TILES; with the gate GATE_TILES, DMMA_GATE_TILES,
+    FFMA_SM90_GATE_TILES) whose grid fills FILL of the `sms` SMs, else the
+    smallest; on "wgmma", where that grid leaves more than IDLE of them idle
+    and K >= SPLIT_MIN_K, K is split so that tiles x splits is about half a
+    wave (at least 2 slices, at most one per 2 k-steps: the second pass
+    reads every slice's partials)."""
     some = aligned and min(m, k, n) > 0
     if (dtype == torch.float64 and some and packed_layout is None and k % 2 == 0
             and n % 2 == 0):
         return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0])
+    if (dtype == torch.float32 and some and packed_layout is None and k % 4 == 0
+            and n % 4 == 0):
+        return Plan("ffma_sm90",
+                    _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES, sms)[0])
     tc = (dtype == torch.bfloat16 and some and n % 8 == 0
           and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
     if not tc:
@@ -202,6 +223,7 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
 
 
 _DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
@@ -222,6 +244,21 @@ def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: in
     return out
 
 
+def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
+              n: int):
+    """Launch `gemm_f32_launch` (csrc/gemm_f32.cu) on the current stream over
+    m rows of f32 a with p's tile."""
+    bm, bn = p.tile
+    fn = _build.function("gemm_f32_launch", _F32_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, stream)
+    if err:
+        raise RuntimeError(f"gemm f32 TMA-ring kernel launch failed ({p}): CUDA error {err}")
+    return out
+
+
 def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> str:
     """C (m, n) = epi(A @ B [, A @ B2]) over m rows of a (the batch * M rows
     of bgemm's broadcast form) through the kernel `plan` names; returns the
@@ -232,9 +269,10 @@ def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: i
     if p.route == "wgmma":
         tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
         return p.route
-    if p.route == "dmma":
-        dmma(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
-             n=n)
+    if p.route in ("dmma", "ffma_sm90"):
+        run = dmma if p.route == "dmma" else ffma_sm90
+        run(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
+            n=n)
         return p.route
     fn = _build.function("gemm_launch", _ARGTYPES)
     with torch.cuda.device(a.device):

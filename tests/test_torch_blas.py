@@ -347,3 +347,17 @@ def test_blas1_grid_fills_the_card_once(n, elem):
     blocks = blas1.grid_blocks(n, elem, sms=132)
     assert 1 <= blocks <= 8 * 132
     assert blocks == 8 * 132 or blocks * 256 * (16 // elem) >= n
+
+
+@pytest.mark.parametrize("n,elem,aligned", [(2 ** 26, 8, True), (2 ** 26 - 3, 4, True),
+                                            (2 ** 26, 2, True), (1, 2, True), (0, 4, True),
+                                            (2 ** 26, 4, False), (100003, 8, False)])
+def test_axpy_grid_takes_a_chunk_a_block_or_strides(n, elem, aligned):
+    """16-byte operands: one block a chunk of 256 vectors, every vector in
+    one pass; element loads: the reductions' grid-stride grid."""
+    blocks = blas1.axpy_blocks(n, elem, 132, aligned)
+    if not aligned:
+        assert blocks == blas1.grid_blocks(n, elem, sms=132)
+        return
+    chunk = 256 * (16 // elem)
+    assert blocks >= 1 and (blocks - 1) * chunk < max(n, 1) <= blocks * chunk

@@ -312,8 +312,9 @@ def test_kernels_count_their_launches(cuda):
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_dmma": 0, "gemm_ffma": 2, "bgemm_wgmma": 0,
-                                   "bgemm_dmma": 0, "bgemm_ffma": 2}
+                                   "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
+                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
+                                   "bgemm_ffma": 1}
 
 
 @pytest.mark.cuda
@@ -696,9 +697,16 @@ def _tc_operands(gen, batch, m, k, n, epi, weights=None):
     return a, b, kw
 
 
-def _routes():
+ROUTE_KEYS = ("gemm_wgmma", "gemm_ffma_sm90", "gemm_ffma", "bgemm_wgmma", "bgemm_ffma_sm90",
+              "bgemm_ffma")
+
+
+def _routes(**nonzero):
+    """launch_counts()'s gemm and bgemm routes but "dmma"; with keywords,
+    whether they equal those counts and zero elsewhere."""
     c = ops.launch_counts()
-    return {k: c[k] for k in ("gemm_wgmma", "gemm_ffma", "bgemm_wgmma", "bgemm_ffma")}
+    got = {k: c[k] for k in ROUTE_KEYS}
+    return got if not nonzero else got == {k: nonzero.get(k, 0) for k in ROUTE_KEYS}
 
 
 @pytest.mark.cuda
@@ -718,7 +726,7 @@ def test_wgmma_route_matches_plain(cuda, epi, batch, m, k, n):
     _against_plain(lambda: ops.bgemm(a, b, **kw), torch.bfloat16)
     kw2 = dict(kw, residual=kw["residual"].view(batch * m, n)) if "residual" in kw else kw
     _against_plain(lambda: ops.gemm(a.view(batch * m, k), b, **kw2), torch.bfloat16)
-    assert _routes() == {"gemm_wgmma": 1, "gemm_ffma": 0, "bgemm_wgmma": 1, "bgemm_ffma": 0}
+    assert _routes(gemm_wgmma=1, bgemm_wgmma=1), _routes()
 
 
 @pytest.mark.cuda
@@ -770,7 +778,7 @@ def test_unaligned_bf16_takes_the_ffma_route(cuda):
     ops.reset_launch_counts()
     _against_plain(lambda: ops.bgemm(ragged, b37), torch.bfloat16)
     _against_plain(lambda: ops.bgemm(shifted, b), torch.bfloat16)
-    assert _routes() == {"gemm_wgmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 2}
+    assert _routes(bgemm_ffma=2), _routes()
 
 
 @pytest.mark.cuda
@@ -826,7 +834,7 @@ def test_dmma_route_matches_plain(cuda, epi, m, k, n):
     assert gemm.plan(m, k, n, torch.float64, gate="b2" in kw).route == "dmma"
     ops.reset_launch_counts()
     _against_plain(lambda: ops.gemm(a, b, **kw), torch.float64)
-    assert _routes() == {"gemm_wgmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0, "bgemm_ffma": 0}
+    assert _routes(), _routes()
     assert ops.launch_counts()["gemm_dmma"] == 1
     first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
     torch.cuda.synchronize()
@@ -981,3 +989,132 @@ def test_a_launch_the_bgemv_kernel_refuses_raises(cuda):
             bgemv.run(w, x, out, p, **kw)
     bgemv.run(w, x, out, bgemv.Plan(32, 2, 128), **kw)
     torch.testing.assert_close(out, x @ w, **TOL[torch.float32])
+
+
+# --------------------------------------------------------------------------
+# the f32 GEMM on a TMA ring (csrc/gemm_f32.cu): the "ffma_sm90" route
+# --------------------------------------------------------------------------
+
+def _f32_operands(gen, m, k, n, epi, batch=None):
+    act, bias, gate, res = epi
+    a = _rand(gen, torch.float32, *((batch,) if batch else ()), m, k)
+    b = _rand(gen, torch.float32, k, n, std=k ** -0.5)
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = _rand(gen, torch.float32, k, n, std=k ** -0.5)
+    if bias:
+        kw["bias"] = _rand(gen, torch.float32, n)
+    if res:
+        kw["residual"] = _rand(gen, torch.float32, *((batch,) if batch else ()), m, n)
+    return a, b, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n", [(128, 64, 256),     # whole 128 x 128 tiles, two k-steps
+                                   (132, 128, 68),     # ragged M and N
+                                   (2048, 128, 2048),  # zamba2's LoRA merge
+                                   (70, 12, 36),       # K below one k-step (32)
+                                   (1, 100, 4)])       # one row, ragged K, N = 4
+def test_ffma_sm90_route_matches_plain(cuda, epi, m, k, n):
+    """Dense f32 with K and N multiples of 4: gemm, and bgemm over the same
+    rows split into a batch of 2 where m is even, each one launch on the
+    "ffma_sm90" route, within f32 TOL of the plain version, two launches
+    bitwise equal."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _f32_operands(cuda, m, k, n, epi)
+    assert gemm.plan(m, k, n, torch.float32, gate="b2" in kw).route == "ffma_sm90"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, b, **kw), torch.float32)
+    want = {"gemm_ffma_sm90": 1}
+    if m % 2 == 0:
+        kw3 = dict(kw, residual=kw["residual"].view(2, m // 2, n)) if "residual" in kw else kw
+        _against_plain(lambda: ops.bgemm(a.view(2, m // 2, k), b, **kw3), torch.float32)
+        want["bgemm_ffma_sm90"] = 1
+    assert _routes(**want), _routes()
+    first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,gate", [((128, 128), False), ((128, 64), False),
+                                       ((64, 64), False), ((128, 64), True), ((64, 64), True)])
+def test_ffma_sm90_every_tile_matches_plain(cuda, tile, gate):
+    """Every tile of the plan, without and with the gate, on a ragged (1100,
+    100) @ (100, 2052) + bias gelu [gate] + residual."""
+    from repro_torch.kernels import gemm
+    m, k, n = 1100, 100, 2052
+    a, b, kw = _f32_operands(cuda, m, k, n, ("gelu", True, gate, True))
+    out = torch.empty(m, n, device="cuda")
+    gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", tile), b2=kw.get("b2"), bias=kw["bias"],
+                   residual=kw["residual"], act_code=ops._ACTS["gelu"], m=m, k=k, n=n)
+    with ops.reference_mode():
+        want = ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_odd_unaligned_or_packed_f32_takes_the_ffma_route(cuda):
+    """Odd K, N % 4 != 0, an A one element off a 16-byte boundary and a
+    packed B: the first CUDA-core kernel, and the counts say so."""
+    a, a37 = _rand(cuda, torch.float32, 9, 64), _rand(cuda, torch.float32, 9, 37)
+    b, b37 = _rand(cuda, torch.float32, 64, 64, std=0.125), _rand(cuda, torch.float32, 37, 64)
+    b_n = _rand(cuda, torch.float32, 64, 66, std=0.125)
+    shifted = _rand(cuda, torch.float32, 9 * 64 + 1)[1:].view(9, 64)
+    qb = quant.quantize(_rand(cuda, torch.float32, 64, 64),
+                        quant.QuantSpec(16, None, transpose=True))
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a37, b37), torch.float32)
+    _against_plain(lambda: ops.gemm(a, b_n), torch.float32)
+    _against_plain(lambda: ops.gemm(shifted, b), torch.float32)
+    _against_plain(lambda: ops.gemm(a, qb), torch.float32)
+    assert _routes(gemm_ffma=4), _routes()
+    assert ops.launch_counts()["gemm_int8"] == 1
+
+
+@pytest.mark.cuda
+def test_a_launch_the_ffma_sm90_kernel_refuses_raises(cuda):
+    """Shapes, tiles and addresses the f32 ring kernel does not take come
+    back as an error code, and the wrapper raises: K % 4, the gate at BN =
+    128, a 64 x 128 tile (none such), an A off a 16-byte boundary."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.float32, 64, 32), _rand(cuda, torch.float32, 32, 64)
+    out = torch.empty(64, 64, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=64, k=32, n=64)
+    for plan, extra in ((gemm.Plan("ffma_sm90", (64, 64)), dict(b2=None, k=30)),
+                        (gemm.Plan("ffma_sm90", (128, 128)), dict(b2=b)),
+                        (gemm.Plan("ffma_sm90", (64, 128)), dict(b2=None))):
+        with pytest.raises(RuntimeError, match="f32 TMA-ring"):
+            gemm.ffma_sm90(a, b, out, plan, **dict(kw, **extra))
+    shifted = _rand(cuda, torch.float32, 64 * 32 + 1)[1:].view(64, 32)
+    with pytest.raises(RuntimeError, match="f32 TMA-ring"):
+        gemm.ffma_sm90(shifted, b, out, gemm.Plan("ffma_sm90", (64, 64)), b2=None, **kw)
+    gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", (64, 64)), b2=None, **kw)  # aligned
+    torch.testing.assert_close(out, a @ b, **TOL[torch.float32])
+
+
+# --------------------------------------------------------------------------
+# axpy (csrc/blas1.cu): bitwise the plain version
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("n,offset", [(2 ** 20, 0), (2 ** 20 - 3, 0), (100003, 1),
+                                      (2 ** 20, 1), (5, 0), (0, 0)])
+def test_axpy_is_bitwise_the_plain_version(cuda, dtype, n, offset):
+    """alpha * x + y rounds the product and the sum once each in the
+    accumulator type, as the plain version does: the same bits, on aligned
+    vectors (one block a chunk of 16-byte vectors, and the tail), ragged
+    ones and views one element in (element loads over the grid-stride
+    grid), one launch each."""
+    buf_x, buf_y = _rand(cuda, dtype, n + offset), _rand(cuda, dtype, n + offset)
+    x, y = buf_x[offset:], buf_y[offset:]
+    with ops.reference_mode():
+        want = ops.axpy(-1.75, x, y)
+    ops.reset_launch_counts()
+    got = ops.axpy(-1.75, x, y)
+    assert ops.launch_counts()["blas1_axpy"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

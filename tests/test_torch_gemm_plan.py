@@ -2,13 +2,15 @@
 
 The plan decides from the shape, the dtype and the addresses alone which
 kernel runs a GEMM: the bf16 tensor-core kernel (`csrc/gemm_sm90.cu`,
-"wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma") or the CUDA-core one
+"wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one
+on a TMA ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
 (`csrc/gemm.cu`, "ffma").  These tests hold it to its contract on the CPU:
 every served projection shape routes to "wgmma"; dense f64 with even K and
-N on 16-byte boundaries to "dmma"; f32, odd-K/N or unaligned f64 and bf16,
-and the packed forms the tensor cores do not take (every packed f64 call)
-route to "ffma"; the K slices cover K exactly in whole k-steps; the grid
-fills at least half the card or K is split.
+N on 16-byte boundaries to "dmma"; dense f32 with K and N multiples of 4 on
+16-byte boundaries to "ffma_sm90"; odd-K/N or unaligned f32, f64 and bf16,
+and the packed forms the tensor cores do not take (every packed f32 and f64
+call) route to "ffma"; the K slices cover K exactly in whole k-steps; the
+grid fills at least half the card or K is split.
 
 The split-K path sums f32 partials of each K slice in slice order and then
 applies the epilogue.  `_split_k_emulation` does that on the CPU, and is
@@ -72,7 +74,13 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 
 
 @pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned", [
-    (512, 2048, 2048, F32, False, None, True),       # TF32 would change the result
+    (512, 2047, 2048, F32, False, None, True),       # f32, odd K (TMA's 16-byte rows)
+    (512, 2046, 2048, F32, False, None, True),       # f32, K % 4
+    (512, 2048, 2046, F32, True, None, True),        # f32, N % 4, the gate
+    (4095, 4097, 4093, F32, False, None, True),      # the BLAS ragged f32 case
+    (512, 2048, 2048, F32, False, None, False),      # f32, a base address off 16 bytes
+    (512, 2048, 2048, F32, False, "kn", True),       # f32 activations, packed B
+    (512, 2048, 2048, F32, True, "nk-kblocks", True),
     (512, 2047, 2048, F64, False, None, True),       # f64, odd K (16-byte copies)
     (512, 2048, 2047, F64, True, None, True),        # f64, odd N
     (4095, 4097, 4093, F64, False, None, True),      # the BLAS ragged f64 case
@@ -92,6 +100,38 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
     p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
     assert p == gemm.Plan("ffma", gemm.FFMA_TILE[gate], 1)
+
+
+@pytest.mark.parametrize("m,k,n,gate", [(512, 2048, 2048, False),     # was an "ffma" case
+                                        (8192, 8192, 8192, False),    # the BLAS cell
+                                        (2048, 128, 2048, False),    # zamba2's LoRA merge
+                                        (4095, 4096, 4092, False),   # aligned ragged
+                                        (512, 2048, 5632, True),     # the gate
+                                        (28, 64, 64, False),         # f32 smoke prefill
+                                        (20, 8, 64, False),          # smoke LoRA, K = 8
+                                        (1, 4, 4, True),
+                                        (300, 4, 4, False)])
+def test_aligned_f32_routes_to_ffma_sm90(m, k, n, gate):
+    """Dense f32 with K and N multiples of 4 on 16-byte boundaries: the
+    CUDA-core kernel on the TMA ring, with the gate, on the largest tile
+    whose grid fills FILL of the card, else the smallest; no K split."""
+    p = gemm.plan(m, k, n, F32, gate=gate)
+    tiles = gemm.FFMA_SM90_GATE_TILES if gate else gemm.FFMA_SM90_TILES
+    assert p.route == "ffma_sm90" and p.splits == 1 and p.tile in tiles
+    larger = tiles[:tiles.index(p.tile)]
+    assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
+    assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
+
+
+def test_f32_plan_takes_the_large_tile_where_it_fills_the_card():
+    """8192^3 and the LoRA merge (256 tiles of 128 x 128) take 128 x 128;
+    512 prefill rows at N = 2048 take 128 tiles of 128 x 64; the f32 smoke
+    shapes take 64 x 64; the gate at 512 x 5632 takes 128 x 64."""
+    assert gemm.plan(8192, 8192, 8192, F32) == gemm.Plan("ffma_sm90", (128, 128), 1)
+    assert gemm.plan(2048, 128, 2048, F32) == gemm.Plan("ffma_sm90", (128, 128), 1)
+    assert gemm.plan(512, 2048, 2048, F32) == gemm.Plan("ffma_sm90", (128, 64), 1)
+    assert gemm.plan(28, 64, 296, F32) == gemm.Plan("ffma_sm90", (64, 64), 1)
+    assert gemm.plan(512, 2048, 5632, F32, gate=True) == gemm.Plan("ffma_sm90", (128, 64), 1)
 
 
 @pytest.mark.parametrize("m,k,n,gate", [(8192, 8192, 8192, False), (4095, 4098, 4094, False),

@@ -182,8 +182,9 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_dmma": 0, "gemm_ffma": 0, "bgemm_wgmma": 0,
-                                   "bgemm_dmma": 0, "bgemm_ffma": 0}
+                                   "gemm_dmma": 0, "gemm_ffma_sm90": 0, "gemm_ffma": 0,
+                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 0,
+                                   "bgemm_ffma": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
