@@ -161,14 +161,21 @@ def gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *,
 
 def batched_gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *,
                  alpha=1.0, beta=0.0, transpose_a: bool = False,
-                 transpose_b: bool = False, B2: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None,
+                 transpose_b: bool = False, out_dtype=None,
+                 B2: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None, epilogue=None) -> torch.Tensor:
     """C[b] = alpha * op(A[b]) op(B) + beta * C[b] with a 2-D B broadcast
-    across the batch (one bgemm launch), or the fused epilogue as `gemm`."""
+    across the batch (one bgemm launch), or the fused epilogue as `gemm`.
+    The result is in A's dtype; `out_dtype` (the reference's argument) may
+    be None or that dtype: a widened output needs the kernel to write it,
+    not a cast after it."""
     if B.ndim != 2:
         raise NotImplementedError(
             "batched_gemm: only a broadcast 2-D B is ported (ROADMAP §2: batched B)")
+    if out_dtype is not None and out_dtype != A.dtype:
+        raise NotImplementedError(
+            f"batched_gemm: out_dtype={out_dtype} with {A.dtype} operands is not ported "
+            "(ROADMAP §2: batched B)")
     return _gemm_like(ops.bgemm, "batched_gemm", A, B, C, alpha, beta, transpose_a,
                       transpose_b, B2, bias, residual, epilogue)
 

@@ -133,16 +133,16 @@ def _check_scope(cfg, scheduler, quantize, kv_cache, prefill_chunk, kv_page_size
             "attention block's LoRA merge adds an f32 delta to a packed wq, where the "
             "reference raises AttributeError (ROADMAP §3)")
     unported = [
-        (prefill_chunk is not None, "prefill_chunk", 2),
-        (speculate is not None, "speculate", 2),
-        (faults is not None, "faults", 2),
-        (deadline_ms is not None, "deadline_ms", 2),
-        (check_invariants, "check_invariants", 2),
-        (tp != 1, "tp > 1", 3),
+        (prefill_chunk is not None, "prefill_chunk", "serving options"),
+        (speculate is not None, "speculate", "serving options"),
+        (faults is not None, "faults", "serving options"),
+        (deadline_ms is not None, "deadline_ms", "serving options"),
+        (check_invariants, "check_invariants", "serving options"),
+        (tp != 1, "tp > 1", "tensor parallelism"),
     ]
-    for hit, what, item in unported:
+    for hit, what, label in unported:
         if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP §1 item {item})")
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP §1: {label})")
 
 
 def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,

@@ -255,6 +255,26 @@ def test_unported_forms_name_their_roadmap_item():
         blas.batched_gemv(a, torch.randn(2, 4), trans=True)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float64, torch.bfloat16, torch.float16])
+def test_batched_gemm_refuses_a_foreign_out_dtype(out_dtype):
+    """The reference's `out_dtype` argument: a dtype other than A's names
+    the ROADMAP label (the kernel writes A's dtype; a cast after it would
+    not be the reference's output)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP §2: batched B"):
+        blas.batched_gemm(torch.randn(2, 3, 4), torch.randn(4, 5), out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_batched_gemm_takes_out_dtype_none_or_its_own(out_dtype):
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    b = rng.standard_normal((4, 5)).astype(np.float32)
+    got = blas.batched_gemm(torch.from_numpy(a), torch.from_numpy(b), out_dtype=out_dtype)
+    want = jblas.batched_gemm(jnp.asarray(a), jnp.asarray(b), out_dtype=out_dtype and jnp.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("op", ["bgemv", "bgemm"])
 def test_serving_kernels_refuse_f64(op):
     """The serving kernels take f32 and bf16 only; f64 is the BLAS kernels'."""

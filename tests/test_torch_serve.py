@@ -76,6 +76,19 @@ def test_unported_options_raise():
             serve(ARCH, "smoke", requests=1, verbose=False, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("kw, label", [
+    ({"prefill_chunk": 4}, "ROADMAP §1: serving options"),
+    ({"speculate": 2}, "ROADMAP §1: serving options"),
+    ({"faults": "exhaust@0"}, "ROADMAP §1: serving options"),
+    ({"deadline_ms": 50.0}, "ROADMAP §1: serving options"),
+    ({"check_invariants": True}, "ROADMAP §1: serving options"),
+    ({"tp": 2}, "ROADMAP §1: tensor parallelism"),
+])
+def test_unported_options_name_their_roadmap_label(kw, label):
+    with pytest.raises(NotImplementedError, match=label):
+        serve(ARCH, "smoke", requests=1, verbose=False, device="cpu", **kw)
+
+
 def test_cli_runs_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
