@@ -6,7 +6,10 @@
 Phases, each printing one JSON line; any failure raises (nonzero exit):
 
 1. device  - nvidia-smi's name and power limit, torch's device name;
-2. build   - nvcc builds the kernels from csrc/, one process a file (timed);
+2. build   - nvcc builds the kernels from csrc/, one process a file (timed),
+             and beside them the designs two redesigns replaced
+             (scripts/replaced/: the packed GEMV's and WKV6's first
+             designs), each a library of its own, timed in phases 10 and 20;
    sass    - the HGMMA (wgmma) instructions cuobjdump finds in each
              tensor-core GEMM kernel (csrc/gemm_sm90.cu; none fails the
              run), with ptxas's registers, spills and notes and the kernel's
@@ -18,6 +21,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu); the
              FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
              with its ptxas registers and spills (none, or a spill, fails);
+             the HMMA (mma.sync) in csrc/qgemv.cu's tensor-core kernels (none
+             fails the run), ptxas's registers and spills for csrc/qgemv.cu
+             and csrc/rwkv6.cu;
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
              (bgemv and bgemm also at zamba2-1.2b's), in bf16 and f32, with
@@ -55,9 +61,12 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
 8. profile - torch.profiler over full-width decode steps: device time by
              kernel (attention's and bgemv's apart) and the device's idle
              share; one bgemv device launch a bgemv call (144 a stablelm
-             step, 240 rwkv6, 112 zamba2), or the run fails;
+             step, 240 rwkv6, 112 zamba2) and one qgemv device launch a
+             packed one (144 an int8 step), or the run fails;
              profile_prefill the same over full-width prefills (wall, device
-             busy, the tensor-core GEMM's and attention's shares); every
+             busy, the tensor-core GEMM's and attention's shares; for rwkv6,
+             profile_prefill_rwkv, the WKV6 kernels' ms and device launches,
+             three an ops.rwkv6 call or the run fails); every
              serve's attention launches are checked by route ("routes"
              lines: the bf16 serves' prefills on "mma" and decode steps on
              "splitkv", the f32 smoke serve's prefills on "ffma");
@@ -78,7 +87,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              operands, and ragged awkward-block cases; each counted as one
              launch of its packed kernel, held against its plain version,
              then timed beside its bound and the dense kernel at the same
-             shape;
+             shape; each packed GEMV also prints its plan
+             (`kernels.bgemv.plan_int8`: rows, K splits, columns), is held
+             bitwise against a second launch and timed beside the first
+             design (replaced_ms);
 11. quantize - `layers.quantize_weights` on the full stablelm-1.6b weights on
              the card, one layer bitwise equal to the CPU's quantize;
 12. smoke_int8 - the SMOKE serve with --quantize int8: kernels and plain
@@ -122,8 +134,11 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
 20. wkv6   - the chunked WKV6 kernel against its plain version: the prefill
              shape (BH=128, T=128, bf16 r/k/v, f32 w/u) from zero and from a
              state, long (T=4096), ragged (T=100), f32 at the smoke widths,
-             strong decay; each one launch, y and the final state within
-             TOL, timed beside its bound, its exp count and the plain version;
+             strong decay; each one launch (three device launches), y and
+             the final state within TOL, bitwise a second launch, timed
+             beside its bound (and the bound with the design's workspace
+             traffic), its exp count, the plain version and the serial first
+             design (replaced_ms);
 21. rwkv_kernels - bgemv and bgemm at the shapes rwkv6-1.6b adds (the decay
              LoRA 2048->64->2048, the channel mix 2048<->7168), decode and
              prefill, against their plain versions, timed;
@@ -376,7 +391,7 @@ def phase_sass(lib: Path) -> dict:
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    hgmma, hmma, dmma, ffma, fn = {}, {}, {}, {}, None
+    hgmma, hmma, dmma, ffma, qhmma, fn = {}, {}, {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -389,6 +404,8 @@ def phase_sass(lib: Path) -> dict:
                 dmma[_f64_name(fn)] = 0
             elif _f32_name(fn):
                 ffma[_f32_name(fn)] = 0
+            elif "qgemv_tc_kernel" in fn:
+                qhmma["gate" if "Lb1E" in fn else "plain"] = 0
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
         elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
@@ -397,9 +414,12 @@ def phase_sass(lib: Path) -> dict:
             dmma[_f64_name(fn)] += 1
         elif fn and _f32_name(fn) in ffma and re.search(r"\bFFMA\b", line):
             ffma[_f32_name(fn)] += 1
+        elif fn and "qgemv_tc_kernel" in fn and re.search(r"\bHMMA\b", line):
+            qhmma["gate" if "Lb1E" in fn else "plain"] += 1
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
     ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, f32_ptxas = {}, {}, {}, {}, {}
+    qgemv_ptxas, wkv6_ptxas = {}, {}
     notes, entry = [], None
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -415,6 +435,10 @@ def phase_sass(lib: Path) -> dict:
                 entry = f32_ptxas[_f32_name(fn)] = {}
             elif "bgemv_kernel" in fn:
                 entry = bgemv_ptxas[re.sub(r".*bgemv_kernelI", "", fn)[:24]] = {}
+            elif re.search(r"qgemv\w*_kernel", fn):
+                entry = qgemv_ptxas[re.sub(r".*(qgemv\w*_kernel)I", r"\1 ", fn)[:40]] = {}
+            elif "wkv6_" in fn:
+                entry = wkv6_ptxas[re.sub(r".*(wkv6_\w+?_kernel)", r"\1", fn)[:40]] = {}
             elif _attn_name(fn):
                 name = _attn_name(fn)
                 entry = attn_ptxas[name] = {}
@@ -462,6 +486,11 @@ def phase_sass(lib: Path) -> dict:
          ffma_total=sum(ffma.values()), ffma_per_kernel=ffma,
          ptxas=f32_ptxas or "not built in this process", f32_spill_bytes=f32_spills)
     (OUT / "sass_ffma.json").write_text(json.dumps({"ffma": ffma, "ptxas": f32_ptxas}, indent=1))
+    emit("sass", what="HMMA in csrc/qgemv.cu's tensor-core kernels (cuobjdump -sass); ptxas "
+         "for csrc/qgemv.cu's and csrc/rwkv6.cu's kernels", qgemv_tc_hmma=qhmma,
+         qgemv_ptxas=qgemv_ptxas, wkv6_ptxas=wkv6_ptxas)
+    if len(qhmma) != 2 or min(qhmma.values()) == 0:
+        raise AssertionError(f"packed GEMV tensor-core kernels without HMMA: {qhmma}")
     if not ffma or min(ffma.values()) == 0:
         raise AssertionError(f"f32 ring kernels without FFMA: {ffma}")
     if any(f32_spills.values()):
@@ -506,6 +535,75 @@ def ffma_launch(a, b, *, b2=None, bias=None, residual=None, activation=None):
     if err:
         raise RuntimeError(f"ffma_launch: CUDA error {err}")
     return out
+
+
+REPLACED_DIR = HERE / "scripts" / "replaced"
+_replaced = {}
+
+
+def replaced_build_start() -> list:
+    """Start nvcc on each design a redesign replaced (scripts/replaced/*.cu,
+    kept to be timed beside its successor in the same run), one process a
+    file beside the port's own build; each into build/replaced/ as a shared
+    library of its own."""
+    from repro_torch.kernels import _build
+    out = HERE / "build" / "replaced"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sorted(REPLACED_DIR.glob("*.cu")):
+        lib = out / f"lib{src.stem}.so"
+        cmd = [_build._nvcc(), *[f for f in _build.FLAGS if f != "-v" and f != "-Xptxas"],
+               "-shared", "-I", str(_build.CSRC), str(src), "-o", str(lib)]
+        jobs.append((lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    return jobs
+
+
+def replaced_build_finish(jobs: list) -> list:
+    """Wait for replaced_build_start's nvcc processes; load each library."""
+    for lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{log}")
+        _replaced[lib.stem[3:]] = ctypes.CDLL(str(lib))
+    return sorted(_replaced)
+
+
+def replaced_qgemv(qw, x, *, qw2=None, bias=None, residual=None, activation=None):
+    """The packed GEMV's first design (scripts/replaced/qgemv_rows4.cu: 4
+    rows a block, x read beside every weight chunk) on the same operands,
+    counted nowhere: y (B, N) in x's dtype from x (B, K)."""
+    from repro_torch.kernels import _build, ops
+    fn = _replaced["qgemv_rows4"].qgemv_rows4_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    n, k = qw.values.shape
+    out = torch.empty(x.shape[0], n, dtype=x.dtype, device=x.device)
+    err = fn(ops._DTYPE_CODES[x.dtype], qw.values.data_ptr(), qw.scales.data_ptr(),
+             None if qw2 is None else qw2.values.data_ptr(),
+             None if qw2 is None else qw2.scales.data_ptr(), x.data_ptr(), _build.ptr(bias),
+             _build.ptr(residual), out.data_ptr(), x.shape[0], k, n, qw.block[0], qw.block[1],
+             ops._ACTS[activation], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"replaced_qgemv: CUDA error {err}")
+    return out
+
+
+def replaced_rwkv6(r, k, v, w, u, s0=None, chunk: int = 32):
+    """WKV6's first design (scripts/replaced/rwkv6_serial.cu: a block a row
+    walking the chunks in series) on the same operands, counted nowhere."""
+    from repro_torch.kernels import _build, ops
+    fn = _replaced["rwkv6_serial"].rwkv6_serial_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bh, t, kk = r.shape
+    vv = v.shape[-1]
+    y = torch.empty(bh, t, vv, dtype=r.dtype, device=r.device)
+    s_fin = torch.empty(bh, kk, vv, dtype=torch.float32, device=r.device)
+    err = fn(ops._DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(), bh, t, kk, vv,
+             min(chunk, t), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"replaced_rwkv6: CUDA error {err}")
+    return y, s_fin
 
 
 def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None) -> dict:
@@ -859,9 +957,10 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     tokens): the wall clock per step without the profiler, then
     torch.profiler over the same steps for device time per kernel name;
     the idle share is 1 - device busy / wall.  Fails unless the device runs
-    one bgemv kernel a bgemv call (csrc/bgemv.cu combines its K splits in
-    the same launch) and, where `bgemv_per_step` is given, the profiled
-    steps call bgemv that many times a step."""
+    one bgemv kernel a bgemv call and one qgemv kernel a packed bgemv call
+    (csrc/bgemv.cu and csrc/qgemv.cu combine their K splits in the same
+    launch) and, where `bgemv_per_step` is given, the profiled steps call
+    bgemv that many times a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
@@ -880,21 +979,27 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
         _, cache = tf.decode_step(params, tok, cache, cfg)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    calls_before = ops.launch_counts()["bgemv"]
+    before = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             _, cache = tf.decode_step(params, tok, cache, cfg)
         torch.cuda.synchronize()
-    bgemv_calls = (ops.launch_counts()["bgemv"] - calls_before) / steps
+    after = ops.launch_counts()
+    bgemv_calls = (after["bgemv"] - before["bgemv"]) / steps
+    int8_calls = (after["bgemv_int8"] - before["bgemv_int8"]) / steps
     # device-side events only (kernels, copies): aten ops would count twice
     by_name = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     bgemv_launches = sum(n for k, (_, n) in by_name.items() if "bgemv_kernel" in k)
+    qgemv_launches = sum(n for k, (_, n) in by_name.items() if re.search(r"qgemv\w*_kernel", k))
     emit(phase, what="full-width decode step, batch 4, 128 cached tokens",
          bgemv_calls_per_step=bgemv_calls, bgemv_device_launches_per_step=bgemv_launches,
          bgemv_ms_per_step=sum(ms for k, (ms, _) in by_name.items() if "bgemv_kernel" in k),
+         qgemv_calls_per_step=int8_calls, qgemv_device_launches_per_step=qgemv_launches,
+         qgemv_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
+                               if re.search(r"qgemv\w*_kernel", k)),
          kv_cache=cfg.kv_cache_dtype, wall_ms_per_step=wall_ms,
          attention_ms_per_step=sum(ms for k, (ms, _) in by_name.items()
                                    if re.search(r"attention\w*_kernel", k)),
@@ -912,15 +1017,20 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     if bgemv_launches != bgemv_calls or bgemv_per_step not in (None, bgemv_calls):
         raise AssertionError(f"{phase}: {bgemv_calls} bgemv calls a decode step (want "
                              f"{bgemv_per_step}) ran {bgemv_launches} device launches")
+    if qgemv_launches != int8_calls:
+        raise AssertionError(f"{phase}: {int8_calls} packed bgemv calls a decode step ran "
+                             f"{qgemv_launches} qgemv device launches")
 
 
 def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_prefill"):
     """Where a full-width prefill's time goes (batch 4, 128 prompt tokens):
     its wall clock without the profiler, then torch.profiler over the same
-    prefills for device time per kernel name (the tensor-core GEMM's and
-    the rest) and the device's idle share."""
+    prefills for device time per kernel name (the tensor-core GEMM's, the
+    WKV6 kernels' and the rest) and the device's idle share.  Fails unless
+    every ops.rwkv6 call ran its kernels' DEVICE_LAUNCHES device launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops, rwkv6
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(9)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
@@ -935,16 +1045,23 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
         prefill()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    before = ops.launch_counts()["rwkv6"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             prefill()
         torch.cuda.synchronize()
+    rwkv6_calls = (ops.launch_counts()["rwkv6"] - before) / reps
     by_name = {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    wkv6 = {k: (ms, n) for k, (ms, n) in by_name.items() if "wkv6_" in k}
+    wkv6_launches = sum(n for _, n in wkv6.values())
     emit(phase, what=f"full-width prefill, batch 4, 128 prompt tokens, {cfg.arch_id}",
-         wall_ms_per_prefill=wall_ms,
+         wall_ms_per_prefill=wall_ms, rwkv6_calls_per_prefill=rwkv6_calls,
+         wkv6_device_launches_per_prefill=wkv6_launches,
+         wkv6_ms_per_prefill=sum(ms for ms, _ in wkv6.values()),
+         wkv6_by_kernel={k[:60]: {"ms": ms, "launches": n} for k, (ms, n) in wkv6.items()},
          tensor_core_gemm_ms=sum(ms for k, (ms, _) in by_name.items()
                                  if "gemm_tc_kernel" in k or "splitk_epilogue" in k),
          attention_ms_per_prefill=sum(ms for k, (ms, _) in by_name.items()
@@ -956,6 +1073,10 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
          device_events_per_prefill=sum(n for _, n in by_name.values()),
          top=[{"name": k[:90], "ms_per_prefill": ms, "calls_per_prefill": n}
               for k, (ms, n) in top])
+    if wkv6_launches != rwkv6.DEVICE_LAUNCHES * rwkv6_calls:
+        raise AssertionError(f"{phase}: {rwkv6_calls} rwkv6 calls a prefill ran "
+                             f"{wkv6_launches} device launches (want "
+                             f"{rwkv6.DEVICE_LAUNCHES} a call)")
 
 
 # --------------------------------------------------------------------------
@@ -1174,12 +1295,19 @@ SERVE_SPEC = dict(block_m=64, block_n=None)   # layers.quantize_weights' spec
 AWKWARD_SPEC = dict(block_m=61, block_n=None)  # _fit_block shrinks 61 to a divisor
 
 
+def int8_plan(b: int, k: int, n: int, dtype, gate: bool) -> dict:
+    """kernels.bgemv.plan_int8 of a packed GEMV case, as a dict."""
+    from repro_torch.kernels import bgemv
+    return dataclasses.asdict(bgemv.plan_int8(b, k, n, dtype, gate=gate))
+
+
 def quant_cases():
     """(packed kernel counter, dense counter, case, dtype, make, route key)
     for every int8 case; make() builds the inputs from a seeded generator and
     returns (call through core.blas, the same call on the dense weight,
     bytes, flops, ffma: csrc/gemm.cu's int8-B kernel on the same inputs where
-    the tensor cores run the call).  Bytes count the int8 values, the f32
+    the tensor cores run the call, replaced: the packed GEMV's first design
+    on the same inputs where the call runs csrc/qgemv.cu).  Bytes count the int8 values, the f32
     scales, the activations and the output once each.  The route key is the
     launch count each call adds beside its kernel's: bf16 GEMMs over the
     serving layout ("nk", one scale block across K) on the tensor cores, the
@@ -1218,14 +1346,19 @@ def quant_cases():
                 extra = nbytes(b, r)
             qw = pack(w, spec, True)
             out = 4 * rows * f * x.element_size()
-            ffma = None
+            ffma = replaced = None
             if rows > 1 and dtype == torch.bfloat16:
                 fkw = {("b2" if k == "w2" else k): v for k, v in kw.items()}
                 ffma = lambda: ffma_launch(x, qw, **fkw)  # noqa: E731
+            if rows == 1:
+                rkw = {("qw2" if k == "w2" else k): (v.reshape(4, f) if k == "residual" else v)
+                       for k, v in kw.items()}
+                replaced = lambda: replaced_qgemv(qw, x.reshape(4, d), **rkw)  # noqa: E731
             return (lambda: blas.matmul_fused(x, qw, **kw),
                     lambda: blas.matmul_fused(x, w, **dense_kw),
                     nbytes(x, qw.values, qw.scales) + extra + out,
-                    2 * 4 * rows * d * f * (2 if epi == "gate" else 1), ffma)
+                    2 * 4 * rows * d * f * (2 if epi == "gate" else 1), ffma, replaced,
+                    int8_plan(4, d, f, dtype, epi == "gate") if rows == 1 else None)
         return make
 
     def gemm_case(dtype, m, k, n, seed, transpose, spec=SERVE_SPEC, epi=False):
@@ -1242,7 +1375,7 @@ def quant_cases():
                 ffma = lambda: ffma_launch(a, qb)  # noqa: E731
             return (lambda: blas.gemm(a, qb, **kw), lambda: blas.gemm(a, b, **kw),
                     nbytes(a, qb.values, qb.scales) + extra + m * n * a.element_size(),
-                    2 * m * n * k, ffma)
+                    2 * m * n * k, ffma, None, None)
         return make
 
     def gemv_case(dtype, m, n, seed, spec=SERVE_SPEC):
@@ -1251,7 +1384,8 @@ def quant_cases():
             a, x = rnd(g, dtype, m, n, std=n ** -0.5), rnd(g, dtype, n)
             qa = pack(a, spec, False)
             return (lambda: blas.gemv(qa, x), lambda: blas.gemv(a, x),
-                    nbytes(qa.values, qa.scales, x) + m * x.element_size(), 2 * m * n, None)
+                    nbytes(qa.values, qa.scales, x) + m * x.element_size(), 2 * m * n, None,
+                    lambda: replaced_qgemv(qa, x[None]), int8_plan(1, n, m, dtype, False))
         return make
 
     bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
@@ -1294,13 +1428,15 @@ def phase_quant_kernels():
     """Drive every int8 case once through core.blas with the launch counts
     reset just before (each call must add exactly one launch to its packed
     kernel's count), hold it against its plain version, then time it beside
-    its bound, its plain version and the dense kernel at the same shape."""
+    its bound, its plain version, the dense kernel at the same shape and,
+    for a packed GEMV, the design it replaced (`replaced_ms`) and its plan;
+    a split plan's launch is held bitwise against a second launch."""
     from repro_torch.kernels import ops
     cases = quant_cases()
     errs = []
     ops.reset_launch_counts()
     for kernel, _, case, dtype, make, route in cases:
-        call, _, _, _, _ = make()
+        call = make()[0]
         before = ops.launch_counts()
         got = call()
         after = ops.launch_counts()
@@ -1329,21 +1465,33 @@ def phase_quant_kernels():
 
     rows = {}
     for (kernel, dense, case, dtype, make, route), (err, ok) in zip(cases, errs):
-        call, dense_call, nb, flops, ffma = make()
+        call, dense_call, nb, flops, ffma, replaced, plan = make()
+        same = replaced_err = None
+        if replaced is not None:  # the packed GEMV: two launches' bits, its first design
+            got = call()
+            same = split_deterministic(call, got)
+            replaced_err = (replaced().double() - got.reshape(-1, got.shape[-1]).double()
+                            ).abs().max().item()
+            del got
         ms = time_auto(call)
         with ops.reference_mode():
             plain_ms = time_auto(call)
         dense_ms = time_auto(dense_call)
         ffma_ms = time_auto(ffma) if ffma is not None else None
+        replaced_ms = time_auto(replaced) if replaced is not None else None
         b_ms, by = bound(nb, flops, dtype)
         row = dict(kernel=kernel, case=case, dtype=str(dtype).split(".")[1], route=route,
                    max_abs_err=err, tol=TOL[dtype], within_tol=ok, kernel_ms=ms,
                    plain_ms=plain_ms, ffma_ms=ffma_ms, dense_kernel=dense,
-                   dense_ms=dense_ms, bound_ms=b_ms, bound_by=by,
-                   share_of_bound=b_ms / ms, bytes=nb, flops=flops)
+                   dense_ms=dense_ms, replaced_ms=replaced_ms,
+                   replaced="scripts/replaced/qgemv_rows4.cu" if replaced else None,
+                   replaced_max_abs_diff=replaced_err, plan=plan, bitwise_deterministic=same,
+                   bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops)
         emit("quant_kernels", **row)
         rows[(kernel, case, row["dtype"])] = row
-        del call, dense_call, ffma
+        if same is False:
+            raise AssertionError(f"int8 [{case}] {dtype}: two launches differ")
+        del call, dense_call, ffma, replaced
     return rows, counts
 
 
@@ -1921,13 +2069,15 @@ def wkv6_inputs(bh, t, kk, dtype, with_s0, decay, seed):
 
 
 def state_kernel_case(phase: str, kernel: str, label: str, call, dtype, chunk: int,
-                      nb: int, flops: int, **extra) -> dict:
+                      nb: int, flops: int, replaced=None, **extra) -> dict:
     """One case of a chunked-recurrence kernel (`kernel`, an ops function
     returning (y, final f32 state)): run once with the counts reset (one
     launch), y against the plain version within the y dtype's TOL and the
     state within f32 TOL, then timed (cold L2, median) beside its bound (nb
-    bytes, flops f32 operations) and the plain version.  No PyTorch call
-    computes either recurrence (library: none)."""
+    bytes, flops f32 operations), the plain version and, where given, the
+    design the kernel replaced (`replaced`, same inputs: `replaced_ms`); a
+    second launch must give the same bits.  No PyTorch call computes either
+    recurrence (library: none)."""
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     y, s_fin = call()
@@ -1939,39 +2089,61 @@ def state_kernel_case(phase: str, kernel: str, label: str, call, dtype, chunk: i
     ok = (finite and y.dtype == dtype and s_fin.shape == want_s.shape
           and torch.allclose(y.float(), want_y.float(), **TOL[dtype])
           and torch.allclose(s_fin, want_s, **TOL[torch.float32]))
+    again_y, again_s = call()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y, again_y)) and bool(torch.equal(s_fin, again_s))
+    del again_y, again_s
     fields = dict(case=label, dtype=str(dtype).split(".")[1], chunk=chunk,
                   max_abs_err_y=(y.float() - want_y.float()).abs().max().item(),
                   max_abs_y=want_y.float().abs().max().item(), tol_y=TOL[dtype],
                   max_abs_err_state=(s_fin - want_s).abs().max().item(),
                   max_abs_state=want_s.abs().max().item(), tol_state=TOL[torch.float32],
-                  all_finite=finite, within_tol=ok, launches_added=launched)
-    if not ok or launched != 1:
+                  all_finite=finite, within_tol=ok, launches_added=launched,
+                  bitwise_deterministic=same)
+    if not ok or launched != 1 or not same:
         emit(phase, **fields)
         raise AssertionError(f"{phase} [{label}]: within_tol={ok}, finite={finite}, "
-                             f"{launched} {kernel} launches (want 1)")
+                             f"{launched} {kernel} launches (want 1), second launch same: "
+                             f"{same}")
     del y, s_fin, want_y, want_s
     ms = time_auto(call)
     with ops.reference_mode():
         plain_ms = time_auto(call)
+    replaced_ms = time_auto(replaced) if replaced is not None else None
     b_ms, by = bound(nb, flops, torch.float32)
-    row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops, **extra)
+    row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, replaced_ms=replaced_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+               bytes=nb, flops=flops, **extra)
     emit(phase, **row)
     return row
 
 
 def phase_wkv6():
-    """Each WKV6 case through state_kernel_case, with its exp count."""
-    from repro_torch.kernels import ops
+    """Each WKV6 case through state_kernel_case, with its exp count, the
+    serial first design's time on the same inputs, its blocks (the states
+    and outputs launches: a block a row and chunk), its device launches and
+    a second bound that adds the design's own traffic
+    (bound_with_workspace_ms): the second read of k, v and w_log, and the
+    workspace's per-chunk states and decays, written once, then read and
+    rewritten by the scan and read by the outputs launch."""
+    from repro_torch.kernels import ops, rwkv6
     rows = {}
     for i, (label, bh, t, kk, dtype, with_s0, decay, chunk) in enumerate(WKV6_CASES):
         r, k, v, w, u, s0 = wkv6_inputs(bh, t, kk, dtype, with_s0, decay, 200 + i)
         nb = nbytes(r, k, v, w, u, s0) + r.numel() * r.element_size() + bh * kk * kk * 4
         flops, exps = wkv6_work(bh, t, kk, kk, chunk)
+        ds_shape, _ = rwkv6.workspace_shapes(bh, t, kk, kk, chunk)
+        # 4 passes over the states and decays: written, scanned (read and
+        # rewritten), read by the outputs launch
+        ws_bytes = 4 * 4 * bh * ds_shape[1] * kk * (kk + 1) + nbytes(k, v, w)
         rows[label] = state_kernel_case(
             "wkv6", "rwkv6", label, lambda: ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk),
-            dtype, chunk, nb, flops, exp_evaluations=exps,
-            sfu_exp_ms=exps / SFU_EXP_S * 1e3)
+            dtype, chunk, nb, flops,
+            replaced=lambda: replaced_rwkv6(r, k, v, w, u, s0=s0, chunk=chunk),
+            replaced_design="scripts/replaced/rwkv6_serial.cu", exp_evaluations=exps,
+            sfu_exp_ms=exps / SFU_EXP_S * 1e3, blocks_per_launch=bh * ds_shape[1],
+            device_launches_per_call=rwkv6.DEVICE_LAUNCHES, workspace_bytes=ws_bytes,
+            bound_with_workspace_ms=bound(nb + ws_bytes, flops, torch.float32)[0])
         del r, k, v, w, u, s0
     return rows
 
@@ -2525,9 +2697,11 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
+    replaced_jobs = replaced_build_start()
     lib = _build.build()
+    replaced = replaced_build_finish(replaced_jobs)
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
-         library=str(lib.relative_to(HERE)))
+         library=str(lib.relative_to(HERE)), replaced_designs=replaced)
     (OUT / "ptxas.txt").write_text(_build.build_log)
     phase_sass(lib)
 
@@ -2601,6 +2775,7 @@ def main() -> int:
             limits={"out": RWKV_TF_OUT_TOL, "state": RWKV_TF_STATE_TOL},
             margin=RWKV_E2E_MARGIN, check=check_rwkv_launches)
         phase_profile(rwkv_params, rwkv_cfg, 10 * rwkv_cfg.n_layers, phase="profile_rwkv")
+        phase_profile_prefill(rwkv_params, rwkv_cfg, phase="profile_prefill_rwkv")
         del rwkv_params
         ssd_rows = phase_ssd()
         phase_smoke_batch(ZAMBA, "smoke_zamba", check_zamba_launches)
@@ -2717,7 +2892,9 @@ def main() -> int:
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "dense_ms": r["dense_ms"], "ffma_ms": r["ffma_ms"], "shape": case,
-                        "dtype": dtype})
+                        "dtype": dtype,
+                        **({"replaced_ms": r["replaced_ms"], "plan": r["plan"]}
+                           if r["replaced_ms"] is not None else {})})
     # the int8 and paged forms of the attention kernel: launches from the
     # paged bf16 serve and the int8-KV serve (bf16 weights, dense cache)
     kv_sources = {
@@ -2737,14 +2914,20 @@ def main() -> int:
                         "dense_ms": r["dense_kernel_ms"], "ffma_ms": r["ffma_ms"],
                         "shape": case, "dtype": "bfloat16", "attention_route": r["route"]})
     # the WKV6 kernel: the prefill case's times, launches from the rwkv serve
-    r = wkv6_rows[WKV6_CASES[0][0]]
+    # (ops.rwkv6 calls; each runs DEVICE_LAUNCHES device launches), the long
+    # case's time beside it
+    r, long_r = wkv6_rows[WKV6_CASES[0][0]], wkv6_rows[WKV6_CASES[2][0]]
     summary.append({"name": "rwkv6", "route": "cuda", "source": "src/repro_torch/csrc/rwkv6.cu",
                     "replaces": "src/repro/kernels/rwkv6.py:99",
                     "launches": rwkv_counts["rwkv6"], "max_abs_err": r["max_abs_err_y"],
                     "max_abs_err_state": r["max_abs_err_state"], "ms": r["kernel_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None, "shape": r["case"],
-                    "dtype": "bfloat16"})
+                    "dtype": "bfloat16", "replaced_ms": r["replaced_ms"],
+                    "device_launches_per_call": r["device_launches_per_call"],
+                    "bound_with_workspace_ms": r["bound_with_workspace_ms"],
+                    "long_shape": long_r["case"], "long_ms": long_r["kernel_ms"],
+                    "long_replaced_ms": long_r["replaced_ms"], "long_bound_ms": long_r["bound_ms"]})
     # the SSD kernel: the prefill case's times, launches from the zamba serve
     r = ssd_rows[SSD_CASES[0][0]]
     summary.append({"name": "mamba2_ssd", "route": "cuda",

@@ -10,6 +10,7 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py axpy
     PYTHONPATH=TREE/src:TREE python3 scripts/torch_gemm_study.py axpy
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py host
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py qgemv
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -63,6 +64,16 @@ host: the host's time to issue one ops.gemm at zamba2's LoRA merge shape
 (2048, 128) @ (128, 2048) in f32 (what a host-bound serve pays for each of
 its 18 merges a forward): 100 calls without a sync, median of 7 runs; with
 TREE first on the path as for axpy.
+
+qgemv: the packed int8 GEMV (csrc/qgemv.cu) at one block (4 x 128 -> 16:
+the time of a launch that moves nearly nothing), at stablelm-1.6b's int8
+decode projections (batch 4, bf16 x, the serving spec's one scale a row)
+and the BLAS gemv 16384^2 (batch 1, f32 and f64 x) under K splits from one
+to 8 on the plan's route (on the tensor cores with 4 and 8 warps a block),
+each checked against the plain version; beside the plan's
+choice, the dense bgemv on the same weights in bf16 and the first packed
+design (scripts/replaced/qgemv_rows4.cu).  `bgemv.INT8_BLOCKS_PER_SM` comes
+from these.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
@@ -210,6 +221,63 @@ def bgemv_sweep():
                           "fastest": min(us, key=us.get), "us": us,
                           "matmul_us": cs.time_ms(lib) * 1e3,
                           "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
+
+
+QGEMV_SHAPES = [  # (what, batch, K, N, gate, x dtype)
+    ("one block", 4, 128, 16, False, torch.bfloat16),  # the launch's floor
+    ("qkv", 4, 2048, 2048, False, torch.bfloat16), ("gate+up", 4, 2048, 5632, True, torch.bfloat16),
+    ("down", 4, 5632, 2048, False, torch.bfloat16),
+    ("gemv 16384^2 f32", 1, 16384, 16384, False, torch.float32),
+    ("gemv 16384^2 f64", 1, 16384, 16384, False, torch.float64)]
+
+
+def qgemv_sweep():
+    from repro_torch.core import quant
+    from repro_torch.kernels import bgemv, ops
+    cs.replaced_build_finish(cs.replaced_build_start())
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for what, b, k, n, gate, dt in QGEMV_SHAPES:
+        spec = quant.QuantSpec(64, None, transpose=True)
+        w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        w2 = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5 if gate else None
+        qw, qw2 = quant.quantize(w, spec), quant.quantize(w2, spec) if gate else None
+        x = torch.randn(b, k, generator=g, device="cuda").to(dt)
+        act = "silu" if gate else None
+        with ops.reference_mode():
+            want = ops.bgemv(qw, x, a2=qw2, activation=act)
+        out = torch.empty(b, n, dtype=dt, device="cuda")
+        chosen = bgemv.plan_int8(b, k, n, dt, gate=gate)
+        us = {}
+        plans = []
+        for splits in (1, 2, 3, 4, 6, 8):
+            cols = k if splits == 1 else bgemv._cdiv(bgemv._cdiv(k, splits), 16) * 16
+            for warps in ((4, 8) if chosen.route == "tc" else (8,)):
+                p = bgemv.Int8Plan(chosen.route, chosen.rows, bgemv._cdiv(k, cols), cols, warps)
+                if p.x_bytes(b, dt) <= bgemv.INT8_MAX_X_BYTES and p not in plans:
+                    plans.append(p)
+        for p in plans:
+
+            def call(p=p):
+                return bgemv.run_int8(qw, x, out, p, qw2=qw2, bias=None, residual=None,
+                                      act_code=ops._ACTS[act], dtype_code=ops._DTYPE_CODES[dt])
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
+                raise AssertionError(f"qgemv: {p} at {what} disagrees with plain")
+            us[f"{p.splits}x{p.cols} w{p.warps} ({p.blocks(b, n)} blocks)"] = cs.time_ms(call) * 1e3
+        row = {"shape": f"{what} {b}x{k}->{n}" + (" gate" if gate else ""),
+               "plan": f"{chosen.route} {chosen.splits}x{chosen.cols} w{chosen.warps}",
+               "fastest": min(us, key=us.get),
+               "us": us, "first_design_us": cs.time_ms(
+                   lambda: cs.replaced_qgemv(qw, x, qw2=qw2, activation=act)) * 1e3,
+               "bound_us": (qw.values.numel() * (2 if gate else 1) + x.numel() * x.element_size()
+                            + b * n * x.element_size()) / cs.HBM_BYTES_S * 1e6}
+        if dt == torch.bfloat16:
+            wd, w2d = w.to(dt), (w2.to(dt) if gate else None)
+            row["dense_bgemv_us"] = cs.time_ms(
+                lambda: ops.bgemv(wd, x, a2=w2d, activation=act)) * 1e3
+        print(json.dumps(row), flush=True)
 
 
 def flush():
@@ -377,7 +445,7 @@ def witness(with_ffma: bool):
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
-            "host": host}
+            "host": host, "qgemv": qgemv_sweep}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

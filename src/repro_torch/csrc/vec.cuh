@@ -57,16 +57,36 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// 16 int8 values -> float, exact: bias each byte to unsigned (xor 0x80),
-// place it in the mantissa of 2^23 and subtract 2^23 + 128.
+// The 4 int8 values of a 32-bit word -> float, exact: bias each byte to
+// unsigned (xor 0x80), place it in the mantissa of 2^23 and subtract
+// 2^23 + 128.
+__device__ __forceinline__ void unpack_i8x4(uint32_t w, float (&f)[4]) {
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + e)) - 8388736.f;
+}
+
+// The same into double (the byte in the mantissa of 2^52): no F2F.F64.F32,
+// whose quarter rate would compete with the DFMAs of an f64 GEMV.
+__device__ __forceinline__ void unpack_i8x4(uint32_t w, double (&f)[4]) {
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __hiloint2double(0x43300000, static_cast<int>(__byte_perm(w, 0u, 0x4440u + e))) -
+           4503599627370624.0;
+}
+
+// 16 int8 values -> float, exact (unpack_i8x4 on each word).
 __device__ __forceinline__ void unpack_i8(const uint4& r, float (&f)[16]) {
-  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
-                         r.w ^ 0x80808080u};
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 4; ++j) {
+    float g[4];
+    unpack_i8x4(w[j], g);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f[4 * j + e] = __int_as_float(__byte_perm(w[j], 0x4B000000u, 0x7540u + e)) - 8388736.f;
+    for (int e = 0; e < 4; ++e) f[4 * j + e] = g[e];
+  }
 }
 
 // One 16-byte load through the read-only path, unpacked.

@@ -11,11 +11,13 @@ column tile sums in split order before the epilogue).  `plan` picks the
 split from the shapes alone.
 
 The packed form (`_bgemv_kernel`'s int8 body, bgemv.py:80-83) is
-`csrc/qgemv.cu`: W is a `core.quant.QuantizedTensor` stored output-major
-(N, K), so each output is one dot over a stored row, dequantized in the
-accumulator type.  `launch_int8` binds it (with its own launch count) and
-`reference_int8` is its plain version; `kernels/gemv.py` reaches the same
-kernel at batch 1 through `qgemv`.
+`csrc/qgemv.cu`, one launch a call: W is a `core.quant.QuantizedTensor`
+stored output-major (N, K), so each output is one dot over a stored row,
+dequantized in the accumulator type; a block owns 32 weight rows and stages
+its slice of x once in shared memory, and `plan_int8` picks the K split
+(combined in the same launch, as the dense kernel's).  `launch_int8` binds
+it (with its own launch count) and `reference_int8` is its plain version;
+`kernels/gemv.py` reaches the same kernel at batch 1 through `qgemv`.
 
 `reference` and `reference_int8` are the plain PyTorch versions: CPU
 tensors use them, and on the card only comparisons (`ops.reference_mode`)
@@ -95,6 +97,90 @@ def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS)
     return Plan(tile, max(1, _cdiv(k, rows)), rows)
 
 
+#: weight rows a block of csrc/qgemv.cu owns: on the tensor cores ("tc":
+#: bf16 x, one scale a row) 16 rows, each with its gate row, whose K slice
+#: the block's 8 warps share; on the CUDA cores ("ffma": f32 / f64 x, other
+#: scale blocks) 8 warps x 4 stored rows, or x 2 rows and their gate rows
+INT8_ROWS = {("tc", False): 16, ("tc", True): 16, ("ffma", False): 32, ("ffma", True): 16}
+#: columns a split at least: every warp of the block at least one 128-column
+#: step ("tc"), or two 512-column steps, the loads a lane keeps in flight
+#: ("ffma")
+INT8_MIN_COLS = 1024
+#: bytes of x's slice the CUDA-core body stages in shared memory at most,
+#: in the accumulator type (MAX_X_BYTES in csrc/qgemv.cu); the tensor-core
+#: body reads x through L1
+INT8_MAX_X_BYTES = 64 * 1024
+#: blocks per SM the K split stays within, by route (blocks of 256 threads)
+INT8_BLOCKS_PER_SM = {"tc": 1, "ffma": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    """How one packed GEMV runs: the body (`route`, "tc" or "ffma"), `rows`
+    stored rows a block, K cut into `splits` slices of `cols` columns (a
+    multiple of 16 when split; the last may be short), each slice one block
+    per row group and batch chunk; `warps` a block (on the tensor cores, the
+    warps sharing the block's slice: 8, or 4 where the row groups alone fill
+    the card)."""
+
+    route: str
+    rows: int
+    splits: int
+    cols: int
+    warps: int = 8
+
+    def k_slices(self, k: int) -> list:
+        """[(k0, k1), ...]: the columns of each split, in the order the last
+        block of a row group sums their partials."""
+        return [(s * self.cols, min(k, (s + 1) * self.cols)) for s in range(self.splits)]
+
+    def blocks(self, b: int, n: int) -> int:
+        """Blocks of the launch over b batch rows and n outputs."""
+        return _cdiv(n, self.rows) * self.splits * _cdiv(b, BATCH_CHUNK)
+
+    def x_bytes(self, b: int, dtype) -> int:
+        """Shared memory a block stages x's slice in (accumulator type; none
+        on the tensor cores, which read x through L1)."""
+        if self.route == "tc":
+            return 0
+        return min(b, BATCH_CHUNK) * self.cols * _acc_bytes(dtype)
+
+
+def _acc_bytes(dtype) -> int:
+    return 8 if dtype == torch.float64 else 4
+
+
+def int8_route(k: int, dtype, row_scale: bool, aligned: bool = True) -> str:
+    """"tc" for bf16 x under one scale a row (the serving spec) with K a
+    multiple of 16 and the packed rows on 16-byte boundaries; "ffma"
+    otherwise."""
+    tc = dtype == torch.bfloat16 and row_scale and k % 16 == 0 and aligned
+    return "tc" if tc else "ffma"
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_int8(b: int, k: int, n: int, dtype, gate: bool = False, row_scale: bool = True,
+              aligned: bool = True, sms: int = H100_SMS) -> Int8Plan:
+    """The body and K split of the packed y (b, n) = deq(W) (n, k) x (b, k)
+    [with W2] for x of `dtype` (`row_scale`: one scale block across K;
+    `aligned`: the packed values start on 16 bytes), from the shapes alone: 4 warps a tensor-core block where the row groups
+    alone outnumber the SMs, else 8; as many splits as keep row groups x
+    batch chunks x splits within INT8_BLOCKS_PER_SM blocks an SM, with at least
+    INT8_MIN_COLS columns each, and at least as many as put x's slice within
+    INT8_MAX_X_BYTES; a split's columns are K / splits rounded up to 16."""
+    route = int8_route(k, dtype, row_scale, aligned)
+    rows = INT8_ROWS[(route, bool(gate))]
+    base = _cdiv(n, rows) * _cdiv(b, BATCH_CHUNK)
+    warps = 4 if route == "tc" and base > sms else 8
+    splits = max(1, min(INT8_BLOCKS_PER_SM[route] * sms // max(base, 1), k // INT8_MIN_COLS))
+    while True:
+        cols = k if splits == 1 else _cdiv(_cdiv(k, splits), 16) * 16
+        p = Int8Plan(route, rows, _cdiv(k, cols), cols, warps)
+        if p.x_bytes(b, dtype) <= INT8_MAX_X_BYTES:
+            return p
+        splits += 1
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -161,26 +247,44 @@ def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int):
     return out
 
 
-_Q_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_Q_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def qgemv(qw, x, out, *, qw2, bias, residual, act_code: int, dtype_code: int):
-    """Launch `qgemv_launch` (csrc/qgemv.cu) on the current stream: out (B, N)
-    = epi over the stored (N, K) int8 rows of qw (and qw2); operands are
-    validated CUDA tensors (kernels/ops.py)."""
+def run_int8(qw, x, out, p: Int8Plan, *, qw2, bias, residual, act_code: int, dtype_code: int):
+    """Launch `qgemv_launch` (csrc/qgemv.cu) on the current stream with plan
+    p, uncounted: out (B, N) = epi over the stored (N, K) int8 rows of qw
+    (and qw2); operands are validated CUDA tensors (kernels/ops.py), the
+    workspace is allocated here."""
     n, k = qw.values.shape
+    b = x.shape[0]
     qm, qn = qw.block
+    ws = tickets = None
+    if p.splits > 1:  # partials of every K split, summed in order by the last block
+        ws = torch.empty((2 if qw2 is not None else 1) * p.splits * b * n,
+                         dtype=torch.promote_types(torch.float32, x.dtype), device=x.device)
+        tickets = _build.tickets(x.device, _cdiv(n, p.rows) * _cdiv(b, BATCH_CHUNK))
     fn = _build.function("qgemv_launch", _Q_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(dtype_code, qw.values.data_ptr(), qw.scales.data_ptr(),
                  None if qw2 is None else qw2.values.data_ptr(),
                  None if qw2 is None else qw2.scales.data_ptr(), x.data_ptr(),
-                 _build.ptr(bias), _build.ptr(residual), out.data_ptr(), x.shape[0], k, n,
-                 qm, qn, act_code, stream)
+                 _build.ptr(bias), _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
+                 _build.ptr(tickets), b, k, n, qm, qn, p.splits, p.cols, act_code,
+                 p.warps if p.route == "tc" else 0, stream)
     if err:
-        raise RuntimeError(f"qgemv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"qgemv kernel launch failed ({p}): CUDA error {err}")
     return out
+
+
+def qgemv(qw, x, out, *, qw2, bias, residual, act_code: int, dtype_code: int):
+    """One `qgemv_launch` over the plan of the shapes, uncounted."""
+    n, k = qw.values.shape
+    aligned = all(q.values.data_ptr() % 16 == 0 for q in (qw, qw2) if q is not None)
+    p = plan_int8(x.shape[0], k, n, x.dtype, gate=qw2 is not None, row_scale=qw.block[1] == k,
+                  aligned=aligned, sms=_build.sm_count(x.device.index or 0))
+    return run_int8(qw, x, out, p, qw2=qw2, bias=bias, residual=residual, act_code=act_code,
+                    dtype_code=dtype_code)
 
 
 def launch_int8(qw, x, out, *, qw2, bias, residual, act_code: int, dtype_code: int):

@@ -11,8 +11,11 @@ one launch carries a layer's prefill from the cached state.
 r, k, w (BH, T, K), v (BH, T, V), u (BH, K) -> y (BH, T, V) in r's dtype,
 s_fin (BH, K, V) f32.  Time is cut into chunks of min(chunk, T) rows, the
 last padded with zero rows (which leave the state unchanged).  The CUDA
-kernel is `csrc/rwkv6.cu`; its source note says what bounds it (the serial
-chunk loop and the exp count, not bytes) and what the design does about it.
+kernel is `csrc/rwkv6.cu`, three launches a call (the chunks' state
+increments, the state carried across chunks element by element, then every
+chunk's outputs), parallel across rows, chunks and state columns; its
+source note says what bounds it and what the design does about it.  The
+f32 workspaces (the per-chunk states and decays) are allocated per call.
 
 `reference` is the plain PyTorch version, a copy of `wkv6_chunked`'s body:
 CPU tensors use it, and on the card only comparisons (`ops.reference_mode`)
@@ -35,7 +38,17 @@ launches = 0
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 32
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: device launches a call: states, the carried-state scan, outputs
+DEVICE_LAUNCHES = 3
+
+
+def workspace_shapes(bh: int, t: int, kk: int, vv: int, chunk: int) -> tuple:
+    """The f32 workspaces of one call: the per-chunk states (BH, chunks, K,
+    V) (increments, then the state entering each chunk) and decays (BH,
+    chunks, K)."""
+    nc = -(-t // min(chunk, t))
+    return (bh, nc, kk, vv), (bh, nc, kk)
 
 
 def reference(r, k, v, w_log, u, s0=None, chunk: int = 32):
@@ -75,17 +88,21 @@ def reference(r, k, v, w_log, u, s0=None, chunk: int = 32):
 
 
 def launch(r, k, v, w_log, u, s0, y, s_fin, *, chunk: int, dtype_code: int):
-    """Launch `rwkv6_launch` on the current stream; operands are validated
-    CUDA tensors (kernels/ops.py), y and s_fin preallocated."""
+    """Launch `rwkv6_launch` (three kernels) on the current stream; operands
+    are validated CUDA tensors (kernels/ops.py), y and s_fin preallocated,
+    the workspaces allocated here."""
     global launches
     bh, t, kk = r.shape
     vv = v.shape[-1]
+    ds_shape, dec_shape = workspace_shapes(bh, t, kk, vv, chunk)
+    ds = torch.empty(ds_shape, dtype=torch.float32, device=r.device)
+    dec = torch.empty(dec_shape, dtype=torch.float32, device=r.device)
     fn = _build.function("rwkv6_launch", _ARGTYPES)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(dtype_code, r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
-                 u.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(), bh, t, kk, vv,
-                 min(chunk, t), stream)
+                 u.data_ptr(), _build.ptr(s0), y.data_ptr(), s_fin.data_ptr(), ds.data_ptr(),
+                 dec.data_ptr(), bh, t, kk, vv, min(chunk, t), stream)
     if err:
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")
     launches += 1

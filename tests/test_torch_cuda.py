@@ -495,6 +495,133 @@ def test_int8_smoke_serve_matches_plain_path(cuda):
     assert counts["bgemv"] == counts["bgemm"] == 0
 
 
+# the packed GEMV redesign (csrc/qgemv.cu, kernels/bgemv.py::plan_int8) at
+# the served decode shapes: stablelm-1.6b's q/k/v/o, gate+up and down, and
+# 2040 outputs (not a multiple of the 32 / 16 rows a block owns); the
+# serving spec's one scale a row, per-chunk scales (qn = 64) and element
+# loads (qn = 8, not a multiple of 16)
+SERVED_INT8 = [(2048, 2048, False), (2048, 5632, True), (5632, 2048, False),
+               (2048, 2040, False), (2048, 2040, True)]
+INT8_MODES = {"row scale": (64, None), "chunk scales": (64, 64), "element loads": (40, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("batch", [1, 4, 5, 9])
+@pytest.mark.parametrize("mode", sorted(INT8_MODES))
+@pytest.mark.parametrize("k,n,gate", SERVED_INT8)
+def test_qgemv_matches_plain_at_the_served_shapes(cuda, dtype, batch, mode, k, n, gate):
+    """Every scale mode with the gate (silu) or bias + gelu, residual +
+    relu, or no epilogue; f32, bf16 and f64 x; batches of one, one chunk,
+    and two and three chunks of 4."""
+    spec = quant.QuantSpec(*INT8_MODES[mode], transpose=True)
+    w = _rand(cuda, torch.float32, k, n, std=k ** -0.5)
+    qw = quant.quantize(w, spec)
+    qw2 = quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5), spec) if gate else None
+    x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
+    if gate:
+        _against_plain(lambda: ops.bgemv(qw, x, a2=qw2, activation="silu"), dtype)
+    else:
+        _against_plain(lambda: ops.bgemv(qw, x), dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, bias=bias, activation="gelu"), dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, residual=res, activation="relu"), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("k,n,gate", SERVED_INT8[:3])
+def test_qgemv_every_split_matches_plain(cuda, dtype, k, n, gate):
+    """Plans other than the chosen one (1 to 16 K slices) at batch 4, on the
+    route the plan takes (bf16: tensor cores): each within TOL of the plain
+    version and its launch bitwise a second one."""
+    from repro_torch.kernels import bgemv
+    spec = quant.QuantSpec(64, None, transpose=True)
+    qw = quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5), spec)
+    qw2 = quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5), spec) if gate else None
+    x = _rand(cuda, dtype, 4, k)
+    act = "silu" if gate else None
+    with ops.reference_mode():
+        want = ops.bgemv(qw, x, a2=qw2, activation=act)
+    route = bgemv.int8_route(k, dtype, True)
+    for splits in (1, 2, 3, 4, 8, 16):
+        cols = k if splits == 1 else bgemv._cdiv(bgemv._cdiv(k, splits), 16) * 16
+        p = bgemv.Int8Plan(route, bgemv.INT8_ROWS[(route, gate)], bgemv._cdiv(k, cols), cols)
+        if p.x_bytes(4, dtype) > bgemv.INT8_MAX_X_BYTES:
+            continue
+        outs = []
+        for _ in range(2):
+            out = torch.empty(4, n, dtype=dtype, device="cuda")
+            bgemv.run_int8(qw, x, out, p, qw2=qw2, bias=None, residual=None,
+                           act_code=ops._ACTS[act], dtype_code=ops._DTYPE_CODES[dtype])
+            outs.append(out)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs[0].float(), want.float(), **TOL[dtype])
+        assert torch.equal(outs[0], outs[1]), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_blas_gemv_at_16384_matches_plain_and_repeats_its_bits(cuda, dtype):
+    """The BLAS gemv 16384^2: f32 x in one K slice, f64 x in slices (128 KB
+    of x does not fit a block's shared memory)."""
+    qa = quant.quantize(_rand(cuda, torch.float32, 16384, 16384, std=16384 ** -0.5),
+                        quant.QuantSpec(64, None))
+    x = _rand(cuda, dtype, 16384)
+    got = ops.gemv(qa, x)
+    with ops.reference_mode():
+        want = ops.gemv(qa, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[dtype])
+    assert torch.equal(got, ops.gemv(qa, x))
+
+
+@pytest.mark.cuda
+def test_qgemv_takes_packed_rows_off_16_bytes(cuda):
+    """Packed values viewed from one byte into a buffer plan the CUDA-core
+    body (element loads); bf16 x under the serving spec otherwise runs on
+    the tensor cores."""
+    from repro_torch.kernels import bgemv
+    spec = quant.QuantSpec(64, None, transpose=True)
+    qw = quant.quantize(_rand(cuda, torch.float32, 1024, 128), spec)
+    buf = torch.empty(qw.values.numel() + 1, dtype=torch.int8, device="cuda")
+    buf[1:] = qw.values.reshape(-1)
+    off = quant.QuantizedTensor(buf[1:].view(qw.values.shape), qw.scales, qw.block,
+                                qw.transposed)
+    assert off.values.data_ptr() % 16 and bgemv.plan_int8(4, 1024, 128, torch.bfloat16,
+                                                          aligned=False).route == "ffma"
+    x = _rand(cuda, torch.bfloat16, 4, 1024)
+    _against_plain(lambda: ops.bgemv(off, x), torch.bfloat16)
+    _against_plain(lambda: ops.bgemv(qw, x), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_qgemv_launch_refuses_a_plan_it_does_not_take(cuda):
+    from repro_torch.kernels import bgemv
+    spec = quant.QuantSpec(64, None, transpose=True)
+    qw = quant.quantize(_rand(cuda, torch.float32, 1024, 64), spec)
+    x, out = _rand(cuda, torch.float32, 4, 1024), torch.empty(4, 64, device="cuda")
+    bad = (bgemv.Int8Plan("ffma", 32, 2, 500), bgemv.Int8Plan("ffma", 32, 2, 256),
+           bgemv.Int8Plan("ffma", 32, 1, 5000), bgemv.Int8Plan("tc", 64, 1, 1024))  # f32 x
+    for p in bad:
+        with pytest.raises(RuntimeError, match="qgemv kernel launch failed"):
+            bgemv.run_int8(qw, x, out, p, qw2=None, bias=None, residual=None, act_code=0,
+                           dtype_code=0)
+
+
+@pytest.mark.cuda
+def test_qgemv_leaks_no_memory(cuda):
+    qw = quant.quantize(_rand(cuda, torch.float32, 5632, 2048),
+                        quant.QuantSpec(64, None, transpose=True))
+    x = _rand(cuda, torch.bfloat16, 4, 5632)
+    ops.bgemv(qw, x)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(5):
+        ops.bgemv(qw, x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
 # --------------------------------------------------------------------------
 # rwkv6: the chunked WKV6 kernel
 # --------------------------------------------------------------------------
@@ -541,6 +668,41 @@ def test_rwkv6_kernel_strong_decay_stays_finite(cuda):
     assert torch.isfinite(got_y).all() and torch.isfinite(got_s).all()
     torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[torch.bfloat16])
     torch.testing.assert_close(got_s, want_s, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bh,t,kk,chunk,with_s0,strong", [
+    (torch.bfloat16, 128, 128, 64, 32, False, False), (torch.bfloat16, 128, 128, 64, 32, True, False),
+    (torch.bfloat16, 32, 4096, 64, 32, True, False), (torch.bfloat16, 1, 4096, 64, 32, True, False),
+    (torch.bfloat16, 1, 4096, 64, 32, False, True), (torch.bfloat16, 128, 100, 64, 32, True, False),
+    (torch.float32, 16, 10, 16, 8, True, False), (torch.bfloat16, 128, 128, 64, 32, True, True),
+    (torch.float32, 1, 1, 64, 32, True, False)])
+def test_rwkv6_kernel_at_the_chip_smoke_shapes_repeats_its_bits(cuda, dtype, bh, t, kk, chunk,
+                                                                 with_s0, strong):
+    """chip_smoke's WKV6 cases (and BH = 1 at T = 4096): within TOL of the
+    plain version, and a second launch gives the same bits (no atomics:
+    every sum has one order)."""
+    r, k, v, w, u, s0 = _wkv6_case(cuda, dtype, bh, t, kk, with_s0, strong=strong)
+    got_y, got_s = ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    again_y, again_s = ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    with ops.reference_mode():
+        want_y, want_s = ops.rwkv6(r, k, v, w, u, s0=s0, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(got_s, want_s, **TOL[torch.float32])
+    assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_leaks_no_memory(cuda):
+    r, k, v, w, u, s0 = _wkv6_case(cuda, torch.bfloat16, 32, 4096, 64, True)
+    ops.rwkv6(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(5):
+        ops.rwkv6(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
 
 
 @pytest.mark.cuda
