@@ -1085,6 +1085,7 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
 
 D8K, N16K, N26 = 8192, 16384, 2 ** 26
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
+ODD = "odd (4095,4097)@(4097,4093)"
 
 
 def blas_cases():
@@ -1180,7 +1181,13 @@ def blas_cases():
          torch.float32, gemm_case(torch.float32, 4095, 4096, 4092, 18, epi="gelu")),
         ("gemm", "gemm", "zamba2 LoRA merge (2048,128)@(128,2048)", torch.float32,
          gemm_case(torch.float32, 2048, 128, 2048, 19)),
+        # odd K and N: the plain product beside torch.matmul in each dtype,
+        # and bf16 with the epilogue
+        ("gemm", "gemm", ragged, torch.bfloat16,
+         gemm_case(torch.bfloat16, 4095, 4097, 4093, 60, epi="gelu")),
     ]
+    for i, dt in enumerate(DTYPES):
+        cases.append(("gemm", "gemm", ODD, dt, gemm_case(dt, 4095, 4097, 4093, 61 + i)))
     for i, dt in enumerate(DTYPES):
         cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
     cases += [
