@@ -7,9 +7,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
 
 1. device  - nvidia-smi's name and power limit, torch's device name;
 2. build   - nvcc builds the kernels from csrc/, one process a file (timed),
-             and beside them the designs two redesigns replaced
-             (scripts/replaced/: the packed GEMV's and WKV6's first
-             designs), each a library of its own, timed in phases 10 and 20;
+             and beside them the designs three redesigns replaced
+             (scripts/replaced/: the packed GEMV's, WKV6's and the SSD's
+             first designs), each a library of its own, timed in phases 10,
+             20 and 24 and profile_prefill_zamba;
    sass    - the HGMMA (wgmma) instructions cuobjdump finds in each
              tensor-core GEMM kernel (csrc/gemm_sm90.cu; none fails the
              run), with ptxas's registers, spills and notes and the kernel's
@@ -23,7 +24,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              with its ptxas registers and spills (none, or a spill, fails);
              the HMMA (mma.sync) in csrc/qgemv.cu's tensor-core kernels (none
              fails the run), ptxas's registers and spills for csrc/qgemv.cu
-             and csrc/rwkv6.cu;
+             and csrc/rwkv6.cu; the HMMA in every csrc/gemm_mma.cu kernel and
+             in csrc/mamba2.cu's bf16 outputs kernel, with ptxas for both
+             files (no HMMA, or a spill, fails), and DMMA in csrc/gemm_f64.cu
+             kernels of both copy widths (16 and 8 bytes) or the run fails;
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
              (bgemv and bgemm also at zamba2-1.2b's), in bf16 and f32, with
@@ -43,9 +47,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              launch;
    gemm_precision - the share of bf16 outputs of the tensor-core GEMM,
              the CUDA-core one and the plain version that equal the
-             correctly rounded f64 product, at five prefill shapes; the
-             tensor-core kernel may not fall below the plain version's share
-             by more than ROUNDING_SLACK;
+             correctly rounded f64 product, at five prefill shapes ("wgmma")
+             and two odd ones ("mma": the BLAS (4095, 4097) @ (4097, 4093)
+             and K = 7167); the tensor-core kernel may not fall below the
+             plain version's share by more than ROUNDING_SLACK;
 4. smoke   - stablelm-1.6b SMOKE served in f32 through the kernels and again
              through the plain versions: equal greedy tokens, every gemm and
              bgemm launch on the f32 TMA-ring route "ffma_sm90" (also for
@@ -74,10 +79,14 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              nrm2, axpy) at full size in f64, f32 and bf16, each call held
              against its plain version and counted as one launch of its
              kernel (gemm, gemv, blas1 reduce, blas1 axpy; a gemm also on
-             the route its plan names: f64 with even K and N on the f64
-             tensor cores, f32 with K and N multiples of 4 on the TMA ring
-             (8192^3, an aligned ragged case, zamba2's LoRA merge), odd ones
-             on the first CUDA-core kernel; axpy, also ragged and one
+             the route its plan names: every dense f64 call on the f64
+             tensor cores (16-byte copies, or 8-byte ones for odd K or N),
+             bf16 on wgmma or, where TMA cannot address it (odd K or N), on
+             mma.sync, f32 with K and N multiples of 4 on the TMA ring
+             (8192^3, an aligned ragged case, zamba2's LoRA merge), odd f32
+             on the first CUDA-core kernel; the plain product at (4095, 4097)
+             @ (4097, 4093) in each dtype beside torch.matmul; axpy, also
+             ragged and one
              element in, bitwise the plain version); then each timed beside
              its bound and one PyTorch library call (a gemm off "ffma" also
              beside the first CUDA-core kernel);
@@ -158,8 +167,11 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              zamba2 prefill shape (BH=256, T=128, P=N=64, chunk 64, bf16
              x/b/c, f32 a/h) from zero and from h0, long (T=4096, B=1),
              ragged (T=100), f32 at the smoke widths (P=N=16, chunk 8),
-             strong decay; each one launch, y and the final state within
-             TOL, timed beside its bound and the plain version;
+             strong decay; each one launch (three device launches), y and
+             the final state within TOL, bitwise a second launch, timed beside
+             its bound (and the bound with the design's workspace traffic),
+             the plain version and the serial first design (replaced_ms),
+             with the profiler's device ms by kernel;
 25. smoke_zamba - zamba2-1.2b SMOKE (f32) under --scheduler batch, kernels
              vs plain equal tokens at batch 2 and batch 1;
 26. serve_zamba - zamba2-1.2b FULL bf16 (seeded random weights), 8
@@ -176,7 +188,11 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              the f32 path than the plain bf16 path's plus 2%; phase 8's
              profile of the zamba2 decode step (every profile line also
              gives the f32 ring GEMM's device ms and launches a step: the
-             LoRA merges).
+             LoRA merges); profile_prefill_zamba: the full-width zamba2
+             prefill's device time, the SSD kernels' ms and device launches
+             (three an ops.mamba2_ssd call or the run fails), and the same
+             prefills again through the serial first design, its SSD ms
+             beside.
 
 Then a `done` line (the script's seconds), a `kernels` summary line, and as
 the last line
@@ -350,21 +366,39 @@ def _attn_name(mangled: str):
 
 
 def _f64_config(mangled: str):
-    """(BM, BN, BK, STAGES, MI, KI, GATE) of a gemm_f64_kernel instantiation,
-    else None."""
-    m = re.search(r"gemm_f64_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
-                  mangled)
+    """(BM, BN, BK, STAGES, MI, KI, GATE, VEC) of a gemm_f64_kernel
+    instantiation (VEC: doubles a cp.async copies), else None."""
+    m = re.search(r"gemm_f64_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)"
+                  r"ELi(\d+)E", mangled)
     return tuple(int(v) for v in m.groups()) if m else None
 
 
 def _f64_name(mangled: str):
-    """'BMxBN [gate] mMIn8kKI BK=.. S=..' for a gemm_f64_kernel instantiation,
-    else None."""
+    """'BMxBN [gate] mMIn8kKI BK=.. S=.. copy=..B' for a gemm_f64_kernel
+    instantiation, else None."""
     cfg = _f64_config(mangled)
     if cfg is None:
         return None
-    bm, bn, bk, stages, mi, ki, gate = cfg
-    return f"{bm}x{bn}" + (" gate" if gate else "") + f" m{mi}n8k{ki} BK={bk} S={stages}"
+    bm, bn, bk, stages, mi, ki, gate, vec = cfg
+    return (f"{bm}x{bn}" + (" gate" if gate else "") + f" m{mi}n8k{ki} BK={bk} S={stages}"
+            f" copy={8 * vec}B")
+
+
+def _mma_name(mangled: str):
+    """'mma BMxBN [gate]' for a gemm_mma_kernel instantiation
+    (csrc/gemm_mma.cu), 'ssd outputs bf16|f32' / 'ssd states ..' / 'ssd scan
+    V=.. U=..' for csrc/mamba2.cu's kernels, else None."""
+    m = re.search(r"gemm_mma_kernelILi(\d+)ELi(\d+)ELb(\d)E", mangled)
+    if m:
+        bm, bn, gate = (int(v) for v in m.groups())
+        return f"mma {bm}x{bn}" + (" gate" if gate else "")
+    m = re.search(r"ssd_(states|outputs)_kernel(I13__nv_bfloat16|IfE)", mangled)
+    if m:
+        return f"ssd {m.group(1)} " + ("bf16" if "bfloat16" in m.group(2) else "f32")
+    m = re.search(r"ssd_scan_kernelILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"ssd scan V={m.group(1)} U={m.group(2)}"
+    return None
 
 
 def _f32_name(mangled: str):
@@ -391,7 +425,7 @@ def phase_sass(lib: Path) -> dict:
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    hgmma, hmma, dmma, ffma, qhmma, fn = {}, {}, {}, {}, {}, None
+    hgmma, hmma, dmma, ffma, qhmma, mma, fn = {}, {}, {}, {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -406,6 +440,10 @@ def phase_sass(lib: Path) -> dict:
                 ffma[_f32_name(fn)] = 0
             elif "qgemv_tc_kernel" in fn:
                 qhmma["gate" if "Lb1E" in fn else "plain"] = 0
+            elif _mma_name(fn):
+                mma[_mma_name(fn)] = 0
+        elif fn and _mma_name(fn) in mma and re.search(r"\bHMMA\b", line):
+            mma[_mma_name(fn)] += 1
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
         elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
@@ -419,7 +457,7 @@ def phase_sass(lib: Path) -> dict:
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
     ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, f32_ptxas = {}, {}, {}, {}, {}
-    qgemv_ptxas, wkv6_ptxas = {}, {}
+    qgemv_ptxas, wkv6_ptxas, mma_ptxas = {}, {}, {}
     notes, entry = [], None
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -427,8 +465,10 @@ def phase_sass(lib: Path) -> dict:
             fn, entry = m.group(1), None
             if "gemm_tc_kernel" in fn:
                 entry = ptxas[_tc_name(fn)] = {"dynamic_smem_bytes": smem(*_tc_config(fn))}
+            elif _mma_name(fn):
+                entry = mma_ptxas[_mma_name(fn)] = {}
             elif _f64_config(fn):
-                bm, bn, bk, stages, _, _, gate = _f64_config(fn)
+                bm, bn, bk, stages, _, _, gate, _ = _f64_config(fn)
                 ring = stages * (bm * (bk + 4) + (1 + gate) * bk * (bn + 4)) * 8  # padded rows
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
             elif _f32_name(fn):
@@ -489,6 +529,20 @@ def phase_sass(lib: Path) -> dict:
     emit("sass", what="HMMA in csrc/qgemv.cu's tensor-core kernels (cuobjdump -sass); ptxas "
          "for csrc/qgemv.cu's and csrc/rwkv6.cu's kernels", qgemv_tc_hmma=qhmma,
          qgemv_ptxas=qgemv_ptxas, wkv6_ptxas=wkv6_ptxas)
+    mma_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                  for k, v in mma_ptxas.items()}
+    emit("sass", what="HMMA in csrc/gemm_mma.cu's kernels and csrc/mamba2.cu's (cuobjdump "
+         "-sass); ptxas for them", hmma_per_kernel=mma,
+         ptxas=mma_ptxas or "not built in this process", spill_bytes=mma_spills)
+    (OUT / "sass_mma.json").write_text(json.dumps({"hmma": mma, "ptxas": mma_ptxas}, indent=1))
+    gemm_mma = {k: v for k, v in mma.items() if k.startswith("mma")}
+    if len(gemm_mma) != 5 or min(gemm_mma.values()) == 0 or not mma.get("ssd outputs bf16"):
+        raise AssertionError(f"mma.sync kernels without HMMA: {mma}")
+    if any(mma_spills.values()):
+        raise AssertionError(f"gemm_mma.cu or mamba2.cu kernels spill: {mma_spills}")
+    widths = {name.split("copy=")[1] for name, n in dmma.items() if n}
+    if widths != {"16B", "8B"}:
+        raise AssertionError(f"f64 tensor-core kernels with DMMA only in copies of {widths}")
     if len(qhmma) != 2 or min(qhmma.values()) == 0:
         raise AssertionError(f"packed GEMV tensor-core kernels without HMMA: {qhmma}")
     if not ffma or min(ffma.values()) == 0:
@@ -606,11 +660,37 @@ def replaced_rwkv6(r, k, v, w, u, s0=None, chunk: int = 32):
     return y, s_fin
 
 
+def serial_ssd_launch(x, a, b, c, h0, y, h_fin, *, chunk: int, dtype_code: int):
+    """The SSD's first design (scripts/replaced/mamba2_serial.cu: a block a
+    (row, 16-column slice) walking the chunks in series) into y and h_fin,
+    with `kernels.mamba2.launch`'s arguments, counted nowhere."""
+    from repro_torch.kernels import _build
+    fn = _replaced["mamba2_serial"].mamba2_serial_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bh, t, p = x.shape
+    err = fn(dtype_code, x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), _build.ptr(h0),
+             y.data_ptr(), h_fin.data_ptr(), bh, t, b.shape[-1], p, min(chunk, t),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"serial_ssd_launch: CUDA error {err}")
+    return y, h_fin
+
+
+def replaced_mamba2(x, a, b, c, h0=None, chunk: int = 64):
+    """serial_ssd_launch on the same operands as ops.mamba2_ssd."""
+    from repro_torch.kernels import ops
+    bh, t, p = x.shape
+    y = torch.empty(bh, t, p, dtype=x.dtype, device=x.device)
+    h_fin = torch.empty(bh, b.shape[-1], p, dtype=torch.float32, device=x.device)
+    return serial_ssd_launch(x, a, b, c, h0, y, h_fin, chunk=chunk,
+                             dtype_code=ops._DTYPE_CODES[x.dtype])
+
+
 def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None) -> dict:
     """gemm.plan's route, tile and K slices for a case (fresh, aligned tensors)."""
     from repro_torch.kernels import gemm
     p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout)
-    return dict(route=p.route, tile=list(p.tile), splits=p.splits)
+    return dict(route=p.route, tile=list(p.tile), splits=p.splits, copy=p.copy)
 
 
 def kernel_cases(dtype):
@@ -719,7 +799,9 @@ def kernel_cases(dtype):
         "bgemm", "ragged (4,127,2047)@(2047,2001) +bias gelu +residual",
         lambda: ops.bgemm(ar, wr, bias=br, residual=rr, activation="gelu"), None, None,
         nbytes(ar, wr, br, rr) + rr.numel() * rr.element_size(), 2 * b * 127 * 2047 * 2001,
-        plan=plan_of(b * 127, 2047, 2001, dtype)))
+        plan=plan_of(b * 127, 2047, 2001, dtype),
+        ffma=(lambda: ffma_launch(ar, wr, bias=br, residual=rr, activation="gelu"))
+        if plan_of(b * 127, 2047, 2001, dtype)["route"] != "ffma" else None))
     # flash attention over the cache layout, garbage past every kvl
     h, hd, s = 32, 64, 160
     for label, tq, lens in (("prefill B=4 Tq=128 H=32 D=64 S=160", 128, [128] * 4),
@@ -750,45 +832,50 @@ def kernel_cases(dtype):
     return cases
 
 
-# the tensor-core kernel's bf16 outputs must be correctly rounded (against
+# the tensor-core kernels' bf16 outputs must be correctly rounded (against
 # the f64 product) at least as often as the plain version's (cuBLAS in f32),
-# less this share; without promotion it fell 0.37 points short at K = 7168
+# less this share; without promotion wgmma fell 0.37 points short at K = 7168
 ROUNDING_SLACK = 5e-4
 
 
 def phase_gemm_precision():
-    """At the rwkv and stablelm prefill shapes, the share of bf16 outputs
-    equal to the correctly rounded f64 product, and the mean error in bf16
-    ulps, for the tensor-core kernel, the CUDA-core kernel (csrc/gemm.cu on
+    """At the rwkv and stablelm prefill shapes (the "wgmma" route) and at
+    the BLAS odd shape (4095, 4097) @ (4097, 4093) and the odd K = 7167
+    prefill shape (the "mma" route), the share of bf16 outputs equal to the
+    correctly rounded f64 product, and the mean error in bf16 ulps, for the
+    tensor-core kernel the plan names, the CUDA-core kernel (csrc/gemm.cu on
     the same inputs) and the plain version.  Fails if the tensor-core
     kernel's share falls below the plain version's by more than
     ROUNDING_SLACK."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gemm, ops
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for k, n in ((2048, 2048), (7168, 2048), (2048, 7168), (2048, 64), (5632, 2048)):
-        a = torch.randn(4, 128, k, generator=g, device="cuda").bfloat16()
+    for m, k, n in ((512, 2048, 2048), (512, 7168, 2048), (512, 2048, 7168), (512, 2048, 64),
+                    (512, 5632, 2048), (4095, 4097, 4093), (512, 7167, 2047)):
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
         w = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).bfloat16()
-        exact = a.double().view(-1, k) @ w.double()
+        route = gemm.plan(m, k, n, torch.bfloat16).route
+        exact = a.double() @ w.double()
         rounded = exact.to(torch.bfloat16).double()
         ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(1e-30))) - 7)
-        outs = {"wgmma": ops.bgemm(a, w), "ffma": ffma_launch(a, w)}
+        outs = {route: ops.gemm(a, w), "ffma": ffma_launch(a, w)}
         with ops.reference_mode():
-            outs["plain"] = ops.bgemm(a, w)
+            outs["plain"] = ops.gemm(a, w)
         share, err = {}, {}
         for name, o in outs.items():
-            o = o.view(-1, n).double()
+            o = o.double()
             share[name] = (o == rounded).double().mean().item()
             err[name] = ((o - exact).abs() / ulp).mean().item()
-        ok = share["wgmma"] >= share["plain"] - ROUNDING_SLACK
-        emit("gemm_precision", case=f"(4,128,{k})@({k},{n}) bf16",
+        ok = share[route] >= share["plain"] - ROUNDING_SLACK
+        emit("gemm_precision", case=f"({m},{k})@({k},{n}) bf16", route=route,
              correctly_rounded_share=share, mean_error_bf16_ulps=err,
              slack=ROUNDING_SLACK, within_slack=ok)
         rows.append(ok)
         if not ok:
-            raise AssertionError(f"gemm_precision ({k}, {n}): the tensor-core kernel rounds "
-                                 f"{share['wgmma']:.5f} of outputs right, the plain "
+            raise AssertionError(f"gemm_precision ({m}, {k}, {n}): the {route} kernel rounds "
+                                 f"{share[route]:.5f} of outputs right, the plain "
                                  f"version {share['plain']:.5f}")
+        del a, w, exact, rounded, ulp, outs
     return rows
 
 
@@ -1022,21 +1109,42 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
                              f"{qgemv_launches} qgemv device launches")
 
 
-def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_prefill"):
+# the recurrent kernels a prefill profile reads apart: ops counter, the
+# prefix of their device kernels' names, and their module (DEVICE_LAUNCHES)
+STATE_KERNELS = {"rwkv6": ("rwkv6", "wkv6"), "mamba2_ssd": ("mamba2", "ssd")}
+
+
+def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_prefill",
+                          state_kernel: str = "rwkv6", serial_launch=None):
     """Where a full-width prefill's time goes (batch 4, 128 prompt tokens):
     its wall clock without the profiler, then torch.profiler over the same
     prefills for device time per kernel name (the tensor-core GEMM's, the
-    WKV6 kernels' and the rest) and the device's idle share.  Fails unless
-    every ops.rwkv6 call ran its kernels' DEVICE_LAUNCHES device launches."""
+    recurrent `state_kernel`'s (WKV6 or the SSD) and the rest) and the
+    device's idle share.  Fails unless every call of `state_kernel` ran its
+    kernels' DEVICE_LAUNCHES device launches.  With `serial_launch` (a
+    stand-in for that kernel module's `launch`: the design it replaced), the
+    same prefills are profiled again through it, and its device time is
+    printed beside the kernel's."""
+    import importlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ops, rwkv6
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
+    module, prefix = STATE_KERNELS[state_kernel]
+    kmod = importlib.import_module(f"repro_torch.kernels.{module}")
     rng = np.random.default_rng(9)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
 
     def prefill():
         return tf.prefill(params, tokens, tf.init_cache(cfg, 4, 160, device="cuda"), cfg)
+
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                prefill()
+            torch.cuda.synchronize()
+        return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
     prefill()
     torch.cuda.synchronize()
@@ -1045,23 +1153,35 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
         prefill()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    before = ops.launch_counts()["rwkv6"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            prefill()
-        torch.cuda.synchronize()
-    rwkv6_calls = (ops.launch_counts()["rwkv6"] - before) / reps
-    by_name = {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    before = ops.launch_counts()[state_kernel]
+    by_name = profiled()
+    calls = (ops.launch_counts()[state_kernel] - before) / reps
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    wkv6 = {k: (ms, n) for k, (ms, n) in by_name.items() if "wkv6_" in k}
-    wkv6_launches = sum(n for _, n in wkv6.values())
+    mine = {k: (ms, n) for k, (ms, n) in by_name.items() if f"{prefix}_" in k}
+    launches = sum(n for _, n in mine.values())
+    serial = {}
+    if serial_launch is not None:
+        own = kmod.launch
+        kmod.launch = serial_launch
+        try:
+            prefill()
+            s_by = profiled()
+        finally:
+            kmod.launch = own
+        s_ms = sum(ms for k, (ms, _) in s_by.items() if f"{prefix}_" in k)
+        serial = {f"serial_{prefix}_ms_per_prefill": s_ms,
+                  "serial_device_busy_ms_per_prefill": sum(ms for ms, _ in s_by.values()),
+                  f"{prefix}_ms_lower_than_serial": s_ms - sum(ms for ms, _ in mine.values())}
     emit(phase, what=f"full-width prefill, batch 4, 128 prompt tokens, {cfg.arch_id}",
-         wall_ms_per_prefill=wall_ms, rwkv6_calls_per_prefill=rwkv6_calls,
-         wkv6_device_launches_per_prefill=wkv6_launches,
-         wkv6_ms_per_prefill=sum(ms for ms, _ in wkv6.values()),
-         wkv6_by_kernel={k[:60]: {"ms": ms, "launches": n} for k, (ms, n) in wkv6.items()},
+         wall_ms_per_prefill=wall_ms, **{f"{state_kernel}_calls_per_prefill": calls,
+                                         f"{prefix}_device_launches_per_prefill": launches,
+                                         f"{prefix}_ms_per_prefill":
+                                             sum(ms for ms, _ in mine.values()),
+                                         f"{prefix}_by_kernel":
+                                             {k[:60]: {"ms": ms, "launches": n}
+                                              for k, (ms, n) in mine.items()}},
+         **serial,
          tensor_core_gemm_ms=sum(ms for k, (ms, _) in by_name.items()
                                  if "gemm_tc_kernel" in k or "splitk_epilogue" in k),
          attention_ms_per_prefill=sum(ms for k, (ms, _) in by_name.items()
@@ -1073,10 +1193,9 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
          device_events_per_prefill=sum(n for _, n in by_name.values()),
          top=[{"name": k[:90], "ms_per_prefill": ms, "calls_per_prefill": n}
               for k, (ms, n) in top])
-    if wkv6_launches != rwkv6.DEVICE_LAUNCHES * rwkv6_calls:
-        raise AssertionError(f"{phase}: {rwkv6_calls} rwkv6 calls a prefill ran "
-                             f"{wkv6_launches} device launches (want "
-                             f"{rwkv6.DEVICE_LAUNCHES} a call)")
+    if launches != kmod.DEVICE_LAUNCHES * calls:
+        raise AssertionError(f"{phase}: {calls} {state_kernel} calls a prefill ran "
+                             f"{launches} device launches (want {kmod.DEVICE_LAUNCHES} a call)")
 
 
 # --------------------------------------------------------------------------
@@ -1603,7 +1722,8 @@ def check_prefill_routes(counts: dict, what: str):
     int8 "nk"; the serves run no 2-D packed gemm) ran on the tensor cores:
     bgemm_wgmma counts them all and bgemm_ffma none."""
     projections = counts["bgemm"] + counts["gemm_int8"]
-    routes = {k: counts[k] for k in ("bgemm_wgmma", "bgemm_ffma", "gemm_wgmma", "gemm_ffma")}
+    routes = {k: counts[k] for k in ("bgemm_wgmma", "bgemm_mma", "bgemm_ffma", "gemm_wgmma",
+                                     "gemm_mma", "gemm_ffma")}
     emit("routes", run=what, prefill_projections=projections, **routes)
     if projections == 0 or counts["bgemm_wgmma"] != projections or counts["bgemm_ffma"]:
         raise AssertionError(f"{what}: {projections} prefill projections, routes {routes}: "
@@ -1614,8 +1734,8 @@ def check_f32_routes(counts: dict, what: str):
     """An f32 serve's dense GEMMs: every gemm and bgemm launch on the
     "ffma_sm90" route (the smoke widths are multiples of 4 and every operand
     starts on a 16-byte boundary), none on the first CUDA-core kernel."""
-    routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_ffma", "bgemm",
-                                     "bgemm_ffma_sm90", "bgemm_ffma")}
+    routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_mma", "gemm_ffma", "bgemm",
+                                     "bgemm_ffma_sm90", "bgemm_mma", "bgemm_ffma")}
     emit("routes", run=what, **routes)
     if (counts["bgemm"] == 0 or counts["bgemm_ffma_sm90"] != counts["bgemm"]
             or counts["gemm_ffma_sm90"] != counts["gemm"] or counts["gemm_ffma"]
@@ -2540,17 +2660,50 @@ def ssd_inputs(bh, t, p, n, dtype, with_h0, strong, seed):
     return x, a, b, c, h0
 
 
+def device_ms_by_kernel(call, reps: int = 10) -> dict:
+    """torch.profiler's device ms a call by kernel name, over `reps` calls
+    (warm L2: the breakdown's shares, beside time_ms's cold-L2 total)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::", ""))[-40:]:
+            e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def phase_ssd():
-    """Each SSD case through state_kernel_case."""
-    from repro_torch.kernels import ops
+    """Each SSD case through state_kernel_case, with the serial first
+    design's time on the same inputs (replaced_ms), its blocks (the states
+    and outputs launches: a block a row and chunk), its device launches, the
+    profiler's device ms by kernel, and a second bound that adds the
+    design's own traffic (bound_with_workspace_ms): the second read of x, b
+    and a_log, and the workspace's per-chunk states and decays, written
+    once, then read and rewritten by the scan and read by the outputs
+    launch."""
+    from repro_torch.kernels import mamba2, ops
     rows = {}
     for i, (label, bh, t, p, n, dtype, with_h0, strong, chunk) in enumerate(SSD_CASES):
         x, a, b, c, h0 = ssd_inputs(bh, t, p, n, dtype, with_h0, strong, 400 + i)
         nb = nbytes(x, a, b, c, h0) + x.numel() * x.element_size() + bh * n * p * 4
+        dh_shape, _ = mamba2.workspace_shapes(bh, t, n, p, chunk)
+        ws_bytes = 4 * 4 * bh * dh_shape[1] * (n * p + 1) + nbytes(x, b, a)
         rows[label] = state_kernel_case(
             "ssd", "mamba2_ssd", label,
             lambda: ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk), dtype, chunk, nb,
-            ssd_flops(bh, t, p, n, chunk))
+            ssd_flops(bh, t, p, n, chunk),
+            replaced=lambda: replaced_mamba2(x, a, b, c, h0=h0, chunk=chunk),
+            replaced_design="scripts/replaced/mamba2_serial.cu",
+            blocks_per_launch=bh * dh_shape[1], device_launches_per_call=mamba2.DEVICE_LAUNCHES,
+            device_ms_by_kernel=device_ms_by_kernel(
+                lambda: ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)),
+            workspace_bytes=ws_bytes,
+            bound_with_workspace_ms=bound(nb + ws_bytes, ssd_flops(bh, t, p, n, chunk),
+                                          torch.float32)[0])
         del x, a, b, c, h0
     return rows
 
@@ -2802,6 +2955,8 @@ def main() -> int:
         zamba_occ = zamba_cfg.n_layers // zamba_cfg.ssm.shared_attn_every
         phase_profile(zamba_params, zamba_cfg, 2 * zamba_cfg.n_layers + 6 * zamba_occ,
                       phase="profile_zamba")
+        phase_profile_prefill(zamba_params, zamba_cfg, phase="profile_prefill_zamba",
+                              state_kernel="mamba2_ssd", serial_launch=serial_ssd_launch)
         del zamba_params
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
@@ -2860,6 +3015,11 @@ def main() -> int:
                                 zamba_counts["gemm_ffma_sm90"]),
         "gemm_dmma": ("src/repro_torch/csrc/gemm_f64.cu", "src/repro/kernels/gemm.py:184",
                       ("gemm", f"{D8K}x{D8K}x{D8K}"), "float64", blas_counts["gemm_dmma"]),
+        "gemm_dmma_8_byte_copies": ("src/repro_torch/csrc/gemm_f64.cu",
+                                    "src/repro/kernels/gemm.py:184", ("gemm", ODD), "float64",
+                                    blas_counts["gemm_dmma"]),
+        "gemm_mma": ("src/repro_torch/csrc/gemm_mma.cu", "src/repro/kernels/gemm.py:184",
+                     ("gemm", ODD), "bfloat16", blas_counts["gemm_mma"]),
         "gemm_wgmma": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/gemm.py:184",
                        ("gemm", f"{D8K}x{D8K}x{D8K}"), "bfloat16", blas_counts["gemm_wgmma"]),
         "gemv": ("src/repro_torch/csrc/gemv.cu", "src/repro/kernels/gemv.py:146",
@@ -2936,7 +3096,9 @@ def main() -> int:
                     "long_shape": long_r["case"], "long_ms": long_r["kernel_ms"],
                     "long_replaced_ms": long_r["replaced_ms"], "long_bound_ms": long_r["bound_ms"]})
     # the SSD kernel: the prefill case's times, launches from the zamba serve
-    r = ssd_rows[SSD_CASES[0][0]]
+    # (ops.mamba2_ssd calls; each runs DEVICE_LAUNCHES device launches), the
+    # long case's time beside it
+    r, long_r = ssd_rows[SSD_CASES[0][0]], ssd_rows[SSD_CASES[2][0]]
     summary.append({"name": "mamba2_ssd", "route": "cuda",
                     "source": "src/repro_torch/csrc/mamba2.cu",
                     "replaces": "src/repro/kernels/mamba2.py:84",
@@ -2944,7 +3106,11 @@ def main() -> int:
                     "max_abs_err_state": r["max_abs_err_state"], "ms": r["kernel_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None, "shape": r["case"],
-                    "dtype": "bfloat16"})
+                    "dtype": "bfloat16", "replaced_ms": r["replaced_ms"],
+                    "device_launches_per_call": r["device_launches_per_call"],
+                    "bound_with_workspace_ms": r["bound_with_workspace_ms"],
+                    "long_shape": long_r["case"], "long_ms": long_r["kernel_ms"],
+                    "long_replaced_ms": long_r["replaced_ms"], "long_bound_ms": long_r["bound_ms"]})
     emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds)
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)

@@ -11,6 +11,7 @@
     PYTHONPATH=TREE/src:TREE python3 scripts/torch_gemm_study.py axpy
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py host
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py qgemv
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py odd
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -73,6 +74,18 @@ to 8 on the plan's route (on the tensor cores with 4 and 8 warps a block),
 each checked against the plain version; beside the plan's
 choice, the dense bgemv on the same weights in bf16 and the first packed
 design (scripts/replaced/qgemv_rows4.cu).  `bgemv.INT8_BLOCKS_PER_SM` comes
+from these.
+
+odd: the dense forms TMA and 16-byte copies cannot address.  The bf16
+mma.sync kernel (csrc/gemm_mma.cu, route "mma") at every tile of
+`gemm.MMA_TILES` (with the gate, `MMA_GATE_TILES`) at the BLAS odd shape
+(4095, 4097) @ (4097, 4093), (8192, 8191) @ (8191, 8192), the ragged
+bgemm rows (508, 2047) @ (2047, 2001) and the gate at (512, 2047) @ (2047,
+5631); the f64 tensor-core kernel (csrc/gemm_f64.cu) at the odd shape with
+8-byte copies and at the even neighbour (4095, 4098) @ (4098, 4094) with
+16- and 8-byte copies, at every tile of `gemm.DMMA_TILES`; each checked
+against the plain version, beside the first CUDA-core kernel (csrc/gemm.cu)
+and torch.matmul.  The "mma" tile table and the copy widths' cost come
 from these.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
@@ -153,7 +166,7 @@ def f64():
                       (5, "BK=32 3 stages"))]
         for label, tile, code in runs:
             def call(tile=tile, code=code):
-                return gemm.dmma(a, b, out, gemm.Plan("dmma", tile), b2=b2, bias=None,
+                return gemm.dmma(a, b, out, gemm.Plan("dmma", tile, copy=16), b2=b2, bias=None,
                                  residual=None, act_code=ops._ACTS[act], m=m, k=k, n=n,
                                  variant=code)
 
@@ -442,10 +455,60 @@ def witness(with_ffma: bool):
         torch.cuda.empty_cache()
 
 
+def odd():
+    from repro_torch.kernels import gemm, ops
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(torch.bfloat16, 4095, 4097, 4093, False, (16,)),
+             (torch.bfloat16, 8192, 8191, 8192, False, (16,)),
+             (torch.bfloat16, 508, 2047, 2001, False, (16,)),
+             (torch.bfloat16, 512, 2047, 5631, True, (16,)),
+             (torch.float64, 4095, 4097, 4093, False, (8,)),
+             (torch.float64, 4095, 4098, 4094, False, (16, 8))]
+    for dtype, m, k, n, gate, copies in cases:
+        a = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+        b = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dtype)
+        b2 = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dtype) if gate else None
+        act = "silu" if gate else None
+        with ops.reference_mode():
+            want = ops.gemm(a, b, b2=b2, activation=act)
+        out = torch.empty(m, n, dtype=dtype, device="cuda")
+        f64 = dtype == torch.float64
+        tiles = ((gemm.DMMA_GATE_TILES if gate else gemm.DMMA_TILES) if f64
+                 else (gemm.MMA_GATE_TILES if gate else gemm.MMA_TILES))
+        ms = {}
+        for tile in tiles:
+            for copy in copies:
+                def call(tile=tile, copy=copy):
+                    kw = dict(b2=b2, bias=None, residual=None, act_code=ops._ACTS[act], m=m,
+                              k=k, n=n)
+                    if f64:
+                        return gemm.dmma(a, b, out, gemm.Plan("dmma", tile, copy=copy), **kw)
+                    return gemm.mma(a, b, out, gemm.Plan("mma", tile), **kw)
+
+                label = f"{tile[0]}x{tile[1]}" + (f" copy={copy}B" if f64 else "")
+                call()
+                torch.cuda.synchronize()
+                if not torch.allclose(out.double(), want.double(), **cs.TOL[dtype]):
+                    err = (out.double() - want.double()).abs().max().item()
+                    raise AssertionError(f"odd: {label} at {(m, k, n)} disagrees ({err})")
+                ms[label] = cs.time_auto(call)
+        ms["ffma (csrc/gemm.cu)"] = cs.time_auto(lambda: cs.ffma_launch(a, b, b2=b2,
+                                                                        activation=act))
+        if not gate:
+            ms["torch.matmul"] = cs.time_auto(lambda: torch.matmul(a, b))
+        flops = 2 * m * k * n * (2 if gate else 1)
+        print(json.dumps({"shape": f"({m},{k})@({k},{n})" + (" gate" if gate else ""),
+                          "dtype": str(dtype).split(".")[1],
+                          "plan": str(gemm.plan(m, k, n, dtype, gate=gate)),
+                          "bound_ms": flops / cs.PEAK_FLOP_S[dtype] * 1e3, "ms": ms}),
+              flush=True)
+        del a, b, b2, want, out
+
+
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
-            "host": host, "qgemv": qgemv_sweep}
+            "host": host, "qgemv": qgemv_sweep, "odd": odd}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

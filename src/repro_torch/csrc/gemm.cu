@@ -1,11 +1,14 @@
-// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32, f64 with
-// odd K or N or unaligned operands, unaligned bf16, and the int8-B forms the
+// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32 with K or
+// N not a multiple of 4 or unaligned operands, and the int8-B forms the
 // tensor cores do not take.
 //
 // Replaces, for the forms `kernels/gemm.py::plan` routes to "ffma", two
-// Pallas kernels with one body and two entry points (bf16 operands that TMA
-// can address run `csrc/gemm_sm90.cu` instead, and f64 with even K and N on
-// 16-byte boundaries `csrc/gemm_f64.cu`, the f64 tensor cores):
+// Pallas kernels with one body and two entry points.  Every dense bf16 call
+// runs the tensor cores instead (`csrc/gemm_sm90.cu` where TMA can address
+// the operands, `csrc/gemm_mma.cu` otherwise), every dense f64 call the f64
+// tensor cores (`csrc/gemm_f64.cu`), and aligned f32 `csrc/gemm_f32.cu`;
+// this file's dense bf16 and f64 bodies are reached only by chip_smoke.py's
+// `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick:
 //  - `gemm_launch`: `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
 //    :184) in its dense "kn" form, C = epi( A @ B  [, A @ B2] ), with A
 //    (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C

@@ -10,9 +10,11 @@
 // with A (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
 // (M, N), all f64; the products accumulate in f64 and the epilogue
 // (common.cuh: bias -> activation -> gate -> residual) runs in f64 from the
-// registers.  K and N are even and every operand starts on a 16-byte
-// boundary (the plan's rule: 16-byte copies of whole row pairs); odd K or
-// N, unaligned operands and packed B stay on csrc/gemm.cu ("ffma").
+// registers.  Every dense f64 call takes it: where K and N are even and
+// every operand starts on a 16-byte boundary the ring copies 16 bytes (a
+// row pair) at a time, otherwise 8 (one double: any K or N, any base, since
+// an f64 operand is always 8-byte aligned).  Packed B stays on csrc/gemm.cu
+// ("ffma").
 //
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB,
 // ~700 flops per byte, far above the card's ridge.  The H100's f64 peak is
@@ -32,7 +34,8 @@
 //    64 or 64 x 64; the gate's two accumulators take BN <= 64), each warp a
 //    (BM/2) x (BN/4) sub-tile of mma tiles in registers;
 //  - operand tiles of BK = 16 come through a STAGES-deep cp.async ring in
-//    dynamic shared memory, 16-byte copies: the copies of the next three
+//    dynamic shared memory, in copies of VEC doubles (16 or 8 bytes, a
+//    template parameter the plan picks): the copies of the next three
 //    k-steps fly while this one is multiplied, one barrier a k-step;
 //  - shared rows are padded by 4 doubles (32 bytes), so each half-warp's
 //    8-byte fragment loads (A: row g, column t; B: row t, column g, with
@@ -60,11 +63,18 @@ enum { PLANNED = 0, M8N8K4 = 1, M16N8K4 = 2, M16N8K8 = 3, M16N8K16 = 4, BK32 = 5
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// 16 bytes global -> shared; zero-filled (and src not read) unless live
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
+// VEC doubles (16 or 8 bytes) global -> shared; zero-filled (and src not
+// read) unless live.  cp.async takes 8-byte copies only through L1 (.ca).
+template <int VEC>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool live) {
+  if constexpr (VEC == 2)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(live ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(live ? 8 : 0)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -135,7 +145,7 @@ constexpr int smem_bytes() {
   return STAGES * (BM * (BK + PAD) + (GATE ? 2 : 1) * BK * (BN + PAD)) * 8;
 }
 
-template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE>
+template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE, int VEC>
 __global__ void __launch_bounds__(THREADS)
 gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
                 const double* __restrict__ b2, const double* __restrict__ bias,
@@ -147,9 +157,9 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   constexpr int LDA = BK + PAD, LDB = BN + PAD;
   constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
   constexpr int STAGE = A_ELEMS + (GATE ? 2 : 1) * B_ELEMS;
-  constexpr int CH_A = BM * BK / 2 / THREADS, CH_B = BK * BN / 2 / THREADS;  // copies a thread
+  constexpr int CH_A = BM * BK / VEC / THREADS, CH_B = BK * BN / VEC / THREADS;  // copies a thread
   static_assert(WM % MI == 0 && WN % 8 == 0 && BK % KI == 0, "tile / mma shape mismatch");
-  static_assert(CH_A * THREADS * 2 == BM * BK && CH_B * THREADS * 2 == BK * BN, "copy split");
+  static_assert(CH_A * THREADS * VEC == BM * BK && CH_B * THREADS * VEC == BK * BN, "copy split");
   extern __shared__ __align__(16) double smem[];
 
   // grouped raster: GROUP tile rows sweep the tile columns together
@@ -166,26 +176,26 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
 
-  // one k-step's tiles into ring slot s: 16-byte chunks (2 doubles; K and N
-  // even, so a chunk is all in or all out of the matrix)
+  // one k-step's tiles into ring slot s: chunks of VEC doubles (with VEC = 2
+  // K and N are even, so a chunk is all in or all out of the matrix)
   auto stage = [&](int s, int k0) {
     double* As = smem + s * STAGE;
     double* Bs = As + A_ELEMS;
 #pragma unroll
     for (int j = 0; j < CH_A; ++j) {
-      const int e = tid + j * THREADS, r = e / (BK / 2), ch = e % (BK / 2);
-      const int gm = m0 + r, gk = k0 + 2 * ch;
+      const int e = tid + j * THREADS, r = e / (BK / VEC), ch = e % (BK / VEC);
+      const int gm = m0 + r, gk = k0 + VEC * ch;
       const bool live = gm < M && gk < K;
-      cp_async16(As + r * LDA + 2 * ch, live ? a + (long long)gm * K + gk : a, live);
+      cp_async<VEC>(As + r * LDA + VEC * ch, live ? a + (long long)gm * K + gk : a, live);
     }
 #pragma unroll
     for (int j = 0; j < CH_B; ++j) {
-      const int e = tid + j * THREADS, r = e / (BN / 2), ch = e % (BN / 2);
-      const int gk = k0 + r, gn = n0 + 2 * ch;
+      const int e = tid + j * THREADS, r = e / (BN / VEC), ch = e % (BN / VEC);
+      const int gk = k0 + r, gn = n0 + VEC * ch;
       const bool live = gk < K && gn < N;
       const long long off = live ? (long long)gk * N + gn : 0;
-      cp_async16(Bs + r * LDB + 2 * ch, b + off, live);
-      if constexpr (GATE) cp_async16(Bs + B_ELEMS + r * LDB + 2 * ch, b2 + off, live);
+      cp_async<VEC>(Bs + r * LDB + VEC * ch, b + off, live);
+      if constexpr (GATE) cp_async<VEC>(Bs + B_ELEMS + r * LDB + VEC * ch, b2 + off, live);
     }
   };
 
@@ -241,7 +251,8 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   cp_async_wait<0>();  // only empty groups remain; drained before exit
 
   // epilogue from the registers: C[i] and C[i + 1] are two adjacent columns
-  // (col even and N even: both in range together, one 16-byte store)
+  // (with VEC = 2, col and N are even: both in range together, one 16-byte
+  // store; with VEC = 1 each is checked and stored alone)
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -260,17 +271,22 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
           if constexpr (GATE) gv = acc2[m][n][2 * h + j];
           v[j] = epilogue<double>(acc[m][n][2 * h + j], gv, bias, res, col + j, o + j, act, GATE);
         }
-        *reinterpret_cast<double2*>(c + o) = make_double2(v[0], v[1]);
+        if constexpr (VEC == 2) {
+          *reinterpret_cast<double2*>(c + o) = make_double2(v[0], v[1]);
+        } else {
+          c[o] = v[0];
+          if (col + 1 < N) c[o + 1] = v[1];
+        }
       }
     }
 }
 
-template <int BM, int BN, bool GATE, int MI = DEFAULT_MI, int KI = DEFAULT_KI,
+template <int BM, int BN, bool GATE, int VEC = 2, int MI = DEFAULT_MI, int KI = DEFAULT_KI,
           int BK = DEFAULT_BK, int STAGES = DEFAULT_STAGES>
 int run(const double* a, const double* b, const double* b2, const double* bias,
         const double* res, double* c, int M, int K, int N, int act, cudaStream_t s) {
   constexpr int bytes = smem_bytes<BM, BN, BK, STAGES, GATE>();
-  auto kernel = gemm_f64_kernel<BM, BN, BK, STAGES, MI, KI, GATE>;
+  auto kernel = gemm_f64_kernel<BM, BN, BK, STAGES, MI, KI, GATE, VEC>;
   static bool configured = false;  // the opt-in above 48 KB, once per instantiation
   if (!configured) {
     const cudaError_t e =
@@ -289,13 +305,14 @@ int run(const double* a, const double* b, const double* b2, const double* bias,
 // NULL.  (bm, bn): 128 x 128 or 64 x 64 (the gate: 128 x 64 or 64 x 64).
 // variant: 0 for the plan's kernels; for the sweep, at 128 x 128 without
 // the gate, 1-4 the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 (BK = 16,
-// 4 stages) and 5 the default shape with BK = 32 and 3 stages.  K and N must
-// be even and a, b, b2 and c 16-byte aligned.  Returns cudaErrorInvalidValue
-// for what the kernel does not take, else cudaGetLastError() after the
-// launch.
+// 4 stages) and 5 the default shape with BK = 32 and 3 stages.  copy: the
+// bytes a cp.async moves, 16 (K and N even, a, b, b2 and c 16-byte aligned)
+// or 8 (any K and N; the sweep's variants take 16 only).  Returns
+// cudaErrorInvalidValue for what the kernel does not take, else
+// cudaGetLastError() after the launch.
 extern "C" int gemm_f64_launch(const void* a, const void* b, const void* b2, const void* bias,
                                const void* res, void* c, int M, int K, int N, int act, int bm,
-                               int bn, int variant, void* stream) {
+                               int bn, int variant, int copy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const double* at = static_cast<const double*>(a);
   const double* bt = static_cast<const double*>(b);
@@ -304,28 +321,36 @@ extern "C" int gemm_f64_launch(const void* a, const void* b, const void* b2, con
   const double* rest = static_cast<const double*>(res);
   double* ct = static_cast<double*>(c);
   const bool aligned = aligned16(at) && aligned16(bt) && aligned16(b2t) && aligned16(ct);
-  if (M < 1 || K < 1 || N < 1 || K % 2 || N % 2 || !aligned)
+  auto at8 = [](const double* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+  const bool whole8 = at8(at) && at8(bt) && at8(b2t) && at8(biast) && at8(rest) && at8(ct);
+  if (M < 1 || K < 1 || N < 1 || !whole8 || (copy != 16 && copy != 8) ||
+      (copy == 16 && (K % 2 || N % 2 || !aligned)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tile = bm * 1000 + bn;
 #define F64_ARGS at, bt, b2t, biast, rest, ct, M, K, N, act, s
   if (variant != PLANNED) {
-    if (b2 || tile != 128128) return static_cast<int>(cudaErrorInvalidValue);
+    if (b2 || tile != 128128 || copy != 16) return static_cast<int>(cudaErrorInvalidValue);
     switch (variant) {
-      case M8N8K4: return run<128, 128, false, 8, 4, 16, 4>(F64_ARGS);
-      case M16N8K4: return run<128, 128, false, 16, 4, 16, 4>(F64_ARGS);
-      case M16N8K8: return run<128, 128, false, 16, 8, 16, 4>(F64_ARGS);
-      case M16N8K16: return run<128, 128, false, 16, 16, 16, 4>(F64_ARGS);
-      case BK32: return run<128, 128, false, DEFAULT_MI, DEFAULT_KI, 32, 3>(F64_ARGS);
+      case M8N8K4: return run<128, 128, false, 2, 8, 4, 16, 4>(F64_ARGS);
+      case M16N8K4: return run<128, 128, false, 2, 16, 4, 16, 4>(F64_ARGS);
+      case M16N8K8: return run<128, 128, false, 2, 16, 8, 16, 4>(F64_ARGS);
+      case M16N8K16: return run<128, 128, false, 2, 16, 16, 16, 4>(F64_ARGS);
+      case BK32: return run<128, 128, false, 2, DEFAULT_MI, DEFAULT_KI, 32, 3>(F64_ARGS);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  const bool wide = copy == 16;
   if (b2) {
-    if (tile == 128064) return run<128, 64, true>(F64_ARGS);
-    if (tile == 64064) return run<64, 64, true>(F64_ARGS);
+    if (tile == 128064)
+      return wide ? run<128, 64, true, 2>(F64_ARGS) : run<128, 64, true, 1>(F64_ARGS);
+    if (tile == 64064)
+      return wide ? run<64, 64, true, 2>(F64_ARGS) : run<64, 64, true, 1>(F64_ARGS);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tile == 128128) return run<128, 128, false>(F64_ARGS);
-  if (tile == 64064) return run<64, 64, false>(F64_ARGS);
+  if (tile == 128128)
+    return wide ? run<128, 128, false, 2>(F64_ARGS) : run<128, 128, false, 1>(F64_ARGS);
+  if (tile == 64064)
+    return wide ? run<64, 64, false, 2>(F64_ARGS) : run<64, 64, false, 1>(F64_ARGS);
 #undef F64_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

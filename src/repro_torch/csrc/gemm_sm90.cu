@@ -17,9 +17,11 @@
 // or relu, then the gate multiply, then the residual), rounded once to bf16;
 // an int8 column's scale multiplies its accumulator first (the reference
 // dequantizes B in the f32 accumulator: the two differ at f32 rounding).
-// Every other form (f32, f64, unaligned bf16, int8 "kn" or with scales that
-// vary along K) stays on gemm.cu's CUDA-core loop; `kernels/gemm.py::plan`
-// picks the route, the tile and the K split from the shape alone.
+// Dense bf16 that TMA cannot address (K or N not a multiple of 8, unaligned)
+// runs csrc/gemm_mma.cu; f32 and f64 have kernels of their own; int8 "kn"
+// or with scales that vary along K stays on gemm.cu's CUDA-core loop.
+// `kernels/gemm.py::plan` picks the route, the tile and the K split from
+// the shape alone.
 //
 // Bound: operations at most served shapes (512 prefill rows: 340-440 flops
 // a byte against the card's ridge of ~295; 8192^3: ~2700), bytes at rwkv's

@@ -2,17 +2,23 @@
 
 Replaces `repro/kernels/gemm.py` (`_gemm_kernel`, Pallas call at :184) in
 its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
-(K, N), in f32, bf16 and f64.  Four CUDA kernels carry it, and `plan` picks
+(K, N), in f32, bf16 and f64.  Five CUDA kernels carry it, and `plan` picks
 one from the shape, dtype and addresses alone:
 
 - "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for bf16
   operands TMA can address (16-byte row strides and base addresses: K % 8
   == 0, N % 8 == 0), over a (BM, BN) tile grid chosen to fill the card's
   SMs, with K split into deterministic slices where the grid is too small;
+- "mma": `csrc/gemm_mma.cu`, the tensor cores on mma.sync with the
+  operands brought through registers, for every other dense bf16 call (K
+  or N not a multiple of 8, or a base address off 16 bytes), the gate's two
+  products included, over a (BM, BN) tile grid chosen as for "wgmma" (no K
+  split);
 - "dmma": `csrc/gemm_f64.cu`, the f64 tensor cores (mma.sync .f64) fed by
-  a cp.async ring, for dense f64 whose rows 16-byte copies can address (K %
-  2 == 0, N % 2 == 0, 16-byte base addresses), the gate's two products
-  included, over the tile grid chosen as for "wgmma" (no K split);
+  a cp.async ring, for every dense f64 call, the gate's two products
+  included, over the tile grid chosen as for "wgmma" (no K split): 16-byte
+  copies where they can address the rows (K % 2 == 0, N % 2 == 0, 16-byte
+  base addresses), 8-byte copies (one double) otherwise;
 - "ffma_sm90": `csrc/gemm_f32.cu`, FFMA on the CUDA cores (TF32 would
   change the result) fed by a TMA ring, for dense f32 whose rows TMA can
   address (K % 4 == 0, N % 4 == 0, 16-byte base addresses), the gate's two
@@ -21,9 +27,11 @@ one from the shape, dtype and addresses alone:
   projections of kernel 3's broadcast-B form;
 - "ffma": `csrc/gemm.cu`, the first design: a shared-memory tiled GEMM on
   the CUDA cores whose threads each own 4 x 4 register blocks (the paper's
-  DOT4 PE), for odd-K/N or unaligned f32, f64 and bf16, and every packed
-  form the tensor-core kernels do not take (packed f32 and f64 calls, int8
-  "kn", scales that vary along K).
+  DOT4 PE), now only for dense f32 whose K or N is not a multiple of 4 or
+  whose operands are off 16 bytes, and every packed form but bf16 "nk"
+  (packed f32 and f64 calls, int8 "kn", scales that vary along K).  Its
+  dense bf16 and f64 bodies are reached only by chip_smoke.py's
+  `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick.
 
 Each source note says what bounds its kernel.  Ragged edges are masked in
 the kernels, where the reference pads in `ops._gemm_call`.
@@ -61,7 +69,7 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "mma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
@@ -73,6 +81,13 @@ BK = 64
 #: 256-wide tiles lost everywhere; the gate's two products take BN = 64.
 TC_TILES = ((128, 128), (128, 64), (64, 64))
 GATE_TILES = ((128, 64), (64, 64))
+#: (BM, BN) tiles of the bf16 mma.sync kernel (csrc/gemm_mma.cu), largest
+#: first, and its gate's (two accumulators: BN <= 64).  Measured on the H100
+#: (scripts/torch_gemm_study.py odd, PERF.md): 128 x 128 runs (4095, 4097) @
+#: (4097, 4093) in 1.15 ms (128 x 64 1.75, 64 x 64 1.75); 508 rows at N =
+#: 2001 tie at 128 x 64 and 64 x 64 (0.066, 0.065 ms)
+MMA_TILES = ((128, 128), (128, 64), (64, 64))
+MMA_GATE_TILES = ((128, 64), (64, 64))
 #: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
 #: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
 #: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
@@ -115,13 +130,15 @@ def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one GEMM runs: the route ("wgmma", "dmma", "ffma_sm90" or "ffma"),
-    the (BM, BN) output tile and the number of K slices (wgmma only; the
-    slices' partials are summed in slice order by a second pass)."""
+    """How one GEMM runs: the route ("wgmma", "mma", "dmma", "ffma_sm90" or
+    "ffma"), the (BM, BN) output tile, the number of K slices (wgmma only;
+    the slices' partials are summed in slice order by a second pass) and,
+    on "dmma", the bytes each cp.async copies (16 or 8; 0 elsewhere)."""
 
     route: str
     tile: tuple
     splits: int = 1
+    copy: int = 0
 
     def k_slices(self, k: int) -> list:
         """[(k0, k1), ...]: each slice whole BK-steps of K, in the kernel's
@@ -143,28 +160,34 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     vary along K.  aligned: every operand's base address is 16-byte aligned.
 
     bf16 takes "wgmma" when TMA can address A and B (K % 8 == 0, 16 for int8,
-    and N % 8 == 0) and B is dense or "nk"; dense f64 takes "dmma" when
-    16-byte copies can address A and B (K % 2 == 0 and N % 2 == 0, the gate
-    too); dense f32 takes "ffma_sm90" when TMA can address A and B (K % 4 ==
-    0 and N % 4 == 0, the gate too); everything else "ffma" (odd-K/N or
-    unaligned operands of any dtype, every packed form but bf16 "nk").  The
-    tile is the largest of the route's tiles (TC_TILES, DMMA_TILES,
-    FFMA_SM90_TILES; with the gate GATE_TILES, DMMA_GATE_TILES,
-    FFMA_SM90_GATE_TILES) whose grid fills FILL of the `sms` SMs, else the
-    smallest; on "wgmma", where that grid leaves more than IDLE of them idle
-    and K >= SPLIT_MIN_K, K is split so that tiles x splits is about half a
-    wave (at least 2 slices, at most one per 2 k-steps: the second pass
-    reads every slice's partials)."""
-    some = aligned and min(m, k, n) > 0
-    if (dtype == torch.float64 and some and packed_layout is None and k % 2 == 0
-            and n % 2 == 0):
-        return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0])
+    and N % 8 == 0) and B is dense or "nk", and "mma" when B is dense and TMA
+    cannot; dense f64 takes "dmma", with 16-byte copies when they can address
+    A and B (K % 2 == 0 and N % 2 == 0, the gate too), else 8-byte ones;
+    dense f32 takes "ffma_sm90" when TMA can address A and B (K % 4 == 0 and
+    N % 4 == 0, the gate too); everything else "ffma" (odd-K/N or unaligned
+    f32, every packed form but bf16 "nk", and a K of 0: the epilogue alone).
+    The tile is the largest of the route's tiles (TC_TILES, MMA_TILES,
+    DMMA_TILES, FFMA_SM90_TILES; with the gate GATE_TILES, MMA_GATE_TILES,
+    DMMA_GATE_TILES, FFMA_SM90_GATE_TILES) whose grid fills FILL of the
+    `sms` SMs, else the smallest; on "wgmma", where that grid leaves more
+    than IDLE of them idle and K >= SPLIT_MIN_K, K is split so that tiles x
+    splits is about half a wave (at least 2 slices, at most one per 2
+    k-steps: the second pass reads every slice's partials)."""
+    nonempty = min(m, k, n) > 0
+    some = aligned and nonempty
+    dense = nonempty and packed_layout is None
+    if dtype == torch.float64 and dense:
+        wide = some and k % 2 == 0 and n % 2 == 0
+        return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0],
+                    copy=16 if wide else 8)
     if (dtype == torch.float32 and some and packed_layout is None and k % 4 == 0
             and n % 4 == 0):
         return Plan("ffma_sm90",
                     _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES, sms)[0])
     tc = (dtype == torch.bfloat16 and some and n % 8 == 0
           and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
+    if not tc and dtype == torch.bfloat16 and dense:
+        return Plan("mma", _fill(m, n, MMA_GATE_TILES if gate else MMA_TILES, sms)[0])
     if not tc:
         return Plan("ffma", FFMA_TILE[bool(gate)])
     (bm, bn), tiles = _fill(m, n, GATE_TILES if gate else TC_TILES, sms)
@@ -222,25 +245,41 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
     return out
 
 
-_DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_MMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
          variant: int = 0):
     """Launch `gemm_f64_launch` (csrc/gemm_f64.cu) on the current stream over
-    m rows of f64 a with p's tile; `variant` 0 is the plan's kernel (1-4:
-    the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK = 32 in 3
-    stages, at 128 x 128 without the gate, for the sweep)."""
+    m rows of f64 a with p's tile and copy width; `variant` 0 is the plan's
+    kernel (1-4: the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK
+    = 32 in 3 stages, at 128 x 128 with 16-byte copies and without the gate,
+    for the sweep)."""
     bm, bn = p.tile
     fn = _build.function("gemm_f64_launch", _DMMA_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
                  _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, variant,
-                 stream)
+                 p.copy, stream)
     if err:
         raise RuntimeError(f"gemm f64 tensor-core kernel launch failed ({p}): CUDA error {err}")
+    return out
+
+
+def mma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int):
+    """Launch `gemm_mma_launch` (csrc/gemm_mma.cu) on the current stream over
+    m rows of bf16 a with p's tile."""
+    bm, bn = p.tile
+    fn = _build.function("gemm_mma_launch", _MMA_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, stream)
+    if err:
+        raise RuntimeError(f"gemm bf16 mma.sync kernel launch failed ({p}): CUDA error {err}")
     return out
 
 
@@ -269,8 +308,8 @@ def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: i
     if p.route == "wgmma":
         tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
         return p.route
-    if p.route in ("dmma", "ffma_sm90"):
-        run = dmma if p.route == "dmma" else ffma_sm90
+    if p.route in ("mma", "dmma", "ffma_sm90"):
+        run = {"mma": mma, "dmma": dmma, "ffma_sm90": ffma_sm90}[p.route]
         run(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
             n=n)
         return p.route

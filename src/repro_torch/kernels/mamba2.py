@@ -12,8 +12,12 @@ one launch carries a layer's prefill from the cached state.
 x (BH, T, P), a_log (BH, T) f32, b, c (BH, T, N) -> y (BH, T, P) in x's
 dtype, h_fin (BH, N, P) f32.  Time is cut into chunks of min(chunk, T)
 rows, the last padded with rows where a = 0 and x = b = c = 0 (which leave
-the state exact).  The CUDA kernel is `csrc/mamba2.cu`; its source note
-says what bounds it and what the design does about it.
+the state exact).  The CUDA kernel is `csrc/mamba2.cu`, three launches a
+call (the chunks' state increments, the state carried across chunks
+element by element, then every chunk's outputs), parallel across rows and
+chunks; its source note says what bounds it and what the design does
+about it.  The f32 workspaces (the per-chunk states and decays) are
+allocated per call.
 
 `reference` is the plain PyTorch version, a copy of `ssd_chunked`'s body:
 CPU tensors use it, and on the card only comparisons (`ops.reference_mode`)
@@ -41,7 +45,17 @@ MAX_STATE = 64
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 64
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: device launches a call: states, the carried-state scan, outputs
+DEVICE_LAUNCHES = 3
+
+
+def workspace_shapes(bh: int, t: int, n: int, p: int, chunk: int) -> tuple:
+    """The f32 workspaces of one call: the per-chunk states (BH, chunks, N,
+    P) (increments, then the state entering each chunk) and decays (BH,
+    chunks)."""
+    nc = -(-t // min(chunk, t))
+    return (bh, nc, n, p), (bh, nc)
 
 
 def reference(x, a_log, b, c, h0=None, chunk: int = 64):
@@ -78,17 +92,21 @@ def reference(x, a_log, b, c, h0=None, chunk: int = 64):
 
 
 def launch(x, a_log, b, c, h0, y, h_fin, *, chunk: int, dtype_code: int):
-    """Launch `mamba2_ssd_launch` on the current stream; operands are
-    validated CUDA tensors (kernels/ops.py), y and h_fin preallocated."""
+    """Launch `mamba2_ssd_launch` (three kernels) on the current stream;
+    operands are validated CUDA tensors (kernels/ops.py), y and h_fin
+    preallocated, the workspaces allocated here."""
     global launches
     bh, t, p = x.shape
     n = b.shape[-1]
+    dh_shape, dec_shape = workspace_shapes(bh, t, n, p, chunk)
+    dh = torch.empty(dh_shape, dtype=torch.float32, device=x.device)
+    dec = torch.empty(dec_shape, dtype=torch.float32, device=x.device)
     fn = _build.function("mamba2_ssd_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(dtype_code, x.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 _build.ptr(h0), y.data_ptr(), h_fin.data_ptr(), bh, t, n, p,
-                 min(chunk, t), stream)
+                 _build.ptr(h0), y.data_ptr(), h_fin.data_ptr(), dh.data_ptr(), dec.data_ptr(),
+                 bh, t, n, p, min(chunk, t), stream)
     if err:
         raise RuntimeError(f"mamba2 SSD kernel launch failed: CUDA error {err}")
     launches += 1

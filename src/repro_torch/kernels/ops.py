@@ -70,11 +70,12 @@ def launch_counts() -> dict:
     variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
-    launch counts in both).  gemm_wgmma / gemm_dmma / gemm_ffma_sm90 /
-    gemm_ffma split every launch of `gemm` (dense and int8) by the route its
-    plan named (the bf16 tensor-core kernel, the f64 one, the f32 CUDA-core
-    one on a TMA ring, or the first CUDA-core one), bgemm_wgmma /
-    bgemm_dmma / bgemm_ffma_sm90 / bgemm_ffma every launch of `bgemm` (whose
+    launch counts in both).  gemm_wgmma / gemm_mma / gemm_dmma /
+    gemm_ffma_sm90 / gemm_ffma split every launch of `gemm` (dense and int8)
+    by the route its plan named (the bf16 tensor-core kernel on wgmma or on
+    mma.sync, the f64 one, the f32 CUDA-core one on a TMA ring, or the first
+    CUDA-core one), bgemm_wgmma / bgemm_mma / bgemm_dmma / bgemm_ffma_sm90 /
+    bgemm_ffma every launch of `bgemm` (whose
     f32 and bf16 operands never take "dmma": the key is there for the same
     dict shape)."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
@@ -105,7 +106,7 @@ def reset_launch_counts() -> None:
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
     for mod in (_gemm, _bgemm):
-        mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
+        mod.launches_by_route.update(wgmma=0, mma=0, dmma=0, ffma_sm90=0, ffma=0)
     _attention.launches_by_route.update(splitkv=0, mma=0, ffma=0)
 
 

@@ -312,9 +312,9 @@ def test_kernels_count_their_launches(cuda):
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
-                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
-                                   "bgemm_ffma": 1}
+                                   "gemm_mma": 0, "gemm_dmma": 0, "gemm_ffma_sm90": 1,
+                                   "gemm_ffma": 1, "bgemm_wgmma": 0, "bgemm_mma": 0,
+                                   "bgemm_dmma": 0, "bgemm_ffma_sm90": 1, "bgemm_ffma": 1}
 
 
 @pytest.mark.cuda
@@ -792,6 +792,55 @@ def test_mamba2_ssd_kernel_strong_decay_stays_finite(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bh,t,p,n,chunk,with_h0,strong", [
+    (torch.bfloat16, 256, 128, 64, 64, 64, False, False),
+    (torch.bfloat16, 256, 128, 64, 64, 64, True, False),
+    (torch.bfloat16, 64, 4096, 64, 64, 64, True, False),
+    (torch.bfloat16, 256, 100, 64, 64, 64, True, False),
+    (torch.float32, 32, 10, 16, 16, 8, True, False),
+    (torch.bfloat16, 256, 128, 64, 64, 64, True, True),
+    (torch.bfloat16, 1, 4096, 64, 64, 64, False, True),
+    (torch.float32, 1, 1, 64, 64, 64, True, False)])
+def test_mamba2_ssd_kernel_at_the_chip_smoke_shapes_repeats_its_bits(cuda, dtype, bh, t, p, n,
+                                                                      chunk, with_h0, strong):
+    """chip_smoke's SSD cases (and BH = 1 at T = 4096, T = 1): within TOL of
+    the plain version, a second launch gives the same bits (no atomics:
+    every sum has one order), one ops launch and three device launches (the
+    states, the scan, the outputs) a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import mamba2
+    x, a, b, c, h0 = _ssd_case(cuda, dtype, bh, t, p, n, with_h0, strong=strong)
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got_y, got_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
+        torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_ssd"] == 1
+    device = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "ssd_" in e.key)
+    assert device == mamba2.DEVICE_LAUNCHES
+    again_y, again_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
+    with ops.reference_mode():
+        want_y, want_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y.float(), want_y.float(), **TOL[dtype])
+    torch.testing.assert_close(got_h, want_h, **TOL[torch.float32])
+    assert torch.equal(got_y, again_y) and torch.equal(got_h, again_h)
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_kernel_leaks_no_memory(cuda):
+    x, a, b, c, h0 = _ssd_case(cuda, torch.bfloat16, 64, 4096, 64, 64, True)
+    ops.mamba2_ssd(x, a, b, c, h0=h0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(5):
+        ops.mamba2_ssd(x, a, b, c, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
 def test_mamba2_ssd_kernel_refuses_what_it_does_not_take(cuda):
     x, a, b, c, _ = _ssd_case(cuda, torch.float32, 2, 8, 128, 16, False)
     with pytest.raises(NotImplementedError, match="P <= 64"):
@@ -859,8 +908,8 @@ def _tc_operands(gen, batch, m, k, n, epi, weights=None):
     return a, b, kw
 
 
-ROUTE_KEYS = ("gemm_wgmma", "gemm_ffma_sm90", "gemm_ffma", "bgemm_wgmma", "bgemm_ffma_sm90",
-              "bgemm_ffma")
+ROUTE_KEYS = ("gemm_wgmma", "gemm_mma", "gemm_ffma_sm90", "gemm_ffma", "bgemm_wgmma",
+              "bgemm_mma", "bgemm_ffma_sm90", "bgemm_ffma")
 
 
 def _routes(**nonzero):
@@ -930,9 +979,9 @@ def test_wgmma_int8_nk_matches_plain(cuda, epi, batch, m, k, n, block):
 
 
 @pytest.mark.cuda
-def test_unaligned_bf16_takes_the_ffma_route(cuda):
+def test_unaligned_bf16_takes_the_mma_route(cuda):
     """K % 8 != 0, and an aligned shape whose A starts 2 bytes off a 16-byte
-    boundary: both run the CUDA-core kernel, and the counts say so."""
+    boundary: both run the mma.sync kernel, and the counts say so."""
     b, b37 = _rand(cuda, torch.bfloat16, 64, 128, std=0.125), _rand(cuda, torch.bfloat16, 37, 128)
     ragged = _rand(cuda, torch.bfloat16, 2, 5, 37)
     buf = _rand(cuda, torch.bfloat16, 2 * 5 * 64 + 1)
@@ -940,7 +989,89 @@ def test_unaligned_bf16_takes_the_ffma_route(cuda):
     ops.reset_launch_counts()
     _against_plain(lambda: ops.bgemm(ragged, b37), torch.bfloat16)
     _against_plain(lambda: ops.bgemm(shifted, b), torch.bfloat16)
-    assert _routes(bgemm_ffma=2), _routes()
+    assert _routes(bgemm_mma=2), _routes()
+
+
+def _shifted(gen, dtype, *shape, std=1.0, by=1):
+    """A contiguous view `by` elements past a fresh allocation's start."""
+    n = int(np.prod(shape))
+    return _rand(gen, dtype, n + by, std=std)[by:].view(*shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n,shift", [(130, 37, 67, 0),      # odd K and N, ragged M
+                                         (1, 301, 5, 0),        # one row, N below an mma tile
+                                         (257, 1001, 131, 0),   # many k-steps, ragged all
+                                         (128, 64, 128, 1),     # whole tiles, A and B off 16 B
+                                         (96, 200, 40, 3),      # K, N multiples of 8, off 16 B
+                                         (200, 9, 300, 5)])     # K below one k16 step
+def test_mma_route_matches_plain(cuda, epi, m, k, n, shift):
+    """Dense bf16 that TMA cannot address: gemm, and bgemm over the same
+    rows split into a batch of 2 where m is even, each one launch on the
+    "mma" route, within bf16 TOL of the plain version, two launches bitwise
+    equal."""
+    from repro_torch.kernels import gemm
+    act, bias, gate, res = epi
+    a = _shifted(cuda, torch.bfloat16, m, k, by=shift)
+    b = _shifted(cuda, torch.bfloat16, k, n, std=k ** -0.5, by=2 * shift)
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = _shifted(cuda, torch.bfloat16, k, n, std=k ** -0.5, by=shift)
+    if bias:
+        kw["bias"] = _shifted(cuda, torch.bfloat16, n, by=shift)
+    if res:
+        kw["residual"] = _shifted(cuda, torch.bfloat16, m, n, by=shift)
+    assert gemm.plan(m, k, n, torch.bfloat16, gate=gate,
+                     aligned=gemm.aligned(a, b, kw.get("b2"))).route == "mma"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, b, **kw), torch.bfloat16)
+    want = {"gemm_mma": 1}
+    if m % 2 == 0:
+        kw3 = dict(kw, residual=kw["residual"].view(2, m // 2, n)) if res else kw
+        _against_plain(lambda: ops.bgemm(a.view(2, m // 2, k), b, **kw3), torch.bfloat16)
+        want["bgemm_mma"] = 1
+    assert _routes(**want), _routes()
+    first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,gate", [((128, 128), False), ((128, 64), False),
+                                       ((64, 64), False), ((128, 64), True), ((64, 64), True)])
+def test_mma_every_tile_matches_plain(cuda, tile, gate):
+    """Every tile of the plan, without and with the gate, on a ragged (300,
+    333) @ (333, 259) + bias gelu [gate] + residual."""
+    from repro_torch.kernels import gemm
+    m, k, n = 300, 333, 259
+    a, b, kw = _tc_operands(cuda, 1, m, k, n, ("gelu", True, gate, True))
+    a, res = a.view(m, k), kw["residual"].view(m, n)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+    gemm.mma(a, b, out, gemm.Plan("mma", tile), b2=kw.get("b2"), bias=kw["bias"],
+             residual=res, act_code=ops._ACTS["gelu"], m=m, k=k, n=n)
+    with ops.reference_mode():
+        want = ops.gemm(a, b, **dict(kw, residual=res))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_a_launch_the_mma_kernel_refuses_raises(cuda):
+    """Tiles the mma.sync kernel does not take come back as an error code,
+    and the wrapper raises: the gate's BN stops at 64, there is no 96-row
+    tile."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.bfloat16, 128, 63), _rand(cuda, torch.bfloat16, 63, 256)
+    out = torch.empty(128, 256, dtype=torch.bfloat16, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=128, k=63, n=256)
+    with pytest.raises(RuntimeError, match="mma.sync"):
+        gemm.mma(a, b, out, gemm.Plan("mma", (128, 128)), b2=b, **kw)
+    with pytest.raises(RuntimeError, match="mma.sync"):
+        gemm.mma(a, b, out, gemm.Plan("mma", (96, 64)), b2=None, **kw)
+    gemm.mma(a, b, out, gemm.Plan("mma", (128, 64)), b2=None, **kw)
+    torch.testing.assert_close(out.float(), (a.float() @ b.float()).bfloat16().float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -1004,20 +1135,22 @@ def test_dmma_route_matches_plain(cuda, epi, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant,tile,gate", [(1, (128, 128), False), (2, (128, 128), False),
-                                               (3, (128, 128), False), (4, (128, 128), False),
-                                               (5, (128, 128), False), (0, (128, 128), False),
-                                               (0, (64, 64), False), (0, (128, 64), True),
-                                               (0, (64, 64), True)])
-def test_dmma_every_variant_and_tile_matches_plain(cuda, variant, tile, gate):
+@pytest.mark.parametrize("variant,tile,gate,copy", [
+    (1, (128, 128), False, 16), (2, (128, 128), False, 16), (3, (128, 128), False, 16),
+    (4, (128, 128), False, 16), (5, (128, 128), False, 16), (0, (128, 128), False, 16),
+    (0, (64, 64), False, 16), (0, (128, 64), True, 16), (0, (64, 64), True, 16),
+    (0, (128, 128), False, 8), (0, (64, 64), False, 8), (0, (128, 64), True, 8),
+    (0, (64, 64), True, 8)])
+def test_dmma_every_variant_and_tile_matches_plain(cuda, variant, tile, gate, copy):
     """Each kernel of the sweep (1-4: m8n8k4, m16n8k4, m16n8k8, m16n8k16; 5:
-    BK = 32 in 3 stages) at 128 x 128, and every tile of the plan (0), on a
-    ragged (200, 100) @ (100, 202) + bias gelu [gate] + residual."""
+    BK = 32 in 3 stages) at 128 x 128, and every tile of the plan (0) in
+    both copy widths, on a ragged (200, 100) @ (100, 202) + bias gelu [gate]
+    + residual (K = 101, N = 203 with 8-byte copies)."""
     from repro_torch.kernels import gemm
-    m, k, n = 200, 100, 202
+    m, k, n = (200, 100, 202) if copy == 16 else (200, 101, 203)
     a, b, kw = _f64_operands(cuda, m, k, n, ("gelu", True, gate, True))
     out = torch.empty(m, n, dtype=torch.float64, device="cuda")
-    gemm.dmma(a, b, out, gemm.Plan("dmma", tile), b2=kw.get("b2"), bias=kw["bias"],
+    gemm.dmma(a, b, out, gemm.Plan("dmma", tile, copy=copy), b2=kw.get("b2"), bias=kw["bias"],
               residual=kw["residual"], act_code=ops._ACTS["gelu"], m=m, k=k, n=n,
               variant=variant)
     with ops.reference_mode():
@@ -1027,9 +1160,43 @@ def test_dmma_every_variant_and_tile_matches_plain(cuda, variant, tile, gate):
 
 
 @pytest.mark.cuda
-def test_odd_unaligned_or_packed_f64_takes_the_ffma_route(cuda):
-    """Odd K, odd N, an A one element off a 16-byte boundary and a packed B:
-    the CUDA-core kernel, and the counts say so."""
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n,shift", [(130, 37, 67, 0),     # odd K and N, ragged M
+                                         (1, 301, 5, 0),       # one row, N below an mma tile
+                                         (257, 1001, 131, 0),  # ragged everything
+                                         (128, 16, 128, 1),    # whole tiles, A and B off 16 B
+                                         (300, 2, 2, 1)])      # K = N = 2, off 16 B
+def test_dmma_8_byte_copies_match_plain(cuda, epi, m, k, n, shift):
+    """Dense f64 that 16-byte copies cannot address: one launch on the
+    "dmma" route with 8-byte copies, within f64 TOL of the plain version,
+    two launches bitwise equal."""
+    from repro_torch.kernels import gemm
+    act, bias, gate, res = epi
+    a = _shifted(cuda, torch.float64, m, k, by=shift)
+    b = _shifted(cuda, torch.float64, k, n, std=k ** -0.5, by=shift)
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = _shifted(cuda, torch.float64, k, n, std=k ** -0.5, by=shift)
+    if bias:
+        kw["bias"] = _rand(cuda, torch.float64, n)
+    if res:
+        kw["residual"] = _shifted(cuda, torch.float64, m, n, by=shift)
+    p = gemm.plan(m, k, n, torch.float64, gate=gate, aligned=gemm.aligned(a, b, kw.get("b2")))
+    assert (p.route, p.copy) == ("dmma", 8)
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, b, **kw), torch.float64)
+    assert _routes(), _routes()
+    assert ops.launch_counts()["gemm_dmma"] == 1
+    first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_odd_or_unaligned_f64_takes_dmma_and_packed_f64_ffma(cuda):
+    """Odd K, odd N and an A one element off a 16-byte boundary run the f64
+    tensor cores with 8-byte copies; a packed B the CUDA-core kernel; the
+    counts say so."""
     a, a37 = _rand(cuda, torch.float64, 9, 64), _rand(cuda, torch.float64, 9, 37)
     b, b37 = _rand(cuda, torch.float64, 64, 64, std=0.125), _rand(cuda, torch.float64, 37, 64)
     b_odd_n = _rand(cuda, torch.float64, 64, 37, std=0.125)
@@ -1042,31 +1209,39 @@ def test_odd_unaligned_or_packed_f64_takes_the_ffma_route(cuda):
     _against_plain(lambda: ops.gemm(shifted, b), torch.float64)
     _against_plain(lambda: ops.gemm(a, qb), torch.float64)
     c = ops.launch_counts()
-    assert (c["gemm_dmma"], c["gemm_ffma"], c["gemm_int8"]) == (0, 4, 1)
+    assert (c["gemm_dmma"], c["gemm_ffma"], c["gemm_int8"]) == (3, 1, 1)
 
 
 @pytest.mark.cuda
 def test_a_launch_the_dmma_kernel_refuses_raises(cuda):
     """Shapes, tiles and addresses the f64 kernel does not take come back as
-    an error code, and the wrapper raises: odd K, the gate at BN = 128, a
-    128 x 64 tile without it, a sweep variant off 128 x 128, an A off a
-    16-byte boundary."""
+    an error code, and the wrapper raises: odd K or an A off a 16-byte
+    boundary with 16-byte copies, a copy width of 0, the gate at BN = 128, a
+    128 x 64 tile without it, a sweep variant off 128 x 128 or with 8-byte
+    copies."""
     from repro_torch.kernels import gemm
     a, b = _rand(cuda, torch.float64, 64, 32), _rand(cuda, torch.float64, 32, 64)
     out = torch.empty(64, 64, dtype=torch.float64, device="cuda")
     kw = dict(bias=None, residual=None, act_code=0, m=64, k=32, n=64)
+    wide, narrow = gemm.Plan("dmma", (64, 64), copy=16), gemm.Plan("dmma", (64, 64), copy=8)
     with pytest.raises(RuntimeError, match="f64 tensor-core"):
-        gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **dict(kw, k=31))
+        gemm.dmma(a, b, out, wide, b2=None, **dict(kw, k=31))
     with pytest.raises(RuntimeError, match="f64 tensor-core"):
-        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 128)), b2=b, **kw)
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **kw)
     with pytest.raises(RuntimeError, match="f64 tensor-core"):
-        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 64)), b2=None, **kw)
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 128), copy=16), b2=b, **kw)
     with pytest.raises(RuntimeError, match="f64 tensor-core"):
-        gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, variant=1, **kw)
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 64), copy=16), b2=None, **kw)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, wide, b2=None, variant=1, **kw)
+    with pytest.raises(RuntimeError, match="f64 tensor-core"):
+        gemm.dmma(a, b, out, gemm.Plan("dmma", (128, 128), copy=8), b2=None, variant=1, **kw)
     shifted = _rand(cuda, torch.float64, 64 * 32 + 1)[1:].view(64, 32)
     with pytest.raises(RuntimeError, match="f64 tensor-core"):
-        gemm.dmma(shifted, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **kw)
-    gemm.dmma(a, b, out, gemm.Plan("dmma", (64, 64)), b2=None, **kw)  # the same, aligned
+        gemm.dmma(shifted, b, out, wide, b2=None, **kw)
+    gemm.dmma(shifted, b, out, narrow, b2=None, **kw)  # 8-byte copies take it
+    torch.testing.assert_close(out, shifted @ b, **TOL[torch.float64])
+    gemm.dmma(a, b, out, wide, b2=None, **kw)  # the same, aligned
     torch.testing.assert_close(out, a @ b, **TOL[torch.float64])
 
 

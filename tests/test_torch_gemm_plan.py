@@ -1,16 +1,19 @@
 """The GEMM plan (`repro_torch.kernels.gemm.plan`): route, tile and K split.
 
 The plan decides from the shape, the dtype and the addresses alone which
-kernel runs a GEMM: the bf16 tensor-core kernel (`csrc/gemm_sm90.cu`,
-"wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one
-on a TMA ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
+kernel runs a GEMM: the bf16 tensor-core kernel on wgmma
+(`csrc/gemm_sm90.cu`, "wgmma") or on mma.sync (`csrc/gemm_mma.cu`, "mma"),
+the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one on a TMA
+ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
 (`csrc/gemm.cu`, "ffma").  These tests hold it to its contract on the CPU:
-every served projection shape routes to "wgmma"; dense f64 with even K and
-N on 16-byte boundaries to "dmma"; dense f32 with K and N multiples of 4 on
-16-byte boundaries to "ffma_sm90"; odd-K/N or unaligned f32, f64 and bf16,
-and the packed forms the tensor cores do not take (every packed f32 and f64
-call) route to "ffma"; the K slices cover K exactly in whole k-steps; the
-grid fills at least half the card or K is split.
+every served projection shape routes to "wgmma"; every other dense bf16
+call (odd K or N, unaligned) to "mma"; every dense f64 call to "dmma", with
+16-byte copies for even K and N on 16-byte boundaries and 8-byte ones
+otherwise; dense f32 with K and N multiples of 4 on 16-byte boundaries to
+"ffma_sm90"; odd-K/N or unaligned f32, a K of 0 and the packed forms the
+tensor cores do not take (every packed f32 and f64 call) route to "ffma";
+the K slices cover K exactly in whole k-steps; the grid fills at least
+half the card or K is split.
 
 The split-K path sums f32 partials of each K slice in slice order and then
 applies the epilogue.  `_split_k_emulation` does that on the CPU, and is
@@ -81,16 +84,18 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
     (512, 2048, 2048, F32, False, None, False),      # f32, a base address off 16 bytes
     (512, 2048, 2048, F32, False, "kn", True),       # f32 activations, packed B
     (512, 2048, 2048, F32, True, "nk-kblocks", True),
-    (512, 2047, 2048, F64, False, None, True),       # f64, odd K (16-byte copies)
-    (512, 2048, 2047, F64, True, None, True),        # f64, odd N
-    (4095, 4097, 4093, F64, False, None, True),      # the BLAS ragged f64 case
-    (512, 2048, 2048, F64, False, None, False),      # f64, a base address off 16 bytes
+    (1, 3, 5, F32, False, None, True),               # f32, tiny odd shape
+    (512, 2048, 2047, F32, True, None, True),        # f32, odd N, the gate
+    (512, 2048, 2048, F32, True, None, False),       # f32 unaligned, the gate
+    (512, 2048, 2048, F32, False, "kn", False),      # f32 A, packed B, unaligned
     (512, 2048, 2048, F64, False, "kn", True),       # f64 activations, packed B
     (512, 2048, 2048, F64, True, "nk", True),
-    (4 * 127, 2047, 2001, BF16, False, None, True),  # the BLAS ragged case
-    (512, 2048, 2001, BF16, True, None, True),       # N % 8
-    (512, 2044, 2048, BF16, False, None, True),      # K % 8
-    (512, 2048, 2048, BF16, False, None, False),     # a base address off 16 bytes
+    (512, 2048, 2048, F64, False, "nk-kblocks", True),
+    (512, 0, 2048, F64, False, None, True),          # K = 0: the epilogue alone
+    (512, 0, 2048, BF16, False, None, True),
+    (512, 0, 2048, F32, True, None, True),
+    (512, 2048, 2048, BF16, True, "kn", True),       # int8 stored (K, N), the gate
+    (512, 2048, 2048, BF16, False, "nk", False),     # int8 "nk" off 16 bytes
     (512, 2048, 2048, BF16, False, "kn", True),      # int8 stored (K, N)
     (512, 2048, 2048, BF16, False, "nk-kblocks", True),  # scales vary along K
     (512, 2056, 2048, BF16, False, "nk", True),      # int8 K % 16
@@ -100,6 +105,45 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
     p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
     assert p == gemm.Plan("ffma", gemm.FFMA_TILE[gate], 1)
+
+
+@pytest.mark.parametrize("m,k,n,gate,aligned", [
+    (4 * 127, 2047, 2001, False, True),  # the ragged bgemm case
+    (4095, 4097, 4093, False, True),     # the BLAS odd case
+    (512, 2048, 2001, True, True),       # N % 8, the gate
+    (512, 2044, 2048, False, True),      # K % 8
+    (512, 2048, 2048, False, False),     # a base address off 16 bytes
+    (512, 2048, 5632, True, False),      # the served gate+up shape, off 16 bytes
+    (1, 1, 1, False, True),
+    (8192, 8191, 8192, False, True)])
+def test_odd_or_unaligned_dense_bf16_routes_to_mma(m, k, n, gate, aligned):
+    """Every dense bf16 call TMA cannot address runs mma.sync, never the
+    CUDA cores: on the largest of the route's tiles whose grid fills FILL of
+    the card, else the smallest; no K split."""
+    p = gemm.plan(m, k, n, BF16, gate=gate, aligned=aligned)
+    tiles = gemm.MMA_GATE_TILES if gate else gemm.MMA_TILES
+    assert p.route == "mma" and p.splits == 1 and p.tile in tiles and p.copy == 0
+    larger = tiles[:tiles.index(p.tile)]
+    assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
+    assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
+
+
+@pytest.mark.parametrize("m,k,n,gate,aligned,copy", [
+    (512, 2047, 2048, False, True, 8),    # odd K
+    (512, 2048, 2047, True, True, 8),     # odd N, the gate
+    (4095, 4097, 4093, False, True, 8),   # the BLAS odd case
+    (512, 2048, 2048, False, False, 8),   # a base address off 16 bytes
+    (1, 1, 1, False, True, 8),
+    (4095, 4098, 4094, False, True, 16),  # the BLAS even ragged neighbour
+    (8192, 8192, 8192, False, True, 16),
+    (512, 2048, 5632, True, True, 16)])
+def test_every_dense_f64_routes_to_dmma_with_its_copy_width(m, k, n, gate, aligned, copy):
+    """Dense f64 always runs the f64 tensor cores; the plan records 16-byte
+    copies where K and N are even and the bases on 16 bytes, else 8-byte
+    copies (one double), on the same tiles."""
+    p = gemm.plan(m, k, n, F64, gate=gate, aligned=aligned)
+    assert p.route == "dmma" and p.copy == copy and p.splits == 1
+    assert p.tile == gemm.plan(m, k + k % 2, n + n % 2, F64, gate=gate).tile
 
 
 @pytest.mark.parametrize("m,k,n,gate", [(512, 2048, 2048, False),     # was an "ffma" case
@@ -143,7 +187,7 @@ def test_aligned_f64_routes_to_dmma(m, k, n, gate):
     card, else the smallest; no K split."""
     p = gemm.plan(m, k, n, F64, gate=gate)
     tiles = gemm.DMMA_GATE_TILES if gate else gemm.DMMA_TILES
-    assert p.route == "dmma" and p.splits == 1 and p.tile in tiles
+    assert p.route == "dmma" and p.splits == 1 and p.tile in tiles and p.copy == 16
     larger = tiles[:tiles.index(p.tile)]
     assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
     assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
