@@ -48,7 +48,7 @@
 //    zero and are then added to the f32 registers with round-to-nearest, as
 //    csrc/gemm_sm90.cu promotes its wgmma partials: left to run over all of
 //    K the tensor core's own accumulation rounds more outputs away from the
-//    exact product than FFMA does (PERF.md, PR 17; chip_smoke's
+//    exact product than FFMA does (PERF.md; chip_smoke's
 //    gemm_precision holds this route's share);
 //  - tiles are visited in groups of 8 tile rows (gemm.cu's grouped raster),
 //    so blocks that run together share their A and B panels in L2;

@@ -60,7 +60,7 @@
 // 4 x 4 register tiles a thread whose shared-memory operands are 16-byte
 // vectors, 8-byte or 4-byte groups of bf16 (f32 c and A are stored
 // transposed), never two scalar reads an FMA.  What the chip showed
-// (PERF.md, PR 22): the kernels follow how many blocks an SM holds, so
+// (PERF.md): the kernels follow how many blocks an SM holds, so
 // tiles arrive by cp.async as they are where the products can read them so
 // (x and b in the states kernel, H and bf16 c and b in the outputs kernel:
 // no staging registers), the others' loads all issued before a block
