@@ -24,9 +24,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              with its ptxas registers and spills (none, or a spill, fails);
              the HMMA (mma.sync) in csrc/qgemv.cu's tensor-core kernels (none
              fails the run), ptxas's registers and spills for csrc/qgemv.cu
-             and csrc/rwkv6.cu; the HMMA in every csrc/gemm_mma.cu kernel and
-             in csrc/mamba2.cu's bf16 outputs kernel, with ptxas for both
-             files (no HMMA, or a spill, fails), and DMMA in csrc/gemm_f64.cu
+             and csrc/rwkv6.cu; the HMMA in csrc/mamba2.cu's bf16 outputs
+             kernel, with ptxas for the file (no HMMA, or a spill, fails),
+             and DMMA in csrc/gemm_f64.cu
              kernels of both copy widths (16 and 8 bytes) or the run fails;
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
@@ -48,8 +48,8 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
    gemm_precision - the share of bf16 outputs of the tensor-core GEMM,
              the CUDA-core one and the plain version that equal the
              correctly rounded f64 product, at five prefill shapes ("wgmma")
-             and two odd ones ("mma": the BLAS (4095, 4097) @ (4097, 4093)
-             and K = 7167); the tensor-core kernel may not fall below the
+             and two odd ones ("wgmma staged": the BLAS (4095, 4097) @
+             (4097, 4093) and K = 7167); the tensor-core kernel may not fall below the
              plain version's share by more than ROUNDING_SLACK;
 4. smoke   - stablelm-1.6b SMOKE served in f32 through the kernels and again
              through the plain versions: equal greedy tokens, every gemm and
@@ -81,8 +81,8 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              kernel (gemm, gemv, blas1 reduce, blas1 axpy; a gemm also on
              the route its plan names: every dense f64 call on the f64
              tensor cores (16-byte copies, or 8-byte ones for odd K or N),
-             bf16 on wgmma or, where TMA cannot address it (odd K or N), on
-             mma.sync, f32 with K and N multiples of 4 on the TMA ring
+             bf16 on wgmma, where TMA cannot address it (odd K or N) on
+             copies with padded rows, f32 with K and N multiples of 4 on the TMA ring
              (8192^3, an aligned ragged case, zamba2's LoRA merge), odd f32
              on the first CUDA-core kernel; the plain product at (4095, 4097)
              @ (4097, 4093) in each dtype beside torch.matmul; axpy, also
@@ -385,13 +385,8 @@ def _f64_name(mangled: str):
 
 
 def _mma_name(mangled: str):
-    """'mma BMxBN [gate]' for a gemm_mma_kernel instantiation
-    (csrc/gemm_mma.cu), 'ssd outputs bf16|f32' / 'ssd states ..' / 'ssd scan
-    V=.. U=..' for csrc/mamba2.cu's kernels, else None."""
-    m = re.search(r"gemm_mma_kernelILi(\d+)ELi(\d+)ELb(\d)E", mangled)
-    if m:
-        bm, bn, gate = (int(v) for v in m.groups())
-        return f"mma {bm}x{bn}" + (" gate" if gate else "")
+    """'ssd outputs bf16|f32' / 'ssd states ..' / 'ssd scan V=.. U=..' for
+    csrc/mamba2.cu's kernels, else None."""
     m = re.search(r"ssd_(states|outputs)_kernel(I13__nv_bfloat16|IfE)", mangled)
     if m:
         return f"ssd {m.group(1)} " + ("bf16" if "bfloat16" in m.group(2) else "f32")
@@ -531,15 +526,14 @@ def phase_sass(lib: Path) -> dict:
          qgemv_ptxas=qgemv_ptxas, wkv6_ptxas=wkv6_ptxas)
     mma_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
                   for k, v in mma_ptxas.items()}
-    emit("sass", what="HMMA in csrc/gemm_mma.cu's kernels and csrc/mamba2.cu's (cuobjdump "
-         "-sass); ptxas for them", hmma_per_kernel=mma,
+    emit("sass", what="HMMA in csrc/mamba2.cu's kernels (cuobjdump -sass); ptxas for them",
+         hmma_per_kernel=mma,
          ptxas=mma_ptxas or "not built in this process", spill_bytes=mma_spills)
     (OUT / "sass_mma.json").write_text(json.dumps({"hmma": mma, "ptxas": mma_ptxas}, indent=1))
-    gemm_mma = {k: v for k, v in mma.items() if k.startswith("mma")}
-    if len(gemm_mma) != 5 or min(gemm_mma.values()) == 0 or not mma.get("ssd outputs bf16"):
-        raise AssertionError(f"mma.sync kernels without HMMA: {mma}")
+    if not mma.get("ssd outputs bf16"):
+        raise AssertionError(f"the SSD's bf16 outputs kernel without HMMA: {mma}")
     if any(mma_spills.values()):
-        raise AssertionError(f"gemm_mma.cu or mamba2.cu kernels spill: {mma_spills}")
+        raise AssertionError(f"mamba2.cu kernels spill: {mma_spills}")
     widths = {name.split("copy=")[1] for name, n in dmma.items() if n}
     if widths != {"16B", "8B"}:
         raise AssertionError(f"f64 tensor-core kernels with DMMA only in copies of {widths}")
@@ -687,10 +681,23 @@ def replaced_mamba2(x, a, b, c, h0=None, chunk: int = 64):
 
 
 def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None) -> dict:
-    """gemm.plan's route, tile and K slices for a case (fresh, aligned tensors)."""
+    """gemm.plan's route, tile, K slices, copy width and staging for a case
+    (fresh, aligned tensors)."""
     from repro_torch.kernels import gemm
     p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout)
-    return dict(route=p.route, tile=list(p.tile), splits=p.splits, copy=p.copy)
+    return dict(route=p.route, tile=list(p.tile), splits=p.splits, copy=p.copy, stage=p.stage)
+
+
+def launch_keys(kernel: str, plan: dict) -> dict:
+    """The launch_counts() keys one launch under plan_of's plan adds to
+    beside `kernel` ("gemm" or "bgemm"): its route's, and its form's where
+    the route took the one for rows off 16 bytes."""
+    keys = {f"{kernel}_{plan['route']}": 1}
+    if plan["stage"]:
+        keys[f"{kernel}_wgmma_staged"] = 1
+    if plan["copy"] == 8:
+        keys[f"{kernel}_dmma_copy8"] = 1
+    return keys
 
 
 def kernel_cases(dtype):
@@ -841,10 +848,10 @@ ROUNDING_SLACK = 5e-4
 def phase_gemm_precision():
     """At the rwkv and stablelm prefill shapes (the "wgmma" route) and at
     the BLAS odd shape (4095, 4097) @ (4097, 4093) and the odd K = 7167
-    prefill shape (the "mma" route), the share of bf16 outputs equal to the
-    correctly rounded f64 product, and the mean error in bf16 ulps, for the
-    tensor-core kernel the plan names, the CUDA-core kernel (csrc/gemm.cu on
-    the same inputs) and the plain version.  Fails if the tensor-core
+    prefill shape ("wgmma" on staged operands), the share of bf16 outputs
+    equal to the correctly rounded f64 product, and the mean error in bf16
+    ulps, for the tensor-core kernel the plan names, the CUDA-core kernel
+    (csrc/gemm.cu on the same inputs) and the plain version.  Fails if the tensor-core
     kernel's share falls below the plain version's by more than
     ROUNDING_SLACK."""
     from repro_torch.kernels import gemm, ops
@@ -854,7 +861,8 @@ def phase_gemm_precision():
                     (512, 5632, 2048), (4095, 4097, 4093), (512, 7167, 2047)):
         a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
         w = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).bfloat16()
-        route = gemm.plan(m, k, n, torch.bfloat16).route
+        p = gemm.plan(m, k, n, torch.bfloat16)
+        route = p.route + (" staged" if p.stage else "")
         exact = a.double() @ w.double()
         rounded = exact.to(torch.bfloat16).double()
         ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(1e-30))) - 7)
@@ -898,7 +906,7 @@ def phase_kernels():
             if name == "bgemm":  # one launch, on the route its plan names
                 after = ops.launch_counts()
                 rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-                if rose != {"bgemm": 1, f"bgemm_{plan['route']}": 1}:
+                if rose != {"bgemm": 1, **launch_keys("bgemm", plan)}:
                     raise AssertionError(f"bgemm [{label}] {dtype}: launches added {rose}, "
                                          f"plan {plan}")
             with ops.reference_mode():
@@ -1214,22 +1222,21 @@ def blas_cases():
     route), where sums is None (elementwise tolerance) or, for dot and nrm2,
     (cond, the same call on the first half of each vector: a planted fault),
     ffma the CUDA-core kernel on the same inputs where the tensor cores run
-    the call, and route the gemm route `kernels.gemm.plan` names (None for
-    the other routines)."""
+    the call, and route the gemm plan `plan_of` gives (None for the other
+    routines)."""
     from repro_torch.core import blas
-    from repro_torch.kernels import gemm
 
     def rnd(g, dtype, *shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
     def gemm_case(dtype, m, k, n, seed, epi=None, fused=False):
-        route = gemm.plan(m, k, n, dtype, gate=fused).route
+        route = plan_of(m, k, n, dtype, gate=fused)
 
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
             a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
             out_b = m * n * a.element_size()
-            on_tc = route != "ffma"
+            on_tc = route["route"] != "ffma"
             if fused:  # stablelm gate+up on a flattened (512-token) prefill
                 b2 = rnd(g, dtype, k, n, std=k ** -0.5)
                 both = torch.cat([b, b2], dim=1)  # the library's products, no epilogue
@@ -1286,8 +1293,8 @@ def blas_cases():
          gemm_case(torch.float32, 4095, 4097, 4093, 13, epi="gelu")),
         ("gemm", "matmul_fused", "2-D (512,2048)@(2048,5632) x2 silu-gate", torch.bfloat16,
          gemm_case(torch.bfloat16, 512, 2048, 5632, 14, fused=True)),
-        # f64: odd K and N take the CUDA-core kernel, even ragged ones the
-        # f64 tensor cores, the gate too
+        # f64: odd K and N take the f64 tensor cores with 8-byte copies,
+        # even ragged ones with 16-byte copies, the gate too
         ("gemm", "gemm", ragged, torch.float64,
          gemm_case(torch.float64, 4095, 4097, 4093, 15, epi="gelu")),
         ("gemm", "gemm", "ragged (4095,4098)@(4098,4094) +bias gelu +residual", torch.float64,
@@ -1351,7 +1358,7 @@ def phase_blas():
         rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         want_rose = {kernel: 1}
         if kernel == "gemm":  # the route its plan names
-            want_rose[f"gemm_{route}"] = 1
+            want_rose.update(launch_keys("gemm", route))
         diff = (got.double() - want.double()).abs()
         err = diff.max().item()
         finite = bool(torch.isfinite(got).all())
@@ -1380,7 +1387,8 @@ def phase_blas():
                  max_abs_err=err, tol=chk["tol"], within_tol=ok, launches_added=rose)
             raise AssertionError(f"blas {routine} [{case}] {dtype}: within_tol={ok}, "
                                  f"launches added {rose} (want {want_rose})")
-        chk["route"] = next((k for k in rose if k.startswith("gemm_")), None)
+        chk["route"] = route and route["route"] + (" staged" if route["stage"] else "") + (
+            " copy=8B" if route["copy"] == 8 else "")
         del call, got, want, diff, planted
     counts = ops.launch_counts()
     emit("launches", run="blas", **counts)
@@ -1722,8 +1730,8 @@ def check_prefill_routes(counts: dict, what: str):
     int8 "nk"; the serves run no 2-D packed gemm) ran on the tensor cores:
     bgemm_wgmma counts them all and bgemm_ffma none."""
     projections = counts["bgemm"] + counts["gemm_int8"]
-    routes = {k: counts[k] for k in ("bgemm_wgmma", "bgemm_mma", "bgemm_ffma", "gemm_wgmma",
-                                     "gemm_mma", "gemm_ffma")}
+    routes = {k: counts[k] for k in ("bgemm_wgmma", "bgemm_wgmma_staged", "bgemm_ffma",
+                                     "gemm_wgmma", "gemm_wgmma_staged", "gemm_ffma")}
     emit("routes", run=what, prefill_projections=projections, **routes)
     if projections == 0 or counts["bgemm_wgmma"] != projections or counts["bgemm_ffma"]:
         raise AssertionError(f"{what}: {projections} prefill projections, routes {routes}: "
@@ -1734,8 +1742,8 @@ def check_f32_routes(counts: dict, what: str):
     """An f32 serve's dense GEMMs: every gemm and bgemm launch on the
     "ffma_sm90" route (the smoke widths are multiples of 4 and every operand
     starts on a 16-byte boundary), none on the first CUDA-core kernel."""
-    routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_mma", "gemm_ffma", "bgemm",
-                                     "bgemm_ffma_sm90", "bgemm_mma", "bgemm_ffma")}
+    routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_wgmma", "gemm_ffma",
+                                     "bgemm", "bgemm_ffma_sm90", "bgemm_wgmma", "bgemm_ffma")}
     emit("routes", run=what, **routes)
     if (counts["bgemm"] == 0 or counts["bgemm_ffma_sm90"] != counts["bgemm"]
             or counts["gemm_ffma_sm90"] != counts["gemm"] or counts["gemm_ffma"]
@@ -3017,9 +3025,10 @@ def main() -> int:
                       ("gemm", f"{D8K}x{D8K}x{D8K}"), "float64", blas_counts["gemm_dmma"]),
         "gemm_dmma_8_byte_copies": ("src/repro_torch/csrc/gemm_f64.cu",
                                     "src/repro/kernels/gemm.py:184", ("gemm", ODD), "float64",
-                                    blas_counts["gemm_dmma"]),
-        "gemm_mma": ("src/repro_torch/csrc/gemm_mma.cu", "src/repro/kernels/gemm.py:184",
-                     ("gemm", ODD), "bfloat16", blas_counts["gemm_mma"]),
+                                    blas_counts["gemm_dmma_copy8"]),
+        "gemm_wgmma_staged": ("src/repro_torch/csrc/gemm_sm90.cu",
+                              "src/repro/kernels/gemm.py:184", ("gemm", ODD), "bfloat16",
+                              blas_counts["gemm_wgmma_staged"]),
         "gemm_wgmma": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/gemm.py:184",
                        ("gemm", f"{D8K}x{D8K}x{D8K}"), "bfloat16", blas_counts["gemm_wgmma"]),
         "gemv": ("src/repro_torch/csrc/gemv.cu", "src/repro/kernels/gemv.py:146",

@@ -76,17 +76,18 @@ choice, the dense bgemv on the same weights in bf16 and the first packed
 design (scripts/replaced/qgemv_rows4.cu).  `bgemv.INT8_BLOCKS_PER_SM` comes
 from these.
 
-odd: the dense forms TMA and 16-byte copies cannot address.  The bf16
-mma.sync kernel (csrc/gemm_mma.cu, route "mma") at every tile of
-`gemm.MMA_TILES` (with the gate, `MMA_GATE_TILES`) at the BLAS odd shape
-(4095, 4097) @ (4097, 4093), (8192, 8191) @ (8191, 8192), the ragged
-bgemm rows (508, 2047) @ (2047, 2001) and the gate at (512, 2047) @ (2047,
-5631); the f64 tensor-core kernel (csrc/gemm_f64.cu) at the odd shape with
-8-byte copies and at the even neighbour (4095, 4098) @ (4098, 4094) with
-16- and 8-byte copies, at every tile of `gemm.DMMA_TILES`; each checked
-against the plain version, beside the first CUDA-core kernel (csrc/gemm.cu)
-and torch.matmul.  The "mma" tile table and the copy widths' cost come
-from these.
+odd: the dense forms TMA and 16-byte copies cannot address in place.
+The bf16 tensor-core kernel (csrc/gemm_sm90.cu) on staged operands (rows
+copied to 16-byte strides by `gemm.tma_rows`, then one launch) at every
+tile of `gemm.TC_TILES` (with the gate, `GATE_TILES`) at the BLAS odd
+shape (4095, 4097) @ (4097, 4093), (8192, 8191) @ (8191, 8192), the
+ragged bgemm rows (508, 2047) @ (2047, 2001) and the gate at (512, 2047)
+@ (2047, 5631), and the staging copies alone; the f64 tensor-core kernel
+(csrc/gemm_f64.cu) at the odd shape with 8-byte copies and at the even
+neighbour (4095, 4098) @ (4098, 4094) with 16- and 8-byte copies, at
+every tile of `gemm.DMMA_TILES`; each checked against the plain version,
+beside the first CUDA-core kernel (csrc/gemm.cu) and torch.matmul.  The
+staged route's cost and the copy widths' come from these.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
@@ -474,7 +475,7 @@ def odd():
         out = torch.empty(m, n, dtype=dtype, device="cuda")
         f64 = dtype == torch.float64
         tiles = ((gemm.DMMA_GATE_TILES if gate else gemm.DMMA_TILES) if f64
-                 else (gemm.MMA_GATE_TILES if gate else gemm.MMA_TILES))
+                 else (gemm.GATE_TILES if gate else gemm.TC_TILES))
         ms = {}
         for tile in tiles:
             for copy in copies:
@@ -483,15 +484,18 @@ def odd():
                               k=k, n=n)
                     if f64:
                         return gemm.dmma(a, b, out, gemm.Plan("dmma", tile, copy=copy), **kw)
-                    return gemm.mma(a, b, out, gemm.Plan("mma", tile), **kw)
+                    return gemm.tc(a, b, out, gemm.Plan("wgmma", tile, stage=True), **kw)
 
-                label = f"{tile[0]}x{tile[1]}" + (f" copy={copy}B" if f64 else "")
+                label = f"{tile[0]}x{tile[1]}" + (f" copy={copy}B" if f64 else " staged")
                 call()
                 torch.cuda.synchronize()
                 if not torch.allclose(out.double(), want.double(), **cs.TOL[dtype]):
                     err = (out.double() - want.double()).abs().max().item()
                     raise AssertionError(f"odd: {label} at {(m, k, n)} disagrees ({err})")
                 ms[label] = cs.time_auto(call)
+        if not f64:
+            ms["staging copies alone"] = cs.time_auto(
+                lambda: [gemm.tma_rows(x) for x in (a, b, b2) if x is not None])
         ms["ffma (csrc/gemm.cu)"] = cs.time_auto(lambda: cs.ffma_launch(a, b, b2=b2,
                                                                         activation=act))
         if not gate:

@@ -4,8 +4,8 @@
 //
 // Replaces, for the forms `kernels/gemm.py::plan` routes to "ffma", two
 // Pallas kernels with one body and two entry points.  Every dense bf16 call
-// runs the tensor cores instead (`csrc/gemm_sm90.cu` where TMA can address
-// the operands, `csrc/gemm_mma.cu` otherwise), every dense f64 call the f64
+// runs the tensor cores instead (`csrc/gemm_sm90.cu`, on copies with padded
+// rows where TMA cannot address the operands), every dense f64 call the f64
 // tensor cores (`csrc/gemm_f64.cu`), and aligned f32 `csrc/gemm_f32.cu`;
 // this file's dense bf16 and f64 bodies are reached only by chip_smoke.py's
 // `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick:

@@ -49,6 +49,7 @@
 // No split-K: the f64 calls are BLAS calls, large enough to fill the card,
 // and each output is summed over all of K in one order (two launches give
 // the same bits).
+#include "mma.cuh"
 #include "vec.cuh"
 
 using namespace rt;
@@ -60,28 +61,14 @@ constexpr int WARPS_M = 2, WARPS_N = 4;
 // gemm_f64_launch's `variant`: the plan's kernels, or one of the sweep's
 enum { PLANNED = 0, M8N8K4 = 1, M16N8K4 = 2, M16N8K8 = 3, M16N8K16 = 4, BK32 = 5 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 // VEC doubles (16 or 8 bytes) global -> shared; zero-filled (and src not
-// read) unless live.  cp.async takes 8-byte copies only through L1 (.ca).
+// read) unless live
 template <int VEC>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, bool live) {
   if constexpr (VEC == 2)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(live ? 16 : 0)
-                 : "memory");
+    cp_async16(dst, src, live);
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(live ? 8 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+    cp_async8(dst, src, live);
 }
 
 // One f64 mma.sync shape, MI x 8 x KI, C += A B.  Fragments (PTX ISA, the
@@ -252,7 +239,9 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
 
   // epilogue from the registers: C[i] and C[i + 1] are two adjacent columns
   // (with VEC = 2, col and N are even: both in range together, one 16-byte
-  // store; with VEC = 1 each is checked and stored alone)
+  // store; with VEC = 1 each is checked and stored alone, and a column at N
+  // is neither computed nor read: bias[N] and the residual's next element
+  // lie outside their operands)
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -264,9 +253,10 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
         const int col = n0 + wn + n * 8 + 2 * t;
         if (col >= N) continue;
         const long long o = (long long)row * N + col;
-        double v[2];
+        double v[2] = {0.0, 0.0};
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
+          if (VEC == 1 && col + j >= N) continue;
           double gv = 0.0;
           if constexpr (GATE) gv = acc2[m][n][2 * h + j];
           v[j] = epilogue<double>(acc[m][n][2 * h + j], gv, bias, res, col + j, o + j, act, GATE);

@@ -17,9 +17,11 @@
 // or relu, then the gate multiply, then the residual), rounded once to bf16;
 // an int8 column's scale multiplies its accumulator first (the reference
 // dequantizes B in the f32 accumulator: the two differ at f32 rounding).
-// Dense bf16 that TMA cannot address (K or N not a multiple of 8, unaligned)
-// runs csrc/gemm_mma.cu; f32 and f64 have kernels of their own; int8 "kn"
-// or with scales that vary along K stays on gemm.cu's CUDA-core loop.
+// Dense bf16 that TMA cannot address in place (K or N not a multiple of 8,
+// a base off 16 bytes) runs here too, on copies of A and B whose rows the
+// wrapper pads to 16 bytes (`kernels/gemm.py::tma_rows`); f32 and f64 have
+// kernels of their own; int8 "kn" or with scales that vary along K stays
+// on gemm.cu's CUDA-core loop.
 // `kernels/gemm.py::plan` picks the route, the tile and the K split from
 // the shape alone.
 //
@@ -53,7 +55,11 @@
 //    layout, so the same wgmma reads both;
 //  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
 //    K need no padding; the stores skip the fringe.  TMA needs 16-byte row
-//    strides and base addresses: K % 8 == 0 (K % 16 for int8) and N % 8 == 0;
+//    strides and base addresses, so A and B carry row strides of their own
+//    (lda, ldb: multiples of 8 elements) and a padded row's tail, past K or
+//    N, loads as zeros.  C takes any N and any bf16 address: column pairs
+//    are one 4-byte store where N is even and C starts on 4 bytes, else two
+//    2-byte ones;
 //  - narrow outputs split K (`splits` slices of whole k-steps, grid.y): each
 //    slice writes f32 partials to a workspace and a second pass sums the
 //    slices in a fixed order and applies the epilogue, so two launches on
@@ -329,10 +335,15 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
     const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
     const long plane = static_cast<long>(M) * N;
+    // a column pair is one 4-byte store where N is even and C starts on 4
+    // bytes (every pair is then aligned), else two element stores; a column
+    // at N or past it is neither computed nor read (bias, residual)
+    const bool pairs = N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + j * 8 + (lane & 3) * 2;
-      if (col >= N) continue;  // N % 8 == 0: col + 1 < N too
+      if (col >= N) continue;
+      const bool two = col + 1 < N;  // always where N is even
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
@@ -344,7 +355,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
           g0 = acc2[4 * j + 2 * h];
           g1 = acc2[4 * j + 2 * h + 1];
         }
-        if (splits > 1) {
+        if (splits > 1) {  // N is even (the launch checks)
           *reinterpret_cast<float2*>(ws + split * plane + o) = make_float2(v0, v1);
           if constexpr (GATE)
             *reinterpret_cast<float2*>(ws + (splits + split) * plane + o) = make_float2(g0, g1);
@@ -353,15 +364,21 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         float s0 = 1.f, s1 = 1.f, t0 = 1.f, t1 = 1.f;
         if constexpr (Q) {
           s0 = bs[col / qa];
-          s1 = bs[(col + 1) / qa];
+          if (two) s1 = bs[(col + 1) / qa];
           if constexpr (GATE) {
             t0 = b2s[col / qa];
-            t1 = b2s[(col + 1) / qa];
+            if (two) t1 = b2s[(col + 1) / qa];
           }
         }
         const float h0 = epilogue<bf16>(v0 * s0, g0 * t0, bias, res, col, o, act, GATE);
-        const float h1 = epilogue<bf16>(v1 * s1, g1 * t1, bias, res, col + 1, o + 1, act, GATE);
-        *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
+        const float h1 =
+            two ? epilogue<bf16>(v1 * s1, g1 * t1, bias, res, col + 1, o + 1, act, GATE) : 0.f;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
+        } else {
+          c[o] = __float2bfloat16(h0);
+          if (two) c[o + 1] = __float2bfloat16(h1);
+        }
       }
     }
   }
@@ -411,7 +428,7 @@ struct Args {
   const bf16 *bias, *res;
   bf16* c;
   float* ws;
-  int M, K, N, act, splits;
+  int M, K, N, lda, ldb, act, splits;
   cudaStream_t stream;
 };
 
@@ -426,14 +443,14 @@ int run(const Args& g) {
   CUtensorMap ta, tb, tb2;
   memset(&tb2, 0, sizeof(tb2));
   int err = encode(fn, &ta, g.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.K, g.M, BK, BM,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
+                   CU_TENSOR_MAP_SWIZZLE_128B, g.lda);
   for (int j = 0; j < (GATE ? 2 : 1) && !err; ++j) {
     CUtensorMap* map = j ? &tb2 : &tb;
     const void* ptr = j ? g.b2 : g.b;
     err = Q ? encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.N, BK, BN,
                      CU_TENSOR_MAP_SWIZZLE_NONE)
             : encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N, g.K, 64, BK,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+                     CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
   }
   if (err) return ENCODE_FAILED + err;
   auto kernel = gemm_tc_kernel<BM, BN, GATE, Q>;
@@ -479,26 +496,34 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // C (M, N) = epi(A (M, K) @ B [, A @ B2]) in bf16 on the tensor cores, over
 // a bm x bn tile grid with K cut into `splits` slices (ws: (b2 ? 2 : 1) *
-// splits * M * N f32 when splits > 1, else unused).  bs == NULL: B, B2 bf16
-// (K, N).  Else B, B2 int8 stored (N, K) with f32 scales bs, b2s, one for
-// every qa columns.  b2/b2s, bias and res may be NULL.  Returns
+// splits * M * N f32 when splits > 1, else unused).  A's rows are lda
+// elements apart (a multiple of 8, >= K; its base on 16 bytes).  bs ==
+// NULL: B, B2 bf16 (K, N), rows ldb elements apart (a multiple of 8, >= N;
+// bases on 16 bytes).  Else B, B2 int8 stored (N, K) with f32 scales bs,
+// b2s, one for every qa columns (K % 16 == 0, lda == K, ldb unused).  C,
+// bias and res are contiguous and may start on any bf16; K splits need an
+// even N and C on 4 bytes.  b2/b2s, bias and res may be NULL.  Returns
 // cudaErrorInvalidValue for a shape, tile or address the kernel does not
 // take, 1000 + a CUresult if a TMA descriptor is refused, else
 // cudaGetLastError() after the launches.
 extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, const void* bs,
                               const void* b2s, int qa, const void* bias, const void* res,
-                              void* c, void* ws, int M, int K, int N, int act, int bm, int bn,
-                              int splits, void* stream) {
+                              void* c, void* ws, int M, int K, int N, int lda, int ldb,
+                              int act, int bm, int bn, int splits, void* stream) {
   const bool q = bs != nullptr, gate = b2 != nullptr;
   const int kts = (K + BK - 1) / BK;
-  const bool ok = M > 0 && N > 0 && K > 0 && K % (q ? 16 : 8) == 0 && N % 8 == 0 &&
-                  aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) && aligned16(c) &&
-                  splits >= 1 && splits <= kts && (splits == 1 || ws != nullptr) &&
-                  (!q || (qa >= 1 && N % qa == 0 && (!gate || b2s != nullptr)));
+  const bool ok = M > 0 && N > 0 && K > 0 && lda >= K && lda % 8 == 0 && aligned16(a) &&
+                  aligned16(b) && (!gate || aligned16(b2)) &&
+                  (reinterpret_cast<uintptr_t>(c) & 1) == 0 && splits >= 1 && splits <= kts &&
+                  (splits == 1 ||
+                   (ws != nullptr && N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0)) &&
+                  (q ? K % 16 == 0 && lda == K && N % 8 == 0 && qa >= 1 && N % qa == 0 &&
+                           (!gate || b2s != nullptr)
+                     : ldb >= N && ldb % 8 == 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa,
                static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-               static_cast<bf16*>(c), static_cast<float*>(ws), M, K, N, act, splits,
+               static_cast<bf16*>(c), static_cast<float*>(ws), M, K, N, lda, ldb, act, splits,
                static_cast<cudaStream_t>(stream)};
   const int err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
   return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;

@@ -146,20 +146,10 @@ struct Tile {
   }
 };
 
-// 16 bytes global -> shared; zero-filled (and src not read) unless live
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // rows x cols elements of T at src (row-major, contiguous) into dst (row
 // stride ld elements, 16-byte rows), rows from `live` on zero: by 16-byte
 // cp.async copies where src starts on 16 bytes and a row is whole 16-byte
-// vectors (they land by cp_async_wait_all), else element by element.
+// vectors (they land at the caller's cp_async_wait), else element by element.
 template <typename T>
 __device__ __forceinline__ void copy_tile(T* dst, int ld, const T* __restrict__ src, int rows,
                                           int live, int cols) {
@@ -281,7 +271,8 @@ ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ a,
     if (i0 + 1 < C) sm.w[i0 + 1] = expf(static_cast<float>(l_last - sm.L[i0 + 1]));
     if (tid == 0) dec[k.blk] = expf(static_cast<float>(l_last));
   }
-  cp_async_wait_all();
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   // dH[n][p], a thread 4 x 4: rows 4 (tid / 16), columns 4 (tid % 16)
   const int n0 = 4 * (tid / 16), p0 = 4 * (tid % 16);
@@ -425,7 +416,8 @@ ssd_outputs_kernel(const T* __restrict__ x, const float* __restrict__ a,
     logdecay_scan(da, C, sm.L);
   }
   sx.put([&](int t, int p, float v) { sm.x[t * PMAX + p] = v; });
-  cp_async_wait_all();
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   if (tid < C) sm.expL[tid] = expf(static_cast<float>(sm.L[tid]));
 

@@ -1,9 +1,10 @@
-// mma.sync building blocks for the bf16 tensor-core bodies that feed their
-// own shared memory (csrc/gemm_mma.cu, csrc/mamba2.cu): ldmatrix and
-// mma.sync.m16n8k16 bf16 -> f32.  Fragment layouts (PTX ISA, m16n8k16 with
-// .bf16), g = lane / 4, t = lane % 4: A a0 (row g, k 2t..2t+1), a1 (row
-// g + 8), a2 (k + 8), a3 (both); B b0 (k 2t..2t+1, col g), b1 (k + 8); C
-// c0, c1 (row g, cols 2t, 2t + 1), c2, c3 (row g + 8).
+// Shared building blocks of the kernels that feed their own shared memory
+// (csrc/attention_mma.cu, csrc/gemm_f64.cu, csrc/mamba2.cu, csrc/qgemv.cu):
+// cp.async copies, ldmatrix and mma.sync.m16n8k16 bf16 -> f32.  Fragment
+// layouts (PTX ISA, m16n8k16 with .bf16), g = lane / 4, t = lane % 4: A a0
+// (row g, k 2t..2t+1), a1 (row g + 8), a2 (k + 8), a3 (both); B b0 (k
+// 2t..2t+1, col g), b1 (k + 8); C c0, c1 (row g, cols 2t, 2t + 1), c2, c3
+// (row g + 8).
 #pragma once
 
 #include <stdint.h>
@@ -14,6 +15,27 @@ namespace rt {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (8) bytes global -> shared; zero-filled (and src not read) unless
+// live.  cp.async takes 8-byte copies only through L1 (.ca).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(live ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses

@@ -58,6 +58,7 @@
 //    unaligned rows): element loads, each element dequantized at its own
 //    block index;
 //  - the epilogue (common.cuh) runs in the accumulator type.
+#include "mma.cuh"
 #include "vec.cuh"
 
 using namespace rt;
@@ -401,15 +402,6 @@ __device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo, uint32_
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // grid (row groups of TC_ROWS, splits, batch chunks of BMAX); WARPS (4 or
 // 8, the plan's) share the block's K slice
 template <bool GATE, int WARPS>
@@ -486,7 +478,7 @@ qgemv_tc_kernel(const int8_t* __restrict__ w, const float* __restrict__ s,
           uint32_t af[4];
           i8x4_to_bf16x2(word(bt.w[a][0][h], j), af[0], af[2]);
           i8x4_to_bf16x2(word(bt.w[a][1][h], j), af[1], af[3]);
-          mma_bf16_16816(acc[a], af, xw[2 * j], xw[2 * j + 1]);
+          mma_bf16(acc[a], af, xw[2 * j], xw[2 * j + 1]);
         }
     }
   };

@@ -77,13 +77,15 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major (outer, inner) matrix as boxes of (box_outer, box_inner);
-// out-of-bounds elements load as zeros.  Returns 0 or a nonzero CUresult.
+// A row-major (outer, inner) matrix as boxes of (box_outer, box_inner), its
+// rows `ld` elements apart (0: inner, contiguous); out-of-bounds elements,
+// those of a row's padding past `inner` included, load as zeros.  Returns 0
+// or a nonzero CUresult.
 inline int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
                   int elem, long inner, long outer, int box_inner, int box_outer,
-                  CUtensorMapSwizzle swizzle) {
+                  CUtensorMapSwizzle swizzle, long ld = 0) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld ? ld : inner) * elem};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t step[2] = {1, 1};

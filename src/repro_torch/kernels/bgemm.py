@@ -6,7 +6,7 @@ the broadcast-B "kn" form the prefill path uses: C[b] = epi(A[b] @ B
 so it runs `kernels/gemm.py`'s kernels over them, through the route that
 `gemm.plan` names: in bf16 (every served prefill projection) the
 tensor-core kernel of `csrc/gemm_sm90.cu` (K or N not a multiple of 8, or
-an unaligned operand: the mma.sync kernel of `csrc/gemm_mma.cu`), in f32
+an unaligned operand: the same kernel on copies with padded rows), in f32
 the CUDA-core kernel on a TMA ring of `csrc/gemm_f32.cu` (K or N not a
 multiple of 4: the first design, `csrc/gemm.cu`); each source note says
 what bounds it.  It keeps its own launch counts.
@@ -35,7 +35,10 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "mma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+#: the launches of `launch` that took a route's form for rows off 16 bytes
+#: (`gemm.launches_by_form`)
+launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0}
 
 
 def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
@@ -53,10 +56,10 @@ def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
     (kernels/ops.py), `out` is (batch, M, N) and preallocated."""
     global launches
     batch, m, _ = a.shape
-    route = _gemm.dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
-                        dtype_code=dtype_code, m=batch * m)
+    p = _gemm.dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
+                    dtype_code=dtype_code, m=batch * m)
     launches += 1
-    launches_by_route[route] += 1
+    _gemm.tally(p, launches_by_route, launches_by_form)
     return out
 
 

@@ -2,18 +2,17 @@
 
 Replaces `repro/kernels/gemm.py` (`_gemm_kernel`, Pallas call at :184) in
 its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
-(K, N), in f32, bf16 and f64.  Five CUDA kernels carry it, and `plan` picks
+(K, N), in f32, bf16 and f64.  Four CUDA kernels carry it, and `plan` picks
 one from the shape, dtype and addresses alone:
 
-- "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for bf16
-  operands TMA can address (16-byte row strides and base addresses: K % 8
-  == 0, N % 8 == 0), over a (BM, BN) tile grid chosen to fill the card's
-  SMs, with K split into deterministic slices where the grid is too small;
-- "mma": `csrc/gemm_mma.cu`, the tensor cores on mma.sync with the
-  operands brought through registers, for every other dense bf16 call (K
-  or N not a multiple of 8, or a base address off 16 bytes), the gate's two
-  products included, over a (BM, BN) tile grid chosen as for "wgmma" (no K
-  split);
+- "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for every
+  dense bf16 call, over a (BM, BN) tile grid chosen to fill the card's SMs.
+  TMA needs 16-byte row strides and base addresses: where K and N are
+  multiples of 8 and the operands start on 16 bytes it reads them in place
+  and K is split into deterministic slices where the grid is too small;
+  otherwise (`Plan.stage`) each operand it cannot address is first copied
+  into a buffer whose rows are padded to 16 bytes (`tma_rows`, one
+  `Tensor.copy_` each) and K is not split;
 - "dmma": `csrc/gemm_f64.cu`, the f64 tensor cores (mma.sync .f64) fed by
   a cp.async ring, for every dense f64 call, the gate's two products
   included, over the tile grid chosen as for "wgmma" (no K split): 16-byte
@@ -69,7 +68,10 @@ launches = 0
 #: launches of the int8-B variant through `launch_int8`
 launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
-launches_by_route = {"wgmma": 0, "mma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+#: the launches of `launch` that took a route's form for rows off 16 bytes:
+#: "wgmma" with staged operands, "dmma" with 8-byte copies
+launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0}
 
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
@@ -81,13 +83,6 @@ BK = 64
 #: 256-wide tiles lost everywhere; the gate's two products take BN = 64.
 TC_TILES = ((128, 128), (128, 64), (64, 64))
 GATE_TILES = ((128, 64), (64, 64))
-#: (BM, BN) tiles of the bf16 mma.sync kernel (csrc/gemm_mma.cu), largest
-#: first, and its gate's (two accumulators: BN <= 64).  Measured on the H100
-#: (scripts/torch_gemm_study.py odd, PERF.md): 128 x 128 runs (4095, 4097) @
-#: (4097, 4093) in 1.15 ms (128 x 64 1.75, 64 x 64 1.75); 508 rows at N =
-#: 2001 tie at 128 x 64 and 64 x 64 (0.066, 0.065 ms)
-MMA_TILES = ((128, 128), (128, 64), (64, 64))
-MMA_GATE_TILES = ((128, 64), (64, 64))
 #: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
 #: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
 #: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
@@ -130,15 +125,19 @@ def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one GEMM runs: the route ("wgmma", "mma", "dmma", "ffma_sm90" or
+    """How one GEMM runs: the route ("wgmma", "dmma", "ffma_sm90" or
     "ffma"), the (BM, BN) output tile, the number of K slices (wgmma only;
     the slices' partials are summed in slice order by a second pass) and,
-    on "dmma", the bytes each cp.async copies (16 or 8; 0 elsewhere)."""
+    on "dmma", the bytes each cp.async copies (16 or 8; 0 elsewhere); on
+    "wgmma", `stage`: an operand whose rows TMA cannot address is first
+    copied into a buffer whose rows are padded to 16 bytes (`tma_rows`),
+    and K is not split."""
 
     route: str
     tile: tuple
     splits: int = 1
     copy: int = 0
+    stage: bool = False
 
     def k_slices(self, k: int) -> list:
         """[(k0, k1), ...]: each slice whole BK-steps of K, in the kernel's
@@ -159,20 +158,21 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     "kn" when stored (K, N), "nk-kblocks" when output-major with scales that
     vary along K.  aligned: every operand's base address is 16-byte aligned.
 
-    bf16 takes "wgmma" when TMA can address A and B (K % 8 == 0, 16 for int8,
-    and N % 8 == 0) and B is dense or "nk", and "mma" when B is dense and TMA
-    cannot; dense f64 takes "dmma", with 16-byte copies when they can address
-    A and B (K % 2 == 0 and N % 2 == 0, the gate too), else 8-byte ones;
-    dense f32 takes "ffma_sm90" when TMA can address A and B (K % 4 == 0 and
-    N % 4 == 0, the gate too); everything else "ffma" (odd-K/N or unaligned
-    f32, every packed form but bf16 "nk", and a K of 0: the epilogue alone).
-    The tile is the largest of the route's tiles (TC_TILES, MMA_TILES,
-    DMMA_TILES, FFMA_SM90_TILES; with the gate GATE_TILES, MMA_GATE_TILES,
-    DMMA_GATE_TILES, FFMA_SM90_GATE_TILES) whose grid fills FILL of the
-    `sms` SMs, else the smallest; on "wgmma", where that grid leaves more
-    than IDLE of them idle and K >= SPLIT_MIN_K, K is split so that tiles x
-    splits is about half a wave (at least 2 slices, at most one per 2
-    k-steps: the second pass reads every slice's partials)."""
+    bf16 takes "wgmma" when B is dense, staged where TMA cannot address A or
+    B (K % 8 != 0, N % 8 != 0 or unaligned), and when B is "nk" and TMA can
+    (K % 16 == 0, N % 8 == 0); dense f64 takes "dmma", with 16-byte copies
+    when they can address A and B (K % 2 == 0 and N % 2 == 0, the gate
+    too), else 8-byte ones; dense f32 takes "ffma_sm90" when TMA can
+    address A and B (K % 4 == 0 and N % 4 == 0, the gate too); everything
+    else "ffma" (odd-K/N or unaligned f32, every packed form but bf16 "nk",
+    and a K of 0: the epilogue alone).
+    The tile is the largest of the route's tiles (TC_TILES, DMMA_TILES,
+    FFMA_SM90_TILES; with the gate GATE_TILES, DMMA_GATE_TILES,
+    FFMA_SM90_GATE_TILES) whose grid fills FILL of the `sms` SMs, else the
+    smallest; on "wgmma" unstaged, where that grid leaves more than IDLE of
+    them idle and K >= SPLIT_MIN_K, K is split so that tiles x splits is
+    about half a wave (at least 2 slices, at most one per 2 k-steps: the
+    second pass reads every slice's partials)."""
     nonempty = min(m, k, n) > 0
     some = aligned and nonempty
     dense = nonempty and packed_layout is None
@@ -184,17 +184,15 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
             and n % 4 == 0):
         return Plan("ffma_sm90",
                     _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES, sms)[0])
-    tc = (dtype == torch.bfloat16 and some and n % 8 == 0
-          and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
-    if not tc and dtype == torch.bfloat16 and dense:
-        return Plan("mma", _fill(m, n, MMA_GATE_TILES if gate else MMA_TILES, sms)[0])
-    if not tc:
+    tma = (dtype == torch.bfloat16 and some and n % 8 == 0
+           and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
+    if not tma and not (dtype == torch.bfloat16 and dense):
         return Plan("ffma", FFMA_TILE[bool(gate)])
     (bm, bn), tiles = _fill(m, n, GATE_TILES if gate else TC_TILES, sms)
     splits = 1
-    if tiles < (1 - IDLE) * sms and k >= SPLIT_MIN_K:
+    if tma and tiles < (1 - IDLE) * sms and k >= SPLIT_MIN_K:
         splits = max(2, min(-(-sms // (2 * tiles)), -(-k // BK) // 2))
-    return Plan("wgmma", (bm, bn), splits)
+    return Plan("wgmma", (bm, bn), splits, stage=not tma)
 
 
 def _fill(m: int, n: int, tiles_largest_first, sms: int):
@@ -220,15 +218,35 @@ def packed_layout(qb) -> str:
 
 
 _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+def tma_rows(x):
+    """(x, its row stride) for a bf16 x of rows r, columns c whose rows TMA
+    can address (c % 8 == 0, base on 16 bytes); else (a copy of x into a
+    buffer of rows padded to a multiple of 8 elements, that stride).  The
+    padding is never read: TMA loads what lies past column c as zeros."""
+    c = x.shape[-1]
+    if c % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x, c
+    buf = torch.empty(x.numel() // c, -(-c // 8) * 8, dtype=x.dtype, device=x.device)
+    buf[:, :c].copy_(x.reshape(-1, c))
+    return buf, buf.shape[1]
 
 
 def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
        scales=None, scales2=None, qa: int = 1):
     """Launch `gemm_tc_launch` (csrc/gemm_sm90.cu) on the current stream over
     m rows of a, with p's tile and K slices; b (b2) are bf16 (k, n), or int8
-    stored (n, k) with f32 `scales` one per qa columns.  The split-K
-    workspace is allocated here."""
+    stored (n, k) with f32 `scales` one per qa columns.  With `p.stage`, a,
+    b and b2 first go through `tma_rows`.  The split-K workspace is
+    allocated here."""
+    lda, ldb = k, n
+    if p.stage:
+        a, lda = tma_rows(a)
+        b, ldb = tma_rows(b)
+        if b2 is not None:
+            b2, _ = tma_rows(b2)
     bm, bn = p.tile
     ws = None
     if p.splits > 1:
@@ -239,14 +257,14 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(scales),
                  _build.ptr(scales2), qa, _build.ptr(bias), _build.ptr(residual),
-                 out.data_ptr(), _build.ptr(ws), m, k, n, act_code, bm, bn, p.splits, stream)
+                 out.data_ptr(), _build.ptr(ws), m, k, n, lda, ldb, act_code, bm, bn, p.splits,
+                 stream)
     if err:
         raise RuntimeError(f"gemm tensor-core kernel launch failed ({p}): CUDA error {err}")
     return out
 
 
 _DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_MMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -269,20 +287,6 @@ def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: in
     return out
 
 
-def mma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int):
-    """Launch `gemm_mma_launch` (csrc/gemm_mma.cu) on the current stream over
-    m rows of bf16 a with p's tile."""
-    bm, bn = p.tile
-    fn = _build.function("gemm_mma_launch", _MMA_ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
-                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, stream)
-    if err:
-        raise RuntimeError(f"gemm bf16 mma.sync kernel launch failed ({p}): CUDA error {err}")
-    return out
-
-
 def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
               n: int):
     """Launch `gemm_f32_launch` (csrc/gemm_f32.cu) on the current stream over
@@ -298,21 +302,31 @@ def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, 
     return out
 
 
-def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> str:
+def tally(p: Plan, by_route: dict, by_form: dict) -> None:
+    """Count one launch of plan p in a module's launches_by_route and
+    launches_by_form."""
+    by_route[p.route] += 1
+    if p.stage:
+        by_form["wgmma_staged"] += 1
+    if p.copy == 8:
+        by_form["dmma_copy8"] += 1
+
+
+def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> Plan:
     """C (m, n) = epi(A @ B [, A @ B2]) over m rows of a (the batch * M rows
     of bgemm's broadcast form) through the kernel `plan` names; returns the
-    route.  Operands are validated CUDA tensors (kernels/ops.py)."""
+    plan.  Operands are validated CUDA tensors (kernels/ops.py)."""
     k, n = b.shape
     p = plan(m, k, n, a.dtype, gate=b2 is not None, aligned=aligned(a, b, b2, out),
              sms=_build.sm_count(a.device.index or 0))
     if p.route == "wgmma":
         tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
-        return p.route
-    if p.route in ("mma", "dmma", "ffma_sm90"):
-        run = {"mma": mma, "dmma": dmma, "ffma_sm90": ffma_sm90}[p.route]
+        return p
+    if p.route in ("dmma", "ffma_sm90"):
+        run = {"dmma": dmma, "ffma_sm90": ffma_sm90}[p.route]
         run(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
             n=n)
-        return p.route
+        return p
     fn = _build.function("gemm_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -320,7 +334,7 @@ def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: i
                  _build.ptr(residual), out.data_ptr(), m, k, n, act_code, stream)
     if err:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {err}")
-    return p.route
+    return p
 
 
 def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
@@ -328,10 +342,10 @@ def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
     validated CUDA tensors (kernels/ops.py), `out` is (M, N) and
     preallocated."""
     global launches
-    route = dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
-                  dtype_code=dtype_code, m=a.shape[0])
+    p = dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
+              dtype_code=dtype_code, m=a.shape[0])
     launches += 1
-    launches_by_route[route] += 1
+    tally(p, launches_by_route, launches_by_form)
     return out
 
 

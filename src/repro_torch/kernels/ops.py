@@ -70,14 +70,16 @@ def launch_counts() -> dict:
     variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
-    launch counts in both).  gemm_wgmma / gemm_mma / gemm_dmma /
-    gemm_ffma_sm90 / gemm_ffma split every launch of `gemm` (dense and int8)
-    by the route its plan named (the bf16 tensor-core kernel on wgmma or on
-    mma.sync, the f64 one, the f32 CUDA-core one on a TMA ring, or the first
-    CUDA-core one), bgemm_wgmma / bgemm_mma / bgemm_dmma / bgemm_ffma_sm90 /
-    bgemm_ffma every launch of `bgemm` (whose
-    f32 and bf16 operands never take "dmma": the key is there for the same
-    dict shape)."""
+    launch counts in both).  gemm_wgmma / gemm_dmma / gemm_ffma_sm90 /
+    gemm_ffma split every launch of `gemm` (dense and int8) by the route its
+    plan named (the bf16 tensor-core kernel, the f64 one, the f32 CUDA-core
+    one on a TMA ring, or the first CUDA-core one), bgemm_wgmma /
+    bgemm_dmma / bgemm_ffma_sm90 / bgemm_ffma every launch of `bgemm`
+    (whose f32 and bf16 operands never take "dmma": the key is there for
+    the same dict shape).  gemm_wgmma_staged / gemm_dmma_copy8 (and
+    bgemm_...) count the dense launches among those that took the route's
+    form for rows off 16 bytes: operands copied to padded rows first, and
+    8-byte copies."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "attention_paged": _attention.launches_paged,
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
@@ -86,8 +88,8 @@ def launch_counts() -> dict:
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
             "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
-            **{f"{name}_{route}": n for name, mod in (("gemm", _gemm), ("bgemm", _bgemm))
-               for route, n in mod.launches_by_route.items()}}
+            **{f"{name}_{key}": n for name, mod in (("gemm", _gemm), ("bgemm", _bgemm))
+               for key, n in (*mod.launches_by_route.items(), *mod.launches_by_form.items())}}
 
 
 def attention_routes() -> dict:
@@ -106,7 +108,8 @@ def reset_launch_counts() -> None:
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
     for mod in (_gemm, _bgemm):
-        mod.launches_by_route.update(wgmma=0, mma=0, dmma=0, ffma_sm90=0, ffma=0)
+        mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
+        mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)
     _attention.launches_by_route.update(splitkv=0, mma=0, ffma=0)
 
 

@@ -312,9 +312,11 @@ def test_kernels_count_their_launches(cuda):
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_mma": 0, "gemm_dmma": 0, "gemm_ffma_sm90": 1,
-                                   "gemm_ffma": 1, "bgemm_wgmma": 0, "bgemm_mma": 0,
-                                   "bgemm_dmma": 0, "bgemm_ffma_sm90": 1, "bgemm_ffma": 1}
+                                   "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
+                                   "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
+                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
+                                   "bgemm_ffma": 1, "bgemm_wgmma_staged": 0,
+                                   "bgemm_dmma_copy8": 0}
 
 
 @pytest.mark.cuda
@@ -908,8 +910,8 @@ def _tc_operands(gen, batch, m, k, n, epi, weights=None):
     return a, b, kw
 
 
-ROUTE_KEYS = ("gemm_wgmma", "gemm_mma", "gemm_ffma_sm90", "gemm_ffma", "bgemm_wgmma",
-              "bgemm_mma", "bgemm_ffma_sm90", "bgemm_ffma")
+ROUTE_KEYS = ("gemm_wgmma", "gemm_ffma_sm90", "gemm_ffma", "bgemm_wgmma", "bgemm_ffma_sm90",
+              "bgemm_ffma")
 
 
 def _routes(**nonzero):
@@ -979,9 +981,10 @@ def test_wgmma_int8_nk_matches_plain(cuda, epi, batch, m, k, n, block):
 
 
 @pytest.mark.cuda
-def test_unaligned_bf16_takes_the_mma_route(cuda):
+def test_unaligned_bf16_takes_staged_wgmma(cuda):
     """K % 8 != 0, and an aligned shape whose A starts 2 bytes off a 16-byte
-    boundary: both run the mma.sync kernel, and the counts say so."""
+    boundary: both run the tensor-core kernel on staged operands, and the
+    counts say so."""
     b, b37 = _rand(cuda, torch.bfloat16, 64, 128, std=0.125), _rand(cuda, torch.bfloat16, 37, 128)
     ragged = _rand(cuda, torch.bfloat16, 2, 5, 37)
     buf = _rand(cuda, torch.bfloat16, 2 * 5 * 64 + 1)
@@ -989,11 +992,13 @@ def test_unaligned_bf16_takes_the_mma_route(cuda):
     ops.reset_launch_counts()
     _against_plain(lambda: ops.bgemm(ragged, b37), torch.bfloat16)
     _against_plain(lambda: ops.bgemm(shifted, b), torch.bfloat16)
-    assert _routes(bgemm_mma=2), _routes()
+    assert _routes(bgemm_wgmma=2), _routes()
+    assert ops.launch_counts()["bgemm_wgmma_staged"] == 2
 
 
 def _shifted(gen, dtype, *shape, std=1.0, by=1):
-    """A contiguous view `by` elements past a fresh allocation's start."""
+    """A contiguous view `by` elements past a fresh allocation's start (its
+    last element is the allocation's last)."""
     n = int(np.prod(shape))
     return _rand(gen, dtype, n + by, std=std)[by:].view(*shape)
 
@@ -1001,16 +1006,18 @@ def _shifted(gen, dtype, *shape, std=1.0, by=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("epi", TC_EPILOGUES)
 @pytest.mark.parametrize("m,k,n,shift", [(130, 37, 67, 0),      # odd K and N, ragged M
-                                         (1, 301, 5, 0),        # one row, N below an mma tile
+                                         (130, 37, 67, 1),      # the same, every operand off 16 B
+                                         (1, 301, 5, 0),        # one row, N below a column pair
                                          (257, 1001, 131, 0),   # many k-steps, ragged all
                                          (128, 64, 128, 1),     # whole tiles, A and B off 16 B
                                          (96, 200, 40, 3),      # K, N multiples of 8, off 16 B
                                          (200, 9, 300, 5)])     # K below one k16 step
-def test_mma_route_matches_plain(cuda, epi, m, k, n, shift):
-    """Dense bf16 that TMA cannot address: gemm, and bgemm over the same
-    rows split into a batch of 2 where m is even, each one launch on the
-    "mma" route, within bf16 TOL of the plain version, two launches bitwise
-    equal."""
+def test_staged_wgmma_matches_plain(cuda, epi, m, k, n, shift):
+    """Dense bf16 that TMA cannot address in place: gemm, and bgemm over the
+    same rows split into a batch of 2 where m is even, each one launch on
+    "wgmma" with staged operands, within bf16 TOL of the plain version, two
+    launches bitwise equal.  Bias and residual end where their allocations
+    end (odd N reads neither past its last column)."""
     from repro_torch.kernels import gemm
     act, bias, gate, res = epi
     a = _shifted(cuda, torch.bfloat16, m, k, by=shift)
@@ -1022,16 +1029,18 @@ def test_mma_route_matches_plain(cuda, epi, m, k, n, shift):
         kw["bias"] = _shifted(cuda, torch.bfloat16, n, by=shift)
     if res:
         kw["residual"] = _shifted(cuda, torch.bfloat16, m, n, by=shift)
-    assert gemm.plan(m, k, n, torch.bfloat16, gate=gate,
-                     aligned=gemm.aligned(a, b, kw.get("b2"))).route == "mma"
+    p = gemm.plan(m, k, n, torch.bfloat16, gate=gate, aligned=gemm.aligned(a, b, kw.get("b2")))
+    assert p.route == "wgmma" and p.stage and p.splits == 1
     ops.reset_launch_counts()
     _against_plain(lambda: ops.gemm(a, b, **kw), torch.bfloat16)
-    want = {"gemm_mma": 1}
+    want = {"gemm_wgmma": 1}
     if m % 2 == 0:
         kw3 = dict(kw, residual=kw["residual"].view(2, m // 2, n)) if res else kw
         _against_plain(lambda: ops.bgemm(a.view(2, m // 2, k), b, **kw3), torch.bfloat16)
-        want["bgemm_mma"] = 1
+        want["bgemm_wgmma"] = 1
     assert _routes(**want), _routes()
+    c = ops.launch_counts()
+    assert (c["gemm_wgmma_staged"], c["bgemm_wgmma_staged"]) == (1, want.get("bgemm_wgmma", 0))
     first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
@@ -1040,16 +1049,16 @@ def test_mma_route_matches_plain(cuda, epi, m, k, n, shift):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile,gate", [((128, 128), False), ((128, 64), False),
                                        ((64, 64), False), ((128, 64), True), ((64, 64), True)])
-def test_mma_every_tile_matches_plain(cuda, tile, gate):
+def test_staged_wgmma_every_tile_matches_plain(cuda, tile, gate):
     """Every tile of the plan, without and with the gate, on a ragged (300,
-    333) @ (333, 259) + bias gelu [gate] + residual."""
+    333) @ (333, 259) + bias gelu [gate] + residual with staged operands."""
     from repro_torch.kernels import gemm
     m, k, n = 300, 333, 259
     a, b, kw = _tc_operands(cuda, 1, m, k, n, ("gelu", True, gate, True))
     a, res = a.view(m, k), kw["residual"].view(m, n)
     out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-    gemm.mma(a, b, out, gemm.Plan("mma", tile), b2=kw.get("b2"), bias=kw["bias"],
-             residual=res, act_code=ops._ACTS["gelu"], m=m, k=k, n=n)
+    gemm.tc(a, b, out, gemm.Plan("wgmma", tile, stage=True), b2=kw.get("b2"), bias=kw["bias"],
+            residual=res, act_code=ops._ACTS["gelu"], m=m, k=k, n=n)
     with ops.reference_mode():
         want = ops.gemm(a, b, **dict(kw, residual=res))
     torch.cuda.synchronize()
@@ -1057,19 +1066,19 @@ def test_mma_every_tile_matches_plain(cuda, tile, gate):
 
 
 @pytest.mark.cuda
-def test_a_launch_the_mma_kernel_refuses_raises(cuda):
-    """Tiles the mma.sync kernel does not take come back as an error code,
-    and the wrapper raises: the gate's BN stops at 64, there is no 96-row
-    tile."""
+def test_a_launch_the_staged_wgmma_refuses_raises(cuda):
+    """What the tensor-core kernel cannot do with odd shapes comes back as
+    an error code, and the wrapper raises: operands it cannot address
+    unstaged, K slices over an odd N."""
     from repro_torch.kernels import gemm
-    a, b = _rand(cuda, torch.bfloat16, 128, 63), _rand(cuda, torch.bfloat16, 63, 256)
-    out = torch.empty(128, 256, dtype=torch.bfloat16, device="cuda")
-    kw = dict(bias=None, residual=None, act_code=0, m=128, k=63, n=256)
-    with pytest.raises(RuntimeError, match="mma.sync"):
-        gemm.mma(a, b, out, gemm.Plan("mma", (128, 128)), b2=b, **kw)
-    with pytest.raises(RuntimeError, match="mma.sync"):
-        gemm.mma(a, b, out, gemm.Plan("mma", (96, 64)), b2=None, **kw)
-    gemm.mma(a, b, out, gemm.Plan("mma", (128, 64)), b2=None, **kw)
+    a, b = _rand(cuda, torch.bfloat16, 128, 63), _rand(cuda, torch.bfloat16, 63, 255)
+    out = torch.empty(128, 255, dtype=torch.bfloat16, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=128, k=63, n=255)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 64)), b2=None, **kw)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 64), 2, stage=True), b2=None, **kw)
+    gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 64), stage=True), b2=None, **kw)
     torch.testing.assert_close(out.float(), (a.float() @ b.float()).bfloat16().float(),
                                **TOL[torch.bfloat16])
 
@@ -1165,11 +1174,13 @@ def test_dmma_every_variant_and_tile_matches_plain(cuda, variant, tile, gate, co
                                          (1, 301, 5, 0),       # one row, N below an mma tile
                                          (257, 1001, 131, 0),  # ragged everything
                                          (128, 16, 128, 1),    # whole tiles, A and B off 16 B
-                                         (300, 2, 2, 1)])      # K = N = 2, off 16 B
+                                         (300, 2, 2, 1),       # K = N = 2, off 16 B
+                                         (130, 37, 67, 1)])    # odd N, every operand off 16 B
 def test_dmma_8_byte_copies_match_plain(cuda, epi, m, k, n, shift):
     """Dense f64 that 16-byte copies cannot address: one launch on the
     "dmma" route with 8-byte copies, within f64 TOL of the plain version,
-    two launches bitwise equal."""
+    two launches bitwise equal.  Bias and residual end where their
+    allocations end (odd N reads neither past its last column)."""
     from repro_torch.kernels import gemm
     act, bias, gate, res = epi
     a = _shifted(cuda, torch.float64, m, k, by=shift)
@@ -1178,7 +1189,7 @@ def test_dmma_8_byte_copies_match_plain(cuda, epi, m, k, n, shift):
     if gate:
         kw["b2"] = _shifted(cuda, torch.float64, k, n, std=k ** -0.5, by=shift)
     if bias:
-        kw["bias"] = _rand(cuda, torch.float64, n)
+        kw["bias"] = _shifted(cuda, torch.float64, n, by=shift)
     if res:
         kw["residual"] = _shifted(cuda, torch.float64, m, n, by=shift)
     p = gemm.plan(m, k, n, torch.float64, gate=gate, aligned=gemm.aligned(a, b, kw.get("b2")))
@@ -1186,7 +1197,7 @@ def test_dmma_8_byte_copies_match_plain(cuda, epi, m, k, n, shift):
     ops.reset_launch_counts()
     _against_plain(lambda: ops.gemm(a, b, **kw), torch.float64)
     assert _routes(), _routes()
-    assert ops.launch_counts()["gemm_dmma"] == 1
+    assert ops.launch_counts()["gemm_dmma"] == ops.launch_counts()["gemm_dmma_copy8"] == 1
     first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
@@ -1209,7 +1220,7 @@ def test_odd_or_unaligned_f64_takes_dmma_and_packed_f64_ffma(cuda):
     _against_plain(lambda: ops.gemm(shifted, b), torch.float64)
     _against_plain(lambda: ops.gemm(a, qb), torch.float64)
     c = ops.launch_counts()
-    assert (c["gemm_dmma"], c["gemm_ffma"], c["gemm_int8"]) == (3, 1, 1)
+    assert (c["gemm_dmma"], c["gemm_dmma_copy8"], c["gemm_ffma"], c["gemm_int8"]) == (3, 3, 1, 1)
 
 
 @pytest.mark.cuda

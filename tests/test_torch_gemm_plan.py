@@ -1,13 +1,14 @@
 """The GEMM plan (`repro_torch.kernels.gemm.plan`): route, tile and K split.
 
 The plan decides from the shape, the dtype and the addresses alone which
-kernel runs a GEMM: the bf16 tensor-core kernel on wgmma
-(`csrc/gemm_sm90.cu`, "wgmma") or on mma.sync (`csrc/gemm_mma.cu`, "mma"),
-the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one on a TMA
-ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
+kernel runs a GEMM: the bf16 tensor-core one (`csrc/gemm_sm90.cu`,
+"wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one
+on a TMA ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
 (`csrc/gemm.cu`, "ffma").  These tests hold it to its contract on the CPU:
-every served projection shape routes to "wgmma"; every other dense bf16
-call (odd K or N, unaligned) to "mma"; every dense f64 call to "dmma", with
+every served projection shape routes to "wgmma" in place; every other
+dense bf16 call (odd K or N, unaligned) to "wgmma" on staged operands
+(rows copied to 16-byte strides first, no K split); `gemm.tma_rows` pads
+only what TMA cannot address; every dense f64 call to "dmma", with
 16-byte copies for even K and N on 16-byte boundaries and 8-byte ones
 otherwise; dense f32 with K and N multiples of 4 on 16-byte boundaries to
 "ffma_sm90"; odd-K/N or unaligned f32, a K of 0 and the packed forms the
@@ -61,7 +62,7 @@ SERVED = [
 @pytest.mark.parametrize("rows", [4 * 128, 4 * 127, 4 * 160])
 def test_every_served_projection_routes_to_wgmma(what, k, n, gate, rows):
     p = gemm.plan(rows, k, n, BF16, gate=gate)
-    assert p.route == "wgmma", what
+    assert p.route == "wgmma" and not p.stage, what
     assert p.tile in (gemm.GATE_TILES if gate else gemm.TC_TILES)
     assert 1 <= p.splits <= -(-k // gemm.BK)
 
@@ -117,12 +118,14 @@ def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
     (1, 1, 1, False, True),
     (8192, 8191, 8192, False, True)])
 def test_odd_or_unaligned_dense_bf16_routes_to_mma(m, k, n, gate, aligned):
-    """Every dense bf16 call TMA cannot address runs mma.sync, never the
-    CUDA cores: on the largest of the route's tiles whose grid fills FILL of
-    the card, else the smallest; no K split."""
+    """Every dense bf16 call TMA cannot address in place runs the tensor
+    cores on staged operands (the route that replaced the mma.sync kernel),
+    never the CUDA cores: on the largest of the route's tiles whose grid
+    fills FILL of the card, else the smallest; no K split."""
     p = gemm.plan(m, k, n, BF16, gate=gate, aligned=aligned)
-    tiles = gemm.MMA_GATE_TILES if gate else gemm.MMA_TILES
-    assert p.route == "mma" and p.splits == 1 and p.tile in tiles and p.copy == 0
+    tiles = gemm.GATE_TILES if gate else gemm.TC_TILES
+    assert p.route == "wgmma" and p.stage and p.splits == 1 and p.tile in tiles
+    assert p.copy == 0
     larger = tiles[:tiles.index(p.tile)]
     assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
     assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
@@ -191,6 +194,26 @@ def test_aligned_f64_routes_to_dmma(m, k, n, gate):
     larger = tiles[:tiles.index(p.tile)]
     assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
     assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
+
+
+@pytest.mark.parametrize("rows,cols,shift,padded", [
+    (5, 37, 0, 40),    # odd width: rows padded to 8 elements
+    (3, 64, 1, 64),    # whole 16-byte rows, base 2 bytes off: copied, not padded
+    (4, 2001, 0, 2008),
+    (7, 8, 0, None),   # addressable in place
+    (2, 128, 8, None)])
+def test_tma_rows_pads_only_what_tma_cannot_address(rows, cols, shift, padded):
+    """gemm.tma_rows returns an operand TMA can address as it is, and else a
+    copy whose rows start 16 bytes apart and hold the operand's values in
+    their first `cols` elements (the padding is never read)."""
+    buf = torch.arange(rows * cols + shift, dtype=torch.float32).to(BF16)
+    x = buf[shift:].view(rows, cols)
+    got, ld = gemm.tma_rows(x)
+    if padded is None:
+        assert got is x and ld == cols
+        return
+    assert ld == padded and got.shape == (rows, padded) and got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :cols], x)
 
 
 def test_packed_layouts():
