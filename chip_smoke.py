@@ -336,18 +336,21 @@ def bound(bytes_moved: int, flops: float, dtype) -> tuple:
 # --------------------------------------------------------------------------
 
 def _tc_config(mangled: str):
-    """(BM, BN, GATE, Q) of a mangled gemm_tc_kernel<BM, BN, GATE, Q> name."""
+    """(BM, BN, GATE, Q) of a mangled gemm_tc_kernel<BM, BN, GATE, Q, ODD> name."""
     m = re.search(r"gemm_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", mangled)
     return tuple(int(v) for v in m.groups()) if m else None
 
 
 def _tc_name(mangled: str) -> str:
-    """'BMxBN [gate] [int8]' for a gemm_tc_kernel instantiation."""
+    """'BMxBN [gate] [int8] [odd]' for a gemm_tc_kernel instantiation (odd:
+    the epilogue for an odd N or a C off 4 bytes)."""
     cfg = _tc_config(mangled)
     if cfg is None:
         return mangled[:60]
     bm, bn, gate, q = cfg
-    return f"{bm}x{bn}" + (" gate" if gate else "") + (" int8" if q else "")
+    odd = re.search(r"gemm_tc_kernelILi\d+ELi\d+ELb\dELb\dELb1E", mangled)
+    return (f"{bm}x{bn}" + (" gate" if gate else "") + (" int8" if q else "")
+            + (" odd" if odd else ""))
 
 
 def _attn_name(mangled: str):

@@ -58,8 +58,9 @@
 //    strides and base addresses, so A and B carry row strides of their own
 //    (lda, ldb: multiples of 8 elements) and a padded row's tail, past K or
 //    N, loads as zeros.  C takes any N and any bf16 address: column pairs
-//    are one 4-byte store where N is even and C starts on 4 bytes, else two
-//    2-byte ones;
+//    are one 4-byte store where N is even and C starts on 4 bytes, else (an
+//    instantiation of its own, ODD, so the even path's code is unchanged)
+//    two 2-byte ones;
 //  - narrow outputs split K (`splits` slices of whole k-steps, grid.y): each
 //    slice writes f32 partials to a workspace and a second pass sums the
 //    slices in a fixed order and applies the epilogue, so two launches on
@@ -208,8 +209,9 @@ __device__ __forceinline__ void convert_int8(const int8_t* __restrict__ src, uin
 // One C tile, or one K slice of it (grid.y = split).  Q: B, B2 int8 "nk"
 // through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); else bf16
 // (K, N).  splits > 1: f32 partials to ws [(GATE ? 2 : 1) * splits][M][N]
-// (the gate's after B's) and splitk_epilogue finishes.
-template <int BM, int BN, bool GATE, bool Q>
+// (the gate's after B's) and splitk_epilogue finishes.  ODD: N is odd or C
+// is off 4 bytes (dense B only, one K slice).
+template <int BM, int BN, bool GATE, bool Q, bool ODD>
 __global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bs,
@@ -335,15 +337,13 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
     const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
     const long plane = static_cast<long>(M) * N;
-    // a column pair is one 4-byte store where N is even and C starts on 4
-    // bytes (every pair is then aligned), else two element stores; a column
-    // at N or past it is neither computed nor read (bias, residual)
-    const bool pairs = N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0;
+    // a column pair is one 4-byte store, or with ODD two element stores and
+    // a column at N neither computed nor read (bias, residual)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + j * 8 + (lane & 3) * 2;
       if (col >= N) continue;
-      const bool two = col + 1 < N;  // always where N is even
+      const bool two = !ODD || col + 1 < N;  // N is even without ODD
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
@@ -355,7 +355,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
           g0 = acc2[4 * j + 2 * h];
           g1 = acc2[4 * j + 2 * h + 1];
         }
-        if (splits > 1) {  // N is even (the launch checks)
+        if (splits > 1) {
           *reinterpret_cast<float2*>(ws + split * plane + o) = make_float2(v0, v1);
           if constexpr (GATE)
             *reinterpret_cast<float2*>(ws + (splits + split) * plane + o) = make_float2(g0, g1);
@@ -373,11 +373,11 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         const float h0 = epilogue<bf16>(v0 * s0, g0 * t0, bias, res, col, o, act, GATE);
         const float h1 =
             two ? epilogue<bf16>(v1 * s1, g1 * t1, bias, res, col + 1, o + 1, act, GATE) : 0.f;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
-        } else {
+        if constexpr (ODD) {
           c[o] = __float2bfloat16(h0);
           if (two) c[o + 1] = __float2bfloat16(h1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
         }
       }
     }
@@ -434,6 +434,24 @@ struct Args {
 
 constexpr int ENCODE_FAILED = 1000;  // + the CUresult
 
+template <class C, bool ODD>
+int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
+                 const CUtensorMap& tb2) {
+  auto kernel = gemm_tc_kernel<C::BM, C::BN, C::GATE, C::Q, ODD>;
+  static bool sized = false;  // once per instantiation
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const long tiles = static_cast<long>((g.M + C::BM - 1) / C::BM) * ((g.N + C::BN - 1) / C::BN);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits));
+  kernel<<<grid, C::THREADS, C::SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.bias, g.res,
+                                                  g.c, g.ws, g.M, g.K, g.N, g.act, g.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class C>
 int run(const Args& g) {
   constexpr int BM = C::BM, BN = C::BN;
@@ -453,20 +471,14 @@ int run(const Args& g) {
                      CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
   }
   if (err) return ENCODE_FAILED + err;
-  auto kernel = gemm_tc_kernel<BM, BN, GATE, Q>;
-  static bool sized = false;  // once per instantiation
-  if (!sized) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sized = true;
+  int e;
+  if constexpr (Q) {
+    e = launch_tiles<C, false>(g, ta, tb, tb2);
+  } else {
+    const bool odd = g.N % 2 || (reinterpret_cast<uintptr_t>(g.c) & 3);
+    e = odd ? launch_tiles<C, true>(g, ta, tb, tb2) : launch_tiles<C, false>(g, ta, tb, tb2);
   }
-  const long tiles = static_cast<long>((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits));
-  kernel<<<grid, C::THREADS, C::SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.bias, g.res,
-                                                  g.c, g.ws, g.M, g.K, g.N, g.act, g.splits);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || g.splits == 1) return static_cast<int>(e);
+  if (e != cudaSuccess || g.splits == 1) return e;
   const long pairs = static_cast<long>(g.M) * g.N / 2;
   splitk_epilogue<GATE, Q><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, g.stream>>>(
       g.ws, g.splits, g.bs, g.b2s, g.qa, g.bias, g.res, g.c, g.M, g.N, g.act);
@@ -501,8 +513,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // NULL: B, B2 bf16 (K, N), rows ldb elements apart (a multiple of 8, >= N;
 // bases on 16 bytes).  Else B, B2 int8 stored (N, K) with f32 scales bs,
 // b2s, one for every qa columns (K % 16 == 0, lda == K, ldb unused).  C,
-// bias and res are contiguous and may start on any bf16; K splits need an
-// even N and C on 4 bytes.  b2/b2s, bias and res may be NULL.  Returns
+// bias and res are contiguous and may start on any bf16; K splits and int8
+// B need an even N and C on 4 bytes.  b2/b2s, bias and res may be NULL.  Returns
 // cudaErrorInvalidValue for a shape, tile or address the kernel does not
 // take, 1000 + a CUresult if a TMA descriptor is refused, else
 // cudaGetLastError() after the launches.
@@ -512,13 +524,13 @@ extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, cons
                               int act, int bm, int bn, int splits, void* stream) {
   const bool q = bs != nullptr, gate = b2 != nullptr;
   const int kts = (K + BK - 1) / BK;
+  const bool pairs = N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0;
   const bool ok = M > 0 && N > 0 && K > 0 && lda >= K && lda % 8 == 0 && aligned16(a) &&
                   aligned16(b) && (!gate || aligned16(b2)) &&
                   (reinterpret_cast<uintptr_t>(c) & 1) == 0 && splits >= 1 && splits <= kts &&
-                  (splits == 1 ||
-                   (ws != nullptr && N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0)) &&
-                  (q ? K % 16 == 0 && lda == K && N % 8 == 0 && qa >= 1 && N % qa == 0 &&
-                           (!gate || b2s != nullptr)
+                  (splits == 1 || (ws != nullptr && pairs)) &&
+                  (q ? K % 16 == 0 && lda == K && N % 8 == 0 && pairs && qa >= 1 &&
+                           N % qa == 0 && (!gate || b2s != nullptr)
                      : ldb >= N && ldb % 8 == 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa,
