@@ -12,9 +12,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              first designs), each a library of its own, timed in phases 10,
              20 and 24 and profile_prefill_zamba;
    sass    - the HGMMA (wgmma) instructions cuobjdump finds in each
-             tensor-core GEMM kernel (csrc/gemm_sm90.cu; none fails the
-             run), with ptxas's registers, spills and notes and the kernel's
-             dynamic shared memory; the same for the HMMA (mma.sync) of each
+             tensor-core GEMM kernel (csrc/gemm_sm90.cu, the odd-N
+             instantiations too; none, or a spill, fails the run), with
+             ptxas's registers, spills and notes and the kernel's dynamic
+             shared memory; the same for the HMMA (mma.sync) of each
              tensor-core attention kernel (csrc/attention_mma.cu; none fails
              the run), and ptxas's registers and spills for the split-KV
              decode kernels (csrc/attention_splitkv.cu); the DMMA (f64
@@ -501,9 +502,12 @@ def phase_sass(lib: Path) -> dict:
     (OUT / "sass_hgmma.json").write_text(json.dumps({"hgmma": hgmma, "ptxas": ptxas,
                                                      "hmma": hmma, "attention_ptxas": attn_ptxas,
                                                      "notes": notes}, indent=1))
+    tc_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                 for k, v in ptxas.items()}
     emit("sass", what="HGMMA in csrc/gemm_sm90.cu's kernels (cuobjdump -sass)",
          hgmma_total=sum(hgmma.values()), hgmma_per_kernel=hgmma,
-         ptxas=ptxas or "not built in this process", ptxas_notes=sorted(set(notes)))
+         ptxas=ptxas or "not built in this process", ptxas_notes=sorted(set(notes)),
+         tc_spill_bytes=tc_spills)
     spills = {k: v.get("spill_stores", 0) for k, v in attn_ptxas.items()
               if v.get("spill_stores", 0)}
     emit("sass", what="HMMA in csrc/attention_mma.cu's kernels (cuobjdump -sass); ptxas for "
@@ -548,6 +552,8 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"f32 ring kernels spill: {f32_spills}")
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
+    if any(tc_spills.values()):
+        raise AssertionError(f"tensor-core GEMM kernels spill: {tc_spills}")
     if not hmma or min(hmma.values()) == 0:
         raise AssertionError(f"tensor-core attention kernels without HMMA: {hmma}")
     if not dmma or min(dmma.values()) == 0:

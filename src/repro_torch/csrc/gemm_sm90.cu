@@ -59,8 +59,8 @@
 //    (lda, ldb: multiples of 8 elements) and a padded row's tail, past K or
 //    N, loads as zeros.  C takes any N and any bf16 address: column pairs
 //    are one 4-byte store where N is even and C starts on 4 bytes, else (an
-//    instantiation of its own, ODD, so the even path's code is unchanged)
-//    two 2-byte ones;
+//    instantiation of its own, ODD, so the even path carries no branch for
+//    it) two 2-byte ones;
 //  - narrow outputs split K (`splits` slices of whole k-steps, grid.y): each
 //    slice writes f32 partials to a workspace and a second pass sums the
 //    slices in a fixed order and applies the epilogue, so two launches on
@@ -210,7 +210,7 @@ __device__ __forceinline__ void convert_int8(const int8_t* __restrict__ src, uin
 // through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); else bf16
 // (K, N).  splits > 1: f32 partials to ws [(GATE ? 2 : 1) * splits][M][N]
 // (the gate's after B's) and splitk_epilogue finishes.  ODD: N is odd or C
-// is off 4 bytes (dense B only, one K slice).
+// is off 4 bytes (dense B only, one K slice; int8 B is never ODD).
 template <int BM, int BN, bool GATE, bool Q, bool ODD>
 __global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
@@ -364,10 +364,10 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         float s0 = 1.f, s1 = 1.f, t0 = 1.f, t1 = 1.f;
         if constexpr (Q) {
           s0 = bs[col / qa];
-          if (two) s1 = bs[(col + 1) / qa];
+          s1 = bs[(col + 1) / qa];
           if constexpr (GATE) {
             t0 = b2s[col / qa];
-            if (two) t1 = b2s[(col + 1) / qa];
+            t1 = b2s[(col + 1) / qa];
           }
         }
         const float h0 = epilogue<bf16>(v0 * s0, g0 * t0, bias, res, col, o, act, GATE);
