@@ -195,6 +195,32 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              prefills again through the serial first design, its SSD ms
              beside.
 
+28. moe_kernels - bgemm's batched launch (a per-expert B, an out_dtype) at
+             moonshot-v1-16b-a3b FULL's expert shapes (64 experts, d 2048, f
+             1408; 32 rows an expert at decode, 64 at prefill): the gate+up
+             dual launch (silu, bf16 out) and the down launch (f32 out) on
+             the tensor cores, the packed expert stacks, f32, f64 and odd K
+             on the CUDA-core tile (csrc/gemm_batched*.cu); each one launch
+             on its plan's route, against its plain version, bitwise a
+             second launch, timed beside its bound, the plain version and
+             torch.bmm on the same operands (products only);
+29. smoke_moe - moonshot and grok-1-314b SMOKE (f32), continuous and batch
+             schedulers and --quantize int8, kernels vs plain versions equal
+             greedy tokens, two batched expert launches a layer a forward;
+30. serve_moe - moonshot FULL bf16 (seeded random weights, 57.8 GB): 8
+             requests, batch 4, prompt 128, gen 32: 8/8, finite logits, no
+             plain version called, every expert launch on the batched
+             tensor-core route (2 x 48 a forward), peak device memory;
+31. forced_moe - prefill + 3 decode steps at full width: every expert launch
+             against its plain version on its inputs, every block
+             (`_expert_ffn` on the plain path's dispatch buffer, `moe_layer`
+             on its h) within 2% of max |plain|, the logits within 5% of the
+             plain path's or no further from an f32 witness (each layer
+             upcast as the forward reaches it) than the plain bf16 path's +
+             2%; the share of (token, layer) top-6 sets that agree;
+32. profile_moe, profile_prefill_moe - phase 8's profiles of moonshot's
+             decode step (96 tensor-core GEMM launches a step) and prefill.
+
 Then a `done` line (the script's seconds), a `kernels` summary line, and as
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -337,21 +363,28 @@ def bound(bytes_moved: int, flops: float, dtype) -> tuple:
 # --------------------------------------------------------------------------
 
 def _tc_config(mangled: str):
-    """(BM, BN, GATE, Q) of a mangled gemm_tc_kernel<BM, BN, GATE, Q, ODD> name."""
+    """(BM, BN, GATE, Q) of a mangled gemm_tc_kernel<BM, BN, GATE, Q, ODD, BATCHED, TO>
+    name."""
     m = re.search(r"gemm_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", mangled)
     return tuple(int(v) for v in m.groups()) if m else None
 
 
 def _tc_name(mangled: str) -> str:
-    """'BMxBN [gate] [int8] [odd]' for a gemm_tc_kernel instantiation (odd:
-    the epilogue for an odd N or a C off 4 bytes)."""
+    """'BMxBN [gate] [int8] [odd] [batched] [f32 out]' for a gemm_tc_kernel
+    instantiation (odd: the epilogue for an odd N or a C off 4 bytes;
+    batched: the batched-B form's rank-3 maps; f32 out: C in f32, the MoE's
+    down projection)."""
     cfg = _tc_config(mangled)
     if cfg is None:
         return mangled[:60]
     bm, bn, gate, q = cfg
-    odd = re.search(r"gemm_tc_kernelILi\d+ELi\d+ELb\dELb\dELb1E", mangled)
+    head = r"gemm_tc_kernelILi\d+ELi\d+ELb\dELb\d"
+    odd = re.search(head + r"ELb1E", mangled)
+    batched = re.search(head + r"ELb\dELb1E", mangled)
+    f32 = re.search(head + r"ELb\dELb\dEfE", mangled)
     return (f"{bm}x{bn}" + (" gate" if gate else "") + (" int8" if q else "")
-            + (" odd" if odd else ""))
+            + (" odd" if odd else "") + (" batched" if batched else "")
+            + (" f32 out" if f32 else ""))
 
 
 def _attn_name(mangled: str):
@@ -552,6 +585,9 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"f32 ring kernels spill: {f32_spills}")
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
+    batched = sorted(k for k in hgmma if "batched" in k)
+    if len(batched) != 8:  # 2 tiles x gate x bf16 / f32 out (the MoE's down projection)
+        raise AssertionError(f"batched tensor-core instantiations {batched}, want 8")
     if any(tc_spills.values()):
         raise AssertionError(f"tensor-core GEMM kernels spill: {tc_spills}")
     if not hmma or min(hmma.values()) == 0:
@@ -1056,7 +1092,7 @@ def phase_forced(params, cfg, phase="forced"):
 
 
 def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5,
-                  phase: str = "profile"):
+                  phase: str = "profile", tc_per_step: int | None = None):
     """Where a full-width decode step's time goes (batch 4, 128 cached
     tokens): the wall clock per step without the profiler, then
     torch.profiler over the same steps for device time per kernel name;
@@ -1064,7 +1100,9 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     one bgemv kernel a bgemv call and one qgemv kernel a packed bgemv call
     (csrc/bgemv.cu and csrc/qgemv.cu combine their K splits in the same
     launch) and, where `bgemv_per_step` is given, the profiled steps call
-    bgemv that many times a step."""
+    bgemv that many times a step; where `tc_per_step` is given (the MoE's
+    batched expert launches), the tensor-core GEMM kernel runs that many
+    device launches a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
@@ -1113,6 +1151,9 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
                                   if "gemm_f32_kernel" in k),
          f32_gemm_launches_per_step=sum(n for k, (_, n) in by_name.items()
                                         if "gemm_f32_kernel" in k),
+         tc_gemm_ms_per_step=sum(ms for k, (ms, _) in by_name.items() if "gemm_tc_kernel" in k),
+         tc_gemm_launches_per_step=sum(n for k, (_, n) in by_name.items()
+                                       if "gemm_tc_kernel" in k),
          device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
@@ -1124,6 +1165,10 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     if qgemv_launches != int8_calls:
         raise AssertionError(f"{phase}: {int8_calls} packed bgemv calls a decode step ran "
                              f"{qgemv_launches} qgemv device launches")
+    tc = sum(n for k, (_, n) in by_name.items() if "gemm_tc_kernel" in k)
+    if tc_per_step is not None and tc != tc_per_step:
+        raise AssertionError(f"{phase}: {tc} tensor-core GEMM device launches a decode step, "
+                             f"want {tc_per_step}")
 
 
 # the recurrent kernels a prefill profile reads apart: ops counter, the
@@ -1136,8 +1181,8 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
     """Where a full-width prefill's time goes (batch 4, 128 prompt tokens):
     its wall clock without the profiler, then torch.profiler over the same
     prefills for device time per kernel name (the tensor-core GEMM's, the
-    recurrent `state_kernel`'s (WKV6 or the SSD) and the rest) and the
-    device's idle share.  Fails unless every call of `state_kernel` ran its
+    recurrent `state_kernel`'s (WKV6 or the SSD; None for a model with
+    none) and the rest) and the device's idle share.  Fails unless every call of `state_kernel` ran its
     kernels' DEVICE_LAUNCHES device launches.  With `serial_launch` (a
     stand-in for that kernel module's `launch`: the design it replaced), the
     same prefills are profiled again through it, and its device time is
@@ -1147,7 +1192,7 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
-    module, prefix = STATE_KERNELS[state_kernel]
+    module, prefix = STATE_KERNELS[state_kernel] if state_kernel else ("bgemm", "none")
     kmod = importlib.import_module(f"repro_torch.kernels.{module}")
     rng = np.random.default_rng(9)
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
@@ -1170,9 +1215,9 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
         prefill()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    before = ops.launch_counts()[state_kernel]
+    before = ops.launch_counts().get(state_kernel, 0)
     by_name = profiled()
-    calls = (ops.launch_counts()[state_kernel] - before) / reps
+    calls = (ops.launch_counts().get(state_kernel, 0) - before) / reps
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     mine = {k: (ms, n) for k, (ms, n) in by_name.items() if f"{prefix}_" in k}
@@ -1190,15 +1235,13 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
         serial = {f"serial_{prefix}_ms_per_prefill": s_ms,
                   "serial_device_busy_ms_per_prefill": sum(ms for ms, _ in s_by.values()),
                   f"{prefix}_ms_lower_than_serial": s_ms - sum(ms for ms, _ in mine.values())}
+    state = {} if not state_kernel else {
+        f"{state_kernel}_calls_per_prefill": calls,
+        f"{prefix}_device_launches_per_prefill": launches,
+        f"{prefix}_ms_per_prefill": sum(ms for ms, _ in mine.values()),
+        f"{prefix}_by_kernel": {k[:60]: {"ms": ms, "launches": n} for k, (ms, n) in mine.items()}}
     emit(phase, what=f"full-width prefill, batch 4, 128 prompt tokens, {cfg.arch_id}",
-         wall_ms_per_prefill=wall_ms, **{f"{state_kernel}_calls_per_prefill": calls,
-                                         f"{prefix}_device_launches_per_prefill": launches,
-                                         f"{prefix}_ms_per_prefill":
-                                             sum(ms for ms, _ in mine.values()),
-                                         f"{prefix}_by_kernel":
-                                             {k[:60]: {"ms": ms, "launches": n}
-                                              for k, (ms, n) in mine.items()}},
-         **serial,
+         wall_ms_per_prefill=wall_ms, **state, **serial,
          tensor_core_gemm_ms=sum(ms for k, (ms, _) in by_name.items()
                                  if "gemm_tc_kernel" in k or "splitk_epilogue" in k),
          attention_ms_per_prefill=sum(ms for k, (ms, _) in by_name.items()
@@ -1210,7 +1253,7 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
          device_events_per_prefill=sum(n for _, n in by_name.values()),
          top=[{"name": k[:90], "ms_per_prefill": ms, "calls_per_prefill": n}
               for k, (ms, n) in top])
-    if launches != kmod.DEVICE_LAUNCHES * calls:
+    if state_kernel and launches != kmod.DEVICE_LAUNCHES * calls:
         raise AssertionError(f"{phase}: {calls} {state_kernel} calls a prefill ran "
                              f"{launches} device launches (want {kmod.DEVICE_LAUNCHES} a call)")
 
@@ -2491,6 +2534,15 @@ def _map_tensors(tree, fn):
     return fn(tree)
 
 
+def _tensors(tree):
+    """Every tensor of a params tree (dicts and lists), in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
 def _rel(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
@@ -2850,6 +2902,420 @@ def phase_serve_batch(params, cfg, continuous_outputs):
     check_launches(counts, "serve_batch")
 
 
+# --------------------------------------------------------------------------
+# phases 28-33: the MoE family (moonshot-v1-16b-a3b, grok-1-314b) and
+# bgemm's batched launch
+# --------------------------------------------------------------------------
+
+MOE = "moonshot-v1-16b-a3b"
+GROK = "grok-1-314b"
+# moonshot FULL bf16 (forced_moe), stated before its first run: on identical
+# inputs, a block's `_expert_ffn` (the dispatch buffer of the plain path)
+# and its whole `moe_layer` (the plain path's normed h: the same routing)
+# within 2% of max |plain|, as the rwkv and zamba2 blocks; end to end the
+# logits within FORCED_REL_TOL of the plain path's, or, where top-6 routing
+# flips carry the two bf16 paths apart, no further from the f32 path than
+# the plain bf16 path's logits are, plus 2% of max |logit|.
+MOE_TF_OUT_TOL = 0.02
+MOE_E2E_MARGIN = 0.02
+
+
+def moe_cases():
+    """The batched launch at moonshot FULL's expert shapes (64 experts, d =
+    2048, f = 1408): the gate+up dual launch (silu, bf16 out) and the down
+    launch (f32 out) at decode (32 rows an expert: batch 4 x capacity 8)
+    and prefill (64: 4 x 16) on the tensor cores; the packed expert stacks
+    (`--quantize int8`'s "kn", per-expert scales) and f32, f64 and odd-K
+    bf16 on the CUDA-core tile.  Dicts: label, call, lib (torch.bmm on the
+    same operands, products only, or None), bytes, flops, dtype, out_dtype,
+    packed, dense (the label of the dense case at that shape, or None)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(21)
+    e, d, f = 64, 2048, 1408
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
+
+    wg, wu = rnd(e, d, f, std=d ** -0.5), rnd(e, d, f, std=d ** -0.5)
+    wgu = torch.cat([wg, wu], dim=2)
+    wd = rnd(e, f, d, std=f ** -0.5)
+    spec = quant.QuantSpec(block_m=64, block_n=None)  # quantize_weights' expert rule
+    qg, qu, qd = (quant.quantize(w, spec) for w in (wg, wu, wd))
+    cases = []
+
+    def case(label, a, b, lib, *, b2=None, activation=None, out_dtype, dense=None):
+        packed = quant.is_quantized(b)
+        batch, m, k = a.shape
+        n = b.shape[-1]
+        out_b = batch * m * n * torch.empty((), dtype=out_dtype).element_size()
+        w_b = (nbytes(b.values, b.scales, *(() if b2 is None else (b2.values, b2.scales)))
+               if packed else nbytes(b, b2))
+        cases.append(dict(
+            label=label, call=lambda: ops.bgemm(a, b, b2=b2, activation=activation,
+                                                out_dtype=out_dtype),
+            lib=lib, bytes=nbytes(a) + w_b + out_b,
+            flops=2 * batch * m * k * n * (2 if b2 is not None else 1), dtype=a.dtype,
+            out_dtype=out_dtype, packed=packed, gate=b2 is not None, shape=(batch, m, k, n),
+            dense=dense))
+
+    for m, what in ((32, "decode"), (64, "prefill")):
+        h, mid = rnd(e, m, d), rnd(e, m, f)
+        gate_up = f"{what} gate_up ({e},{m},{d})@({e},{d},{f}) x2 silu bf16 out"
+        down = f"{what} down ({e},{m},{f})@({e},{f},{d}) f32 out"
+        case(gate_up, h, wg, lambda h=h: torch.bmm(h, wgu), b2=wu, activation="silu",
+             out_dtype=torch.bfloat16)
+        case(down, mid, wd, lambda mid=mid: torch.bmm(mid, wd), out_dtype=torch.float32)
+        if m == 32:
+            case(f"int8 {gate_up}", h, qg, None, b2=qu, activation="silu",
+                 out_dtype=torch.bfloat16, dense=gate_up)
+            case(f"int8 {down}", mid, qd, None, out_dtype=torch.float32, dense=down)
+            mid32, wd32 = mid.float(), wd.float()
+            case(f"f32 {down}", mid32, wd32, lambda: torch.bmm(mid32, wd32),
+                 out_dtype=torch.float32, dense=down)
+            mid64, wd64 = mid.double(), wd.double()
+            case(f"f64 {down.replace('f32 out', 'f64 out')}", mid64, wd64,
+                 lambda: torch.bmm(mid64, wd64), out_dtype=torch.float64, dense=down)
+            odd, wodd = mid[..., :f - 1].contiguous(), wd[:, :f - 1].contiguous()
+            case(f"odd K {what} down ({e},{m},{f - 1})@({e},{f - 1},{d}) f32 out", odd, wodd,
+                 lambda: torch.bmm(odd, wodd), out_dtype=torch.float32, dense=down)
+    return cases
+
+
+def phase_moe_kernels():
+    """Each batched case: one launch, counted on the route
+    `gemm.plan_batched` names (and as packed where it is); within TOL of its
+    plain version (f32 out: the f32 tolerance, the sums differing in order
+    only), bitwise a second launch; timed beside its bound, the plain
+    version and torch.bmm on the same operands (products only)."""
+    from repro_torch.kernels import gemm, ops
+    rows = {}
+    for c in moe_cases():
+        batch, m, k, n = c["shape"]
+        p = gemm.plan_batched(batch, m, k, n, c["dtype"], c["out_dtype"], gate=c["gate"],
+                              packed=c["packed"])
+        before = ops.launch_counts()
+        got = c["call"]()
+        after = ops.launch_counts()
+        rose = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        want_rose = {"bgemm_batched": 1, f"bgemm_batched_{p.route}": 1,
+                     **({"bgemm_batched_int8": 1} if c["packed"] else {})}
+        if rose != want_rose:
+            raise AssertionError(f"moe_kernels [{c['label']}]: launches added {rose}, "
+                                 f"plan {p}")
+        with ops.reference_mode():
+            want = c["call"]()
+        torch.cuda.synchronize()
+        tol = TOL[c["out_dtype"] if c["out_dtype"] in TOL else c["dtype"]]
+        err = (got.double() - want.double()).abs().max().item()
+        ok = (got.dtype == c["out_dtype"] and bool(torch.isfinite(got).all())
+              and torch.allclose(got.double(), want.double(), **tol))
+        same = split_deterministic(c["call"], got)
+        ms = time_auto(c["call"])
+        with ops.reference_mode():
+            plain_ms = time_auto(c["call"])
+        lib_ms = time_auto(c["lib"]) if c["lib"] is not None else None
+        b_ms, by = bound(c["bytes"], c["flops"], c["dtype"])
+        row = dict(case=c["label"], dtype=str(c["dtype"]).split(".")[1],
+                   out_dtype=str(c["out_dtype"]).split(".")[1], packed=c["packed"],
+                   plan=dict(route=p.route, tile=list(p.tile)), max_abs_err=err, tol=tol,
+                   within_tol=ok, bitwise_second_launch=same, kernel_ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_call="torch.bmm (products only)" if lib_ms
+                   else None, bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                   dense_ms=rows[c["dense"]]["kernel_ms"] if c["dense"] else None,
+                   bytes=c["bytes"], flops=c["flops"])
+        emit("moe_kernels", **row)
+        if not ok or not same:
+            raise AssertionError(f"moe_kernels [{c['label']}]: max |kernel - plain| {err} "
+                                 f"(tol {tol}), second launch bitwise {same}")
+        rows[c["label"]] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_moe_launches(counts: dict, what: str, cfg, prefills: int, steps: int,
+                       route: str, int8: bool = False):
+    """A MoE serve's launches: two batched expert launches a layer every
+    forward, all on `route` (packed with int8 weights); the projections of
+    attention (q, k, v, wo) and of the shared experts (gate+up, down) on
+    bgemv at decode and bgemm at prefill (their packed kernels with int8
+    weights); one attention launch a layer every forward."""
+    n = cfg.n_layers
+    proj = 4 + (2 if cfg.moe.n_shared_experts else 0)
+    forwards = prefills + steps
+    want = {"bgemm_batched": 2 * n * forwards, f"bgemm_batched_{route}": 2 * n * forwards,
+            "bgemm_batched_int8": 2 * n * forwards if int8 else 0,
+            "bgemv_int8" if int8 else "bgemv": proj * n * steps,
+            "gemm_int8" if int8 else "bgemm": proj * n * prefills,
+            "bgemv" if int8 else "bgemv_int8": 0, "bgemm" if int8 else "gemm_int8": 0,
+            "attention": n * forwards}
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{what} launches {counts}: (got, want) {bad}")
+
+
+def phase_smoke_moe():
+    """moonshot and grok SMOKE (f32) served through the kernels and through
+    the plain versions: equal greedy tokens under the continuous scheduler
+    (ragged prompts), the batch scheduler and --quantize int8; every expert
+    launch batched, on the CUDA-core tile ("ffma"; f32), packed under int8;
+    the f32 projections on "ffma_sm90".  Returns the launch counts of the
+    moonshot continuous and int8 serves."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    out = {}
+    for arch in (MOE, GROK):
+        cfg = get_config(arch, "smoke")
+        params = tf.init_params(cfg, 0, "cuda")
+        rng = np.random.default_rng(1)
+        ragged = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
+        even = [rng.integers(3, cfg.vocab, size=(10,), dtype=np.int32) for _ in range(5)]
+        for name, kw in (("continuous", dict(prompts=ragged)),
+                         ("batch", dict(prompts=even, scheduler="batch")),
+                         ("int8", dict(prompts=ragged, quantize="int8"))):
+            args = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, params=params,
+                        verbose=False, device="cuda", **kw)
+            ops.reset_launch_counts()
+            got = serve(arch, "smoke", **args)
+            counts = ops.launch_counts()
+            with ops.reference_mode():
+                want = serve(arch, "smoke", **args)
+            equal = got["outputs"] == want["outputs"]
+            emit("smoke_moe", arch=arch, dtype="float32", run=name, requests=5,
+                 completed=got["completed"], tokens_equal=equal, outputs=got["outputs"],
+                 launches={k: v for k, v in counts.items() if v})
+            if not equal or got["completed"] != 5:
+                raise AssertionError(f"smoke_moe {arch} {name}: kernels {got['outputs']} != "
+                                     f"plain {want['outputs']}")
+            # the serve's warm-up runs one prefill and one decode step first
+            check_moe_launches(counts, f"smoke_moe {arch} {name}", cfg, got["prefills"] + 1,
+                               got["decode_steps"] + 1, "ffma", int8=name == "int8")
+            if name != "int8":
+                check_f32_routes(counts, f"smoke_moe {arch} {name}")
+            out[(arch, name)] = counts
+        del params
+    return out
+
+
+def _count_plain_calls():
+    """Wrap every plain version of the kernel modules (`reference*`) with a
+    call counter; returns (counts dict, restore())."""
+    import importlib
+    calls, saved = {}, []
+    for name in ("bgemm", "bgemv", "gemm", "gemv", "attention", "blas1"):
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        for attr in [a for a in dir(mod) if a.startswith("reference")]:
+            fn = getattr(mod, attr)
+            key = f"{name}.{attr}"
+            calls[key] = 0
+
+            def counted(*args, _fn=fn, _key=key, **kwargs):
+                calls[_key] += 1
+                return _fn(*args, **kwargs)
+
+            saved.append((mod, attr, fn))
+            setattr(mod, attr, counted)
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+    return calls, restore
+
+
+def phase_serve_moe(params, cfg):
+    """moonshot FULL bf16 (seeded random weights, 57.8 GB): 8 requests,
+    batch 4, prompt 128, gen 32, continuous scheduler; every logit finite,
+    no plain version called, two batched expert launches a layer every
+    forward, all on the tensor cores ("wgmma"), the prefill projections on
+    wgmma, attention on its routes; peak device memory.  Returns (the
+    launch counts, the outputs)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    finite = []
+    logits_chunk = tf._logits_chunk
+
+    def checked(*args, **kwargs):
+        out = logits_chunk(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    tf._logits_chunk = checked
+    plain, restore = _count_plain_calls()
+    ops.reset_launch_counts()
+    try:
+        stats = serve(MOE, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
+                      eos=-1, params=params, device="cuda")
+    finally:
+        tf._logits_chunk = logits_chunk
+        restore()
+    counts = ops.launch_counts()
+    routes = check_attention_routes("serve_moe", cfg.n_layers)
+    all_finite = bool(torch.stack(finite).all())
+    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
+    emit("serve_moe", arch=MOE, variant="full", dtype="bfloat16", requests=8, batch=4,
+         prompt_len=128, gen=32,
+         params_b=sum(t.numel() for t in _tensors(params)) / 1e9,
+         params_gb=sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9,
+         completed=stats["completed"], tokens=stats["tokens"], tok_s=stats["tok_s"],
+         elapsed_s=stats["elapsed_s"], ttft_p50_s=statistics.median(stats["ttft"]),
+         prefills=stats["prefills"], decode_steps=stats["decode_steps"],
+         occupancy=stats["occupancy"], logit_checks=len(finite), all_logits_finite=all_finite,
+         plain_version_calls=sum(plain.values()),
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    emit("launches", run="serve_moe", **counts)
+    if stats["completed"] != 8 or not all_finite or not in_range:
+        raise AssertionError(f"serve_moe: completed {stats['completed']}/8, finite "
+                             f"{all_finite}, tokens in range {in_range}")
+    if any(len(o) != 32 for o in stats["outputs"]):
+        raise AssertionError("serve_moe: a request stopped before its budget")
+    if sum(plain.values()):
+        raise AssertionError(f"serve_moe: plain versions ran: "
+                             f"{ {k: v for k, v in plain.items() if v} }")
+    check_moe_launches(counts, "serve_moe", cfg, stats["prefills"] + 1,
+                       stats["decode_steps"] + 1, "wgmma")
+    check_prefill_routes(counts, "serve_moe")
+    return counts, routes
+
+
+class _LazyF32Layers(list):
+    """A params["layers"] list that hands the forward each layer upcast to
+    f32 as it reaches it: the f32 witness of a model whose f32 weights do
+    not fit the card at once."""
+
+    def __iter__(self):
+        for lp in list.__iter__(self):
+            yield _map_tensors(lp, lambda t: t.float())
+
+
+def phase_forced_moe(params, cfg):
+    """moonshot FULL bf16: prefill (4, 128) + 3 decode steps on the same
+    tokens, kernels and plain versions.  Gated: (1) every batched expert
+    launch of the kernel path against its plain version on the same inputs
+    (bf16 out: bf16 TOL; f32 out: f32 TOL); (2) every block on the plain
+    path's inputs: `_expert_ffn` on the plain path's dispatch buffer and
+    `moe_layer` on its normed h (the same routing), kernels against plain,
+    within MOE_TF_OUT_TOL of max |plain|; (3) end to end, the logits within
+    FORCED_REL_TOL of max |plain logit|, or else at every step no further
+    from the f32 witness (the plain versions on each layer upcast as the
+    forward reaches it) than the plain bf16 path's logits are, plus
+    MOE_E2E_MARGIN; (4) every logit finite.  Reports the share of (token,
+    layer) top-6 sets that agree between the two paths.  The kernel path's
+    times include its launches' checks (`profile_moe` times it clean)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
+    steps = [torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
+             for _ in range(3)]
+    launch_err, launch_ok = [], []
+    bgemm, route, layer_fn, ffn_fn = ops.bgemm, moe._route, moe.moe_layer, moe._expert_ffn
+    picks = {"kernel": [], "plain": []}
+
+    def checked(a, b, **kw):
+        out = bgemm(a, b, **kw)
+        if b.ndim == 3:  # an expert launch
+            with ops.reference_mode():
+                want = bgemm(a, b, **kw)
+            tol = TOL[out.dtype]
+            launch_err.append((out.float() - want.float()).abs().max().item())
+            launch_ok.append(torch.allclose(out.float(), want.float(), **tol))
+        return out
+
+    def routed(path):
+        def call(*args, **kwargs):
+            top_w, top_i, aux = route(*args, **kwargs)
+            picks[path].append(torch.sort(top_i, dim=-1).values)
+            return top_w, top_i, aux
+        return call
+
+    ops.bgemm, moe._route = checked, routed("kernel")
+    try:
+        ops.reset_launch_counts()
+        got, t_kernel = _forced_run(params, cfg, tokens, steps)
+        counts = ops.launch_counts()
+    finally:
+        ops.bgemm, moe._route = bgemm, route
+    blocks, ffns = [], []
+
+    def layer_capture(lp, h, *args, **kwargs):
+        out = layer_fn(lp, h, *args, **kwargs)
+        blocks.append((lp, h, args, out[0]))
+        return out
+
+    def ffn_capture(h, lp, act):
+        out = ffn_fn(h, lp, act)
+        ffns.append((h, lp, act, out))
+        return out
+
+    moe._route, moe.moe_layer, moe._expert_ffn = routed("plain"), layer_capture, ffn_capture
+    try:
+        with ops.reference_mode():
+            want, t_plain = _forced_run(params, cfg, tokens, steps)
+    finally:
+        moe._route, moe.moe_layer, moe._expert_ffn = route, layer_fn, ffn_fn
+    tf_rel = {"expert_ffn": [], "moe_layer": []}
+    for h, lp, act, plain_out in ffns:
+        tf_rel["expert_ffn"].append(_rel(moe._expert_ffn(h, lp, act), plain_out))
+    for lp, h, args, plain_out in blocks:
+        tf_rel["moe_layer"].append(_rel(moe.moe_layer(lp, h, *args)[0], plain_out))
+    del ffns, blocks
+    agree = [(k == p).all(dim=-1).float().mean().item()
+             for k, p in zip(picks["kernel"], picks["plain"])]
+    n = cfg.n_layers
+    agree_by_step = [statistics.mean(agree[i * n:(i + 1) * n]) for i in range(len(agree) // n)]
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    scales = [w.abs().max().item() for w in want]
+    rel = [e / s for e, s in zip(errs, scales)]
+    argmax = [(g.argmax(-1) == w.argmax(-1)).float().mean().item() for g, w in zip(got, want)]
+    torch.cuda.empty_cache()
+    params32 = {k: (_LazyF32Layers(v) if k == "layers" else _map_tensors(v, lambda t: t.float()))
+                for k, v in params.items()}
+    with ops.reference_mode():
+        want32, _ = _forced_run(params32, dataclasses.replace(cfg, dtype="float32"), tokens,
+                                steps)
+    del params32
+    kernel32 = [_rel(x, w) for x, w in zip(got, want32)]
+    plain32 = [_rel(x, w) for x, w in zip(want, want32)]
+    del want32
+    torch.cuda.empty_cache()
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    e2e_plain = all(r <= FORCED_REL_TOL for r in rel)
+    e2e_witness = all(k <= p + MOE_E2E_MARGIN for k, p in zip(kernel32, plain32))
+    tf_max = {k: max(v) for k, v in tf_rel.items()}
+    launches_ok = len(launch_ok) == 2 * n * 4 and all(launch_ok)
+    ok = (finite and launches_ok and all(v <= MOE_TF_OUT_TOL for v in tf_max.values())
+          and (e2e_plain or e2e_witness))
+    emit("forced_moe", arch=MOE, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
+         max_abs_err=errs, max_abs_logit=scales, rel_err=rel, rel_tol=FORCED_REL_TOL,
+         within_plain_tol=e2e_plain, argmax_agreement=argmax,
+         kernel_rel_err_to_f32=kernel32, plain_rel_err_to_f32=plain32,
+         e2e_margin=MOE_E2E_MARGIN, e2e_within_witness_margin=e2e_witness,
+         expert_launches_checked=len(launch_ok), expert_launches_within_tol=sum(launch_ok),
+         expert_launch_max_abs_err=max(launch_err), teacher_forced_limit=MOE_TF_OUT_TOL,
+         teacher_forced_runs={k: len(v) for k, v in tf_rel.items()},
+         teacher_forced_max_rel=tf_max,
+         teacher_forced_rel_moe_layer_prefill=tf_rel["moe_layer"][:n],
+         top6_sets_agreeing_by_step=agree_by_step,
+         top6_sets_agreeing_prefill_by_layer=agree[:n],
+         top6_sets_agreeing=statistics.mean(agree), all_finite=finite, within_tol=ok,
+         checked_prefill_ms=t_kernel[0],
+         checked_decode_ms_per_step=statistics.mean(t_kernel[1:]),
+         plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]),
+         launches={k: v for k, v in counts.items() if v})
+    if not ok:
+        raise AssertionError(
+            f"forced_moe: finite {finite}, expert launches within tol {sum(launch_ok)}/"
+            f"{len(launch_ok)}, blocks {tf_max} (limit {MOE_TF_OUT_TOL}), logits rel {rel} "
+            f"(tol {FORCED_REL_TOL}), to f32: kernel {kernel32} vs plain {plain32}")
+    check_moe_launches(counts, "forced_moe", cfg, 1, 3, "wgmma")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2878,6 +3344,7 @@ def main() -> int:
     lib = _build.build()
     replaced = replaced_build_finish(replaced_jobs)
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds,
+         nvcc_seconds_by_file=_build.build_seconds_by_file,
          library=str(lib.relative_to(HERE)), replaced_designs=replaced)
     (OUT / "ptxas.txt").write_text(_build.build_log)
     phase_sass(lib)
@@ -2975,6 +3442,19 @@ def main() -> int:
         phase_profile_prefill(zamba_params, zamba_cfg, phase="profile_prefill_zamba",
                               state_kernel="mamba2_ssd", serial_launch=serial_ssd_launch)
         del zamba_params
+        torch.cuda.empty_cache()
+        moe_rows = phase_moe_kernels()
+        moe_smoke = phase_smoke_moe()
+        moe_cfg = get_config(MOE, "full")
+        moe_params = tf.init_params(moe_cfg, 0, "cuda")
+        moe_counts, _ = phase_serve_moe(moe_params, moe_cfg)
+        phase_forced_moe(moe_params, moe_cfg)
+        phase_profile(moe_params, moe_cfg, 6 * moe_cfg.n_layers, phase="profile_moe",
+                      tc_per_step=2 * moe_cfg.n_layers)
+        phase_profile_prefill(moe_params, moe_cfg, phase="profile_prefill_moe",
+                              state_kernel=None)
+        del moe_params
+        torch.cuda.empty_cache()
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
 
@@ -3129,7 +3609,36 @@ def main() -> int:
                     "bound_with_workspace_ms": r["bound_with_workspace_ms"],
                     "long_shape": long_r["case"], "long_ms": long_r["kernel_ms"],
                     "long_replaced_ms": long_r["replaced_ms"], "long_bound_ms": long_r["bound_ms"]})
-    emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds)
+    # bgemm's batched launch (the MoE experts): the tensor-core route with
+    # launches from the moonshot serve (the gate+up dual launch at the decode
+    # shape; the f32-out down projection's case beside it), the CUDA-core
+    # tile with launches from the f32 moonshot smoke serve, and its packed
+    # form with launches from that serve under --quantize int8
+    dec_gu = "decode gate_up (64,32,2048)@(64,2048,1408) x2 silu bf16 out"
+    dec_dn = "decode down (64,32,1408)@(64,1408,2048) f32 out"
+    down = moe_rows[dec_dn]
+    for name, src, case, counts, key, launches_from in (
+            ("bgemm_batched_wgmma", "gemm_sm90.cu", dec_gu, moe_counts, "bgemm_batched_wgmma",
+             "serve_moe"),
+            ("bgemm_batched_ffma", "gemm_batched.cu", f"f32 {dec_dn}",
+             moe_smoke[(MOE, "continuous")], "bgemm_batched_ffma", "smoke_moe (f32)"),
+            ("bgemm_batched_int8", "gemm_batched_bf16.cu", f"int8 {dec_gu}",
+             moe_smoke[(MOE, "int8")], "bgemm_batched_int8", "smoke_moe int8 (f32)")):
+        r = moe_rows[case]
+        summary.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": "src/repro/kernels/bgemm.py:217", "launches": counts[key],
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": case, "dtype": r["dtype"], "out_dtype": r["out_dtype"],
+                        "plan": r["plan"], "launches_from": launches_from,
+                        **({"down_shape": dec_dn, "down_ms": down["kernel_ms"],
+                            "down_plain_ms": down["plain_ms"], "down_bound_ms": down["bound_ms"],
+                            "down_library_ms": down["library_ms"]}
+                           if name == "bgemm_batched_wgmma" else {}),
+                        **({"dense_ms": r["dense_ms"]} if r["dense_ms"] else {})})
+    emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds,
+         nvcc_seconds_by_file=_build.build_seconds_by_file)
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""Model config schema (the dense, rwkv and hybrid subset of
+"""Model config schema (the dense, moe, rwkv and hybrid subset of
 `repro.configs.base`).
 
 The port keeps its own copy so it imports nothing of the JAX package; the
@@ -12,6 +12,17 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    dispatch: str = "einsum"        # "einsum" (GShard baseline) | "gather" (sorted)
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +49,7 @@ class RWKVConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense | rwkv | hybrid (the families ported so far)
+    family: str                      # dense | moe | rwkv | hybrid (the families ported so far)
     d_model: int
     n_layers: int
     n_heads: int
@@ -58,6 +69,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False
     logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     dtype: str = "bfloat16"

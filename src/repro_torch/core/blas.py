@@ -159,24 +159,26 @@ def gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *,
                       B2, bias, residual, epilogue)
 
 
-def batched_gemm(A: torch.Tensor, B: torch.Tensor, C: Optional[torch.Tensor] = None, *,
+def batched_gemm(A: torch.Tensor, B, C: Optional[torch.Tensor] = None, *,
                  alpha=1.0, beta=0.0, transpose_a: bool = False,
                  transpose_b: bool = False, out_dtype=None,
-                 B2: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                 B2=None, bias: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None, epilogue=None) -> torch.Tensor:
-    """C[b] = alpha * op(A[b]) op(B) + beta * C[b] with a 2-D B broadcast
-    across the batch (one bgemm launch), or the fused epilogue as `gemm`.
-    The result is in A's dtype; `out_dtype` (the reference's argument) may
-    be None or that dtype: a widened output needs the kernel to write it,
-    not a cast after it."""
-    if B.ndim != 2:
-        raise NotImplementedError(
-            "batched_gemm: only a broadcast 2-D B is ported (ROADMAP §2: batched B)")
-    if out_dtype is not None and out_dtype != A.dtype:
-        raise NotImplementedError(
-            f"batched_gemm: out_dtype={out_dtype} with {A.dtype} operands is not ported "
-            "(ROADMAP §2: batched B)")
-    return _gemm_like(ops.bgemm, "batched_gemm", A, B, C, alpha, beta, transpose_a,
+    """C[b] = alpha * op(A[b]) op(B[b]) + beta * C[b], or the fused epilogue
+    as `gemm`, in one bgemm launch for the whole batch.  B (and B2) is
+    (batch, k, n), one per member (the MoE's expert stacks), or (k, n)
+    broadcast across the batch, dense or packed.  The kernel writes the
+    result in `out_dtype` (None: A's dtype), the accumulator rounded once;
+    alpha/beta are applied after it in that dtype.  A 2-D B with A's dtype
+    out (f32 or bf16) is one GEMM over the batch * m rows; every other form
+    is bgemm's batched launch."""
+    broadcast = B.ndim == 2 and out_dtype in (None, A.dtype) and A.dtype != torch.float64
+    out = None if broadcast else (out_dtype or A.dtype)
+
+    def kernel(a, b, **kw):
+        return ops.bgemm(a, b, out_dtype=out, **kw)
+
+    return _gemm_like(kernel, "batched_gemm", A, B, C, alpha, beta, transpose_a,
                       transpose_b, B2, bias, residual, epilogue)
 
 

@@ -6,13 +6,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace rt {
 
-enum { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F64 = 2, DT_F16 = 3 };
 enum { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3 };
 
 // Finite "minus infinity" for masked scores: exp(NEG_INF - m) is 0 for any
@@ -32,6 +33,15 @@ __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); 
 template <typename T, typename A> __device__ __forceinline__ T from_f(A v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16, float>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16, double>(double v) {
+  return __double2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half, float>(float v) {
+  return __float2half_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half, double>(double v) {
+  return __double2half(v);
 }
 
 __device__ __forceinline__ float exp_(float z) { return expf(z); }

@@ -1,5 +1,5 @@
 // Tensor-core GEMM with a fused epilogue for Hopper (sm_90a): bf16 operands,
-// f32 accumulators, bf16 output.  wgmma fed by TMA.
+// f32 accumulators, bf16 or f32 output.  wgmma fed by TMA.
 //
 // Replaces, for bf16 operands, two Pallas kernels with one body:
 //  - `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at :184), dense
@@ -8,13 +8,20 @@
 //    broadcast-B form of every prefill projection: C[b] = epi(A[b] @ B
 //    [, A[b] @ B2]) with A (batch, M, K) contiguous, the same GEMM over its
 //    batch * M rows;
+//  - the same Pallas kernel in its batched-B form (`bgemm.py:180-182`, every
+//    MoE expert launch): C[z] = epi(A[z] @ B[z] [, A[z] @ B2[z]]) with A
+//    (batch, M, K), B and B2 (batch, K, N) and C (batch, M, N), one launch
+//    for the whole batch (grid.z = batch), in bf16 out or f32 out (the
+//    expert down projection's `out_dtype=float32`, an instantiation of its
+//    own: a runtime branch in the epilogue slowed the aligned shapes 3-15%);
 //  - and the int8 body of both (`gemm.py:63-76`, `bgemm.py:80-90`) in the
 //    output-major "nk" layout of `serve --quantize int8`: B and B2 stored
 //    (N, K) int8 with one f32 scale for every `qa` output columns across all
 //    of K (`QuantSpec(block_m=64, block_n=None, transpose=True)`).
-// bias (N,), residual (M, N) and C (M, N) are bf16.  The epilogue is
-// common.cuh's `epilogue<T>` on the f32 accumulator (bias, then silu, gelu
-// or relu, then the gate multiply, then the residual), rounded once to bf16;
+// bias (N,) and residual (M, N) are bf16, C (M, N) bf16 or f32.  The
+// epilogue is common.cuh's `epilogue<T>` on the f32 accumulator (bias, then
+// silu, gelu or relu, then the gate multiply, then the residual), rounded
+// once to C's type;
 // an int8 column's scale multiplies its accumulator first (the reference
 // dequantizes B in the f32 accumulator: the two differ at f32 rounding).
 // Dense bf16 that TMA cannot address in place (K or N not a multiple of 8,
@@ -54,14 +61,20 @@
 //    consumers convert it to bf16 (exact: |v| <= 127) into the swizzled
 //    layout, so the same wgmma reads both;
 //  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
-//    K need no padding; the stores skip the fringe.  TMA needs 16-byte row
+//    K need no padding; the stores skip the fringe.  The batched form
+//    (BATCHED, instantiations of their own: made the one body, rank-3 maps
+//    slowed the 2-D 128 x 128 tile 14% at 8192^3, my chip run 4, PR 23)
+//    reads rank-3 maps (batch outermost): a tile past the last row or
+//    column of member z loads zeros, not member z + 1's first rows; a
+//    broadcast B is a stack of one, read at z = 0 by every member.  TMA needs 16-byte row
 //    strides and base addresses, so A and B carry row strides of their own
 //    (lda, ldb: multiples of 8 elements) and a padded row's tail, past K or
 //    N, loads as zeros.  C takes any N and any bf16 address: column pairs
 //    are one 4-byte store where N is even and C starts on 4 bytes, else (an
 //    instantiation of its own, ODD, so the even path carries no branch for
 //    it) two 2-byte ones;
-//  - narrow outputs split K (`splits` slices of whole k-steps, grid.y): each
+//  - narrow 2-D outputs split K (`splits` slices of whole k-steps, grid.y;
+//    never with a batch, whose grid has batch x tiles blocks already): each
 //    slice writes f32 partials to a workspace and a second pass sums the
 //    slices in a fixed order and applies the epilogue, so two launches on
 //    the same inputs give the same bits (no atomics), as bgemv.cu does;
@@ -71,6 +84,8 @@
 // one tile's epilogue with the next tile's loads; TMA stores; f64 on DMMA.
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tma.cuh"
@@ -206,18 +221,31 @@ __device__ __forceinline__ void convert_int8(const int8_t* __restrict__ src, uin
   }
 }
 
-// One C tile, or one K slice of it (grid.y = split).  Q: B, B2 int8 "nk"
+// Two adjacent outputs, rounded once to C's type: one 4-byte (bf16) or
+// 8-byte (f32) store.
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* c, float h0, float h1) {
+  if constexpr (std::is_same_v<TO, float>)
+    *reinterpret_cast<float2*>(c) = make_float2(h0, h1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(h0, h1);
+}
+
+// One C tile, or one K slice of it (grid.y = split); BATCHED: of batch
+// member blockIdx.z (B's member z if b_batched, else its only one), one K
+// slice, rank-3 maps.  Q: B, B2 int8 "nk"
 // through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); else bf16
 // (K, N).  splits > 1: f32 partials to ws [(GATE ? 2 : 1) * splits][M][N]
 // (the gate's after B's) and splitk_epilogue finishes.  ODD: N is odd or C
-// is off 4 bytes (dense B only, one K slice; int8 B is never ODD).
-template <int BM, int BN, bool GATE, bool Q, bool ODD>
+// is off 4 bytes (dense B only, one K slice; int8 B is never ODD).  TO: C's
+// type, bf16 or float (float: BATCHED only).
+template <int BM, int BN, bool GATE, bool Q, bool ODD, bool BATCHED, typename TO>
 __global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bs,
                const float* __restrict__ b2s, int qa, const bf16* __restrict__ bias,
-               const bf16* __restrict__ res, bf16* __restrict__ c, float* __restrict__ ws,
-               int M, int K, int N, int act, int splits) {
+               const bf16* __restrict__ res, TO* __restrict__ c, float* __restrict__ ws,
+               int b_batched, int M, int K, int N, int act, int splits) {
   using C = Cfg<BM, BN, GATE, Q>;
   constexpr int NC = C::NC, STAGES = C::STAGES;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -241,6 +269,8 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   const int split = blockIdx.y, kts = (K + BK - 1) / BK;
   const int kt0 = static_cast<int>(static_cast<long>(split) * kts / splits);
   const int kt1 = static_cast<int>(static_cast<long>(split + 1) * kts / splits);
+  // this block's batch member: A's and C's z, and B's where B has a batch axis
+  const int z = BATCHED ? blockIdx.z : 0, bz = b_batched ? z : 0;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -263,15 +293,26 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full, C::TX);
         const int k0 = kt * BK;
-        tma_load(a_at(s), &ta, full, k0, m0);
-        if constexpr (Q) {
-          tma_load(q_at(s, 0), &tb, full, k0, n0);
-          if constexpr (GATE) tma_load(q_at(s, 1), &tb2, full, k0, n0);
-        } else {
+        if constexpr (BATCHED) {
+          tma_load3(a_at(s), &ta, full, k0, m0, z);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j) {
-            tma_load(b_at(s, 0) + j * BK * 128, &tb, full, n0 + 64 * j, k0);
-            if constexpr (GATE) tma_load(b_at(s, 1) + j * BK * 128, &tb2, full, n0 + 64 * j, k0);
+            tma_load3(b_at(s, 0) + j * BK * 128, &tb, full, n0 + 64 * j, k0, bz);
+            if constexpr (GATE)
+              tma_load3(b_at(s, 1) + j * BK * 128, &tb2, full, n0 + 64 * j, k0, bz);
+          }
+        } else {
+          tma_load(a_at(s), &ta, full, k0, m0);
+          if constexpr (Q) {
+            tma_load(q_at(s, 0), &tb, full, k0, n0);
+            if constexpr (GATE) tma_load(q_at(s, 1), &tb2, full, k0, n0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j) {
+              tma_load(b_at(s, 0) + j * BK * 128, &tb, full, n0 + 64 * j, k0);
+              if constexpr (GATE)
+                tma_load(b_at(s, 1) + j * BK * 128, &tb2, full, n0 + 64 * j, k0);
+            }
           }
         }
       }
@@ -337,6 +378,10 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
     const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
     const long plane = static_cast<long>(M) * N;
+    if constexpr (BATCHED) {  // batch member z's C and residual
+      c += z * plane;
+      if (res) res += z * plane;
+    }
     // a column pair is one 4-byte store, or with ODD two element stores and
     // a column at N neither computed nor read (bias, residual)
 #pragma unroll
@@ -374,10 +419,10 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         const float h1 =
             two ? epilogue<bf16>(v1 * s1, g1 * t1, bias, res, col + 1, o + 1, act, GATE) : 0.f;
         if constexpr (ODD) {
-          c[o] = __float2bfloat16(h0);
-          if (two) c[o + 1] = __float2bfloat16(h1);
+          c[o] = from_f<TO>(h0);
+          if (two) c[o + 1] = from_f<TO>(h1);
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(c + o) = __floats2bfloat162_rn(h0, h1);
+          store_pair(c + o, h0, h1);
         }
       }
     }
@@ -426,18 +471,18 @@ struct Args {
   const float *bs, *b2s;
   int qa;
   const bf16 *bias, *res;
-  bf16* c;
+  void* c;
   float* ws;
-  int M, K, N, lda, ldb, act, splits;
+  int batch, b_batched, M, K, N, lda, ldb, act, splits;
   cudaStream_t stream;
 };
 
 constexpr int ENCODE_FAILED = 1000;  // + the CUresult
 
-template <class C, bool ODD>
+template <class C, bool ODD, bool BATCHED, typename TO>
 int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
                  const CUtensorMap& tb2) {
-  auto kernel = gemm_tc_kernel<C::BM, C::BN, C::GATE, C::Q, ODD>;
+  auto kernel = gemm_tc_kernel<C::BM, C::BN, C::GATE, C::Q, ODD, BATCHED, TO>;
   static bool sized = false;  // once per instantiation
   if (!sized) {
     const cudaError_t e =
@@ -446,12 +491,15 @@ int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
     sized = true;
   }
   const long tiles = static_cast<long>((g.M + C::BM - 1) / C::BM) * ((g.N + C::BN - 1) / C::BN);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits));
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits),
+                  static_cast<unsigned>(g.batch));
   kernel<<<grid, C::THREADS, C::SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.bias, g.res,
-                                                  g.c, g.ws, g.M, g.K, g.N, g.act, g.splits);
+                                                  static_cast<TO*>(g.c), g.ws, g.b_batched, g.M,
+                                                  g.K, g.N, g.act, g.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The 2-D launch: rank-2 maps, C bf16, K split in `splits` slices.
 template <class C>
 int run(const Args& g) {
   constexpr int BM = C::BM, BN = C::BN;
@@ -473,16 +521,35 @@ int run(const Args& g) {
   if (err) return ENCODE_FAILED + err;
   int e;
   if constexpr (Q) {
-    e = launch_tiles<C, false>(g, ta, tb, tb2);
+    e = launch_tiles<C, false, false, bf16>(g, ta, tb, tb2);
   } else {
     const bool odd = g.N % 2 || (reinterpret_cast<uintptr_t>(g.c) & 3);
-    e = odd ? launch_tiles<C, true>(g, ta, tb, tb2) : launch_tiles<C, false>(g, ta, tb, tb2);
+    e = odd ? launch_tiles<C, true, false, bf16>(g, ta, tb, tb2)
+            : launch_tiles<C, false, false, bf16>(g, ta, tb, tb2);
   }
   if (e != cudaSuccess || g.splits == 1) return e;
   const long pairs = static_cast<long>(g.M) * g.N / 2;
   splitk_epilogue<GATE, Q><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, g.stream>>>(
-      g.ws, g.splits, g.bs, g.b2s, g.qa, g.bias, g.res, g.c, g.M, g.N, g.act);
+      g.ws, g.splits, g.bs, g.b2s, g.qa, g.bias, g.res, static_cast<bf16*>(g.c), g.M, g.N, g.act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The batched launch: rank-3 maps over the batch, dense B, one K slice, C
+// in TO.
+template <class C, typename TO>
+int run_batched(const Args& g) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap ta, tb, tb2;
+  memset(&tb2, 0, sizeof(tb2));
+  const long b_depth = g.b_batched ? g.batch : 1;
+  int err = encode3(fn, &ta, g.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.K, g.M, g.batch, BK,
+                    C::BM, CU_TENSOR_MAP_SWIZZLE_128B, g.lda);
+  for (int j = 0; j < (C::GATE ? 2 : 1) && !err; ++j)
+    err = encode3(fn, j ? &tb2 : &tb, j ? g.b2 : g.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N,
+                  g.K, b_depth, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
+  if (err) return ENCODE_FAILED + err;
+  return launch_tiles<C, false, true, TO>(g, ta, tb, tb2);
 }
 
 // f(Cfg<...>{}) for the instantiated configuration, or -1 if there is none
@@ -496,6 +563,15 @@ int by_tile(int bm, int bn, F f) {
   return -1;
 }
 
+// The batched launch's tiles: BN = 64 (the MoE experts' 32 or 64 rows a
+// member take BM = 64)
+template <bool GATE, class F>
+int by_batched_tile(int bm, int bn, F f) {
+  if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, false>{});
+  if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, false>{});
+  return -1;
+}
+
 template <class F>
 int by_config(int bm, int bn, bool gate, bool q, F f) {
   if (q) return gate ? by_tile<true, true>(bm, bn, f) : by_tile<false, true>(bm, bn, f);
@@ -506,38 +582,56 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// C (M, N) = epi(A (M, K) @ B [, A @ B2]) in bf16 on the tensor cores, over
-// a bm x bn tile grid with K cut into `splits` slices (ws: (b2 ? 2 : 1) *
-// splits * M * N f32 when splits > 1, else unused).  A's rows are lda
-// elements apart (a multiple of 8, >= K; its base on 16 bytes).  bs ==
-// NULL: B, B2 bf16 (K, N), rows ldb elements apart (a multiple of 8, >= N;
-// bases on 16 bytes).  Else B, B2 int8 stored (N, K) with f32 scales bs,
-// b2s, one for every qa columns (K % 16 == 0, lda == K, ldb unused).  C,
-// bias and res are contiguous and may start on any bf16; K splits and int8
-// B need an even N and C on 4 bytes.  b2/b2s, bias and res may be NULL.  Returns
-// cudaErrorInvalidValue for a shape, tile or address the kernel does not
-// take, 1000 + a CUresult if a TMA descriptor is refused, else
-// cudaGetLastError() after the launches.
+// C[z] (M, N) = epi(A[z] (M, K) @ B[z] [, A[z] @ B2[z]]) for z < batch in
+// one launch on the tensor cores, over a bm x bn tile grid a member with K
+// cut into `splits` slices (batch 1 only; ws: (b2 ? 2 : 1) * splits * M * N
+// f32 when splits > 1, else unused).  A is `batch` matrices of M rows, each
+// row lda elements apart (a multiple of 8, >= K; its base on 16 bytes).
+// bs == NULL: B, B2 bf16 (K, N), rows ldb elements apart (a multiple of 8,
+// >= N; bases on 16 bytes), `batch` of them if b_batched, else one shared
+// by every member.  Else (batch 1) B, B2 int8 stored (N, K) with f32 scales
+// bs, b2s, one for every qa columns (K % 16 == 0, lda == K, ldb unused).
+// out_f32 = 0: C bf16 (batch, M, N), contiguous, on any bf16; K splits and
+// int8 B need an even N and C on 4 bytes.  out_f32 = 1 (dense B, one K
+// slice): C f32, N even, C on 8 bytes.  batch > 1 or out_f32 is the
+// batched launch: dense B, N % 8 == 0, C on 16 bytes, one K slice, BN = 64
+// tiles.  bias (N,) and res (batch, M, N) are bf16; b2/b2s, bias and res
+// may be NULL.  Returns cudaErrorInvalidValue
+// for a shape, tile or address the kernel does not take, 1000 + a CUresult
+// if a TMA descriptor is refused, else cudaGetLastError() after the
+// launches.
 extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, const void* bs,
                               const void* b2s, int qa, const void* bias, const void* res,
-                              void* c, void* ws, int M, int K, int N, int lda, int ldb,
-                              int act, int bm, int bn, int splits, void* stream) {
+                              void* c, void* ws, int batch, int b_batched, int M, int K, int N,
+                              int lda, int ldb, int act, int out_f32, int bm, int bn, int splits,
+                              void* stream) {
   const bool q = bs != nullptr, gate = b2 != nullptr;
   const int kts = (K + BK - 1) / BK;
-  const bool pairs = N % 2 == 0 && (reinterpret_cast<uintptr_t>(c) & 3) == 0;
-  const bool ok = M > 0 && N > 0 && K > 0 && lda >= K && lda % 8 == 0 && aligned16(a) &&
-                  aligned16(b) && (!gate || aligned16(b2)) &&
-                  (reinterpret_cast<uintptr_t>(c) & 1) == 0 && splits >= 1 && splits <= kts &&
-                  (splits == 1 || (ws != nullptr && pairs)) &&
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
+  const bool pairs = N % 2 == 0 && (ca & 3) == 0;
+  const bool batched = batch > 1 || out_f32;
+  const bool ok = batch >= 1 && M > 0 && N > 0 && K > 0 && lda >= K && lda % 8 == 0 &&
+                  aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) && (ca & 1) == 0 &&
+                  splits >= 1 && splits <= kts &&
+                  (splits == 1 || (ws != nullptr && pairs && !batched)) &&
+                  (!batched || (!q && N % 8 == 0 && (ca & 15) == 0)) &&
                   (q ? K % 16 == 0 && lda == K && N % 8 == 0 && pairs && qa >= 1 &&
                            N % qa == 0 && (!gate || b2s != nullptr)
                      : ldb >= N && ldb % 8 == 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa,
-               static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
-               static_cast<bf16*>(c), static_cast<float*>(ws), M, K, N, lda, ldb, act, splits,
+               static_cast<const bf16*>(bias), static_cast<const bf16*>(res), c,
+               static_cast<float*>(ws), batch, b_batched ? 1 : 0, M, K, N, lda, ldb, act, splits,
                static_cast<cudaStream_t>(stream)};
-  const int err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
+  int err;
+  if (batched) {
+    auto launch = [&](auto cfg) {
+      return out_f32 ? run_batched<decltype(cfg), float>(g) : run_batched<decltype(cfg), bf16>(g);
+    };
+    err = gate ? by_batched_tile<true>(bm, bn, launch) : by_batched_tile<false>(bm, bn, launch);
+  } else {
+    err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
+  }
   return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 

@@ -1,6 +1,7 @@
 // Hopper's asynchronous copies, shared by the kernels that use them
-// (gemm_sm90.cu, gemm_f32.cu): mbarriers in shared memory, 2-D TMA tile
-// loads that complete on them, and the host side's TMA descriptor encode.
+// (gemm_sm90.cu, gemm_f32.cu): mbarriers in shared memory, 2-D and 3-D TMA
+// tile loads that complete on them, and the host side's TMA descriptor
+// encode.
 #pragma once
 
 #include <cuda.h>
@@ -55,6 +56,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- TMA: one 3-D box (c2 the outermost coordinate, e.g. the batch) -------
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ---- host: TMA descriptors --------------------------------------------------
 
 // cuTensorMapEncodeTiled is a driver-API function: reached through the
@@ -90,6 +101,26 @@ inline int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMap
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t step[2] = {1, 1};
   return static_cast<int>(fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, step,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A stack of `depth` row-major (outer, inner) matrices, each `outer * ld`
+// elements after the one before, as boxes of (box_inner, box_outer) in one
+// matrix: a box past a matrix's last row or column loads zeros, never the
+// next matrix's elements.  Returns 0 or a nonzero CUresult.
+inline int encode3(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                   int elem, long inner, long outer, long depth, int box_inner, int box_outer,
+                   CUtensorMapSwizzle swizzle, long ld) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * elem,
+                                 static_cast<cuuint64_t>(ld) * outer * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return static_cast<int>(fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));

@@ -34,6 +34,8 @@ _functions = {}
 _tickets = {}
 #: seconds the last build in this process took (None: loaded as built)
 build_seconds = None
+#: seconds each source's nvcc took in that build, by file name
+build_seconds_by_file = {}
 #: nvcc's output of the last build (ptxas registers, shared memory, spills)
 build_log = ""
 
@@ -59,7 +61,7 @@ def _library_path() -> Path:
 
 def build() -> Path:
     """Compile and link the library unless this exact build exists."""
-    global build_seconds, build_log
+    global build_seconds, build_log, build_seconds_by_file
     lib = _library_path()
     if lib.exists():
         return lib
@@ -70,24 +72,29 @@ def build() -> Path:
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}_{src.stem}.o"
+        log = obj.with_suffix(".log")
         cmd = [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
-        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for obj, proc in jobs:
-        out, _ = proc.communicate()
-        logs.append(out)
-        if proc.returncode:
-            failed.append(obj.name)
+        with open(log, "w") as out:
+            jobs.append((src.name, obj, log, subprocess.Popen(cmd, stdout=out,
+                                                              stderr=subprocess.STDOUT)))
+    seconds = {}
+    while len(seconds) < len(jobs):
+        for name, _, _, proc in jobs:
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.1)
+    logs = [log.read_text() for _, _, log, _ in jobs]
+    failed = [obj.name for _, obj, _, proc in jobs if proc.returncode]
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _, _ in jobs)],
                           capture_output=True, text=True)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     build_seconds = time.perf_counter() - t0
+    build_seconds_by_file = seconds
     build_log = "\n".join(logs)
     return lib
 

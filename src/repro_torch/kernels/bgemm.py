@@ -17,9 +17,19 @@ A packed B (`core.quant.QuantizedTensor`, the int8 body of
 * M rows (`launch_int8`, its own launch count): the serving layout on the
 tensor cores in bf16; `reference_int8` is its plain version.
 
-`reference` and `reference_int8` are the plain PyTorch versions: CPU
-tensors use them, and on the card only comparisons (`ops.reference_mode`)
-do.
+The batched-B form (`bgemm.py:180-182`: a per-member B (batch, K, N), the
+MoE's expert stacks) and any `out_dtype` run `launch_batched`: one launch
+over the whole batch through the route `gemm.plan_batched` names, the
+tensor-core kernel of `csrc/gemm_sm90.cu` with a batch coordinate (bf16,
+out bf16 or f32: every expert launch of a bf16 MoE serve) or the CUDA-core
+tile of `csrc/gemm_batched*.cu` (the rest: f32, f64, any out dtype, packed
+"kn" expert stacks with per-member scales).  The kernel writes the
+accumulator, rounded once, in `out_dtype`; its launches count apart
+(`launches_batched`, `launches_batched_int8`).
+
+`reference`, `reference_int8`, `reference_batched` and
+`reference_batched_int8` are the plain PyTorch versions: CPU tensors use
+them, and on the card only comparisons (`ops.reference_mode`) do.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.epilogue import Epilogue
-from repro_torch.core.quant import dequantize_in
+from repro_torch.core.quant import dequantize_in, is_quantized
 from repro_torch.kernels import gemm as _gemm
 
 #: launches through `launch` in this process (either kernel)
@@ -39,6 +49,10 @@ launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 #: the launches of `launch` that took a route's form for rows off 16 bytes
 #: (`gemm.launches_by_form`)
 launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0}
+#: launches through `launch_batched`, by the route `gemm.plan_batched` named
+launches_batched = {"wgmma": 0, "ffma": 0}
+#: the packed ones among them
+launches_batched_int8 = 0
 
 
 def reference(a, b, *, b2=None, bias=None, residual=None, activation=None):
@@ -81,4 +95,43 @@ def launch_int8(a, qb, out, *, qb2, bias, residual, act_code: int, dtype_code: i
                      act_code=act_code, dtype_code=dtype_code)
     launches_int8 += 1
     launches_by_route[route] += 1
+    return out
+
+
+def reference_batched(a, b, *, b2=None, bias=None, residual=None, activation=None,
+                      out_dtype=None):
+    """C[z] = epi(a[z] @ b[z] [, a[z] @ b2[z]]) (b 2-D: shared by every
+    member), summed in max(f32, a's dtype) (f64 for f64 operands), cast once
+    to out_dtype (None: a's dtype)."""
+    epi = Epilogue(activation, bias is not None, b2 is not None, residual is not None)
+    acc = torch.promote_types(torch.float32, a.dtype)
+    af = a.to(acc)
+    h = torch.matmul(af, b.to(acc))
+    h2 = torch.matmul(af, b2.to(acc)) if b2 is not None else None
+    return epi.apply(h, acc2=h2, bias=bias, residual=residual).to(out_dtype or a.dtype)
+
+
+def reference_batched_int8(a, qb, *, qb2=None, bias=None, residual=None, activation=None,
+                           out_dtype=None):
+    """The packed batched launch's plain version: each member's B (and B2)
+    dequantized in max(f32, a's dtype) in logical (K, N) orientation, then
+    `reference_batched`."""
+    acc = torch.promote_types(torch.float32, a.dtype)
+    b2 = None if qb2 is None else dequantize_in(qb2, acc)
+    return reference_batched(a, dequantize_in(qb, acc), b2=b2, bias=bias, residual=residual,
+                             activation=activation, out_dtype=out_dtype)
+
+
+def launch_batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
+                   out_code: int):
+    """out[z] = epi(a[z] @ B[z] [, a[z] @ B2[z]]) for every member z in one
+    launch, counted by route; b (b2) dense (batch, K, N) or (K, N), or
+    packed (`QuantizedTensor`, per-member scales); `out` (batch, M, N) is
+    preallocated in the output dtype.  Operands are validated CUDA tensors
+    (kernels/ops.py)."""
+    global launches_batched_int8
+    p = _gemm.batched(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
+                      dtype_code=dtype_code, out_code=out_code)
+    launches_batched[p.route] += 1
+    launches_batched_int8 += int(is_quantized(b))
     return out

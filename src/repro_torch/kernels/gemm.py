@@ -46,6 +46,13 @@ shared memory.  `launch_int8` binds both (its own launch count;
 `kernels/bgemm.py` reaches them too) and `reference_int8` is their plain
 version.
 
+Kernel 3's batched-B form (`kernels/bgemm.py::launch_batched`: a B per
+batch member, any output dtype) goes through `batched`, routed by
+`plan_batched`: bf16 with bf16 or f32 out where TMA addresses every operand
+on "wgmma" (`csrc/gemm_sm90.cu`'s batched instantiations: rank-3 TMA maps,
+grid.z the member), everything else on "ffma" (`csrc/gemm_batched*.cu`: gemm.cu's
+tile with per-member strides and the output type a template parameter).
+
 `reference` and `reference_int8` are the plain PyTorch versions: CPU
 tensors use them, and on the card only comparisons (`ops.reference_mode`)
 do.
@@ -60,7 +67,7 @@ import functools
 import torch
 
 from repro_torch.core.epilogue import make
-from repro_torch.core.quant import dequantize_in
+from repro_torch.core.quant import dequantize_in, is_quantized
 from repro_torch.kernels import _build
 
 #: launches through `launch` in this process (either kernel)
@@ -83,6 +90,9 @@ BK = 64
 #: 256-wide tiles lost everywhere; the gate's two products take BN = 64.
 TC_TILES = ((128, 128), (128, 64), (64, 64))
 GATE_TILES = ((128, 64), (64, 64))
+#: (BM, BN) tiles of the tensor-core kernel's batched form, with and without
+#: the gate: the MoE experts' 32 or 64 rows a member take BM = 64
+BATCHED_TILES = ((128, 64), (64, 64))
 #: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
 #: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
 #: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
@@ -205,6 +215,34 @@ def _fill(m: int, n: int, tiles_largest_first, sms: int):
     return (bm, bn), tiles
 
 
+#: output dtypes the tensor-core kernel writes, each an instantiation of its
+#: own (csrc/gemm_sm90.cu): bf16, and f32 for the MoE's down projection
+TC_OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate: bool = False,
+                 packed: bool = False, aligned: bool = True, sms: int = H100_SMS) -> Plan:
+    """The route and tile of the batched launch C[z] (m, n) = A[z] (m, k) @
+    B[z] for z < batch (one B shared by every member, or one each), from the
+    shapes and dtypes alone.  out_dtype None is A's dtype.
+
+    bf16 A and dense B, out bf16 or f32, take "wgmma" where TMA addresses
+    every operand in place (k % 8 == 0, n % 8 == 0, 16-byte bases): the
+    larger of BATCHED_TILES if m is over 64 and its batch x tiles grid fills
+    FILL of the SMs, else 64 x 64; K is never split (the grid has batch x
+    tiles blocks) and nothing is staged.  Everything else
+    (f32, f64, bf16 TMA cannot address, another out dtype, a packed B)
+    takes "ffma": csrc/gemm_batched*.cu's CUDA-core tile, FFMA_TILE."""
+    out = out_dtype or dtype
+    if (dtype == torch.bfloat16 and not packed and out in TC_OUT_DTYPES and aligned
+            and min(batch, m, k, n) > 0 and k % 8 == 0 and n % 8 == 0):
+        (bm, bn), small = BATCHED_TILES
+        tall = m > 64 and batch * -(-m // bm) * -(-n // bn) >= FILL * sms
+        return Plan("wgmma", (bm, bn) if tall else small)
+    return Plan("ffma", FFMA_TILE[bool(gate)])
+
+
 def aligned(*tensors) -> bool:
     """Every given tensor starts on a 16-byte boundary (TMA's requirement)."""
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
@@ -218,7 +256,7 @@ def packed_layout(qb) -> str:
 
 
 _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
 def tma_rows(x):
@@ -235,12 +273,15 @@ def tma_rows(x):
 
 
 def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
-       scales=None, scales2=None, qa: int = 1):
+       scales=None, scales2=None, qa: int = 1, batch: int = 1):
     """Launch `gemm_tc_launch` (csrc/gemm_sm90.cu) on the current stream over
     m rows of a, with p's tile and K slices; b (b2) are bf16 (k, n), or int8
     stored (n, k) with f32 `scales` one per qa columns.  With `p.stage`, a,
     b and b2 first go through `tma_rows`.  The split-K workspace is
-    allocated here."""
+    allocated here.  batch > 1 (the batched-B form, unstaged, unsplit): a
+    holds `batch` matrices of m rows, out and residual `batch` of (m, n), b
+    and b2 `batch` of (k, n) when 3-D, else one shared by every member; out
+    may be f32."""
     lda, ldb = k, n
     if p.stage:
         a, lda = tma_rows(a)
@@ -257,8 +298,8 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(scales),
                  _build.ptr(scales2), qa, _build.ptr(bias), _build.ptr(residual),
-                 out.data_ptr(), _build.ptr(ws), m, k, n, lda, ldb, act_code, bm, bn, p.splits,
-                 stream)
+                 out.data_ptr(), _build.ptr(ws), batch, int(b.ndim == 3), m, k, n, lda, ldb,
+                 act_code, int(out.dtype == torch.float32), bm, bn, p.splits, stream)
     if err:
         raise RuntimeError(f"gemm tensor-core kernel launch failed ({p}): CUDA error {err}")
     return out
@@ -334,6 +375,50 @@ def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: i
                  _build.ptr(residual), out.data_ptr(), m, k, n, act_code, stream)
     if err:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {err}")
+    return p
+
+
+_BATCHED_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_long] * 2
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
+            out_code: int) -> Plan:
+    """One batched launch: out[z] = epi(a[z] @ B[z] [, a[z] @ B2[z]]) for
+    every z of a (batch, m, k), B (batch, k, n) or (k, n) shared, dense or
+    packed (`QuantizedTensor`: values and scales with the same leading
+    axis), out (batch, m, n) in any dtype, through the kernel
+    `plan_batched` names; returns the plan.  Operands are validated CUDA
+    tensors (kernels/ops.py); dtype_code / out_code are the C entry's dtype
+    codes of a and out."""
+    batch, m, k = a.shape
+    n = b.shape[-1]
+    packed = is_quantized(b)
+    w, w2 = (b.values, None if b2 is None else b2.values) if packed else (b, b2)
+    p = plan_batched(batch, m, k, n, a.dtype, out.dtype, gate=b2 is not None, packed=packed,
+                     aligned=aligned(a, w, w2, out), sms=_build.sm_count(a.device.index or 0))
+    if p.route == "wgmma":
+        tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n,
+           batch=batch)
+        return p
+    shared = w.ndim == 2
+    sb = 0 if shared else w.shape[-2] * w.shape[-1]
+    qa = qbk = 1
+    ss, scales, scales2 = 0, None, None
+    if packed:
+        (qa, qbk), scales = b.block, b.scales
+        scales2 = None if b2 is None else b2.scales
+        ss = 0 if shared else scales.shape[-2] * scales.shape[-1]
+    fn = _build.function("gemm_batched_launch", _BATCHED_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(dtype_code, out_code, a.data_ptr(), w.data_ptr(), _build.ptr(w2),
+                 _build.ptr(scales), _build.ptr(scales2), qa, qbk, int(packed and b.transposed),
+                 _build.ptr(bias), _build.ptr(residual), out.data_ptr(), batch, sb, ss, m, k, n,
+                 act_code, stream)
+    if err:
+        raise RuntimeError(f"batched gemm kernel launch failed ({p}): CUDA error {err}")
     return p
 
 

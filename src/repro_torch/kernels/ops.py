@@ -18,6 +18,11 @@ int8-B variant in the "nk" layout if the weight is stored transposed, else
 "kn".  Outputs are in the activation's dtype, summed and dequantized in
 max(f32, dtype); the two operands of a dual GEMM must share one spec.
 
+`bgemm` also takes a per-member B (batch, k, n), dense or packed with
+per-member block scales (the MoE expert stacks), and an `out_dtype`: one
+batched launch (`kernels/bgemm.py::launch_batched`) whose kernel writes
+the result in that dtype.
+
 `flash_attention` also takes int8 K/V with per-(token, head) f32 scales and
 a page table over a page pool: a CUDA tensor goes to the kernel of the
 route `kernels.attention.plan` names ("splitkv" for decode, "mma" for a
@@ -46,9 +51,11 @@ from repro_torch.kernels import gemv as _gemv
 from repro_torch.kernels import mamba2 as _mamba2
 from repro_torch.kernels import rwkv6 as _rwkv6
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2, torch.float16: 3}
 _SERVE_DTYPES = (torch.float32, torch.bfloat16)
 _BLAS_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+#: what the batched launch writes: the accumulator rounded once to any of these
+_OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.float16)
 _ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 _state = threading.local()
 
@@ -79,7 +86,11 @@ def launch_counts() -> dict:
     the same dict shape).  gemm_wgmma_staged / gemm_dmma_copy8 (and
     bgemm_...) count the dense launches among those that took the route's
     form for rows off 16 bytes: operands copied to padded rows first, and
-    8-byte copies."""
+    8-byte copies.  bgemm_batched counts bgemm's batched launches (a
+    per-member B, or an out_dtype given: the MoE experts), apart from
+    bgemm, and bgemm_batched_wgmma / bgemm_batched_ffma split them by the
+    route `gemm.plan_batched` named; bgemm_batched_int8 counts the packed
+    ones among them."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "attention_paged": _attention.launches_paged,
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
@@ -88,6 +99,9 @@ def launch_counts() -> dict:
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
             "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
+            "bgemm_batched": sum(_bgemm.launches_batched.values()),
+            "bgemm_batched_int8": _bgemm.launches_batched_int8,
+            **{f"bgemm_batched_{key}": n for key, n in _bgemm.launches_batched.items()},
             **{f"{name}_{key}": n for name, mod in (("gemm", _gemm), ("bgemm", _bgemm))
                for key, n in (*mod.launches_by_route.items(), *mod.launches_by_form.items())}}
 
@@ -107,6 +121,8 @@ def reset_launch_counts() -> None:
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
+    _bgemm.launches_batched.update(wgmma=0, ffma=0)
+    _bgemm.launches_batched_int8 = 0
     for mod in (_gemm, _bgemm):
         mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
         mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)
@@ -234,13 +250,16 @@ def _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a):
                               dtype_code=_DTYPE_CODES[x.dtype])
 
 
-def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
-    """epilogue(a (batch, m, k) @ b (k, n) [, a @ b2]) -> (batch, m, n); b
-    broadcasts across the batch, bias (n,), residual (batch, m, n).  A packed
-    b (and b2) runs the int8-B kernel."""
-    if _quant.is_quantized(b) and b.ndim != 2:
-        raise NotImplementedError("bgemm: only a broadcast 2-D packed B is ported "
-                                  "(ROADMAP §2: batched B)")
+def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None, out_dtype=None):
+    """epilogue(a (batch, m, k) @ b [, a @ b2]) -> (batch, m, n); bias (n,),
+    residual (batch, m, n).  b is (k, n), broadcast across the batch, or
+    (batch, k, n), one per member; a packed b (and b2) runs the int8-B
+    kernels.  A 2-D b without `out_dtype` runs one GEMM over the batch * m
+    rows (f32 and bf16); a 3-D b, or any `out_dtype` given, runs the
+    batched launch (f32, bf16 and f64 operands), whose kernel writes the
+    result in out_dtype (f32, bf16, f64 or f16; None: a's dtype)."""
+    if b.ndim == 3 or out_dtype is not None:
+        return _bgemm_batched(a, b, b2, bias, residual, activation, out_dtype)
     if a.ndim != 3 or b.ndim != 2 or a.shape[2] != b.shape[0]:
         raise ValueError(f"bgemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     batch, m, _ = a.shape
@@ -267,6 +286,42 @@ def bgemm(a, b, *, b2=None, bias=None, residual=None, activation=None):
     out = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
     return _bgemm.launch(a, b, out, b2=b2, bias=bias, residual=residual,
                          act_code=act, dtype_code=_DTYPE_CODES[a.dtype])
+
+
+def _bgemm_batched(a, b, b2, bias, residual, activation, out_dtype):
+    """bgemm's batched launch: a per-member or shared B, dense or packed,
+    any output dtype."""
+    name = "bgemm"
+    if a.ndim != 3 or b.ndim not in (2, 3) or a.shape[2] != b.shape[-2] or (
+            b.ndim == 3 and b.shape[0] != a.shape[0]):
+        raise ValueError(f"bgemm shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    out_dtype = out_dtype or a.dtype
+    if out_dtype not in _OUT_DTYPES:
+        names = ", ".join(str(d).split(".")[1] for d in _OUT_DTYPES)
+        raise TypeError(f"{name}: out_dtype must be one of {names}, got {out_dtype}")
+    batch, m, _ = a.shape
+    n = b.shape[-1]
+    _check_shape(name, "b2", b2, b.shape)
+    _check_shape(name, "bias", bias, (n,))
+    _check_shape(name, "residual", residual, (batch, m, n))
+    act = _act_code(activation)
+    packed = _quant.is_quantized(b)
+    if packed:
+        _check(name, a, _BLAS_DTYPES, bias=bias, residual=residual)
+        _check_packed(name, b, b2, a)
+    else:
+        _check(name, a, _BLAS_DTYPES, b=b, b2=b2, bias=bias, residual=residual)
+    if not _use_kernel(a):
+        ref = _bgemm.reference_batched_int8 if packed else _bgemm.reference_batched
+        kw = {"qb2": b2} if packed else {"b2": b2}
+        return ref(a, b, bias=bias, residual=residual, activation=activation,
+                   out_dtype=out_dtype, **kw)
+    out = torch.empty((batch, m, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out  # an empty grid: nothing to launch
+    return _bgemm.launch_batched(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act,
+                                 dtype_code=_DTYPE_CODES[a.dtype],
+                                 out_code=_DTYPE_CODES[out_dtype])
 
 
 def _check_side(name: str, what: str, t, dtype, device) -> None:

@@ -19,6 +19,8 @@ caches hold recurrent state with no per-slot form.
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --scheduler batch --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
 
 `quantize="int8"` (`--quantize int8`) packs every projection weight as
 block-scaled int8 (`models.layers.quantize_weights`) once, on the device,

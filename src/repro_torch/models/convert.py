@@ -49,13 +49,15 @@ def _tree(node, fn):
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """`tree` is the dense-, rwkv- or hybrid-family params pytree of
+    """`tree` is the dense-, moe-, rwkv- or hybrid-family params pytree of
     `repro.models.transformer.init_params` with every leaf a numpy array
     (e.g. `jax.tree.map(np.asarray, params)`), projection weights optionally
     packed by `layers.quantize_weights`.  Returns the port's params on
     `device`: the same leaf names and dtypes (f32 leaves of a bf16 model
     stay f32: an rwkv block's decay_w0 and u, a Mamba2 block's a_log,
-    dt_bias and d_skip), with "layers" a list of per-layer dicts whose
+    dt_bias and d_skip; a MoE layer's router), with "layers" a list of
+    per-layer dicts (a MoE layer's (L, E, d, f) expert stacks become (E,
+    d, f), packed or not) whose
     nested dicts (rwkv's "tm" / "cm", a Mamba2 block's "norm" /
     "gate_norm") are sliced per layer too.  The hybrid family's
     "shared_attn" (one block, not stacked) and "shared_lora" (stacked over

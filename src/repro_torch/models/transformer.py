@@ -1,7 +1,9 @@
-"""Model assembly for the dense, rwkv and hybrid families: params, forward,
-cache, prefill, decode.
+"""Model assembly for the dense, moe, rwkv and hybrid families: params,
+forward, cache, prefill, decode.
 
-Mirrors `repro.models.transformer` for those families.  Params are a dict
+Mirrors `repro.models.transformer` for those families.  The moe family is
+the dense stack with `models.moe.moe_layer` in place of the MLP (its aux
+loss dropped: serving never reads it).  Params are a dict
 with the reference's leaf names; where the reference stacks layers along a
 leading axis for `lax.scan`, the port keeps a Python list of per-layer dicts
 and loops over it.  The cache keeps the reference layouts: (L, B, S, KVH,
@@ -28,12 +30,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import blas
-from repro_torch.models import layers, mamba, rwkv
+from repro_torch.models import layers, mamba, moe, rwkv
 from repro_torch.models.layers import AttnConfig
 
 #: families whose cache has one row per slot (the continuous scheduler, the
 #: paged cache and speculation need it), as the reference lists them; rwkv
-#: and hybrid keep a recurrent state.  Of these the port runs dense
+#: and hybrid keep a recurrent state.  Of these the port runs dense and moe
 #: (check_supported).
 SLOT_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
@@ -41,7 +43,7 @@ SLOT_CACHE_FAMILIES = ("dense", "moe", "vlm")
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for config options this slice of the port does not run."""
     unported = {
-        "family": cfg.family not in ("dense", "rwkv", "hybrid"),
+        "family": cfg.family not in ("dense", "moe", "rwkv", "hybrid"),
         "qk_norm": cfg.qk_norm,
         "parallel_block": cfg.parallel_block,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
@@ -60,11 +62,16 @@ def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
 
 def dense_block(params, x, cfg: ModelConfig, *, positions, cache=None):
     """Returns (x, new_cache).  Both skip connections ride the fused
-    epilogues of the wo and w_down projections."""
+    epilogues of the wo and w_down projections; the moe family adds its
+    MoE layer's output to the attention's instead (reference
+    transformer.py:91-93)."""
     a, new_cache = layers.attention_layer(
         params["attn"], layers.apply_norm(params["ln1"], x, cfg.norm),
         _attn_cfg(cfg), positions=positions, cache=cache, residual=x)
     h = layers.apply_norm(params["ln2"], a, cfg.norm)
+    if cfg.family == "moe":
+        m, _ = moe.moe_layer(params["ffn"], h, cfg.moe, cfg.act)
+        return a + m, new_cache
     return layers.mlp(params["ffn"], h, cfg.act, residual=a), new_cache
 
 
@@ -94,10 +101,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         return params
     if cfg.family == "hybrid":
         return _init_hybrid(gen, cfg, params, dtype, device)
+    def ffn():
+        if cfg.family == "moe":
+            return moe.init_moe(gen, d, cfg.moe, cfg.act, dtype, device)
+        return layers.init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device)
+
     params["layers"] = [
         {"ln1": layers.init_norm(d, cfg.norm, dtype, device),
          "attn": layers.init_attention(gen, _attn_cfg(cfg), dtype, device),
-         "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device),
+         "ffn": ffn(),
          "ln2": layers.init_norm(d, cfg.norm, dtype, device)}
         for _ in range(cfg.n_layers)
     ]

@@ -247,8 +247,6 @@ def test_blas_rejects_what_the_reference_rejects():
 
 def test_unported_forms_name_their_roadmap_item():
     a = torch.randn(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="§2: batched B"):
-        blas.batched_gemm(a, torch.randn(2, 4, 5))
     with pytest.raises(NotImplementedError, match="§2: batched A"):
         blas.batched_gemv(torch.randn(4, 3), torch.randn(2, 3))
     with pytest.raises(NotImplementedError, match="§2: batched A"):
@@ -257,11 +255,22 @@ def test_unported_forms_name_their_roadmap_item():
 
 @pytest.mark.parametrize("out_dtype", [torch.float64, torch.bfloat16, torch.float16])
 def test_batched_gemm_refuses_a_foreign_out_dtype(out_dtype):
-    """The reference's `out_dtype` argument: a dtype other than A's names
-    the ROADMAP label (the kernel writes A's dtype; a cast after it would
-    not be the reference's output)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP §2: batched B"):
-        blas.batched_gemm(torch.randn(2, 3, 4), torch.randn(4, 5), out_dtype=out_dtype)
+    """The reference's `out_dtype` argument with a dtype other than A's: once
+    refused, now written by the batched launch's kernel (the f32 sums
+    rounded once to out_dtype, no cast after it), as the reference's
+    Pallas kernel writes it."""
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    b = rng.standard_normal((4, 5)).astype(np.float32)
+    jout = {torch.float64: jnp.float64, torch.bfloat16: jnp.bfloat16,
+            torch.float16: jnp.float16}[out_dtype]
+    with precision("float64" if out_dtype == torch.float64 else "float32"), \
+            jblas.use_backend("pallas"):
+        want = np.asarray(jblas.batched_gemm(jnp.asarray(a), jnp.asarray(b), out_dtype=jout))
+    got = blas.batched_gemm(torch.from_numpy(a), torch.from_numpy(b), out_dtype=out_dtype)
+    assert got.dtype == out_dtype and str(want.dtype) == str(out_dtype).split(".")[1]
+    tol = TOL["float32"] if out_dtype == torch.float64 else TOL["bfloat16"]
+    np.testing.assert_allclose(got.double().numpy(), want.astype(np.float64), **tol)
 
 
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])

@@ -291,6 +291,7 @@ def test_kernels_count_their_launches(cuda):
     w, x = _rand(cuda, torch.float32, 64, 32), _rand(cuda, torch.float32, 2, 64)
     ops.bgemv(w, x)
     ops.bgemm(x[None], w)
+    ops.bgemm(x[None], w[None])  # a per-member B: the batched launch
     ops.gemm(x, w)
     ops.gemv(w, x[0, :32])
     ops.dot(x[0], x[1])
@@ -316,7 +317,9 @@ def test_kernels_count_their_launches(cuda):
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
                                    "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
                                    "bgemm_ffma": 1, "bgemm_wgmma_staged": 0,
-                                   "bgemm_dmma_copy8": 0}
+                                   "bgemm_dmma_copy8": 0, "bgemm_batched": 1,
+                                   "bgemm_batched_int8": 0, "bgemm_batched_wgmma": 0,
+                                   "bgemm_batched_ffma": 1}
 
 
 @pytest.mark.cuda
@@ -1466,3 +1469,197 @@ def test_axpy_is_bitwise_the_plain_version(cuda, dtype, n, offset):
     assert ops.launch_counts()["blas1_axpy"] == 1
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# bgemm's batched launch (csrc/gemm_sm90.cu with a batch coordinate,
+# csrc/gemm_batched.cu): a per-member B, any out_dtype
+# --------------------------------------------------------------------------
+
+# (batch, m, k, n): the MoE decode and prefill rows a member (32, 64) at a
+# small width, a ragged fringe in every dimension, one row, K of one k-step
+BATCHED_SHAPES = [(4, 32, 128, 96), (3, 64, 256, 64), (5, 13, 37, 53), (2, 70, 136, 200),
+                  (6, 1, 64, 8), (3, 100, 16, 24)]
+# (A dtype, out dtype): the served pairs first, then every other output dtype
+BATCHED_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                  (torch.float32, torch.float32), (torch.float64, torch.float64),
+                  (torch.bfloat16, torch.float64), (torch.bfloat16, torch.float16),
+                  (torch.float32, torch.bfloat16), (torch.float32, torch.float64),
+                  (torch.float64, torch.float32), (torch.float32, torch.float16)]
+BATCHED_EPILOGUES = [(None, False, False, False), ("silu", False, True, False),
+                     ("gelu", True, False, True), ("relu", True, True, True)]
+
+
+def _batched_case(gen, dtype, batch, m, k, n, act, bias, gate, res, shared=False):
+    lead = () if shared else (batch,)
+    a = _rand(gen, dtype, batch, m, k)
+    b = _rand(gen, dtype, *lead, k, n, std=k ** -0.5)
+    kw = dict(activation=act)
+    if gate:
+        kw["b2"] = _rand(gen, dtype, *lead, k, n, std=k ** -0.5)
+    if bias:
+        kw["bias"] = _rand(gen, dtype, n)
+    if res:
+        kw["residual"] = _rand(gen, dtype, batch, m, n)
+    return a, b, kw
+
+
+def _out_tol(dtype, out_dtype):
+    """The coarser of the operands' and the output's tolerance (f16: one
+    rounding step of |y| ~ 4, as bf16's)."""
+    tols = [TOL.get(d, TOL[torch.bfloat16]) for d in (dtype, out_dtype)]
+    return max(tols, key=lambda t: t["rtol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", BATCHED_DTYPES)
+@pytest.mark.parametrize("batch,m,k,n", BATCHED_SHAPES)
+@pytest.mark.parametrize("act,bias,gate,res", BATCHED_EPILOGUES)
+def test_batched_bgemm_matches_plain(cuda, dtype, out_dtype, batch, m, k, n, act, bias, gate,
+                                     res):
+    """One launch over the batch on the route `gemm.plan_batched` names
+    (bf16 with K and N multiples of 8 and bf16 or f32 out: "wgmma"; the
+    rest "ffma"), in out_dtype, within tolerance of the plain version, and
+    bitwise a second launch."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _batched_case(cuda, dtype, batch, m, k, n, act, bias, gate, res)
+    route = gemm.plan_batched(batch, m, k, n, dtype, out_dtype, gate=gate).route
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched"], counts[f"bgemm_batched_{route}"], counts["bgemm"]) == (1, 1, 0)
+    assert got.dtype == out_dtype and got.shape == (batch, m, n)
+    with ops.reference_mode():
+        want = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want.double(), **_out_tol(dtype, out_dtype))
+    assert torch.equal(ops.bgemm(a, b, out_dtype=out_dtype, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_batched_bgemm_off_16_bytes_takes_the_cuda_core_tile(cuda, out_dtype):
+    """A bf16 A that starts off a 16-byte boundary (TMA cannot address it):
+    the batched launch runs the CUDA-core tile, within TOL of the plain
+    version."""
+    from repro_torch.kernels import gemm
+    batch, m, k, n = 4, 32, 128, 96
+    a = _rand(cuda, torch.bfloat16, batch * m * k + 1)[1:].view(batch, m, k)
+    b = _rand(cuda, torch.bfloat16, batch, k, n, std=k ** -0.5)
+    b2 = _rand(cuda, torch.bfloat16, batch, k, n, std=k ** -0.5)
+    assert gemm.plan_batched(batch, m, k, n, torch.bfloat16, out_dtype, gate=True,
+                             aligned=False).route == "ffma"
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, b, b2=b2, activation="silu", out_dtype=out_dtype)
+    assert ops.launch_counts()["bgemm_batched_ffma"] == 1
+    with ops.reference_mode():
+        want = ops.bgemm(a, b, b2=b2, activation="silu", out_dtype=out_dtype)
+    torch.testing.assert_close(got.double(), want.double(),
+                               **_out_tol(torch.bfloat16, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float64)])
+def test_batched_bgemm_with_a_shared_b_matches_plain(cuda, dtype, out_dtype):
+    """A (k, n) B shared by every member with an out_dtype given: the
+    batched launch reads member 0's B for all."""
+    a, b, kw = _batched_case(cuda, dtype, 3, 40, 64, 72, "silu", True, True, True, shared=True)
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
+    with ops.reference_mode():
+        want = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
+    assert ops.launch_counts()["bgemm_batched"] == 1
+    torch.testing.assert_close(got.double(), want.double(), **_out_tol(dtype, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gate", [False, True])
+def test_batched_wgmma_every_tile(cuda, out_dtype, gate):
+    """Every tile of the tensor-core kernel's batched form, both output
+    types, through `gemm.tc` directly: a member's fringe rows and
+    columns load zeros, never the next member's (each member's B is
+    shifted, so a leak shows)."""
+    from repro_torch.kernels import gemm
+    batch, m, k, n = 3, 70, 200, 136
+    a, b, kw = _batched_case(cuda, torch.bfloat16, batch, m, k, n, "silu" if gate else "gelu",
+                             True, gate, True)
+    b += torch.arange(batch, device="cuda", dtype=torch.bfloat16)[:, None, None]
+    with ops.reference_mode():
+        want = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
+    for tile in gemm.BATCHED_TILES:
+        out = torch.empty(batch, m, n, dtype=out_dtype, device="cuda")
+        gemm.tc(a, b, out, gemm.Plan("wgmma", tile), b2=kw.get("b2"), bias=kw["bias"],
+                residual=kw["residual"], act_code=ops._ACTS[kw["activation"]], m=m, k=k, n=n,
+                batch=batch)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("gate", [False, True])
+def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
+    """Packed expert stacks (E, k, n) with per-expert block scales ("kn",
+    `quantize_weights`' expert rule, and "nk"): one batched launch on the
+    CUDA-core tile, out in A's dtype and in f32, within TOL of the plain
+    version."""
+    e, m, k, n = 4, 32, 128, 96
+    spec = quant.QuantSpec(64, None, transpose=transpose)
+    a = _rand(cuda, dtype, e, m, k)
+    qb = quant.quantize(_rand(cuda, torch.float32, e, k, n), spec)
+    qb2 = quant.quantize(_rand(cuda, torch.float32, e, k, n), spec) if gate else None
+    for out_dtype in (dtype, torch.float32):
+        ops.reset_launch_counts()
+        got = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None, out_dtype=out_dtype)
+        counts = ops.launch_counts()
+        assert (counts["bgemm_batched_int8"], counts["bgemm_batched_ffma"]) == (1, 1)
+        with ops.reference_mode():
+            want = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None,
+                             out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.double(), want.double(), **_out_tol(dtype, out_dtype))
+
+
+@pytest.mark.cuda
+def test_a_batched_launch_the_kernels_refuse_raises(cuda):
+    """What the tensor-core kernel does not take comes back as an error and
+    the wrapper raises: a K split with a batch, a 128 x 128 tile with a
+    batch (the batched form has BN = 64 only), an f32 output at an odd
+    N."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.bfloat16, 2, 64, 256), _rand(cuda, torch.bfloat16, 2, 256, 64)
+    kw = dict(b2=None, bias=None, residual=None, act_code=0, m=64, k=256, n=64, batch=2)
+    out = torch.empty(2, 64, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (64, 64), splits=2), **kw)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b, out, gemm.Plan("wgmma", (128, 128)), **kw)
+    b63 = _rand(cuda, torch.bfloat16, 2, 256, 64)[..., :63]
+    out63 = torch.empty(2, 64, 63, dtype=torch.float32, device="cuda")
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, b63, out63, gemm.Plan("wgmma", (64, 64)), **dict(kw, n=63))
+    with pytest.raises(TypeError, match="out_dtype"):
+        ops.bgemm(a, b, out_dtype=torch.int32)
+
+
+@pytest.mark.cuda
+def test_moe_smoke_serves_match_the_plain_path(cuda):
+    """moonshot and grok SMOKE (f32) serve the same greedy tokens through the
+    kernels as through the plain versions; every expert launch batched."""
+    from repro_torch.launch.serve import serve
+    rng = np.random.default_rng(0)
+    for arch in ("moonshot-v1-16b-a3b", "grok-1-314b"):
+        prompts = [rng.integers(3, 512, size=(n,), dtype=np.int32) for n in (8, 14, 5)]
+        kw = dict(batch=2, gen_lens=[4, 6, 3], eos=-1, prompts=prompts, verbose=False,
+                  device="cuda")
+        ops.reset_launch_counts()
+        got = serve(arch, "smoke", **kw)
+        assert ops.launch_counts()["bgemm_batched"] > 0
+        with ops.reference_mode():
+            want = serve(arch, "smoke", **kw)
+        assert got["outputs"] == want["outputs"], arch

@@ -168,6 +168,9 @@ def test_cpu_tensors_take_the_plain_versions():
     qw = quant.quantize(w, quant.QuantSpec(8, None, transpose=True))
     assert torch.equal(ops.bgemv(qw, x), tbgemv.reference_int8(qw, x))
     assert torch.equal(ops.bgemm(a, qw), tbgemm.reference_int8(a, qw))
+    wb = torch.randn(2, 24, 16, generator=g)
+    assert torch.equal(ops.bgemm(a, wb, out_dtype=torch.float64),
+                       tbgemm.reference_batched(a, wb, out_dtype=torch.float64))
     r = torch.randn(2, 5, 16, generator=g)
     w_log = -torch.rand(2, 5, 16, generator=g)
     u = r[:, 0].contiguous()
@@ -186,7 +189,9 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
                                    "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 0,
                                    "bgemm_ffma": 0, "bgemm_wgmma_staged": 0,
-                                   "bgemm_dmma_copy8": 0}
+                                   "bgemm_dmma_copy8": 0, "bgemm_batched": 0,
+                                   "bgemm_batched_int8": 0, "bgemm_batched_wgmma": 0,
+                                   "bgemm_batched_ffma": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
