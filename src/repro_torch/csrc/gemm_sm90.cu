@@ -63,7 +63,7 @@
 //  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
 //    K need no padding; the stores skip the fringe.  The batched form
 //    (BATCHED, instantiations of their own: made the one body, rank-3 maps
-//    slowed the 2-D 128 x 128 tile 14% at 8192^3, my chip run 4, PR 23)
+//    slowed the 2-D 128 x 128 tile 14% at 8192^3, measured on one H100)
 //    reads rank-3 maps (batch outermost): a tile past the last row or
 //    column of member z loads zeros, not member z + 1's first rows; a
 //    broadcast B is a stack of one, read at z = 0 by every member.  TMA needs 16-byte row
