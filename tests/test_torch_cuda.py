@@ -29,6 +29,7 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 SUM_TOL = {torch.float32: (2 ** -23, 1e-7), torch.bfloat16: (2 ** -7, 1e-7),
            torch.float64: (2 ** -52, 1e-14)}
 BLAS_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+PROFILE_ATTEMPTS = 3
 
 
 def _sum_limit(dtype, want: float, cond: float) -> float:
@@ -42,6 +43,24 @@ def cuda():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _profiled_kernels(call, pattern: str, want: int) -> list[str]:
+    """The name of every device kernel torch.profiler sees while `call`
+    runs.  The profiler loses a kernel record now and then on the H100, so
+    a profile with fewer than `want` kernels named with `pattern` is taken
+    again, up to PROFILE_ATTEMPTS in all; a kernel launched no time or
+    twice reads wrong in every profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if sum(pattern in name for name in names) >= want:
+            break
+    return names
 
 
 def _rand(gen, dtype, *shape, std=1.0):
@@ -812,18 +831,14 @@ def test_mamba2_ssd_kernel_at_the_chip_smoke_shapes_repeats_its_bits(cuda, dtype
     the plain version, a second launch gives the same bits (no atomics:
     every sum has one order), one ops launch and three device launches (the
     states, the scan, the outputs) a call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import mamba2
     x, a, b, c, h0 = _ssd_case(cuda, dtype, bh, t, p, n, with_h0, strong=strong)
     ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got_y, got_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
-        torch.cuda.synchronize()
+    got_y, got_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
     assert ops.launch_counts()["mamba2_ssd"] == 1
-    device = sum(e.count for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and "ssd_" in e.key)
-    assert device == mamba2.DEVICE_LAUNCHES
+    names = _profiled_kernels(lambda: ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk),
+                              "ssd_", mamba2.DEVICE_LAUNCHES)
+    assert sum("ssd_" in name for name in names) == mamba2.DEVICE_LAUNCHES
     again_y, again_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
     with ops.reference_mode():
         want_y, want_h = ops.mamba2_ssd(x, a, b, c, h0=h0, chunk=chunk)
@@ -1307,22 +1322,21 @@ def test_bgemv_every_split_matches_plain(cuda, dtype, splits, rows):
 def test_bgemv_is_one_device_launch_a_call(cuda):
     """The profiler sees one bgemv kernel a call (the split partials are
     combined in the same launch), for split and unsplit plans."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import bgemv
     w, x = _rand(cuda, torch.bfloat16, 2048, 2048, std=2048 ** -0.5), _rand(cuda, torch.bfloat16, 4, 2048)
     w_small, x_small = _rand(cuda, torch.bfloat16, 32, 64), _rand(cuda, torch.bfloat16, 4, 32)
     assert bgemv.plan(4, 2048, 2048, torch.bfloat16).splits > 1
     assert bgemv.plan(4, 32, 64, torch.bfloat16).splits == 1
     ops.bgemv(w, x)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(3):
             ops.bgemv(w, x)
             ops.bgemv(w_small, x_small)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert sum("bgemv_kernel" in e.name for e in kernels) == 6
-    assert not [e.name for e in kernels if "bgemv" in e.name and "bgemv_kernel" not in e.name]
+
+    names = _profiled_kernels(calls, "bgemv_kernel", 6)
+    assert sum("bgemv_kernel" in name for name in names) == 6
+    assert not [name for name in names if "bgemv" in name and "bgemv_kernel" not in name]
 
 
 @pytest.mark.cuda
