@@ -71,7 +71,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              packed one (144 an int8 step), or the run fails (a profile
              whose kernel counts come up short, and none long, is taken
              again, up to PROFILE_ATTEMPTS in all: the profiler loses a
-             kernel record now and then);
+             kernel record now and then; every window opens with
+             PROFILE_HEAD_SLEEPS sleep kernels, left out of every count, so
+             the records lost at its start are theirs);
              profile_prefill the same over full-width prefills (wall, device
              busy, the tensor-core GEMM's and attention's shares; for rwkv6,
              profile_prefill_rwkv, the WKV6 kernels' ms and device launches,
@@ -223,6 +225,38 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              2%; the share of (token, layer) top-6 sets that agree;
 32. profile_moe, profile_prefill_moe - phase 8's profiles of moonshot's
              decode step (96 tensor-core GEMM launches a step) and prefill.
+33. attention_masks - flash attention under the causal, prefix-LM and
+             non-causal masks at D = 64, 128 and 256, decode ("splitkv") and
+             prefill ("mma" bf16, "ffma" f32), K/V dense, int8 and paged, at
+             the serving shapes (whisper's encoder B=4 H=20 T=1500 D=64 and
+             its cross-attention over 1500 frames at Tq=1 and Tq=128;
+             paligemma's 4 x (256 + 128)-token prefill, H 8 / KVH 1, D=256,
+             prefix 256, and its decode at S ~ 416): each one launch on its
+             route counted under its mask, within TOL of its plain version,
+             paged bitwise dense, a second launch bitwise, a decode launch
+             bitwise the causal one; timed beside its bound, its plain
+             version and sdpa with a boolean mask;
+34. smoke_family - paligemma-3b (continuous and batch) and whisper-large-v3
+             (batch) SMOKE f32, kernels vs plain equal tokens, attention
+             launches by route and mask (paligemma's prefills prefix-LM,
+             whisper's encoder and cross-attention non-causal) and
+             projections counted;
+35. serve_vlm, serve_audio - both FULL bf16 (seeded random weights), 8
+             requests, batch 4, prompt 128, gen 32 (paligemma continuous and
+             batch, whisper batch): 8/8, finite logits, no plain version,
+             the launches by route and mask and the projections exact, tok/s,
+             TTFT p50, prefill and decode ms, peak memory;
+36. forced_vlm, forced_audio - prefill + 3 decode steps at full width:
+             every block of the prefill (paligemma's dense block, whisper's
+             encoder and decoder blocks) on the plain path's input within 2%
+             of max |plain|, the logits within 5% of max |logit| of the plain
+             path or no further from an f32 witness than it plus 2%;
+37. profile_vlm, profile_prefill_vlm, profile_audio, profile_prefill_audio
+             - phase 8's profiles of a full-width decode step and prefill,
+             fed the family's patches or frames: besides, exactly the
+             attention device launches by route and the wrappers' by mask
+             (whisper: 64 "splitkv" a step, 96 "mma" a prefill; paligemma:
+             18 and 18) and the step's bgemv calls (108; 256).
 
 Then a `done` line (the script's seconds), a `kernels` summary line, and as
 the last line
@@ -294,6 +328,14 @@ ZAMBA_E2E_MARGIN = 0.02
 # none long, is taken again, up to this many in all (profile_until_whole);
 # a kernel launched no time or twice reads wrong in every profile
 PROFILE_ATTEMPTS = 3
+# a paligemma decode-step profile read 107.4 bgemv device launches a step
+# for 108 calls in all three attempts (measured on one H100), and the other
+# kernels of a step's first norm short too: the first ~20 kernels of a
+# profile window go unrecorded.  Every profile window opens with this many
+# sleep kernels (profile_by_name; SLEEP_KERNEL names them, left out of every
+# count), so what is lost is theirs.
+PROFILE_HEAD_SLEEPS = 256
+SLEEP_KERNEL = r"spin_kernel|_sleep"
 ARCH = "stablelm-1.6b"
 RESULTS = {}
 
@@ -397,17 +439,24 @@ def _tc_name(mangled: str) -> str:
 
 
 def _attn_name(mangled: str):
-    """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' for an attention kernel
-    instantiation (csrc/attention_mma.cu, csrc/attention_splitkv.cu), else
-    None."""
+    """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' / 'ffma f32/f32 D=256
+    16x8' for an attention kernel instantiation (csrc/attention_mma.cu,
+    csrc/attention_splitkv.cu, csrc/attention.cu: query x key tile), with
+    ' prefix' for the prefix-LM / non-causal instantiation, else None."""
     types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32", "a": "int8"}
-    m = re.search(r"attention_mma_kernelI(13__nv_bfloat16|a)Li(\d+)EE", mangled)
+    masks = {"0": "", "1": " prefix"}
+    m = re.search(r"attention_mma_kernelI(13__nv_bfloat16|a)Li(\d+)ELb(\d)EE", mangled)
     if m:
-        return f"mma {types[m.group(1)]} D={m.group(2)}"
+        return f"mma {types[m.group(1)]} D={m.group(2)}{masks[m.group(3)]}"
     m = re.search(r"attention_splitkv_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)EE",
                   mangled)
     if m:
         return f"splitkv {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} G{m.group(4)}"
+    m = re.search(r"attention_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)ELi(\d+)"
+                  r"ELb(\d)EE", mangled)
+    if m:
+        return (f"ffma {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} "
+                f"{m.group(4)}x{m.group(5)}{masks[m.group(6)]}")
     return None
 
 
@@ -525,7 +574,7 @@ def phase_sass(lib: Path) -> dict:
                 entry = attn_ptxas[name] = {}
                 if name.startswith("mma"):
                     entry["dynamic_smem_bytes"] = attn_smem(int("int8" in name),
-                                                            int(name.split("D=")[1]))
+                                                            int(name.split("D=")[1].split()[0]))
             continue
         if entry is None:
             continue
@@ -553,9 +602,12 @@ def phase_sass(lib: Path) -> dict:
     spills = {k: v.get("spill_stores", 0) for k, v in attn_ptxas.items()
               if v.get("spill_stores", 0)}
     emit("sass", what="HMMA in csrc/attention_mma.cu's kernels (cuobjdump -sass); ptxas for "
-         "them and csrc/attention_splitkv.cu's", hmma_total=sum(hmma.values()),
-         hmma_per_kernel=hmma, ptxas=attn_ptxas or "not built in this process",
-         attention_kernels_with_spills=spills)
+         "them and csrc/attention_splitkv.cu's and csrc/attention.cu's",
+         hmma_total=sum(hmma.values()), hmma_per_kernel=hmma, ptxas=attn_ptxas or "not built in this process",
+         attention_kernels_with_spills=spills,
+         d256={k: {f: v.get(f) for f in ("registers", "spill_stores", "spill_loads",
+                                         "dynamic_smem_bytes", "static_smem_bytes")}
+               for k, v in attn_ptxas.items() if "D=256" in k})
     f64_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
                   for k, v in f64_ptxas.items()}
     emit("sass", what="DMMA in csrc/gemm_f64.cu's kernels (cuobjdump -sass); ptxas for them "
@@ -1056,18 +1108,19 @@ def phase_serve(params, cfg):
     return stats["outputs"]
 
 
-def _forced_run(params, cfg, tokens, steps):
-    """Prefill (4, 128) then decode the given tokens; returns the logits of
-    every step and device times (ms) of the prefill and each decode step."""
+def _forced_run(params, cfg, tokens, steps, extras=None, cache_len: int = 160):
+    """Prefill (4, 128), with the family's patches or frames in `extras`,
+    then decode the given tokens; returns the logits of every step and
+    device times (ms) of the prefill and each decode step."""
     from repro_torch.models import transformer as tf
-    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    cache = tf.init_cache(cfg, 4, cache_len, device="cuda")
     logits, times = [], []
-    feeds = [(tf.prefill, tokens)] + [(tf.decode_step, t) for t in steps]
-    for fn, tok in feeds:
+    feeds = [(tf.prefill, tokens, extras or {})] + [(tf.decode_step, t, {}) for t in steps]
+    for fn, tok, kw in feeds:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out, cache = fn(params, tok, cache, cfg)
+        out, cache = fn(params, tok, cache, cfg, **kw)
         end.record()
         logits.append(out)
         times.append((start, end))
@@ -1116,8 +1169,62 @@ def profile_until_whole(profiled):
         short.append(counts)
 
 
+def profile_by_name(call, n: int, cpu: bool = True) -> dict:
+    """torch.profiler over n calls of `call`: {kernel name: (device ms,
+    device launches)}, each a call, device-side events only (kernels,
+    copies: aten ops would count twice).  The window opens with
+    PROFILE_HEAD_SLEEPS sleep kernels, left out, so the records the
+    profiler drops at its start are theirs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(PROFILE_HEAD_SLEEPS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not re.search(SLEEP_KERNEL, e.key)}
+
+
+# each attention route's device kernel (csrc/attention_splitkv.cu,
+# csrc/attention_mma.cu, csrc/attention.cu)
+ATTENTION_KERNELS = {"splitkv": "attention_splitkv_kernel", "mma": "attention_mma_kernel",
+                     "ffma": "attention_kernel"}
+
+
+def attention_profile_counts(by_name: dict, want: dict) -> dict:
+    """profile_until_whole's entries for attention: each route's launches a
+    call that `want` ("route/mask": launches a call) names, beside the
+    device launches of its kernel the profile read."""
+    return {f"attention_{r}": (sum(v for k, v in want.items() if k.startswith(r + "/")),
+                               sum(c for k, (_, c) in by_name.items() if re.search(pat, k)))
+            for r, pat in ATTENTION_KERNELS.items()}
+
+
+def masks_since(before: dict, n: int) -> dict:
+    """The attention wrappers' launches by route and mask since `before`
+    (ops.attention_masks()), each of n calls; zeros left out."""
+    from repro_torch.kernels import ops
+    return {k: (v - before[k]) / n for k, v in ops.attention_masks().items() if v != before[k]}
+
+
+def check_profile_attention(phase: str, counts: dict, by_mask: dict, want: dict):
+    """Fail unless every route's device launches and the wrappers' counts by
+    route and mask are what `want` names."""
+    bad = {k: v for k, v in counts.items() if k.startswith("attention_") and v[0] != v[1]}
+    want_masks = {k: v for k, v in want.items() if v}
+    if bad or by_mask != want_masks:
+        raise AssertionError(f"{phase}: attention (want, device) {bad}, by route/mask "
+                             f"{by_mask} (want {want_masks})")
+
+
 def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5,
-                  phase: str = "profile", tc_per_step: int | None = None):
+                  phase: str = "profile", tc_per_step: int | None = None, extras=None,
+                  cache_len: int = 160, attention_want: dict | None = None):
     """Where a full-width decode step's time goes (batch 4, 128 cached
     tokens): the wall clock per step without the profiler, then
     torch.profiler over the same steps for device time per kernel name;
@@ -1127,16 +1234,19 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     launch) and, where `bgemv_per_step` is given, the profiled steps call
     bgemv that many times a step; where `tc_per_step` is given (the MoE's
     batched expert launches), the tensor-core GEMM kernel runs that many
-    device launches a step.  A profile whose launches come up short is taken
-    again (profile_until_whole); those read short are printed."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    device launches a step; where `attention_want` is given ("route/mask":
+    launches a step), each attention route's kernel runs that many device
+    launches and the wrappers count them under those masks.  `extras`: the
+    family's patches or frames for the prefill that fills the cache.  A
+    profile whose launches come up short is taken again
+    (profile_until_whole); those read short are printed."""
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     rng = np.random.default_rng(6)
-    cache = tf.init_cache(cfg, 4, 160, device="cuda")
+    cache = tf.init_cache(cfg, 4, cache_len, device="cuda")
     _, cache = tf.prefill(params, torch.from_numpy(
-        rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda(), cache, cfg)
+        rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda(), cache, cfg,
+        **(extras or {}))
     tok = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
     for _ in range(2):
         _, cache = tf.decode_step(params, tok, cache, cfg)
@@ -1148,17 +1258,17 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    def profiled():
+    def step():
         nonlocal cache
-        before = ops.launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                _, cache = tf.decode_step(params, tok, cache, cfg)
-            torch.cuda.synchronize()
+        _, cache = tf.decode_step(params, tok, cache, cfg)
+
+    masks = {}
+
+    def profiled():
+        before, masks_before = ops.launch_counts(), ops.attention_masks()
+        by_name = profile_by_name(step, steps)
         after = ops.launch_counts()
-        # device-side events only (kernels, copies): aten ops would count twice
-        by_name = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        masks.update(by_mask=masks_since(masks_before, steps))
 
         def launches(pattern):
             return sum(n for k, (_, n) in by_name.items() if re.search(pattern, k))
@@ -1169,9 +1279,12 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
                             launches(r"qgemv\w*_kernel"))}
         if tc_per_step is not None:
             counts["gemm_tc"] = (tc_per_step, launches("gemm_tc_kernel"))
+        if attention_want is not None:
+            counts.update(attention_profile_counts(by_name, attention_want))
         return by_name, counts
 
     by_name, counts, short = profile_until_whole(profiled)
+    by_mask = masks["by_mask"]
     bgemv_calls, bgemv_launches = counts["bgemv"]
     int8_calls, qgemv_launches = counts["qgemv"]
     busy = sum(ms for ms, _ in by_name.values())
@@ -1198,8 +1311,13 @@ def phase_profile(params, cfg, bgemv_per_step: int | None = None, steps: int = 5
          device_busy_ms_per_step=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_step=sum(n for _, n in by_name.values()),
+         attention_device_launches_per_step={k: v[1] for k, v in counts.items()
+                                             if k.startswith("attention_")} or None,
+         attention_by_route_mask_per_step=by_mask,
          top=[{"name": k[:90], "ms_per_step": ms, "calls_per_step": n}
               for k, (ms, n) in top])
+    if attention_want is not None:
+        check_profile_attention(phase, counts, by_mask, attention_want)
     if bgemv_launches != bgemv_calls or bgemv_per_step not in (None, bgemv_calls):
         raise AssertionError(f"{phase}: {bgemv_calls} bgemv calls a decode step (want "
                              f"{bgemv_per_step}) ran {bgemv_launches} device launches")
@@ -1217,7 +1335,8 @@ STATE_KERNELS = {"rwkv6": ("rwkv6", "wkv6"), "mamba2_ssd": ("mamba2", "ssd")}
 
 
 def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_prefill",
-                          state_kernel: str = "rwkv6", serial_launch=None):
+                          state_kernel: str | None = "rwkv6", serial_launch=None, extras=None,
+                          cache_len: int = 160, attention_want: dict | None = None):
     """Where a full-width prefill's time goes (batch 4, 128 prompt tokens):
     its wall clock without the profiler, then torch.profiler over the same
     prefills for device time per kernel name (the tensor-core GEMM's, the
@@ -1226,10 +1345,9 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
     kernels' DEVICE_LAUNCHES device launches.  With `serial_launch` (a
     stand-in for that kernel module's `launch`: the design it replaced), the
     same prefills are profiled again through it, and its device time is
-    printed beside the kernel's."""
+    printed beside the kernel's.  `extras` and `attention_want` as for
+    phase_profile, a prefill's."""
     import importlib
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     module, prefix = STATE_KERNELS[state_kernel] if state_kernel else ("bgemm", "none")
@@ -1238,20 +1356,23 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 128), dtype=np.int32)).cuda()
 
     def prefill():
-        return tf.prefill(params, tokens, tf.init_cache(cfg, 4, 160, device="cuda"), cfg)
+        return tf.prefill(params, tokens, tf.init_cache(cfg, 4, cache_len, device="cuda"), cfg,
+                          **(extras or {}))
+
+    masks = {}
 
     def profiled():
         before = ops.launch_counts().get(state_kernel, 0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                prefill()
-            torch.cuda.synchronize()
-        by_name = {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        masks_before = ops.attention_masks()
+        by_name = profile_by_name(prefill, reps)
+        masks.update(by_mask=masks_since(masks_before, reps))
         calls = (ops.launch_counts().get(state_kernel, 0) - before) / reps
         launches = sum(n for k, (_, n) in by_name.items() if f"{prefix}_" in k)
-        return by_name, ({state_kernel: (kmod.DEVICE_LAUNCHES * calls, launches)}
-                         if state_kernel else {})
+        counts = ({state_kernel: (kmod.DEVICE_LAUNCHES * calls, launches)}
+                  if state_kernel else {})
+        if attention_want is not None:
+            counts.update(attention_profile_counts(by_name, attention_want))
+        return by_name, counts
 
     prefill()
     torch.cuda.synchronize()
@@ -1261,6 +1382,7 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     by_name, counts, short = profile_until_whole(profiled)
+    by_mask = masks["by_mask"]
     calls = counts[state_kernel][0] / kmod.DEVICE_LAUNCHES if state_kernel else 0
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -1295,8 +1417,13 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
          device_busy_ms_per_prefill=busy or None,
          device_idle_share=(1 - busy / wall_ms) if busy else None,
          device_events_per_prefill=sum(n for _, n in by_name.values()),
+         attention_device_launches_per_prefill={k: v[1] for k, v in counts.items()
+                                                if k.startswith("attention_")} or None,
+         attention_by_route_mask_per_prefill=by_mask,
          top=[{"name": k[:90], "ms_per_prefill": ms, "calls_per_prefill": n}
               for k, (ms, n) in top])
+    if attention_want is not None:
+        check_profile_attention(phase, counts, by_mask, attention_want)
     if state_kernel and launches != kmod.DEVICE_LAUNCHES * calls:
         raise AssertionError(f"{phase}: {calls} {state_kernel} calls a prefill ran "
                              f"{launches} device launches (want {kmod.DEVICE_LAUNCHES} a call)")
@@ -1926,12 +2053,12 @@ def kv_case(dtype, int8, page_size, *, b=4, tq=1, h=32, kvh=32, d=64, lens=(129,
     return q, kv_lens, form, dense, deq
 
 
-def attend(q, kv_lens, ops_kw):
+def attend(q, kv_lens, ops_kw, **mask):
     from repro_torch.kernels import ops
     g = q.shape[2] // ops_kw["k"].shape[2]
     return ops.flash_attention(q, ops_kw["k"], ops_kw["v"], kv_lens=kv_lens, kv_groups=g,
                                k_scales=ops_kw.get("k_scales"), v_scales=ops_kw.get("v_scales"),
-                               page_table=ops_kw.get("page_table"))
+                               page_table=ops_kw.get("page_table"), **mask)
 
 
 KV_CASES = [  # (label, q dtype, int8, page size, kv_case keywords)
@@ -2484,12 +2611,13 @@ def phase_smoke_batch(arch: str, phase: str, check):
         check_f32_routes(counts, f"{phase} batch {batch}")
 
 
-def phase_serve_recurrent(arch: str, phase: str, params, cfg, check):
-    """A recurrent-state model FULL bf16 under the batch scheduler: 8
-    requests, batch 4, prompt 128, gen 32, every logit finite, launches
-    held by `check`; reports tok/s, TTFT and the prefill's and decode
-    step's stream time (CUDA events around each call, warm-up excluded);
-    returns the launch counts."""
+def _instrumented_serve(arch: str, params, cfg, **kw) -> tuple:
+    """serve(arch, "full") of 8 requests, batch 4, prompt 128, gen 32,
+    greedy, with every logit checked finite on the device, CUDA events
+    around every prefill and decode step, every plain version's calls
+    counted (_count_plain_calls) and the launch counts and peak device
+    memory reset first.  Returns (stats, the fields every full serve prints,
+    launch counts, plain calls)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tf
@@ -2516,33 +2644,61 @@ def phase_serve_recurrent(arch: str, phase: str, params, cfg, check):
     tf._logits_chunk = checked
     for name in events:
         setattr(tf, name, timed(name))
+    plain, restore = _count_plain_calls()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     try:
         stats = serve(arch, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
-                      eos=-1, scheduler="batch", params=params, device="cuda")
+                      eos=-1, params=params, device="cuda", **kw)
     finally:
         for name, fn in originals.items():
             setattr(tf, name, fn)
+        restore()
     counts = ops.launch_counts()
     torch.cuda.synchronize()
     ms = {name: [s.elapsed_time(e) for s, e in pairs[1:]]  # [0]: the warm-up
           for name, pairs in events.items()}
-    all_finite = bool(torch.stack(finite).all())
-    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
-    emit(phase, arch=arch, variant="full", dtype="bfloat16", scheduler="batch",
-         requests=8, batch=4, prompt_len=128, gen=32, completed=stats["completed"],
-         tokens=stats["tokens"], tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
-         ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
-         decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
-         prefill_ms=statistics.mean(ms["prefill"]),
-         decode_ms_per_step=statistics.median(ms["decode_step"]),
-         logit_checks=len(finite), all_logits_finite=all_finite)
-    emit("launches", run=phase, **counts)
-    if stats["completed"] != 8 or not all_finite or not in_range:
-        raise AssertionError(f"{phase}: completed {stats['completed']}/8, "
-                             f"finite {all_finite}, tokens in range {in_range}")
+    fields = dict(
+        arch=arch, variant="full", dtype="bfloat16", requests=8, batch=4, prompt_len=128,
+        gen=32, **kw, completed=stats["completed"], tokens=stats["tokens"],
+        tok_s=stats["tok_s"], elapsed_s=stats["elapsed_s"],
+        ttft_p50_s=statistics.median(stats["ttft"]), prefills=stats["prefills"],
+        decode_steps=stats["decode_steps"], occupancy=stats["occupancy"],
+        prefill_ms=statistics.mean(ms["prefill"]),
+        decode_ms_per_step=statistics.median(ms["decode_step"]),
+        logit_checks=len(finite), all_logits_finite=bool(torch.stack(finite).all()),
+        tokens_in_range=all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o),
+        plain_version_calls=sum(plain.values()),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return stats, fields, counts, plain
+
+
+def check_full_serve(what: str, stats: dict, fields: dict, plain: dict | None = None):
+    """Fail unless the serve completed 8/8, every request its 32 tokens,
+    every logit finite and every token in the vocabulary, and (`plain`
+    given) no plain version ran."""
+    if (stats["completed"] != 8 or not fields["all_logits_finite"]
+            or not fields["tokens_in_range"]):
+        raise AssertionError(f"{what}: completed {stats['completed']}/8, finite "
+                             f"{fields['all_logits_finite']}, tokens in range "
+                             f"{fields['tokens_in_range']}")
     if any(len(o) != 32 for o in stats["outputs"]):
-        raise AssertionError(f"{phase}: a request stopped before its budget")
+        raise AssertionError(f"{what}: a request stopped before its budget")
+    if plain is not None and sum(plain.values()):
+        raise AssertionError(f"{what}: plain versions ran: "
+                             f"{ {k: v for k, v in plain.items() if v} }")
+
+
+def phase_serve_recurrent(arch: str, phase: str, params, cfg, check):
+    """A recurrent-state model FULL bf16 under the batch scheduler: 8
+    requests, batch 4, prompt 128, gen 32, every logit finite, launches
+    held by `check`; reports tok/s, TTFT and the prefill's and decode
+    step's stream time (CUDA events around each call, warm-up excluded);
+    returns the launch counts."""
+    stats, fields, counts, _ = _instrumented_serve(arch, params, cfg, scheduler="batch")
+    emit(phase, **fields)
+    emit("launches", run=phase, **counts)
+    check_full_serve(phase, stats, fields)
     check(counts, phase, cfg, stats["prefills"] + 1, stats["decode_steps"] + 1)
     return counts
 
@@ -2776,17 +2932,10 @@ def ssd_inputs(bh, t, p, n, dtype, with_h0, strong, seed):
 def device_ms_by_kernel(call, reps: int = 10) -> dict:
     """torch.profiler's device ms a call by kernel name, over `reps` calls
     (warm L2: the breakdown's shares, beside time_ms's cold-L2 total)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    return {re.sub(r"\(.*", "", e.key.replace("(anonymous namespace)::", ""))[-40:]:
-            e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return {re.sub(r"\(.*", "", key.replace("(anonymous namespace)::", ""))[-40:]: ms
+            for key, (ms, _) in profile_by_name(call, reps, cpu=False).items()}
 
 
 def phase_ssd():
@@ -3176,55 +3325,41 @@ def phase_serve_moe(params, cfg):
     forward, all on the tensor cores ("wgmma"), the prefill projections on
     wgmma, attention on its routes; peak device memory.  Returns (the
     launch counts, the outputs)."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import transformer as tf
-    finite = []
-    logits_chunk = tf._logits_chunk
-
-    def checked(*args, **kwargs):
-        out = logits_chunk(*args, **kwargs)
-        finite.append(torch.isfinite(out).all())
-        return out
-
-    torch.cuda.reset_peak_memory_stats()
-    tf._logits_chunk = checked
-    plain, restore = _count_plain_calls()
-    ops.reset_launch_counts()
-    try:
-        stats = serve(MOE, "full", requests=8, batch=4, prompt_len=128, gen=32, seed=0,
-                      eos=-1, params=params, device="cuda")
-    finally:
-        tf._logits_chunk = logits_chunk
-        restore()
-    counts = ops.launch_counts()
+    stats, fields, counts, plain = _instrumented_serve(MOE, params, cfg)
     routes = check_attention_routes("serve_moe", cfg.n_layers)
-    all_finite = bool(torch.stack(finite).all())
-    in_range = all(0 <= t < cfg.vocab for o in stats["outputs"] for t in o)
-    emit("serve_moe", arch=MOE, variant="full", dtype="bfloat16", requests=8, batch=4,
-         prompt_len=128, gen=32,
+    emit("serve_moe", **fields,
          params_b=sum(t.numel() for t in _tensors(params)) / 1e9,
          params_gb=sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9,
-         completed=stats["completed"], tokens=stats["tokens"], tok_s=stats["tok_s"],
-         elapsed_s=stats["elapsed_s"], ttft_p50_s=statistics.median(stats["ttft"]),
-         prefills=stats["prefills"], decode_steps=stats["decode_steps"],
-         occupancy=stats["occupancy"], logit_checks=len(finite), all_logits_finite=all_finite,
-         plain_version_calls=sum(plain.values()),
-         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
     emit("launches", run="serve_moe", **counts)
-    if stats["completed"] != 8 or not all_finite or not in_range:
-        raise AssertionError(f"serve_moe: completed {stats['completed']}/8, finite "
-                             f"{all_finite}, tokens in range {in_range}")
-    if any(len(o) != 32 for o in stats["outputs"]):
-        raise AssertionError("serve_moe: a request stopped before its budget")
-    if sum(plain.values()):
-        raise AssertionError(f"serve_moe: plain versions ran: "
-                             f"{ {k: v for k, v in plain.items() if v} }")
+    check_full_serve("serve_moe", stats, fields, plain)
     check_moe_launches(counts, "serve_moe", cfg, stats["prefills"] + 1,
                        stats["decode_steps"] + 1, "wgmma")
     check_prefill_routes(counts, "serve_moe")
     return counts, routes
+
+
+def logit_gate(got: list, want: list, want32: list, margin: float) -> dict:
+    """The end-to-end gate of a forced run: every logit of the kernel path
+    (`got`) finite, and at every step within FORCED_REL_TOL of max |logit|
+    of the plain bf16 path (`want`), or no further from the f32 witness
+    (`want32`) than the plain path plus `margin`.  Returns the fields to
+    print, "e2e_ok" the verdict."""
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    scales = [w.abs().max().item() for w in want]
+    rel = [e / s for e, s in zip(errs, scales)]
+    kernel32 = [_rel(x, w) for x, w in zip(got, want32)]
+    plain32 = [_rel(x, w) for x, w in zip(want, want32)]
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    e2e_plain = all(r <= FORCED_REL_TOL for r in rel)
+    e2e_witness = all(k <= p + margin for k, p in zip(kernel32, plain32))
+    return dict(steps=["prefill", 1, 2, 3], max_abs_err=errs, max_abs_logit=scales,
+                rel_err=rel, rel_tol=FORCED_REL_TOL, within_plain_tol=e2e_plain,
+                argmax_agreement=[(g.argmax(-1) == w.argmax(-1)).float().mean().item()
+                                  for g, w in zip(got, want)],
+                kernel_rel_err_to_f32=kernel32, plain_rel_err_to_f32=plain32,
+                e2e_margin=margin, e2e_within_witness_margin=e2e_witness, all_finite=finite,
+                e2e_ok=finite and (e2e_plain or e2e_witness))
 
 
 class _LazyF32Layers(list):
@@ -3313,10 +3448,6 @@ def phase_forced_moe(params, cfg):
              for k, p in zip(picks["kernel"], picks["plain"])]
     n = cfg.n_layers
     agree_by_step = [statistics.mean(agree[i * n:(i + 1) * n]) for i in range(len(agree) // n)]
-    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
-    scales = [w.abs().max().item() for w in want]
-    rel = [e / s for e, s in zip(errs, scales)]
-    argmax = [(g.argmax(-1) == w.argmax(-1)).float().mean().item() for g, w in zip(got, want)]
     torch.cuda.empty_cache()
     params32 = {k: (_LazyF32Layers(v) if k == "layers" else _map_tensors(v, lambda t: t.float()))
                 for k, v in params.items()}
@@ -3324,22 +3455,14 @@ def phase_forced_moe(params, cfg):
         want32, _ = _forced_run(params32, dataclasses.replace(cfg, dtype="float32"), tokens,
                                 steps)
     del params32
-    kernel32 = [_rel(x, w) for x, w in zip(got, want32)]
-    plain32 = [_rel(x, w) for x, w in zip(want, want32)]
+    gate = logit_gate(got, want, want32, MOE_E2E_MARGIN)
     del want32
     torch.cuda.empty_cache()
-    finite = all(bool(torch.isfinite(x).all()) for x in got)
-    e2e_plain = all(r <= FORCED_REL_TOL for r in rel)
-    e2e_witness = all(k <= p + MOE_E2E_MARGIN for k, p in zip(kernel32, plain32))
     tf_max = {k: max(v) for k, v in tf_rel.items()}
     launches_ok = len(launch_ok) == 2 * n * 4 and all(launch_ok)
-    ok = (finite and launches_ok and all(v <= MOE_TF_OUT_TOL for v in tf_max.values())
-          and (e2e_plain or e2e_witness))
-    emit("forced_moe", arch=MOE, variant="full", dtype="bfloat16", steps=["prefill", 1, 2, 3],
-         max_abs_err=errs, max_abs_logit=scales, rel_err=rel, rel_tol=FORCED_REL_TOL,
-         within_plain_tol=e2e_plain, argmax_agreement=argmax,
-         kernel_rel_err_to_f32=kernel32, plain_rel_err_to_f32=plain32,
-         e2e_margin=MOE_E2E_MARGIN, e2e_within_witness_margin=e2e_witness,
+    ok = (gate["e2e_ok"] and launches_ok
+          and all(v <= MOE_TF_OUT_TOL for v in tf_max.values()))
+    emit("forced_moe", arch=MOE, variant="full", dtype="bfloat16", **gate,
          expert_launches_checked=len(launch_ok), expert_launches_within_tol=sum(launch_ok),
          expert_launch_max_abs_err=max(launch_err), teacher_forced_limit=MOE_TF_OUT_TOL,
          teacher_forced_runs={k: len(v) for k, v in tf_rel.items()},
@@ -3347,17 +3470,379 @@ def phase_forced_moe(params, cfg):
          teacher_forced_rel_moe_layer_prefill=tf_rel["moe_layer"][:n],
          top6_sets_agreeing_by_step=agree_by_step,
          top6_sets_agreeing_prefill_by_layer=agree[:n],
-         top6_sets_agreeing=statistics.mean(agree), all_finite=finite, within_tol=ok,
+         top6_sets_agreeing=statistics.mean(agree), within_tol=ok,
          checked_prefill_ms=t_kernel[0],
          checked_decode_ms_per_step=statistics.mean(t_kernel[1:]),
          plain_prefill_ms=t_plain[0], plain_decode_ms_per_step=statistics.mean(t_plain[1:]),
          launches={k: v for k, v in counts.items() if v})
     if not ok:
         raise AssertionError(
-            f"forced_moe: finite {finite}, expert launches within tol {sum(launch_ok)}/"
-            f"{len(launch_ok)}, blocks {tf_max} (limit {MOE_TF_OUT_TOL}), logits rel {rel} "
-            f"(tol {FORCED_REL_TOL}), to f32: kernel {kernel32} vs plain {plain32}")
+            f"forced_moe: finite {gate['all_finite']}, expert launches within tol "
+            f"{sum(launch_ok)}/{len(launch_ok)}, blocks {tf_max} (limit {MOE_TF_OUT_TOL}), "
+            f"logits rel {gate['rel_err']} (tol {FORCED_REL_TOL}), to f32: kernel "
+            f"{gate['kernel_rel_err_to_f32']} vs plain {gate['plain_rel_err_to_f32']}")
     check_moe_launches(counts, "forced_moe", cfg, 1, 3, "wgmma")
+
+
+# --------------------------------------------------------------------------
+# phases 33-38: flash attention's masks and head dim 256; the vlm and audio
+# families (paligemma-3b, whisper-large-v3)
+# --------------------------------------------------------------------------
+
+VLM, AUDIO = "paligemma-3b", "whisper-large-v3"
+# forced_vlm / forced_audio, stated before their first run as forced_zamba's
+# and forced_moe's: every block (paligemma's dense block, whisper's encoder
+# and decoder blocks) on the plain path's inputs within 2% of max |plain|;
+# the logits within FORCED_REL_TOL of max |plain logit|, or at every step no
+# further from the f32 witness than the plain bf16 path's plus 2% of max
+# |logit|.
+FAMILY_TF_OUT_TOL = 0.02
+FAMILY_E2E_MARGIN = 0.02
+# (label, kv_case keywords, prefix_len of the prefix-LM case): a prefill and
+# a decode shape a head dim, the serving shapes where a model has them
+# (whisper's encoder over 1500 frames and its cross-attention decode over
+# them; paligemma's 256-patch + 128-token prefill and its decode at S = 416)
+MASK_SHAPES = [
+    ("whisper encoder B=4 H=20 T=1500 D=64",
+     dict(tq=1500, h=20, kvh=20, d=64, lens=(1500,) * 4), 256),
+    ("whisper cross decode B=4 H=20 Tq=1 S=1500 D=64",
+     dict(tq=1, h=20, kvh=20, d=64, lens=(1500,) * 4), 256),
+    ("D=128 prefill B=4 H=32/KVH=8 Tq=128 S=512",
+     dict(tq=128, h=32, kvh=8, d=128, lens=(512,) * 4), 448),
+    ("D=128 decode B=4 H=32/KVH=8 S=512",
+     dict(tq=1, h=32, kvh=8, d=128, lens=(512, 480, 400, 300)), 256),
+    ("paligemma prefill B=4 H=8/KVH=1 Tq=384 D=256",
+     dict(tq=384, h=8, kvh=1, d=256, lens=(384,) * 4), 256),
+    ("paligemma decode B=4 H=8/KVH=1 S=416 D=256",
+     dict(tq=1, h=8, kvh=1, d=256, lens=(416, 410, 400, 390)), 256),
+]
+# whisper's cross-attention in its prefill: 128 decoder tokens over 1500
+# frames, non-causal only
+CROSS_PREFILL = ("whisper cross prefill B=4 H=20 Tq=128 S=1500 D=64",
+                 dict(tq=128, h=20, kvh=20, d=64, lens=(1500,) * 4))
+MASK_FORMS = [("dense", False, None), ("int8", True, None), ("paged", False, 16)]
+
+
+def mask_kw(mask: str, prefix: int) -> dict:
+    return {"causal": {}, "prefix": {"prefix_len": prefix},
+            "noncausal": {"causal": False}}[mask]
+
+
+def visible_pairs(lens, tq: int, h: int, mask: str, prefix: int) -> int:
+    """(query, key) pairs the mask lets through, over every row: the
+    attention's work on these inputs."""
+    total = 0
+    for n in lens:
+        qpos = np.arange(tq) + n - tq
+        if mask == "noncausal":
+            vis = np.full(tq, n)
+        else:
+            vis = np.minimum(qpos + 1, n)
+            if mask == "prefix":
+                vis = np.maximum(vis, min(prefix, n))
+        total += int(np.clip(vis, 0, None).sum())
+    return total * h
+
+
+def sdpa_mask(lens, tq: int, s: int, mask: str, prefix: int):
+    """The boolean (B, 1, Tq, S) mask sdpa takes for the same keys."""
+    kpos = torch.arange(s, device="cuda")
+    lens_t = torch.tensor(lens, device="cuda")
+    seen = (kpos[None, :] < lens_t[:, None])[:, None, :]
+    if mask != "noncausal":
+        qpos = torch.arange(tq, device="cuda")[None, :] + (lens_t - tq)[:, None]
+        vis = kpos[None, None, :] <= qpos[..., None]
+        if mask == "prefix":
+            vis = vis | (kpos < prefix)
+        seen = seen & vis
+    return seen[:, None]
+
+
+def phase_attention_masks():
+    """Flash attention under the causal, prefix-LM and non-causal masks at
+    D = 64, 128 and 256, decode (Tq = 1: "splitkv") and prefill (bf16:
+    "mma", f32: "ffma"), K/V dense, int8 and paged (P = 16), at the serving
+    shapes (MASK_SHAPES, and whisper's cross-attention prefill non-causal):
+    each case one launch on its plan's route counted under its mask, within
+    TOL of its plain version, a paged launch bitwise the dense launch on the
+    gathered cache, two launches bitwise equal, a decode launch bitwise the
+    causal launch (the route has no mask code); then timed (cold L2, median
+    of 5) beside its bound, its plain version and sdpa with a boolean mask
+    on the gathered, dequantized cache."""
+    from repro_torch.kernels import attention, ops
+    rows = {}
+    cases = [(label, kw, prefix, mask) for label, kw, prefix in MASK_SHAPES
+             for mask in ("causal", "prefix", "noncausal")]
+    cases.append((CROSS_PREFILL[0], CROSS_PREFILL[1], 0, "noncausal"))
+    seed = 500
+    for label, kw, prefix, mask in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for form_name, int8, page_size in MASK_FORMS:
+                seed += 1
+                q, kv_lens, form, dense, deq = kv_case(dtype, int8, page_size, seed=seed, **kw)
+                mkw = mask_kw(mask, prefix)
+                p = attention.plan_for(q, form["k"], form.get("page_table"), int8)
+                route = "splitkv" if kw["tq"] == 1 else (
+                    "mma" if dtype == torch.bfloat16 else "ffma")
+                ops.reset_launch_counts()
+                got = attend(q, kv_lens, form, **mkw)
+                added = {k: n for k, n in ops.attention_masks().items() if n}
+                want_added = {f"{route}/{mask}": 1}
+                with ops.reference_mode():
+                    want = attend(q, kv_lens, form, **mkw)
+                same_as_dense = (bool(torch.equal(got, attend(q, kv_lens, dense, **mkw)))
+                                 if page_size else None)
+                same_twice = bool(torch.equal(got, attend(q, kv_lens, form, **mkw)))
+                same_causal = (bool(torch.equal(got, attend(q, kv_lens, form)))
+                               if route == "splitkv" else None)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.float(), want.float(), **TOL[dtype])
+                fields = dict(case=label, mask=mask, prefix_len=prefix if mask == "prefix"
+                              else None, dtype=str(dtype).split(".")[1], form=form_name,
+                              route=p.route, splits=p.splits, max_abs_err=err, tol=TOL[dtype],
+                              within_tol=ok, launches_added=added,
+                              bitwise_equal_to_dense_on_gathered=same_as_dense,
+                              bitwise_equal_second_launch=same_twice,
+                              bitwise_equal_causal_launch=same_causal)
+                if (not ok or p.route != route or added != want_added
+                        or same_as_dense is False or not same_twice or same_causal is False):
+                    emit("attention_masks", **fields)
+                    raise AssertionError(f"attention masks [{label} {mask} {dtype} {form_name}]: "
+                                         f"{fields}")
+                del got, want
+                b, tq, h, d = q.shape
+                lens, kvh = kw["lens"], kw["kvh"]
+                kv_bytes = sum(lens) * kvh * d * 2 * (1 if int8 else q.element_size())
+                if int8:
+                    kv_bytes += sum(lens) * kvh * 2 * 4
+                nb = kv_bytes + 2 * nbytes(q) + nbytes(kv_lens, form.get("page_table"))
+                pairs = visible_pairs(lens, tq, h, mask, prefix)
+                b_ms, by = bound(nb, 4 * pairs * d, dtype)
+                ms = time_ms(lambda: attend(q, kv_lens, form, **mkw), iters=5)
+                with ops.reference_mode():
+                    plain_ms = time_ms(lambda: attend(q, kv_lens, form, **mkw), iters=5)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, deq["k"], deq["v"]))
+                sm = sdpa_mask(lens, tq, kt.shape[2], mask, prefix)
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sm, enable_gqa=h != kvh), iters=5)
+                row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           library="sdpa, boolean mask, on the gathered dequantized cache",
+                           bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
+                           flops=4 * pairs * d)
+                emit("attention_masks", **row)
+                rows[(label, mask, row["dtype"], form_name)] = row
+                del q, form, dense, deq, qt, kt, vt, sm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_inputs(cfg, rng, b: int = 4, prompt: int = 128):
+    """A (b, prompt) token block and the family's stub frontend embeddings
+    (f32, as serve draws them): paligemma's patches, whisper's frames."""
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab, size=(b, prompt),
+                                           dtype=np.int32)).cuda()
+    if cfg.family == "vlm":
+        shape, key = (b, cfg.n_prefix, cfg.d_model), "patches"
+    else:
+        shape, key = (b, cfg.encoder.n_frames, cfg.d_model), "frames"
+    return tokens, {key: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()}
+
+
+def family_cache_len(cfg, prompt: int = 128, gen: int = 32) -> int:
+    return prompt + gen + (cfg.n_prefix if cfg.family == "vlm" else 0)
+
+
+def family_attention_want(cfg, prefills: int, steps: int, f32: bool = False) -> dict:
+    """Attention launches by route and mask over `prefills` prefills and
+    `steps` decode steps: paligemma's prefills on the prefix-LM mask and its
+    decode steps causal; whisper's prefill an encoder layer's non-causal
+    launch, and a decoder layer's causal self-attention and non-causal
+    cross-attention, its decode step a causal and a non-causal "splitkv"
+    launch a decoder layer."""
+    from repro_torch.kernels import ops
+    pre, n = ("ffma" if f32 else "mma"), cfg.n_layers
+    want = dict.fromkeys(ops.attention_masks(), 0)
+    if cfg.family == "vlm":
+        want[f"{pre}/prefix"] = n * prefills
+        want["splitkv/causal"] = n * steps
+    else:
+        want[f"{pre}/noncausal"] = (cfg.encoder.n_layers + n) * prefills
+        want[f"{pre}/causal"] = n * prefills
+        want["splitkv/causal"] = want["splitkv/noncausal"] = n * steps
+    return want
+
+
+def family_projections_want(cfg, prefills: int, steps: int) -> dict:
+    """bgemm and bgemv launches: paligemma's six projections a layer (q, k,
+    v, wo, gate+up, down); whisper's encoder layer six, its decoder layer
+    ten a prefill (self q, k, v, wo; cross q, k, v, wo; up, down) and, a
+    decode step, eight bgemv and two bgemm (the cross K/V over the encoder
+    output, recomputed every step)."""
+    n = cfg.n_layers
+    if cfg.family == "vlm":
+        return {"bgemm": 6 * n * prefills, "bgemv": 6 * n * steps}
+    return {"bgemm": (6 * cfg.encoder.n_layers + 10 * n) * prefills + 2 * n * steps,
+            "bgemv": 8 * n * steps}
+
+
+def check_family_launches(counts: dict, by_mask: dict, what: str, cfg, prefills: int,
+                          steps: int, f32: bool = False):
+    want = family_attention_want(cfg, prefills, steps, f32)
+    bad = {k: (by_mask[k], v) for k, v in want.items() if by_mask[k] != v}
+    proj = family_projections_want(cfg, prefills, steps)
+    bad.update({k: (counts[k], v) for k, v in proj.items() if counts[k] != v})
+    emit("routes", run=what, attention_by_route_mask={k: v for k, v in by_mask.items() if v},
+         projections={k: counts[k] for k in proj})
+    if bad:
+        raise AssertionError(f"{what}: launches (got, want) {bad}")
+
+
+def phase_smoke_family():
+    """paligemma-3b and whisper-large-v3 SMOKE (f32) through the kernels and
+    through the plain versions: equal greedy tokens (paligemma under the
+    continuous scheduler with ragged prompts and under the batch scheduler,
+    whisper under the batch scheduler); every attention launch on its route
+    and mask (family_attention_want: prefills on "ffma", decode steps on
+    "splitkv"), the projections counted, the f32 GEMMs on "ffma_sm90".
+    Returns the route/mask launch counts of each kernel run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import get_config
+    out = {}
+    for arch, runs in ((VLM, ("continuous", "batch")), (AUDIO, ("batch",))):
+        cfg = get_config(arch, "smoke")
+        params = tf.init_params(cfg, 0, "cuda")
+        rng = np.random.default_rng(2)
+        ragged = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
+        even = [rng.integers(3, cfg.vocab, size=(10,), dtype=np.int32) for _ in range(5)]
+        for run in runs:
+            kw = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, params=params, verbose=False,
+                      device="cuda", scheduler=run,
+                      prompts=ragged if run == "continuous" else even)
+            ops.reset_launch_counts()
+            got = serve(arch, "smoke", **kw)
+            counts, by_mask = ops.launch_counts(), ops.attention_masks()
+            with ops.reference_mode():
+                want = serve(arch, "smoke", **kw)
+            equal = got["outputs"] == want["outputs"]
+            emit("smoke_family", arch=arch, dtype="float32", scheduler=run, requests=5,
+                 completed=got["completed"], tokens_equal=equal, outputs=got["outputs"])
+            if not equal or got["completed"] != 5:
+                raise AssertionError(f"smoke_family {arch} {run}: kernels {got['outputs']} != "
+                                     f"plain {want['outputs']}")
+            # the serve's warm-up runs one prefill and one decode step first
+            check_family_launches(counts, by_mask, f"smoke_family {arch} {run}", cfg,
+                                  got["prefills"] + 1, got["decode_steps"] + 1, f32=True)
+            check_f32_routes(counts, f"smoke_family {arch} {run}")
+            out[(arch, run)] = by_mask
+        del params
+    return out
+
+
+def phase_serve_family(arch: str, params, cfg, scheduler: str):
+    """A vlm or audio model FULL bf16 (seeded random weights): 8 requests,
+    batch 4, prompt 128, gen 32, greedy, under `scheduler`; every logit
+    finite, no plain version called, every attention launch on its route
+    and mask and the projections counted (check_family_launches), every
+    prefill projection on wgmma; tok/s, TTFT p50, the prefill's and decode
+    step's stream time and peak device memory.  Returns (launch counts,
+    route/mask counts)."""
+    from repro_torch.kernels import ops
+    stats, fields, counts, plain = _instrumented_serve(arch, params, cfg, scheduler=scheduler)
+    by_mask = ops.attention_masks()
+    phase = f"serve_{cfg.family}"
+    emit(phase, **fields,
+         params_b=sum(t.numel() for t in _tensors(params)) / 1e9,
+         params_gb=sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9)
+    emit("launches", run=f"{phase} {scheduler}", **counts)
+    check_full_serve(f"{phase} {scheduler}", stats, fields, plain)
+    check_family_launches(counts, by_mask, f"{phase} {scheduler}", cfg, stats["prefills"] + 1,
+                          stats["decode_steps"] + 1)
+    check_prefill_routes(counts, f"{phase} {scheduler}")
+    return counts, by_mask
+
+
+def phase_forced_family(params, cfg):
+    """A vlm or audio model FULL bf16: prefill (4, 128, with its patches or
+    frames) + 3 decode steps on the same tokens, kernels and plain
+    versions.  Gated: (1) every block of the plain prefill (paligemma's
+    dense block under the prefix mask, whisper's encoder and decoder
+    blocks) run again through the kernels on the plain path's input, within
+    FAMILY_TF_OUT_TOL of max |plain| (the prefill's cache is empty, so the
+    block runs without one on the same keys); (2) the logits within
+    FORCED_REL_TOL of max |plain logit|, or at every step no further from
+    the f32 witness (the plain versions on the params upcast to f32) than
+    the plain bf16 path's plus FAMILY_E2E_MARGIN; (3) every logit finite."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    rng = np.random.default_rng(17)
+    tokens, extras = family_inputs(cfg, rng)
+    steps = [torch.from_numpy(rng.integers(3, cfg.vocab, size=(4, 1), dtype=np.int32)).cuda()
+             for _ in range(3)]
+    ops.reset_launch_counts()
+    cache_len = family_cache_len(cfg)
+    got, t_kernel = _forced_run(params, cfg, tokens, steps, extras, cache_len)
+    counts, by_mask = ops.launch_counts(), ops.attention_masks()
+    names = ("dense_block",) if cfg.family == "vlm" else ("encoder_block", "decoder_block")
+    originals = {name: getattr(tf, name) for name in names}
+    captured = {name: [] for name in names}
+
+    def capture(name):
+        def call(*args, **kwargs):
+            out = originals[name](*args, **kwargs)
+            x = out[0] if isinstance(out, tuple) else out
+            if kwargs.get("cache") is None or kwargs["cache"]["pos"] == 0:
+                captured[name].append((args, {k: v for k, v in kwargs.items()
+                                              if k != "cache"}, x.clone()))
+            return out
+        return call
+
+    for name in names:
+        setattr(tf, name, capture(name))
+    try:
+        with ops.reference_mode():
+            want, t_plain = _forced_run(params, cfg, tokens, steps, extras, cache_len)
+    finally:
+        for name, fn in originals.items():
+            setattr(tf, name, fn)
+    tf_rel = {}
+    for name, runs in captured.items():
+        rels = []
+        for args, kwargs, plain_out in runs:
+            out = originals[name](*args, **kwargs)
+            rels.append(_rel(out[0] if isinstance(out, tuple) else out, plain_out))
+        tf_rel[name] = rels
+    del captured
+    params32 = _map_tensors(params, lambda t: t.float())
+    with ops.reference_mode():
+        want32, _ = _forced_run(params32, dataclasses.replace(cfg, dtype="float32"), tokens,
+                                steps, extras, cache_len)
+    del params32
+    torch.cuda.empty_cache()
+    gate = logit_gate(got, want, want32, FAMILY_E2E_MARGIN)
+    tf_max = {k: max(v) for k, v in tf_rel.items()}
+    n_blocks = {k: len(v) for k, v in tf_rel.items()}
+    want_blocks = ({"dense_block": cfg.n_layers} if cfg.family == "vlm" else
+                   {"encoder_block": cfg.encoder.n_layers, "decoder_block": cfg.n_layers})
+    ok = (gate["e2e_ok"] and n_blocks == want_blocks
+          and all(v <= FAMILY_TF_OUT_TOL for v in tf_max.values()))
+    phase = f"forced_{cfg.family}"
+    emit(phase, arch=cfg.arch_id, variant="full", dtype="bfloat16", **gate,
+         teacher_forced_limit=FAMILY_TF_OUT_TOL, teacher_forced_blocks=n_blocks,
+         teacher_forced_max_rel=tf_max, teacher_forced_rel=tf_rel,
+         within_tol=ok, prefill_ms=t_kernel[0],
+         decode_ms_per_step=statistics.mean(t_kernel[1:]), plain_prefill_ms=t_plain[0],
+         plain_decode_ms_per_step=statistics.mean(t_plain[1:]))
+    if not ok:
+        raise AssertionError(f"{phase}: finite {gate['all_finite']}, blocks {n_blocks} (want "
+                             f"{want_blocks}) {tf_max} (limit {FAMILY_TF_OUT_TOL}), logits rel "
+                             f"{gate['rel_err']} (tol {FORCED_REL_TOL}), to f32: kernel "
+                             f"{gate['kernel_rel_err_to_f32']} vs plain "
+                             f"{gate['plain_rel_err_to_f32']}")
+    check_family_launches(counts, by_mask, phase, cfg, 1, 3)
 
 
 def main() -> int:
@@ -3499,6 +3984,28 @@ def main() -> int:
                               state_kernel=None)
         del moe_params
         torch.cuda.empty_cache()
+        mask_rows = phase_attention_masks()
+        family_smoke = phase_smoke_family()
+        family = {}
+        for arch, schedulers in ((VLM, ("continuous", "batch")), (AUDIO, ("batch",))):
+            fcfg = get_config(arch, "full")
+            fparams = tf.init_params(fcfg, 0, "cuda")
+            for scheduler in schedulers:
+                family[(arch, scheduler)] = phase_serve_family(arch, fparams, fcfg, scheduler)
+            phase_forced_family(fparams, fcfg)
+            # a decode step and a prefill: exact attention launches by
+            # route and mask, the bgemv calls of a step
+            extras = family_inputs(fcfg, np.random.default_rng(19))[1]
+            cache_len = family_cache_len(fcfg, gen=64)
+            phase_profile(fparams, fcfg, family_projections_want(fcfg, 0, 1)["bgemv"],
+                          phase=f"profile_{fcfg.family}", extras=extras, cache_len=cache_len,
+                          attention_want=family_attention_want(fcfg, 0, 1))
+            phase_profile_prefill(fparams, fcfg, phase=f"profile_prefill_{fcfg.family}",
+                                  state_kernel=None, extras=extras, cache_len=cache_len,
+                                  attention_want=family_attention_want(fcfg, 1, 0))
+            del extras
+            del fparams
+            torch.cuda.empty_cache()
         blas_rows, blas_counts = phase_blas()
         quant_rows, quant_counts = phase_quant_kernels()
 
@@ -3681,6 +4188,45 @@ def main() -> int:
                             "down_library_ms": down["library_ms"]}
                            if name == "bgemm_batched_wgmma" else {}),
                         **({"dense_ms": r["dense_ms"]} if r["dense_ms"] else {})})
+    # flash attention's masks and head dim 256 (phase attention_masks, the
+    # dense bf16 / f32 case at each serving shape), launches from the
+    # full-width serves (whisper's batch serve, paligemma's continuous one)
+    # and, for the f32 CUDA-core route, the f32 smoke serves, which run at
+    # their smoke head dim: an entry names the head dim of its time
+    # ("head_dim") and of its launches ("launches_head_dim")
+    audio_by, vlm_by = family[(AUDIO, "batch")][1], family[(VLM, "continuous")][1]
+    smoke_head_dim = {arch: get_config(arch, "smoke").head_dim for arch in (VLM, AUDIO)}
+    full_head_dim = {arch: get_config(arch, "full").head_dim for arch in (VLM, AUDIO)}
+    for name, src, (shape, mask, dtype), launches, launches_from, launches_head_dim in (
+            ("attention_mma_noncausal", "attention_mma.cu", (MASK_SHAPES[0][0], "noncausal",
+                                                             "bfloat16"),
+             audio_by["mma/noncausal"], "serve_audio", full_head_dim[AUDIO]),
+            ("attention_splitkv_noncausal", "attention_splitkv.cu",
+             (MASK_SHAPES[1][0], "noncausal", "bfloat16"), audio_by["splitkv/noncausal"],
+             "serve_audio", full_head_dim[AUDIO]),
+            ("attention_mma_prefix_d256", "attention_mma.cu", (MASK_SHAPES[4][0], "prefix",
+                                                               "bfloat16"),
+             vlm_by["mma/prefix"], "serve_vlm", full_head_dim[VLM]),
+            ("attention_splitkv_d256", "attention_splitkv.cu", (MASK_SHAPES[5][0], "causal",
+                                                                "bfloat16"),
+             vlm_by["splitkv/causal"], "serve_vlm", full_head_dim[VLM]),
+            ("attention_ffma_noncausal", "attention.cu", (MASK_SHAPES[0][0], "noncausal",
+                                                          "float32"),
+             family_smoke[(AUDIO, "batch")]["ffma/noncausal"], "smoke_family whisper (f32)",
+             smoke_head_dim[AUDIO]),
+            ("attention_ffma_prefix", "attention.cu", (MASK_SHAPES[4][0], "prefix", "float32"),
+             family_smoke[(VLM, "continuous")]["ffma/prefix"], "smoke_family paligemma (f32)",
+             smoke_head_dim[VLM])):
+        r = mask_rows[(shape, mask, dtype, "dense")]
+        summary.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": "src/repro/kernels/attention.py:329", "launches": launches,
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": shape, "mask": mask, "dtype": dtype,
+                        "attention_route": r["route"], "launches_from": launches_from,
+                        "head_dim": int(re.search(r"D=(\d+)", shape).group(1)),
+                        "launches_head_dim": launches_head_dim})
     emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds,
          nvcc_seconds_by_file=_build.build_seconds_by_file)
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

@@ -2,6 +2,7 @@
 """The measurement behind the split-KV attention plan's chunk, on one GPU.
 
     PYTHONPATH=src:. python3 scripts/torch_attention_study.py chunks
+    PYTHONPATH=src:. python3 scripts/torch_attention_study.py causal
 
 chunks: the "splitkv" decode kernel (csrc/attention_splitkv.cu) at every
 chunk of keys a split may cover (16-512, each with the plan's splits a
@@ -13,6 +14,15 @@ version, then timed as chip_smoke.py times kernels (cold L2, median of 20).
 JSON line a case: microseconds by chunk ("64") or by chunk and splits a
 block ("64x8"), the fastest, and the plan.
 
+causal: every causal case of chip_smoke.py's attention_kv phase, and the
+dense bf16 and f32 prefills beside them, through ops.flash_attention and
+through the CUDA-core kernel csrc/attention.cu on the same inputs, timed as
+above, with ptxas's registers and spills for the attention kernels this
+process built.  It reads only what the parent of a kernel change also has
+(`kv_case`, `attend`, `KV_CASES`, `TOL`, `time_ms`, `_attn_name`), so the
+same file times two trees in one call: run it from each tree's root in
+turn (PYTHONPATH=src:. there), parent, change, change, parent.
+
 Needs chip_smoke.py at the repository root (its inputs and timing) and a
 CUDA device.
 """
@@ -20,6 +30,7 @@ CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 
@@ -72,15 +83,60 @@ def chunks():
                           "plan": base._asdict()}), flush=True)
 
 
+CAUSAL_EXTRA = [  # dense prefills beside chip_smoke.KV_CASES (same fields)
+    ("prefill bf16 dense B=4 Tq=128 H=32 D=64 S=160", torch.bfloat16, False, None,
+     dict(tq=128, lens=(128,) * 4, s=160)),
+    ("prefill bf16 dense B=4 Tq=128 H=16 D=128 S=160", torch.bfloat16, False, None,
+     dict(tq=128, h=16, kvh=16, d=128, lens=(128,) * 4, s=160)),
+    ("prefill f32 dense B=4 Tq=128 H=32 D=64 S=160", torch.float32, False, None,
+     dict(tq=128, lens=(128,) * 4, s=160)),
+]
+
+
+def causal():
+    from repro_torch.kernels import _build, attention, ops
+    lib = _build.build()
+    ptxas, name = {}, None
+    for line in _build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w*attention(?:_mma)?_kernel\w*)'", line)
+        if m or "Compiling entry function" in line:
+            name = (cs._attn_name(m.group(1)) or m.group(1)) if m else None
+            continue
+        if name and (m := re.search(r"Used (\d+) registers", line)):
+            ptxas.setdefault(name, {})["registers"] = int(m.group(1))
+        if name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            ptxas.setdefault(name, {})["spill_stores"] = int(m.group(1))
+    print(json.dumps({"library": lib.name, "attention_ptxas": ptxas or "loaded as built"}),
+          flush=True)
+    for i, (label, dtype, int8, page_size, kw) in enumerate([*cs.KV_CASES, *CAUSAL_EXTRA]):
+        q, kv_lens, form, _, _ = cs.kv_case(dtype, int8, page_size, seed=300 + i, **kw)
+        got = cs.attend(q, kv_lens, form)
+        with ops.reference_mode():
+            want = cs.attend(q, kv_lens, form)
+        ok = torch.allclose(got.float(), want.float(), **cs.TOL[dtype])
+        out = torch.empty_like(q)
+        row = {"case": label, "route": attention.plan_for(q, form["k"], form.get("page_table"),
+                                                           int8).route, "within_tol": ok,
+               "kernel_us": 1e3 * cs.time_ms(lambda: cs.attend(q, kv_lens, form)),
+               "ffma_us": 1e3 * cs.time_ms(lambda: attention.ffma(
+                   q, form["k"], form["v"], kv_lens, out, dtype_code=ops._DTYPE_CODES[dtype],
+                   k_scales=form.get("k_scales"), v_scales=form.get("v_scales"),
+                   page_table=form.get("page_table")))}
+        print(json.dumps(row), flush=True)
+        if not ok:
+            raise AssertionError(f"attention [{label}] disagrees with its plain version")
+
+
 def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] != "chunks":
+    modes = {"chunks": chunks, "causal": causal}
+    if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
     with torch.inference_mode():
-        chunks()
+        modes[sys.argv[1]]()
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Model config schema (the dense, moe, rwkv and hybrid subset of
-`repro.configs.base`).
+"""Model config schema (the dense, moe, rwkv, hybrid, vlm and audio subset
+of `repro.configs.base`).
 
 The port keeps its own copy so it imports nothing of the JAX package; the
 fields and defaults are the reference's.  `torch_dtype` replaces the
@@ -47,9 +47,16 @@ class RWKVConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder (frontend stubbed to precomputed embeddings)."""
+    n_layers: int = 32
+    n_frames: int = 1500
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense | moe | rwkv | hybrid (the families ported so far)
+    family: str                      # dense | moe | rwkv | hybrid | vlm | audio
     d_model: int
     n_layers: int
     n_heads: int
@@ -72,6 +79,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    n_prefix: int = 0                # vlm: number of (stub) patch-embedding tokens
     dtype: str = "bfloat16"
     kv_cache_dtype: str = "model"
     weight_dtype: str = "model"

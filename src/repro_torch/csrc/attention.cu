@@ -11,7 +11,8 @@
 // the cache-layout form with per-row `kv_lens` and GQA folding that prefill
 // and ragged slot decode use): the dense call (:329) and the paged call
 // (:316, the page table as a scalar-prefetch operand), each with K/V in the
-// model dtype or int8 with per-(token, head) f32 scales (:130-134):
+// model dtype or int8 with per-(token, head) f32 scales (:130-134), under
+// the causal, prefix-LM or non-causal mask (:117-123, :149-155):
 //
 //     q (B, Tq, H, D), k/v (B, S, KVH, D), kv_lens (B*H,) -> out (B, Tq, H, D)
 //     paged: k/v the pool (num_pages, P, KVH, D), page_table (B, max_pages),
@@ -20,11 +21,12 @@
 //
 // Query head h reads KV head h / (H / KVH).  Row r = b*H + h sees keys
 // [0, kvl) with kvl = min(kv_lens[r], S) (S = max_pages * P when paged),
-// causally aligned to the END of that range: query t sits at absolute
-// position t + kvl - Tq.  Scores use q * D^-0.5 in f32 and a finite NEG_INF
-// mask, as the reference does.  An int8 K or V row is multiplied in f32 by
-// its row's scale as it is staged, before either product, where the Pallas
-// body does it.
+// aligned to the END of that range: query t sits at absolute position t +
+// kvl - Tq and sees key j when j <= t + kvl - Tq or j < `prefix`, the keys
+// every query sees (0: causal; prefix_len: prefix-LM; S: non-causal).
+// Scores use q * D^-0.5 in f32 and a finite NEG_INF mask, as the reference
+// does.  An int8 K or V row is multiplied in f32 by its row's scale as it
+// is staged, before either product, where the Pallas body does it.
 //
 // Bound: bytes, then latency.  A 128-token prefill is below the ridge at
 // D = 64, so the floor is the K/V (and Q/O) stream; this kernel runs both
@@ -35,16 +37,19 @@
 // statistics (m, l) and the output accumulator stay in registers across the
 // key sweep, so the score matrix never reaches device memory.  Key tiles
 // that no query of the block can see (past kvl, or above the causal
-// diagonal) are never loaded.  Each thread finds its staged rows' offsets
-// itself (64-bit): the dense row, or the one page-table lookup per four
-// elements (`stage_tile`).  Rows at or past kvl are staged as zeros and
+// diagonal and at or past `prefix`) are never loaded.  Tiles of 32 queries
+// and 32 keys to D = 64, 16 and 16 at D = 128, 16 queries and 8 keys at D =
+// 256: the static Q, K, V and P tiles stay under the 48 KB a block's
+// static shared memory may hold (33,440 B at D = 256).  Each thread finds
+// its staged rows' offsets itself (64-bit): the dense row, or the one
+// page-table lookup per four elements (`stage_tile`).  Rows at or past kvl are staged as zeros and
 // neither their table entry, values nor scales are read: the cache may hold
 // garbage there (uninitialised or stale slots, a NaN scale) and a masked
 // score alone would still let 0 * NaN poison P.V (attention.py:135-141).
 // The paged form runs the dense form's tiles and arithmetic; only the row
 // offset differs, so a paged launch is bitwise the dense launch on the
 // gathered cache, at any page size.  Four threads share a query row (eight
-// when D = 128) and meet through warp shuffles.
+// when D >= 128) and meet through warp shuffles.
 #include "common.cuh"
 
 using namespace rt;
@@ -58,7 +63,7 @@ struct Args {
   const float *ks, *vs;  // int8 K/V: one scale a (token, KV head) row
   const int *kv_lens, *page_table;
   void* out;
-  int B, Tq, H, S, KVH, page_size, max_pages;
+  int B, Tq, H, S, KVH, page_size, max_pages, prefix;
   float scale;
 };
 
@@ -129,13 +134,16 @@ __device__ __forceinline__ void stage_tile(const KV* __restrict__ k, const KV* _
   }
 }
 
-template <typename T, typename KV, int D, int BQ, int BK>
+// PREFIX: `prefix` may be above 0 (prefix-LM, non-causal).  The causal
+// instantiation never reads it, so the causal launch's code carries no
+// term of the other masks.
+template <typename T, typename KV, int D, int BQ, int BK, bool PREFIX>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                  const KV* __restrict__ v, const float* __restrict__ ks,
                  const float* __restrict__ vs, const int* __restrict__ kv_lens,
                  const int* __restrict__ page_table, T* __restrict__ out, int Tq,
-                 int H, int S, int KVH, int page_size, int max_pages,
+                 int H, int S, int KVH, int page_size, int max_pages, int prefix,
                  float scale) {
   constexpr int TPR = THREADS / BQ;  // threads per query row
   constexpr int CPT = BK / TPR;      // score columns per thread
@@ -166,7 +174,8 @@ attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
   const int qpos = q0 + r + off;
   // keys at or past kend are invisible to every query row of this block
-  const int kend = min(kvl, q0 + BQ + off);
+  int kend = min(kvl, q0 + BQ + off);
+  if constexpr (PREFIX) kend = max(kend, min(prefix, kvl));
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is consumed (and Q is staged)
@@ -186,7 +195,7 @@ attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(Qs[r][d], Ks[kj][d], dot);
-      sc[c] = (kpos < kvl && qpos >= kpos) ? dot : NEG_INF;
+      sc[c] = (kpos < kvl && (qpos >= kpos || (PREFIX && kpos < prefix))) ? dot : NEG_INF;
       mx = fmaxf(mx, sc[c]);
     }
 #pragma unroll
@@ -227,13 +236,16 @@ attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
 template <typename T, typename KV, int D>
 void run(const Args& a, cudaStream_t stream) {
-  constexpr int BT = D <= 64 ? 32 : 16;  // query and key tile
-  const dim3 grid(a.B * a.H, (a.Tq + BT - 1) / BT);
-  attention_kernel<T, KV, D, BT, BT><<<grid, THREADS, 0, stream>>>(
+  constexpr int BQ = D <= 64 ? 32 : 16;                  // query tile
+  constexpr int BK = D <= 64 ? 32 : (D <= 128 ? 16 : 8);  // key tile
+  const dim3 grid(a.B * a.H, (a.Tq + BQ - 1) / BQ);
+  auto kernel = a.prefix > 0 ? attention_kernel<T, KV, D, BQ, BK, true>
+                             : attention_kernel<T, KV, D, BQ, BK, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), a.ks, a.vs, a.kv_lens, a.page_table,
       static_cast<T*>(a.out), a.Tq, a.H, a.S, a.KVH, a.page_size, a.max_pages,
-      a.scale);
+      a.prefix, a.scale);
 }
 
 template <typename T, typename KV>
@@ -243,6 +255,7 @@ int dispatch(const Args& a, int D, cudaStream_t s) {
     case 32: run<T, KV, 32>(a, s); break;
     case 64: run<T, KV, 64>(a, s); break;
     case 128: run<T, KV, 128>(a, s); break;
+    case 256: run<T, KV, 256>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -258,19 +271,21 @@ int dispatch_kv(const Args& a, int kv_int8, int D, cudaStream_t s) {
 // K/V in q's dtype (kv_int8 = 0) or int8 with f32 k_scales/v_scales
 // (kv_int8 = 1).  page_table NULL: k/v are the dense cache (B, S, KVH, D);
 // otherwise the pool (num_pages, page_size, KVH, D) and S = max_pages *
-// page_size.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported dtype, head dim or page size).
+// page_size.  prefix: keys below it are seen by every query (0 causal, S
+// non-causal).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported dtype, head dim or page size,
+// or a negative prefix).
 extern "C" int attention_launch(int dtype, int kv_int8, const void* q,
                                 const void* k, const void* v,
                                 const float* k_scales, const float* v_scales,
                                 const int* kv_lens, const int* page_table,
                                 void* out, int B, int Tq, int H, int S, int KVH,
-                                int D, int page_size, int max_pages, float scale,
-                                void* stream) {
-  if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)))
+                                int D, int page_size, int max_pages, int prefix,
+                                float scale, void* stream) {
+  if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)) || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, k_scales, v_scales, kv_lens, page_table, out,
-               B, Tq, H, S, KVH, page_size, max_pages, scale};
+               B, Tq, H, S, KVH, page_size, max_pages, prefix, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == DT_F32)

@@ -4,14 +4,17 @@
 // Replaces the Pallas kernel `repro/kernels/attention.py` (`_flash_kernel`)
 // for a bf16 query block over the cache layout: the dense call (:329) and
 // the paged call (:316), K/V bf16 or int8 with per-(token, head) f32
-// scales (:130-134), GQA, head dims 16-128:
+// scales (:130-134), GQA, head dims 16-256, the causal, prefix-LM and
+// non-causal masks (:117-123, :149-155):
 //
 //     q (B, Tq, H, D), k/v (B, S, KVH, D) or the pool (num_pages, P, KVH, D)
 //     with page_table (B, max_pages), kv_lens (B*H,) -> out (B, Tq, H, D)
 //
 // Query head h reads KV head h / (H / KVH) and sees keys [0, kvl), kvl =
-// min(kv_lens[b*H + h], S), causally aligned to the end of that range:
-// query t sits at position t + kvl - Tq.
+// min(kv_lens[b*H + h], S), aligned to the end of that range: query t sits
+// at position t + kvl - Tq and sees key j when j <= t + kvl - Tq or j <
+// `prefix`, the keys every query sees (0: causal; prefix_len: prefix-LM; S:
+// non-causal, every key below kvl).
 //
 // Bound: bytes, then latency.  A 128-token prefill at D = 64 does ~64 FLOPs
 // a byte of Q, K, V and O, below the card's ridge (~295), and its 256
@@ -20,7 +23,12 @@
 //
 // Design against it:
 //  - a block of 4 warps takes 64 query rows of one (slot, query head), 16 a
-//    warp; the Q fragments stay in registers for the whole key sweep;
+//    warp; at D <= 128 the Q fragments stay in registers for the whole key
+//    sweep.  At D = 256 a warp's O accumulator alone is 16 x 256 f32, 128
+//    registers a thread, and S takes 32 more: Q's 64 fragment registers
+//    would push it past 255, so D = 256 reads each k-step's Q fragment
+//    from shared memory (ldmatrix) where it is used; its shared memory
+//    (168,960 B bf16, 167,424 B int8) holds one block an SM;
 //  - S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in, f32
 //    accumulate), fed by ldmatrix (ldmatrix.trans for V) from shared rows
 //    padded by 16 bytes, so the eight rows of a matrix fall in eight bank
@@ -32,8 +40,12 @@
 //    their table entry, values nor scales are read (the cache may hold
 //    garbage there, attention.py:135-141);
 //  - the online softmax runs in f32 registers (a row's statistics shared by
-//    the 4 threads of a quad); key tiles above the causal diagonal of every
-//    row of the block, or at or past kvl, are neither loaded nor computed;
+//    the 4 threads of a quad); key tiles no row of the block sees (above
+//    the causal diagonal of every row and at or past `prefix`, or at or
+//    past kvl) are neither loaded nor computed.  Blocks are started last
+//    query block first, the longest causal sweep first; under the
+//    non-causal mask every block sweeps all of [0, kvl) and the order is
+//    moot;
 //  - int8 K/V: the staged int8 tile is converted to bf16 in shared memory
 //    (exact: |v| <= 127 < 2^8) and the scales are folded in where they
 //    commute with the products: k_scale multiplies score column j after
@@ -48,8 +60,8 @@
 // before exp2.  The per-launch gate stays bf16's rtol = atol = 1.6e-2.
 //
 // Key tiles sit at fixed absolute positions [64 i, 64 i + 64), so a row's
-// bits depend on its kvl, Tq and q alone: a paged launch is bitwise the
-// dense launch on the gathered cache, at any S and page size.
+// bits depend on its kvl, mask, Tq and q alone: a paged launch is bitwise
+// the dense launch on the gathered cache, at any S and page size.
 #include "mma.cuh"
 
 using namespace rt;
@@ -66,6 +78,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// S (16 x 64, eight 8-key tiles) += Q's k-step kk fragment x the key
+// tile's 16 columns kk * 16 .. + 15, through ldmatrix from rows of STR
+template <int STR>
+__device__ __forceinline__ void qk_step(float (&s)[8][4], const uint32_t (&qa)[4],
+                                        const __nv_bfloat16* kt_s, int lane, int kk) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t kb[4];
+    ldsm_x4(kb, kt_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 +
+                    ((lane >> 3) & 1) * 8);
+    mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+    mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+  }
+}
+
 template <typename KV, int D>
 struct Smem {
   static constexpr bool INT8 = sizeof(KV) == 1;
@@ -77,13 +104,17 @@ struct Smem {
   static constexpr int BYTES = Q + 2 * KVB + 2 * RAW + SCALES;
 };
 
-template <typename KV, int D>
+// PREFIX: `prefix` may be above 0 (prefix-LM, non-causal).  The causal
+// instantiation never reads it, so the causal launch's code carries no
+// term of the other masks.
+template <typename KV, int D, bool PREFIX>
 __global__ void __launch_bounds__(THREADS)
 attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                      const KV* __restrict__ v, const float* __restrict__ ks,
                      const float* __restrict__ vs, const int* __restrict__ kv_lens,
                      const int* __restrict__ page_table, __nv_bfloat16* __restrict__ out,
-                     int Tq, int H, int S, int KVH, int page_size, int max_pages, float scale) {
+                     int Tq, int H, int S, int KVH, int page_size, int max_pages, int prefix,
+                     float scale) {
   using L = Smem<KV, D>;
   constexpr bool INT8 = L::INT8;
   constexpr int STR = L::STR;
@@ -91,6 +122,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   constexpr int RC = INT8 ? D / 16 : DC;  // 16-byte chunks of a staged K/V row
   constexpr int KD = D / 16;          // k-steps of Q K^T
   constexpr int ND = D / 8;           // 8-column tiles of O
+  constexpr bool QREG = D <= 128;     // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
@@ -106,7 +138,9 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest key sweeps first
   const int kvl = min(kv_lens[row], S);
   const int off = kvl - Tq;
-  const int kend = min(kvl, q0 + BQ + off);  // keys at or past kend: no row sees them
+  // keys at or past kend: no row sees them
+  int kend = min(kvl, q0 + BQ + off);
+  if constexpr (PREFIX) kend = max(kend, min(prefix, kvl));
   const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
   const int* table = page_table ? page_table + (long long)b * max_pages : nullptr;
 
@@ -139,7 +173,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   if (ntiles > 0) stage(0, 0);
   cp_async_commit();
 
-  uint32_t qf[KD][4];
+  uint32_t qf[QREG ? KD : 1][4];
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -154,10 +188,12 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (QREG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * STR + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KD; ++kk)
+          ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * STR + kk * 16 + (lane >> 4) * 8);
+      }
     }
     if constexpr (INT8) {  // stage kt & 1 -> bf16 (exact), and the tile's scales
       const int8_t* k8 = K8 + (kt & 1) * BK * D;
@@ -201,13 +237,12 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        ldsm_x4(kb, kt_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      if constexpr (QREG) {
+        qk_step<STR>(s, qf[kk], kt_s, lane, kk);
+      } else {  // D = 256: this k-step's Q fragment from shared memory
+        uint32_t qs[4];
+        ldsm_x4(qs, Qs + (warp * 16 + (lane & 15)) * STR + kk * 16 + (lane >> 4) * 8);
+        qk_step<STR>(s, qs, kt_s, lane, kk);
       }
     }
     // mask, scale (after the product), online softmax in the log2 domain
@@ -219,7 +254,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
         const int col = n * 8 + 2 * tig + (i & 1), kpos = kt * BK + col, rr = i >> 1;
         float x = s[n][i];
         if constexpr (INT8) x *= kss[col];
-        x = (kpos < kvl && kpos <= qpos[rr]) ? x * c : NEG_INF;
+        x = (kpos < kvl && (kpos <= qpos[rr] || (PREFIX && kpos < prefix))) ? x * c : NEG_INF;
         s[n][i] = x;
         mx[rr] = fmaxf(mx[rr], x);
       }
@@ -286,11 +321,11 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   }
 }
 
-template <typename KV, int D>
+template <typename KV, int D, bool PREFIX>
 int run(const void* q, const void* k, const void* v, const float* ks, const float* vs,
         const int* kv_lens, const int* page_table, void* out, int B, int Tq, int H, int S,
-        int KVH, int page_size, int max_pages, float scale, cudaStream_t stream) {
-  auto kernel = attention_mma_kernel<KV, D>;
+        int KVH, int page_size, int max_pages, int prefix, float scale, cudaStream_t stream) {
+  auto kernel = attention_mma_kernel<KV, D, PREFIX>;
   constexpr int SMEM = Smem<KV, D>::BYTES;
   static bool sized = false;  // once per instantiation
   if (!sized) {
@@ -303,24 +338,27 @@ int run(const void* q, const void* k, const void* v, const float* ks, const floa
   kernel<<<grid, THREADS, SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, kv_lens, page_table,
-      static_cast<__nv_bfloat16*>(out), Tq, H, S, KVH, page_size, max_pages, scale);
+      static_cast<__nv_bfloat16*>(out), Tq, H, S, KVH, page_size, max_pages, prefix, scale);
   return 0;
 }
 
 template <typename KV>
 int dispatch(int D, const void* q, const void* k, const void* v, const float* ks,
              const float* vs, const int* kv_lens, const int* page_table, void* out, int B,
-             int Tq, int H, int S, int KVH, int page_size, int max_pages, float scale,
-             cudaStream_t s) {
+             int Tq, int H, int S, int KVH, int page_size, int max_pages, int prefix,
+             float scale, cudaStream_t s) {
 #define CASE(DD)                                                                           \
   case DD:                                                                                 \
-    return run<KV, DD>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq, H, S, KVH,        \
-                       page_size, max_pages, scale, s);
+    return prefix > 0 ? run<KV, DD, true>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq,  \
+                                          H, S, KVH, page_size, max_pages, prefix, scale, s) \
+                      : run<KV, DD, false>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq, \
+                                           H, S, KVH, page_size, max_pages, 0, scale, s);
   switch (D) {
     CASE(16)
     CASE(32)
     CASE(64)
     CASE(128)
+    CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -332,7 +370,8 @@ int dispatch(int D, const void* q, const void* k, const void* v, const float* ks
 // Prefill attention in bf16 on the tensor cores.  K/V bf16 (kv_int8 = 0) or
 // int8 with f32 k_scales/v_scales (kv_int8 = 1); page_table NULL: k/v are
 // the dense cache (B, S, KVH, D), otherwise the pool and S = max_pages *
-// page_size.  Returns the number of dynamic shared-memory bytes of the
+// page_size.  prefix: keys below it are seen by every query (0 causal, S
+// non-causal).  Returns the number of dynamic shared-memory bytes of the
 // (kv_int8, D) instantiation, or 0 for one that does not exist.
 extern "C" int attention_mma_smem_bytes(int kv_int8, int D) {
   switch (D) {
@@ -340,29 +379,31 @@ extern "C" int attention_mma_smem_bytes(int kv_int8, int D) {
     case 32: return kv_int8 ? Smem<int8_t, 32>::BYTES : Smem<__nv_bfloat16, 32>::BYTES;
     case 64: return kv_int8 ? Smem<int8_t, 64>::BYTES : Smem<__nv_bfloat16, 64>::BYTES;
     case 128: return kv_int8 ? Smem<int8_t, 128>::BYTES : Smem<__nv_bfloat16, 128>::BYTES;
+    case 256: return kv_int8 ? Smem<int8_t, 256>::BYTES : Smem<__nv_bfloat16, 256>::BYTES;
     default: return 0;
   }
 }
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// what the kernel does not take: a head dim outside 16-128, B * H above
-// 65535, q, k or v not 16-byte aligned).
+// what the kernel does not take: a head dim outside 16-256, B * H above
+// 65535, q, k or v not 16-byte aligned, a negative prefix).
 extern "C" int attention_mma_launch(int kv_int8, const void* q, const void* k, const void* v,
                                     const float* k_scales, const float* v_scales,
                                     const int* kv_lens, const int* page_table, void* out,
                                     int B, int Tq, int H, int S, int KVH, int D, int page_size,
-                                    int max_pages, float scale, void* stream) {
+                                    int max_pages, int prefix, float scale, void* stream) {
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)) || KVH < 1 ||
-      H % KVH || B * H > 65535 || Tq < 1 || !aligned(q) || !aligned(k) || !aligned(v))
+      H % KVH || B * H > 65535 || Tq < 1 || prefix < 0 || !aligned(q) || !aligned(k) ||
+      !aligned(v))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = kv_int8 ? dispatch<int8_t>(D, q, k, v, k_scales, v_scales, kv_lens,
                                              page_table, out, B, Tq, H, S, KVH, page_size,
-                                             max_pages, scale, s)
+                                             max_pages, prefix, scale, s)
                           : dispatch<__nv_bfloat16>(D, q, k, v, k_scales, v_scales, kv_lens,
                                                     page_table, out, B, Tq, H, S, KVH,
-                                                    page_size, max_pages, scale, s);
+                                                    page_size, max_pages, prefix, scale, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

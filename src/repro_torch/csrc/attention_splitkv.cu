@@ -4,7 +4,10 @@
 // Replaces the Pallas kernel `repro/kernels/attention.py` (`_flash_kernel`)
 // at Tq = 1, the ragged slot decode of every serve: the dense call (:329)
 // and the paged call (:316), K/V in the model dtype (f32, bf16) or int8
-// with per-(token, head) f32 scales (:130-134), GQA, head dims 16-128:
+// with per-(token, head) f32 scales (:130-134), GQA, head dims 16-256, under
+// every mask: at one query, at position kvl - 1, the causal, prefix-LM and
+// non-causal masks (:117-123, :149-155) all see exactly [0, kvl), so the
+// kernel has no mask code:
 //
 //     q (B, 1, H, D), k/v (B, S, KVH, D) or the pool (num_pages, P, KVH, D)
 //     with page_table (B, max_pages), kv_lens (B*H,) -> out (B, 1, H, D)
@@ -32,7 +35,10 @@
 //    element once for all of them (in passes of GB = 4 heads when G > 4);
 //  - every load is 16 bytes a thread, neighbouring threads on neighbouring
 //    addresses: a K/V row of D elements is D / E threads (E = 4 f32, 8 bf16,
-//    16 int8), and the block holds RG = 128 / (D / E) rows at a time;
+//    16 int8), and the block holds RG = 128 / (D / E) rows at a time.  A
+//    row stays within one warp (its dot products meet through shuffles), so
+//    where D / E would pass 32 (f32 at D = 256) a thread takes W = 2
+//    consecutive 16-byte pieces of its row (E = 8, 32 threads a row);
 //  - a thread loads the K and V of NB rows at once (4, or 2 for a group of
 //    query heads) straight into registers, and the next NB rows' loads
 //    (across split boundaries) fly while these are used: the latency of a
@@ -96,7 +102,9 @@ attention_splitkv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                          int KVH, int page_size, int max_pages, int chunk, int nsplit,
                          int per_block, float scale) {
   constexpr bool INT8 = sizeof(KV) == 1;
-  constexpr int E = Row16<KV>::E;
+  constexpr int E16 = Row16<KV>::E;    // elements of one 16-byte load
+  constexpr int W = (D / E16 + 31) / 32;  // 16-byte loads a thread a row
+  constexpr int E = W * E16;         // elements a thread a row
   constexpr int TPR = D / E;         // threads a K/V row
   constexpr int RG = THREADS / TPR;  // rows the block holds at a time
   constexpr int NB = GB == 1 ? 4 : 2;  // rows a thread loads at once: a batch
@@ -123,11 +131,21 @@ attention_splitkv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   float* part_ml = part + (long long)gridDim.y * nsplit * G * D;
 
   // Batch t: rows r0 + i * RG + rg (i < NB) of split c0 + t / per_split,
-  // 16 bytes of K and of V a row (zeros for rows that are not read) and the
-  // int8 scales.
+  // W * 16 bytes of K and of V a row (zeros for rows that are not read) and
+  // the int8 scales.
   struct Batch {
-    uint4 k[NB], v[NB];
+    uint4 k[NB][W], v[NB][W];
     float ks[NB], vs[NB];
+  };
+  // row piece of a batch -> E floats
+  auto unpack = [](const uint4(&r)[W], float(&f)[E]) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      float part[E16];
+      Row16<KV>::unpack(r[w], part);
+#pragma unroll
+      for (int e = 0; e < E16; ++e) f[w * E16 + e] = part[e];
+    }
   };
   auto load = [&](int t, Batch& bt) {
     const int j0 = (c0 + t / per_split) * chunk, r0 = (t % per_split) * NB * RG;
@@ -135,14 +153,18 @@ attention_splitkv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       const int r = r0 + i * RG + rg, j = j0 + r;
-      bt.k[i] = bt.v[i] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int w = 0; w < W; ++w) bt.k[i][w] = bt.v[i][w] = make_uint4(0u, 0u, 0u, 0u);
       bt.ks[i] = bt.vs[i] = 0.f;
       if (r < chunk && j < jend) {
         const long long r_ = table ? (long long)table[j / page_size] * page_size + j % page_size
                                    : (long long)b * S + j;
         const long long ro = r_ * KVH + kh;
-        bt.k[i] = __ldg(reinterpret_cast<const uint4*>(k + ro * D + cg * E));
-        bt.v[i] = __ldg(reinterpret_cast<const uint4*>(v + ro * D + cg * E));
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          bt.k[i][w] = __ldg(reinterpret_cast<const uint4*>(k + ro * D + cg * E + w * E16));
+          bt.v[i][w] = __ldg(reinterpret_cast<const uint4*>(v + ro * D + cg * E + w * E16));
+        }
         if constexpr (INT8) {
           bt.ks[i] = ks[ro];
           bt.vs[i] = vs[ro];
@@ -188,7 +210,7 @@ attention_splitkv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
         float kf[E];
-        Row16<KV>::unpack(cur.k[i], kf);
+        unpack(cur.k[i], kf);
         const int r = r0 + i * RG + rg, j = j0 + r;
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
@@ -215,7 +237,7 @@ attention_splitkv_kernel(const T* __restrict__ q, const KV* __restrict__ k,
         for (int i = 0; i < NB; ++i) {
           if (!(s[i][g] > NEG_INF)) continue;  // not a key of this head: adds nothing
           float vf[E];
-          Row16<KV>::unpack(cur.v[i], vf);
+          unpack(cur.v[i], vf);
           const float p = expf(s[i][g] - mx);
           l[g] += p;
           const float pv = INT8 ? p * cur.vs[i] : p;
@@ -341,6 +363,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, const float* ks
     CASE(32)
     CASE(64)
     CASE(128)
+    CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,25 +1,39 @@
-"""Causal flash attention over the KV cache's native layout, dense or paged,
-with K/V in the model dtype or packed int8.
+"""Flash attention over the KV cache's native layout, dense or paged, with
+K/V in the model dtype or packed int8, under the causal, prefix-LM or
+non-causal mask.
 
 Replaces `repro/kernels/attention.py` (`_flash_kernel`: the dense Pallas
-call at :329 and the paged one at :316) in the forms prefill and ragged
-slot decode use: q (B, Tq, H, D) against k/v with one real KV length per
-(slot, head) row and GQA folding (query head h reads KV head
-h // (H // KVH)).  k/v are the dense cache (B, S, KVH, D) or, with a
-(B, max_pages) int32 `page_table`, the page pool (num_pages, P, KVH, D)
-in which logical key s of slot b lives at pool[page_table[b, s // P],
-s % P].  int8 k/v come with f32 `k_scales`/`v_scales` in their layout with
-D -> 1 (one scale a (token, head) row, core.quant.quantize_kv) and are
-dequantized as values * scale in f32.  The prefix-LM / non-causal masks,
-the flat (BH, T, D) layout and head dim 256 are not ported yet.
+call at :329 and the paged one at :316) in the forms prefill, ragged slot
+decode, whisper's encoder and cross-attention and paligemma's patch prefix
+use: q (B, Tq, H, D) against k/v with one real KV length per (slot, head)
+row and GQA folding (query head h reads KV head h // (H // KVH)).  k/v are
+the dense cache (B, S, KVH, D) or, with a (B, max_pages) int32
+`page_table`, the page pool (num_pages, P, KVH, D) in which logical key s
+of slot b lives at pool[page_table[b, s // P], s % P].  int8 k/v come with
+f32 `k_scales`/`v_scales` in their layout with D -> 1 (one scale a (token,
+head) row, core.quant.quantize_kv) and are dequantized as values * scale in
+f32.  Head dims 16-256.  The flat (BH, T, D) layout is not ported: no model
+path uses it.
+
+The masks, with the reference kernel's semantics (attention.py:117-123,
+149-155, 209-211): row (b, h) sees keys [0, kvl), kvl = min(kv_lens[b*H +
+h], S), and query t sits at absolute position t + kvl - Tq.  Causal: key s
+is visible to query t when s <= t + kvl - Tq.  Prefix-LM (`prefix_len`):
+keys below prefix_len are visible to every query, causal after.
+Non-causal: every key below kvl is visible (prefix_len is ignored).  The
+kernels take one integer for all three, `visible_prefix`: keys below it are
+seen by every query, the causal rule holds above it (0 causal, prefix_len
+prefix-LM, S non-causal, which covers every kvl).
 
 Three CUDA kernels carry it, and `plan` picks one from host-known shapes
-alone (it never reads `kv_lens`):
+alone (it never reads `kv_lens`, and the mask never changes the route):
 
-- "splitkv" (`csrc/attention_splitkv.cu`) for Tq = 1 in every dtype and
-  form: the keys cut at fixed absolute positions into chunks of CHUNK, one
-  block per (chunk, slot, KV head) holding all query heads of the group, the
-  chunks' partials combined in order inside the same launch;
+- "splitkv" (`csrc/attention_splitkv.cu`) for Tq = 1 in every dtype, form
+  and mask (its one query sits at kvl - 1, where all three masks see
+  exactly [0, kvl), so the kernel has no mask code): the keys cut at fixed
+  absolute positions into chunks of CHUNK, one block per (chunk, slot, KV
+  head) holding all query heads of the group, the chunks' partials
+  combined in order inside the same launch;
 - "mma" (`csrc/attention_mma.cu`) for a bf16 query block (Tq > 1), K/V
   bf16 or int8: both products on the tensor cores (mma.sync), P rounded to
   bf16 for P V;
@@ -28,8 +42,8 @@ alone (it never reads `kv_lens`):
 
 Each source note says what bounds its kernel and what its design does about
 it.  Every route reads keys in tiles or chunks at fixed absolute positions,
-so a row's bits depend on its kv length and not on S or the page size: a
-paged launch is bitwise the dense launch on the gathered cache.
+so a row's bits depend on its kv length and mask and not on S or the page
+size: a paged launch is bitwise the dense launch on the gathered cache.
 
 `reference` is the plain PyTorch version: CPU tensors use it, and on the
 card only comparisons (`ops.reference_mode`) do.
@@ -54,11 +68,14 @@ NEG_INF = -1e30
 launches = 0
 launches_paged = 0
 launches_int8 = 0
-#: every launch by the route its plan named
-launches_by_route = {"splitkv": 0, "mma": 0, "ffma": 0}
+#: every launch by the route its plan named and its mask: "causal",
+#: "prefix" (prefix-LM, prefix_len > 0) or "noncausal"
+ROUTES = ("splitkv", "mma", "ffma")
+MASKS = ("causal", "prefix", "noncausal")
+launches_by_route_mask = {(r, m): 0 for r in ROUTES for m in MASKS}
 
 #: head dims the kernels are built for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: keys of a "splitkv" split: split j covers [j * CHUNK, (j + 1) * CHUNK).
 #: Measured on the H100 (PERF.md §6, scripts/torch_attention_study.py): 64
 #: and 128 tie at S = 160 (~13 us), 128 runs S = 4096 9-24% faster than 64
@@ -71,11 +88,11 @@ H100_SMS = 132
 #: about this many blocks an SM (a short cache: one split a block)
 BLOCKS_PER_SM = 8
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
 _SPLITKV_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                      + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-_MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+_MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -127,16 +144,36 @@ def gather_pages(pool, page_table):
     return pool[page_table.long()].reshape((b, n * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
-def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None):
+def mask_name(causal: bool = True, prefix_len=None) -> str:
+    """"causal", "prefix" or "noncausal": the mask a call runs under
+    (prefix_len is ignored when causal is False, and 0 or None is none)."""
+    if not causal:
+        return "noncausal"
+    return "prefix" if prefix_len else "causal"
+
+
+def visible_prefix(s: int, causal: bool = True, prefix_len=None) -> int:
+    """The kernels' one mask argument: keys below it are visible to every
+    query, the causal rule holds above it.  s is the logical cache length
+    (no kvl exceeds it), so s makes a launch non-causal."""
+    if not causal:
+        return s
+    return min(int(prefix_len or 0), s)
+
+
+def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None,
+              causal: bool = True, prefix_len=None):
     """Masked softmax attention in f32.
 
     Row (b, h) sees keys [0, kvl) with kvl = min(kv_lens[b*H + h], S), query
-    t at absolute position t + kvl - Tq; K/V rows at or past kvl are zeroed
+    t at absolute position t + kvl - Tq: causally (key s visible when s <=
+    t + kvl - Tq), with every key below prefix_len visible too (prefix-LM),
+    or, causal=False, all of them.  K/V rows at or past kvl are zeroed
     before use so garbage there cannot reach the output.  A row needs at
-    least one visible key (kvl >= Tq), as in the reference kernel.  A paged
-    call gathers each slot's pages into the dense cache first (so it is
-    bitwise the dense call on that cache); int8 K/V dequantize as
-    values.float() * scales.
+    least one visible key (kvl >= Tq under the causal mask), as in the
+    reference kernel.  A paged call gathers each slot's pages into the
+    dense cache first (so it is bitwise the dense call on that cache); int8
+    K/V dequantize as values.float() * scales.
     """
     if page_table is not None:
         k, v = gather_pages(k, page_table), gather_pages(v, page_table)
@@ -158,7 +195,8 @@ def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None):
     vf = torch.where(live[..., None], vf, 0.0)
     scores = qf @ kf.transpose(-1, -2)                               # (B, H, Tq, S)
     qpos = torch.arange(tq, device=q.device)[None, None, :] + (kvl - tq)[..., None]
-    keep = live[:, :, None, :] & (qpos[..., None] >= kpos)
+    seen = (qpos[..., None] >= kpos) | (kpos < visible_prefix(s, causal, prefix_len))
+    keep = live[:, :, None, :] & seen
     p = torch.softmax(torch.where(keep, scores, NEG_INF), dim=-1)
     return (p @ vf).permute(0, 2, 1, 3).to(q.dtype)
 
@@ -171,9 +209,9 @@ def plan_for(q, k, page_table=None, int8: bool = False, sms: int = H100_SMS) -> 
 
 
 def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
-         page_table=None):
+         page_table=None, causal: bool = True, prefix_len=None):
     """`attention_launch` (csrc/attention.cu, the CUDA-core kernel) on the
-    current stream, uncounted; it takes every form and both dtypes."""
+    current stream, uncounted; it takes every form, mask and both dtypes."""
     b, tq, h, d = q.shape
     s, page_size, max_pages = _logical(k, page_table)
     fn = _build.function("attention_launch", _ARGTYPES)
@@ -182,7 +220,7 @@ def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None
         err = fn(dtype_code, int(k_scales is not None), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
                  _build.ptr(page_table), out.data_ptr(), b, tq, h, s, k.shape[2], d, page_size,
-                 max_pages, float(d ** -0.5), stream)
+                 max_pages, visible_prefix(s, causal, prefix_len), float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     return out
@@ -196,13 +234,15 @@ def _logical(k, page_table):
 
 
 def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_scales=None,
-        page_table=None):
+        page_table=None, causal: bool = True, prefix_len=None):
     """One launch of p's route on the current stream, uncounted; operands
     are validated CUDA tensors (kernels/ops.py), kv_lens is int32 (B*H,).
-    The "splitkv" partials' workspace is allocated here."""
+    The "splitkv" partials' workspace is allocated here.  "splitkv" takes
+    no mask: its one query sits at kvl - 1, where every mask sees [0, kvl)."""
     if p.route == "ffma":
         return ffma(q, k, v, kv_lens, out, dtype_code=dtype_code, k_scales=k_scales,
-                    v_scales=v_scales, page_table=page_table)
+                    v_scales=v_scales, page_table=page_table, causal=causal,
+                    prefix_len=prefix_len)
     b, tq, h, d = q.shape
     kvh = k.shape[2]
     s, page_size, max_pages = _logical(k, page_table)
@@ -221,26 +261,26 @@ def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_sca
         else:
             fn = _build.function("attention_mma_launch", _MMA_ARGTYPES)
             err = fn(int8, *common, b, tq, h, s, kvh, d, page_size, max_pages,
-                     float(d ** -0.5), stream)
+                     visible_prefix(s, causal, prefix_len), float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention {p.route} kernel launch failed: CUDA error {err}")
     return out
 
 
 def launch(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
-           page_table=None):
-    """One launch of the kernel `plan` names, counted by form and route;
-    operands are validated CUDA tensors (kernels/ops.py)."""
+           page_table=None, causal: bool = True, prefix_len=None):
+    """One launch of the kernel `plan` names, counted by form, route and
+    mask; operands are validated CUDA tensors (kernels/ops.py)."""
     global launches, launches_paged, launches_int8
     int8 = k_scales is not None
     p = plan_for(q, k, page_table, int8, _build.sm_count(q.device.index or 0))
     run(q, k, v, kv_lens, out, p, dtype_code=dtype_code, k_scales=k_scales, v_scales=v_scales,
-        page_table=page_table)
+        page_table=page_table, causal=causal, prefix_len=prefix_len)
     if page_table is not None:
         launches_paged += 1
     if int8:
         launches_int8 += 1
     if page_table is None and not int8:
         launches += 1
-    launches_by_route[p.route] += 1
+    launches_by_route_mask[p.route, mask_name(causal, prefix_len)] += 1
     return out

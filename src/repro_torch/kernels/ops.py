@@ -23,11 +23,11 @@ per-member block scales (the MoE expert stacks), and an `out_dtype`: one
 batched launch (`kernels/bgemm.py::launch_batched`) whose kernel writes
 the result in that dtype.
 
-`flash_attention` also takes int8 K/V with per-(token, head) f32 scales and
-a page table over a page pool: a CUDA tensor goes to the kernel of the
-route `kernels.attention.plan` names ("splitkv" for decode, "mma" for a
-bf16 prefill, "ffma" for an f32 one) in every form, a CPU tensor to its
-plain version.
+`flash_attention` also takes int8 K/V with per-(token, head) f32 scales, a
+page table over a page pool and the causal, prefix-LM or non-causal mask: a
+CUDA tensor goes to the kernel of the route `kernels.attention.plan` names
+("splitkv" for decode, "mma" for a bf16 prefill, "ffma" for an f32 one) in
+every form and mask, a CPU tensor to its plain version.
 
 `rwkv6` is the chunked WKV6 recurrence (`csrc/rwkv6.cu`) and `mamba2_ssd`
 the chunked Mamba2 SSD (`csrc/mamba2.cu`), each with the model's contract:
@@ -106,11 +106,19 @@ def launch_counts() -> dict:
                for key, n in (*mod.launches_by_route.items(), *mod.launches_by_form.items())}}
 
 
+def attention_masks() -> dict:
+    """Attention launches since the last reset by route and by the mask they
+    ran under ("causal", "prefix" (prefix-LM), "noncausal"), keyed
+    "route/mask" ("mma/noncausal").  Beside attention_routes()."""
+    return {f"{r}/{m}": n for (r, m), n in _attention.launches_by_route_mask.items()}
+
+
 def attention_routes() -> dict:
     """Attention launches since the last reset by the route their plan
     named (`kernels.attention.plan`): "splitkv", "mma" and "ffma".  Beside
     launch_counts(), whose attention keys count by form."""
-    return dict(_attention.launches_by_route)
+    return {r: sum(_attention.launches_by_route_mask[r, m] for m in _attention.MASKS)
+            for r in _attention.ROUTES}
 
 
 def reset_launch_counts() -> None:
@@ -126,7 +134,7 @@ def reset_launch_counts() -> None:
     for mod in (_gemm, _bgemm):
         mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
         mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)
-    _attention.launches_by_route.update(splitkv=0, mma=0, ffma=0)
+    _attention.launches_by_route_mask.update(dict.fromkeys(_attention.launches_by_route_mask, 0))
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -334,11 +342,14 @@ def _check_side(name: str, what: str, t, dtype, device) -> None:
 
 
 def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=None,
-                    page_table=None):
-    """Causal attention of q (B, Tq, H, D) over the cache layout k/v
+                    page_table=None, causal=True, prefix_len=None):
+    """Attention of q (B, Tq, H, D) over the cache layout k/v
     (B, S, H // kv_groups, D) -> (B, Tq, H, D).  kv_lens (B*H,) int32 is
     each (slot, head) row's real KV length (pos + Tq on the cached paths);
-    keys at or past it are masked and their V rows zeroed.
+    keys at or past it are masked and their V rows zeroed.  Query t sits at
+    absolute position t + kvl - Tq: causal=True masks the keys after it,
+    except the first prefix_len (prefix-LM: visible to every query);
+    causal=False sees every key below kvl and ignores prefix_len.
 
     page_table (B, max_pages) int32: k/v are the page pool
     (num_pages, P, H // kv_groups, D) and slot b's logical key s lives at
@@ -351,6 +362,10 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
     q, k and v start on 16-byte boundaries (the kernels' 16-byte loads and
     cp.async copies)."""
     name = "flash_attention"
+    if not isinstance(causal, bool):
+        raise TypeError(f"{name}: causal must be a bool, got {causal!r}")
+    if prefix_len is not None and (not isinstance(prefix_len, int) or prefix_len < 0):
+        raise ValueError(f"{name}: prefix_len must be None or an int >= 0, got {prefix_len!r}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name} wants 4-D cache-layout operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -383,10 +398,12 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
             raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
     if not _use_kernel(q):
         return _attention.reference(q, k, v, kv_lens, k_scales=k_scales, v_scales=v_scales,
-                                    page_table=page_table)
+                                    page_table=page_table, causal=causal,
+                                    prefix_len=prefix_len)
     out = torch.empty_like(q)
     return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype],
-                             k_scales=k_scales, v_scales=v_scales, page_table=page_table)
+                             k_scales=k_scales, v_scales=v_scales, page_table=page_table,
+                             causal=causal, prefix_len=prefix_len)
 
 
 def rwkv6(r, k, v, w_log, u, *, s0=None, chunk: int = 32):

@@ -13,7 +13,18 @@ Batch (`--scheduler batch`): requests of one prompt length are served in
 FIFO groups of `batch`; each group runs one (batch, T) prefill, padding
 rows included, and decodes in lockstep until every member has finished.
 It is the only scheduler of the rwkv and hybrid (zamba2) families, whose
-caches hold recurrent state with no per-slot form.
+caches hold recurrent state with no per-slot form, and of the audio family
+(whisper), whose cache keeps one position for the batch.
+
+The vlm family (paligemma) prefills seeded random patch embeddings (B,
+n_prefix, d) in front of every prompt, and the audio family random frame
+embeddings (B, n_frames, d) for its encoder: the stub frontends, drawn, as
+the reference draws them, from numpy's generator seeded with seed + 1, one
+(batch, ...) block a prefill (warm-up included).  A vlm prompt takes
+n_prefix more cache positions, and is never matched against another's
+pages (equal tokens behind other patches are other keys).  So a preempted
+vlm request is recomputed behind new patches and is not bit for bit its
+first run (the reference's caveat, serve.py:124-125).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
@@ -21,6 +32,10 @@ caches hold recurrent state with no per-slot form.
         --scheduler batch --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --scheduler batch --variant full --requests 8 --batch 4 --prompt-len 128 --gen 32
 
 `quantize="int8"` (`--quantize int8`) packs every projection weight as
 block-scaled int8 (`models.layers.quantize_weights`) once, on the device,
@@ -214,11 +229,11 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
         if quantize == "int8":
             params = layers.quantize_weights(params)
         if scheduler == "continuous":
-            stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev,
+            stats = _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, seed,
                                       page_size=kv_page_size, prefix_reuse=prefix_reuse,
                                       pool_pages=pool_pages)
         else:
-            stats = _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev,
+            stats = _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, seed,
                                  page_size=kv_page_size, pool_pages=pool_pages)
     if verbose:
         paged_info = ""
@@ -235,6 +250,28 @@ def serve(arch: str, variant: str = "smoke", requests: Optional[int] = None,
               f"{stats['decode_steps']} decode steps, "
               f"occupancy {stats['occupancy']:.2f}{paged_info})", flush=True)
     return stats
+
+
+def _cache_len(cfg, prompts, gen_lens) -> int:
+    """Slot capacity: the longest prompt + its own generation budget, and
+    the vlm's patch prefix."""
+    need = max(len(p) + g for p, g in zip(prompts, gen_lens))
+    return need + (cfg.n_prefix if cfg.family == "vlm" else 0)
+
+
+def _prefill_extras(cfg, rng, n: int, enc: int, dev) -> dict:
+    """The stub frontends' embeddings for one (n, ...) prefill: the vlm's
+    patches (n, n_prefix, d), the audio family's frames (n, enc, d), in
+    f32 from `rng` (the model casts them to its dtype)."""
+    if cfg.family == "vlm":
+        shape = (n, cfg.n_prefix, cfg.d_model)
+        key = "patches"
+    elif cfg.family == "audio":
+        shape = (n, enc, cfg.d_model)
+        key = "frames"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)}
 
 
 def _new_stats(nreq: int) -> dict:
@@ -268,10 +305,15 @@ def _record_token(stats: dict, rid: int, tok_val: int, eos: int, remaining: int,
     return False
 
 
-def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None,
+def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, seed, page_size=None,
                       prefix_reuse=True, pool_pages=None) -> dict:
     nreq = len(prompts)
-    cache_len = max(len(p) + g for p, g in zip(prompts, gen_lens))
+    cache_len = _cache_len(cfg, prompts, gen_lens)
+    rng = np.random.default_rng(seed + 1)  # the vlm's patches
+    # vlm prompts carry their own random patches in front: equal token ids
+    # are not equal keys, so they are never shared
+    share = prefix_reuse and cfg.family != "vlm"
+    n_prefix = cfg.n_prefix if cfg.family == "vlm" else 0
     prefill_fn = steps_lib.make_prefill_step(cfg)
     decode_fn = steps_lib.make_decode_step_slots(cfg)
     # the admission prefill's scalar-pos cache (int8 for an int8 KV cache):
@@ -305,7 +347,8 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
     # warm-up outside the timed region (kernel build, first launches) on a
     # throwaway slot cache; all-padding slots graft nothing
     warm = tf.init_cache(cfg, batch, cache_len, per_slot=True, device=dev, **slot_kw)
-    _, warm_mini = prefill_fn(params, zeros((batch, len(prompts[0])), torch.int32), mini())
+    _, warm_mini = prefill_fn(params, zeros((batch, len(prompts[0])), torch.int32), mini(),
+                              **_prefill_extras(cfg, rng, batch, 0, dev))
     if paged:
         zc = zeros(1, torch.int64)
         tf.graft_pages(warm, warm_mini, zc, zc, zc, zc)
@@ -416,8 +459,11 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
         list the unshared suffix tokens to graft; then, once every member
         has matched and registered, resolve each member's first-write page
         (copy a shared one on write, unpublish an owned one).  Returns
-        (placed flags, requeued request ids, graft coordinates, CoW pairs)."""
-        need = plen // page_size + 1  # through the first decode write
+        (placed flags, requeued request ids, graft coordinates, CoW pairs).
+        A vlm member's pages hold its patch prefix in front of the prompt:
+        total = n_prefix + plen positions."""
+        total = plen + n_prefix
+        need = total // page_size + 1  # through the first decode write
         placed, requeue = [True] * len(group), []
         coords = ([], [], [], [])
         cow = ([], [])
@@ -425,11 +471,11 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
         for i, (s, rid, adm, n_em) in enumerate(group):
             will_decode = gen_lens[rid] - n_em - 1 > 0
             while True:
-                matched, covered = alloc.match_prefix(adm) if prefix_reuse else ([], 0)
+                matched, covered = alloc.match_prefix(adm) if share else ([], 0)
                 # a matched partial page is an exact tail: it covers the
                 # whole prompt, so the graft never appends into a shared page
-                assert covered == plen or covered % page_size == 0, (covered, plen)
-                cow_tail = will_decode and covered == plen and plen % page_size != 0
+                assert covered == total or covered % page_size == 0, (covered, total)
+                cow_tail = will_decode and covered == total and total % page_size != 0
                 need_new = need - len(matched) + (1 if cow_tail else 0)
                 if need_new + cow_reserve <= alloc.free_pages():
                     break
@@ -446,13 +492,13 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
             plist = matched + alloc.alloc(need - len(matched))
             if cow_tail:
                 cow_reserve += 1
-            if prefix_reuse:
+            if share:
                 alloc.register_prefix(adm, plist[:-(-plen // page_size)])
             slot_pages[s] = plist
-            for p in range(covered, plen):
+            for p in range(covered, total):
                 for c, val in zip(coords, (i, p, plist[p // page_size], p % page_size)):
                     c.append(val)
-        widx = plen // page_size
+        widx = total // page_size
         for i, (s, rid, adm, n_em) in enumerate(group):
             if not placed[i] or gen_lens[rid] - n_em - 1 <= 0:
                 continue
@@ -520,16 +566,16 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
                 em = stats["outputs"][rid]
                 adm = np.concatenate([base, np.asarray(em, np.int32)]) if em else base
                 if paged:
-                    need = len(adm) // page_size + 1
+                    total = len(adm) + n_prefix
+                    need = total // page_size + 1
                     if need > num_pages - 1:
                         pending.popleft()
                         stats["status"][rid] = "rejected"
                         stats["rejections"] += 1
                         continue
-                    matched, covered = (alloc.match_prefix(adm) if prefix_reuse
-                                        else ([], 0))
+                    matched, covered = alloc.match_prefix(adm) if share else ([], 0)
                     need_new = need - len(matched)
-                    if covered == len(adm) and len(adm) % page_size:
+                    if covered == total and total % page_size:
                         need_new += 1  # the first decode write copies the tail
                     if not alloc.can_admit(page_size * (need_new + reserved),
                                            reclaimable=reclaimable()):
@@ -549,14 +595,15 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
             for i, (s, _, adm, _) in enumerate(group):
                 block[i] = adm
                 slots[i] = s
-            tok0, filled = prefill_fn(params, torch.from_numpy(block).to(dev), mini())
+            tok0, filled = prefill_fn(params, torch.from_numpy(block).to(dev), mini(),
+                                      **_prefill_extras(cfg, rng, batch, 0, dev))
             stats["prefills"] += 1
             placed = [True] * len(group)
             if paged:
                 placed, requeue, coords, cow = place_paged(group, slots, plen)
                 rows = [i for i in range(len(group)) if placed[i]]
                 if rows:
-                    cache["pos"][torch.from_numpy(slots[rows]).to(dev)] = plen
+                    cache["pos"][torch.from_numpy(slots[rows]).to(dev)] = plen + n_prefix
                 if cow[0]:
                     # matched pages are resident: copy before the graft,
                     # which only writes fresh pages
@@ -586,7 +633,7 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
                     active[s] = True
                     slot_req[s] = rid
                     slot_left[s] = rem
-                    slot_pos[s] = plen
+                    slot_pos[s] = plen + n_prefix
                     slot_admit_seq[s] = admit_seq
                     admit_seq += 1
                 elif paged:
@@ -603,7 +650,7 @@ def _serve_continuous(cfg, params, prompts, gen_lens, batch, eos, dev, page_size
     return _finalize(stats, occ, dt)
 
 
-def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None,
+def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, seed, page_size=None,
                  pool_pages=None) -> dict:
     """Batch-at-a-time: FIFO groups of `batch` requests, one (batch, T)
     prefill each (padding rows included), then lockstep decode on a
@@ -611,15 +658,16 @@ def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None
     idles until then.
 
     Paged (page_size): each group gets a fresh pool and allocator; its live
-    rows take the pages prompt + first decode write need, grow on demand at
-    page boundaries, and the group is capped so every member's reservation
-    fits the pool.  A growth that finds no free page preempts the newest
+    rows take the pages prompt (behind the vlm's patch prefix) + first
+    decode write need, grow on demand at page boundaries, and the group is
+    capped so every member's reservation fits the pool.  A growth that finds no free page preempts the newest
     live member: its emitted tokens are discarded and its request re-served
     from the original prompt in a later group (a full recompute).  A row
     that already owns the whole pool and needs more is rejected; a prompt no
     pool could hold rejects every request.  Every group drain runs the
     allocator's leak check.  No prefix sharing: the capacity multiplier
-    stays 1.0."""
+    stays 1.0.  The group's prefill draws its vlm patches or audio frames;
+    the audio family's cache holds the encoder output for the decode steps."""
     nreq = len(prompts)
     prompt_len = len(prompts[0])
     if any(len(p) != prompt_len for p in prompts):
@@ -627,15 +675,19 @@ def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None
             "batch scheduler stacks prompts into one (batch, T) prefill and "
             "needs uniform prompt lengths; ragged prompts need --scheduler "
             "continuous (per-slot prefill)")
-    cache_len = max(len(p) + g for p, g in zip(prompts, gen_lens))
+    cache_len = _cache_len(cfg, prompts, gen_lens)
+    enc = cfg.encoder.n_frames if cfg.family == "audio" else 0
+    n_prefix = cfg.n_prefix if cfg.family == "vlm" else 0
+    rng = np.random.default_rng(seed + 1)  # the vlm's patches, the audio frames
     prefill_fn = steps_lib.make_prefill_step(cfg)
     decode_fn = steps_lib.make_serve_step(cfg)
     paged = page_size is not None
     if paged:
         max_pages = -(-cache_len // page_size)
         num_pages = pool_pages if pool_pages is not None else 1 + batch * max_pages
-        # pages through the first decode write; later writes grow on demand
-        need_admit = prompt_len // page_size + 1
+        # pages through the first decode write, the vlm's patch prefix
+        # included; later writes grow on demand
+        need_admit = (prompt_len + n_prefix) // page_size + 1
 
     pending = collections.deque(enumerate(prompts))  # FIFO
     stats = _new_stats(nreq)
@@ -648,9 +700,9 @@ def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None
         """A fresh cache for one group and, paged, its allocator and the
         live rows' page runs (padding rows point at the trash page)."""
         if not paged:
-            return tf.init_cache(cfg, batch, cache_len, device=dev), None, None
+            return tf.init_cache(cfg, batch, cache_len, device=dev, enc_frames=enc), None, None
         cache = tf.init_cache(cfg, batch, cache_len, page_size=page_size,
-                              num_pages=num_pages, device=dev)
+                              num_pages=num_pages, device=dev, enc_frames=enc)
         galloc = paging.PageAllocator(num_pages, page_size)
         row_pages = [galloc.alloc(need_admit) if i < nact else [] for i in range(batch)]
         table = np.zeros(tuple(cache["page_table"].shape), np.int32)
@@ -667,7 +719,7 @@ def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None
     # admission, not fail allocating the warm-up cache
     warm_tok, warm_cache = prefill_fn(
         params, torch.zeros((batch, prompt_len), dtype=torch.int32, device=dev),
-        group_cache(0)[0])
+        group_cache(0)[0], **_prefill_extras(cfg, rng, batch, enc, dev))
     warm_tok, warm_cache = decode_fn(params, warm_tok, warm_cache)
     warm_tok.cpu()
     del warm_tok, warm_cache
@@ -693,19 +745,20 @@ def _serve_batch(cfg, params, prompts, gen_lens, batch, eos, dev, page_size=None
         nact = len(group)
         block = np.stack([p for _, p in group]
                          + [np.zeros(prompt_len, np.int32)] * (batch - nact))
+        extras = _prefill_extras(cfg, rng, batch, enc, dev)
         cache, galloc, row_pages = group_cache(nact)
         if paged:
             # host mirror of the page table, copied to the card before a
             # decode step whenever it changed
             table = cache["page_table"].cpu().numpy()
             table_dirty = False
-        tok, cache = prefill_fn(params, torch.from_numpy(block).to(dev), cache)
+        tok, cache = prefill_fn(params, torch.from_numpy(block).to(dev), cache, **extras)
         stats["prefills"] += 1
         tok_np = tok.cpu().numpy()[:, 0]  # sync before stamping TTFT
         done = np.zeros(batch, bool)
         done[nact:] = True
         left = np.zeros(batch, np.int64)
-        row_pos = np.full(batch, prompt_len, np.int64)  # next write position
+        row_pos = np.full(batch, prompt_len + n_prefix, np.int64)  # next write position
 
         def release_row(i):
             nonlocal table_dirty

@@ -16,8 +16,11 @@ from repro_torch.models import transformer as tf
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, cache):
-        logits, cache = tf.prefill(params, tokens, cache, cfg)
+    """Greedy prefill: (params, tokens (B, T), cache, **extras) -> (token
+    (B, 1), cache); extras are the family's `patches` / `frames`."""
+
+    def prefill_step(params, tokens, cache, **extras):
+        logits, cache = tf.prefill(params, tokens, cache, cfg, **extras)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
 
     return prefill_step

@@ -48,24 +48,40 @@ def _tree(node, fn):
     return fn(node)
 
 
+#: the stacked per-layer groups of a params tree: the decoder-only stacks'
+#: "layers", the audio family's encoder and decoder blocks
+_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _depth(node) -> int:
+    """The leading (layer) extent of a stacked group."""
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return int(np.shape(node.values if _is_packed(node) else node)[0])
+
+
 def from_jax_params(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """`tree` is the dense-, moe-, rwkv- or hybrid-family params pytree of
-    `repro.models.transformer.init_params` with every leaf a numpy array
-    (e.g. `jax.tree.map(np.asarray, params)`), projection weights optionally
+    """`tree` is a params pytree of `repro.models.transformer.init_params`
+    (any family the port runs) with every leaf a numpy array (e.g.
+    `jax.tree.map(np.asarray, params)`), projection weights optionally
     packed by `layers.quantize_weights`.  Returns the port's params on
     `device`: the same leaf names and dtypes (f32 leaves of a bf16 model
     stay f32: an rwkv block's decay_w0 and u, a Mamba2 block's a_log,
-    dt_bias and d_skip; a MoE layer's router), with "layers" a list of
-    per-layer dicts (a MoE layer's (L, E, d, f) expert stacks become (E,
-    d, f), packed or not) whose
-    nested dicts (rwkv's "tm" / "cm", a Mamba2 block's "norm" /
-    "gate_norm") are sliced per layer too.  The hybrid family's
-    "shared_attn" (one block, not stacked) and "shared_lora" (stacked over
-    the shared block's occurrences, which the forward indexes) are carried
-    as they are."""
+    dt_bias and d_skip; a MoE layer's router), with every stacked group
+    ("layers"; the audio family's "enc_layers" and "dec_layers", whose
+    cross-attention "xattn", its norm "ln_x" and the MLP biases come along)
+    a list of per-layer dicts (a MoE layer's (L, E, d, f) expert stacks
+    become (E, d, f), packed or not) whose nested dicts (rwkv's "tm" /
+    "cm", a Mamba2 block's "norm" / "gate_norm") are sliced per layer too.
+    The hybrid family's "shared_attn" (one block, not stacked) and
+    "shared_lora" (stacked over the shared block's occurrences, which the
+    forward indexes) and the audio family's "enc_final_norm" are carried as
+    they are."""
     check_supported(cfg)
     out = {k: _tree(v, lambda a: to_tensor(a, device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_tree(tree["layers"], lambda a, i=i: to_tensor(np.asarray(a)[i], device))
-                     for i in range(cfg.n_layers)]
+           for k, v in tree.items() if k not in _STACKS}
+    for key in _STACKS:
+        if key in tree:
+            out[key] = [_tree(tree[key], lambda a, i=i: to_tensor(np.asarray(a)[i], device))
+                        for i in range(_depth(tree[key]))]
     return out

@@ -2,7 +2,9 @@
 attention through the flash kernel.
 
 Mirrors `repro.models.layers` (norms, rope, GQA attention over a dense or
-paged KV cache in the model dtype or int8, the SwiGLU and plain gelu MLPs,
+paged KV cache in the model dtype or int8 under the causal, prefix-LM or
+non-causal mask, cache-less attention (`attention_dispatch`: whisper's
+cross-attention), the SwiGLU, GeGLU and plain (biased) gelu MLPs,
 embedding).  Params are plain dicts of tensors with the reference's names
 and layouts: weights (d_in, d_out), cache (B, S, KVH, hd) or a page pool
 (num_pages, page_size, KVH, hd), q/k/v (B, T, H, hd).  Unlike the
@@ -125,6 +127,8 @@ class AttnConfig:
     head_dim: int
     rope_theta: float = 10000.0
     use_bias: bool = False
+    causal: bool = True
+    use_rope: bool = True
 
 
 def _normal(gen, shape, std, dtype, device):
@@ -216,8 +220,20 @@ def _expand_kv_lens(pos, t: int, b: int, h: int, device):
     return (pos.to(torch.int32) + t)[:, None].expand(b, h).reshape(b * h).contiguous()
 
 
+def attention_dispatch(q, k, v, *, causal: bool = True, prefix_len=None, groups: int = 1):
+    """Attention of cache-less operands, q (B, Tq, H, hd) over k/v (B, Tk,
+    KVH, hd) with groups = H // KVH, every row seeing all Tk keys (query t
+    at position t + Tk - Tq): the reference's `attention_dispatch` without a
+    q_offset, as whisper's cross-attention calls it (causal=False, the
+    encoder's K/V un-expanded)."""
+    b, tq, h, _ = q.shape
+    lens = torch.full((b * h,), k.shape[1], dtype=torch.int32, device=q.device)
+    return ops.flash_attention(q, k, v, kv_lens=lens, kv_groups=groups, causal=causal,
+                               prefix_len=prefix_len)
+
+
 def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
-                    cache: Optional[dict] = None, residual=None):
+                    cache: Optional[dict] = None, prefix_len=None, residual=None):
     """Returns (out, new_cache).  With a cache {"k", "v", "pos": int | (B,)},
     x is the new-token block appended at pos (each slot at its own position
     for a (B,) pos); writes are in place and new_cache["pos"] is pos + T.
@@ -229,9 +245,11 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
     - dense int8: k/v (B, S, KVH, hd) int8 with "k_scale"/"v_scale";
     - dense in the model dtype: k/v (B, S, KVH, hd).
 
-    The roped, un-expanded (B, T, KVH, hd) K/V blocks reach the write; int8
-    caches quantize them per (token, head) first.  `residual` is added in
-    the output projection's epilogue, so `out` already includes it."""
+    The roped (cfg.use_rope), un-expanded (B, T, KVH, hd) K/V blocks reach
+    the write; int8 caches quantize them per (token, head) first.  The mask
+    is cfg.causal's, with prefix_len's prefix-LM relaxation.  `residual` is
+    added in the output projection's epilogue, so `out` already includes
+    it."""
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     if cfg.use_bias:
@@ -242,9 +260,10 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
         q = blas.matmul(x, params["wq"])
         k = blas.matmul(x, params["wk"])
         v = blas.matmul(x, params["wv"])
-    q = rope(q.reshape(b, t, h, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, t, kv, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, t, kv, hd)
+    q, k, v = q.reshape(b, t, h, hd), k.reshape(b, t, kv, hd), v.reshape(b, t, kv, hd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     scales = {}
@@ -278,7 +297,8 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
         lens = torch.full((b * h,), t, dtype=torch.int32, device=x.device)
     out = ops.flash_attention(q, ck, cv, kv_lens=lens, kv_groups=h // kv,
                               k_scales=scales.get("k_scale"),
-                              v_scales=scales.get("v_scale"), page_table=page_table)
+                              v_scales=scales.get("v_scale"), page_table=page_table,
+                              causal=cfg.causal, prefix_len=prefix_len)
     out = blas.matmul_fused(out.reshape(b, t, h * hd), params["wo"], residual=residual)
     return out, new_cache
 
@@ -287,9 +307,10 @@ def attention_layer(params: dict, x, cfg: AttnConfig, *, positions,
 # MLP
 # --------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, dtype, device) -> dict:
-    """Weights only: no ported config has a biased MLP (`mlp` reads the
-    optional gelu biases of converted params)."""
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, dtype, device,
+             use_bias: bool = False) -> dict:
+    """Seeded random weights; the plain gelu MLP also gets zero biases
+    "b_up"/"b_down" when use_bias (whisper), as in the reference."""
     if kind in ("swiglu", "geglu"):
         return {
             "w_gate": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
@@ -298,8 +319,12 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str, dtype, device) 
         }
     if kind != "gelu":
         raise NotImplementedError(f"mlp kind {kind!r} is not ported (ROADMAP §1)")
-    return {"w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
-            "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device)}
+    p = {"w_up": _normal(gen, (d, d_ff), d ** -0.5, dtype, device),
+         "w_down": _normal(gen, (d_ff, d), d_ff ** -0.5, dtype, device)}
+    if use_bias:
+        p["b_up"] = torch.zeros(d_ff, dtype=dtype, device=device)
+        p["b_down"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
 
 
 def mlp(params: dict, x, kind: str = "swiglu", residual=None):

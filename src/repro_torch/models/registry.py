@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b", "moonshot-v1-16b-a3b", "grok-1-314b"]
+ARCH_IDS = ["stablelm-1.6b", "rwkv6-1.6b", "zamba2-1.2b", "moonshot-v1-16b-a3b", "grok-1-314b",
+            "paligemma-3b", "whisper-large-v3"]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -1,9 +1,15 @@
-"""Model assembly for the dense, moe, rwkv and hybrid families: params,
-forward, cache, prefill, decode.
+"""Model assembly for the dense, moe, rwkv, hybrid, vlm and audio families:
+params, forward, cache, prefill, decode.
 
 Mirrors `repro.models.transformer` for those families.  The moe family is
 the dense stack with `models.moe.moe_layer` in place of the MLP (its aux
-loss dropped: serving never reads it).  Params are a dict
+loss dropped: serving never reads it).  The vlm family (paligemma) is the
+dense stack with (stub) patch embeddings in front of the prompt, seen
+bidirectionally (the prefix-LM mask, prefix_len = n_prefix), text causal
+after them.  The audio family (whisper) is an encoder-decoder: a
+non-causal encoder over (stub) frame embeddings plus sinusoidal positions,
+and a decoder of causal self-attention, non-causal cross-attention to the
+encoder output and a biased gelu MLP, neither with rope.  Params are a dict
 with the reference's leaf names; where the reference stacks layers along a
 leading axis for `lax.scan`, the port keeps a Python list of per-layer dicts
 and loops over it.  The cache keeps the reference layouts: (L, B, S, KVH,
@@ -13,18 +19,23 @@ cfg.kv_cache_dtype is "int8".  It is updated IN PLACE: every function that
 takes a cache returns a dict over the same buffers.  The rwkv family keeps
 a recurrent state instead (`init_cache`), which forward replaces.  The
 hybrid family (zamba2) keeps per-layer Mamba2 states and one KV cache per
-occurrence of its shared attention block, all written in place.
+occurrence of its shared attention block, all written in place.  The audio
+family's cache holds the encoder output "enc" beside the decoder's K/V.
 
 Public API:
     init_params(cfg, seed, device)        -> params
     init_cache(cfg, batch, max_len, ...)  -> cache (dense or paged)
     insert_slots_cache / graft_pages / copy_pages -> admission and CoW
-    forward(params, tokens, cfg, cache)   -> (hidden (B, T, d), cache)
-    prefill(params, tokens, cache, cfg)   -> (last-position logits (B, V), cache)
+    forward(params, tokens, cfg, cache, patches=, frames=)
+                                          -> (hidden (B, T, d), cache)
+    prefill(params, tokens, cache, cfg, patches=, frames=)
+                                          -> (last-position logits (B, V), cache)
     decode_step(params, token, cache, cfg)-> (logits (B, V), cache)
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,15 +46,14 @@ from repro_torch.models.layers import AttnConfig
 
 #: families whose cache has one row per slot (the continuous scheduler, the
 #: paged cache and speculation need it), as the reference lists them; rwkv
-#: and hybrid keep a recurrent state.  Of these the port runs dense and moe
-#: (check_supported).
+#: and hybrid keep a recurrent state, audio a batch-wide scalar position.
 SLOT_CACHE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for config options this slice of the port does not run."""
     unported = {
-        "family": cfg.family not in ("dense", "moe", "rwkv", "hybrid"),
+        "family": cfg.family not in ("dense", "moe", "rwkv", "hybrid", "vlm", "audio"),
         "qk_norm": cfg.qk_norm,
         "parallel_block": cfg.parallel_block,
         "kv_cache_dtype": cfg.kv_cache_dtype not in ("model", "int8"),
@@ -54,20 +64,21 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.arch_id}: {bad} not ported yet (ROADMAP §1)")
 
 
-def _attn_cfg(cfg: ModelConfig) -> AttnConfig:
+def _attn_cfg(cfg: ModelConfig, causal: bool = True) -> AttnConfig:
+    """The audio family never ropes (reference transformer.py:36-48)."""
     return AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
                       head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-                      use_bias=cfg.use_bias)
+                      use_bias=cfg.use_bias, causal=causal, use_rope=cfg.family != "audio")
 
 
-def dense_block(params, x, cfg: ModelConfig, *, positions, cache=None):
+def dense_block(params, x, cfg: ModelConfig, *, positions, cache=None, prefix_len=None):
     """Returns (x, new_cache).  Both skip connections ride the fused
     epilogues of the wo and w_down projections; the moe family adds its
     MoE layer's output to the attention's instead (reference
-    transformer.py:91-93)."""
+    transformer.py:91-93).  prefix_len: the vlm prefill's prefix-LM mask."""
     a, new_cache = layers.attention_layer(
         params["attn"], layers.apply_norm(params["ln1"], x, cfg.norm),
-        _attn_cfg(cfg), positions=positions, cache=cache, residual=x)
+        _attn_cfg(cfg), positions=positions, cache=cache, prefix_len=prefix_len, residual=x)
     h = layers.apply_norm(params["ln2"], a, cfg.norm)
     if cfg.family == "moe":
         m, _ = moe.moe_layer(params["ffn"], h, cfg.moe, cfg.act)
@@ -101,6 +112,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         return params
     if cfg.family == "hybrid":
         return _init_hybrid(gen, cfg, params, dtype, device)
+    if cfg.family == "audio":
+        return _init_audio(gen, cfg, params, dtype, device)
+
     def ffn():
         if cfg.family == "moe":
             return moe.init_moe(gen, d, cfg.moe, cfg.act, dtype, device)
@@ -113,6 +127,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
          "ln2": layers.init_norm(d, cfg.norm, dtype, device)}
         for _ in range(cfg.n_layers)
     ]
+    return params
+
+
+def _init_audio(gen: torch.Generator, cfg: ModelConfig, params: dict, dtype, device) -> dict:
+    """Encoder blocks (non-causal self-attention, the MLP), decoder blocks
+    (causal self-attention "attn", non-causal cross-attention "xattn" with
+    its norm "ln_x", the MLP) and the encoder's final norm, as the
+    reference's init_encoder_block / init_decoder_block."""
+    d = cfg.d_model
+
+    def norm():
+        return layers.init_norm(d, cfg.norm, dtype, device)
+
+    def attn():
+        return layers.init_attention(gen, _attn_cfg(cfg), dtype, device)
+
+    def ffn():
+        return layers.init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, device, cfg.use_bias)
+
+    params["enc_layers"] = [{"ln1": norm(), "ln2": norm(), "attn": attn(), "ffn": ffn()}
+                            for _ in range(cfg.encoder.n_layers)]
+    params["dec_layers"] = [{"ln1": norm(), "ln_x": norm(), "ln2": norm(), "attn": attn(),
+                             "xattn": attn(), "ffn": ffn()} for _ in range(cfg.n_layers)]
+    params["enc_final_norm"] = norm()
     return params
 
 
@@ -147,11 +185,21 @@ def _init_hybrid(gen: torch.Generator, cfg: ModelConfig, params: dict, dtype, de
 # Forward
 # --------------------------------------------------------------------------
 
-def forward(params, tokens, cfg: ModelConfig, cache=None):
-    """tokens (B, T) int.  Returns (final-normed hidden (B, T, d), cache)."""
+def forward(params, tokens, cfg: ModelConfig, cache=None, *, patches=None, frames=None):
+    """tokens (B, T) int, with the family extras: the vlm's patches (B,
+    n_prefix, d) in front of the tokens (a prefill: the decode step finds
+    them in the cache), the audio family's frames (B, F, d) for its encoder
+    (a prefill, or a cache-less forward; a decode step reads the encoder
+    output from cache["enc"]).  Returns (final-normed hidden (B, T', d),
+    cache), T' = n_prefix + T where patches were given."""
     b, t = tokens.shape
     x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
     pos = cache["pos"] if cache is not None else 0
+    prefix_len = None
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        t = x.shape[1]
+        prefix_len = cfg.n_prefix
     if cfg.family == "rwkv":
         states = []
         for i, lp in enumerate(params["layers"]):
@@ -164,6 +212,9 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
             new_cache = {grp: {k: torch.stack([st[grp][k] for st in states])
                                for k in cache[grp]} for grp in ("tm", "cm")}
             new_cache["pos"] = pos + t
+        return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
+    if cfg.family == "audio":
+        x, new_cache = _audio_forward(params, x, frames, cfg, cache)
         return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
     steps = torch.arange(t, device=tokens.device)
     if isinstance(pos, int):
@@ -183,7 +234,7 @@ def forward(params, tokens, cfg: ModelConfig, cache=None):
             lc = {**{k: cache[k][i] for k in keys}, "pos": pos}
             if "page_table" in cache:
                 lc["page_table"] = cache["page_table"]
-        x, _ = dense_block(lp, x, cfg, positions=positions, cache=lc)
+        x, _ = dense_block(lp, x, cfg, positions=positions, cache=lc, prefix_len=prefix_len)
     new_cache = None if cache is None else {**cache, "pos": pos + t}
     return layers.apply_norm(params["final_norm"], x, cfg.norm), new_cache
 
@@ -241,6 +292,98 @@ def _shared_attn_block(params, x, cfg: ModelConfig, positions, occ: int, cache=N
     return x, new_cache
 
 
+def sinusoidal(t: int, d: int, dtype, device) -> torch.Tensor:
+    """Whisper-style positions (t, d): sin then cos of pos * 10000^(-2i/d),
+    computed in f32 and rounded to dtype, as the reference's."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    return torch.cat([torch.sin(pos * div), torch.cos(pos * div)], dim=-1).to(dtype)
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """The audio encoder: frames (B, F, d) (the stub frontend's embeddings)
+    plus sinusoidal positions through the non-causal blocks and the final
+    norm -> (B, F, d)."""
+    b, f, d = frames.shape
+    x = frames + sinusoidal(f, d, frames.dtype, frames.device)[None]
+    for lp in params["enc_layers"]:
+        x = encoder_block(lp, x, cfg)
+    return layers.apply_norm(params["enc_final_norm"], x, cfg.norm)
+
+
+def encoder_block(params, x, cfg: ModelConfig):
+    """One encoder block: non-causal self-attention, the MLP, both with their
+    residuals in the fused epilogues."""
+    f = x.shape[1]
+    h, _ = layers.attention_layer(params["attn"], layers.apply_norm(params["ln1"], x, cfg.norm),
+                                  _attn_cfg(cfg, causal=False),
+                                  positions=torch.arange(f, device=x.device), residual=x)
+    return layers.mlp(params["ffn"], layers.apply_norm(params["ln2"], h, cfg.norm), cfg.act,
+                      residual=h)
+
+
+def decoder_block(params, x, enc, cfg: ModelConfig, *, positions, cache=None):
+    """One decoder block: causal self-attention (over the cache when given),
+    cross-attention from every decoder token to the encoder output (K/V
+    projected from enc on every call, as the reference does; non-causal,
+    every row over all F frames), the MLP.  Returns (x, new_cache)."""
+    h, new_cache = layers.attention_layer(
+        params["attn"], layers.apply_norm(params["ln1"], x, cfg.norm), _attn_cfg(cfg),
+        positions=positions, cache=cache, residual=x)
+    hx = layers.apply_norm(params["ln_x"], h, cfg.norm)
+    xp = params["xattn"]
+    if cfg.use_bias:
+        q = blas.matmul_fused(hx, xp["wq"], bias=xp["bq"])
+        k = blas.matmul_fused(enc, xp["wk"], bias=xp["bk"])
+        v = blas.matmul_fused(enc, xp["wv"], bias=xp["bv"])
+    else:
+        q, k, v = blas.matmul(hx, xp["wq"]), blas.matmul(enc, xp["wk"]), blas.matmul(enc, xp["wv"])
+    b, t, _ = hx.shape
+    f = enc.shape[1]
+    ho = layers.attention_dispatch(q.reshape(b, t, cfg.n_heads, cfg.hd),
+                                   k.reshape(b, f, cfg.n_kv, cfg.hd),
+                                   v.reshape(b, f, cfg.n_kv, cfg.hd), causal=False,
+                                   groups=cfg.n_heads // cfg.n_kv)
+    x = blas.matmul_fused(ho.reshape(b, t, cfg.n_heads * cfg.hd), xp["wo"], residual=h)
+    x = layers.mlp(params["ffn"], layers.apply_norm(params["ln2"], x, cfg.norm), cfg.act,
+                   residual=x)
+    return x, new_cache
+
+
+def _audio_forward(params, x_dec, frames, cfg: ModelConfig, cache=None):
+    """Whisper (reference transformer.py:361-444): the encoder over frames
+    when they are given (its output written into cache["enc"] IN PLACE when
+    there is a cache), else the encoder output cache["enc"]; then the
+    decoder with sinusoidal positions (the table over the cache's length,
+    sliced at pos, when there is a cache).  The reference decides by
+    whether the cache holds "enc", which its init_cache always allocates,
+    so its serve never runs the encoder (ROADMAP §3); the port encodes
+    whatever frames it is given."""
+    b, t, d = x_dec.shape
+    if frames is not None:
+        enc = encode(params, frames.to(x_dec.dtype), cfg)
+        if cache is not None:
+            cache["enc"].copy_(enc)
+    elif cache is not None:
+        enc = cache["enc"]
+    else:
+        raise ValueError("the audio family needs frames, or a cache holding the encoder output")
+    if cache is not None:
+        pos = cache["pos"]
+        pe = sinusoidal(cache["k"].shape[2], d, x_dec.dtype, x_dec.device)
+        start = min(max(pos, 0), pe.shape[0] - t)  # the reference's dynamic_slice clamp
+        x = x_dec + pe[start:start + t][None]
+        positions = torch.arange(t, device=x_dec.device) + pos
+    else:
+        x = x_dec + sinusoidal(t, d, x_dec.dtype, x_dec.device)[None]
+        positions = torch.arange(t, device=x_dec.device)
+    for i, lp in enumerate(params["dec_layers"]):
+        lc = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i], "pos": pos}
+        x, _ = decoder_block(lp, x, enc, cfg, positions=positions, cache=lc)
+    return x, (None if cache is None else {**cache, "pos": pos + t})
+
+
 def _logits_chunk(params, x, cfg: ModelConfig):
     """LM head in f32: products of the stored values summed in f32, as the
     reference's einsum with preferred_element_type=f32.  A plain matmul
@@ -261,7 +404,7 @@ _KV_KEYS = ("k", "v", "k_scale", "v_scale")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
-               page_size: int = 0, num_pages=None, device="cuda") -> dict:
+               page_size: int = 0, num_pages=None, device="cuda", enc_frames: int = 0) -> dict:
     """Zeroed KV cache.  per_slot=True gives a (batch,) int32 "pos"
     (continuous batching: every slot at its own position); otherwise "pos"
     is a Python int shared by every row.
@@ -282,7 +425,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fals
     dtype, "h": (L, B, NH, N, P) f32}, "attn" {"k", "v": (max(n_occ, 1),
     B, max_len, KVH, hd) in the model dtype} and a scalar "pos"; no
     per-slot or paged form, and kv_cache_dtype="int8" leaves it in the
-    model dtype, as the reference builds it."""
+    model dtype, as the reference builds it.
+
+    The audio family's: "enc" (B, enc_frames or encoder.n_frames, d), the
+    decoder's "k"/"v" (L, B, max_len, KVH, hd), all in the model dtype
+    (kv_cache_dtype="int8" too, as the reference builds it), and a scalar
+    "pos"; no per-slot or paged form."""
     check_supported(cfg)
     if per_slot and cfg.family not in SLOT_CACHE_FAMILIES:
         raise ValueError(f"per-slot cache supports families {SLOT_CACHE_FAMILIES}, "
@@ -307,6 +455,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fals
                           "h": torch.zeros((n, batch, nh, s.d_state, s.head_dim),
                                            dtype=torch.float32, device=device)},
                 "attn": {key: torch.zeros(kv_shape, dtype=dt, device=device) for key in "kv"},
+                "pos": 0}
+    if cfg.family == "audio":
+        dt = cfg.torch_dtype
+        kv_shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
+        return {"enc": torch.zeros((batch, enc_frames or cfg.encoder.n_frames, cfg.d_model),
+                                   dtype=dt, device=device),
+                **{key: torch.zeros(kv_shape, dtype=dt, device=device) for key in "kv"},
                 "pos": 0}
     if page_size:
         max_pages = -(-max_len // page_size)
@@ -364,10 +519,11 @@ def copy_pages(cache: dict, src, dst) -> dict:
     return cache
 
 
-def prefill(params, tokens, cache, cfg: ModelConfig):
-    """Run the prompt block through the model, filling the cache.
+def prefill(params, tokens, cache, cfg: ModelConfig, *, patches=None, frames=None):
+    """Run the prompt block (behind the vlm's patches, beside the audio
+    family's frames) through the model, filling the cache.
     Returns (last-position logits (B, V), cache)."""
-    x, cache = forward(params, tokens, cfg, cache=cache)
+    x, cache = forward(params, tokens, cfg, cache=cache, patches=patches, frames=frames)
     return _logits_chunk(params, x[:, -1:, :], cfg)[:, 0], cache
 
 

@@ -19,8 +19,11 @@ tests/test_torch_kv.py runs it) and to the port's plain version:
 - `_mma_model`: the tensor-core prefill's rounding: online softmax over
   64-key tiles in the log2 domain, the D^-0.5 scale on the f32 scores after
   the product, int8 scales folded into score and P columns, P rounded to
-  bf16 for P V.  Within bf16's rtol = atol = 1.6e-2 of the Pallas kernel
-  (chip_smoke.py's per-launch gate) at the smoke model's widths.
+  bf16 for P V, under the causal, prefix-LM and non-causal masks (keys
+  below `attention.visible_prefix` seen by every query).  Within bf16's
+  rtol = atol = 1.6e-2 of the Pallas kernel (chip_smoke.py's per-launch
+  gate) at the smoke model's widths, and bitwise independent of S under
+  every mask.
 """
 
 import jax.numpy as jnp
@@ -100,7 +103,7 @@ def test_plan_of_a_pool_is_the_plan_of_its_dense_cache(s, tq, dtype):
             assert pooled[:3] == dense[:3]
 
 
-@pytest.mark.parametrize("d", [8, 48, 96, 256])
+@pytest.mark.parametrize("d", [8, 48, 96, 512])
 def test_plan_refuses_head_dims_without_a_kernel(d):
     for tq, dtype in ((1, BF16), (128, BF16), (128, F32)):
         with pytest.raises(NotImplementedError, match="head dim"):
@@ -223,9 +226,9 @@ def _splitkv_model(q, cache, table, kv_lens, chunk):
     return out
 
 
-def _pallas(q, cache, table, kv_lens, groups, *, dtype=jnp.float32, block_k=64):
+def _pallas(q, cache, table, kv_lens, groups, *, dtype=jnp.float32, block_k=64, **mask):
     kw = dict(kv_lens=jnp.asarray(kv_lens), kv_groups=groups, interpret=True,
-              block_k=cache["k"].shape[1] if table is not None else block_k)
+              block_k=cache["k"].shape[1] if table is not None else block_k, **mask)
     if table is not None:
         kw["page_table"] = jnp.asarray(table)
     if "k_scales" in cache:
@@ -236,14 +239,15 @@ def _pallas(q, cache, table, kv_lens, groups, *, dtype=jnp.float32, block_k=64):
     return np.asarray(jattention.attention(jnp.asarray(q, dtype), k, v, **kw), np.float32)
 
 
-def _reference(q, cache, table, kv_lens, dtype=F32):
+def _reference(q, cache, table, kv_lens, dtype=F32, **mask):
     t = _torch(cache)
     if "k_scales" not in t:
         t["k"], t["v"] = t["k"].to(dtype), t["v"].to(dtype)
     return attention.reference(torch.from_numpy(q).to(dtype), t["k"], t["v"],
                                torch.from_numpy(kv_lens), k_scales=t.get("k_scales"),
                                v_scales=t.get("v_scales"),
-                               page_table=None if table is None else torch.from_numpy(table))
+                               page_table=None if table is None else torch.from_numpy(table),
+                               **mask)
 
 
 SPLITKV_CASES = [  # (lens, heads, kv heads, int8, page size)
@@ -290,13 +294,15 @@ def test_splitkv_model_bits_do_not_depend_on_the_cache_length(int8, page_size):
 # (c) the tensor-core prefill's rounding
 # --------------------------------------------------------------------------
 
-def _mma_model(q, cache, table, kv_lens, bk=64):
-    """Route "mma" in plain PyTorch: q (B, Tq, H, D) bf16 -> bf16."""
+def _mma_model(q, cache, table, kv_lens, bk=64, causal=True, prefix_len=None):
+    """Route "mma" in plain PyTorch: q (B, Tq, H, D) bf16 -> bf16, keys
+    below `attention.visible_prefix` seen by every query."""
     b, tq, h, d = q.shape
     kvh = cache["k"].shape[2]
     s = cache["k"].shape[1] * (table.shape[1] if table is not None else 1)
     g, c = h // kvh, d ** -0.5 * float(np.log2(np.e))
     int8 = "k_scales" in cache
+    prefix = attention.visible_prefix(s, causal, prefix_len)
     out = torch.empty(b, tq, h, d, dtype=BF16)
     for bi in range(b):
         for hi in range(h):
@@ -313,7 +319,8 @@ def _mma_model(q, cache, table, kv_lens, bk=64):
                 if int8:
                     sc = sc * _gathered(cache["k_scales"], table)[bi, k0:j1, hi // g, 0]
                 kpos = torch.arange(k0, j1)
-                sc = torch.where(kpos[None, :] <= qpos[:, None], sc * c, NEG_INF)
+                seen = (kpos[None, :] <= qpos[:, None]) | (kpos[None, :] < prefix)
+                sc = torch.where(seen, sc * c, NEG_INF)
                 m_new = torch.maximum(m, sc.max(dim=1).values)
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(sc - m_new[:, None])
@@ -334,8 +341,15 @@ MMA_CASES = [  # (lens, Tq, heads, kv heads, int8, page size); the smoke model's
 ]
 
 
+#: the three masks: causal, prefix-LM over 90 keys (past some rows' query
+#: blocks, inside others'), non-causal
+MMA_MASKS = [dict(), dict(prefix_len=90), dict(causal=False)]
+
+
+@pytest.mark.parametrize("mask", MMA_MASKS, ids=["causal", "prefix", "noncausal"])
 @pytest.mark.parametrize("lens,tq,h,kvh,int8,page_size", MMA_CASES)
-def test_mma_model_stays_within_the_bf16_gate_of_pallas(lens, tq, h, kvh, int8, page_size):
+def test_mma_model_stays_within_the_bf16_gate_of_pallas(lens, tq, h, kvh, int8, page_size,
+                                                         mask):
     rng = np.random.default_rng(sum(lens) + tq + int8 + (page_size or 0))
     q, cache, table, kv_lens = _case(rng, lens, tq=tq, h=h, kvh=kvh, int8=int8,
                                      page_size=page_size)
@@ -343,11 +357,33 @@ def test_mma_model_stays_within_the_bf16_gate_of_pallas(lens, tq, h, kvh, int8, 
     if not int8:
         t = {n: x.to(BF16) for n, x in t.items()}
     qb = torch.from_numpy(q).to(BF16)
-    got = _mma_model(qb, t, table, kv_lens)
+    got = _mma_model(qb, t, table, kv_lens, **mask)
     assert torch.isfinite(got.float()).all()
     want = _pallas(qb.float().numpy(), cache if int8 else {n: x.float().numpy()
                                                            for n, x in t.items()},
-                   table, kv_lens, h // kvh, dtype=jnp.bfloat16)
+                   table, kv_lens, h // kvh, dtype=jnp.bfloat16, **mask)
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
-    torch.testing.assert_close(got.float(), _reference(q, cache, table, kv_lens, BF16).float(),
+    torch.testing.assert_close(got.float(),
+                               _reference(q, cache, table, kv_lens, BF16, **mask).float(),
                                **BF16_TOL)
+
+
+@pytest.mark.parametrize("mask", MMA_MASKS, ids=["causal", "prefix", "noncausal"])
+@pytest.mark.parametrize("page_size", [None, 7])
+def test_mma_model_bits_do_not_depend_on_the_cache_length(mask, page_size):
+    """Under every mask a row's bits depend on its kv length alone: a cache
+    far longer than every length (the non-causal launch's visible prefix
+    is S, which grows with it) gives the bits of the cache cut to the
+    longest, and the pool's bits are the dense cache's."""
+    rng = np.random.default_rng(5 + (page_size or 0))
+    lens = (130, 70, 100)
+    q, long, _, kv_lens = _case(rng, lens, tq=70, h=8, kvh=2, s=400)
+    cut = {n: torch.from_numpy(t[:, :max(lens)]).to(BF16) for n, t in long.items()}
+    qb = torch.from_numpy(q).to(BF16)
+    want = _mma_model(qb, cut, None, kv_lens, **mask)
+    longb = {n: torch.from_numpy(t).to(BF16) for n, t in long.items()}
+    assert torch.equal(_mma_model(qb, longb, None, kv_lens, **mask), want)
+    if page_size is not None:
+        pools, table = _paged(rng, long, lens, page_size)
+        poolsb = {n: torch.from_numpy(t).to(BF16) for n, t in pools.items()}
+        assert torch.equal(_mma_model(qb, poolsb, table, kv_lens, **mask), want)

@@ -98,7 +98,7 @@ def test_bgemm_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
 def test_attention_kernel_matches_plain(cuda, dtype, d):
     q, kv = _rand(cuda, dtype, 3, 5, 4, d), _rand(cuda, dtype, 3, 24, 2, d)
     kv[1, 12:] = float("nan")  # garbage past slot 1's length
@@ -156,10 +156,10 @@ def _kv_case(gen, dtype, int8, page_size, *, tq=1, h=4, kvh=2, d=64, lens=(37, 2
     return q, dense, paged, kv_lens
 
 
-def _attend(q, ops_kw, kv_lens, groups):
+def _attend(q, ops_kw, kv_lens, groups, **mask):
     return ops.flash_attention(q, ops_kw["k"], ops_kw["v"], kv_lens=kv_lens, kv_groups=groups,
                                k_scales=ops_kw.get("k_scales"), v_scales=ops_kw.get("v_scales"),
-                               page_table=ops_kw.get("page_table"))
+                               page_table=ops_kw.get("page_table"), **mask)
 
 
 @pytest.mark.cuda
@@ -213,11 +213,11 @@ ATTENTION_ROUTES = [("splitkv", torch.float32, 1, (150, 128, 9, 70)),
 @pytest.mark.parametrize("route,dtype,tq,lens", ATTENTION_ROUTES)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("page_size", [None, 7])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("groups", [1, 4])
 def test_attention_route_matches_plain(cuda, route, dtype, tq, lens, int8, page_size, d, groups):
     """Each route of `kernels.attention.plan` in every form (dense, paged,
-    int8, paged int8; D 16-128; G = H / KVH of 1 and 4): one launch counted
+    int8, paged int8; D 16-256; G = H / KVH of 1 and 4): one launch counted
     on the planned route, within TOL of the plain version, two launches
     bitwise equal, a paged launch bitwise the dense launch on the gathered
     cache."""
@@ -245,12 +245,20 @@ def test_attention_route_matches_plain(cuda, route, dtype, tq, lens, int8, page_
         assert torch.equal(got, _attend(q, gathered, kv_lens, groups))
 
 
+#: (causal, prefix_len): the causal mask, prefix-LM over 40 keys (inside
+#: some query blocks' causal range, past others'), non-causal
+MASKS = [dict(), dict(prefix_len=40), dict(causal=False)]
+MASK_IDS = ["causal", "prefix", "noncausal"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("dtype,tq", [(torch.float32, 1), (torch.bfloat16, 1),
                                       (torch.bfloat16, 5), (torch.float32, 5)])
-def test_attention_bits_do_not_depend_on_the_cache_length(cuda, dtype, tq):
+def test_attention_bits_do_not_depend_on_the_cache_length(cuda, dtype, tq, mask):
     """A cache four times longer than every kv length (garbage past them)
-    gives the bits of the same call on the cache cut to the longest."""
+    gives the bits of the same call on the cache cut to the longest, under
+    every mask (the non-causal launch's visible prefix is S)."""
     lens = (100, 37, 64)
     q, dense, _, kv_lens = _kv_case(cuda, dtype, False, None, tq=tq, h=4, kvh=2, lens=lens)
     long = {}
@@ -258,7 +266,47 @@ def test_attention_bits_do_not_depend_on_the_cache_length(cuda, dtype, tq):
         t = torch.full((3, 4 * max(lens), 2, 64), float("nan"), dtype=dtype, device="cuda")
         t[:, :max(lens)] = dense[name]
         long[name] = t
-    assert torch.equal(_attend(q, dense, kv_lens, 2), _attend(q, long, kv_lens, 2))
+    assert torch.equal(_attend(q, dense, kv_lens, 2, **mask), _attend(q, long, kv_lens, 2, **mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype,tq,lens", ATTENTION_ROUTES)
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [None, 7])
+@pytest.mark.parametrize("d,groups", [(64, 1), (64, 4), (256, 8)])
+def test_attention_masks_match_plain(cuda, route, dtype, tq, lens, mask, int8, page_size, d,
+                                     groups):
+    """Each route under the prefix-LM and non-causal masks and the causal
+    one, in every form, at D = 64 (whisper; GQA) and D = 256 (paligemma's
+    MQA, 8 query heads on 1 KV head): one launch counted on the planned
+    route and under its mask, within TOL of the plain version, two launches
+    bitwise equal, a paged launch bitwise the dense launch on the gathered
+    cache.  At Tq = 1 ("splitkv", no mask code) the three masks give the
+    same bits."""
+    from repro_torch.kernels import attention
+    h = 8
+    q, dense, paged, kv_lens = _kv_case(cuda, dtype, int8, page_size, tq=tq, h=h,
+                                        kvh=h // groups, d=d, lens=lens)
+    ops_kw = paged if paged is not None else dense
+    ops.reset_launch_counts()
+    got = _attend(q, ops_kw, kv_lens, groups, **mask)
+    assert ops.attention_routes() == {"splitkv": 0, "mma": 0, "ffma": 0, route: 1}
+    assert {k: n for k, n in ops.attention_masks().items() if n} == {
+        f"{route}/{attention.mask_name(**mask)}": 1}
+    with ops.reference_mode():
+        want = _attend(q, ops_kw, kv_lens, groups, **mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, _attend(q, ops_kw, kv_lens, groups, **mask))
+    if paged is not None:
+        table = paged["page_table"]
+        gathered = {k: attention.gather_pages(v, table).contiguous() for k, v in paged.items()
+                    if k != "page_table"}
+        assert torch.equal(got, _attend(q, gathered, kv_lens, groups, **mask))
+    if tq == 1:
+        assert torch.equal(got, _attend(q, ops_kw, kv_lens, groups))
 
 
 @pytest.mark.cuda
