@@ -81,10 +81,14 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              serve's attention launches are checked by route ("routes"
              lines: the bf16 serves' prefills on "mma" and decode steps on
              "splitkv", the f32 smoke serve's prefills on "ffma");
-9. blas    - the BLAS library (`repro_torch.core.blas`: gemm, gemv, dot,
-             nrm2, axpy) at full size in f64, f32 and bf16, each call held
+9. blas    - the BLAS library (`repro_torch.core.blas`: gemm, gemv,
+             batched_gemv, dot, nrm2, axpy) at full size in f64, f32 and
+             bf16 (batched_gemv: one A a member at (32, 2048, 2048) and
+             (4096, 32, 32), both ops, a broadcast A at (4, 8192, 8192), and
+             ops.bgemv's epilogue on a ragged (3, 257, 131)), each call held
              against its plain version and counted as one launch of its
-             kernel (gemm, gemv, blas1 reduce, blas1 axpy; a gemm also on
+             kernel (gemm, gemv, bgemv, blas1 reduce, blas1 axpy; a bgemv
+             also on the form its plan names, a gemm on
              the route its plan names: every dense f64 call on the f64
              tensor cores (16-byte copies, or 8-byte ones for odd K or N),
              bf16 on wgmma, where TMA cannot address it (odd K or N) on
@@ -257,6 +261,14 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              attention device launches by route and the wrappers' by mask
              (whisper: 64 "splitkv" a step, 96 "mma" a prefill; paligemma:
              18 and 18) and the step's bgemv calls (108; 256).
+38. attention_flat - flash attention on flat (BH, T, D) operands with
+             kv_lens None: a causal bf16 prefill (BH=64, T=1024, "mma"), a
+             decode over 4096 keys ("splitkv"), GQA g=4 over int8 K/V (both),
+             an f32 prefill ("ffma") and a prefix-LM prefill; driven once
+             with the counts set to 0 (one flat launch a case on its route),
+             each within TOL of its plain version, bitwise a second launch,
+             timed beside its bound, its plain version and sdpa; one flat GQA
+             call profiled: the attention kernel alone, no copy.
 
 Then a `done` line (the script's seconds), a `kernels` summary line, and as
 the last line
@@ -442,22 +454,37 @@ def _attn_name(mangled: str):
     """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' / 'ffma f32/f32 D=256
     16x8' for an attention kernel instantiation (csrc/attention_mma.cu,
     csrc/attention_splitkv.cu, csrc/attention.cu: query x key tile), with
-    ' prefix' for the prefix-LM / non-causal instantiation, else None."""
+    ' prefix' for the prefix-LM / non-causal instantiation and ' strided' for
+    the flat layout's (q and out strided), else None."""
     types = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32", "a": "int8"}
     masks = {"0": "", "1": " prefix"}
-    m = re.search(r"attention_mma_kernelI(13__nv_bfloat16|a)Li(\d+)ELb(\d)EE", mangled)
+    layouts = {"0": "", "1": " strided"}
+    m = re.search(r"attention_mma_kernelI(13__nv_bfloat16|a)Li(\d+)ELb(\d)ELb(\d)EE", mangled)
     if m:
-        return f"mma {types[m.group(1)]} D={m.group(2)}{masks[m.group(3)]}"
+        return f"mma {types[m.group(1)]} D={m.group(2)}{masks[m.group(3)]}{layouts[m.group(4)]}"
     m = re.search(r"attention_splitkv_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)EE",
                   mangled)
     if m:
         return f"splitkv {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} G{m.group(4)}"
     m = re.search(r"attention_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)ELi(\d+)"
-                  r"ELb(\d)EE", mangled)
+                  r"ELb(\d)ELb(\d)EE", mangled)
     if m:
         return (f"ffma {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} "
-                f"{m.group(4)}x{m.group(5)}{masks[m.group(6)]}")
+                f"{m.group(4)}x{m.group(5)}{masks[m.group(6)]}{layouts[m.group(7)]}")
     return None
+
+
+def _bgemv_name(mangled: str):
+    """'bgemv f32 [gate] [batched]' (csrc/bgemv.cu, op = A^T) or 'bgemv_rows
+    f64 [gate] [batched] rows=R' (csrc/bgemv_rows.cu, op = A, R rows a
+    warp) for a bgemv kernel instantiation, else None."""
+    m = re.search(r"(bgemv(?:_rows)?)_kernelI(f|d|13__nv_bfloat16)Lb(\d)ELb(\d)E(?:Li(\d+)E)?",
+                  mangled)
+    if m is None:
+        return None
+    kernel, t, gate, batched, rows = m.groups()
+    return (f"{kernel} {dict(f='f32', d='f64').get(t, 'bf16')}" + (" gate" if gate == "1" else "")
+            + (" batched" if batched == "1" else "") + (f" rows={rows}" if rows else ""))
 
 
 def _f64_config(mangled: str):
@@ -563,8 +590,8 @@ def phase_sass(lib: Path) -> dict:
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
             elif _f32_name(fn):
                 entry = f32_ptxas[_f32_name(fn)] = {}
-            elif "bgemv_kernel" in fn:
-                entry = bgemv_ptxas[re.sub(r".*bgemv_kernelI", "", fn)[:24]] = {}
+            elif _bgemv_name(fn):
+                entry = bgemv_ptxas[_bgemv_name(fn)] = {}
             elif re.search(r"qgemv\w*_kernel", fn):
                 entry = qgemv_ptxas[re.sub(r".*(qgemv\w*_kernel)I", r"\1 ", fn)[:40]] = {}
             elif "wkv6_" in fn:
@@ -610,10 +637,12 @@ def phase_sass(lib: Path) -> dict:
                for k, v in attn_ptxas.items() if "D=256" in k})
     f64_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
                   for k, v in f64_ptxas.items()}
+    bgemv_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                    for k, v in bgemv_ptxas.items()}
     emit("sass", what="DMMA in csrc/gemm_f64.cu's kernels (cuobjdump -sass); ptxas for them "
-         "and csrc/bgemv.cu's", dmma_total=sum(dmma.values()), dmma_per_kernel=dmma,
-         ptxas=f64_ptxas or "not built in this process", bgemv_ptxas=bgemv_ptxas,
-         f64_spill_bytes=f64_spills)
+         "and csrc/bgemv.cu's and csrc/bgemv_rows.cu's", dmma_total=sum(dmma.values()),
+         dmma_per_kernel=dmma, ptxas=f64_ptxas or "not built in this process",
+         bgemv_ptxas=bgemv_ptxas, f64_spill_bytes=f64_spills, bgemv_spill_bytes=bgemv_spills)
     (OUT / "sass_dmma.json").write_text(json.dumps({"dmma": dmma, "ptxas": f64_ptxas,
                                                     "bgemv_ptxas": bgemv_ptxas}, indent=1))
     f32_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
@@ -657,6 +686,10 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"f64 tensor-core kernels without DMMA: {dmma}")
     if any(f64_spills.values()):
         raise AssertionError(f"f64 tensor-core kernels spill: {f64_spills}")
+    if bgemv_ptxas and (len(bgemv_ptxas) != 36 or any(bgemv_spills.values())):
+        raise AssertionError(f"bgemv kernels (want 36: 3 dtypes x gate x batched, x 1 or 4 rows "
+                             f"a warp in bgemv_rows.cu) {sorted(bgemv_ptxas)}, spilling "
+                             f"{bgemv_spills}")
     return hgmma
 
 
@@ -836,7 +869,8 @@ def kernel_cases(dtype):
     def gemv_case(label, w, xx, lib, lib_call, *, w2=None, **kw):
         k, n = w.shape
         p = bgemv.plan(b, k, n, dtype, gate=w2 is not None)
-        return case("bgemv", label, lambda: ops.bgemv(w, xx, a2=w2, **kw), lib, lib_call,
+        return case("bgemv", label, lambda: ops.bgemv(w, xx, a2=w2, **kw, transpose_a=True), lib,
+                    lib_call,
                     nbytes(w, w2, xx, kw.get("bias"), kw.get("residual"))
                     + b * n * xx.element_size(), 2 * b * k * n * (2 if w2 is not None else 1),
                     plan=dict(tile=p.tile, splits=p.splits, rows=p.rows))
@@ -1190,10 +1224,11 @@ def profile_by_name(call, n: int, cpu: bool = True) -> dict:
             if e.device_type == DeviceType.CUDA and not re.search(SLEEP_KERNEL, e.key)}
 
 
-# each attention route's device kernel (csrc/attention_splitkv.cu,
-# csrc/attention_mma.cu, csrc/attention.cu)
+# each attention route's device kernel and its source
 ATTENTION_KERNELS = {"splitkv": "attention_splitkv_kernel", "mma": "attention_mma_kernel",
                      "ffma": "attention_kernel"}
+ATTENTION_SOURCES = {"splitkv": "attention_splitkv.cu", "mma": "attention_mma.cu",
+                     "ffma": "attention.cu"}
 
 
 def attention_profile_counts(by_name: dict, want: dict) -> dict:
@@ -1434,6 +1469,11 @@ def phase_profile_prefill(params, cfg, reps: int = 3, phase: str = "profile_pref
 # --------------------------------------------------------------------------
 
 D8K, N16K, N26 = 8192, 16384, 2 ** 26
+# batched GEMV's cases: one A a member at a BLAS size, many small members,
+# a broadcast A (per-member shapes before trans)
+BGEMV_MEMBERS = "per-member (32,2048,2048)"
+BGEMV_SMALL = "per-member (4096,32,32)"
+BGEMV_BROADCAST = "broadcast (8192,8192) x (4,8192)"
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 ODD = "odd (4095,4097)@(4097,4093)"
 
@@ -1489,6 +1529,32 @@ def blas_cases():
                     nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None, None)
         return make
 
+    def bgemv_case(dtype, b, m, n, seed, trans=False, batched=True, epi=False):
+        """batched_gemv (epi: ops.bgemv with bias, gelu and residual, which
+        batched_gemv does not take) of op(A) (m, n) a member, A ((b,) m, n)
+        or ((b,) n, m) under trans, and x (b, n); the library call is one
+        torch.bmm (F.linear for a broadcast A) on the same operands."""
+        from repro_torch.kernels import bgemv, ops
+        form = dict(form=bgemv.plan(b, n, m, dtype, trans=trans, batched=batched).form)
+
+        def make():
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            shape = ((b,) if batched else ()) + ((n, m) if trans else (m, n))
+            a, x = rnd(g, dtype, *shape, std=n ** -0.5), rnd(g, dtype, b, n)
+            op = a.transpose(-2, -1) if trans else a
+            out_b = b * op.shape[-2] * a.element_size()
+            flops = 2 * b * m * n
+            if epi:
+                bias, res = rnd(g, dtype, op.shape[-2]), rnd(g, dtype, b, op.shape[-2])
+                return (lambda: ops.bgemv(a, x, bias=bias, residual=res, activation="gelu",
+                                          transpose_a=trans), None,
+                        nbytes(a, x, bias, res) + out_b, flops, None, None, form)
+            lib = (lambda: torch.bmm(op, x[..., None])) if batched else (
+                lambda: F.linear(x, op))
+            return (lambda: blas.batched_gemv(a, x, trans=trans), lib, nbytes(a, x) + out_b,
+                    flops, None, None, form)
+        return make
+
     def level1_case(routine, dtype, n, seed, offset=0):
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1539,6 +1605,25 @@ def blas_cases():
         cases.append(("gemm", "gemm", ODD, dt, gemm_case(dt, 4095, 4097, 4093, 61 + i)))
     for i, dt in enumerate(DTYPES):
         cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
+    # batched GEMV (kernel 1's other forms): one A a member, both ops
+    for i, dt in enumerate(DTYPES):
+        for trans in (False, True):
+            cases.append(("bgemv", "batched_gemv", f"{BGEMV_MEMBERS} trans={trans}", dt,
+                          bgemv_case(dt, 32, 2048, 2048, 70 + 2 * i + trans, trans=trans)))
+    cases += [
+        ("bgemv", "batched_gemv", f"{BGEMV_SMALL} trans={trans}", torch.float64,
+         bgemv_case(torch.float64, 4096, 32, 32, 76 + trans, trans=trans))
+        for trans in (False, True)]
+    cases += [
+        ("bgemv", "batched_gemv", f"{BGEMV_BROADCAST} trans=False", torch.bfloat16,
+         bgemv_case(torch.bfloat16, 4, 8192, 8192, 78, batched=False)),
+        ("bgemv", "batched_gemv", f"{BGEMV_BROADCAST} trans=True", torch.float64,
+         bgemv_case(torch.float64, 4, 8192, 8192, 79, trans=True, batched=False)),
+        ("bgemv", "bgemv", "ragged (3,257,131) +bias gelu +residual trans=False", torch.float32,
+         bgemv_case(torch.float32, 3, 257, 131, 80, epi=True)),
+        ("bgemv", "bgemv", "ragged (3,257,131) +bias gelu +residual trans=True", torch.float64,
+         bgemv_case(torch.float64, 3, 257, 131, 81, trans=True, epi=True)),
+    ]
     cases += [
         ("gemv", "gemv", "ragged 16383x16385", torch.float32,
          gemv_case(torch.float32, 16383, 16385, 23)),
@@ -1582,6 +1667,8 @@ def phase_blas():
         want_rose = {kernel: 1}
         if kernel == "gemm":  # the route its plan names
             want_rose.update(launch_keys("gemm", route))
+        if kernel == "bgemv":  # the form its plan names
+            want_rose[f"bgemv_{route['form']}"] = 1
         diff = (got.double() - want.double()).abs()
         err = diff.max().item()
         finite = bool(torch.isfinite(got).all())
@@ -1610,12 +1697,12 @@ def phase_blas():
                  max_abs_err=err, tol=chk["tol"], within_tol=ok, launches_added=rose)
             raise AssertionError(f"blas {routine} [{case}] {dtype}: within_tol={ok}, "
                                  f"launches added {rose} (want {want_rose})")
-        chk["route"] = route and route["route"] + (" staged" if route["stage"] else "") + (
-            " copy=8B" if route["copy"] == 8 else "")
+        chk["route"] = route and (route["form"] if kernel == "bgemv" else route["route"] + (
+            " staged" if route["stage"] else "") + (" copy=8B" if route["copy"] == 8 else ""))
         del call, got, want, diff, planted
     counts = ops.launch_counts()
     emit("launches", run="blas", **counts)
-    for kernel in ("gemm", "gemv", "blas1_reduce", "blas1_axpy"):
+    for kernel in ("gemm", "gemv", "bgemv", "blas1_reduce", "blas1_axpy"):
         expected = sum(c[0] == kernel for c in cases)
         if counts[kernel] != expected:
             raise AssertionError(f"blas launches {counts}: {kernel} {counts[kernel]} != {expected}")
@@ -2532,7 +2619,8 @@ def phase_rwkv_kernels():
                 want = blas.matmul(x, w)
             torch.cuda.synchronize()
             rose = {k: n for k, n in counts.items() if n}
-            want_rose = {kernel: 1, **({"bgemm_wgmma": 1} if kernel == "bgemm" else {})}
+            want_rose = {kernel: 1, **({"bgemm_wgmma": 1} if kernel == "bgemm"
+                                       else {"bgemv_broadcast_t": 1})}
             if rows_t > 1:
                 plan = plan_of(4 * rows_t, d_in, d_out, torch.bfloat16)
             else:
@@ -3638,6 +3726,136 @@ def phase_attention_masks():
     return rows
 
 
+# flat (BH, T, D) attention (phase attention_flat): (label, BH, kv_groups,
+# Tq, S, D, q dtype, int8 K/V, mask, prefix_len), each with kv_lens None
+FLAT_CASES = [
+    ("flat causal prefill BH=64 T=1024 D=64", 64, 1, 1024, 1024, 64, torch.bfloat16, False,
+     "causal", 0),
+    ("flat decode BH=64 Tq=1 S=4096 D=64", 64, 1, 1, 4096, 64, torch.bfloat16, False,
+     "causal", 0),
+    ("flat GQA g=4 int8 K/V prefill BH=64 T=1024 D=64", 64, 4, 1024, 1024, 64, torch.bfloat16,
+     True, "causal", 0),
+    ("flat GQA g=4 int8 K/V decode BH=64 Tq=1 S=4096 D=64", 64, 4, 1, 4096, 64, torch.bfloat16,
+     True, "causal", 0),
+    ("flat f32 prefill BH=32 T=512 D=64", 32, 1, 512, 512, 64, torch.float32, False,
+     "causal", 0),
+    ("flat prefix-LM prefill BH=32 T=384 D=64 prefix 256", 32, 1, 384, 384, 64, torch.bfloat16,
+     False, "prefix", 256),
+]
+# the flat GQA call whose profile must show the attention launch alone
+FLAT_PROFILED = 2
+
+
+def flat_case(label, bh, g, tq, s, d, dtype, int8, seed):
+    """q (BH, Tq, D) and K/V (BH // g, S, D) on the card, in `dtype` or int8
+    with f32 scales (BH // g, S, 1); the same K/V dequantized to q's dtype
+    for sdpa."""
+    from repro_torch.core import quant
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(bh, tq, d, generator=gen, device="cuda").to(dtype)
+    kv, deq = {}, {}
+    for name in "kv":
+        x = torch.randn(bh // g, s, d, generator=gen, device="cuda")
+        if int8:
+            qt = quant.quantize_kv(x)
+            kv[name], kv[name + "_scales"] = qt.values, qt.scales
+            deq[name] = (qt.values.float() * qt.scales).to(dtype)
+        else:
+            kv[name] = deq[name] = x.to(dtype)
+    return q, kv, deq
+
+
+def phase_attention_flat():
+    """ops.flash_attention on flat (BH, T, D) operands with kv_lens None (the
+    reference's other layout): a causal bf16 prefill ("mma"), a decode over
+    4096 keys ("splitkv"), GQA g = 4 over int8 K/V at both, an f32 prefill
+    ("ffma") and a prefix-LM prefill.  The launch counts are set to 0, every
+    case is driven once, and each route it names must read one flat launch
+    a case (ops.attention_layouts()); then each case is held against its
+    plain version within TOL, bitwise a second launch, timed beside its
+    bound, its plain version and sdpa (the flat operands as (B, H, T, D)
+    views, a boolean mask for the prefix, GQA by enable_gqa) on the same
+    values; and one flat GQA call is profiled: its device launches are the
+    attention kernel alone (no copy of q, k or v, no fill of the lengths)."""
+    from repro_torch.kernels import attention, ops
+    inputs = [flat_case(label, bh, g, tq, s, d, dt, int8, 900 + i)
+              for i, (label, bh, g, tq, s, d, dt, int8, _, _) in enumerate(FLAT_CASES)]
+    calls = [lambda q=q, kv=kv, g=c[2], mask=c[8], prefix=c[9]: ops.flash_attention(
+        q, kv_groups=g, **kv, **mask_kw(mask, prefix)) for c, (q, kv, _) in zip(FLAT_CASES,
+                                                                                inputs)]
+    routes = [attention.plan(c[1] // c[2], c[3], c[2], 1, c[5], c[4], c[6], c[7]).route
+              for c in FLAT_CASES]
+    ops.reset_launch_counts()
+    outs = [call() for call in calls]
+    torch.cuda.synchronize()
+    layouts = {k: n for k, n in ops.attention_layouts().items() if n}
+    want = {f"{r}/flat": routes.count(r) for r in set(routes)}
+    emit("launches", run="attention_flat", by_route_layout=layouts, want=want)
+    if layouts != want:
+        raise AssertionError(f"attention_flat: launches by route/layout {layouts}, want {want}")
+    rows = {}
+    for c, (q, kv, deq), call, got, route in zip(FLAT_CASES, inputs, calls, outs, routes):
+        label, bh, g, tq, s, d, dtype, int8, mask, prefix = c
+        with ops.reference_mode():
+            want_out = call()
+        same_twice = bool(torch.equal(got, call()))
+        torch.cuda.synchronize()
+        err = (got.float() - want_out.float()).abs().max().item()
+        ok = (bool(torch.isfinite(got).all()) and got.shape == q.shape
+              and torch.allclose(got.float(), want_out.float(), **TOL[dtype]))
+        if not ok or not same_twice:
+            raise AssertionError(f"attention_flat [{label}]: max |kernel - plain| {err} "
+                                 f"(within {TOL[dtype]}: {ok}), bitwise twice {same_twice}")
+        del want_out
+        slots = bh // g
+        kv_bytes = slots * s * d * 2 * (1 if int8 else q.element_size()) + (
+            slots * s * 2 * 4 if int8 else 0)
+        nb = kv_bytes + 2 * nbytes(q)
+        pairs = visible_pairs([s] * slots, tq, g, mask, prefix)
+        b_ms, by = bound(nb, 4 * pairs * d, dtype)
+        ms = time_ms(call, iters=10)
+        with ops.reference_mode():
+            plain_ms = time_ms(call, iters=5)
+        q4 = q.view(slots, g, tq, d)
+        k4, v4 = (deq[n].view(slots, 1, s, d) for n in "kv")
+        sm = sdpa_mask([s] * slots, tq, s, mask, prefix) if mask == "prefix" else None
+        causal = mask == "causal" and tq > 1  # tq == s: sdpa's causal mask is the same
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=sm, is_causal=causal, enable_gqa=g > 1), iters=10)
+        row = dict(case=label, route=route, layout="flat", kv_groups=g, mask=mask,
+                   prefix_len=prefix or None, dtype=str(dtype).split(".")[1],
+                   kv="int8" if int8 else "dense", kv_lens=None, max_abs_err=err,
+                   tol=TOL[dtype], within_tol=ok, bitwise_equal_second_launch=same_twice,
+                   kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="sdpa on (B, H, T, D) views of the same values (int8 dequantized)",
+                   bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
+                   flops=4 * pairs * d)
+        emit("attention_flat", **row)
+        rows[label] = row
+        del q4, k4, v4, sm
+    # one flat GQA call, profiled: the attention kernel and nothing else
+    call, route = calls[FLAT_PROFILED], routes[FLAT_PROFILED]
+    pattern = ATTENTION_KERNELS[route]
+
+    def profiled():
+        by_name = profile_by_name(call, 1)
+        attn = sum(n for k, (_, n) in by_name.items() if re.search(pattern, k))
+        return by_name, {f"attention_{route}": (1, attn)}
+
+    by_name, counts, short = profile_until_whole(profiled)
+    others = {k: v for k, v in by_name.items() if not re.search(pattern, k)}
+    emit("profile_attention_flat", case=FLAT_CASES[FLAT_PROFILED][0], route=route,
+         device_kernels={k: {"ms": ms, "launches": n} for k, (ms, n) in by_name.items()},
+         counts=counts, profiles_read_short=short, other_kernels=list(others))
+    if counts[f"attention_{route}"][1] != 1 or others:
+        raise AssertionError(f"attention_flat profile: attention launches "
+                             f"{counts[f'attention_{route}'][1]} (want 1), other device "
+                             f"kernels {others}")
+    del inputs, calls, outs
+    torch.cuda.empty_cache()
+    return rows, layouts
+
+
 def family_inputs(cfg, rng, b: int = 4, prompt: int = 128):
     """A (b, prompt) token block and the family's stub frontend embeddings
     (f32, as serve draws them): paligemma's patches, whisper's frames."""
@@ -3985,6 +4203,7 @@ def main() -> int:
         del moe_params
         torch.cuda.empty_cache()
         mask_rows = phase_attention_masks()
+        flat_rows, flat_layouts = phase_attention_flat()
         family_smoke = phase_smoke_family()
         family = {}
         for arch, schedulers in ((VLM, ("continuous", "batch")), (AUDIO, ("batch",))):
@@ -4227,6 +4446,45 @@ def main() -> int:
                         "attention_route": r["route"], "launches_from": launches_from,
                         "head_dim": int(re.search(r"D=(\d+)", shape).group(1)),
                         "launches_head_dim": launches_head_dim})
+    # kernel 1's other forms (the BLAS library's batched GEMV), launches
+    # from the blas phase: op = A on csrc/bgemv_rows.cu, a per-member A on
+    # both bodies, f64 on the column body
+    for name, src, (routine, case), dtype, form in (
+            ("bgemv_batched_n", "bgemv_rows.cu", ("batched_gemv", f"{BGEMV_MEMBERS} trans=False"),
+             "float64", "batched_n"),
+            ("bgemv_batched_t", "bgemv.cu", ("batched_gemv", f"{BGEMV_MEMBERS} trans=True"),
+             "float64", "batched_t"),
+            ("bgemv_batched_n_small", "bgemv_rows.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=False"), "float64", "batched_n"),
+            ("bgemv_batched_t_small", "bgemv.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=True"), "float64", "batched_t"),
+            ("bgemv_broadcast_n", "bgemv_rows.cu",
+             ("batched_gemv", f"{BGEMV_BROADCAST} trans=False"), "bfloat16", "broadcast_n"),
+            ("bgemv_broadcast_t_f64", "bgemv.cu",
+             ("batched_gemv", f"{BGEMV_BROADCAST} trans=True"), "float64", "broadcast_t")):
+        r = blas_rows[(routine, case, dtype)]
+        summary.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": "src/repro/kernels/bgemv.py:230",
+                        "launches": blas_counts[f"bgemv_{form}"], "max_abs_err": r["max_abs_err"],
+                        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": f"{routine} {case}",
+                        "dtype": dtype, "form": form, "launches_from": "blas"})
+    # kernel 2's flat layout, launches from the attention_flat phase's run
+    for name, label in (("attention_mma_flat", FLAT_CASES[0][0]),
+                        ("attention_splitkv_flat", FLAT_CASES[1][0]),
+                        ("attention_mma_flat_gqa_int8", FLAT_CASES[2][0]),
+                        ("attention_ffma_flat", FLAT_CASES[4][0])):
+        r = flat_rows[label]
+        summary.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{ATTENTION_SOURCES[r['route']]}",
+                        "replaces": "src/repro/kernels/attention.py:329",
+                        "launches": flat_layouts[f"{r['route']}/flat"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "shape": label, "dtype": r["dtype"], "attention_route": r["route"],
+                        "layout": "flat", "launches_from": "attention_flat"})
     emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds,
          nvcc_seconds_by_file=_build.build_seconds_by_file)
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

@@ -51,7 +51,8 @@ def main() -> int:
             both = torch.cat([w, w2], 1) if gate else w
             act = "silu" if gate else None
             row[what] = {
-                "us": cs.time_ms(lambda: ops.bgemv(w, x, a2=w2, activation=act)) * 1e3,
+                "us": cs.time_ms(lambda: ops.bgemv(w, x, a2=w2, activation=act,
+                                                   transpose_a=True)) * 1e3,
                 "matmul_us": cs.time_ms(lambda: torch.matmul(x, both)) * 1e3}
     print(json.dumps(row), flush=True)
     return 0

@@ -12,6 +12,7 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py host
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py qgemv
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py odd
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_rows
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -89,6 +90,14 @@ every tile of `gemm.DMMA_TILES`; each checked against the plain version,
 beside the first CUDA-core kernel (csrc/gemm.cu) and torch.matmul.  The
 staged route's cost and the copy widths' come from these.
 
+bgemv_rows: the op = A body of bgemv (csrc/bgemv_rows.cu) at chip_smoke's
+batched-GEMV shapes (a broadcast (8192, 8192) against 4 rows of x in bf16,
+one (2048, 2048) A a member for 32 members in f64, f32 and bf16, and 4096
+members of (32, 32) in f64) with one warp a row taking 1 row and
+`bgemv.ROW_BLOCK` rows, and with 2-8 warps a row, each checked against the
+plain version; beside the plan's choice and torch.bmm / F.linear on the
+same operands.  `bgemv.ROW_BLOCK` comes from these.
+
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
 """
@@ -105,6 +114,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import chip_smoke as cs
 
@@ -208,7 +218,7 @@ def bgemv_sweep():
         w2 = (torch.randn(k, n, generator=g, device="cuda") * k ** -0.5).to(dt) if gate else None
         act = "silu" if gate else None
         with ops.reference_mode():
-            want = ops.bgemv(w, x, a2=w2, activation=act)
+            want = ops.bgemv(w, x, a2=w2, activation=act, transpose_a=True)
         out = torch.empty(4, n, dtype=dt, device="cuda")
         chosen = bgemv.plan(4, k, n, dt, gate=gate)
         plans = {}
@@ -245,6 +255,48 @@ QGEMV_SHAPES = [  # (what, batch, K, N, gate, x dtype)
     ("gemv 16384^2 f64", 1, 16384, 16384, False, torch.float64)]
 
 
+BGEMV_ROWS_SHAPES = [  # (what, batch, M, N, dtype, per-member A)
+    ("broadcast (8192,8192) x 4", 4, 8192, 8192, torch.bfloat16, False),
+    ("per-member (32,2048,2048)", 32, 2048, 2048, torch.float64, True),
+    ("per-member (32,2048,2048)", 32, 2048, 2048, torch.float32, True),
+    ("per-member (32,2048,2048)", 32, 2048, 2048, torch.bfloat16, True),
+    ("per-member (4096,32,32)", 4096, 32, 32, torch.float64, True)]
+
+
+def bgemv_rows_sweep():
+    from repro_torch.kernels import bgemv, ops
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for what, b, m, n, dt, batched in BGEMV_ROWS_SHAPES:
+        a = (torch.randn(*((b,) if batched else ()), m, n, generator=g, device="cuda")
+             * n ** -0.5).to(dt)
+        x = torch.randn(b, n, generator=g, device="cuda").to(dt)
+        with ops.reference_mode():
+            want = ops.bgemv(a, x)
+        out = torch.empty(b, m, dtype=dt, device="cuda")
+        chosen = bgemv.plan(b, n, m, dt, trans=False, batched=batched)
+        plans = [bgemv.Plan(0, 1, rows, batched, False, wpr)
+                 for wpr, rows in ((1, 1), (1, bgemv.ROW_BLOCK), (2, 1), (4, 1), (8, 1))]
+        us = {}
+        for p in plans:
+            def call(p=p):
+                return bgemv.run(a, x, out, p, w2=None, bias=None, residual=None, act_code=0,
+                                 dtype_code=ops._DTYPE_CODES[dt])
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
+                raise AssertionError(f"bgemv_rows: {p} at {what} {dt} disagrees with plain")
+            us[f"wpr={p.wpr} rows={p.rows} ({p.blocks(b, m)} blocks)"] = cs.time_ms(call) * 1e3
+        lib = (lambda: torch.bmm(a, x[..., None])) if batched else (lambda: F.linear(x, a))
+        nb = (a.numel() + x.numel() + b * m) * a.element_size()
+        print(json.dumps({"shape": what, "dtype": str(dt).split(".")[1],
+                          "plan": f"wpr={chosen.wpr} rows={chosen.rows}",
+                          "fastest": min(us, key=us.get), "us": us,
+                          "library_us": cs.time_ms(lib) * 1e3,
+                          "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
+        del a, x, want, out
+
+
 def qgemv_sweep():
     from repro_torch.core import quant
     from repro_torch.kernels import bgemv, ops
@@ -258,7 +310,7 @@ def qgemv_sweep():
         x = torch.randn(b, k, generator=g, device="cuda").to(dt)
         act = "silu" if gate else None
         with ops.reference_mode():
-            want = ops.bgemv(qw, x, a2=qw2, activation=act)
+            want = ops.bgemv(qw, x, a2=qw2, activation=act, transpose_a=True)
         out = torch.empty(b, n, dtype=dt, device="cuda")
         chosen = bgemv.plan_int8(b, k, n, dt, gate=gate)
         us = {}
@@ -290,7 +342,7 @@ def qgemv_sweep():
         if dt == torch.bfloat16:
             wd, w2d = w.to(dt), (w2.to(dt) if gate else None)
             row["dense_bgemv_us"] = cs.time_ms(
-                lambda: ops.bgemv(wd, x, a2=w2d, activation=act)) * 1e3
+                lambda: ops.bgemv(wd, x, a2=w2d, activation=act, transpose_a=True)) * 1e3
         print(json.dumps(row), flush=True)
 
 
@@ -302,7 +354,8 @@ def flush():
     bias = torch.randn(2048, generator=g, device="cuda").bfloat16()
     u = torch.randn(2 ** 26, generator=g, device="cuda", dtype=torch.float64)
     v = torch.randn(2 ** 26, generator=g, device="cuda", dtype=torch.float64)
-    calls = {"bgemv qkv 4x2048->2048 +bias": lambda: ops.bgemv(w, x, bias=bias),
+    calls = {"bgemv qkv 4x2048->2048 +bias":
+             lambda: ops.bgemv(w, x, bias=bias, transpose_a=True),
              "addmm qkv": lambda: torch.addmm(bias, x, w),
              "axpy f64 2^26": lambda: ops.axpy(0.75, u, v),
              "add f64 2^26": lambda: torch.add(v, u, alpha=0.75)}
@@ -512,7 +565,7 @@ def odd():
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
-            "host": host, "qgemv": qgemv_sweep, "odd": odd}
+            "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

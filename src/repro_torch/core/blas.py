@@ -110,16 +110,12 @@ def gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
 
 def batched_gemv(A: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                  alpha=1.0, beta=0.0, trans: bool = False) -> torch.Tensor:
-    """y[b] = alpha * A^T x[b] + beta * y[b] -> (batch, m) for a 2-D A
-    broadcast across the batch, streamed in its stored layout (bgemv).  A
-    packed A must be stored as the op (QuantSpec(transpose=trans))."""
-    if _quant.is_quantized(A):
-        return _alpha_beta(ops.bgemv(A, x, transpose_a=trans), alpha, beta, y)
-    if A.ndim != 2 or not trans:
-        raise NotImplementedError(
-            "batched_gemv: only a broadcast 2-D A with trans=True is ported "
-            "(ROADMAP §2: batched A, trans=False)")
-    return _alpha_beta(ops.bgemv(A, x, transpose_a=True), alpha, beta, y)
+    """Batched dgemv: y[b] = alpha * op(A[b]) x[b] + beta * y[b] -> (batch,
+    m), op = A or A^T (trans).  A is (batch, m, n), one matrix a member, or
+    (m, n) broadcast across the batch (before trans); either is streamed in
+    its stored layout by one bgemv launch, the op folded into the kernel.
+    A packed A must be stored as the op (QuantSpec(transpose=trans))."""
+    return _alpha_beta(ops.bgemv(A, x, transpose_a=trans), alpha, beta, y)
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,10 @@
 //     paged: k/v the pool (num_pages, P, KVH, D), page_table (B, max_pages),
 //            logical key s of slot b at pool[page_table[b, s / P], s % P]
 //     int8:  k/v int8, k_scales/v_scales in k's layout with D -> 1, f32
+//     flat (:234-238, :289-294): q, out (BH, Tq, D), k/v (BH / g, S, D),
+//            run as the view (B = BH / g, Tq, H = g, D) with head stride
+//            Tq * D and token stride D (the STRIDED instantiations, which
+//            take q's and out's strides as arguments) over k/v (B, S, 1, D)
 //
 // Query head h reads KV head h / (H / KVH).  Row r = b*H + h sees keys
 // [0, kvl) with kvl = min(kv_lens[r], S) (S = max_pages * P when paged),
@@ -63,7 +67,7 @@ struct Args {
   const float *ks, *vs;  // int8 K/V: one scale a (token, KV head) row
   const int *kv_lens, *page_table;
   void* out;
-  int B, Tq, H, S, KVH, page_size, max_pages, prefix;
+  int B, Tq, H, S, KVH, page_size, max_pages, prefix, q_tok, q_head;
   float scale;
 };
 
@@ -136,15 +140,16 @@ __device__ __forceinline__ void stage_tile(const KV* __restrict__ k, const KV* _
 
 // PREFIX: `prefix` may be above 0 (prefix-LM, non-causal).  The causal
 // instantiation never reads it, so the causal launch's code carries no
-// term of the other masks.
-template <typename T, typename KV, int D, int BQ, int BK, bool PREFIX>
+// term of the other masks.  STRIDED: q and out have token stride q_tok and
+// head stride q_head (the flat layout's view); otherwise neither is read.
+template <typename T, typename KV, int D, int BQ, int BK, bool PREFIX, bool STRIDED>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                  const KV* __restrict__ v, const float* __restrict__ ks,
                  const float* __restrict__ vs, const int* __restrict__ kv_lens,
                  const int* __restrict__ page_table, T* __restrict__ out, int Tq,
                  int H, int S, int KVH, int page_size, int max_pages, int prefix,
-                 float scale) {
+                 float scale, int q_tok, int q_head) {
   constexpr int TPR = THREADS / BQ;  // threads per query row
   constexpr int CPT = BK / TPR;      // score columns per thread
   constexpr int DPT = D / TPR;       // output columns per thread
@@ -162,10 +167,16 @@ attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   const int off = kvl - Tq;
   const int tid = threadIdx.x;
   const int r = tid / TPR, sub = tid % TPR;
+  auto q_at = [&](int t) -> long long {  // token t of head h of slot b in q and out
+    if constexpr (STRIDED)
+      return (long long)b * Tq * H * D + (long long)t * q_tok + (long long)h * q_head;
+    else
+      return (((long long)b * Tq + t) * H + h) * D;
+  };
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int qi = e / D, d = e % D, t = q0 + qi;
-    Qs[qi][d] = t < Tq ? to_f(q[(((long long)b * Tq + t) * H + h) * D + d]) * scale : 0.f;
+    Qs[qi][d] = t < Tq ? to_f(q[q_at(t) + d]) * scale : 0.f;
   }
 
   float m_run = NEG_INF, l_run = 0.f;
@@ -228,7 +239,7 @@ attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
   const int t = q0 + r;
   if (t < Tq) {
-    const long long base = (((long long)b * Tq + t) * H + h) * D;
+    const long long base = q_at(t);
 #pragma unroll
     for (int j = 0; j < DPT; ++j) out[base + sub + j * TPR] = from_f<T>(acc[j] / l_run);
   }
@@ -239,13 +250,17 @@ void run(const Args& a, cudaStream_t stream) {
   constexpr int BQ = D <= 64 ? 32 : 16;                  // query tile
   constexpr int BK = D <= 64 ? 32 : (D <= 128 ? 16 : 8);  // key tile
   const dim3 grid(a.B * a.H, (a.Tq + BQ - 1) / BQ);
-  auto kernel = a.prefix > 0 ? attention_kernel<T, KV, D, BQ, BK, true>
-                             : attention_kernel<T, KV, D, BQ, BK, false>;
+  // the cache layout's strides (H = 1: the head stride is never used)
+  const bool strided = a.q_tok != a.H * D || (a.H > 1 && a.q_head != D);
+  auto kernel = strided ? (a.prefix > 0 ? attention_kernel<T, KV, D, BQ, BK, true, true>
+                                        : attention_kernel<T, KV, D, BQ, BK, false, true>)
+                        : (a.prefix > 0 ? attention_kernel<T, KV, D, BQ, BK, true, false>
+                                        : attention_kernel<T, KV, D, BQ, BK, false, false>);
   kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), a.ks, a.vs, a.kv_lens, a.page_table,
       static_cast<T*>(a.out), a.Tq, a.H, a.S, a.KVH, a.page_size, a.max_pages,
-      a.prefix, a.scale);
+      a.prefix, a.scale, a.q_tok, a.q_head);
 }
 
 template <typename T, typename KV>
@@ -272,20 +287,22 @@ int dispatch_kv(const Args& a, int kv_int8, int D, cudaStream_t s) {
 // (kv_int8 = 1).  page_table NULL: k/v are the dense cache (B, S, KVH, D);
 // otherwise the pool (num_pages, page_size, KVH, D) and S = max_pages *
 // page_size.  prefix: keys below it are seen by every query (0 causal, S
-// non-causal).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported dtype, head dim or page size,
-// or a negative prefix).
+// non-causal).  q_tok and q_head: q's (and out's) token and head strides in
+// elements (the cache layout's H * D and D, or any other pair: the strided
+// instantiations; batch stride Tq * H * D in both).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported dtype, head dim or page size, or a negative prefix).
 extern "C" int attention_launch(int dtype, int kv_int8, const void* q,
                                 const void* k, const void* v,
                                 const float* k_scales, const float* v_scales,
                                 const int* kv_lens, const int* page_table,
                                 void* out, int B, int Tq, int H, int S, int KVH,
                                 int D, int page_size, int max_pages, int prefix,
-                                float scale, void* stream) {
+                                int q_tok, int q_head, float scale, void* stream) {
   if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)) || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, k_scales, v_scales, kv_lens, page_table, out,
-               B, Tq, H, S, KVH, page_size, max_pages, prefix, scale};
+               B, Tq, H, S, KVH, page_size, max_pages, prefix, q_tok, q_head, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == DT_F32)

@@ -10,6 +10,13 @@
 //     q (B, Tq, H, D), k/v (B, S, KVH, D) or the pool (num_pages, P, KVH, D)
 //     with page_table (B, max_pages), kv_lens (B*H,) -> out (B, Tq, H, D)
 //
+// and the flat layout (:234-238, :289-294) as that layout's view: q and
+// out (BH, Tq, D) with g query heads a KV row are (B = BH / g, Tq, H = g,
+// D) with a head stride of Tq * D and a token stride of D, and k/v (BH /
+// g, S, D) are (B, S, KVH = 1, D) as they sit.  The STRIDED instantiations
+// take q's (and out's) token and head strides as arguments; the cache
+// layout's instantiations keep their constant strides (H * D and D).
+//
 // Query head h reads KV head h / (H / KVH) and sees keys [0, kvl), kvl =
 // min(kv_lens[b*H + h], S), aligned to the end of that range: query t sits
 // at position t + kvl - Tq and sees key j when j <= t + kvl - Tq or j <
@@ -106,15 +113,16 @@ struct Smem {
 
 // PREFIX: `prefix` may be above 0 (prefix-LM, non-causal).  The causal
 // instantiation never reads it, so the causal launch's code carries no
-// term of the other masks.
-template <typename KV, int D, bool PREFIX>
+// term of the other masks.  STRIDED: q and out have token stride q_tok and
+// head stride q_head (the flat layout's view); otherwise neither is read.
+template <typename KV, int D, bool PREFIX, bool STRIDED>
 __global__ void __launch_bounds__(THREADS)
 attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ k,
                      const KV* __restrict__ v, const float* __restrict__ ks,
                      const float* __restrict__ vs, const int* __restrict__ kv_lens,
                      const int* __restrict__ page_table, __nv_bfloat16* __restrict__ out,
                      int Tq, int H, int S, int KVH, int page_size, int max_pages, int prefix,
-                     float scale) {
+                     float scale, int q_tok, int q_head) {
   using L = Smem<KV, D>;
   constexpr bool INT8 = L::INT8;
   constexpr int STR = L::STR;
@@ -144,6 +152,12 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
   const int* table = page_table ? page_table + (long long)b * max_pages : nullptr;
 
+  auto q_at = [&](int t) -> long long {  // token t of head h of slot b in q and out
+    if constexpr (STRIDED)
+      return (long long)b * Tq * H * D + (long long)t * q_tok + (long long)h * q_head;
+    else
+      return (((long long)b * Tq + t) * H + h) * D;
+  };
   auto row_of = [&](int j) -> long long {  // (pool or cache row) * KVH + kh of key j
     const long long r = table ? (long long)table[j / page_size] * page_size + j % page_size
                               : (long long)b * S + j;
@@ -168,7 +182,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
     const int r = e / DC, c = e % DC, t = q0 + r;
     const bool live = t < Tq;
     cp_async16(Qs + r * STR + c * 8,
-               q + (live ? (((long long)b * Tq + t) * H + h) * D + c * 8 : 0), live);
+               q + (live ? q_at(t) + c * 8 : 0), live);
   }
   if (ntiles > 0) stage(0, 0);
   cp_async_commit();
@@ -312,7 +326,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   for (int rr = 0; rr < 2; ++rr) {
     const int t = qrow + rr * 8;
     if (t >= Tq) continue;
-    __nv_bfloat16* orow = out + (((long long)b * Tq + t) * H + h) * D;
+    __nv_bfloat16* orow = out + q_at(t);
     const float inv_l = 1.f / l_run[rr];
 #pragma unroll
     for (int n = 0; n < ND; ++n)
@@ -321,11 +335,12 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const KV* __restrict__
   }
 }
 
-template <typename KV, int D, bool PREFIX>
+template <typename KV, int D, bool PREFIX, bool STRIDED>
 int run(const void* q, const void* k, const void* v, const float* ks, const float* vs,
         const int* kv_lens, const int* page_table, void* out, int B, int Tq, int H, int S,
-        int KVH, int page_size, int max_pages, int prefix, float scale, cudaStream_t stream) {
-  auto kernel = attention_mma_kernel<KV, D, PREFIX>;
+        int KVH, int page_size, int max_pages, int prefix, float scale, int q_tok, int q_head,
+        cudaStream_t stream) {
+  auto kernel = attention_mma_kernel<KV, D, PREFIX, STRIDED>;
   constexpr int SMEM = Smem<KV, D>::BYTES;
   static bool sized = false;  // once per instantiation
   if (!sized) {
@@ -338,21 +353,25 @@ int run(const void* q, const void* k, const void* v, const float* ks, const floa
   kernel<<<grid, THREADS, SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, kv_lens, page_table,
-      static_cast<__nv_bfloat16*>(out), Tq, H, S, KVH, page_size, max_pages, prefix, scale);
+      static_cast<__nv_bfloat16*>(out), Tq, H, S, KVH, page_size, max_pages, prefix, scale,
+      q_tok, q_head);
   return 0;
 }
 
-template <typename KV>
+template <typename KV, bool STRIDED>
 int dispatch(int D, const void* q, const void* k, const void* v, const float* ks,
              const float* vs, const int* kv_lens, const int* page_table, void* out, int B,
              int Tq, int H, int S, int KVH, int page_size, int max_pages, int prefix,
-             float scale, cudaStream_t s) {
-#define CASE(DD)                                                                           \
-  case DD:                                                                                 \
-    return prefix > 0 ? run<KV, DD, true>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq,  \
-                                          H, S, KVH, page_size, max_pages, prefix, scale, s) \
-                      : run<KV, DD, false>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq, \
-                                           H, S, KVH, page_size, max_pages, 0, scale, s);
+             float scale, int q_tok, int q_head, cudaStream_t s) {
+#define CASE(DD)                                                                             \
+  case DD:                                                                                   \
+    return prefix > 0                                                                        \
+               ? run<KV, DD, true, STRIDED>(q, k, v, ks, vs, kv_lens, page_table, out, B, Tq, \
+                                            H, S, KVH, page_size, max_pages, prefix, scale,  \
+                                            q_tok, q_head, s)                                \
+               : run<KV, DD, false, STRIDED>(q, k, v, ks, vs, kv_lens, page_table, out, B,   \
+                                             Tq, H, S, KVH, page_size, max_pages, 0, scale,  \
+                                             q_tok, q_head, s);
   switch (D) {
     CASE(16)
     CASE(32)
@@ -384,26 +403,32 @@ extern "C" int attention_mma_smem_bytes(int kv_int8, int D) {
   }
 }
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// what the kernel does not take: a head dim outside 16-256, B * H above
-// 65535, q, k or v not 16-byte aligned, a negative prefix).
+// q_tok and q_head: q's (and out's) token and head strides in elements;
+// the cache layout's H * D and D take its own instantiations (so does H =
+// 1, whose head stride is never used), any other pair the strided ones
+// (batch stride Tq * H * D in both).  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for what the kernel does not take: a head
+// dim outside 16-256, B * H above 65535, q, k or v not 16-byte aligned, a
+// negative prefix, strides off 8 elements).
 extern "C" int attention_mma_launch(int kv_int8, const void* q, const void* k, const void* v,
                                     const float* k_scales, const float* v_scales,
                                     const int* kv_lens, const int* page_table, void* out,
                                     int B, int Tq, int H, int S, int KVH, int D, int page_size,
-                                    int max_pages, int prefix, float scale, void* stream) {
+                                    int max_pages, int prefix, int q_tok, int q_head,
+                                    float scale, void* stream) {
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if ((page_table && page_size < 1) || (kv_int8 && !(k_scales && v_scales)) || KVH < 1 ||
       H % KVH || B * H > 65535 || Tq < 1 || prefix < 0 || !aligned(q) || !aligned(k) ||
-      !aligned(v))
+      !aligned(v) || q_tok % 8 || q_head % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = kv_int8 ? dispatch<int8_t>(D, q, k, v, k_scales, v_scales, kv_lens,
-                                             page_table, out, B, Tq, H, S, KVH, page_size,
-                                             max_pages, prefix, scale, s)
-                          : dispatch<__nv_bfloat16>(D, q, k, v, k_scales, v_scales, kv_lens,
-                                                    page_table, out, B, Tq, H, S, KVH,
-                                                    page_size, max_pages, prefix, scale, s);
+  const bool strided = q_tok != H * D || (H > 1 && q_head != D);
+#define GO(KV, STRIDED)                                                                      \
+  dispatch<KV, STRIDED>(D, q, k, v, k_scales, v_scales, kv_lens, page_table, out, B, Tq, H, \
+                        S, KVH, page_size, max_pages, prefix, scale, q_tok, q_head, s)
+  const int err = kv_int8 ? (strided ? GO(int8_t, true) : GO(int8_t, false))
+                          : (strided ? GO(__nv_bfloat16, true) : GO(__nv_bfloat16, false));
+#undef GO
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

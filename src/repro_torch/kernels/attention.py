@@ -12,8 +12,20 @@ the dense cache (B, S, KVH, D) or, with a (B, max_pages) int32
 of slot b lives at pool[page_table[b, s // P], s % P].  int8 k/v come with
 f32 `k_scales`/`v_scales` in their layout with D -> 1 (one scale a (token,
 head) row, core.quant.quantize_kv) and are dequantized as values * scale in
-f32.  Head dims 16-256.  The flat (BH, T, D) layout is not ported: no model
-path uses it.
+f32.  Head dims 16-256.
+
+The flat layout (attention.py:234-238, 289-294) is the same kernels on
+views, with no copy: q (BH, Tq, D) against k/v (BH // g, Tk, D) is the
+cache layout with B = BH // g, H = g and KVH = 1 (`cache_view`); k/v and
+their scales are that layout as they sit, and q and out are (B, Tq, H, D)
+views whose head stride is Tq * D and token stride D.  "mma" and "ffma"
+take q's token and head strides as launch arguments (out is allocated like
+q, so they are out's too), and a strided instantiation of each reads them;
+the cache layout keeps the instantiations it had.  "splitkv" needs none:
+at Tq = 1 the head stride is D in both layouts.  `kv_lens` None means
+every row sees all S keys, the queries aligned to the end of them
+(attention.py:209-211): the kernels get `all_keys`, a persistent buffer of
+INT32_MAX lengths that every kernel clamps to S.
 
 The masks, with the reference kernel's semantics (attention.py:117-123,
 149-155, 209-211): row (b, h) sees keys [0, kvl), kvl = min(kv_lens[b*H +
@@ -73,6 +85,13 @@ launches_int8 = 0
 ROUTES = ("splitkv", "mma", "ffma")
 MASKS = ("causal", "prefix", "noncausal")
 launches_by_route_mask = {(r, m): 0 for r in ROUTES for m in MASKS}
+#: every launch by its route and the layout of its operands: "cache" (B,
+#: Tq, H, D) or "flat" (BH, Tq, D)
+LAYOUTS = ("cache", "flat")
+launches_by_route_layout = {(r, lay): 0 for r in ROUTES for lay in LAYOUTS}
+#: a row length past every cache: the kernels clamp kv lengths to S
+ALL_KEYS = 2 ** 31 - 1
+_all_keys = {}
 
 #: head dims the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -88,11 +107,11 @@ H100_SMS = 132
 #: about this many blocks an SM (a short cache: one split a block)
 BLOCKS_PER_SM = 8
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
 _SPLITKV_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                      + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-_MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+_MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -137,6 +156,31 @@ def plan(b: int, tq: int, h: int, kvh: int, d: int, s: int, dtype, int8: bool,
     raise TypeError(f"flash_attention: no route for dtype {dtype}")
 
 
+def cache_view(q, k, v, k_scales=None, v_scales=None, kv_groups: int = 1):
+    """Flat operands q (BH, Tq, D), k/v (BH // g, Tk, D) and their scales
+    (BH // g, Tk, 1) as views in the cache layout, no copy: q (B, Tq, H, D)
+    with B = BH // g and H = g (head stride Tq * D, token stride D), k/v
+    (B, Tk, 1, D) and the scales (B, Tk, 1, 1).  Row r = b * H + h of the
+    cache layout is flat row r, and query head h reads KV head 0 of slot b:
+    flat KV row r // g, the reference's GQA fold."""
+    bh, tq, d = q.shape
+    q4 = q.view(bh // kv_groups, kv_groups, tq, d).transpose(1, 2)
+    kv4 = [None if t is None else t.unsqueeze(2) for t in (k, v, k_scales, v_scales)]
+    return (q4, *kv4)
+
+
+def all_keys(device, n: int) -> torch.Tensor:
+    """n int32 kv lengths of ALL_KEYS on `device`: the kv_lens of a call that
+    passes none (every row sees its whole cache).  A view of one persistent
+    buffer a device, filled once, so such a call launches nothing but its
+    kernel."""
+    t = _all_keys.get(device)
+    if t is None or t.numel() < n:
+        t = _all_keys[device] = torch.full((max(n, 1024),), ALL_KEYS, dtype=torch.int32,
+                                           device=device)
+    return t[:n]
+
+
 def gather_pages(pool, page_table):
     """The pool's pages of each slot in table order: (num_pages, P, ...) ->
     (B, max_pages * P, ...), the dense cache the table describes."""
@@ -161,11 +205,14 @@ def visible_prefix(s: int, causal: bool = True, prefix_len=None) -> int:
     return min(int(prefix_len or 0), s)
 
 
-def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None,
-              causal: bool = True, prefix_len=None):
+def reference(q, k, v, kv_lens=None, k_scales=None, v_scales=None, page_table=None,
+              causal: bool = True, prefix_len=None, kv_groups: int = 1):
     """Masked softmax attention in f32.
 
-    Row (b, h) sees keys [0, kvl) with kvl = min(kv_lens[b*H + h], S), query
+    Flat operands (q (BH, Tq, D), k/v (BH // kv_groups, Tk, D)) run as
+    their cache-layout views (`cache_view`) and return (BH, Tq, D).
+    Row (b, h) sees keys [0, kvl) with kvl = min(kv_lens[b*H + h], S) (no
+    kv_lens: kvl = S), query
     t at absolute position t + kvl - Tq: causally (key s visible when s <=
     t + kvl - Tq), with every key below prefix_len visible too (prefix-LM),
     or, causal=False, all of them.  K/V rows at or past kvl are zeroed
@@ -175,6 +222,11 @@ def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None,
     dense cache first (so it is bitwise the dense call on that cache); int8
     K/V dequantize as values.float() * scales.
     """
+    if q.ndim == 3:
+        q4, k, v, k_scales, v_scales = cache_view(q, k, v, k_scales, v_scales, kv_groups)
+        out = reference(q4, k, v, kv_lens, k_scales, v_scales, causal=causal,
+                        prefix_len=prefix_len)
+        return out.transpose(1, 2).reshape(q.shape)
     if page_table is not None:
         k, v = gather_pages(k, page_table), gather_pages(v, page_table)
         if k_scales is not None:
@@ -185,6 +237,8 @@ def reference(q, k, v, kv_lens, k_scales=None, v_scales=None, page_table=None,
     b, tq, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
+    if kv_lens is None:
+        kv_lens = torch.full((b * h,), s, dtype=torch.int64, device=q.device)
     kvl = torch.clamp(kv_lens.reshape(b, h).to(torch.int64), max=s)   # (B, H)
     kpos = torch.arange(s, device=q.device)
     live = kpos[None, None, :] < kvl[..., None]                      # (B, H, S)
@@ -211,7 +265,8 @@ def plan_for(q, k, page_table=None, int8: bool = False, sms: int = H100_SMS) -> 
 def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
          page_table=None, causal: bool = True, prefix_len=None):
     """`attention_launch` (csrc/attention.cu, the CUDA-core kernel) on the
-    current stream, uncounted; it takes every form, mask and both dtypes."""
+    current stream, uncounted; it takes every form, mask and both dtypes.
+    q and out are (B, Tq, H, D), contiguous or flat operands' cache_view."""
     b, tq, h, d = q.shape
     s, page_size, max_pages = _logical(k, page_table)
     fn = _build.function("attention_launch", _ARGTYPES)
@@ -220,7 +275,8 @@ def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None
         err = fn(dtype_code, int(k_scales is not None), q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
                  _build.ptr(page_table), out.data_ptr(), b, tq, h, s, k.shape[2], d, page_size,
-                 max_pages, visible_prefix(s, causal, prefix_len), float(d ** -0.5), stream)
+                 max_pages, visible_prefix(s, causal, prefix_len), q.stride(1), q.stride(2),
+                 float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     return out
@@ -236,9 +292,12 @@ def _logical(k, page_table):
 def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_scales=None,
         page_table=None, causal: bool = True, prefix_len=None):
     """One launch of p's route on the current stream, uncounted; operands
-    are validated CUDA tensors (kernels/ops.py), kv_lens is int32 (B*H,).
-    The "splitkv" partials' workspace is allocated here.  "splitkv" takes
-    no mask: its one query sits at kvl - 1, where every mask sees [0, kvl)."""
+    are validated CUDA tensors (kernels/ops.py), kv_lens is int32 (B*H,),
+    q and out (B, Tq, H, D), contiguous or flat operands' cache_view (out
+    strided as q).  The "splitkv" partials' workspace is allocated here.
+    "splitkv" takes no mask: its one query sits at kvl - 1, where every
+    mask sees [0, kvl); and no strides: at Tq = 1 both layouts put head h
+    of slot b at (b * H + h) * D."""
     if p.route == "ffma":
         return ffma(q, k, v, kv_lens, out, dtype_code=dtype_code, k_scales=k_scales,
                     v_scales=v_scales, page_table=page_table, causal=causal,
@@ -261,17 +320,28 @@ def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_sca
         else:
             fn = _build.function("attention_mma_launch", _MMA_ARGTYPES)
             err = fn(int8, *common, b, tq, h, s, kvh, d, page_size, max_pages,
-                     visible_prefix(s, causal, prefix_len), float(d ** -0.5), stream)
+                     visible_prefix(s, causal, prefix_len), q.stride(1), q.stride(2),
+                     float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention {p.route} kernel launch failed: CUDA error {err}")
     return out
 
 
 def launch(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
-           page_table=None, causal: bool = True, prefix_len=None):
-    """One launch of the kernel `plan` names, counted by form, route and
-    mask; operands are validated CUDA tensors (kernels/ops.py)."""
+           page_table=None, causal: bool = True, prefix_len=None, kv_groups: int = 1):
+    """One launch of the kernel `plan` names, counted by form, route, mask
+    and layout; operands are validated CUDA tensors (kernels/ops.py) in the
+    cache layout or flat (then run as their `cache_view`, out allocated
+    like q), kv_lens None: `all_keys`."""
     global launches, launches_paged, launches_int8
+    layout = "flat" if q.ndim == 3 else "cache"
+    result = out
+    if layout == "flat":
+        q, k, v, k_scales, v_scales = cache_view(q, k, v, k_scales, v_scales, kv_groups)
+        b, tq, h, d = q.shape
+        out = out.view(b, h, tq, d).transpose(1, 2)  # strided as q
+    if kv_lens is None:
+        kv_lens = all_keys(q.device, q.shape[0] * q.shape[2])
     int8 = k_scales is not None
     p = plan_for(q, k, page_table, int8, _build.sm_count(q.device.index or 0))
     run(q, k, v, kv_lens, out, p, dtype_code=dtype_code, k_scales=k_scales, v_scales=v_scales,
@@ -283,4 +353,5 @@ def launch(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=No
     if page_table is None and not int8:
         launches += 1
     launches_by_route_mask[p.route, mask_name(causal, prefix_len)] += 1
-    return out
+    launches_by_route_layout[p.route, layout] += 1
+    return result

@@ -1,14 +1,26 @@
-"""Broadcast-weight batched GEMV: the decode-step projection kernel.
+"""Batched GEMV with a fused epilogue: the decode-step projection kernel and
+the BLAS library's batched GEMV.
 
 Replaces `repro/kernels/bgemv.py` (`_bgemv_kernel`, Pallas call at :230) in
-the `transpose_a=True` form the decode path uses: y[b] = epi(x[b] @ W
-[, x[b] @ W2]) with W (d_in, d_out) streamed in its stored layout.  The CUDA
-kernel is `csrc/bgemv.cu`, one launch a call; its source note says what
-bounds it on the card (the weight stream over HBM) and what the design does
-about it (each weight element read once for the whole batch, column tiles of
-128 bytes, K split across blocks whose partials the last block of each
-column tile sums in split order before the epilogue).  `plan` picks the
-split from the shapes alone.
+its whole dense contract: y[b] = epi(op(A[b]) x[b] [, op(A2[b]) x[b]])
+with op = A^T (`transpose_a`, A ((batch,) k, n) streamed in its stored
+layout: the decode projection x @ W) or op = A (A ((batch,) n, k)), a 2-D A
+broadcast across the batch (bgemv.py:144, the index maps :195-208), in f32,
+bf16 and f64, summed in max(f32, dtype).  Two CUDA kernels carry it, one
+launch a call, each with a source note that says what bounds it on the card
+(A over HBM) and what the design does about it:
+
+- op = A^T, `csrc/bgemv.cu`: column tiles of 128 bytes of every row, each
+  A element read once for up to BATCH_CHUNK batch rows (broadcast A) or
+  one member's row (per-member A: one member a block), K split across
+  blocks whose partials the last block of each column tile sums in split
+  order before the epilogue;
+- op = A, `csrc/bgemv_rows.cu`: gemv.cu's row-dot body, `wpr` warps a row,
+  each A row read once for up to BATCH_CHUNK batch rows of x (broadcast A)
+  or one member's x (per-member A).
+
+`plan` picks the form from the op and A's rank, and its split from the
+shapes alone (op = A^T: the K split; op = A: the warps a row).
 
 The packed form (`_bgemv_kernel`'s int8 body, bgemv.py:80-83) is
 `csrc/qgemv.cu`, one launch a call: W is a `core.quant.QuantizedTensor`
@@ -36,13 +48,18 @@ from repro_torch.core.epilogue import Epilogue
 from repro_torch.core.quant import dequantize_in
 from repro_torch.kernels import _build
 
-#: launches of the CUDA kernel in this process (comparisons excluded: they
+#: launches of the dense kernels in this process (comparisons excluded: they
 #: run the plain version)
 launches = 0
+#: the dense launches by form: the op (A^T "t": csrc/bgemv.cu; A "n":
+#: csrc/bgemv_rows.cu) over a broadcast A or one A a member
+FORMS = ("broadcast_t", "broadcast_n", "batched_t", "batched_n")
+launches_by_form = dict.fromkeys(FORMS, 0)
 #: launches of the packed kernel (csrc/qgemv.cu) through `launch_int8`
 launches_int8 = 0
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ROWS_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
 #: batch members a block (BMAX in csrc/bgemv.cu)
@@ -63,38 +80,100 @@ MIN_ROWS = {False: 256, True: 128}
 BLOCKS_PER_SM = 2
 
 
+#: warps a block of csrc/bgemv_rows.cu (the op = A body), shared by its rows
+ROW_WARPS = 8
+#: 16-byte loads a lane issues together in a row sweep (gemv.cu, bgemv_rows.cu)
+ROW_UNROLL = 4
+#: rows of A a warp of csrc/bgemv_rows.cu takes (ROW_BLOCK there) where one
+#: warp takes a row and either x has several rows (a broadcast A) or a row is
+#: shorter than one sweep of the warp's 16-byte loads.  Measured on the H100
+#: (scripts/torch_gemm_study.py bgemv_rows, PERF.md): broadcast (8192, 8192)
+#: x 4 rows bf16 53.7 us against 63.0 at one row a warp; 4096 members of
+#: (32, 32) f64 24.0 against 37.0; one (2048, 2048) A a member 1-4% slower.
+#: Half as many under the gate, whose second sums take the other rows'
+#: registers (f64 spilled at 4 rows and the gate)
+ROW_BLOCK = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one bgemv runs: `tile` columns a block (128 bytes of a row), K cut
-    into `splits` slices of `rows` rows (a multiple of ROW_STEP; the last
-    may be short), each slice one block per column tile and batch chunk."""
+    """How one bgemv runs.  op = A^T (`trans`, csrc/bgemv.cu): `tile`
+    columns a block (128 bytes of a row), K cut into `splits` slices of
+    `rows` rows (a multiple of ROW_STEP; the last may be short), each slice
+    one block per column tile and batch chunk (one member a chunk when
+    `batched`).  op = A (csrc/bgemv_rows.cu): `wpr` warps a row (the K
+    split, summed in warp order) and `rows` rows a warp (1, or ROW_BLOCK
+    (ROW_BLOCK / 2 under the gate) with wpr 1), ROW_WARPS // wpr * rows rows
+    a block, one
+    block per row group and batch chunk; tile and splits are 0 and 1."""
 
     tile: int
     splits: int
     rows: int
+    batched: bool = False
+    trans: bool = True
+    wpr: int = 0
+
+    @property
+    def form(self) -> str:
+        """The launch_counts() form: "broadcast_t", "batched_n", ..."""
+        return ("batched_" if self.batched else "broadcast_") + ("t" if self.trans else "n")
 
     def k_slices(self, k: int) -> list:
         """[(k0, k1), ...]: the rows of each split, in the order the last
         block of a column tile sums their partials."""
         return [(s * self.rows, min(k, (s + 1) * self.rows)) for s in range(self.splits)]
 
+    def chunks(self, b: int) -> int:
+        """Batch chunks of the launch: a member each, or BATCH_CHUNK rows."""
+        return b if self.batched else _cdiv(b, BATCH_CHUNK)
+
     def blocks(self, b: int, n: int) -> int:
-        """Blocks of the launch over b batch rows and n columns."""
-        return _cdiv(n, self.tile) * self.splits * _cdiv(b, BATCH_CHUNK)
+        """Blocks of the launch over b batch rows and n outputs."""
+        if not self.trans:
+            return _cdiv(n, ROW_WARPS // self.wpr * self.rows) * self.chunks(b)
+        return _cdiv(n, self.tile) * self.splits * self.chunks(b)
+
+
+def warps_per_row(m: int, n: int, elem_size: int, sms: int) -> int:
+    """Warps sharing a row of n elements among m rows (gemv.cu and
+    bgemv_rows.cu): 1 while the rows give ~32 warps per SM, doubling (up to
+    8) for fewer rows as long as each warp keeps at least two unrolled
+    sweeps of 16-byte loads."""
+    sweep = 32 * (16 // elem_size) * ROW_UNROLL  # elements of one unrolled warp sweep
+    wpr = 1
+    while wpr < 8 and m * wpr < 32 * sms and n // (2 * wpr) >= 2 * sweep:
+        wpr *= 2
+    return wpr
 
 
 @functools.lru_cache(maxsize=1024)  # a serve plans a few dozen shapes
-def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS) -> Plan:
-    """The column tile and K split of y (b, n) = x (b, k) @ W (k, n) [with
-    W2], from the shapes and the dtype alone: as many splits as keep column
+def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS, *,
+         trans: bool = True, batched: bool = False) -> Plan:
+    """The form and split of y (b, n) = op(A) x over a contraction of k
+    (op = A^T: A (k, n), or (b, k, n) when `batched`; op = A: A (n, k) or
+    (b, n, k)) [with A2], from the shapes and the dtype alone.
+
+    op = A^T: the column tile and K split; as many splits as keep column
     tiles x batch chunks x splits within BLOCKS_PER_SM blocks an SM, with at
     least MIN_ROWS[gate] rows each and at most MAX_ROWS; the rows of a split
-    are K / splits rounded up to whole 32-row steps."""
-    tile = 128 // (torch.finfo(dtype).bits // 8)
-    base = _cdiv(n, tile) * _cdiv(b, BATCH_CHUNK)
+    are K / splits rounded up to whole 32-row steps.  op = A: the warps a
+    row, `warps_per_row` over the n rows of every batch chunk, and ROW_BLOCK
+    rows a warp (half as many under the gate) where that is one and A is
+    broadcast or its rows are shorter than a warp's sweep of 16-byte
+    loads."""
+    elem = torch.finfo(dtype).bits // 8
+    chunks = b if batched else _cdiv(b, BATCH_CHUNK)
+    if not trans:
+        wpr = warps_per_row(n * chunks, k, elem, sms)
+        block = wpr == 1 and (not batched or k * elem < 32 * 16)
+        rows = ROW_BLOCK // (2 if gate else 1) if block else 1
+        return Plan(0, 1, rows, batched, False, wpr)
+    tile = 128 // elem
+    base = _cdiv(n, tile) * chunks
     splits = max(1, min(BLOCKS_PER_SM * sms // max(base, 1), k // MIN_ROWS[bool(gate)]))
     rows = min(MAX_ROWS, max(ROW_STEP, _cdiv(_cdiv(k, splits), ROW_STEP) * ROW_STEP))
-    return Plan(tile, max(1, _cdiv(k, rows)), rows)
+    return Plan(tile, max(1, _cdiv(k, rows)), rows, batched)
 
 
 #: weight rows a block of csrc/qgemv.cu owns: on the tensor cores ("tc":
@@ -185,14 +264,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def reference(w, x, *, w2=None, bias=None, residual=None, activation=None):
-    """y = epi(x @ w [, x @ w2]) in max(f32, dtype), cast once to x's dtype."""
+def reference(w, x, *, w2=None, bias=None, residual=None, activation=None,
+              transpose_a: bool = True):
+    """y[b] = epi(op(w[b]) x[b] [, op(w2[b]) x[b]]) in max(f32, dtype), cast
+    once to x's dtype: op = A^T (`transpose_a`, w ((batch,) k, n): x @ w)
+    or op = A (w ((batch,) n, k)); a 2-D w is broadcast across the batch."""
     epi = Epilogue(activation, bias is not None, w2 is not None, residual is not None)
     acc_dt = torch.promote_types(torch.float32, x.dtype)
     xf = x.to(acc_dt)
-    acc = xf @ w.to(acc_dt)
-    acc2 = xf @ w2.to(acc_dt) if w2 is not None else None
-    return epi.apply(acc, acc2=acc2, bias=bias, residual=residual).to(x.dtype)
+
+    def product(a):
+        a = a.to(acc_dt)
+        if not transpose_a:
+            a = a.transpose(-2, -1)
+        return xf @ a if a.ndim == 2 else (xf[:, None, :] @ a)[:, 0, :]
+
+    acc2 = product(w2) if w2 is not None else None
+    return epi.apply(product(w), acc2=acc2, bias=bias, residual=residual).to(x.dtype)
 
 
 def _deq_kn(qt, acc_dt):
@@ -214,36 +302,58 @@ def reference_int8(qw, x, *, qw2=None, bias=None, residual=None, activation=None
 
 
 def run(w, x, out, p: Plan, *, w2, bias, residual, act_code: int, dtype_code: int):
-    """Launch `bgemv_launch` on the current stream with plan p, uncounted;
-    the workspace is allocated here.  Operands are validated CUDA tensors
-    (kernels/ops.py), `out` is (B, N) and preallocated."""
-    k, n = w.shape
+    """Launch plan p's kernel on the current stream, uncounted: op = A^T
+    `bgemv_launch` (csrc/bgemv.cu; the workspace is allocated here) or op =
+    A `bgemv_rows_launch` (csrc/bgemv_rows.cu).  Operands are validated CUDA
+    tensors (kernels/ops.py), w ((batch,) k, n) under op = A^T and
+    ((batch,) n, k) under op = A, `out` is (B, N) and preallocated."""
     b = x.shape[0]
-    ws = tickets = None
-    if p.splits > 1:  # f32 partials of every K split, summed in order by the last block
-        ws = torch.empty((2 if w2 is not None else 1) * p.splits * b * n,
-                         dtype=torch.float32, device=x.device)
-        tickets = _build.tickets(x.device, _cdiv(n, p.tile) * _cdiv(b, BATCH_CHUNK))
-    fn = _build.function("bgemv_launch", _ARGTYPES)
+    batched = int(w.ndim == 3)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
-                 _build.ptr(residual), out.data_ptr(), _build.ptr(ws), _build.ptr(tickets), b,
-                 k, n, p.splits, p.rows, act_code, stream)
+        if not p.trans:
+            n, k = w.shape[-2:]
+            fn = _build.function("bgemv_rows_launch", _ROWS_ARGTYPES)
+            err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
+                     _build.ptr(residual), out.data_ptr(), b, n, k, batched, p.wpr, p.rows,
+                     act_code, stream)
+        else:
+            k, n = w.shape[-2:]
+            ws = tickets = None
+            if p.splits > 1:  # partials of every K split, summed in order by the last block
+                ws = torch.empty((2 if w2 is not None else 1) * p.splits * b * n,
+                                 dtype=torch.promote_types(torch.float32, x.dtype),
+                                 device=x.device)
+                tickets = _build.tickets(x.device, _cdiv(n, p.tile) * p.chunks(b))
+            fn = _build.function("bgemv_launch", _ARGTYPES)
+            err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
+                     _build.ptr(residual), out.data_ptr(), _build.ptr(ws), _build.ptr(tickets),
+                     b, k, n, p.splits, p.rows, act_code, batched, stream)
     if err:
         raise RuntimeError(f"bgemv kernel launch failed ({p}): CUDA error {err}")
     return out
 
 
-def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int):
-    """One launch of the kernel over the plan of the shapes, counted."""
+def plan_for(w, x, gate: bool = False, transpose_a: bool = True, sms: int = H100_SMS) -> Plan:
+    """`plan` of a call's operands, from their shapes and x's dtype alone."""
+    if transpose_a:
+        k, n = w.shape[-2:]
+    else:
+        n, k = w.shape[-2:]
+    return plan(x.shape[0], k, n, x.dtype, gate=gate, sms=sms, trans=transpose_a,
+                batched=w.ndim == 3)
+
+
+def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int,
+           transpose_a: bool = True):
+    """One launch of the kernel over the plan of the shapes, counted (and
+    by form)."""
     global launches
-    k, n = w.shape
-    p = plan(x.shape[0], k, n, x.dtype, gate=w2 is not None,
-             sms=_build.sm_count(x.device.index or 0))
+    p = plan_for(w, x, w2 is not None, transpose_a, _build.sm_count(x.device.index or 0))
     run(w, x, out, p, w2=w2, bias=bias, residual=residual, act_code=act_code,
         dtype_code=dtype_code)
     launches += 1
+    launches_by_form[p.form] += 1
     return out
 
 

@@ -26,24 +26,15 @@ from repro_torch.core.quant import dequantize_in
 from repro_torch.kernels import _build
 from repro_torch.kernels import bgemv as _bgemv
 
+#: the warps-a-row rule of csrc/gemv.cu (shared with the op = A bgemv body)
+warps_per_row = _bgemv.warps_per_row
+
 #: launches of the CUDA kernel in this process
 launches = 0
 #: launches of the packed kernel (csrc/qgemv.cu) through `launch_int8`
 launches_int8 = 0
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_UNROLL = 4  # 16-byte loads a lane issues together (csrc/gemv.cu)
-
-
-def warps_per_row(m: int, n: int, elem_size: int, sms: int) -> int:
-    """Warps sharing a row: 1 while M rows give ~32 warps per SM, doubling
-    (up to 8) for fewer rows as long as each warp keeps at least two
-    unrolled sweeps of 16-byte loads."""
-    sweep = 32 * (16 // elem_size) * _UNROLL  # elements of one unrolled warp sweep
-    wpr = 1
-    while wpr < 8 and m * wpr < 32 * sms and n // (2 * wpr) >= 2 * sweep:
-        wpr *= 2
-    return wpr
 
 
 def reference(a, x):

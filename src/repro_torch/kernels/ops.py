@@ -11,6 +11,10 @@ falls back: the plain version runs on the card only inside
 `reference_mode()`, which comparisons (chip_smoke.py, tests) enter
 explicitly.
 
+`bgemv` takes the reference's whole dense contract: op = A or A^T
+(`transpose_a`, default False as in the reference) over a broadcast 2-D A
+or a per-member 3-D one, in f32, bf16 and f64.
+
 A block-scaled int8 `core.quant.QuantizedTensor` weight (bgemv's `a`,
 gemm/bgemm's `b`, gemv's `a`) takes the packed kernels: bgemv and gemv the
 row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm gemm.cu's
@@ -23,7 +27,8 @@ per-member block scales (the MoE expert stacks), and an `out_dtype`: one
 batched launch (`kernels/bgemm.py::launch_batched`) whose kernel writes
 the result in that dtype.
 
-`flash_attention` also takes int8 K/V with per-(token, head) f32 scales, a
+`flash_attention` takes the cache layout or the flat (BH, T, D) one, with
+or without per-row kv lengths, int8 K/V with per-(token, head) f32 scales, a
 page table over a page pool and the causal, prefix-LM or non-causal mask: a
 CUDA tensor goes to the kernel of the route `kernels.attention.plan` names
 ("splitkv" for decode, "mma" for a bf16 prefill, "ffma" for an f32 one) in
@@ -73,8 +78,11 @@ def reference_mode():
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset; gemm_int8 counts the int8-B
-    variant reached from gemm and from bgemm.  attention counts the dense
+    """Kernel launches since the last reset; bgemv counts every dense bgemv
+    launch and bgemv_broadcast_t / bgemv_broadcast_n / bgemv_batched_t /
+    bgemv_batched_n split them by form (op = A^T or A, over a broadcast A
+    or one A a member; the decode projections are broadcast_t); gemm_int8
+    counts the int8-B variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
     launch counts in both).  gemm_wgmma / gemm_dmma / gemm_ffma_sm90 /
@@ -96,6 +104,7 @@ def launch_counts() -> dict:
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
             "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
+            **{f"bgemv_{form}": n for form, n in _bgemv.launches_by_form.items()},
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
             "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
@@ -113,6 +122,13 @@ def attention_masks() -> dict:
     return {f"{r}/{m}": n for (r, m), n in _attention.launches_by_route_mask.items()}
 
 
+def attention_layouts() -> dict:
+    """Attention launches since the last reset by route and by the layout
+    of their operands ("cache" (B, Tq, H, D) or "flat" (BH, Tq, D)), keyed
+    "route/layout" ("mma/flat").  Beside attention_routes()."""
+    return {f"{r}/{lay}": n for (r, lay), n in _attention.launches_by_route_layout.items()}
+
+
 def attention_routes() -> dict:
     """Attention launches since the last reset by the route their plan
     named (`kernels.attention.plan`): "splitkv", "mma" and "ffma".  Beside
@@ -123,6 +139,7 @@ def attention_routes() -> dict:
 
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
+    _bgemv.launches_by_form.update(dict.fromkeys(_bgemv.FORMS, 0))
     _attention.launches_paged = _attention.launches_int8 = 0
     _gemm.launches = _gemv.launches = 0
     _blas1.reduce_launches = _blas1.axpy_launches = 0
@@ -135,6 +152,8 @@ def reset_launch_counts() -> None:
         mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
         mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)
     _attention.launches_by_route_mask.update(dict.fromkeys(_attention.launches_by_route_mask, 0))
+    _attention.launches_by_route_layout.update(
+        dict.fromkeys(_attention.launches_by_route_layout, 0))
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -203,32 +222,36 @@ def _act_code(activation) -> int:
 
 
 def bgemv(a, x, *, a2=None, bias=None, residual=None, activation=None,
-          transpose_a=True):
-    """epilogue(a^T x[b] [, a2^T x[b]]) -> (batch, m) with a (n, m) broadcast
-    across the batch, streamed in its stored layout; x (batch, n), bias
-    (m,), residual (batch, m).  Only the transpose_a form is ported (the one
-    the decode path uses)."""
+          transpose_a=False):
+    """epilogue(op(a[b]) x[b] [, op(a2[b]) x[b]]) -> (batch, m), as the
+    reference's `ops.bgemv`: a is ((batch,) m, n), or ((batch,) n, m) under
+    transpose_a (op = A^T, a streamed in its stored layout: the decode
+    projection x @ W); a 2-D a is broadcast across the batch.  x (batch,
+    n), bias (m,), residual (batch, m); f32, bf16 and f64.  One launch:
+    csrc/bgemv.cu for op = A^T, csrc/bgemv_rows.cu for op = A."""
     if _quant.is_quantized(a):
         return _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a)
-    if not transpose_a:
-        raise NotImplementedError("bgemv: only transpose_a=True (the decode "
-                                  "projection form) is ported")
-    if a.ndim != 2 or x.ndim != 2 or a.shape[0] != x.shape[1]:
+    if a.ndim not in (2, 3) or x.ndim != 2:
         raise ValueError(f"bgemv shape mismatch: {tuple(a.shape)} @ {tuple(x.shape)}")
-    n, m = a.shape
+    if transpose_a:
+        n, m = a.shape[-2:]
+    else:
+        m, n = a.shape[-2:]
+    if x.shape[1] != n or (a.ndim == 3 and a.shape[0] != x.shape[0]):
+        raise ValueError(f"bgemv shape mismatch: {tuple(a.shape)} @ {tuple(x.shape)}")
     _check_shape("bgemv", "a2", a2, a.shape)
     _check_shape("bgemv", "bias", bias, (m,))
     _check_shape("bgemv", "residual", residual, (x.shape[0], m))
-    _check("bgemv", x, a=a, a2=a2, bias=bias, residual=residual)
+    _check("bgemv", x, _BLAS_DTYPES, a=a, a2=a2, bias=bias, residual=residual)
     act = _act_code(activation)
     if not _use_kernel(x):
         return _bgemv.reference(a, x, w2=a2, bias=bias, residual=residual,
-                                activation=activation)
+                                activation=activation, transpose_a=transpose_a)
     out = torch.empty((x.shape[0], m), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out  # an empty grid: nothing to launch
-    return _bgemv.launch(a, x, out, w2=a2, bias=bias, residual=residual,
-                         act_code=act, dtype_code=_DTYPE_CODES[x.dtype])
+    return _bgemv.launch(a, x, out, w2=a2, bias=bias, residual=residual, act_code=act,
+                         dtype_code=_DTYPE_CODES[x.dtype], transpose_a=transpose_a)
 
 
 def _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a):
@@ -238,8 +261,8 @@ def _bgemv_int8(a, x, a2, bias, residual, activation, transpose_a):
         raise ValueError("quantized bgemv streams the stored layout; quantize with "
                          f"transpose={transpose_a} to request op=A^T={transpose_a}")
     if a.values.ndim != 2:
-        raise NotImplementedError("bgemv: only a broadcast 2-D packed weight is ported "
-                                  "(ROADMAP §2: batched A)")
+        raise ValueError("bgemv: a packed A is a broadcast 2-D weight; the reference's "
+                         "packed bgemv refuses a batched one too")
     m, n = a.values.shape  # stored (outputs, contraction)
     if x.ndim != 2 or x.shape[1] != n:
         raise ValueError(f"bgemv shape mismatch: packed {a.shape} @ {tuple(x.shape)}")
@@ -341,24 +364,28 @@ def _check_side(name: str, what: str, t, dtype, device) -> None:
         raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=None,
+def flash_attention(q, k, v, *, kv_lens=None, kv_groups=1, k_scales=None, v_scales=None,
                     page_table=None, causal=True, prefix_len=None):
     """Attention of q (B, Tq, H, D) over the cache layout k/v
-    (B, S, H // kv_groups, D) -> (B, Tq, H, D).  kv_lens (B*H,) int32 is
-    each (slot, head) row's real KV length (pos + Tq on the cached paths);
-    keys at or past it are masked and their V rows zeroed.  Query t sits at
-    absolute position t + kvl - Tq: causal=True masks the keys after it,
-    except the first prefix_len (prefix-LM: visible to every query);
-    causal=False sees every key below kvl and ignores prefix_len.
+    (B, S, H // kv_groups, D) -> (B, Tq, H, D), or of flat q (BH, Tq, D)
+    over k/v (BH // kv_groups, S, D) -> (BH, Tq, D) (query row r reads KV
+    row r // kv_groups).  kv_lens (rows,) int32, rows = B*H or BH, is each
+    row's real KV length (pos + Tq on the cached paths); keys at or past it
+    are masked and their V rows zeroed; None: every row sees all S keys.
+    Query t sits at absolute position t + kvl - Tq: causal=True masks the
+    keys after it, except the first prefix_len (prefix-LM: visible to every
+    query); causal=False sees every key below kvl and ignores prefix_len.
 
-    page_table (B, max_pages) int32: k/v are the page pool
-    (num_pages, P, H // kv_groups, D) and slot b's logical key s lives at
-    pool[page_table[b, s // P], s % P].  int8 k/v need both k_scales and
-    v_scales, f32 in k's layout with D -> 1; otherwise k/v are q's dtype.
+    page_table (B, max_pages) int32 (cache layout only, as the
+    reference): k/v are the page pool (num_pages, P, H // kv_groups, D) and
+    slot b's logical key s lives at pool[page_table[b, s // P], s % P].
+    int8 k/v need both k_scales and v_scales, f32 in k's layout with D -> 1;
+    otherwise k/v are q's dtype.
 
     A CUDA tensor runs the kernel of the route `kernels.attention.plan`
     names from the shapes alone: "splitkv" at Tq = 1, "mma" (tensor cores,
-    P rounded to bf16) for a bf16 query block, "ffma" for an f32 one.
+    P rounded to bf16) for a bf16 query block, "ffma" for an f32 one; flat
+    operands stream as they sit (`kernels.attention.cache_view`).
     q, k and v start on 16-byte boundaries (the kernels' 16-byte loads and
     cp.async copies)."""
     name = "flash_attention"
@@ -366,20 +393,34 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
         raise TypeError(f"{name}: causal must be a bool, got {causal!r}")
     if prefix_len is not None and (not isinstance(prefix_len, int) or prefix_len < 0):
         raise ValueError(f"{name}: prefix_len must be None or an int >= 0, got {prefix_len!r}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"{name} wants 4-D cache-layout operands, got "
+    if not isinstance(kv_groups, int) or kv_groups < 1:
+        raise ValueError(f"{name}: kv_groups must be an int >= 1, got {kv_groups!r}")
+    flat = q.ndim == 3
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or k.shape != v.shape:
+        raise ValueError(f"{name} wants flat (BH, T, D) or 4-D cache-layout operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, tq, h, d = q.shape
-    if (page_table is None and k.shape[0] != b) or k.shape[3] != d or k.shape[2] * kv_groups != h:
-        raise ValueError(f"{name}: k {tuple(k.shape)} does not match q "
-                         f"{tuple(q.shape)} with kv_groups={kv_groups}")
-    _check_shape(name, "kv_lens", kv_lens, (b * h,))
-    _check_side(name, "kv_lens", kv_lens, torch.int32, q.device)
-    if page_table is not None:
-        if page_table.ndim != 2 or page_table.shape[0] != b:
-            raise ValueError(f"{name}: page_table {tuple(page_table.shape)} is not "
-                             f"(B={b}, max_pages)")
-        _check_side(name, "page_table", page_table, torch.int32, q.device)
+    if flat:
+        if page_table is not None:
+            raise ValueError(f"{name}: page_table requires the (B, Tq, H, D) q layout")
+        rows, _, d = q.shape
+        if k.shape[0] * kv_groups != rows or k.shape[2] != d:
+            raise ValueError(f"{name}: k {tuple(k.shape)} does not match q "
+                             f"{tuple(q.shape)} with kv_groups={kv_groups}")
+    else:
+        b, tq, h, d = q.shape
+        rows = b * h
+        if ((page_table is None and k.shape[0] != b) or k.shape[3] != d
+                or k.shape[2] * kv_groups != h):
+            raise ValueError(f"{name}: k {tuple(k.shape)} does not match q "
+                             f"{tuple(q.shape)} with kv_groups={kv_groups}")
+        if page_table is not None:
+            if page_table.ndim != 2 or page_table.shape[0] != b:
+                raise ValueError(f"{name}: page_table {tuple(page_table.shape)} is not "
+                                 f"(B={b}, max_pages)")
+            _check_side(name, "page_table", page_table, torch.int32, q.device)
+    if kv_lens is not None:
+        _check_shape(name, "kv_lens", kv_lens, (rows,))
+        _check_side(name, "kv_lens", kv_lens, torch.int32, q.device)
     if (k_scales is None) != (v_scales is None):
         raise ValueError(f"{name}: int8 K/V need both k_scales and v_scales")
     if k_scales is not None:
@@ -387,7 +428,7 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
             raise TypeError(f"{name}: k_scales/v_scales come with int8 k/v, got "
                             f"{k.dtype} and {v.dtype}")
         for what, t, vals in (("k_scales", k_scales, k), ("v_scales", v_scales, v)):
-            _check_shape(name, what, t, tuple(vals.shape[:3]) + (1,))
+            _check_shape(name, what, t, tuple(vals.shape[:-1]) + (1,))
             _check_side(name, what, t, torch.float32, q.device)
             _check_side(name, what[0], vals, torch.int8, q.device)
         _check(name, q)
@@ -399,11 +440,11 @@ def flash_attention(q, k, v, *, kv_lens, kv_groups=1, k_scales=None, v_scales=No
     if not _use_kernel(q):
         return _attention.reference(q, k, v, kv_lens, k_scales=k_scales, v_scales=v_scales,
                                     page_table=page_table, causal=causal,
-                                    prefix_len=prefix_len)
+                                    prefix_len=prefix_len, kv_groups=kv_groups)
     out = torch.empty_like(q)
     return _attention.launch(q, k, v, kv_lens, out, dtype_code=_DTYPE_CODES[q.dtype],
                              k_scales=k_scales, v_scales=v_scales, page_table=page_table,
-                             causal=causal, prefix_len=prefix_len)
+                             causal=causal, prefix_len=prefix_len, kv_groups=kv_groups)
 
 
 def rwkv6(r, k, v, w_log, u, *, s0=None, chunk: int = 32):

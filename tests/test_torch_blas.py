@@ -246,11 +246,20 @@ def test_blas_rejects_what_the_reference_rejects():
 
 
 def test_unported_forms_name_their_roadmap_item():
-    a = torch.randn(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="§2: batched A"):
-        blas.batched_gemv(torch.randn(4, 3), torch.randn(2, 3))
-    with pytest.raises(NotImplementedError, match="§2: batched A"):
-        blas.batched_gemv(a, torch.randn(2, 4), trans=True)
+    """The two forms batched_gemv once refused (naming ROADMAP §2) are
+    ported: a broadcast A with trans=False and a per-member A, both against
+    the reference under the pallas backend; no refusal names §2 any more."""
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 3)).astype(np.float32)
+    x3 = rng.standard_normal((2, 3)).astype(np.float32)
+    with jblas.use_backend("pallas"):
+        want_w = np.asarray(jblas.batched_gemv(jnp.asarray(w), jnp.asarray(x3)))
+        want_a = np.asarray(jblas.batched_gemv(jnp.asarray(a), jnp.asarray(x3), trans=True))
+    got_w = blas.batched_gemv(torch.from_numpy(w), torch.from_numpy(x3))
+    got_a = blas.batched_gemv(torch.from_numpy(a), torch.from_numpy(x3), trans=True)
+    np.testing.assert_allclose(got_w.numpy(), want_w, **TOL["float32"])
+    np.testing.assert_allclose(got_a.numpy(), want_a, **TOL["float32"])
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float64, torch.bfloat16, torch.float16])
@@ -286,13 +295,18 @@ def test_batched_gemm_takes_out_dtype_none_or_its_own(out_dtype):
 
 @pytest.mark.parametrize("op", ["bgemv", "bgemm"])
 def test_serving_kernels_refuse_f64(op):
-    """The serving kernels take f32 and bf16 only; f64 is the BLAS kernels'."""
+    """bgemm's one-GEMM form takes f32 and bf16 only; f64 is the BLAS
+    kernels'.  bgemv is the BLAS library's batched GEMV too and takes f64,
+    as the reference's does; neither takes f16."""
     w = torch.randn(8, 6, dtype=torch.float64)
     with pytest.raises(TypeError, match="dtype"):
         if op == "bgemv":
-            ops.bgemv(w, torch.randn(2, 8, dtype=torch.float64))
+            ops.bgemv(w.half(), torch.randn(2, 8, dtype=torch.float16), transpose_a=True)
         else:
             ops.bgemm(torch.randn(2, 3, 8, dtype=torch.float64), w)
+    if op == "bgemv":
+        x = torch.randn(2, 8, dtype=torch.float64)
+        assert ops.bgemv(w, x, transpose_a=True).dtype == torch.float64
 
 
 @pytest.mark.parametrize("shape,kernel", [((7, 16), "gemm"), ((16,), "gemm"),

@@ -82,8 +82,9 @@ def _against_plain(call, dtype):
 def test_bgemv_kernel_matches_plain(cuda, dtype, batch, k, n):
     w, w2 = _rand(cuda, dtype, k, n, std=k ** -0.5), _rand(cuda, dtype, k, n, std=k ** -0.5)
     x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
-    _against_plain(lambda: ops.bgemv(w, x), dtype)
-    _against_plain(lambda: ops.bgemv(w, x, a2=w2, bias=bias, residual=res, activation="silu"), dtype)
+    _against_plain(lambda: ops.bgemv(w, x, transpose_a=True), dtype)
+    _against_plain(lambda: ops.bgemv(w, x, a2=w2, bias=bias, residual=res, activation="silu",
+                                     transpose_a=True), dtype)
 
 
 @pytest.mark.cuda
@@ -356,7 +357,7 @@ def test_attention_masks_each_head_by_its_own_length(cuda, dtype, tq):
 def test_kernels_count_their_launches(cuda):
     ops.reset_launch_counts()
     w, x = _rand(cuda, torch.float32, 64, 32), _rand(cuda, torch.float32, 2, 64)
-    ops.bgemv(w, x)
+    ops.bgemv(w, x, transpose_a=True)
     ops.bgemm(x[None], w)
     ops.bgemm(x[None], w[None])  # a per-member B: the batched launch
     ops.gemm(x, w)
@@ -365,20 +366,22 @@ def test_kernels_count_their_launches(cuda):
     ops.nrm2(x[0])
     ops.axpy(2.0, x[0], x[1])
     qt, qn = (quant.quantize(w, quant.QuantSpec(16, None, transpose=t)) for t in (True, False))
-    ops.bgemv(qt, x)
+    ops.bgemv(qt, x, transpose_a=True)
     ops.bgemm(x[None], qt)
     ops.gemm(x, qn)
     ops.gemv(quant.quantize(w.t().contiguous()), x[0])
     with ops.reference_mode():
-        ops.bgemv(w, x)
+        ops.bgemv(w, x, transpose_a=True)
         ops.gemm(x, w)
         ops.dot(x[0], x[1])
-        ops.bgemv(qt, x)
+        ops.bgemv(qt, x, transpose_a=True)
         ops.gemm(x, qn)
     assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
-                                   "bgemv_int8": 1, "gemv_int8": 1, "gemm_int8": 2,
+                                   "bgemv_int8": 1, "bgemv_broadcast_t": 1,
+                                   "bgemv_broadcast_n": 0, "bgemv_batched_t": 0,
+                                   "bgemv_batched_n": 0, "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
                                    "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
@@ -485,10 +488,10 @@ def test_packed_bgemv_kernel_matches_plain(cuda, dtype, batch, k, n, spec):
     the dual gate and every epilogue stage; batches below, at and above 4."""
     qw, qw2 = (_packed(cuda, k, n, spec, True) for _ in range(2))
     x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
-    _against_plain(lambda: ops.bgemv(qw, x), dtype)
+    _against_plain(lambda: ops.bgemv(qw, x, transpose_a=True), dtype)
     _against_plain(lambda: ops.bgemv(qw, x, a2=qw2, bias=bias, residual=res,
-                                     activation="silu"), dtype)
-    _against_plain(lambda: ops.bgemv(qw, x, bias=bias, activation="gelu"), dtype)
+                                     activation="silu", transpose_a=True), dtype)
+    _against_plain(lambda: ops.bgemv(qw, x, bias=bias, activation="gelu", transpose_a=True), dtype)
 
 
 @pytest.mark.cuda
@@ -592,11 +595,13 @@ def test_qgemv_matches_plain_at_the_served_shapes(cuda, dtype, batch, mode, k, n
     qw2 = quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5), spec) if gate else None
     x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
     if gate:
-        _against_plain(lambda: ops.bgemv(qw, x, a2=qw2, activation="silu"), dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, a2=qw2, activation="silu", transpose_a=True), dtype)
     else:
-        _against_plain(lambda: ops.bgemv(qw, x), dtype)
-        _against_plain(lambda: ops.bgemv(qw, x, bias=bias, activation="gelu"), dtype)
-        _against_plain(lambda: ops.bgemv(qw, x, residual=res, activation="relu"), dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, transpose_a=True), dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, bias=bias, activation="gelu", transpose_a=True),
+                       dtype)
+        _against_plain(lambda: ops.bgemv(qw, x, residual=res, activation="relu",
+                                         transpose_a=True), dtype)
 
 
 @pytest.mark.cuda
@@ -613,7 +618,7 @@ def test_qgemv_every_split_matches_plain(cuda, dtype, k, n, gate):
     x = _rand(cuda, dtype, 4, k)
     act = "silu" if gate else None
     with ops.reference_mode():
-        want = ops.bgemv(qw, x, a2=qw2, activation=act)
+        want = ops.bgemv(qw, x, a2=qw2, activation=act, transpose_a=True)
     route = bgemv.int8_route(k, dtype, True)
     for splits in (1, 2, 3, 4, 8, 16):
         cols = k if splits == 1 else bgemv._cdiv(bgemv._cdiv(k, splits), 16) * 16
@@ -662,8 +667,8 @@ def test_qgemv_takes_packed_rows_off_16_bytes(cuda):
     assert off.values.data_ptr() % 16 and bgemv.plan_int8(4, 1024, 128, torch.bfloat16,
                                                           aligned=False).route == "ffma"
     x = _rand(cuda, torch.bfloat16, 4, 1024)
-    _against_plain(lambda: ops.bgemv(off, x), torch.bfloat16)
-    _against_plain(lambda: ops.bgemv(qw, x), torch.bfloat16)
+    _against_plain(lambda: ops.bgemv(off, x, transpose_a=True), torch.bfloat16)
+    _against_plain(lambda: ops.bgemv(qw, x, transpose_a=True), torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -685,11 +690,11 @@ def test_qgemv_leaks_no_memory(cuda):
     qw = quant.quantize(_rand(cuda, torch.float32, 5632, 2048),
                         quant.QuantSpec(64, None, transpose=True))
     x = _rand(cuda, torch.bfloat16, 4, 5632)
-    ops.bgemv(qw, x)
+    ops.bgemv(qw, x, transpose_a=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     for _ in range(5):
-        ops.bgemv(qw, x)
+        ops.bgemv(qw, x, transpose_a=True)
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
 
@@ -1338,9 +1343,10 @@ def test_bgemv_one_launch_matches_plain(cuda, dtype, batch, k, n):
     x, bias, res = _rand(cuda, dtype, batch, k), _rand(cuda, dtype, n), _rand(cuda, dtype, batch, n)
     for kw in (dict(bias=bias), dict(a2=w2, activation="silu", residual=res)):
         ops.reset_launch_counts()
-        _against_plain(lambda: ops.bgemv(w, x, **kw), dtype)
+        _against_plain(lambda: ops.bgemv(w, x, **kw, transpose_a=True), dtype)
         assert ops.launch_counts()["bgemv"] == 1
-        first, second = ops.bgemv(w, x, **kw), ops.bgemv(w, x, **kw)
+        first = ops.bgemv(w, x, **kw, transpose_a=True)
+        second = ops.bgemv(w, x, **kw, transpose_a=True)
         torch.cuda.synchronize()
         assert torch.equal(first, second), bgemv.plan(batch, k, n, dtype, gate="a2" in kw)
 
@@ -1361,7 +1367,7 @@ def test_bgemv_every_split_matches_plain(cuda, dtype, splits, rows):
     bgemv.run(w, x, out, p, w2=w2, bias=None, residual=res, act_code=ops._ACTS["silu"],
               dtype_code=ops._DTYPE_CODES[dtype])
     with ops.reference_mode():
-        want = ops.bgemv(w, x, a2=w2, residual=res, activation="silu")
+        want = ops.bgemv(w, x, a2=w2, residual=res, activation="silu", transpose_a=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
 
@@ -1375,12 +1381,12 @@ def test_bgemv_is_one_device_launch_a_call(cuda):
     w_small, x_small = _rand(cuda, torch.bfloat16, 32, 64), _rand(cuda, torch.bfloat16, 4, 32)
     assert bgemv.plan(4, 2048, 2048, torch.bfloat16).splits > 1
     assert bgemv.plan(4, 32, 64, torch.bfloat16).splits == 1
-    ops.bgemv(w, x)
+    ops.bgemv(w, x, transpose_a=True)
 
     def calls():
         for _ in range(3):
-            ops.bgemv(w, x)
-            ops.bgemv(w_small, x_small)
+            ops.bgemv(w, x, transpose_a=True)
+            ops.bgemv(w_small, x_small, transpose_a=True)
 
     names = _profiled_kernels(calls, "bgemv_kernel", 6)
     assert sum("bgemv_kernel" in name for name in names) == 6
@@ -1402,6 +1408,222 @@ def test_a_launch_the_bgemv_kernel_refuses_raises(cuda):
             bgemv.run(w, x, out, p, **kw)
     bgemv.run(w, x, out, bgemv.Plan(32, 2, 128), **kw)
     torch.testing.assert_close(out, x @ w, **TOL[torch.float32])
+
+
+# --------------------------------------------------------------------------
+# bgemv's other forms: op = A (csrc/bgemv_rows.cu) and a per-member A (both
+# bodies), in f32, bf16 and f64; kernels.bgemv.plan names the form
+# --------------------------------------------------------------------------
+
+BGEMV_FORMS = [(False, False), (False, True), (True, False), (True, True)]  # (trans, batched)
+BGEMV_EPILOGUES = [dict(), dict(a2=True, activation="silu"),
+                   dict(bias=True, activation="gelu", residual=True)]
+
+
+def _bgemv_operands(gen, dtype, batch, m, n, trans, batched, epi):
+    """A ((batch,) m, n), or ((batch,) n, m) under trans, x (batch, n) and
+    the epilogue's operands, bias and residual at the end of their
+    allocations (a kernel reading past m shows)."""
+    shape = ((batch,) if batched else ()) + ((n, m) if trans else (m, n))
+    a = _rand(gen, dtype, *shape, std=max(n, 1) ** -0.5)
+    kw = dict(activation=epi.get("activation"), transpose_a=trans)
+    if epi.get("a2"):
+        kw["a2"] = _rand(gen, dtype, *shape, std=max(n, 1) ** -0.5)
+    if epi.get("bias"):
+        kw["bias"] = _rand(gen, dtype, m + 1)[1:]
+    if epi.get("residual"):
+        kw["residual"] = _rand(gen, dtype, batch * m + 1)[1:].view(batch, m)
+    return a, _rand(gen, dtype, batch, n), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("trans,batched", BGEMV_FORMS)
+@pytest.mark.parametrize("batch,m,n", [(3, 257, 131), (2, 13, 89), (3, 101, 640), (1, 1, 1),
+                                       (2, 129, 7), (9, 64, 2048)])
+def test_bgemv_forms_match_plain(cuda, dtype, trans, batched, batch, m, n):
+    """Every form at the reference's conformance and prime shapes (ragged m
+    and n, rows off 16 bytes, batches past a chunk of 4), under each
+    epilogue: within TOL, one launch counted on its form, two launches
+    bitwise equal."""
+    from repro_torch.kernels import bgemv
+    form = ("batched_" if batched else "broadcast_") + ("t" if trans else "n")
+    for epi in BGEMV_EPILOGUES:
+        a, x, kw = _bgemv_operands(cuda, dtype, batch, m, n, trans, batched, epi)
+        ops.reset_launch_counts()
+        _against_plain(lambda: ops.bgemv(a, x, **kw), dtype)
+        counts = ops.launch_counts()
+        assert counts["bgemv"] == counts[f"bgemv_{form}"] == 1, counts
+        assert bgemv.plan_for(a, x, "a2" in kw, trans).form == form
+        first, second = ops.bgemv(a, x, **kw), ops.bgemv(a, x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("splits,rows", [(1, 1024), (2, 512), (7, 160), (32, 32)])
+def test_bgemv_batched_every_split_matches_plain(cuda, dtype, splits, rows):
+    """The column body with a per-member A under plans other than the chosen
+    one (one split, a short last split, 32 rows a split) over K = 1000, with
+    the gate and the residual: the same function, bitwise twice."""
+    from repro_torch.kernels import bgemv
+    k, n, b = 1000, 200, 5
+    w, w2 = (_rand(cuda, dtype, b, k, n, std=k ** -0.5) for _ in range(2))
+    x, res = _rand(cuda, dtype, b, k), _rand(cuda, dtype, b, n)
+    p = bgemv.Plan(128 // (torch.finfo(dtype).bits // 8), splits, rows, batched=True)
+    assert p.k_slices(k)[-1][1] == k
+
+    def call():
+        out = torch.empty(b, n, dtype=dtype, device="cuda")
+        return bgemv.run(w, x, out, p, w2=w2, bias=None, residual=res,
+                         act_code=ops._ACTS["silu"], dtype_code=ops._DTYPE_CODES[dtype])
+
+    got, again = call(), call()
+    with ops.reference_mode():
+        want = ops.bgemv(w, x, a2=w2, residual=res, activation="silu", transpose_a=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), want.double(), **TOL[dtype])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("wpr,block", [(1, False), (1, True), (2, False), (4, False), (8, False)])
+def test_bgemv_rows_every_split_matches_plain(cuda, dtype, batched, gate, wpr, block):
+    """The op = A body with 1-8 warps a row (its K split) or a block of rows
+    a warp (ROW_BLOCK, half as many under the gate), a ragged row count and
+    row length and 5 batch rows: the same function as the plain version; a
+    block of rows with 2 warps a row is refused."""
+    from repro_torch.kernels import bgemv
+    b, m, n = 5, 37, 3001
+    epi = dict(bias=True, residual=True, activation="relu", a2=gate)
+    a, x, kw = _bgemv_operands(cuda, dtype, b, m, n, False, batched, epi)
+    rows = bgemv.ROW_BLOCK // (2 if gate else 1) if block else 1
+    out = torch.empty(b, m, dtype=dtype, device="cuda")
+    run = dict(w2=kw.get("a2"), bias=kw["bias"], residual=kw["residual"],
+               act_code=ops._ACTS["relu"], dtype_code=ops._DTYPE_CODES[dtype])
+    bgemv.run(a, x, out, bgemv.Plan(0, 1, rows, batched, False, wpr), **run)
+    with ops.reference_mode():
+        want = ops.bgemv(a, x, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), want.double(), **TOL[dtype])
+    for bad in (bgemv.Plan(0, 1, 4, batched, False, 2), bgemv.Plan(0, 1, 3, batched, False, 1)):
+        with pytest.raises(RuntimeError, match="bgemv kernel launch failed"):
+            bgemv.run(a, x, out, bad, **run)
+
+
+@pytest.mark.cuda
+def test_bgemv_forms_are_one_device_launch_a_call(cuda):
+    """The profiler sees one kernel a call in every form: bgemv_kernel for
+    op = A^T, bgemv_rows_kernel for op = A, a split per-member plan
+    included (its partials combined in the same launch)."""
+    from repro_torch.kernels import bgemv
+    calls = []
+    for trans, batched in BGEMV_FORMS:
+        a, x, kw = _bgemv_operands(cuda, torch.float64, 8, 512, 2048, trans, batched, {})
+        calls.append(lambda a=a, x=x, kw=kw: ops.bgemv(a, x, **kw))
+    assert bgemv.plan(8, 2048, 512, torch.float64, batched=True).splits > 1
+    for call in calls:
+        call()
+
+    def run():
+        for call in calls:
+            call()
+
+    names = _profiled_kernels(run, "bgemv", 4)
+    assert sum("bgemv_kernel" in name for name in names) == 2, names
+    assert sum("bgemv_rows_kernel" in name for name in names) == 2, names
+    assert len(names) == 4, names
+
+
+# --------------------------------------------------------------------------
+# flash attention's flat (BH, T, D) layout, kv_lens optional
+# --------------------------------------------------------------------------
+
+def _flat_case(gen, dtype, bh, g, tq, s, d, int8=False, lens=None):
+    """q (BH, Tq, D), K/V (BH // g, S, D) (int8: values and f32 scales),
+    NaN past every row's kv length, and kv_lens (BH,) int32 or None."""
+    q = _rand(gen, dtype, bh, tq, d)
+    kw = {}
+    for name in "kv":
+        x = _rand(gen, torch.float32, bh // g, s, d)
+        if lens is not None:
+            for r in range(bh // g):
+                x[r, max(lens[r * g:(r + 1) * g]):] = float("nan")
+        if int8:
+            qt = quant.quantize_kv(torch.nan_to_num(x))
+            kw[name], kw[f"{name}_scales"] = qt.values, qt.scales
+            if lens is not None:
+                for r in range(bh // g):
+                    kw[f"{name}_scales"][r, max(lens[r * g:(r + 1) * g]):] = float("nan")
+        else:
+            kw[name] = x.to(dtype)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kw, kv_lens
+
+
+FLAT_CASES = [  # (bh, g, tq, s, d, lens: None or each row's)
+    (8, 1, 1, 300, 64, None), (8, 4, 1, 300, 64, [5, 37, 64, 160, 1, 97, 300, 299]),
+    (6, 1, 100, 100, 64, None), (6, 3, 64, 128, 32, None),
+    (4, 2, 60, 200, 128, [60, 200, 150, 61]), (4, 4, 33, 33, 256, None), (3, 1, 17, 40, 16, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mask", [dict(), dict(prefix_len=13), dict(causal=False)])
+@pytest.mark.parametrize("bh,g,tq,s,d,lens", FLAT_CASES)
+def test_flash_attention_flat_matches_plain(cuda, dtype, int8, mask, bh, g, tq, s, d, lens):
+    """Flat operands on every route (decode "splitkv", bf16 "mma", f32
+    "ffma"), MHA and GQA, dense and int8 K/V, each mask, with and without
+    kv_lens: within TOL, one launch counted under its route and the flat
+    layout, bitwise a second launch; the flat call gives the bits of the
+    cache-layout call on the same data where g = 1."""
+    from repro_torch.kernels import attention
+    q, kw, kv_lens = _flat_case(cuda, dtype, bh, g, tq, s, d, int8, lens)
+    call = lambda: ops.flash_attention(q, kv_lens=kv_lens, kv_groups=g, **kw, **mask)  # noqa: E731
+    ops.reset_launch_counts()
+    _against_plain(call, dtype)
+    route = attention.plan(bh // g, tq, g, 1, d, s, dtype, int8).route
+    assert ops.attention_layouts()[f"{route}/flat"] == 1
+    assert sum(ops.attention_layouts().values()) == 1
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert first.shape == q.shape and torch.equal(first, second)
+    if g == 1:  # the cache layout with B = BH, H = 1: the same bits
+        cache = ops.flash_attention(q[:, :, None], kv_lens=kv_lens,
+                                    **{k: t[:, :, None] for k, t in kw.items()}, **mask)
+        torch.cuda.synchronize()
+        assert torch.equal(cache[:, :, 0], first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,dtype", [(1, torch.bfloat16), (128, torch.bfloat16),
+                                      (128, torch.float32)])
+def test_flash_attention_flat_launches_no_copy(cuda, tq, dtype):
+    """A flat GQA call with kv_lens None is one device launch, the route's
+    attention kernel, and nothing else: no copy of q, k or v, no fill of
+    the lengths (a persistent buffer, filled at the first such call)."""
+    q, kw, _ = _flat_case(cuda, dtype, 64, 4, tq, 1024, 64)
+    ops.flash_attention(q, kv_groups=4, **kw)
+
+    def call():
+        ops.flash_attention(q, kv_groups=4, **kw)
+
+    names = _profiled_kernels(call, "attention", 1)
+    assert len(names) == 1 and "attention" in names[0], names
+
+
+@pytest.mark.cuda
+def test_flash_attention_flat_refuses_a_page_table(cuda):
+    q, kw, _ = _flat_case(cuda, torch.bfloat16, 4, 1, 1, 16, 64)
+    table = torch.zeros(4, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="page_table requires"):
+        ops.flash_attention(q, page_table=table, **kw)
 
 
 # --------------------------------------------------------------------------

@@ -99,7 +99,7 @@ def test_bgemv_bgemm_bf16_match_pallas():
     w2_j, w2_t = _pair(rng.standard_normal((48, 40)) * 0.2, "bfloat16")
     x_j, x_t = _pair(rng.standard_normal((3, 48)), "bfloat16")
     want = jops.bgemv(w_j, x_j, a2=w2_j, activation="silu", transpose_a=True)
-    got = ops.bgemv(w_t, x_t, a2=w2_t, activation="silu")
+    got = ops.bgemv(w_t, x_t, a2=w2_t, activation="silu", transpose_a=True)
     assert got.dtype == torch.bfloat16
     _close(got, want.astype(jnp.float32), BF16_TOL)
     a_j, a_t = _pair(rng.standard_normal((2, 5, 48)), "bfloat16")
@@ -158,7 +158,7 @@ def test_cpu_tensors_take_the_plain_versions():
     g = torch.Generator().manual_seed(0)
     w, x = torch.randn(24, 16, generator=g), torch.randn(2, 24, generator=g)
     a = torch.randn(2, 3, 24, generator=g)
-    assert torch.equal(ops.bgemv(w, x), tbgemv.reference(w, x))
+    assert torch.equal(ops.bgemv(w, x, transpose_a=True), tbgemv.reference(w, x))
     assert torch.equal(ops.bgemm(a, w), tbgemm.reference(a, w))
     q = torch.randn(2, 1, 2, 16, generator=g)
     kv = torch.randn(2, 8, 2, 16, generator=g)
@@ -166,7 +166,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(ops.flash_attention(q, kv, kv, kv_lens=lens),
                        tattention.reference(q, kv, kv, lens))
     qw = quant.quantize(w, quant.QuantSpec(8, None, transpose=True))
-    assert torch.equal(ops.bgemv(qw, x), tbgemv.reference_int8(qw, x))
+    assert torch.equal(ops.bgemv(qw, x, transpose_a=True), tbgemv.reference_int8(qw, x))
     assert torch.equal(ops.bgemm(a, qw), tbgemm.reference_int8(a, qw))
     wb = torch.randn(2, 24, 16, generator=g)
     assert torch.equal(ops.bgemm(a, wb, out_dtype=torch.float64),
@@ -183,7 +183,9 @@ def test_cpu_tensors_take_the_plain_versions():
     assert ops.launch_counts() == {"bgemv": 0, "bgemm": 0, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 0,
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
-                                   "bgemv_int8": 0, "gemv_int8": 0, "gemm_int8": 0,
+                                   "bgemv_int8": 0, "bgemv_broadcast_t": 0,
+                                   "bgemv_broadcast_n": 0, "bgemv_batched_t": 0,
+                                   "bgemv_batched_n": 0, "gemv_int8": 0, "gemm_int8": 0,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
                                    "gemm_dmma": 0, "gemm_ffma_sm90": 0, "gemm_ffma": 0,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
@@ -197,19 +199,19 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_wrappers_reject_what_the_kernels_do_not_take():
     w, x = torch.randn(24, 16), torch.randn(2, 24)
     with pytest.raises(ValueError, match="shape"):
-        ops.bgemv(w, torch.randn(2, 23))
+        ops.bgemv(w, torch.randn(2, 23), transpose_a=True)
     with pytest.raises(TypeError, match="dtype"):
-        ops.bgemv(w, x.double())
+        ops.bgemv(w, x.double(), transpose_a=True)
     with pytest.raises(TypeError, match="dtype"):
-        ops.bgemv(w.to(torch.bfloat16), x)
+        ops.bgemv(w.to(torch.bfloat16), x, transpose_a=True)
     with pytest.raises(ValueError, match="contiguous"):
         ops.bgemm(torch.randn(2, 24, 3).transpose(1, 2), w)
     with pytest.raises(ValueError, match="bias shape"):
         ops.bgemm(torch.randn(2, 3, 24), w, bias=torch.randn(15))
     with pytest.raises(ValueError, match="activation"):
-        ops.bgemv(w, x, activation="tanh")
-    with pytest.raises(NotImplementedError):
-        ops.bgemv(w, x, transpose_a=False)
+        ops.bgemv(w, x, activation="tanh", transpose_a=True)
+    with pytest.raises(ValueError, match="shape"):  # op = A: a (24, 16) takes x (2, 16)
+        ops.bgemv(w, x)
     q, kv = torch.randn(1, 1, 4, 16), torch.randn(1, 8, 2, 16)
     with pytest.raises(TypeError, match="int32"):
         ops.flash_attention(q, kv, kv, kv_lens=torch.ones(4, dtype=torch.int64), kv_groups=2)

@@ -291,7 +291,7 @@ def test_packed_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="stored layout"):
         ops.bgemv(qt, x, transpose_a=False)
     with pytest.raises(ValueError, match="share one quantization spec"):
-        ops.bgemv(qt, x, a2=qn)
+        ops.bgemv(qt, x, a2=qn, transpose_a=True)
     with pytest.raises(ValueError, match="share one quantization spec"):
         ops.gemm(x, qt, b2=torch.randn(16, 8))
     with pytest.raises(ValueError, match="stored layout"):
@@ -301,19 +301,20 @@ def test_packed_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="tile"):
         ops.gemm(x, quant.QuantizedTensor(qn.values, qn.scales[:1], qn.block))
     with pytest.raises(ValueError, match="shape"):
-        ops.bgemv(qt, torch.randn(2, 9))
-    with pytest.raises(NotImplementedError, match="§2: batched A"):
-        ops.bgemv(quant.quantize(torch.randn(2, 16, 8), quant.QuantSpec(transpose=True)), x)
+        ops.bgemv(qt, torch.randn(2, 9), transpose_a=True)
+    with pytest.raises(ValueError, match="refuses a batched one too"):
+        ops.bgemv(quant.quantize(torch.randn(2, 16, 8), quant.QuantSpec(transpose=True)), x,
+                  transpose_a=True)
 
 
 def test_packed_call_on_another_device_raises():
     """No fallback: a packed call on a device with no kernel raises."""
     qt = quant.quantize(torch.randn(16, 8), quant.QuantSpec(8, None, transpose=True)).to("meta")
     with pytest.raises(ValueError, match="no kernel or plain version for device meta"):
-        ops.bgemv(qt, torch.empty(2, 16, device="meta"))
+        ops.bgemv(qt, torch.empty(2, 16, device="meta"), transpose_a=True)
     with pytest.raises(ValueError, match="on cpu, expected meta"):
         ops.bgemv(quant.quantize(torch.randn(16, 8), quant.QuantSpec(transpose=True)),
-                  torch.empty(2, 16, device="meta"))
+                  torch.empty(2, 16, device="meta"), transpose_a=True)
 
 
 def test_plain_versions_dequantize_in_the_accumulator_dtype():
@@ -331,7 +332,7 @@ def test_plain_versions_dequantize_in_the_accumulator_dtype():
     assert torch.equal(ops.bgemm(xb, qb), tbgemm.reference_int8(xb, qb))
     assert torch.equal(ops.gemm(xb[0], qb), tgemm.reference_int8(xb[0], qb))
     x0 = xb[:, 0].contiguous()
-    assert torch.equal(ops.bgemv(qb, x0), tbgemv.reference_int8(qb, x0))
+    assert torch.equal(ops.bgemv(qb, x0, transpose_a=True), tbgemv.reference_int8(qb, x0))
     assert set(ops.launch_counts().values()) == {0}
 
 
