@@ -488,22 +488,22 @@ def _bgemv_name(mangled: str):
 
 
 def _f64_config(mangled: str):
-    """(BM, BN, BK, STAGES, MI, KI, GATE, VEC) of a gemm_f64_kernel
+    """(BM, BN, BK, STAGES, MI, KI, GATE, VEC, BATCHED) of a gemm_f64_kernel
     instantiation (VEC: doubles a cp.async copies), else None."""
     m = re.search(r"gemm_f64_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)"
-                  r"ELi(\d+)E", mangled)
+                  r"ELi(\d+)ELb(\d)E", mangled)
     return tuple(int(v) for v in m.groups()) if m else None
 
 
 def _f64_name(mangled: str):
-    """'BMxBN [gate] mMIn8kKI BK=.. S=.. copy=..B' for a gemm_f64_kernel
-    instantiation, else None."""
+    """'BMxBN [gate] mMIn8kKI BK=.. S=.. copy=..B [batched]' for a
+    gemm_f64_kernel instantiation, else None."""
     cfg = _f64_config(mangled)
     if cfg is None:
         return None
-    bm, bn, bk, stages, mi, ki, gate, vec = cfg
+    bm, bn, bk, stages, mi, ki, gate, vec, batched = cfg
     return (f"{bm}x{bn}" + (" gate" if gate else "") + f" m{mi}n8k{ki} BK={bk} S={stages}"
-            f" copy={8 * vec}B")
+            f" copy={8 * vec}B" + (" batched" if batched else ""))
 
 
 def _mma_name(mangled: str):
@@ -519,13 +519,14 @@ def _mma_name(mangled: str):
 
 
 def _f32_name(mangled: str):
-    """'BMxBN TMxTN [gate]' for a gemm_f32_kernel instantiation
+    """'BMxBN TMxTN [gate] [batched]' for a gemm_f32_kernel instantiation
     (csrc/gemm_f32.cu), else None."""
-    m = re.search(r"gemm_f32_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", mangled)
+    m = re.search(r"gemm_f32_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE+Lb(\d)E",
+                  mangled)
     if m is None:
         return None
-    bm, bn, tm, tn, gate = (int(v) for v in m.groups())
-    return f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "")
+    bm, bn, tm, tn, gate, batched = (int(v) for v in m.groups())
+    return f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "") + (" batched" if batched else "")
 
 
 def phase_sass(lib: Path) -> dict:
@@ -585,7 +586,7 @@ def phase_sass(lib: Path) -> dict:
             elif _mma_name(fn):
                 entry = mma_ptxas[_mma_name(fn)] = {}
             elif _f64_config(fn):
-                bm, bn, bk, stages, _, _, gate, _ = _f64_config(fn)
+                bm, bn, bk, stages, _, _, gate, _, _ = _f64_config(fn)
                 ring = stages * (bm * (bk + 4) + (1 + gate) * bk * (bn + 4)) * 8  # padded rows
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
             elif _f32_name(fn):
@@ -664,7 +665,7 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"the SSD's bf16 outputs kernel without HMMA: {mma}")
     if any(mma_spills.values()):
         raise AssertionError(f"mamba2.cu kernels spill: {mma_spills}")
-    widths = {name.split("copy=")[1] for name, n in dmma.items() if n}
+    widths = {name.split("copy=")[1].split()[0] for name, n in dmma.items() if n}
     if widths != {"16B", "8B"}:
         raise AssertionError(f"f64 tensor-core kernels with DMMA only in copies of {widths}")
     if len(qhmma) != 2 or min(qhmma.values()) == 0:
@@ -676,8 +677,12 @@ def phase_sass(lib: Path) -> dict:
     if not hgmma or min(hgmma.values()) == 0:
         raise AssertionError(f"tensor-core kernels without HGMMA: {hgmma}")
     batched = sorted(k for k in hgmma if "batched" in k)
-    if len(batched) != 8:  # 2 tiles x gate x bf16 / f32 out (the MoE's down projection)
-        raise AssertionError(f"batched tensor-core instantiations {batched}, want 8")
+    if len(batched) != 12:  # gate x bf16 / f32 out x (2 tiles dense, 64 x 64 int8 "kn" B)
+        raise AssertionError(f"batched tensor-core instantiations {batched}, want 12")
+    # f64: 2 tiles x gate x 2 copy widths; f32: FFMA_SM90_BATCHED_TILES and the gate's
+    for kind, names, want in (("f64", dmma, 8), ("f32", ffma, 7)):
+        if len([k for k in names if k.endswith("batched")]) != want:
+            raise AssertionError(f"batched {kind} instantiations: {sorted(names)}")
     if any(tc_spills.values()):
         raise AssertionError(f"tensor-core GEMM kernels spill: {tc_spills}")
     if not hmma or min(hmma.values()) == 0:
@@ -3199,19 +3204,31 @@ GROK = "grok-1-314b"
 # the plain bf16 path's logits are, plus 2% of max |logit|.
 MOE_TF_OUT_TOL = 0.02
 MOE_E2E_MARGIN = 0.02
+# moe_kernels' operation-bound BLAS cases (batch, m, k, n): aligned (f64,
+# f32) and, in bf16, odd M and K (A staged)
+BLAS_BATCHED = (16, 2048, 2048, 2048)
+BLAS_BATCHED_ODD = (16, 2047, 2047, 2048)
 
 
 def moe_cases():
     """The batched launch at moonshot FULL's expert shapes (64 experts, d =
     2048, f = 1408): the gate+up dual launch (silu, bf16 out) and the down
     launch (f32 out) at decode (32 rows an expert: batch 4 x capacity 8)
-    and prefill (64: 4 x 16) on the tensor cores; the packed expert stacks
-    (`--quantize int8`'s "kn", per-expert scales) and f32, f64 and odd-K
-    bf16 on the CUDA-core tile.  Dicts: label, call, lib (torch.bmm on the
-    same operands, products only, or None), bytes, flops, dtype, out_dtype,
-    packed, dense (the label of the dense case at that shape, or None)."""
-    from repro_torch.core import quant
-    from repro_torch.kernels import ops
+    and prefill (64: 4 x 16), dense and packed (`--quantize int8`'s "kn"
+    expert stacks, per-expert scales: one a 64-row k-step across N, and
+    one case whose scales vary along N too), on the tensor cores; f32 (the
+    TMA ring), f64 (DMMA) and odd-K bf16 (A staged) at the decode down
+    shape; packed stacks under f32 A (the CUDA-core tile); and one
+    operation-bound BLAS case a dtype through `blas.batched_gemm`: (16,
+    2048, 2048, 2048) in f64 and f32, (16, 2047, 2047, 2048) in bf16.
+    Dicts: label, call, lib (torch.bmm on the same operands, products
+    only, or None), ffma (the same launch on the CUDA-core tile of
+    csrc/gemm_batched*.cu, the first design), bytes, flops, dtype,
+    out_dtype, packed, gate, shape, plan_kw (`gemm.plan_batched`'s packed
+    layout and block), dense (the label of the dense case at that shape, or
+    None)."""
+    from repro_torch.core import blas, quant
+    from repro_torch.kernels import gemm, ops
     g = torch.Generator(device="cuda").manual_seed(21)
     e, d, f = 64, 2048, 1408
 
@@ -3225,20 +3242,24 @@ def moe_cases():
     qg, qu, qd = (quant.quantize(w, spec) for w in (wg, wu, wd))
     cases = []
 
-    def case(label, a, b, lib, *, b2=None, activation=None, out_dtype, dense=None):
+    def case(label, a, b, lib, *, b2=None, activation=None, out_dtype, dense=None, call=None):
         packed = quant.is_quantized(b)
         batch, m, k = a.shape
         n = b.shape[-1]
         out_b = batch * m * n * torch.empty((), dtype=out_dtype).element_size()
         w_b = (nbytes(b.values, b.scales, *(() if b2 is None else (b2.values, b2.scales)))
                if packed else nbytes(b, b2))
+        first = torch.empty(batch, m, n, dtype=out_dtype, device="cuda")
         cases.append(dict(
-            label=label, call=lambda: ops.bgemm(a, b, b2=b2, activation=activation,
-                                                out_dtype=out_dtype),
-            lib=lib, bytes=nbytes(a) + w_b + out_b,
+            label=label, call=call or (lambda: ops.bgemm(a, b, b2=b2, activation=activation,
+                                                         out_dtype=out_dtype)),
+            lib=lib, ffma=lambda: gemm.batched_ffma(
+                a, b, first, b2=b2, bias=None, residual=None, act_code=ops._ACTS[activation],
+                dtype_code=ops._DTYPE_CODES[a.dtype], out_code=ops._DTYPE_CODES[out_dtype]),
+            bytes=nbytes(a) + w_b + out_b,
             flops=2 * batch * m * k * n * (2 if b2 is not None else 1), dtype=a.dtype,
             out_dtype=out_dtype, packed=packed, gate=b2 is not None, shape=(batch, m, k, n),
-            dense=dense))
+            plan_kw=dict(packed_layout="kn", block=b.block) if packed else {}, dense=dense))
 
     for m, what in ((32, "decode"), (64, "prefill")):
         h, mid = rnd(e, m, d), rnd(e, m, f)
@@ -3247,43 +3268,59 @@ def moe_cases():
         case(gate_up, h, wg, lambda h=h: torch.bmm(h, wgu), b2=wu, activation="silu",
              out_dtype=torch.bfloat16)
         case(down, mid, wd, lambda mid=mid: torch.bmm(mid, wd), out_dtype=torch.float32)
+        case(f"int8 {gate_up}", h, qg, None, b2=qu, activation="silu",
+             out_dtype=torch.bfloat16, dense=gate_up)
+        case(f"int8 {down}", mid, qd, None, out_dtype=torch.float32, dense=down)
         if m == 32:
-            case(f"int8 {gate_up}", h, qg, None, b2=qu, activation="silu",
-                 out_dtype=torch.bfloat16, dense=gate_up)
-            case(f"int8 {down}", mid, qd, None, out_dtype=torch.float32, dense=down)
+            qd_n = quant.quantize(wd, quant.QuantSpec(block_m=64, block_n=128))
+            case(f"int8 block_n=128 {down}", mid, qd_n, None, out_dtype=torch.float32,
+                 dense=down)
             mid32, wd32 = mid.float(), wd.float()
             case(f"f32 {down}", mid32, wd32, lambda: torch.bmm(mid32, wd32),
                  out_dtype=torch.float32, dense=down)
+            case(f"int8 f32 {down}", mid32, qd, None, out_dtype=torch.float32, dense=down)
             mid64, wd64 = mid.double(), wd.double()
             case(f"f64 {down.replace('f32 out', 'f64 out')}", mid64, wd64,
                  lambda: torch.bmm(mid64, wd64), out_dtype=torch.float64, dense=down)
             odd, wodd = mid[..., :f - 1].contiguous(), wd[:, :f - 1].contiguous()
             case(f"odd K {what} down ({e},{m},{f - 1})@({e},{f - 1},{d}) f32 out", odd, wodd,
                  lambda: torch.bmm(odd, wodd), out_dtype=torch.float32, dense=down)
+    for dtype, (bb, bm, bk, bn) in ((torch.float64, BLAS_BATCHED), (torch.float32, BLAS_BATCHED),
+                                    (torch.bfloat16, BLAS_BATCHED_ODD)):
+        x, w = rnd(bb, bm, bk, dtype=dtype), rnd(bb, bk, bn, std=bk ** -0.5, dtype=dtype)
+        case(f"blas batched_gemm ({bb},{bm},{bk})@({bb},{bk},{bn}) {str(dtype)[6:]}", x, w,
+             lambda x=x, w=w: torch.bmm(x, w), out_dtype=dtype,
+             call=lambda x=x, w=w: blas.batched_gemm(x, w))
     return cases
 
 
 def phase_moe_kernels():
     """Each batched case: one launch, counted on the route
-    `gemm.plan_batched` names (and as packed where it is); within TOL of its
-    plain version (f32 out: the f32 tolerance, the sums differing in order
-    only), bitwise a second launch; timed beside its bound, the plain
-    version and torch.bmm on the same operands (products only)."""
+    `gemm.plan_batched` names (and as packed, and as staged, where it is);
+    within TOL of its plain version (f32 out: the f32 tolerance, the sums
+    differing in order only), bitwise a second launch; timed beside its
+    bound, the plain version, torch.bmm on the same operands (products
+    only) and, off the "ffma" route, the same launch on the CUDA-core tile
+    (`first_tile_ms`, the design these forms left).  Returns (rows by label,
+    the launches of the checked calls by key)."""
     from repro_torch.kernels import gemm, ops
-    rows = {}
+    rows, launched = {}, {}
     for c in moe_cases():
         batch, m, k, n = c["shape"]
         p = gemm.plan_batched(batch, m, k, n, c["dtype"], c["out_dtype"], gate=c["gate"],
-                              packed=c["packed"])
+                              **c["plan_kw"])
         before = ops.launch_counts()
         got = c["call"]()
         after = ops.launch_counts()
         rose = {key: after[key] - before[key] for key in after if after[key] != before[key]}
         want_rose = {"bgemm_batched": 1, f"bgemm_batched_{p.route}": 1,
-                     **({"bgemm_batched_int8": 1} if c["packed"] else {})}
+                     **({"bgemm_batched_int8": 1} if c["packed"] else {}),
+                     **({"bgemm_batched_staged": 1} if p.stage else {})}
         if rose != want_rose:
             raise AssertionError(f"moe_kernels [{c['label']}]: launches added {rose}, "
                                  f"plan {p}")
+        for key, v in rose.items():
+            launched[key] = launched.get(key, 0) + v
         with ops.reference_mode():
             want = c["call"]()
         torch.cuda.synchronize()
@@ -3296,13 +3333,16 @@ def phase_moe_kernels():
         with ops.reference_mode():
             plain_ms = time_auto(c["call"])
         lib_ms = time_auto(c["lib"]) if c["lib"] is not None else None
+        first_ms = time_auto(c["ffma"]) if p.route != "ffma" else None
         b_ms, by = bound(c["bytes"], c["flops"], c["dtype"])
         row = dict(case=c["label"], dtype=str(c["dtype"]).split(".")[1],
                    out_dtype=str(c["out_dtype"]).split(".")[1], packed=c["packed"],
-                   plan=dict(route=p.route, tile=list(p.tile)), max_abs_err=err, tol=tol,
+                   plan=dict(route=p.route, tile=list(p.tile), stage=p.stage, copy=p.copy),
+                   max_abs_err=err, tol=tol,
                    within_tol=ok, bitwise_second_launch=same, kernel_ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library_call="torch.bmm (products only)" if lib_ms
-                   else None, bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
+                   else None, first_tile_ms=first_ms, bound_ms=b_ms, bound_by=by,
+                   share_of_bound=b_ms / ms,
                    dense_ms=rows[c["dense"]]["kernel_ms"] if c["dense"] else None,
                    bytes=c["bytes"], flops=c["flops"])
         emit("moe_kernels", **row)
@@ -3310,8 +3350,9 @@ def phase_moe_kernels():
             raise AssertionError(f"moe_kernels [{c['label']}]: max |kernel - plain| {err} "
                                  f"(tol {tol}), second launch bitwise {same}")
         rows[c["label"]] = row
+    emit("launches", run="moe_kernels", **launched)
     torch.cuda.empty_cache()
-    return rows
+    return rows, launched
 
 
 def check_moe_launches(counts: dict, what: str, cfg, prefills: int, steps: int,
@@ -3339,10 +3380,11 @@ def phase_smoke_moe():
     """moonshot and grok SMOKE (f32) served through the kernels and through
     the plain versions: equal greedy tokens under the continuous scheduler
     (ragged prompts), the batch scheduler and --quantize int8; every expert
-    launch batched, on the CUDA-core tile ("ffma"; f32), packed under int8;
-    the f32 projections on "ffma_sm90".  Returns the launch counts of the
-    moonshot continuous and int8 serves."""
-    from repro_torch.kernels import ops
+    launch batched, on the route `gemm.plan_batched` names for the smoke's
+    f32 expert shapes (the TMA ring, "ffma_sm90"), packed under int8 (f32 A:
+    the CUDA-core tile, "ffma"); the f32 projections on "ffma_sm90".
+    Returns the launch counts of the moonshot continuous and int8 serves."""
+    from repro_torch.kernels import gemm, ops
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tf
     from repro_torch.models.registry import get_config
@@ -3350,6 +3392,12 @@ def phase_smoke_moe():
     for arch in (MOE, GROK):
         cfg = get_config(arch, "smoke")
         params = tf.init_params(cfg, 0, "cuda")
+        d, f = cfg.d_model, cfg.moe.d_ff_expert
+        f32 = torch.float32
+        dense_routes = {gemm.plan_batched(cfg.moe.num_experts, 1, k, n, f32, f32, gate=gate).route
+                        for k, n, gate in ((d, f, True), (f, d, False))}
+        if len(dense_routes) != 1:
+            raise AssertionError(f"smoke_moe {arch}: expert launches on {dense_routes}")
         rng = np.random.default_rng(1)
         ragged = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
         even = [rng.integers(3, cfg.vocab, size=(10,), dtype=np.int32) for _ in range(5)]
@@ -3371,8 +3419,9 @@ def phase_smoke_moe():
                 raise AssertionError(f"smoke_moe {arch} {name}: kernels {got['outputs']} != "
                                      f"plain {want['outputs']}")
             # the serve's warm-up runs one prefill and one decode step first
+            route = "ffma" if name == "int8" else next(iter(dense_routes))
             check_moe_launches(counts, f"smoke_moe {arch} {name}", cfg, got["prefills"] + 1,
-                               got["decode_steps"] + 1, "ffma", int8=name == "int8")
+                               got["decode_steps"] + 1, route, int8=name == "int8")
             if name != "int8":
                 check_f32_routes(counts, f"smoke_moe {arch} {name}")
             out[(arch, name)] = counts
@@ -3412,9 +3461,9 @@ def phase_serve_moe(params, cfg):
     no plain version called, two batched expert launches a layer every
     forward, all on the tensor cores ("wgmma"), the prefill projections on
     wgmma, attention on its routes; peak device memory.  Returns (the
-    launch counts, the outputs)."""
+    launch counts, the fields printed)."""
     stats, fields, counts, plain = _instrumented_serve(MOE, params, cfg)
-    routes = check_attention_routes("serve_moe", cfg.n_layers)
+    check_attention_routes("serve_moe", cfg.n_layers)
     emit("serve_moe", **fields,
          params_b=sum(t.numel() for t in _tensors(params)) / 1e9,
          params_gb=sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9,
@@ -3424,7 +3473,39 @@ def phase_serve_moe(params, cfg):
     check_moe_launches(counts, "serve_moe", cfg, stats["prefills"] + 1,
                        stats["decode_steps"] + 1, "wgmma")
     check_prefill_routes(counts, "serve_moe")
-    return counts, routes
+    return counts, fields
+
+
+def phase_serve_moe_int8(params, cfg, bf16_fields: dict) -> dict:
+    """moonshot FULL with --quantize int8: the bf16 params packed in place
+    one layer at a time (`layers.quantize_weights` on each
+    params["layers"][i], that layer's bf16 leaves dropped before the next
+    is packed, so the peak stays near the bf16 tree's 57.8 GB; packing the
+    whole tree at once would hold it beside ~30 GB of int8), then 8
+    requests, batch 4, prompt 128, gen 32, greedy, `quantize="int8"` (the
+    packed leaves pass through serve()'s own packing).  Every logit finite,
+    no plain version called, every expert launch packed on the tensor cores
+    ("wgmma"), the projections on the packed kernels, attention on its
+    routes; tok/s, TTFT and decode ms/step beside serve_moe's bf16 ones.
+    Returns the launch counts."""
+    from repro_torch.models import layers
+    t0 = time.perf_counter()
+    for i in range(len(params["layers"])):
+        params["layers"][i] = layers.quantize_weights(params["layers"][i])
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    stats, fields, counts, plain = _instrumented_serve(MOE, params, cfg, quantize="int8")
+    check_attention_routes("serve_moe_int8", cfg.n_layers)
+    emit("serve_moe_int8", **fields, pack_seconds=pack_s,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         **{f"bf16_{k}": bf16_fields[k] for k in ("tok_s", "ttft_p50_s", "decode_ms_per_step",
+                                                  "prefill_ms", "max_memory_allocated_gb")})
+    emit("launches", run="serve_moe_int8", **counts)
+    check_full_serve("serve_moe_int8", stats, fields, plain)
+    check_moe_launches(counts, "serve_moe_int8", cfg, stats["prefills"] + 1,
+                       stats["decode_steps"] + 1, "wgmma", int8=True)
+    return counts
 
 
 def logit_gate(got: list, want: list, want32: list, margin: float) -> dict:
@@ -4190,16 +4271,17 @@ def main() -> int:
                               state_kernel="mamba2_ssd", serial_launch=serial_ssd_launch)
         del zamba_params
         torch.cuda.empty_cache()
-        moe_rows = phase_moe_kernels()
+        moe_rows, moe_launched = phase_moe_kernels()
         moe_smoke = phase_smoke_moe()
         moe_cfg = get_config(MOE, "full")
         moe_params = tf.init_params(moe_cfg, 0, "cuda")
-        moe_counts, _ = phase_serve_moe(moe_params, moe_cfg)
+        moe_counts, moe_fields = phase_serve_moe(moe_params, moe_cfg)
         phase_forced_moe(moe_params, moe_cfg)
         phase_profile(moe_params, moe_cfg, 6 * moe_cfg.n_layers, phase="profile_moe",
                       tc_per_step=2 * moe_cfg.n_layers)
         phase_profile_prefill(moe_params, moe_cfg, phase="profile_prefill_moe",
                               state_kernel=None)
+        moe_int8_counts = phase_serve_moe_int8(moe_params, moe_cfg, moe_fields)
         del moe_params
         torch.cuda.empty_cache()
         mask_rows = phase_attention_masks()
@@ -4379,22 +4461,42 @@ def main() -> int:
                     "bound_with_workspace_ms": r["bound_with_workspace_ms"],
                     "long_shape": long_r["case"], "long_ms": long_r["kernel_ms"],
                     "long_replaced_ms": long_r["replaced_ms"], "long_bound_ms": long_r["bound_ms"]})
-    # bgemm's batched launch (the MoE experts): the tensor-core route with
-    # launches from the moonshot serve (the gate+up dual launch at the decode
-    # shape; the f32-out down projection's case beside it), the CUDA-core
-    # tile with launches from the f32 moonshot smoke serve, and its packed
-    # form with launches from that serve under --quantize int8
+    # bgemm's batched launch (the MoE experts and the BLAS batched_gemm), a
+    # row a route and form: dense bf16 on the tensor cores with launches
+    # from the moonshot serve and the packed "kn" stacks there with
+    # launches from its int8 serve (the gate+up dual launch at the decode
+    # shape; the down projection's case beside it); f32 on the TMA ring
+    # with launches from the f32 moonshot smoke serve; f64 on DMMA and bf16
+    # with A staged with launches from moe_kernels' checked calls (no served
+    # model runs them; the BLAS case beside each); packed stacks under f32 A
+    # on the CUDA-core tile with launches from the f32 smoke serve under
+    # --quantize int8
     dec_gu = "decode gate_up (64,32,2048)@(64,2048,1408) x2 silu bf16 out"
     dec_dn = "decode down (64,32,1408)@(64,1408,2048) f32 out"
-    down = moe_rows[dec_dn]
-    for name, src, case, counts, key, launches_from in (
+    blas_label = "blas batched_gemm ({0},{1},{2})@({0},{2},{3}) {4}".format
+    for name, src, case, counts, key, launches_from, side in (
             ("bgemm_batched_wgmma", "gemm_sm90.cu", dec_gu, moe_counts, "bgemm_batched_wgmma",
-             "serve_moe"),
-            ("bgemm_batched_ffma", "gemm_batched.cu", f"f32 {dec_dn}",
-             moe_smoke[(MOE, "continuous")], "bgemm_batched_ffma", "smoke_moe (f32)"),
-            ("bgemm_batched_int8", "gemm_batched_bf16.cu", f"int8 {dec_gu}",
-             moe_smoke[(MOE, "int8")], "bgemm_batched_int8", "smoke_moe int8 (f32)")):
+             "serve_moe", dec_dn),
+            ("bgemm_batched_int8", "gemm_sm90.cu", f"int8 {dec_gu}", moe_int8_counts,
+             "bgemm_batched_int8", "serve_moe_int8", f"int8 {dec_dn}"),
+            ("bgemm_batched_ffma_sm90", "gemm_f32.cu", f"f32 {dec_dn}",
+             moe_smoke[(MOE, "continuous")], "bgemm_batched_ffma_sm90", "smoke_moe (f32)",
+             blas_label(*BLAS_BATCHED, "float32")),
+            ("bgemm_batched_dmma", "gemm_f64.cu",
+             f"f64 {dec_dn.replace('f32 out', 'f64 out')}", moe_launched, "bgemm_batched_dmma",
+             "moe_kernels", blas_label(*BLAS_BATCHED, "float64")),
+            ("bgemm_batched_wgmma_staged", "gemm_sm90.cu",
+             "odd K decode down (64,32,1407)@(64,1407,2048) f32 out", moe_launched,
+             "bgemm_batched_staged", "moe_kernels", blas_label(*BLAS_BATCHED_ODD, "bfloat16")),
+            ("bgemm_batched_ffma", "gemm_batched.cu", f"int8 f32 {dec_dn}",
+             moe_smoke[(MOE, "int8")], "bgemm_batched_ffma", "smoke_moe int8 (f32)", None)):
         r = moe_rows[case]
+        extra = {}
+        if side is not None:
+            o = moe_rows[side]
+            extra = {"side_shape": side, "side_ms": o["kernel_ms"], "side_plain_ms": o["plain_ms"],
+                     "side_bound_ms": o["bound_ms"], "side_library_ms": o["library_ms"],
+                     "side_first_tile_ms": o["first_tile_ms"]}
         summary.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
                         "replaces": "src/repro/kernels/bgemm.py:217", "launches": counts[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
@@ -4402,10 +4504,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": case, "dtype": r["dtype"], "out_dtype": r["out_dtype"],
                         "plan": r["plan"], "launches_from": launches_from,
-                        **({"down_shape": dec_dn, "down_ms": down["kernel_ms"],
-                            "down_plain_ms": down["plain_ms"], "down_bound_ms": down["bound_ms"],
-                            "down_library_ms": down["library_ms"]}
-                           if name == "bgemm_batched_wgmma" else {}),
+                        "first_tile_ms": r["first_tile_ms"], **extra,
                         **({"dense_ms": r["dense_ms"]} if r["dense_ms"] else {})})
     # flash attention's masks and head dim 256 (phase attention_masks, the
     # dense bf16 / f32 case at each serving shape), launches from the

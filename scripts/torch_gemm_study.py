@@ -13,6 +13,7 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py qgemv
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py odd
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_rows
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py packed
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -97,6 +98,18 @@ members of (32, 32) in f64) with one warp a row taking 1 row and
 `bgemv.ROW_BLOCK` rows, and with 2-8 warps a row, each checked against the
 plain version; beside the plan's choice and torch.bmm / F.linear on the
 same operands.  `bgemv.ROW_BLOCK` comes from these.
+
+packed: the batched tensor-core kernel's packed int8 "kn" form
+(csrc/gemm_sm90.cu, `KnLayout`) at moonshot's decode expert shapes (the
+gate+up dual launch and the down launch, 64 experts of 32 rows, scales one
+a 64-row k-step) as the tree builds it and in two variants compiled from
+its source beside it: the launch bound 1 (blocks an SM as the registers
+allow, no `setmaxnreg`), 6 staging stages (shared memory for fewer blocks
+an SM) and, without the gate, the registers left as compiled (no
+`setmaxnreg`); each checked
+against the plain version, timed beside the dense batched launch on the
+same bf16 weights.  `KnLayout`'s blocks, stages and registers come from
+these.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
@@ -562,10 +575,105 @@ def odd():
         del a, b, b2, want, out
 
 
+# the packed study's variants of csrc/gemm_sm90.cu: (old, new) text edits,
+# each found exactly once
+PACKED_VARIANTS = {
+    "launch bound 1": [
+        ("Q&& BATCHED ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)", "1)"),
+        ("static constexpr bool SPLIT_REGS = !C::GATE;",
+         "static constexpr bool SPLIT_REGS = false;")],
+    "6 staging stages": [("static constexpr int STAGES = 4, BUFS = 2;",
+                          "static constexpr int STAGES = 6, BUFS = 2;")],
+    "registers not moved": [("static constexpr bool SPLIT_REGS = !C::GATE;",
+                             "static constexpr bool SPLIT_REGS = false;")],
+}
+
+
+def packed():
+    import ctypes
+
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build, gemm, ops
+    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    out_dir = Path(__file__).resolve().parents[1] / "build" / "study_packed"
+    jobs = {}
+    for name, edits in PACKED_VARIANTS.items():
+        src = (csrc / "gemm_sm90.cu").read_text()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"packed: variant {name!r} does not apply: {old!r}")
+            src = src.replace(old, new)
+        d = out_dir / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for header in ("common.cuh", "tma.cuh"):
+            (d / header).write_text((csrc / header).read_text())
+        (d / "gemm_sm90.cu").write_text(src)
+        jobs[name] = (d / "lib.so", subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "gemm_sm90.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    lib = _build.build()
+    fns = {"design": _build.function("gemm_tc_launch", gemm._TC_ARGTYPES)}
+    for name, (path, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"packed: nvcc failed for {name!r}:\n{log[-3000:]}")
+        fn = ctypes.CDLL(str(path)).gemm_tc_launch
+        fn.argtypes, fn.restype = gemm._TC_ARGTYPES, ctypes.c_int
+        fns[name] = fn
+    g = torch.Generator(device="cuda").manual_seed(21)
+    e, d, f, m = 64, 2048, 1408, 32
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+
+    spec = quant.QuantSpec(block_m=64, block_n=None)
+    wg, wu = rnd(e, d, f, std=d ** -0.5), rnd(e, d, f, std=d ** -0.5)
+    wd = rnd(e, f, d, std=f ** -0.5)
+    qg, qu, qd = (quant.quantize(w, spec) for w in (wg, wu, wd))
+    h, mid = rnd(e, m, d), rnd(e, m, f)
+    cases = {"gate_up": (h, (qg, qu), (wg, wu), 1, torch.bfloat16),
+             "down": (mid, (qd, None), (wd, None), 0, torch.float32)}
+    for label, (a, (q1, q2), (w1, w2), act, out_dtype) in cases.items():
+        k, n = a.shape[2], w1.shape[2]
+        out = torch.empty(e, m, n, dtype=out_dtype, device="cuda")
+        with ops.reference_mode():
+            want = ops.bgemm(a, q1, b2=q2, activation="silu" if act else None,
+                             out_dtype=out_dtype)
+
+        def launch(fn, b, b2, scales=None, scales2=None, qb=0):
+            err = fn(a.data_ptr(), b.data_ptr(), 0 if b2 is None else b2.data_ptr(),
+                     0 if scales is None else scales.data_ptr(),
+                     0 if scales2 is None else scales2.data_ptr(), 64, qb, None, None,
+                     out.data_ptr(), None, e, 1, m, k, n, k, n, act,
+                     int(out_dtype == torch.float32), 64, 64, 1,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"packed: launch failed ({err})")
+
+        us = {}
+        for name, fn in fns.items():
+            def call(fn=fn):
+                launch(fn, q1.values, None if q2 is None else q2.values, q1.scales,
+                       None if q2 is None else q2.scales, n)
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.double(), want.double(), **cs.TOL[out_dtype]):
+                raise AssertionError(f"packed: {name} disagrees at {label}")
+            us[name] = 1e3 * cs.time_ms(call)
+        us["dense bf16 (batched wgmma)"] = 1e3 * cs.time_ms(lambda: launch(fns["design"], w1, w2))
+        nbytes = cs.nbytes(a, q1.values, q1.scales, out) + (
+            0 if q2 is None else cs.nbytes(q2.values, q2.scales))
+        print(json.dumps({"case": f"{label} ({e},{m},{k})@({e},{k},{n})", "us": us,
+                          "bound_us": nbytes / cs.HBM_BYTES_S * 1e6,
+                          "library": str(lib.name)}), flush=True)
+
+
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
-            "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep}
+            "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep,
+            "packed": packed}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

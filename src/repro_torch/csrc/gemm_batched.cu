@@ -1,20 +1,22 @@
 // Batched GEMM with a fused epilogue on the CUDA cores (sm_90a): the
-// batched-B forms the tensor-core kernel does not take, and any output
-// dtype.
+// batched-B forms the Hopper kernels do not take, and any output dtype.
 //
 // Replaces `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call at :217) in
 // its batched-B form (`bgemm.py:180-182`) and its `out_dtype`, wherever
 // `kernels/gemm.py::plan_batched` routes to "ffma": C[z] = epi(A[z] @ B[z]
 // [, A[z] @ B2[z]]) for z < batch in one launch, with A (batch, M, K), B and
 // B2 (batch, K, N) (or one (K, N) shared by every member), bias (N,),
-// residual and C (batch, M, N).  That is f32 (the smoke serves and the
-// CPU-equivalent card checks of the MoE experts), f64, bf16 that TMA cannot
-// address (K or N not a multiple of 8, an operand off 16 bytes), every
-// output dtype but bf16 and f32 from bf16, and packed int8 B (`--quantize
-// int8`'s expert stacks: stored (K, N) with per-member block scales, the
-// "kn" body of `bgemm.py:80-90`; "nk" too).  The sums and the epilogue run in
-// max(f32, A's dtype), rounded once to C's dtype (f32, bf16, f64 or f16: a
-// template parameter, so no output type costs the others a branch).
+// residual and C (batch, M, N).  Since the batched forms moved to the
+// kernels of their 2-D counterparts (bf16 to gemm_sm90.cu, f64 to
+// gemm_f64.cu, f32 to gemm_f32.cu), that is: packed int8 B under f32 or f64
+// A (the f32 smoke serves under `--quantize int8`), packed "nk" stacks and
+// packed "kn" ones whose scale blocks end inside a 64-row k-step, every
+// output dtype other than bf16 and f32 from bf16 (f16, f64), f32 from f64
+// and f64 or bf16 or f16 from f32, bf16 with N % 8 != 0, f32 whose rows TMA
+// cannot address (K or N not a multiple of 4, an operand off 16 bytes), and
+// K = 0 (the epilogue alone).  The sums and the epilogue run in max(f32, A's
+// dtype), rounded once to C's dtype (f32, bf16, f64 or f16: a template
+// parameter, so no output type costs the others a branch).
 //
 // Bound: bytes at the MoE shapes (M = 32 or 64 rows a member against a whole
 // (K, N) expert matrix), operations at the BLAS ones.  This is gemm.cu's
@@ -22,11 +24,10 @@
 // member, whose A, C and residual start M*K and M*N elements on and whose
 // B (and scales) start `sb` (`ss`) elements on, 0 for a shared B.  It keeps
 // gemm.cu's 128 x 128 tile (128 x 64 with the gate), which wastes 3/4 of
-// its rows at M = 32: a simple design that is right; the MoE's bf16 serving
-// launches run the tensor cores (gemm_sm90.cu).  The f32 instantiations
-// are here; bf16's and f64's are in gemm_batched_bf16.cu,
-// gemm_batched_f64.cu (dense) and gemm_batched_f64_q8.cu (packed), compiled
-// in parallel.
+// its rows at M = 32: a simple design that is right for the forms no served
+// bf16 model reaches.  The f32 instantiations are here; bf16's and f64's are
+// in gemm_batched_bf16.cu, gemm_batched_f64.cu (dense) and
+// gemm_batched_f64_q8.cu (packed), compiled in parallel.
 #include "gemm_tile.cuh"
 
 using namespace rt;

@@ -17,6 +17,14 @@
 // 16-byte row strides); odd K or N, unaligned operands and packed B stay on
 // csrc/gemm.cu ("ffma").
 //
+// It also replaces `_bgemm_kernel` in its batched-B form (`bgemm.py:180-182`)
+// in f32 with f32 out (`gemm_f32_batched_launch`): C[z] = epi(A[z] @ B[z]
+// [, A[z] @ B2[z]]) for z < batch in one launch, grid.z the member, A and B
+// read through rank-3 TMA maps with the batch outermost, so that a tile past
+// member z's last row or column loads zeros rather than member z + 1's
+// elements, and a B shared by every member is a stack of one read at z = 0
+// (the BATCHED instantiations, so the 2-D ones keep their code).
+//
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 0.8 GB,
 // ~1400 flops per byte; the CUDA cores' f32 FMA peak is 67 TFLOP/s
 // (16.4 ms).  The first design (csrc/gemm.cu) stages its loads through
@@ -86,13 +94,14 @@ struct Cfg {
 };
 
 // One C tile.  ta (A, boxes of BK x BM, 128-byte swizzle), tb and tb2 (B,
-// B2, boxes of BN x BK) feed the ring.
-template <class C>
+// B2, boxes of BN x BK) feed the ring.  BATCHED: of batch member blockIdx.z,
+// through rank-3 maps (B's member z if b_batched, else its only one).
+template <class C, bool BATCHED = false>
 __global__ void __launch_bounds__(C::THREADS, 1)
 gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                 const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bias,
                 const float* __restrict__ res, float* __restrict__ c, int M, int K, int N,
-                int act) {
+                int act, int b_batched) {
   constexpr int BM = C::BM, BN = C::BN, TM = C::TM, TN = C::TN;
   constexpr int NJ = TN / 4;  // 16-byte column groups a thread
   constexpr bool GATE = C::GATE;
@@ -139,9 +148,17 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
           const uint32_t full = full0 + 8 * s, st = base + s * C::STAGE;
           mbar_wait(empty0 + 8 * s, ((it / STAGES) & 1) ^ 1);
           mbar_expect_tx(full, C::STAGE);
-          tma_load(st, &ta, full, kt * BK, m0);
-          tma_load(st + C::A_BYTES, &tb, full, n0, kt * BK);
-          if constexpr (GATE) tma_load(st + C::A_BYTES + C::B_BYTES, &tb2, full, n0, kt * BK);
+          if constexpr (BATCHED) {
+            const int z = blockIdx.z, bz = b_batched ? z : 0;
+            tma_load3(st, &ta, full, kt * BK, m0, z);
+            tma_load3(st + C::A_BYTES, &tb, full, n0, kt * BK, bz);
+            if constexpr (GATE)
+              tma_load3(st + C::A_BYTES + C::B_BYTES, &tb2, full, n0, kt * BK, bz);
+          } else {
+            tma_load(st, &ta, full, kt * BK, m0);
+            tma_load(st + C::A_BYTES, &tb, full, n0, kt * BK);
+            if constexpr (GATE) tma_load(st + C::A_BYTES + C::B_BYTES, &tb2, full, n0, kt * BK);
+          }
         }
       }
     }
@@ -149,6 +166,11 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
   }
 
   // ---- consumers ----
+  if constexpr (BATCHED) {  // member z's C and residual
+    const long plane = static_cast<long>(M) * N;
+    c += blockIdx.z * plane;
+    if (res) res += blockIdx.z * plane;
+  }
   const int ty = lane >> 3, tx = lane & 7;
   const int wm = (warp / C::WARPS_N) * C::WM, wn = (warp % C::WARPS_N) * C::WN;
   // byte offsets inside a stage: row i's A line (its chunk swizzled per
@@ -276,22 +298,35 @@ gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
 
 constexpr int ENCODE_FAILED = 1000;  // + the CUresult
 
-template <class C>
+// batch > 0: the batched launch (rank-3 maps, grid.z the member; B a stack
+// of `batch` if b_batched, else of one); 0: the 2-D one
+template <class C, bool BATCHED = false>
 int run(const float* a, const float* b, const float* b2, const float* bias, const float* res,
-        float* c, int M, int K, int N, int act, cudaStream_t s) {
+        float* c, int M, int K, int N, int act, cudaStream_t s, int batch = 0,
+        int b_batched = 0) {
   CUtensorMap ta, tb, tb2;
   memset(&tb2, 0, sizeof(tb2));  // unused without the gate
   const EncodeTiled fn = encoder();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
-  int err = encode(fn, &ta, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, M, BK, C::BM,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!err) err = encode(fn, &tb, b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K, C::BN, BK,
-                         CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (!err && C::GATE)
-    err = encode(fn, &tb2, b2, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K, C::BN, BK,
-                 CU_TENSOR_MAP_SWIZZLE_NONE);
+  int err;
+  if constexpr (BATCHED) {
+    const long depth = b_batched ? batch : 1;
+    err = encode3(fn, &ta, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, M, batch, BK, C::BM,
+                  CU_TENSOR_MAP_SWIZZLE_128B, K);
+    for (int j = 0; j < (C::GATE ? 2 : 1) && !err; ++j)
+      err = encode3(fn, j ? &tb2 : &tb, j ? b2 : b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K,
+                    depth, C::BN, BK, CU_TENSOR_MAP_SWIZZLE_NONE, N);
+  } else {
+    err = encode(fn, &ta, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K, M, BK, C::BM,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!err) err = encode(fn, &tb, b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K, C::BN, BK,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!err && C::GATE)
+      err = encode(fn, &tb2, b2, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, K, C::BN, BK,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
   if (err) return ENCODE_FAILED + err;
-  auto kernel = gemm_f32_kernel<C>;
+  auto kernel = gemm_f32_kernel<C, BATCHED>;
   static bool sized = false;  // the opt-in above 48 KB, once per instantiation
   if (!sized) {
     const cudaError_t e =
@@ -300,7 +335,8 @@ int run(const float* a, const float* b, const float* b2, const float* bias, cons
     sized = true;
   }
   const long tiles = (long)((M + C::BM - 1) / C::BM) * ((N + C::BN - 1) / C::BN);
-  kernel<<<(unsigned)tiles, C::THREADS, C::SMEM, s>>>(ta, tb, tb2, bias, res, c, M, K, N, act);
+  const dim3 grid((unsigned)tiles, 1, BATCHED ? (unsigned)batch : 1u);
+  kernel<<<grid, C::THREADS, C::SMEM, s>>>(ta, tb, tb2, bias, res, c, M, K, N, act, b_batched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,6 +373,45 @@ extern "C" int gemm_f32_launch(const void* a, const void* b, const void* b2, con
   if (tile == 128128) return run<Cfg<128, 128, 8, 8, false>>(F32_ARGS);
   if (tile == 128064) return run<Cfg<128, 64, 8, 4, false>>(F32_ARGS);
   if (tile == 64064) return run<Cfg<64, 64, 4, 4, false>>(F32_ARGS);
+#undef F32_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C[z] (M, N) = epi(A[z] (M, K) @ B[z] [, A[z] @ B2[z]]) in f32 for z < batch
+// in one launch: A (batch, M, K), C and res (batch, M, N) contiguous; B and
+// B2 (batch, K, N) if b_batched, else one (K, N) shared by every member.
+// b2, bias and res may be NULL.  (bm, bn) as gemm_f32_launch's, or 32 x 64
+// (4 warps of 16 x 32: the MoE experts' 32 rows a member, with or without
+// the gate); K, N and the alignments as gemm_f32_launch's.  Returns
+// cudaErrorInvalidValue for what the kernel does not take, 1000 + a CUresult
+// if a TMA descriptor is refused, else cudaGetLastError() after the launch.
+extern "C" int gemm_f32_batched_launch(const void* a, const void* b, const void* b2,
+                                       const void* bias, const void* res, void* c, int batch,
+                                       int b_batched, int M, int K, int N, int act, int bm,
+                                       int bn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* at = static_cast<const float*>(a);
+  const float* bt = static_cast<const float*>(b);
+  const float* b2t = static_cast<const float*>(b2);
+  const float* biast = static_cast<const float*>(bias);
+  const float* rest = static_cast<const float*>(res);
+  float* ct = static_cast<float*>(c);
+  const bool aligned = aligned16(at) && aligned16(bt) && aligned16(b2t) && aligned16(ct);
+  if (batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 || K % 4 || N % 4 || !aligned)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = bm * 1000 + bn;
+  const int bb = b_batched ? 1 : 0;
+#define F32_ARGS at, bt, b2t, biast, rest, ct, M, K, N, act, s, batch, bb
+  if (b2) {
+    if (tile == 128064) return run<Cfg<128, 64, 8, 4, true>, true>(F32_ARGS);
+    if (tile == 64064) return run<Cfg<64, 64, 4, 4, true>, true>(F32_ARGS);
+    if (tile == 32064) return run<Cfg<32, 64, 4, 4, true>, true>(F32_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile == 128128) return run<Cfg<128, 128, 8, 8, false>, true>(F32_ARGS);
+  if (tile == 128064) return run<Cfg<128, 64, 8, 4, false>, true>(F32_ARGS);
+  if (tile == 64064) return run<Cfg<64, 64, 4, 4, false>, true>(F32_ARGS);
+  if (tile == 32064) return run<Cfg<32, 64, 4, 4, false>, true>(F32_ARGS);
 #undef F32_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,6 +16,14 @@
 // an f64 operand is always 8-byte aligned).  Packed B stays on csrc/gemm.cu
 // ("ffma").
 //
+// It also replaces `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call at
+// :217) in its batched-B form (`bgemm.py:180-182`) in f64 with f64 out
+// (`gemm_f64_batched_launch`): C[z] = epi(A[z] @ B[z] [, A[z] @ B2[z]]) for
+// z < batch in one launch, grid.z the member, whose A, C and residual start
+// z * M * K and z * M * N elements on and whose B and B2 start z * K * N on
+// (0 for a B shared by every member); the same tile, ring and copies (the
+// BATCHED instantiations, so the 2-D ones keep their code).
+//
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB,
 // ~700 flops per byte, far above the card's ridge.  The H100's f64 peak is
 // 67 TFLOP/s on the tensor cores and 34 on the CUDA cores (DFMA), so a
@@ -132,12 +140,15 @@ constexpr int smem_bytes() {
   return STAGES * (BM * (BK + PAD) + (GATE ? 2 : 1) * BK * (BN + PAD)) * 8;
 }
 
-template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE, int VEC>
+// One C tile; BATCHED: of batch member blockIdx.z (B's member z if
+// b_batched, else its only one).
+template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE, int VEC,
+          bool BATCHED = false>
 __global__ void __launch_bounds__(THREADS)
 gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
                 const double* __restrict__ b2, const double* __restrict__ bias,
                 const double* __restrict__ res, double* __restrict__ c, int M, int K, int N,
-                int act) {
+                int act, int b_batched) {
   using MMA = Mma<MI, KI>;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   constexpr int MT = WM / MI, NT = WN / 8, RB = MI / 8;  // RB: 8-row halves of an mma tile
@@ -162,6 +173,16 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  if constexpr (BATCHED) {  // member z's operands (64-bit offsets)
+    const long long z = blockIdx.z, mk = (long long)M * K, mn = (long long)M * N;
+    a += z * mk;
+    c += z * mn;
+    if (res) res += z * mn;
+    if (b_batched) {
+      b += z * K * N;
+      if constexpr (GATE) b2 += z * K * N;
+    }
+  }
 
   // one k-step's tiles into ring slot s: chunks of VEC doubles (with VEC = 2
   // K and N are even, so a chunk is all in or all out of the matrix)
@@ -271,12 +292,12 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
     }
 }
 
-template <int BM, int BN, bool GATE, int VEC = 2, int MI = DEFAULT_MI, int KI = DEFAULT_KI,
-          int BK = DEFAULT_BK, int STAGES = DEFAULT_STAGES>
-int run(const double* a, const double* b, const double* b2, const double* bias,
-        const double* res, double* c, int M, int K, int N, int act, cudaStream_t s) {
+template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE, int VEC, bool BATCHED>
+int launch(const double* a, const double* b, const double* b2, const double* bias,
+           const double* res, double* c, int M, int K, int N, int act, cudaStream_t s, int batch,
+           int b_batched) {
   constexpr int bytes = smem_bytes<BM, BN, BK, STAGES, GATE>();
-  auto kernel = gemm_f64_kernel<BM, BN, BK, STAGES, MI, KI, GATE, VEC>;
+  auto kernel = gemm_f64_kernel<BM, BN, BK, STAGES, MI, KI, GATE, VEC, BATCHED>;
   static bool configured = false;  // the opt-in above 48 KB, once per instantiation
   if (!configured) {
     const cudaError_t e =
@@ -285,8 +306,27 @@ int run(const double* a, const double* b, const double* b2, const double* bias,
     configured = true;
   }
   const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  kernel<<<(unsigned)tiles, THREADS, bytes, s>>>(a, b, b2, bias, res, c, M, K, N, act);
+  const dim3 grid((unsigned)tiles, 1, (unsigned)batch);
+  kernel<<<grid, THREADS, bytes, s>>>(a, b, b2, bias, res, c, M, K, N, act, b_batched);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the 2-D launch
+template <int BM, int BN, bool GATE, int VEC = 2, int MI = DEFAULT_MI, int KI = DEFAULT_KI,
+          int BK = DEFAULT_BK, int STAGES = DEFAULT_STAGES>
+int run(const double* a, const double* b, const double* b2, const double* bias,
+        const double* res, double* c, int M, int K, int N, int act, cudaStream_t s) {
+  return launch<BM, BN, BK, STAGES, MI, KI, GATE, VEC, false>(a, b, b2, bias, res, c, M, K, N,
+                                                              act, s, 1, 0);
+}
+
+// the batched launch (grid.z the member), with the plan's mma shape and ring
+template <int BM, int BN, bool GATE, int VEC>
+int run_batched(const double* a, const double* b, const double* b2, const double* bias,
+                const double* res, double* c, int M, int K, int N, int act, cudaStream_t s,
+                int batch, int b_batched) {
+  return launch<BM, BN, DEFAULT_BK, DEFAULT_STAGES, DEFAULT_MI, DEFAULT_KI, GATE, VEC, true>(
+      a, b, b2, bias, res, c, M, K, N, act, s, batch, b_batched);
 }
 
 }  // namespace
@@ -341,6 +381,50 @@ extern "C" int gemm_f64_launch(const void* a, const void* b, const void* b2, con
     return wide ? run<128, 128, false, 2>(F64_ARGS) : run<128, 128, false, 1>(F64_ARGS);
   if (tile == 64064)
     return wide ? run<64, 64, false, 2>(F64_ARGS) : run<64, 64, false, 1>(F64_ARGS);
+#undef F64_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C[z] (M, N) = epi(A[z] (M, K) @ B[z] [, A[z] @ B2[z]]) in f64 for z < batch
+// in one launch: A (batch, M, K), C and res (batch, M, N) contiguous; B and
+// B2 (batch, K, N) if b_batched, else one (K, N) shared by every member.
+// b2, bias and res may be NULL.  (bm, bn) and copy as gemm_f64_launch's
+// plan (variant 0).  Returns cudaErrorInvalidValue for what the kernel does
+// not take, else cudaGetLastError() after the launch.
+extern "C" int gemm_f64_batched_launch(const void* a, const void* b, const void* b2,
+                                       const void* bias, const void* res, void* c, int batch,
+                                       int b_batched, int M, int K, int N, int act, int bm,
+                                       int bn, int copy, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const double* at = static_cast<const double*>(a);
+  const double* bt = static_cast<const double*>(b);
+  const double* b2t = static_cast<const double*>(b2);
+  const double* biast = static_cast<const double*>(bias);
+  const double* rest = static_cast<const double*>(res);
+  double* ct = static_cast<double*>(c);
+  const bool aligned = aligned16(at) && aligned16(bt) && aligned16(b2t) && aligned16(ct);
+  auto at8 = [](const double* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+  const bool whole8 = at8(at) && at8(bt) && at8(b2t) && at8(biast) && at8(rest) && at8(ct);
+  if (batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 || !whole8 ||
+      (copy != 16 && copy != 8) || (copy == 16 && (K % 2 || N % 2 || !aligned)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = bm * 1000 + bn;
+  const int bb = b_batched ? 1 : 0;
+#define F64_ARGS at, bt, b2t, biast, rest, ct, M, K, N, act, s, batch, bb
+  const bool wide = copy == 16;
+  if (b2) {
+    if (tile == 128064)
+      return wide ? run_batched<128, 64, true, 2>(F64_ARGS)
+                  : run_batched<128, 64, true, 1>(F64_ARGS);
+    if (tile == 64064)
+      return wide ? run_batched<64, 64, true, 2>(F64_ARGS) : run_batched<64, 64, true, 1>(F64_ARGS);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile == 128128)
+    return wide ? run_batched<128, 128, false, 2>(F64_ARGS)
+                : run_batched<128, 128, false, 1>(F64_ARGS);
+  if (tile == 64064)
+    return wide ? run_batched<64, 64, false, 2>(F64_ARGS) : run_batched<64, 64, false, 1>(F64_ARGS);
 #undef F64_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,11 @@
 //  - and the int8 body of both (`gemm.py:63-76`, `bgemm.py:80-90`) in the
 //    output-major "nk" layout of `serve --quantize int8`: B and B2 stored
 //    (N, K) int8 with one f32 scale for every `qa` output columns across all
-//    of K (`QuantSpec(block_m=64, block_n=None, transpose=True)`).
+//    of K (`QuantSpec(block_m=64, block_n=None, transpose=True)`);
+//  - that int8 body in the batched-B form, the packed expert stacks of a
+//    `--quantize int8` MoE: B and B2 stored (batch, K, N) int8 ("kn") with
+//    one f32 scale per (qa, qb) block of each member's (K, N), qa a multiple
+//    of BK, applied to each k-step's partial as it is promoted.
 // bias (N,) and residual (M, N) are bf16, C (M, N) bf16 or f32.  The
 // epilogue is common.cuh's `epilogue<T>` on the f32 accumulator (bias, then
 // silu, gelu or relu, then the gate multiply, then the residual), rounded
@@ -26,9 +30,10 @@
 // dequantizes B in the f32 accumulator: the two differ at f32 rounding).
 // Dense bf16 that TMA cannot address in place (K or N not a multiple of 8,
 // a base off 16 bytes) runs here too, on copies of A and B whose rows the
-// wrapper pads to 16 bytes (`kernels/gemm.py::tma_rows`); f32 and f64 have
-// kernels of their own; int8 "kn" or with scales that vary along K stays
-// on gemm.cu's CUDA-core loop.
+// wrapper pads to 16 bytes (`kernels/gemm.py::tma_rows`), the batched form
+// too (N % 8 == 0 there); f32 and f64 have kernels of their own; 2-D int8
+// "kn" or with scales that vary along K, and batched "nk", stay on the
+// CUDA-core loop (gemm.cu, gemm_batched*.cu).
 // `kernels/gemm.py::plan` picks the route, the tile and the K split from
 // the shape alone.
 //
@@ -59,7 +64,17 @@
 //    enters through wgmma's transpose bit, in 64-column TMA boxes; the int8
 //    "nk" B (N, K) is K-major: TMA brings it into a staging buffer and the
 //    consumers convert it to bf16 (exact: |v| <= 127) into the swizzled
-//    layout, so the same wgmma reads both;
+//    layout, so the same wgmma reads both; the batched int8 "kn" B (K, N) is
+//    N-major: its staging tile (BK k-rows of BN bytes) is converted into the
+//    dense B's swizzled N-major boxes, read through the transpose bit as
+//    the dense B is, and each k-step's partial is multiplied by its scale
+//    row (qa % BK == 0: one per k-step) as it is added to the accumulator.
+//    There a second warpgroup converts (exact, by byte permutes and an f32
+//    subtraction; I2F runs at a quarter rate) into a ring of bf16 stages a
+//    stage ahead of the consumers, who only multiply, and 2 or 3 blocks
+//    share an SM (KnLayout): the first design, converted in line by the
+//    consumers as the 2-D "nk" body does, one block an SM, ran moonshot's
+//    decode gate+up in 603 us, against 276 now (PERF.md);
 //  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
 //    K need no padding; the stores skip the fringe.  The batched form
 //    (BATCHED, instantiations of their own: made the one body, rank-3 maps
@@ -81,7 +96,7 @@
 //  - tiles are visited in groups of 8 tile rows, so blocks that run together
 //    share their B panel in L2.
 // Later work (not here): a persistent, warp-specialized loop that overlaps
-// one tile's epilogue with the next tile's loads; TMA stores; f64 on DMMA.
+// one tile's epilogue with the next tile's loads; TMA stores.
 #include <stdint.h>
 #include <string.h>
 
@@ -119,6 +134,37 @@ struct Cfg {
   // other may still be one step behind, multiplying from the stage before
   static_assert(STAGES >= 2, "tile too large for the shared-memory ring");
   static_assert(STAGE % SW == 0, "every bf16 tile must start on a swizzle period");
+};
+
+// The batched int8 "kn" form's shared memory: STAGES staging stages (A |
+// int8 B | int8 B2, filled by TMA), then BUFS bf16 stages (B | B2, filled by
+// the converter warpgroup from the staging stages), then the barriers (full
+// and empty a staging stage, conv and free a bf16 stage) and each bf16
+// stage's column scales [BUFS][NB][BN].  BLOCKS blocks share an SM (98 KB
+// of shared memory with the gate, 66 KB without), so that one block's
+// loads, conversion and wgmma overlap another's; 6 staging stages, which
+// leave room for fewer, ran slower (`scripts/torch_gemm_study.py packed`).
+template <class C>
+struct KnLayout {
+  static constexpr int STAGES = 4, BUFS = 2;  // a bf16 stage is staging stage s % BUFS's
+  static_assert(STAGES % BUFS == 0, "bf16 stage of a staging stage");
+  static constexpr int BLOCKS = C::GATE ? 2 : 3;
+  // Without the gate (80 registers a thread at 3 blocks) the consumers take
+  // 104 and the converters 56 (setmaxnreg): the down launch ran slower in
+  // 80 each (`scripts/torch_gemm_study.py packed`).  The gate's warpgroups
+  // keep the 128 of 2 blocks (its consumers hold two accumulators and half
+  // a partial; with the registers moved, ptxas spilled one in the
+  // converters, whatever their share).
+  static constexpr bool SPLIT_REGS = !C::GATE;
+  static constexpr int CONVERTER_REGS = 56, CONSUMER_REGS = 104;
+  static_assert(!SPLIT_REGS || (CONVERTER_REGS + CONSUMER_REGS) * 128 * BLOCKS <= 65536,
+                "register file");
+  static constexpr int STAGE = C::A_BYTES + C::NB * C::Q_BYTES;
+  static constexpr int BUF = C::NB * C::B_BYTES;
+  static constexpr int BARRIERS = STAGES * STAGE + BUFS * BUF;
+  static constexpr int SCALES = BARRIERS + 2 * (STAGES + BUFS) * 8;
+  static constexpr int SMEM = SCALES + BUFS * C::NB * C::BN * 4 + SW;
+  static_assert(STAGE % SW == 0 && BUF % SW == 0, "tiles must start on a swizzle period");
 };
 
 // ---- wgmma ----------------------------------------------------------------
@@ -189,9 +235,22 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_n64<TB>(d, da, db, acc);
+  if constexpr (N == 32) wgmma_n32<TB>(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_n64<TB>(d, da, db, acc);
   else wgmma_n128<TB>(d, da, db, acc);
 }
 
@@ -221,6 +280,49 @@ __device__ __forceinline__ void convert_int8(const int8_t* __restrict__ src, uin
   }
 }
 
+// Four int8 (one word) -> two bf16x2 words, exactly, on the full-rate ALUs
+// (I2F runs at a quarter rate): byte b becomes the f32 2^23 + (b ^ 0x80)
+// (a PRMT into 0x4B000000), minus 2^23 + 128 is b as an f32 integer of at
+// most 8 bits, whose bf16 is its upper half (a PRMT of two).
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) -
+                           8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// NB int8 "kn" staging tiles (BK k-rows of BN bytes each, as TMA wrote them,
+// SRC_STRIDE bytes apart) -> bf16 in the dense B's N-major layout (DST_STRIDE
+// bytes apart): 64-column boxes of BK k-rows of 128 bytes, 16-byte chunk c
+// of k-row r at c ^ (r % 8) (the 128-byte swizzle).  8 values a thread a
+// step, THREADS threads from `tid`, unrolled so that a thread's loads fly
+// together (one converter warp a scheduler hides no latency of its own).
+template <int BN, int NB, int SRC_STRIDE, int DST_STRIDE, int THREADS>
+__device__ __forceinline__ void convert_kn(const int8_t* __restrict__ src, uint8_t* dst,
+                                           int tid) {
+  constexpr int UNITS = BK * BN / 8, STEPS = (NB * UNITS + THREADS - 1) / THREADS;
+  uint2 raw[STEPS];
+#pragma unroll
+  for (int t = 0; t < STEPS; ++t) {
+    const int u = tid + t * THREADS, j = u / UNITS, r = u % UNITS / (BN / 8), c8 = u % (BN / 8);
+    if (u < NB * UNITS)
+      raw[t] = *reinterpret_cast<const uint2*>(src + j * SRC_STRIDE + r * BN + c8 * 8);
+  }
+#pragma unroll
+  for (int t = 0; t < STEPS; ++t) {
+    const int u = tid + t * THREADS, j = u / UNITS, r = u % UNITS / (BN / 8), c8 = u % (BN / 8);
+    if (u < NB * UNITS) {
+      const uint2 lo = int8x4_to_bf16x4(raw[t].x), hi = int8x4_to_bf16x4(raw[t].y);
+      const int chunk = (c8 & 7) ^ (r & 7);
+      *reinterpret_cast<uint4*>(dst + j * DST_STRIDE + (c8 >> 3) * BK * 128 + r * 128 +
+                                chunk * 16) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    }
+  }
+}
+
 // Two adjacent outputs, rounded once to C's type: one 4-byte (bf16) or
 // 8-byte (f32) store.
 template <typename TO>
@@ -234,28 +336,48 @@ __device__ __forceinline__ void store_pair(TO* c, float h0, float h1) {
 // One C tile, or one K slice of it (grid.y = split); BATCHED: of batch
 // member blockIdx.z (B's member z if b_batched, else its only one), one K
 // slice, rank-3 maps.  Q: B, B2 int8 "nk"
-// through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); else bf16
-// (K, N).  splits > 1: f32 partials to ws [(GATE ? 2 : 1) * splits][M][N]
-// (the gate's after B's) and splitk_epilogue finishes.  ODD: N is odd or C
+// through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); Q and
+// BATCHED: int8 "kn" (K, N) a member, member z's scales (K / qa, N / qb)
+// starting z * (K / qa) * (N / qb) on (b_batched), the scale of (k, n) at
+// [k / qa][n / qb]; else bf16 (K, N).  splits > 1: f32 partials to ws
+// [(GATE ? 2 : 1) * splits][M][N] (the gate's after B's) and
+// splitk_epilogue finishes.  ODD: N is odd or C
 // is off 4 bytes (dense B only, one K slice; int8 B is never ODD).  TO: C's
 // type, bf16 or float (float: BATCHED only).
 template <int BM, int BN, bool GATE, bool Q, bool ODD, bool BATCHED, typename TO>
-__global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS, 1)
+__global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS,
+                                  Q&& BATCHED ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bs,
-               const float* __restrict__ b2s, int qa, const bf16* __restrict__ bias,
+               const float* __restrict__ b2s, int qa, int qb, const bf16* __restrict__ bias,
                const bf16* __restrict__ res, TO* __restrict__ c, float* __restrict__ ws,
                int b_batched, int M, int K, int N, int act, int splits) {
   using C = Cfg<BM, BN, GATE, Q>;
-  constexpr int NC = C::NC, STAGES = C::STAGES;
+  // KN: int8 stored (K, N), scaled each k-step, on KnLayout's two rings:
+  // the second warpgroup converts each staging stage's int8 into a bf16
+  // stage (and writes its column scales) and arrives on its `conv` barrier,
+  // so the consumers only multiply while the next stages convert; the
+  // consumer thread that frees a staging stage loads the next step into it
+  constexpr bool KN = Q && BATCHED;
+  using L = KnLayout<C>;
+  constexpr int NC = C::NC, STAGES = KN ? L::STAGES : C::STAGES;
+  constexpr int STAGE = KN ? L::STAGE : C::STAGE;
+  constexpr int CONVERTERS = 128;
+  static_assert(!KN || NC == 1, "the converters' registers: the int8 kn form takes BM = 64");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((SW - (smem_u32(smem_raw) & (SW - 1))) & (SW - 1));
   const uint32_t base = smem_u32(smem);
-  const uint32_t full0 = base + STAGES * C::STAGE, empty0 = full0 + STAGES * 8;
-  // stage s: A | B | B2 | int8 staging of B | of B2
-  auto a_at = [&](int s) { return base + s * C::STAGE; };
+  const uint32_t full0 = base + (KN ? L::BARRIERS : STAGES * C::STAGE), empty0 = full0 + STAGES * 8;
+  const uint32_t conv0 = empty0 + STAGES * 8, free0 = conv0 + L::BUFS * 8;  // KN
+  float* sc = reinterpret_cast<float*>(smem + L::SCALES);                    // KN
+  // stage s: A | B | B2 | int8 staging of B | of B2 (KN: A | int8 B | int8 B2)
+  auto a_at = [&](int s) { return base + s * STAGE; };
   auto b_at = [&](int s, int j) { return a_at(s) + C::A_BYTES + j * C::B_BYTES; };
-  auto q_at = [&](int s, int j) { return b_at(s, C::NB) + j * C::Q_BYTES; };
+  auto q_at = [&](int s, int j) {
+    return (KN ? a_at(s) + C::A_BYTES : b_at(s, C::NB)) + j * C::Q_BYTES;
+  };
+  // KN: bf16 stage t's B (j = 0) or B2 (j = 1)
+  auto kb_at = [&](int t, int j) { return base + STAGES * STAGE + t * L::BUF + j * C::B_BYTES; };
 
   // grouped raster: GROUP tile rows sweep the tile columns together
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
@@ -267,8 +389,8 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   const int n0 = (in_group / rows_here) * BN;
   // this block's K slice: whole k-steps [kt0, kt1)
   const int split = blockIdx.y, kts = (K + BK - 1) / BK;
-  const int kt0 = static_cast<int>(static_cast<long>(split) * kts / splits);
-  const int kt1 = static_cast<int>(static_cast<long>(split + 1) * kts / splits);
+  const int kt0 = KN ? 0 : static_cast<int>(static_cast<long>(split) * kts / splits);
+  const int kt1 = KN ? kts : static_cast<int>(static_cast<long>(split + 1) * kts / splits);
   // this block's batch member: A's and C's z, and B's where B has a batch axis
   const int z = BATCHED ? blockIdx.z : 0, bz = b_batched ? z : 0;
 
@@ -278,15 +400,33 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, NC);
     }
+    if constexpr (KN) {
+#pragma unroll
+      for (int t = 0; t < L::BUFS; ++t) {
+        mbar_init(conv0 + 8 * t, CONVERTERS);
+        mbar_init(free0 + 8 * t, NC);
+      }
+    }
     mbar_fence_init();
   }
   __syncthreads();
 
+  // KN: step kt's loads into staging stage s, issued by the consumer thread
+  // that frees the stage (the whole second warpgroup converts)
+  auto kn_load = [&](int kt, int s) {
+    const uint32_t full = full0 + 8 * s;
+    mbar_expect_tx(full, C::TX);
+    tma_load3(a_at(s), &ta, full, kt * BK, m0, z);
+    tma_load3(q_at(s, 0), &tb, full, n0, kt * BK, bz);
+    if constexpr (GATE) tma_load3(q_at(s, 1), &tb2, full, n0, kt * BK, bz);
+  };
   const int wg = threadIdx.x / 128;
   if (wg == NC) {
     // ---- producer: one thread keeps the ring full ----
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == NC * 128) {
+    if constexpr (KN && L::SPLIT_REGS)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(L::CONVERTER_REGS));
+    if (!KN && threadIdx.x == NC * 128) {
       for (int kt = kt0; kt < kt1; ++kt) {
         const int i = kt - kt0, s = i % STAGES;
         const uint32_t full = full0 + 8 * s;
@@ -316,10 +456,53 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
           }
         }
       }
+    } else if (KN) {
+      // ---- converters (KN): this whole warpgroup ----
+      const int ct = threadIdx.x - NC * 128;
+      // this converter's column scales (u < NB * BN: B's column u, or B2's
+      // u - BN; a column clamped at N - 1, whose products are 0), member z's,
+      // each k-step's loaded a step ahead (a load's latency exceeds a step)
+      static_assert(C::NB * BN <= 2 * CONVERTERS, "two scales a converter");
+      const float* sz[2];
+      long col[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int u = ct + h * CONVERTERS;
+        sz[h] = (u < BN ? bs : b2s) + static_cast<long>(bz) * (K / qa) * (N / qb);
+        col[h] = u < C::NB * BN ? min(n0 + u % BN, N - 1) / qb : -1;
+      }
+      auto scales = [&](int kt, float (&v)[2]) {
+        const long row = static_cast<long>(kt * BK / qa) * (N / qb);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (col[h] >= 0 && kt < kt1) v[h] = sz[h][row + col[h]];
+      };
+      float sv[2], next[2];
+      scales(kt0, sv);
+      for (int kt = kt0; kt < kt1; ++kt) {
+        const int i = kt - kt0, s = i % STAGES, t = s % L::BUFS;
+        scales(kt + 1, next);
+        mbar_wait(full0 + 8 * s, (i / STAGES) & 1);               // int8 landed
+        mbar_wait(free0 + 8 * t, ((i / L::BUFS) & 1) ^ 1);       // bf16 stage free
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int u = ct + h * CONVERTERS;
+          if (col[h] >= 0) sc[(t * C::NB + u / BN) * BN + u % BN] = sv[h];
+          sv[h] = next[h];
+        }
+        convert_kn<BN, C::NB, C::Q_BYTES, C::B_BYTES, CONVERTERS>(
+            reinterpret_cast<const int8_t*>(smem + (q_at(s, 0) - base)),
+            smem + (kb_at(t, 0) - base), ct);
+        // generic-proxy writes, read next by wgmma (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(conv0 + 8 * t);
+      }
     }
   } else {
     // ---- consumers: warpgroup wg multiplies rows wg*64 .. wg*64+63 ----
     if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    if constexpr (KN && L::SPLIT_REGS)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(L::CONSUMER_REGS));
     // A k-step's four k16 products of each B operand accumulate in the tensor
     // core into `part` (`part2`), which is then added to the f32 accumulator
     // with round-to-nearest (promotion): the tensor core's own f32
@@ -327,18 +510,24 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     // 5-7x more outputs off the correctly rounded product than the CUDA cores
     // do (PERF.md).
     constexpr int R = BN / 2;  // accumulators a thread
-    float acc[R], acc2[GATE ? R : 1], part[R], part2[GATE ? R : 1];
+    // KN: a partial of half the tile's columns (the gate's consumers keep to
+    // the registers that let two blocks share an SM)
+    float acc[R], acc2[GATE ? R : 1], part[KN ? R / 2 : R], part2[GATE && !KN ? R : 1];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       acc[i] = 0.f;
       if constexpr (GATE) acc2[i] = 0.f;
     }
-    constexpr int TB = Q ? 0 : 1;
-    constexpr uint32_t B_LEAD = Q ? 16 : BK * 128;
+    constexpr bool NK = Q && !BATCHED;  // int8 stored (N, K): read K-major
+    constexpr int TB = NK ? 0 : 1;
+    constexpr uint32_t B_LEAD = NK ? 16 : BK * 128;
+    if (KN && threadIdx.x == 0)
+      for (int kt = kt0; kt < min(kt1, kt0 + STAGES); ++kt) kn_load(kt, (kt - kt0) % STAGES);
     for (int kt = kt0; kt < kt1; ++kt) {
-      const int i = kt - kt0, s = i % STAGES;
+      const int i = kt - kt0, s = i % STAGES, t = KN ? s % L::BUFS : s;
       mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
-      if constexpr (Q) {
+      if constexpr (KN) mbar_wait(conv0 + 8 * t, (i / L::BUFS) & 1);  // B converted
+      if constexpr (NK) {
 #pragma unroll
         for (int j = 0; j < C::NB; ++j)
           convert_int8<BN, NC * 128>(reinterpret_cast<const int8_t*>(smem + (q_at(s, j) - base)),
@@ -347,30 +536,72 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         asm volatile("bar.sync 1, %0;" ::"n"(NC * 128) : "memory");
       }
-      fence_acc(part);
-      if constexpr (GATE) fence_acc(part2);
-      wg_fence();
+      if constexpr (KN) {
+        // B's k-step (j = 0), then B2's, each in two halves of 32 columns
+        // (h) through one partial, added as acc += s[k / qa][n / qb] * partial
+        static_assert(BN == 64, "the int8 kn form's tile is 64 x 64");
+        auto multiply = [&](float (&d)[R], int j) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t da = sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW);
-        const uint32_t koff = Q ? kk * 32 : kk * 16 * 128;
-        wgmma<BN, TB>(part, da, sw128_desc(b_at(s, 0) + koff, B_LEAD, SW), kk > 0);
-        if constexpr (GATE)
-          wgmma<BN, TB>(part2, da, sw128_desc(b_at(s, 1) + koff, B_LEAD, SW), kk > 0);
-      }
-      wg_commit();
-      wg_wait<0>();
-      fence_acc(part);
-      if constexpr (GATE) fence_acc(part2);
+          for (int h = 0; h < 2; ++h) {
+            fence_acc(part);
+            wg_fence();
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        acc[j] += part[j];
-        if constexpr (GATE) acc2[j] += part2[j];
+            for (int kk = 0; kk < BK / 16; ++kk)  // columns 32h..: 64 bytes on in the swizzled row
+              wgmma<32, 1>(part, sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW),
+                           sw128_desc(kb_at(t, j) + kk * 16 * 128 + h * 64, BK * 128, SW), kk > 0);
+            wg_commit();
+            wg_wait<0>();
+            fence_acc(part);
+            const float* row = sc + (t * C::NB + j) * BN + h * 32 + (threadIdx.x & 3) * 2;
+#pragma unroll
+            for (int c = 0; c < R / 2; c += 4) {  // columns 32h + 8 (c / 4) + 2 (lane % 4) + {0, 1}
+              const float2 v = *reinterpret_cast<const float2*>(row + (c >> 2) * 8);
+              float* o = d + h * (R / 2) + c;
+              o[0] = fmaf(v.x, part[c], o[0]);
+              o[1] = fmaf(v.y, part[c + 1], o[1]);
+              o[2] = fmaf(v.x, part[c + 2], o[2]);
+              o[3] = fmaf(v.y, part[c + 3], o[3]);
+            }
+          }
+        };
+        multiply(acc, 0);
+        if constexpr (GATE) multiply(acc2, 1);
+      } else {
+        fence_acc(part);
+        if constexpr (GATE) fence_acc(part2);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t da = sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW);
+          const uint32_t koff = NK ? kk * 32 : kk * 16 * 128;
+          wgmma<BN, TB>(part, da, sw128_desc(b_at(s, 0) + koff, B_LEAD, SW), kk > 0);
+          if constexpr (GATE)
+            wgmma<BN, TB>(part2, da, sw128_desc(b_at(s, 1) + koff, B_LEAD, SW), kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(part);
+        if constexpr (GATE) fence_acc(part2);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          acc[j] += part[j];
+          if constexpr (GATE) acc2[j] += part2[j];
+        }
       }
       // this step's products are done: free its stage.  (Keeping a group in
       // flight across the loop's back edge, where the compiler may move
-      // registers, makes ptxas serialize every wgmma, C7515.)
-      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * s);
+      // registers, makes ptxas serialize every wgmma, C7515.)  KN: once every
+      // consumer warp has read the stage's A, B and scales, free its bf16
+      // stage and load the step STAGES on into its staging stage
+      if constexpr (KN) {
+        asm volatile("bar.sync 1, %0;" ::"n"(NC * 128) : "memory");
+        if (threadIdx.x == 0) {
+          mbar_arrive(free0 + 8 * t);
+          if (kt + STAGES < kt1) kn_load(kt + STAGES, s);
+        }
+      } else if (threadIdx.x % 128 == 0) {
+        mbar_arrive(empty0 + 8 * s);
+      }
     }
 
     // ---- epilogue from the registers: thread (warp w, lane l) holds rows
@@ -407,7 +638,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
           continue;
         }
         float s0 = 1.f, s1 = 1.f, t0 = 1.f, t1 = 1.f;
-        if constexpr (Q) {
+        if constexpr (NK) {
           s0 = bs[col / qa];
           s1 = bs[(col + 1) / qa];
           if constexpr (GATE) {
@@ -469,7 +700,7 @@ splitk_epilogue(const float* __restrict__ ws, int splits, const float* __restric
 struct Args {
   const void *a, *b, *b2;
   const float *bs, *b2s;
-  int qa;
+  int qa, qb;
   const bf16 *bias, *res;
   void* c;
   float* ws;
@@ -483,19 +714,21 @@ template <class C, bool ODD, bool BATCHED, typename TO>
 int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
                  const CUtensorMap& tb2) {
   auto kernel = gemm_tc_kernel<C::BM, C::BN, C::GATE, C::Q, ODD, BATCHED, TO>;
+  constexpr int SMEM = C::Q && BATCHED ? KnLayout<C>::SMEM : C::SMEM;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
   static bool sized = false;  // once per instantiation
   if (!sized) {
     const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
   const long tiles = static_cast<long>((g.M + C::BM - 1) / C::BM) * ((g.N + C::BN - 1) / C::BN);
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits),
                   static_cast<unsigned>(g.batch));
-  kernel<<<grid, C::THREADS, C::SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.bias, g.res,
-                                                  static_cast<TO*>(g.c), g.ws, g.b_batched, g.M,
-                                                  g.K, g.N, g.act, g.splits);
+  kernel<<<grid, C::THREADS, SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.qb, g.bias,
+                                                  g.res, static_cast<TO*>(g.c), g.ws,
+                                                  g.b_batched, g.M, g.K, g.N, g.act, g.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,8 +767,8 @@ int run(const Args& g) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The batched launch: rank-3 maps over the batch, dense B, one K slice, C
-// in TO.
+// The batched launch: rank-3 maps over the batch, one K slice, C in TO; B
+// bf16 in 64-column boxes, or (C::Q) int8 "kn" in boxes of BN bytes.
 template <class C, typename TO>
 int run_batched(const Args& g) {
   const EncodeTiled fn = encoder();
@@ -546,8 +779,10 @@ int run_batched(const Args& g) {
   int err = encode3(fn, &ta, g.a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.K, g.M, g.batch, BK,
                     C::BM, CU_TENSOR_MAP_SWIZZLE_128B, g.lda);
   for (int j = 0; j < (C::GATE ? 2 : 1) && !err; ++j)
-    err = encode3(fn, j ? &tb2 : &tb, j ? g.b2 : g.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N,
-                  g.K, b_depth, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
+    err = C::Q ? encode3(fn, j ? &tb2 : &tb, j ? g.b2 : g.b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                         g.N, g.K, b_depth, C::BN, BK, CU_TENSOR_MAP_SWIZZLE_NONE, g.ldb)
+               : encode3(fn, j ? &tb2 : &tb, j ? g.b2 : g.b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         g.N, g.K, b_depth, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
   if (err) return ENCODE_FAILED + err;
   return launch_tiles<C, false, true, TO>(g, ta, tb, tb2);
 }
@@ -564,11 +799,14 @@ int by_tile(int bm, int bn, F f) {
 }
 
 // The batched launch's tiles: BN = 64 (the MoE experts' 32 or 64 rows a
-// member take BM = 64)
-template <bool GATE, class F>
+// member take BM = 64), B bf16 or int8 "kn" (Q: BM = 64 only, the producer
+// warpgroup's converter warps keep their registers)
+template <bool GATE, bool Q, class F>
 int by_batched_tile(int bm, int bn, F f) {
-  if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, false>{});
-  if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, false>{});
+  if constexpr (!Q) {
+    if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, Q>{});
+  }
+  if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, Q>{});
   return -1;
 }
 
@@ -589,19 +827,22 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // row lda elements apart (a multiple of 8, >= K; its base on 16 bytes).
 // bs == NULL: B, B2 bf16 (K, N), rows ldb elements apart (a multiple of 8,
 // >= N; bases on 16 bytes), `batch` of them if b_batched, else one shared
-// by every member.  Else (batch 1) B, B2 int8 stored (N, K) with f32 scales
-// bs, b2s, one for every qa columns (K % 16 == 0, lda == K, ldb unused).
+// by every member.  Else, with qb == 0 (batch 1), B, B2 int8 stored (N, K)
+// with f32 scales bs, b2s, one for every qa columns (K % 16 == 0, lda == K,
+// ldb unused); with qb >= 1 (the batched launch), B, B2 int8 stored (K, N)
+// ("kn", ldb == N, N % 16 == 0), `batch` of them if b_batched, with f32
+// scales (K / qa, N / qb) a member (qa % 64 == 0, K % qa == 0, N % qb == 0).
 // out_f32 = 0: C bf16 (batch, M, N), contiguous, on any bf16; K splits and
-// int8 B need an even N and C on 4 bytes.  out_f32 = 1 (dense B, one K
-// slice): C f32, N even, C on 8 bytes.  batch > 1 or out_f32 is the
-// batched launch: dense B, N % 8 == 0, C on 16 bytes, one K slice, BN = 64
-// tiles.  bias (N,) and res (batch, M, N) are bf16; b2/b2s, bias and res
+// int8 B need an even N and C on 4 bytes.  out_f32 = 1 (one K slice): C
+// f32, N even, C on 8 bytes.  batch > 1, out_f32 or qb >= 1 is the batched
+// launch: dense or "kn" B, N % 8 == 0, C on 16 bytes, one K slice, BN = 64
+// tiles (BM = 64 with "kn" B).  bias (N,) and res (batch, M, N) are bf16; b2/b2s, bias and res
 // may be NULL.  Returns cudaErrorInvalidValue
 // for a shape, tile or address the kernel does not take, 1000 + a CUresult
 // if a TMA descriptor is refused, else cudaGetLastError() after the
 // launches.
 extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, const void* bs,
-                              const void* b2s, int qa, const void* bias, const void* res,
+                              const void* b2s, int qa, int qb, const void* bias, const void* res,
                               void* c, void* ws, int batch, int b_batched, int M, int K, int N,
                               int lda, int ldb, int act, int out_f32, int bm, int bn, int splits,
                               void* stream) {
@@ -609,17 +850,20 @@ extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, cons
   const int kts = (K + BK - 1) / BK;
   const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
   const bool pairs = N % 2 == 0 && (ca & 3) == 0;
-  const bool batched = batch > 1 || out_f32;
-  const bool ok = batch >= 1 && M > 0 && N > 0 && K > 0 && lda >= K && lda % 8 == 0 &&
-                  aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) && (ca & 1) == 0 &&
-                  splits >= 1 && splits <= kts &&
+  const bool kn = q && qb >= 1;
+  const bool batched = batch > 1 || out_f32 || kn;
+  const bool ok = batch >= 1 && batch <= 65535 && M > 0 && N > 0 && K > 0 && lda >= K &&
+                  lda % 8 == 0 && aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) &&
+                  (ca & 1) == 0 && splits >= 1 && splits <= kts &&
                   (splits == 1 || (ws != nullptr && pairs && !batched)) &&
-                  (!batched || (!q && N % 8 == 0 && (ca & 15) == 0)) &&
-                  (q ? K % 16 == 0 && lda == K && N % 8 == 0 && pairs && qa >= 1 &&
-                           N % qa == 0 && (!gate || b2s != nullptr)
-                     : ldb >= N && ldb % 8 == 0);
+                  (!batched || ((!q || kn) && N % 8 == 0 && (ca & 15) == 0)) &&
+                  (kn   ? qa % BK == 0 && K % qa == 0 && N % qb == 0 && N % 16 == 0 &&
+                              ldb == N && (!gate || b2s != nullptr)
+                   : q  ? K % 16 == 0 && lda == K && N % 8 == 0 && pairs && qa >= 1 &&
+                              N % qa == 0 && (!gate || b2s != nullptr)
+                        : ldb >= N && ldb % 8 == 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa,
+  const Args g{a, b, b2, static_cast<const float*>(bs), static_cast<const float*>(b2s), qa, qb,
                static_cast<const bf16*>(bias), static_cast<const bf16*>(res), c,
                static_cast<float*>(ws), batch, b_batched ? 1 : 0, M, K, N, lda, ldb, act, splits,
                static_cast<cudaStream_t>(stream)};
@@ -628,7 +872,12 @@ extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, cons
     auto launch = [&](auto cfg) {
       return out_f32 ? run_batched<decltype(cfg), float>(g) : run_batched<decltype(cfg), bf16>(g);
     };
-    err = gate ? by_batched_tile<true>(bm, bn, launch) : by_batched_tile<false>(bm, bn, launch);
+    if (q)
+      err = gate ? by_batched_tile<true, true>(bm, bn, launch)
+                 : by_batched_tile<false, true>(bm, bn, launch);
+    else
+      err = gate ? by_batched_tile<true, false>(bm, bn, launch)
+                 : by_batched_tile<false, false>(bm, bn, launch);
   } else {
     err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
   }

@@ -19,13 +19,17 @@ tensor cores in bf16; `reference_int8` is its plain version.
 
 The batched-B form (`bgemm.py:180-182`: a per-member B (batch, K, N), the
 MoE's expert stacks) and any `out_dtype` run `launch_batched`: one launch
-over the whole batch through the route `gemm.plan_batched` names, the
-tensor-core kernel of `csrc/gemm_sm90.cu` with a batch coordinate (bf16,
-out bf16 or f32: every expert launch of a bf16 MoE serve) or the CUDA-core
-tile of `csrc/gemm_batched*.cu` (the rest: f32, f64, any out dtype, packed
-"kn" expert stacks with per-member scales).  The kernel writes the
-accumulator, rounded once, in `out_dtype`; its launches count apart
-(`launches_batched`, `launches_batched_int8`).
+over the whole batch through the route `gemm.plan_batched` names, each the
+kernel of its 2-D counterpart with a batch coordinate: the tensor-core
+kernel of `csrc/gemm_sm90.cu` (bf16, out bf16 or f32: every expert launch
+of a bf16 MoE serve, the packed "kn" expert stacks of an int8 one with
+per-member scales, and bf16 TMA cannot address in place, staged), the f64
+tensor cores of `csrc/gemm_f64.cu` (f64 out), the f32 TMA ring of
+`csrc/gemm_f32.cu` (f32 out) or the CUDA-core tile of
+`csrc/gemm_batched*.cu` (the rest: other out dtypes, packed f32 or f64 A,
+packed "nk", f32 TMA cannot address).  The kernel writes the accumulator,
+rounded once, in `out_dtype`; its launches count apart
+(`launches_batched`, `launches_batched_staged`, `launches_batched_int8`).
 
 `reference`, `reference_int8`, `reference_batched` and
 `reference_batched_int8` are the plain PyTorch versions: CPU tensors use
@@ -50,8 +54,11 @@ launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 #: (`gemm.launches_by_form`)
 launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0}
 #: launches through `launch_batched`, by the route `gemm.plan_batched` named
-launches_batched = {"wgmma": 0, "ffma": 0}
-#: the packed ones among them
+launches_batched = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
+#: the "wgmma" ones among them whose operands were first copied into rows
+#: TMA can address (`gemm.Plan.stage`)
+launches_batched_staged = 0
+#: the packed ones among them (any route)
 launches_batched_int8 = 0
 
 
@@ -129,9 +136,10 @@ def launch_batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: 
     packed (`QuantizedTensor`, per-member scales); `out` (batch, M, N) is
     preallocated in the output dtype.  Operands are validated CUDA tensors
     (kernels/ops.py)."""
-    global launches_batched_int8
+    global launches_batched_int8, launches_batched_staged
     p = _gemm.batched(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
                       dtype_code=dtype_code, out_code=out_code)
     launches_batched[p.route] += 1
+    launches_batched_staged += int(p.stage)
     launches_batched_int8 += int(is_quantized(b))
     return out

@@ -48,10 +48,16 @@ version.
 
 Kernel 3's batched-B form (`kernels/bgemm.py::launch_batched`: a B per
 batch member, any output dtype) goes through `batched`, routed by
-`plan_batched`: bf16 with bf16 or f32 out where TMA addresses every operand
-on "wgmma" (`csrc/gemm_sm90.cu`'s batched instantiations: rank-3 TMA maps,
-grid.z the member), everything else on "ffma" (`csrc/gemm_batched*.cu`: gemm.cu's
-tile with per-member strides and the output type a template parameter).
+`plan_batched` to a batch coordinate (grid.z the member) on the kernel of
+its 2-D counterpart: bf16 with bf16 or f32 out and N % 8 == 0 on "wgmma"
+(`csrc/gemm_sm90.cu`'s batched instantiations: rank-3 TMA maps; A or B
+staged where TMA cannot address them in place), the packed "kn" expert
+stacks of `--quantize int8` with bf16 A there too (int8 converted in shared
+memory, each k-step scaled as it is promoted), f64 with f64 out on "dmma"
+(`csrc/gemm_f64.cu`), aligned f32 with f32 out on "ffma_sm90"
+(`csrc/gemm_f32.cu`, rank-3 maps), and the rest on "ffma"
+(`csrc/gemm_batched*.cu`: gemm.cu's tile with per-member strides and the
+output type a template parameter).
 
 `reference` and `reference_int8` are the plain PyTorch versions: CPU
 tensors use them, and on the card only comparisons (`ops.reference_mode`)
@@ -91,8 +97,11 @@ BK = 64
 TC_TILES = ((128, 128), (128, 64), (64, 64))
 GATE_TILES = ((128, 64), (64, 64))
 #: (BM, BN) tiles of the tensor-core kernel's batched form, with and without
-#: the gate: the MoE experts' 32 or 64 rows a member take BM = 64
+#: the gate: the MoE experts' 32 or 64 rows a member take BM = 64; packed
+#: "kn" B takes 64 x 64 only (the producer warpgroup's converter warps need
+#: the registers a 128-row tile's second consumer warpgroup takes)
 BATCHED_TILES = ((128, 64), (64, 64))
+PACKED_BATCHED_TILES = ((64, 64),)
 #: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
 #: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
 #: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
@@ -108,6 +117,10 @@ DMMA_GATE_TILES = ((128, 64), (64, 64))
 #: 512-row prefill shapes, 64 x 64 the smoke serves' few rows
 FFMA_SM90_TILES = ((128, 128), (128, 64), (64, 64))
 FFMA_SM90_GATE_TILES = ((128, 64), (64, 64))
+#: ... and of its batched form, which adds 32 x 64 for the MoE experts' 32
+#: rows a member (at 64 x 64 half of every tile's FFMAs run on zero rows)
+FFMA_SM90_BATCHED_TILES = FFMA_SM90_TILES + ((32, 64),)
+FFMA_SM90_BATCHED_GATE_TILES = FFMA_SM90_GATE_TILES + ((32, 64),)
 #: the first CUDA-core kernel's fixed tile (csrc/gemm.cu), without and with
 #: a gate
 FFMA_TILE = {False: (128, 128), True: (128, 64)}
@@ -222,25 +235,65 @@ TC_OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 @functools.lru_cache(maxsize=4096)
 def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate: bool = False,
-                 packed: bool = False, aligned: bool = True, sms: int = H100_SMS) -> Plan:
+                 packed_layout=None, block=None, a_aligned: bool = True,
+                 b_aligned: bool = True, sms: int = H100_SMS) -> Plan:
     """The route and tile of the batched launch C[z] (m, n) = A[z] (m, k) @
     B[z] for z < batch (one B shared by every member, or one each), from the
-    shapes and dtypes alone.  out_dtype None is A's dtype.
+    shapes, dtypes and addresses alone.  out_dtype None is A's dtype.
+    packed_layout: None for a dense B, else `packed_layout`'s name of the
+    packed B, whose scale block over its stored layout is `block` (qa, qb).
+    a_aligned / b_aligned: A / B and B2 start on 16 bytes (C, which
+    ops.bgemm allocates, always does).
 
-    bf16 A and dense B, out bf16 or f32, take "wgmma" where TMA addresses
-    every operand in place (k % 8 == 0, n % 8 == 0, 16-byte bases): the
-    larger of BATCHED_TILES if m is over 64 and its batch x tiles grid fills
-    FILL of the SMs, else 64 x 64; K is never split (the grid has batch x
-    tiles blocks) and nothing is staged.  Everything else
-    (f32, f64, bf16 TMA cannot address, another out dtype, a packed B)
-    takes "ffma": csrc/gemm_batched*.cu's CUDA-core tile, FFMA_TILE."""
+    - bf16 A and dense B, out bf16 or f32, n % 8 == 0: "wgmma", with
+      `stage` where TMA cannot address A or B in place (k % 8 != 0 or a
+      base off 16 bytes: `tma_rows` copies that operand);
+    - bf16 A and a packed "kn" B whose scale block spans whole k-steps (qa
+      % BK == 0) and whose int8 rows TMA can address (n % 16 == 0, B on 16
+      bytes), out bf16 or f32: "wgmma" (A staged where it is off 16 bytes);
+    - dense f64 with f64 out: "dmma", with 16-byte copies where K and N are
+      even and every operand starts on 16 bytes (`copy` 16), else 8;
+    - dense f32 with f32 out, k % 4 == 0, n % 4 == 0, A and B on 16 bytes:
+      "ffma_sm90";
+    - everything else (another out dtype, bf16 with n % 8 != 0, packed f32
+      or f64 A, packed "nk" or a scale block inside a k-step, f32 TMA
+      cannot address, K = 0): "ffma", csrc/gemm_batched*.cu's CUDA-core
+      tile, FFMA_TILE.
+    The tile is the largest of the route's tiles (BATCHED_TILES or
+    PACKED_BATCHED_TILES, DMMA_TILES,
+    FFMA_SM90_BATCHED_TILES; with the gate DMMA_GATE_TILES,
+    FFMA_SM90_BATCHED_GATE_TILES) whose batch x tiles grid fills FILL of the
+    `sms` SMs and whose BM is under 2 m (at most half its rows past m),
+    else the smallest; K is never split (the grid has batch x tiles
+    blocks)."""
     out = out_dtype or dtype
-    if (dtype == torch.bfloat16 and not packed and out in TC_OUT_DTYPES and aligned
-            and min(batch, m, k, n) > 0 and k % 8 == 0 and n % 8 == 0):
-        (bm, bn), small = BATCHED_TILES
-        tall = m > 64 and batch * -(-m // bm) * -(-n // bn) >= FILL * sms
-        return Plan("wgmma", (bm, bn) if tall else small)
+    if min(batch, m, k, n) > 0:
+        if packed_layout is None and dtype == out == torch.float64:
+            wide = a_aligned and b_aligned and k % 2 == 0 and n % 2 == 0
+            return Plan("dmma", _fill_batched(batch, m, n, DMMA_GATE_TILES if gate else DMMA_TILES,
+                                              sms), copy=16 if wide else 8)
+        if (packed_layout is None and dtype == out == torch.float32 and a_aligned and b_aligned
+                and k % 4 == 0 and n % 4 == 0):
+            tiles = FFMA_SM90_BATCHED_GATE_TILES if gate else FFMA_SM90_BATCHED_TILES
+            return Plan("ffma_sm90", _fill_batched(batch, m, n, tiles, sms))
+        if dtype == torch.bfloat16 and out in TC_OUT_DTYPES:
+            dense = packed_layout is None and n % 8 == 0
+            kn = (packed_layout == "kn" and block[0] % BK == 0 and n % 16 == 0 and b_aligned)
+            if dense or kn:
+                stage = not (a_aligned and k % 8 == 0 and (kn or b_aligned))
+                tiles = PACKED_BATCHED_TILES if kn else BATCHED_TILES
+                return Plan("wgmma", _fill_batched(batch, m, n, tiles, sms), stage=stage)
     return Plan("ffma", FFMA_TILE[bool(gate)])
+
+
+def _fill_batched(batch: int, m: int, n: int, tiles_largest_first, sms: int) -> tuple:
+    """The largest tile whose batch x tiles grid fills FILL of the SMs and
+    whose BM is under 2 m (the MoE experts' 32 or 64 rows a member take a
+    tile of their height), else the smallest."""
+    for bm, bn in tiles_largest_first:
+        if bm < 2 * m and batch * -(-m // bm) * -(-n // bn) >= FILL * sms:
+            return bm, bn
+    return tiles_largest_first[-1]
 
 
 def aligned(*tensors) -> bool:
@@ -249,13 +302,14 @@ def aligned(*tensors) -> bool:
 
 
 def packed_layout(qb) -> str:
-    """plan's `packed_layout` of a packed B (logical (K, N))."""
+    """plan's `packed_layout` of a packed B (logical (K, N), or a stack of
+    them)."""
     if not qb.transposed:
         return "kn"
-    return "nk" if qb.block[1] == qb.values.shape[1] else "nk-kblocks"
+    return "nk" if qb.block[1] == qb.values.shape[-1] else "nk-kblocks"
 
 
-_TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
@@ -273,16 +327,19 @@ def tma_rows(x):
 
 
 def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
-       scales=None, scales2=None, qa: int = 1, batch: int = 1):
+       scales=None, scales2=None, qa: int = 1, qb: int = 0, batch: int = 1):
     """Launch `gemm_tc_launch` (csrc/gemm_sm90.cu) on the current stream over
     m rows of a, with p's tile and K slices; b (b2) are bf16 (k, n), or int8
-    stored (n, k) with f32 `scales` one per qa columns.  With `p.stage`, a,
-    b and b2 first go through `tma_rows`.  The split-K workspace is
-    allocated here.  batch > 1 (the batched-B form, unstaged, unsplit): a
-    holds `batch` matrices of m rows, out and residual `batch` of (m, n), b
-    and b2 `batch` of (k, n) when 3-D, else one shared by every member; out
-    may be f32."""
+    stored (n, k) with f32 `scales` one per qa columns (qb == 0), or int8
+    stored (k, n) with f32 scales one per (qa, qb) block (qb >= 1, the
+    batched form).  With `p.stage`, a, b and b2 first go through `tma_rows`
+    (which copies only an operand TMA cannot address).  The split-K
+    workspace is allocated here.  batch > 1, qb >= 1 or an f32 out (the
+    batched-B form, unsplit): a holds `batch` matrices of m rows, out and
+    residual `batch` of (m, n), b and b2 `batch` of (k, n) when 3-D (their
+    scales `batch` of theirs), else one shared by every member."""
     lda, ldb = k, n
+    per_member = int(b.ndim == 3)
     if p.stage:
         a, lda = tma_rows(a)
         b, ldb = tma_rows(b)
@@ -297,8 +354,8 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(scales),
-                 _build.ptr(scales2), qa, _build.ptr(bias), _build.ptr(residual),
-                 out.data_ptr(), _build.ptr(ws), batch, int(b.ndim == 3), m, k, n, lda, ldb,
+                 _build.ptr(scales2), qa, qb, _build.ptr(bias), _build.ptr(residual),
+                 out.data_ptr(), _build.ptr(ws), batch, per_member, m, k, n, lda, ldb,
                  act_code, int(out.dtype == torch.float32), bm, bn, p.splits, stream)
     if err:
         raise RuntimeError(f"gemm tensor-core kernel launch failed ({p}): CUDA error {err}")
@@ -307,37 +364,52 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
 
 _DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: the batched entries of both: (..., c, batch, b_batched, M, K, N, act, bm, bn[, copy], stream)
+_DMMA_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_F32_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
-         variant: int = 0):
+         variant: int = 0, batch: int = 0):
     """Launch `gemm_f64_launch` (csrc/gemm_f64.cu) on the current stream over
     m rows of f64 a with p's tile and copy width; `variant` 0 is the plan's
     kernel (1-4: the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK
     = 32 in 3 stages, at 128 x 128 with 16-byte copies and without the gate,
-    for the sweep)."""
+    for the sweep).  batch >= 1: `gemm_f64_batched_launch`, a, out and
+    residual `batch` matrices, b and b2 `batch` of (k, n) when 3-D, else one
+    shared by every member."""
     bm, bn = p.tile
-    fn = _build.function("gemm_f64_launch", _DMMA_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
-                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, variant,
-                 p.copy, stream)
+        ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                _build.ptr(residual), out.data_ptr())
+        if batch:
+            fn = _build.function("gemm_f64_batched_launch", _DMMA_BATCHED_ARGTYPES)
+            err = fn(*ptrs, batch, int(b.ndim == 3), m, k, n, act_code, bm, bn, p.copy, stream)
+        else:
+            fn = _build.function("gemm_f64_launch", _DMMA_ARGTYPES)
+            err = fn(*ptrs, m, k, n, act_code, bm, bn, variant, p.copy, stream)
     if err:
         raise RuntimeError(f"gemm f64 tensor-core kernel launch failed ({p}): CUDA error {err}")
     return out
 
 
 def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
-              n: int):
+              n: int, batch: int = 0):
     """Launch `gemm_f32_launch` (csrc/gemm_f32.cu) on the current stream over
-    m rows of f32 a with p's tile."""
+    m rows of f32 a with p's tile; batch >= 1: `gemm_f32_batched_launch`, as
+    `dmma`'s."""
     bm, bn = p.tile
-    fn = _build.function("gemm_f32_launch", _F32_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
-                 _build.ptr(residual), out.data_ptr(), m, k, n, act_code, bm, bn, stream)
+        ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
+                _build.ptr(residual), out.data_ptr())
+        if batch:
+            fn = _build.function("gemm_f32_batched_launch", _F32_BATCHED_ARGTYPES)
+            err = fn(*ptrs, batch, int(b.ndim == 3), m, k, n, act_code, bm, bn, stream)
+        else:
+            fn = _build.function("gemm_f32_launch", _F32_ARGTYPES)
+            err = fn(*ptrs, m, k, n, act_code, bm, bn, stream)
     if err:
         raise RuntimeError(f"gemm f32 TMA-ring kernel launch failed ({p}): CUDA error {err}")
     return out
@@ -396,20 +468,42 @@ def batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
     n = b.shape[-1]
     packed = is_quantized(b)
     w, w2 = (b.values, None if b2 is None else b2.values) if packed else (b, b2)
-    p = plan_batched(batch, m, k, n, a.dtype, out.dtype, gate=b2 is not None, packed=packed,
-                     aligned=aligned(a, w, w2, out), sms=_build.sm_count(a.device.index or 0))
+    layout, block = (packed_layout(b), b.block) if packed else (None, None)
+    p = plan_batched(batch, m, k, n, a.dtype, out.dtype, gate=b2 is not None,
+                     packed_layout=layout, block=block, a_aligned=aligned(a),
+                     b_aligned=aligned(w, w2), sms=_build.sm_count(a.device.index or 0))
+    epi = dict(b2=w2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n)
     if p.route == "wgmma":
-        tc(a, b, out, p, b2=b2, bias=bias, residual=residual, act_code=act_code, m=m, k=k, n=n,
-           batch=batch)
+        if packed:
+            tc(a, w, out, p, **epi, scales=b.scales, scales2=None if b2 is None else b2.scales,
+               qa=block[0], qb=block[1], batch=batch)
+        else:
+            tc(a, w, out, p, **epi, batch=batch)
         return p
-    shared = w.ndim == 2
-    sb = 0 if shared else w.shape[-2] * w.shape[-1]
+    if p.route in ("dmma", "ffma_sm90"):
+        {"dmma": dmma, "ffma_sm90": ffma_sm90}[p.route](a, w, out, p, **epi, batch=batch)
+        return p
+    batched_ffma(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
+                 dtype_code=dtype_code, out_code=out_code)
+    return p
+
+
+def batched_ffma(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
+                 out_code: int):
+    """`batched`'s launch on the CUDA-core tile (`gemm_batched_launch`,
+    csrc/gemm_batched*.cu), which takes every batched form: the "ffma"
+    route, and chip_smoke.py's first-tile times of the others."""
+    batch, m, k = a.shape
+    n = b.shape[-1]
+    packed = is_quantized(b)
+    w, w2 = (b.values, None if b2 is None else b2.values) if packed else (b, b2)
+    sb = 0 if w.ndim == 2 else w.shape[-2] * w.shape[-1]
     qa = qbk = 1
     ss, scales, scales2 = 0, None, None
     if packed:
         (qa, qbk), scales = b.block, b.scales
         scales2 = None if b2 is None else b2.scales
-        ss = 0 if shared else scales.shape[-2] * scales.shape[-1]
+        ss = 0 if w.ndim == 2 else scales.shape[-2] * scales.shape[-1]
     fn = _build.function("gemm_batched_launch", _BATCHED_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -418,8 +512,8 @@ def batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
                  _build.ptr(bias), _build.ptr(residual), out.data_ptr(), batch, sb, ss, m, k, n,
                  act_code, stream)
     if err:
-        raise RuntimeError(f"batched gemm kernel launch failed ({p}): CUDA error {err}")
-    return p
+        raise RuntimeError(f"batched gemm CUDA-core kernel launch failed: CUDA error {err}")
+    return out
 
 
 def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):

@@ -96,9 +96,11 @@ def launch_counts() -> dict:
     form for rows off 16 bytes: operands copied to padded rows first, and
     8-byte copies.  bgemm_batched counts bgemm's batched launches (a
     per-member B, or an out_dtype given: the MoE experts), apart from
-    bgemm, and bgemm_batched_wgmma / bgemm_batched_ffma split them by the
-    route `gemm.plan_batched` named; bgemm_batched_int8 counts the packed
-    ones among them."""
+    bgemm, and bgemm_batched_wgmma / bgemm_batched_dmma /
+    bgemm_batched_ffma_sm90 / bgemm_batched_ffma split them by the route
+    `gemm.plan_batched` named; bgemm_batched_staged counts the "wgmma" ones
+    whose operands were copied into rows TMA can address first, and
+    bgemm_batched_int8 the packed ones (any route)."""
     return {"bgemv": _bgemv.launches, "bgemm": _bgemm.launches,
             "attention": _attention.launches, "attention_paged": _attention.launches_paged,
             "attention_int8": _attention.launches_int8, "gemm": _gemm.launches,
@@ -110,6 +112,7 @@ def launch_counts() -> dict:
             "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
             "bgemm_batched": sum(_bgemm.launches_batched.values()),
             "bgemm_batched_int8": _bgemm.launches_batched_int8,
+            "bgemm_batched_staged": _bgemm.launches_batched_staged,
             **{f"bgemm_batched_{key}": n for key, n in _bgemm.launches_batched.items()},
             **{f"{name}_{key}": n for name, mod in (("gemm", _gemm), ("bgemm", _bgemm))
                for key, n in (*mod.launches_by_route.items(), *mod.launches_by_form.items())}}
@@ -146,8 +149,8 @@ def reset_launch_counts() -> None:
     _bgemv.launches_int8 = _gemv.launches_int8 = 0
     _gemm.launches_int8 = _bgemm.launches_int8 = 0
     _rwkv6.launches = _mamba2.launches = 0
-    _bgemm.launches_batched.update(wgmma=0, ffma=0)
-    _bgemm.launches_batched_int8 = 0
+    _bgemm.launches_batched.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
+    _bgemm.launches_batched_int8 = _bgemm.launches_batched_staged = 0
     for mod in (_gemm, _bgemm):
         mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
         mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)

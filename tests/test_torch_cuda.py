@@ -359,7 +359,7 @@ def test_kernels_count_their_launches(cuda):
     w, x = _rand(cuda, torch.float32, 64, 32), _rand(cuda, torch.float32, 2, 64)
     ops.bgemv(w, x, transpose_a=True)
     ops.bgemm(x[None], w)
-    ops.bgemm(x[None], w[None])  # a per-member B: the batched launch
+    ops.bgemm(x[None], w[None])  # a per-member B: the batched launch (f32: the TMA ring)
     ops.gemm(x, w)
     ops.gemv(w, x[0, :32])
     ops.dot(x[0], x[1])
@@ -388,8 +388,9 @@ def test_kernels_count_their_launches(cuda):
                                    "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
                                    "bgemm_ffma": 1, "bgemm_wgmma_staged": 0,
                                    "bgemm_dmma_copy8": 0, "bgemm_batched": 1,
-                                   "bgemm_batched_int8": 0, "bgemm_batched_wgmma": 0,
-                                   "bgemm_batched_ffma": 1}
+                                   "bgemm_batched_int8": 0, "bgemm_batched_staged": 0,
+                                   "bgemm_batched_wgmma": 0, "bgemm_batched_dmma": 0,
+                                   "bgemm_batched_ffma_sm90": 1, "bgemm_batched_ffma": 0}
 
 
 @pytest.mark.cuda
@@ -1761,9 +1762,10 @@ def test_axpy_is_bitwise_the_plain_version(cuda, dtype, n, offset):
 # --------------------------------------------------------------------------
 
 # (batch, m, k, n): the MoE decode and prefill rows a member (32, 64) at a
-# small width, a ragged fringe in every dimension, one row, K of one k-step
+# small width, a ragged fringe in every dimension, one row, K of one k-step,
+# one member with 33 rows and an odd K (bf16 staged), 64 members of 65 rows
 BATCHED_SHAPES = [(4, 32, 128, 96), (3, 64, 256, 64), (5, 13, 37, 53), (2, 70, 136, 200),
-                  (6, 1, 64, 8), (3, 100, 16, 24)]
+                  (6, 1, 64, 8), (3, 100, 16, 24), (1, 33, 131, 72), (64, 65, 72, 40)]
 # (A dtype, out dtype): the served pairs first, then every other output dtype
 BATCHED_DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
                   (torch.float32, torch.float32), (torch.float64, torch.float64),
@@ -1802,16 +1804,18 @@ def _out_tol(dtype, out_dtype):
 def test_batched_bgemm_matches_plain(cuda, dtype, out_dtype, batch, m, k, n, act, bias, gate,
                                      res):
     """One launch over the batch on the route `gemm.plan_batched` names
-    (bf16 with K and N multiples of 8 and bf16 or f32 out: "wgmma"; the
-    rest "ffma"), in out_dtype, within tolerance of the plain version, and
-    bitwise a second launch."""
+    (bf16 with N % 8 == 0 and bf16 or f32 out: "wgmma", staged where K %
+    8 != 0; f64 out from f64: "dmma"; f32 out from f32 with K and N
+    multiples of 4: "ffma_sm90"; the rest "ffma"), in out_dtype, within
+    tolerance of the plain version, and bitwise a second launch."""
     from repro_torch.kernels import gemm
     a, b, kw = _batched_case(cuda, dtype, batch, m, k, n, act, bias, gate, res)
-    route = gemm.plan_batched(batch, m, k, n, dtype, out_dtype, gate=gate).route
+    p = gemm.plan_batched(batch, m, k, n, dtype, out_dtype, gate=gate)
     ops.reset_launch_counts()
     got = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
     counts = ops.launch_counts()
-    assert (counts["bgemm_batched"], counts[f"bgemm_batched_{route}"], counts["bgemm"]) == (1, 1, 0)
+    assert (counts["bgemm_batched"], counts[f"bgemm_batched_{p.route}"], counts["bgemm"],
+            counts["bgemm_batched_staged"]) == (1, 1, 0, int(p.stage))
     assert got.dtype == out_dtype and got.shape == (batch, m, n)
     with ops.reference_mode():
         want = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
@@ -1823,40 +1827,57 @@ def test_batched_bgemm_matches_plain(cuda, dtype, out_dtype, batch, m, k, n, act
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_batched_bgemm_off_16_bytes_takes_the_cuda_core_tile(cuda, out_dtype):
-    """A bf16 A that starts off a 16-byte boundary (TMA cannot address it):
-    the batched launch runs the CUDA-core tile, within TOL of the plain
-    version."""
+@pytest.mark.parametrize("off", ["a", "b"])
+def test_batched_bgemm_off_16_bytes_takes_the_staged_wgmma_route(cuda, out_dtype, off):
+    """A bf16 A (or B, B2) that starts off a 16-byte boundary (TMA cannot
+    address it in place): the batched launch runs the tensor-core kernel on
+    a copy of that operand in rows TMA can address (`Plan.stage`), within
+    TOL of the plain version, bitwise a second launch."""
     from repro_torch.kernels import gemm
     batch, m, k, n = 4, 32, 128, 96
-    a = _rand(cuda, torch.bfloat16, batch * m * k + 1)[1:].view(batch, m, k)
-    b = _rand(cuda, torch.bfloat16, batch, k, n, std=k ** -0.5)
-    b2 = _rand(cuda, torch.bfloat16, batch, k, n, std=k ** -0.5)
-    assert gemm.plan_batched(batch, m, k, n, torch.bfloat16, out_dtype, gate=True,
-                             aligned=False).route == "ffma"
+
+    def operand(shift: int, *shape, std=1.0):  # shift: elements past an aligned base
+        flat = _rand(cuda, torch.bfloat16, int(np.prod(shape)) + shift, std=std)
+        return flat[shift:].view(*shape)
+
+    a = operand(int(off == "a"), batch, m, k)
+    b, b2 = (operand(int(off == "b"), batch, k, n, std=k ** -0.5) for _ in range(2))
+    p = gemm.plan_batched(batch, m, k, n, torch.bfloat16, out_dtype, gate=True,
+                          a_aligned=off != "a", b_aligned=off != "b")
+    assert (p.route, p.stage) == ("wgmma", True)
     ops.reset_launch_counts()
     got = ops.bgemm(a, b, b2=b2, activation="silu", out_dtype=out_dtype)
-    assert ops.launch_counts()["bgemm_batched_ffma"] == 1
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched_wgmma"], counts["bgemm_batched_staged"]) == (1, 1)
     with ops.reference_mode():
         want = ops.bgemm(a, b, b2=b2, activation="silu", out_dtype=out_dtype)
     torch.testing.assert_close(got.double(), want.double(),
                                **_out_tol(torch.bfloat16, out_dtype))
+    assert torch.equal(ops.bgemm(a, b, b2=b2, activation="silu", out_dtype=out_dtype), got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
                                              (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32),
+                                             (torch.float64, torch.float64),
                                              (torch.float32, torch.float64)])
-def test_batched_bgemm_with_a_shared_b_matches_plain(cuda, dtype, out_dtype):
+@pytest.mark.parametrize("k", [64, 67])
+def test_batched_bgemm_with_a_shared_b_matches_plain(cuda, dtype, out_dtype, k):
     """A (k, n) B shared by every member with an out_dtype given: the
-    batched launch reads member 0's B for all."""
-    a, b, kw = _batched_case(cuda, dtype, 3, 40, 64, 72, "silu", True, True, True, shared=True)
+    batched launch reads member 0's B for all, on each route (K = 67: bf16
+    staged, f64 on 8-byte copies, f32 on the CUDA-core tile)."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _batched_case(cuda, dtype, 3, 40, k, 72, "silu", True, True, True, shared=True)
+    route = gemm.plan_batched(3, 40, k, 72, dtype, out_dtype, gate=True).route
     ops.reset_launch_counts()
     got = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
     with ops.reference_mode():
         want = ops.bgemm(a, b, out_dtype=out_dtype, **kw)
-    assert ops.launch_counts()["bgemm_batched"] == 1
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched"], counts[f"bgemm_batched_{route}"]) == (1, 1)
     torch.testing.assert_close(got.double(), want.double(), **_out_tol(dtype, out_dtype))
+    assert torch.equal(ops.bgemm(a, b, out_dtype=out_dtype, **kw), got)
 
 
 @pytest.mark.cuda
@@ -1890,18 +1911,23 @@ def test_batched_wgmma_every_tile(cuda, out_dtype, gate):
 def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
     """Packed expert stacks (E, k, n) with per-expert block scales ("kn",
     `quantize_weights`' expert rule, and "nk"): one batched launch on the
-    CUDA-core tile, out in A's dtype and in f32, within TOL of the plain
-    version."""
+    route `gemm.plan_batched` names (bf16 "kn": the tensor cores; the rest
+    the CUDA-core tile), out in A's dtype and in f32, within TOL of the
+    plain version."""
+    from repro_torch.kernels import gemm
     e, m, k, n = 4, 32, 128, 96
     spec = quant.QuantSpec(64, None, transpose=transpose)
     a = _rand(cuda, dtype, e, m, k)
     qb = quant.quantize(_rand(cuda, torch.float32, e, k, n), spec)
     qb2 = quant.quantize(_rand(cuda, torch.float32, e, k, n), spec) if gate else None
     for out_dtype in (dtype, torch.float32):
+        route = gemm.plan_batched(e, m, k, n, dtype, out_dtype, gate=gate,
+                                  packed_layout=gemm.packed_layout(qb), block=qb.block).route
+        assert route == ("wgmma" if dtype == torch.bfloat16 and not transpose else "ffma")
         ops.reset_launch_counts()
         got = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None, out_dtype=out_dtype)
         counts = ops.launch_counts()
-        assert (counts["bgemm_batched_int8"], counts["bgemm_batched_ffma"]) == (1, 1)
+        assert (counts["bgemm_batched_int8"], counts[f"bgemm_batched_{route}"]) == (1, 1)
         with ops.reference_mode():
             want = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None,
                              out_dtype=out_dtype)
@@ -1909,12 +1935,59 @@ def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
         torch.testing.assert_close(got.double(), want.double(), **_out_tol(dtype, out_dtype))
 
 
+# (members, rows a member, k, n, block_m, block_n, shared B): the expert
+# rule's one scale across N; scales that vary along N (and in a block that
+# ends inside a tile); two k-steps a scale row; ragged rows and columns; one
+# member; 64 members; a B shared by every member
+PACKED_KN_CASES = [(4, 32, 256, 96, 64, None, False), (3, 33, 256, 160, 64, 32, False),
+                   (2, 65, 384, 144, 128, 48, False), (1, 1, 128, 48, 64, 16, False),
+                   (64, 32, 192, 64, 64, None, False), (3, 40, 128, 80, 64, 40, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,m,k,n,block_m,block_n,shared", PACKED_KN_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act,bias,gate,res", BATCHED_EPILOGUES)
+def test_packed_kn_batched_on_wgmma_matches_plain(cuda, e, m, k, n, block_m, block_n, shared,
+                                                  out_dtype, act, bias, gate, res):
+    """bf16 A against packed "kn" stacks on the tensor cores, each k-step
+    scaled by its scale row as it is promoted, at scales that vary along K
+    and along N: within TOL of the plain version (which dequantizes B in
+    f32), counted as packed and on "wgmma", bitwise a second launch."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(block_m, block_n)
+    lead = () if shared else (e,)
+    a = _rand(cuda, torch.bfloat16, e, m, k)
+    # each block's scale differs: scale rows along K and columns along N
+    ramp = torch.linspace(0.25, 4.0, k * n, device="cuda").view(k, n)
+    qb, qb2 = (quant.quantize(_rand(cuda, torch.float32, *lead, k, n, std=k ** -0.5) * ramp,
+                              spec) for _ in range(2))
+    kw = dict(b2=qb2 if gate else None, activation=act,
+              bias=_rand(cuda, torch.bfloat16, n) if bias else None,
+              residual=_rand(cuda, torch.bfloat16, e, m, n) if res else None)
+    p = gemm.plan_batched(e, m, k, n, torch.bfloat16, out_dtype, gate=gate, packed_layout="kn",
+                          block=qb.block)
+    assert (p.route, p.stage) == ("wgmma", False)
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, qb, out_dtype=out_dtype, **kw)
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched_wgmma"], counts["bgemm_batched_int8"]) == (1, 1)
+    with ops.reference_mode():
+        want = ops.bgemm(a, qb, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want.double(),
+                               **_out_tol(torch.bfloat16, out_dtype))
+    assert torch.equal(ops.bgemm(a, qb, out_dtype=out_dtype, **kw), got)
+
+
 @pytest.mark.cuda
 def test_a_batched_launch_the_kernels_refuse_raises(cuda):
     """What the tensor-core kernel does not take comes back as an error and
     the wrapper raises: a K split with a batch, a 128 x 128 tile with a
     batch (the batched form has BN = 64 only), an f32 output at an odd
-    N."""
+    N, a packed "kn" B on a 128-row tile or with scale blocks inside a
+    k-step."""
     from repro_torch.kernels import gemm
     a, b = _rand(cuda, torch.bfloat16, 2, 64, 256), _rand(cuda, torch.bfloat16, 2, 256, 64)
     kw = dict(b2=None, bias=None, residual=None, act_code=0, m=64, k=256, n=64, batch=2)
@@ -1929,6 +2002,13 @@ def test_a_batched_launch_the_kernels_refuse_raises(cuda):
         gemm.tc(a, b63, out63, gemm.Plan("wgmma", (64, 64)), **dict(kw, n=63))
     with pytest.raises(TypeError, match="out_dtype"):
         ops.bgemm(a, b, out_dtype=torch.int32)
+    # packed "kn" B: 64 x 64 tiles only, and a scale block of whole k-steps
+    qb = quant.quantize(_rand(cuda, torch.float32, 2, 256, 64), quant.QuantSpec(64, None))
+    packed = dict(kw, scales=qb.scales, qa=64, qb=64)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, qb.values, out, gemm.Plan("wgmma", (128, 64)), **packed)
+    with pytest.raises(RuntimeError, match="tensor-core"):
+        gemm.tc(a, qb.values, out, gemm.Plan("wgmma", (64, 64)), **dict(packed, qa=32))
 
 
 @pytest.mark.cuda

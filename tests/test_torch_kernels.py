@@ -192,8 +192,9 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 0,
                                    "bgemm_ffma": 0, "bgemm_wgmma_staged": 0,
                                    "bgemm_dmma_copy8": 0, "bgemm_batched": 0,
-                                   "bgemm_batched_int8": 0, "bgemm_batched_wgmma": 0,
-                                   "bgemm_batched_ffma": 0}
+                                   "bgemm_batched_int8": 0, "bgemm_batched_staged": 0,
+                                   "bgemm_batched_wgmma": 0, "bgemm_batched_dmma": 0,
+                                   "bgemm_batched_ffma_sm90": 0, "bgemm_batched_ffma": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -288,14 +288,21 @@ def test_batched_gemm_alpha_beta_and_transposes(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("gate", [False, True])
-def test_packed_per_expert_b_matches_pallas(dtype, transpose, gate):
+@pytest.mark.parametrize("k,n,block_m,block_n,std", [(48, 40, 16, None, 1.0),
+                                                     (128, 48, 64, None, 128 ** -0.5),
+                                                     (128, 48, 64, 16, 128 ** -0.5)])
+def test_packed_per_expert_b_matches_pallas(dtype, transpose, gate, k, n, block_m, block_n,
+                                            std):
     """Packed expert stacks with per-expert block scales ("kn", the expert
-    rule of quantize_weights, and "nk"), out in A's dtype and in f32."""
+    rule of quantize_weights, and "nk"), out in A's dtype and in f32: small
+    blocks, and the expert rule's block_m = 64 (the tensor-core route's
+    k-step scales) with one scale across N and with scales that vary along
+    N, at a model's weight scale (std k ** -0.5, as _batched_operands)."""
     rng = np.random.default_rng(3)
-    spec = dict(block_m=16, block_n=None)
-    wb = rng.standard_normal((E, 48, 40)).astype(np.float32)
-    wb2 = rng.standard_normal((E, 48, 40)).astype(np.float32)
-    a = rng.standard_normal((E, M, 48))
+    spec = dict(block_m=block_m, block_n=block_n)
+    wb = (rng.standard_normal((E, k, n)) * std).astype(np.float32)
+    wb2 = (rng.standard_normal((E, k, n)) * std).astype(np.float32)
+    a = rng.standard_normal((E, M, k))
     with precision(dtype):
         jq = [jquant.quantize(jnp.asarray(w), jquant.QuantSpec(transpose=transpose, **spec))
               for w in (wb, wb2)]
@@ -326,31 +333,72 @@ def test_batched_wrapper_checks_its_operands():
         ops.bgemm(a, b.double())
 
 
-# (batch, m, k, n, dtype, out, gate, packed, route, tile): moonshot FULL's
-# expert launches at decode (M = 32) and prefill (M = 64), the smoke's f32,
-# and what the tensor-core kernel does not take
+BF16, F32, F64 = torch.bfloat16, torch.float32, torch.float64
+EXPERT_KN = ("kn", (64, 1408))  # quantize_weights' expert rule at N = 1408
+# (batch, m, k, n, dtype, out, gate, packed layout and block, route, tile,
+# stage): moonshot FULL's expert launches at decode (M = 32) and prefill (M
+# = 64), dense and packed, the f32 smoke's, the BLAS cases of chip_smoke,
+# and what stays on the CUDA-core tile
 BATCHED_PLANS = [
-    (64, 32, 2048, 1408, torch.bfloat16, torch.bfloat16, True, False, "wgmma", (64, 64)),
-    (64, 32, 1408, 2048, torch.bfloat16, torch.float32, False, False, "wgmma", (64, 64)),
-    (64, 64, 2048, 1408, torch.bfloat16, torch.bfloat16, True, False, "wgmma", (64, 64)),
-    (64, 64, 1408, 2048, torch.bfloat16, torch.float32, False, False, "wgmma", (64, 64)),
-    (4, 300, 2048, 2048, torch.bfloat16, None, False, False, "wgmma", (128, 64)),
-    (2, 130, 512, 512, torch.bfloat16, None, True, False, "wgmma", (64, 64)),
-    (8, 16, 64, 96, torch.float32, torch.float32, True, False, "ffma", (128, 64)),
-    (8, 16, 96, 64, torch.float64, None, False, False, "ffma", (128, 128)),
-    (64, 32, 2047, 1408, torch.bfloat16, None, False, False, "ffma", (128, 128)),
-    (64, 32, 2048, 1408, torch.bfloat16, torch.float16, False, False, "ffma", (128, 128)),
-    (64, 32, 2048, 1408, torch.bfloat16, torch.bfloat16, True, True, "ffma", (128, 64)),
+    (64, 32, 2048, 1408, BF16, BF16, True, None, "wgmma", (64, 64), False),
+    (64, 32, 1408, 2048, BF16, F32, False, None, "wgmma", (64, 64), False),
+    (64, 64, 2048, 1408, BF16, BF16, True, None, "wgmma", (64, 64), False),
+    (64, 64, 1408, 2048, BF16, F32, False, None, "wgmma", (64, 64), False),
+    (4, 300, 2048, 2048, BF16, None, False, None, "wgmma", (128, 64), False),
+    (2, 130, 512, 512, BF16, None, True, None, "wgmma", (64, 64), False),
+    (16, 2047, 2047, 2048, BF16, None, False, None, "wgmma", (128, 64), True),
+    # f32 and f64 on the kernels of their 2-D counterparts
+    (8, 16, 64, 96, F32, F32, True, None, "ffma_sm90", (32, 64), False),
+    (64, 32, 1408, 2048, F32, F32, False, None, "ffma_sm90", (32, 64), False),
+    (64, 64, 1408, 2048, F32, F32, False, None, "ffma_sm90", (64, 64), False),
+    (16, 2048, 2048, 2048, F32, None, False, None, "ffma_sm90", (128, 128), False),
+    (8, 16, 96, 64, F64, None, False, None, "dmma", (64, 64), False),
+    (64, 32, 1408, 2048, F64, F64, False, None, "dmma", (64, 64), False),
+    (16, 2048, 2048, 2048, F64, None, False, None, "dmma", (128, 128), False),
+    (4, 70, 95, 63, F64, None, True, None, "dmma", (64, 64), False),
+    # odd K bf16: A staged
+    (64, 32, 2047, 1408, BF16, None, False, None, "wgmma", (64, 64), True),
+    (64, 32, 1407, 2048, BF16, F32, False, None, "wgmma", (64, 64), True),
+    # packed "kn" expert stacks of bf16 A: scaled each k-step
+    (64, 32, 2048, 1408, BF16, BF16, True, EXPERT_KN, "wgmma", (64, 64), False),
+    (64, 32, 1408, 2048, BF16, F32, False, ("kn", (64, 2048)), "wgmma", (64, 64), False),
+    (64, 64, 1408, 2048, BF16, F32, False, ("kn", (128, 64)), "wgmma", (64, 64), False),
+    # what stays on the CUDA-core tile
+    (64, 32, 2048, 1408, F32, F32, True, EXPERT_KN, "ffma", (128, 64), False),
+    (64, 32, 2048, 1408, F64, F64, False, EXPERT_KN, "ffma", (128, 128), False),
+    (64, 32, 1440, 1408, BF16, BF16, False, ("kn", (48, 1408)), "ffma", (128, 128), False),
+    (64, 32, 2048, 1400, BF16, BF16, False, ("kn", (64, 1400)), "ffma", (128, 128), False),
+    (64, 32, 2048, 1408, BF16, BF16, False, ("nk", (64, 2048)), "ffma", (128, 128), False),
+    (64, 32, 2048, 1408, BF16, torch.float16, False, None, "ffma", (128, 128), False),
+    (64, 32, 2048, 1404, BF16, BF16, False, None, "ffma", (128, 128), False),
+    (8, 16, 66, 96, F32, F32, False, None, "ffma", (128, 128), False),
+    (8, 16, 64, 98, F32, F32, True, None, "ffma", (128, 64), False),
+    (8, 16, 96, 64, F64, F32, False, None, "ffma", (128, 128), False),
+    (8, 16, 64, 96, F32, BF16, False, None, "ffma", (128, 128), False),
+    (4, 8, 0, 16, BF16, None, False, None, "ffma", (128, 128), False),
 ]
 
 
-@pytest.mark.parametrize("batch,m,k,n,dtype,out,gate,packed,route,tile", BATCHED_PLANS)
-def test_plan_batched_routes(batch, m, k, n, dtype, out, gate, packed, route, tile):
-    p = gemm.plan_batched(batch, m, k, n, dtype, out, gate=gate, packed=packed)
-    assert (p.route, p.tile, p.splits, p.stage) == (route, tile, 1, False)
+@pytest.mark.parametrize("batch,m,k,n,dtype,out,gate,packed,route,tile,stage", BATCHED_PLANS)
+def test_plan_batched_routes(batch, m, k, n, dtype, out, gate, packed, route, tile, stage):
+    """Each form's route, tile and staging; the f64 copy width; and where an
+    operand starts off 16 bytes: A staged on "wgmma" (the packed form's
+    int8 B refused there), 8-byte copies on "dmma", the CUDA-core tile for
+    f32."""
+    layout, block = packed or (None, None)
+    kw = dict(gate=gate, packed_layout=layout, block=block)
+    p = gemm.plan_batched(batch, m, k, n, dtype, out, **kw)
+    assert (p.route, p.tile, p.splits, p.stage) == (route, tile, 1, stage)
+    assert p.copy == (0 if route != "dmma" else 16 if k % 2 == 0 and n % 2 == 0 else 8)
+    off_a = gemm.plan_batched(batch, m, k, n, dtype, out, a_aligned=False, **kw)
+    off_b = gemm.plan_batched(batch, m, k, n, dtype, out, b_aligned=False, **kw)
     if route == "wgmma":
-        assert not gemm.plan_batched(batch, m, k, n, dtype, out, gate=gate,
-                                     aligned=False).route == "wgmma"
+        assert (off_a.route, off_a.stage) == ("wgmma", True)
+        assert (off_b.route, off_b.stage) == (("ffma", False) if packed else ("wgmma", True))
+    elif route == "dmma":
+        assert (off_a.route, off_a.copy, off_b.route, off_b.copy) == ("dmma", 8, "dmma", 8)
+    else:
+        assert off_a.route == off_b.route == "ffma" and not off_a.stage
 
 
 # --------------------------------------------------------------------------
