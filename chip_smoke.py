@@ -7,10 +7,11 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
 
 1. device  - nvidia-smi's name and power limit, torch's device name;
 2. build   - nvcc builds the kernels from csrc/, one process a file (timed),
-             and beside them the designs three redesigns replaced
-             (scripts/replaced/: the packed GEMV's, WKV6's and the SSD's
-             first designs), each a library of its own, timed in phases 10,
-             20 and 24 and profile_prefill_zamba;
+             and beside them the designs four redesigns replaced
+             (scripts/replaced/: the packed GEMV's, WKV6's, the SSD's and
+             the f32 attention route's first designs), each a library of its
+             own, timed in phases 3, 10, 14, 20, 24, 33 and 38 and
+             profile_prefill_zamba;
    sass    - the HGMMA (wgmma) instructions cuobjdump finds in each
              tensor-core GEMM kernel (csrc/gemm_sm90.cu, the odd-N
              instantiations too; none, or a spill, fails the run), with
@@ -29,6 +30,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              kernel, with ptxas for the file (no HMMA, or a spill, fails),
              and DMMA in csrc/gemm_f64.cu
              kernels of both copy widths (16 and 8 bytes) or the run fails;
+             FFMA in each of csrc/attention.cu's 40 instantiations (the f32
+             route "ffma"), with no tensor-core instruction and no spill, or
+             the run fails;
 3. kernels - bgemv, bgemm and flash attention, each against its plain
              PyTorch version on the card at the stablelm-1.6b serving shapes
              (bgemv and bgemm also at zamba2-1.2b's), in bf16 and f32, with
@@ -42,9 +46,10 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              same inputs); a split-K or "ffma_sm90" case is also held
              bitwise against a second launch; each attention case
              prints its plan (`kernels.attention.plan`: route "splitkv" at
-             decode, "mma" for the bf16 prefill, "ffma" for f32; splits) and
-             the time of the CUDA-core kernel csrc/attention.cu on the same
-             inputs (ffma_ms), a split-KV case held bitwise against a second
+             decode, "mma" for the bf16 prefill, "ffma" for f32; splits,
+             the "ffma" tile) and the time of the f32 route's first design
+             (scripts/replaced/attention_first.cu) on the same inputs
+             (replaced_ms), every case held bitwise against a second
              launch;
    gemm_precision - the share of bf16 outputs of the tensor-core GEMM,
              the CUDA-core one and the plain version that equal the
@@ -128,7 +133,12 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              of its form on its plan's route, against its plain version, a
              paged launch bitwise the dense launch on the gathered cache, two
              launches bitwise equal, then timed beside its bound, sdpa, the
-             dense kernel and the CUDA-core kernel csrc/attention.cu;
+             dense kernel and the f32 route's first design
+             (scripts/replaced/attention_first.cu, replaced_ms); f32
+             prefills at the smoke head dims (D = 16 and 32, Tq off the
+             tile, kv lengths past Tq, NaN past them; dense, paged P = 7,
+             int8) also hold a slot's rows bitwise equal alone and in the
+             batch;
 15. smoke_kv - SMOKE f32 serves with --kv-cache int8 and --kv-page-size 4
              (prefix reuse on and off, a 7-page pool that preempts): kernels
              and plain versions give equal tokens, paged equal dense, the
@@ -451,8 +461,8 @@ def _tc_name(mangled: str) -> str:
 
 
 def _attn_name(mangled: str):
-    """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' / 'ffma f32/f32 D=256
-    16x8' for an attention kernel instantiation (csrc/attention_mma.cu,
+    """'mma bf16 D=64' / 'splitkv bf16/int8 D=64 G4' / 'ffma f32/int8 D=256
+    32x32' for an attention kernel instantiation (csrc/attention_mma.cu,
     csrc/attention_splitkv.cu, csrc/attention.cu: query x key tile), with
     ' prefix' for the prefix-LM / non-causal instantiation and ' strided' for
     the flat layout's (q and out strided), else None."""
@@ -466,11 +476,10 @@ def _attn_name(mangled: str):
                   mangled)
     if m:
         return f"splitkv {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} G{m.group(4)}"
-    m = re.search(r"attention_kernelI(13__nv_bfloat16|f)(S1_|f|a)Li(\d+)ELi(\d+)ELi(\d+)"
-                  r"ELb(\d)ELb(\d)EE", mangled)
+    m = re.search(r"attention_kernelI(f|a)Li(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE", mangled)
     if m:
-        return (f"ffma {types[m.group(1)]}/{types[m.group(2)]} D={m.group(3)} "
-                f"{m.group(4)}x{m.group(5)}{masks[m.group(6)]}{layouts[m.group(7)]}")
+        return (f"ffma f32/{types[m.group(1)]} D={m.group(2)} "
+                f"{m.group(3)}x{m.group(4)}{masks[m.group(5)]}{layouts[m.group(6)]}")
     return None
 
 
@@ -536,22 +545,29 @@ def phase_sass(lib: Path) -> dict:
     ptxas's registers, shared memory, spills and performance notes for them,
     for the split-KV attention kernels and for bgemv (this process's build
     log); FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
-    with its ptxas registers and spills.  Fails if a tensor-core kernel holds
-    no HGMMA, HMMA or DMMA, an f32 ring kernel no FFMA, or an f64 or f32 one
-    spills."""
+    with its ptxas registers and spills; FFMA and tensor-core instructions
+    in each instantiation of the f32 attention route (csrc/attention.cu).
+    Fails if a tensor-core kernel holds no HGMMA, HMMA or DMMA, an f32 ring
+    kernel no FFMA, or an f64 or f32 one spills; or unless each of the 40
+    f32 attention instantiations holds FFMA, no tensor-core instruction and,
+    where this process built it, spills nothing."""
     from repro_torch.kernels import _build
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     hgmma, hmma, dmma, ffma, qhmma, mma, fn = {}, {}, {}, {}, {}, {}, None
+    attn_ffma, attn_tc, ffma_fn = {}, {}, None  # csrc/attention.cu: FFMA, tensor cores
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
+            ffma_fn = _attn_name(fn) if "attention_kernel" in fn else None
             if "gemm_tc_kernel" in fn:
                 hgmma[_tc_name(fn)] = 0
             elif (_attn_name(fn) or "").startswith("mma"):
                 hmma[_attn_name(fn)] = 0
+            elif ffma_fn:
+                attn_ffma[ffma_fn] = attn_tc[ffma_fn] = 0
             elif _f64_name(fn):
                 dmma[_f64_name(fn)] = 0
             elif _f32_name(fn):
@@ -562,6 +578,11 @@ def phase_sass(lib: Path) -> dict:
                 mma[_mma_name(fn)] = 0
         elif fn and _mma_name(fn) in mma and re.search(r"\bHMMA\b", line):
             mma[_mma_name(fn)] += 1
+        elif ffma_fn:
+            if re.search(r"\bFFMA\b", line):
+                attn_ffma[ffma_fn] += 1
+            elif re.search(r"\b(HMMA|HGMMA|DMMA|IMMA|IGMMA|QGMMA|BMMA|BGMMA)\b", line):
+                attn_tc[ffma_fn] += 1  # (HFMA2.MMA is a move, not a matrix product)
         elif fn and "gemm_tc_kernel" in fn and re.search(r"\bHGMMA\b", line):
             hgmma[_tc_name(fn)] += 1
         elif fn and _attn_name(fn) in hmma and re.search(r"\bHMMA\b", line):
@@ -687,6 +708,19 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"tensor-core GEMM kernels spill: {tc_spills}")
     if not hmma or min(hmma.values()) == 0:
         raise AssertionError(f"tensor-core attention kernels without HMMA: {hmma}")
+    ffma_ptxas = {k: v for k, v in attn_ptxas.items() if k.startswith("ffma")}
+    ffma_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                   for k, v in ffma_ptxas.items()}
+    emit("sass", what="FFMA and tensor-core instructions in csrc/attention.cu's kernels (the "
+         "f32 route \"ffma\"; cuobjdump -sass); ptxas for them",
+         ffma_per_kernel=attn_ffma, tensor_core_per_kernel=attn_tc,
+         registers={k: v.get("registers") for k, v in ffma_ptxas.items()},
+         spill_bytes=ffma_spills or "not built in this process")
+    if (len(attn_ffma) != 40 or min(attn_ffma.values()) == 0 or any(attn_tc.values())
+            or (_build.build_log and (len(ffma_spills) != 40 or any(ffma_spills.values())))):
+        raise AssertionError(f"f32 attention instantiations (want 40, each with FFMA, no "
+                             f"tensor-core instruction, no spill): FFMA {attn_ffma}, tensor "
+                             f"core {attn_tc}, spills {ffma_spills}")
     if not dmma or min(dmma.values()) == 0:
         raise AssertionError(f"f64 tensor-core kernels without DMMA: {dmma}")
     if any(f64_spills.values()):
@@ -780,6 +814,37 @@ def replaced_qgemv(qw, x, *, qw2=None, bias=None, residual=None, activation=None
     return out
 
 
+def replaced_attention(q, k, v, kv_lens=None, *, k_scales=None, v_scales=None, page_table=None,
+                       causal: bool = True, prefix_len=None, kv_groups: int = 1):
+    """Flash attention's first CUDA-core design (scripts/replaced/
+    attention_first.cu: 128-thread blocks, each key tile staged through
+    registers into static shared memory, two 4-byte shared loads an FMA) on
+    ops.flash_attention's operands, counted nowhere; it takes q in f32 or
+    bf16, every K/V form and mask, and both layouts (flat operands as their
+    `cache_view`)."""
+    from repro_torch.kernels import _build, attention, ops
+    fn = _replaced["attention_first"].attention_first_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                   + [ctypes.c_float, ctypes.c_void_p])
+    result = out = torch.empty_like(q)
+    if q.ndim == 3:
+        q, k, v, k_scales, v_scales = attention.cache_view(q, k, v, k_scales, v_scales,
+                                                           kv_groups)
+        out = out.view(q.shape[0], q.shape[2], q.shape[1], q.shape[3]).transpose(1, 2)
+    b, tq, h, d = q.shape
+    if kv_lens is None:
+        kv_lens = attention.all_keys(q.device, b * h)
+    s, page_size, max_pages = attention._logical(k, page_table)
+    err = fn(ops._DTYPE_CODES[q.dtype], int(k_scales is not None), q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
+             _build.ptr(page_table), out.data_ptr(), b, tq, h, s, k.shape[2], d, page_size,
+             max_pages, attention.visible_prefix(s, causal, prefix_len), q.stride(1),
+             q.stride(2), float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"replaced_attention: CUDA error {err}")
+    return result
+
+
 def replaced_rwkv6(r, k, v, w, u, s0=None, chunk: int = 32):
     """WKV6's first design (scripts/replaced/rwkv6_serial.cu: a block a row
     walking the chunks in series) on the same operands, counted nowhere."""
@@ -848,7 +913,8 @@ def kernel_cases(dtype):
     """Cases (dicts: kernel, case, call, lib and lib_call (one PyTorch call
     on the same inputs, or None), bytes, flops; for the GEMMs also plan and
     ffma, csrc/gemm.cu on the same inputs where the plan names wgmma; for
-    attention its plan and ffma, csrc/attention.cu on the same inputs) at the
+    attention its plan and replaced, the f32 route's first design on the
+    same inputs) at the
     stablelm-1.6b and zamba2-1.2b FULL serving shapes, batch 4; bgemv cases
     carry their plan (`kernels.bgemv.plan`: tile, splits, rows)."""
     from repro_torch.kernels import attention, bgemv, ops
@@ -978,9 +1044,10 @@ def kernel_cases(dtype):
             lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
             "scaled_dot_product_attention",
             2 * nbytes(q) + kv_read + kv_lens.numel() * 4, 4 * pairs * hd,
-            plan=dict(route=p.route, splits=p.splits, chunk=p.chunk, per_block=p.per_block),
-            ffma=lambda q=q, k=k, v=v, kv_lens=kv_lens: attention.ffma(
-                q, k, v, kv_lens, torch.empty_like(q), dtype_code=ops._DTYPE_CODES[dtype])))
+            plan=dict(route=p.route, splits=p.splits, chunk=p.chunk, per_block=p.per_block,
+                      block_q=p.block_q, block_k=p.block_k),
+            replaced=lambda q=q, k=k, v=v, kv_lens=kv_lens: replaced_attention(
+                q, k, v, kv_lens)))
     return cases
 
 
@@ -1068,11 +1135,13 @@ def phase_kernels():
                 plain_ms = time_ms(call)
             lib_ms = time_ms(c["lib"]) if c["lib"] is not None else None
             ffma_ms = time_ms(c["ffma"]) if c.get("ffma") is not None else None
+            replaced_ms = time_ms(c["replaced"]) if c.get("replaced") is not None else None
             b_ms, by = bound(c["bytes"], c["flops"], dtype)
             row = dict(kernel=name, case=label, dtype=str(dtype).split(".")[1], plan=plan,
                        max_abs_err=err, tol=TOL[dtype], within_tol=ok, kernel_ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, library_call=c["lib_call"],
-                       ffma_ms=ffma_ms, split_bitwise_deterministic=same, bound_ms=b_ms,
+                       ffma_ms=ffma_ms, replaced_ms=replaced_ms,
+                       split_bitwise_deterministic=same, bound_ms=b_ms,
                        bound_by=by, share_of_bound=b_ms / ms, bytes=c["bytes"],
                        flops=c["flops"])
             emit("kernels", **row)
@@ -2168,17 +2237,41 @@ KV_CASES = [  # (label, q dtype, int8, page size, kv_case keywords)
     ("long int8 paged P=16 B=4 Tq=1 S=4096", torch.bfloat16, True, 16, dict(lens=(4096,) * 4)),
     ("ragged f32 paged P=7 GQA H=32/KVH=8 D=128 lens 2048/1031/517/75", torch.float32, False, 7,
      dict(kvh=8, d=128, lens=(2048, 1031, 517, 75))),
+    # f32 prefills ("ffma") at the smoke head dims: Tq off the 64-query
+    # tile, kv lengths past Tq, NaN past each length
+    ("prefill f32 dense B=4 Tq=100 H=4/KVH=2 D=16 lens 160/131/100/117", torch.float32, False,
+     None, dict(tq=100, h=4, kvh=2, d=16, lens=(160, 131, 100, 117))),
+    ("prefill f32 paged P=7 B=4 Tq=100 H=4/KVH=2 D=16 lens 160/131/100/117", torch.float32,
+     False, 7, dict(tq=100, h=4, kvh=2, d=16, lens=(160, 131, 100, 117))),
+    ("prefill f32 int8 dense B=4 Tq=70 H=8/KVH=2 D=32 lens 200/70/133/97", torch.float32, True,
+     None, dict(tq=70, h=8, kvh=2, d=32, lens=(200, 70, 133, 97))),
+    ("prefill f32 int8 paged P=16 B=4 Tq=70 H=8/KVH=2 D=32 lens 200/70/133/97", torch.float32,
+     True, 16, dict(tq=70, h=8, kvh=2, d=32, lens=(200, 70, 133, 97))),
 ]
+
+
+def one_slot(q, kv_lens, form, i: int):
+    """Slot i of a kv_case alone: its q and kv lengths and, dense, its cache
+    rows (paged: its table row over the same pool)."""
+    h = q.shape[2]
+    one = {}
+    for name, t in form.items():
+        if name == "page_table" or "page_table" not in form:
+            one[name] = t[i:i + 1]
+        else:
+            one[name] = t
+    return q[i:i + 1], kv_lens[i * h:(i + 1) * h], one
 
 
 def phase_attention_kv():
     """Each int8 / paged attention case once with the counts reset (one
     launch of its form, on the route its plan names), against its plain
     version (and, paged, bitwise against the dense launch on the cache its
-    table gathers; bitwise against a second launch), then timed (cold L2,
-    median of 20) beside its bound, its plain version, sdpa on the gathered
-    dequantized cache, the dense kernel at the same shape and the CUDA-core
-    kernel csrc/attention.cu on the same inputs."""
+    table gathers; bitwise against a second launch; an f32 prefill's last
+    slot bitwise alone and in the batch), then timed (cold L2, median of 20)
+    beside its bound, its plain version, sdpa on the gathered dequantized
+    cache, the dense kernel at the same shape and the f32 route's first
+    design (scripts/replaced/attention_first.cu) on the same inputs."""
     from repro_torch.kernels import attention, ops
     rows = {}
     for i, (label, dtype, int8, page_size, kw) in enumerate(KV_CASES):
@@ -2194,6 +2287,10 @@ def phase_attention_kv():
         if page_size:
             same_as_dense = bool(torch.equal(got, attend(q, kv_lens, dense)))
         same_twice = bool(torch.equal(got, attend(q, kv_lens, form)))
+        same_alone = None
+        if p.route == "ffma":  # the last slot's rows alone, as in the batch
+            last = q.shape[0] - 1
+            same_alone = bool(torch.equal(got[last:], attend(*one_slot(q, kv_lens, form, last))))
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok = bool(torch.isfinite(got).all()) and torch.allclose(got.float(), want.float(),
@@ -2215,25 +2312,26 @@ def phase_attention_kv():
         b_ms, by = bound(nb, 4 * pairs * d, dtype)
         fields = dict(case=label, dtype=str(dtype).split(".")[1], route=p.route,
                       splits=p.splits, chunk=p.chunk, per_block=p.per_block,
-                      max_abs_err=err, tol=TOL[dtype],
+                      block_q=p.block_q, block_k=p.block_k, max_abs_err=err, tol=TOL[dtype],
                       within_tol=ok, launches_added=rose,
                       bitwise_equal_to_dense_on_gathered=same_as_dense,
-                      bitwise_equal_second_launch=same_twice)
-        if not ok or rose != want_counts or same_as_dense is False or not same_twice:
+                      bitwise_equal_second_launch=same_twice,
+                      bitwise_equal_slot_alone=same_alone)
+        if (not ok or rose != want_counts or same_as_dense is False or not same_twice
+                or same_alone is False):
             emit("attention_kv", **fields)
             raise AssertionError(f"attention [{label}]: within_tol={ok}, launches {rose} "
                                  f"(want {want_counts}), paged == dense {same_as_dense}, "
-                                 f"second launch equal {same_twice}")
+                                 f"second launch equal {same_twice}, slot alone equal "
+                                 f"{same_alone}")
         del got, want
         ms = time_ms(lambda: attend(q, kv_lens, form))
         with ops.reference_mode():
             plain_ms = time_ms(lambda: attend(q, kv_lens, form))
         dense_ms = time_ms(lambda: attend(q, kv_lens, deq))
-        out = torch.empty_like(q)
-        ffma_ms = time_ms(lambda: attention.ffma(
-            q, form["k"], form["v"], kv_lens, out, dtype_code=ops._DTYPE_CODES[dtype],
-            k_scales=form.get("k_scales"), v_scales=form.get("v_scales"),
-            page_table=form.get("page_table")))
+        replaced_ms = time_ms(lambda: replaced_attention(
+            q, form["k"], form["v"], kv_lens, k_scales=form.get("k_scales"),
+            v_scales=form.get("v_scales"), page_table=form.get("page_table")))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, deq["k"], deq["v"]))
         s = kt.shape[2]
         kpos = torch.arange(s, device="cuda")
@@ -2245,12 +2343,12 @@ def phase_attention_kv():
             qt, kt, vt, attn_mask=mask, enable_gqa=h != kvh))
         row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    library="sdpa on the gathered, dequantized cache", dense_kernel_ms=dense_ms,
-                   ffma_ms=ffma_ms,
+                   replaced_ms=replaced_ms,
                    bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
                    flops=4 * pairs * d)
         emit("attention_kv", **row)
         rows[label] = row
-        del q, form, dense, deq, qt, kt, vt, mask, out
+        del q, form, dense, deq, qt, kt, vt, mask
     return rows
 
 
@@ -3737,7 +3835,8 @@ def phase_attention_masks():
     gathered cache, two launches bitwise equal, a decode launch bitwise the
     causal launch (the route has no mask code); then timed (cold L2, median
     of 5) beside its bound, its plain version and sdpa with a boolean mask
-    on the gathered, dequantized cache."""
+    on the gathered, dequantized cache, and an "ffma" case beside the f32
+    route's first design on the same inputs (replaced_ms)."""
     from repro_torch.kernels import attention, ops
     rows = {}
     cases = [(label, kw, prefix, mask) for label, kw, prefix in MASK_SHAPES
@@ -3770,7 +3869,8 @@ def phase_attention_masks():
                     got.float(), want.float(), **TOL[dtype])
                 fields = dict(case=label, mask=mask, prefix_len=prefix if mask == "prefix"
                               else None, dtype=str(dtype).split(".")[1], form=form_name,
-                              route=p.route, splits=p.splits, max_abs_err=err, tol=TOL[dtype],
+                              route=p.route, splits=p.splits, block_q=p.block_q,
+                              block_k=p.block_k, max_abs_err=err, tol=TOL[dtype],
                               within_tol=ok, launches_added=added,
                               bitwise_equal_to_dense_on_gathered=same_as_dense,
                               bitwise_equal_second_launch=same_twice,
@@ -3796,7 +3896,12 @@ def phase_attention_masks():
                 sm = sdpa_mask(lens, tq, kt.shape[2], mask, prefix)
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=sm, enable_gqa=h != kvh), iters=5)
+                replaced_ms = time_ms(lambda: replaced_attention(
+                    q, form["k"], form["v"], kv_lens, k_scales=form.get("k_scales"),
+                    v_scales=form.get("v_scales"), page_table=form.get("page_table"),
+                    **mkw), iters=5) if route == "ffma" else None
                 row = dict(fields, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           replaced_ms=replaced_ms,
                            library="sdpa, boolean mask, on the gathered dequantized cache",
                            bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
                            flops=4 * pairs * d)
@@ -3856,8 +3961,10 @@ def phase_attention_flat():
     plain version within TOL, bitwise a second launch, timed beside its
     bound, its plain version and sdpa (the flat operands as (B, H, T, D)
     views, a boolean mask for the prefix, GQA by enable_gqa) on the same
-    values; and one flat GQA call is profiled: its device launches are the
-    attention kernel alone (no copy of q, k or v, no fill of the lengths)."""
+    values (an "ffma" case also beside the f32 route's first design,
+    replaced_ms); and one flat GQA call is profiled: its device launches are
+    the attention kernel alone (no copy of q, k or v, no fill of the
+    lengths)."""
     from repro_torch.kernels import attention, ops
     inputs = [flat_case(label, bh, g, tq, s, d, dt, int8, 900 + i)
               for i, (label, bh, g, tq, s, d, dt, int8, _, _) in enumerate(FLAT_CASES)]
@@ -3903,11 +4010,15 @@ def phase_attention_flat():
         causal = mask == "causal" and tq > 1  # tq == s: sdpa's causal mask is the same
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=sm, is_causal=causal, enable_gqa=g > 1), iters=10)
+        replaced_ms = None
+        if route == "ffma":
+            replaced_ms = time_ms(lambda: replaced_attention(
+                q, kv_groups=g, **kv, **mask_kw(mask, prefix)), iters=10)
         row = dict(case=label, route=route, layout="flat", kv_groups=g, mask=mask,
                    prefix_len=prefix or None, dtype=str(dtype).split(".")[1],
                    kv="int8" if int8 else "dense", kv_lens=None, max_abs_err=err,
                    tol=TOL[dtype], within_tol=ok, bitwise_equal_second_launch=same_twice,
-                   kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, replaced_ms=replaced_ms,
                    library="sdpa on (B, H, T, D) views of the same values (int8 dequantized)",
                    bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb,
                    flops=4 * pairs * d)
@@ -4328,7 +4439,8 @@ def main() -> int:
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "ffma_ms": r["ffma_ms"], "shape": case, "dtype": "bfloat16",
-                        **({"attention_route": "splitkv"} if name == "attention" else {})})
+                        **({"attention_route": "splitkv", "replaced_ms": r["replaced_ms"]}
+                           if name == "attention" else {})})
     # the attention prefill's two routes: the bf16 serve's prefills on the
     # tensor cores, the f32 smoke serve's on the CUDA-core kernel
     prefill = "prefill B=4 Tq=128 H=32 D=64 S=160"
@@ -4343,7 +4455,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ffma_ms": r["ffma_ms"], "shape": prefill, "dtype": dtype,
+                        "replaced_ms": r["replaced_ms"], "shape": prefill, "dtype": dtype,
                         "attention_route": name.split("_")[1],
                         "launches_from": "serve" if dtype == "bfloat16" else "smoke (f32)"})
     # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
@@ -4428,7 +4540,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "dense_ms": r["dense_kernel_ms"], "ffma_ms": r["ffma_ms"],
+                        "dense_ms": r["dense_kernel_ms"], "replaced_ms": r["replaced_ms"],
                         "shape": case, "dtype": "bfloat16", "attention_route": r["route"]})
     # the WKV6 kernel: the prefill case's times, launches from the rwkv serve
     # (ops.rwkv6 calls; each runs DEVICE_LAUNCHES device launches), the long
@@ -4544,7 +4656,8 @@ def main() -> int:
                         "shape": shape, "mask": mask, "dtype": dtype,
                         "attention_route": r["route"], "launches_from": launches_from,
                         "head_dim": int(re.search(r"D=(\d+)", shape).group(1)),
-                        "launches_head_dim": launches_head_dim})
+                        "launches_head_dim": launches_head_dim,
+                        **({"replaced_ms": r["replaced_ms"]} if r["replaced_ms"] else {})})
     # kernel 1's other forms (the BLAS library's batched GEMV), launches
     # from the blas phase: op = A on csrc/bgemv_rows.cu, a per-member A on
     # both bodies, f64 on the column body
@@ -4583,7 +4696,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": label, "dtype": r["dtype"], "attention_route": r["route"],
-                        "layout": "flat", "launches_from": "attention_flat"})
+                        "layout": "flat", "launches_from": "attention_flat",
+                        **({"replaced_ms": r["replaced_ms"]} if r["replaced_ms"] else {})})
     emit("done", seconds=time.perf_counter() - t_start, nvcc_seconds=_build.build_seconds,
          nvcc_seconds_by_file=_build.build_seconds_by_file)
     (OUT / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

@@ -49,8 +49,11 @@ alone (it never reads `kv_lens`, and the mask never changes the route):
 - "mma" (`csrc/attention_mma.cu`) for a bf16 query block (Tq > 1), K/V
   bf16 or int8: both products on the tensor cores (mma.sync), P rounded to
   bf16 for P V;
-- "ffma" (`csrc/attention.cu`) for an f32 query block: f32 FMAs from shared
-  memory (TF32 would change f32 results).
+- "ffma" (`csrc/attention.cu`) for an f32 query block: both products as f32
+  FFMA on the CUDA cores (TF32 would change f32 results), each thread a
+  register tile of scores and of outputs fed by 16-byte shared loads, over
+  a cp.async ring of K/V tiles in dynamic shared memory; the plan names its
+  tile (`FFMA_TILES`: queries and keys a block, from the head dim alone).
 
 Each source note says what bounds its kernel and what its design does about
 it.  Every route reads keys in tiles or chunks at fixed absolute positions,
@@ -101,14 +104,18 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: (each split ends in a merge of its row groups), and 256 and up leave a
 #: GQA decode at S = 160 too few blocks
 CHUNK = 128
+#: "ffma" tiles by head dim: (queries, keys) a block.  The keys a tile come
+#: from D alone (a row's bits depend on them), 64 to D = 64 and 32 above, so
+#: that two blocks an SM hold their rings in shared memory (one at D = 256)
+FFMA_TILES = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 32)}
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
 #: a "splitkv" block streams consecutive splits until the grid is down to
 #: about this many blocks an SM (a short cache: one split a block)
 BLOCKS_PER_SM = 8
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
-    ctypes.c_float, ctypes.c_void_p]
+_FFMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
+                  + [ctypes.c_float, ctypes.c_void_p])
 _SPLITKV_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                      + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 _MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
@@ -116,16 +123,20 @@ _MMA_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
 
 
 class Plan(typing.NamedTuple):
-    """How one attention call runs: the route ("splitkv", "mma" or "ffma")
-    and, for "splitkv", the chunk of keys a split covers, the number of
-    splits (ceil(S / chunk); splits at or past a row's kv length load
-    nothing and its combine skips them) and the consecutive splits a block
-    streams (the grid; a split's arithmetic does not depend on it)."""
+    """How one attention call runs: the route ("splitkv", "mma" or "ffma");
+    for "splitkv", the chunk of keys a split covers, the number of splits
+    (ceil(S / chunk); splits at or past a row's kv length load nothing and
+    its combine skips them) and the consecutive splits a block streams (the
+    grid; a split's arithmetic does not depend on it); for "ffma", the
+    queries and keys a block takes (`FFMA_TILES`; the kernel refuses a tile
+    it was not built for)."""
 
     route: str
     splits: int = 1
     chunk: int = 0
     per_block: int = 1
+    block_q: int = 0
+    block_k: int = 0
 
 
 @functools.lru_cache(maxsize=1024)  # a serve plans a handful of shapes
@@ -135,7 +146,8 @@ def plan(b: int, tq: int, h: int, kvh: int, d: int, s: int, dtype, int8: bool,
     keys (the dense cache's S, or max_pages * P of a page pool) with kvh KV
     heads, K/V int8 or q's dtype.  Host-known shapes only: no device value
     is read.  Tq = 1 takes "splitkv" in every dtype and form; a bf16 block
-    "mma"; an f32 block "ffma".  Head dims outside HEAD_DIMS raise.
+    "mma"; an f32 block "ffma" with the head dim's tile (`FFMA_TILES`).
+    Head dims outside HEAD_DIMS raise.
 
     "splitkv" cuts S into ceil(s / chunk) splits; a block streams
     per_block of them, so that the grid of b * kvh rows is about
@@ -152,7 +164,8 @@ def plan(b: int, tq: int, h: int, kvh: int, d: int, s: int, dtype, int8: bool,
     if dtype == torch.bfloat16:
         return Plan("mma")
     if dtype == torch.float32:
-        return Plan("ffma")
+        block_q, block_k = FFMA_TILES[d]
+        return Plan("ffma", block_q=block_q, block_k=block_k)
     raise TypeError(f"flash_attention: no route for dtype {dtype}")
 
 
@@ -262,26 +275,6 @@ def plan_for(q, k, page_table=None, int8: bool = False, sms: int = H100_SMS) -> 
                 sms=sms)
 
 
-def ffma(q, k, v, kv_lens, out, *, dtype_code: int, k_scales=None, v_scales=None,
-         page_table=None, causal: bool = True, prefix_len=None):
-    """`attention_launch` (csrc/attention.cu, the CUDA-core kernel) on the
-    current stream, uncounted; it takes every form, mask and both dtypes.
-    q and out are (B, Tq, H, D), contiguous or flat operands' cache_view."""
-    b, tq, h, d = q.shape
-    s, page_size, max_pages = _logical(k, page_table)
-    fn = _build.function("attention_launch", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(dtype_code, int(k_scales is not None), q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales), kv_lens.data_ptr(),
-                 _build.ptr(page_table), out.data_ptr(), b, tq, h, s, k.shape[2], d, page_size,
-                 max_pages, visible_prefix(s, causal, prefix_len), q.stride(1), q.stride(2),
-                 float(d ** -0.5), stream)
-    if err:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    return out
-
-
 def _logical(k, page_table):
     """(S, page size, max pages): the logical cache length the kernels see."""
     if page_table is None:
@@ -297,11 +290,7 @@ def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_sca
     strided as q).  The "splitkv" partials' workspace is allocated here.
     "splitkv" takes no mask: its one query sits at kvl - 1, where every
     mask sees [0, kvl); and no strides: at Tq = 1 both layouts put head h
-    of slot b at (b * H + h) * D."""
-    if p.route == "ffma":
-        return ffma(q, k, v, kv_lens, out, dtype_code=dtype_code, k_scales=k_scales,
-                    v_scales=v_scales, page_table=page_table, causal=causal,
-                    prefix_len=prefix_len)
+    of slot b at (b * H + h) * D.  "ffma" takes p's tile."""
     b, tq, h, d = q.shape
     kvh = k.shape[2]
     s, page_size, max_pages = _logical(k, page_table)
@@ -317,11 +306,16 @@ def run(q, k, v, kv_lens, out, p: Plan, *, dtype_code: int, k_scales=None, v_sca
             err = fn(dtype_code, int8, *common, work.data_ptr(),
                      _build.tickets(q.device, b * kvh).data_ptr(), b, h, s, kvh, d, page_size,
                      max_pages, p.chunk, p.splits, p.per_block, float(d ** -0.5), stream)
-        else:
+        elif p.route == "mma":
             fn = _build.function("attention_mma_launch", _MMA_ARGTYPES)
             err = fn(int8, *common, b, tq, h, s, kvh, d, page_size, max_pages,
                      visible_prefix(s, causal, prefix_len), q.stride(1), q.stride(2),
                      float(d ** -0.5), stream)
+        else:
+            fn = _build.function("attention_launch", _FFMA_ARGTYPES)
+            err = fn(int8, *common, b, tq, h, s, kvh, d, page_size, max_pages,
+                     visible_prefix(s, causal, prefix_len), q.stride(1), q.stride(2),
+                     p.block_q, p.block_k, float(d ** -0.5), stream)
     if err:
         raise RuntimeError(f"attention {p.route} kernel launch failed: CUDA error {err}")
     return out

@@ -45,17 +45,35 @@ NEG_INF = attention.NEG_INF
 # (a) the plan
 # --------------------------------------------------------------------------
 
+#: the "ffma" tile (queries, keys a block) by head dim, as csrc/attention.cu
+#: builds it
+FFMA_TILE_PINS = {16: (64, 64), 32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 32)}
+
+
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("tq", [1, 2, 64, 128])
 @pytest.mark.parametrize("int8", [False, True])
-def test_plan_routes_by_dtype_and_query_length(dtype, tq, int8):
-    p = attention.plan(4, tq, 32, 8, 64, 160, dtype, int8)
+def test_plan_routes_by_dtype_and_query_length(dtype, tq, int8, d):
+    """The route by dtype and query length; an "ffma" plan carries its head
+    dim's tile, and the keys a tile (on which a row's bits depend) are the
+    same at every batch, query length, cache length, KV head count and K/V
+    form (the plan takes no mask, so no mask moves them either)."""
+    p = attention.plan(4, tq, 32, 8, d, 160, dtype, int8)
     want = "splitkv" if tq == 1 else ("mma" if dtype == BF16 else "ffma")
     assert p.route == want
     if want == "splitkv":
         assert (p.chunk, p.splits) == (attention.CHUNK, -(-160 // attention.CHUNK))
     else:
         assert p.splits == 1
+    if want != "ffma":
+        assert (p.block_q, p.block_k) == (0, 0)
+        return
+    assert (p.block_q, p.block_k) == FFMA_TILE_PINS[d]
+    tiles = {attention.plan(b, t, 32, kvh, d, s, F32, i8)[4:]
+             for b in (1, 3, 64) for t in (2, 63, 65, 1500) for kvh in (32, 8, 1)
+             for s in (t, 160, 4097) for i8 in (False, True)}
+    assert tiles == {FFMA_TILE_PINS[d]}
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 128, 160, 4096, 4097])

@@ -252,6 +252,98 @@ MASKS = [dict(), dict(prefix_len=40), dict(causal=False)]
 MASK_IDS = ["causal", "prefix", "noncausal"]
 
 
+# the f32 route "ffma" (csrc/attention.cu): (K/V form, page size), cache
+# layout; the flat layout takes the unpaged forms
+FFMA_FORMS = [("dense", None), ("int8", None), ("paged", 7), ("paged", 16), ("int8", 16)]
+FFMA_CASES = ([("cache", *f) for f in FFMA_FORMS]
+              + [("flat", "dense", None), ("flat", "int8", None)])
+
+
+def _flat_of(q, kw):
+    """A cache-layout case's operands in the flat layout: q (B * H, Tq, D),
+    k/v (B * KVH, S, D) and their scales, the same rows in the same order
+    (flat row b * H + h reads KV row b * KVH + h // g)."""
+    b, tq, h, d = q.shape
+    flat = {"q": q.permute(0, 2, 1, 3).reshape(b * h, tq, d)}
+    for name, t in kw.items():
+        flat[name] = t.permute(0, 2, 1, 3).reshape(b * t.shape[2], t.shape[1], t.shape[3])
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,form,page_size", FFMA_CASES)
+@pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("h,kvh", [(32, 8), (8, 1)])
+@pytest.mark.parametrize("tq", [2, 33, 128])
+def test_ffma_route_matches_plain(cuda, layout, form, page_size, mask, d, h, kvh, tq):
+    """The f32 prefill on "ffma" in every head dim, mask, K/V form (dense,
+    int8, paged at P = 7 and 16, paged int8) and layout (cache, flat), GQA
+    32/8 and MQA 8/1, Tq off and on the query tile, kv lengths at and past
+    Tq, NaN past them: one launch counted on "ffma" (and its layout), within
+    f32 TOL of the plain version, two launches bitwise equal, a paged launch
+    bitwise the dense launch on the gathered cache."""
+    from repro_torch.kernels import attention
+    int8 = form == "int8"
+    lens = (tq + 37, tq, tq + 90)
+    q, dense, paged, kv_lens = _kv_case(cuda, torch.float32, int8, page_size, tq=tq, h=h,
+                                        kvh=kvh, d=d, lens=lens)
+    kw = paged if paged is not None else dense
+    if layout == "flat":
+        flat = _flat_of(q, dense)
+
+        def call():
+            return ops.flash_attention(kv_lens=kv_lens, kv_groups=h // kvh, **flat, **mask)
+    else:
+        def call():
+            return _attend(q, kw, kv_lens, h // kvh, **mask)
+    ops.reset_launch_counts()
+    got = call()
+    assert ops.attention_routes() == {"splitkv": 0, "mma": 0, "ffma": 1}
+    assert ops.attention_layouts()[f"ffma/{layout}"] == 1
+    with ops.reference_mode():
+        want = call()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert torch.equal(got, call())
+    if paged is not None:
+        table = paged["page_table"]
+        gathered = {k: attention.gather_pages(v, table).contiguous() for k, v in paged.items()
+                    if k != "page_table"}
+        assert torch.equal(got, _attend(q, gathered, kv_lens, h // kvh, **mask))
+
+
+@pytest.mark.cuda
+def test_ffma_launch_refuses_a_tile_it_was_not_built_for(cuda):
+    """The plan's tile is the head dim's; "ffma" refuses any other."""
+    from repro_torch.kernels import attention
+    q, dense, _, kv_lens = _kv_case(cuda, torch.float32, False, None, tq=9, h=4, kvh=2)
+    p = attention.plan_for(q, dense["k"])
+    for other in (p._replace(block_k=p.block_k // 2), p._replace(block_q=2 * p.block_q)):
+        with pytest.raises(RuntimeError, match="ffma kernel launch failed"):
+            attention.run(q, dense["k"], dense["v"], kv_lens, torch.empty_like(q), other,
+                          dtype_code=ops._DTYPE_CODES[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,page_size", [("dense", None), ("paged", 7), ("int8", 16)])
+def test_ffma_route_bits_do_not_depend_on_the_batch(cuda, form, page_size):
+    """A slot's rows on "ffma" alone (a batch of 1) carry the bits they carry
+    in a batch of 4."""
+    h, kvh, tq = 8, 2, 100
+    q, dense, paged, kv_lens = _kv_case(cuda, torch.float32, form == "int8", page_size, tq=tq,
+                                        h=h, kvh=kvh, lens=(160, 131, 100, 117))
+    kw = paged if paged is not None else dense
+    got = _attend(q, kw, kv_lens, h // kvh)
+    for i in range(4):
+        one = {k: t if paged is not None and k != "page_table" else t[i:i + 1]
+               for k, t in kw.items()}
+        alone = _attend(q[i:i + 1], one, kv_lens[i * h:(i + 1) * h], h // kvh)
+        torch.cuda.synchronize()
+        assert torch.equal(got[i:i + 1], alone)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mask", MASKS, ids=MASK_IDS)
 @pytest.mark.parametrize("dtype,tq", [(torch.float32, 1), (torch.bfloat16, 1),
