@@ -21,7 +21,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              the run), and ptxas's registers and spills for the split-KV
              decode kernels (csrc/attention_splitkv.cu); the DMMA (f64
              mma.sync) in each f64 GEMM kernel (csrc/gemm_f64.cu; none, or a
-             spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu); the
+             spill, fails the run) and ptxas for bgemv (csrc/bgemv.cu,
+             bgemv_rows.cu and bgemv_members.cu: 72 instantiations, a spill
+             fails the run); the
              FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
              with its ptxas registers and spills (none, or a spill, fails);
              the HMMA (mma.sync) in csrc/qgemv.cu's tensor-core kernels (none
@@ -90,7 +92,13 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              batched_gemv, dot, nrm2, axpy) at full size in f64, f32 and
              bf16 (batched_gemv: one A a member at (32, 2048, 2048) and
              (4096, 32, 32), both ops, a broadcast A at (4, 8192, 8192), and
-             ops.bgemv's epilogue on a ragged (3, 257, 131)), each call held
+             ops.bgemv's epilogue on a ragged (3, 257, 131); short members
+             on csrc/bgemv_members.cu: (4096, 32, 32) in every dtype, (4096,
+             64, 64) bf16, a ragged (1000, 37, 19) off 16 bytes, the gate,
+             members at and just past kernels.bgemv.MEMBER_MAX_BYTES; every
+             bgemv case bitwise on a second launch and timed beside the
+             first design's plan (replaced_ms), and two short shapes bitwise
+             alone and in a batch of 4096), each call held
              against its plain version and counted as one launch of its
              kernel (gemm, gemv, bgemv, blas1 reduce, blas1 axpy; a bgemv
              also on the form its plan names, a gemm on
@@ -295,6 +303,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -484,9 +493,18 @@ def _attn_name(mangled: str):
 
 
 def _bgemv_name(mangled: str):
-    """'bgemv f32 [gate] [batched]' (csrc/bgemv.cu, op = A^T) or 'bgemv_rows
+    """'bgemv f32 [gate] [batched]' (csrc/bgemv.cu, op = A^T), 'bgemv_rows
     f64 [gate] [batched] rows=R' (csrc/bgemv_rows.cu, op = A, R rows a
-    warp) for a bgemv kernel instantiation, else None."""
+    warp) or 'bgemv_members bf16 [gate] t|n chunk=16B|1 [wide]' (csrc/
+    bgemv_members.cu, the short-member body of either op; wide: op = A rows
+    of more than 32 chunks) for a bgemv kernel instantiation, else None."""
+    m = re.search(r"bgemv_members_kernelI(f|d|13__nv_bfloat16)Lb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                  mangled)
+    if m:
+        t, gate, trans, vec, wide = m.groups()
+        return (f"bgemv_members {dict(f='f32', d='f64').get(t, 'bf16')}"
+                + (" gate" if gate == "1" else "") + (" t" if trans == "1" else " n")
+                + (" chunk=16B" if vec == "1" else " chunk=1") + (" wide" if wide == "1" else ""))
     m = re.search(r"(bgemv(?:_rows)?)_kernelI(f|d|13__nv_bfloat16)Lb(\d)ELb(\d)E(?:Li(\d+)E)?",
                   mangled)
     if m is None:
@@ -662,7 +680,8 @@ def phase_sass(lib: Path) -> dict:
     bgemv_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
                     for k, v in bgemv_ptxas.items()}
     emit("sass", what="DMMA in csrc/gemm_f64.cu's kernels (cuobjdump -sass); ptxas for them "
-         "and csrc/bgemv.cu's and csrc/bgemv_rows.cu's", dmma_total=sum(dmma.values()),
+         "and csrc/bgemv.cu's, csrc/bgemv_rows.cu's and csrc/bgemv_members.cu's",
+         dmma_total=sum(dmma.values()),
          dmma_per_kernel=dmma, ptxas=f64_ptxas or "not built in this process",
          bgemv_ptxas=bgemv_ptxas, f64_spill_bytes=f64_spills, bgemv_spill_bytes=bgemv_spills)
     (OUT / "sass_dmma.json").write_text(json.dumps({"dmma": dmma, "ptxas": f64_ptxas,
@@ -725,9 +744,13 @@ def phase_sass(lib: Path) -> dict:
         raise AssertionError(f"f64 tensor-core kernels without DMMA: {dmma}")
     if any(f64_spills.values()):
         raise AssertionError(f"f64 tensor-core kernels spill: {f64_spills}")
-    if bgemv_ptxas and (len(bgemv_ptxas) != 36 or any(bgemv_spills.values())):
-        raise AssertionError(f"bgemv kernels (want 36: 3 dtypes x gate x batched, x 1 or 4 rows "
-                             f"a warp in bgemv_rows.cu) {sorted(bgemv_ptxas)}, spilling "
+    # 36 in bgemv.cu and bgemv_rows.cu (3 dtypes x gate x batched, x 1 or 4
+    # rows a warp in bgemv_rows.cu), and since the short-member body 36 in
+    # bgemv_members.cu (3 dtypes x gate x 16-byte or element chunks x op =
+    # A^T, op = A, op = A over rows of more than 32 chunks)
+    if bgemv_ptxas and (len(bgemv_ptxas) != 72 or any(bgemv_spills.values())):
+        raise AssertionError(f"bgemv kernels (want 72: 12 in bgemv.cu, 24 in bgemv_rows.cu, 36 "
+                             f"in bgemv_members.cu) {sorted(bgemv_ptxas)}, spilling "
                              f"{bgemv_spills}")
     return hgmma
 
@@ -811,6 +834,55 @@ def replaced_qgemv(qw, x, *, qw2=None, bias=None, residual=None, activation=None
              ops._ACTS[activation], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"replaced_qgemv: CUDA error {err}")
+    return out
+
+
+def first_bgemv_plan(b: int, k: int, n: int, dtype, gate: bool, trans: bool, batched: bool):
+    """kernels.bgemv.plan as the first design had it, before the
+    short-member body: every member on csrc/bgemv_rows.cu (op = A;
+    `split_plan`, unchanged) or on the broadcast column body with one member
+    a block, 128-byte tiles and at most 1024 rows a K slice (op = A^T;
+    scripts/replaced/bgemv_first.cu, `replaced_bgemv`)."""
+    from repro_torch.kernels import bgemv
+    if not (trans and batched):
+        return bgemv.split_plan(b, k, n, dtype, gate, trans=trans, batched=batched)
+    cdiv, tile = bgemv._cdiv, 128 // (torch.finfo(dtype).bits // 8)
+    splits = max(1, min(bgemv.BLOCKS_PER_SM * bgemv.H100_SMS // max(cdiv(n, tile) * b, 1),
+                        k // bgemv.MIN_ROWS[bool(gate)]))
+    rows = min(bgemv.MAX_ROWS, max(bgemv.ROW_STEP, cdiv(cdiv(k, splits), bgemv.ROW_STEP)
+                                   * bgemv.ROW_STEP))
+    return bgemv.Plan(tile, max(1, cdiv(k, rows)), rows, True)
+
+
+def replaced_bgemv(a, x, *, transpose_a, a2=None, bias=None, residual=None, activation=None):
+    """ops.bgemv under the first design's plan (`first_bgemv_plan`),
+    counted nowhere: op = A on csrc/bgemv_rows.cu through kernels.bgemv.run,
+    op = A^T on the first column design (scripts/replaced/bgemv_first.cu: a
+    member a block of the broadcast column body)."""
+    from repro_torch.kernels import _build, bgemv, ops
+    if transpose_a:
+        k, n = a.shape[-2:]
+    else:
+        n, k = a.shape[-2:]
+    b = x.shape[0]
+    p = first_bgemv_plan(b, k, n, x.dtype, a2 is not None, transpose_a, a.ndim == 3)
+    out = torch.empty(b, n, dtype=x.dtype, device=x.device)
+    if not transpose_a:
+        return bgemv.run(a, x, out, p, w2=a2, bias=bias, residual=residual,
+                         act_code=ops._ACTS[activation], dtype_code=ops._DTYPE_CODES[x.dtype])
+    fn = _replaced["bgemv_first"].bgemv_first_launch
+    fn.argtypes, fn.restype = bgemv._ARGTYPES, ctypes.c_int
+    ws = tickets = None
+    if p.splits > 1:
+        ws = torch.empty((2 if a2 is not None else 1) * p.splits * b * n,
+                         dtype=torch.promote_types(torch.float32, x.dtype), device=x.device)
+        tickets = _build.tickets(x.device, -(-n // p.tile) * p.chunks(b))
+    err = fn(ops._DTYPE_CODES[x.dtype], a.data_ptr(), _build.ptr(a2), x.data_ptr(),
+             _build.ptr(bias), _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
+             _build.ptr(tickets), b, k, n, p.splits, p.rows, ops._ACTS[activation],
+             int(a.ndim == 3), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"replaced_bgemv: CUDA error {err}")
     return out
 
 
@@ -1548,6 +1620,14 @@ D8K, N16K, N26 = 8192, 16384, 2 ** 26
 BGEMV_MEMBERS = "per-member (32,2048,2048)"
 BGEMV_SMALL = "per-member (4096,32,32)"
 BGEMV_BROADCAST = "broadcast (8192,8192) x (4,8192)"
+BGEMV_RAGGED = "per-member ragged (1000,37,19) off 16 bytes"
+
+
+def bgemv_threshold_cols(rows: int, dtype) -> int:
+    """Columns that make a member of `rows` rows exactly
+    kernels.bgemv.MEMBER_MAX_BYTES, the largest the short-member body takes."""
+    from repro_torch.kernels import bgemv
+    return bgemv.MEMBER_MAX_BYTES // (rows * (torch.finfo(dtype).bits // 8))
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 ODD = "odd (4095,4097)@(4097,4093)"
 
@@ -1556,11 +1636,13 @@ def blas_cases():
     """(kernel counter, routine, case, dtype, make) for every BLAS case;
     make() builds the inputs from a seeded generator and returns (call
     through core.blas, library call or None, bytes, flops, sums, ffma,
-    route), where sums is None (elementwise tolerance) or, for dot and nrm2,
-    (cond, the same call on the first half of each vector: a planted fault),
-    ffma the CUDA-core kernel on the same inputs where the tensor cores run
-    the call, and route the gemm plan `plan_of` gives (None for the other
-    routines)."""
+    route, replaced), where sums is None (elementwise tolerance) or, for dot
+    and nrm2, (cond, the same call on the first half of each vector: a
+    planted fault), ffma the CUDA-core kernel on the same inputs where the
+    tensor cores run the call, route the gemm plan `plan_of` gives (bgemv:
+    its form and members a block; None for the other routines), and
+    replaced a bgemv call under the first design's plan (`replaced_bgemv`;
+    None for the other routines)."""
     from repro_torch.core import blas
 
     def rnd(g, dtype, *shape, std=1.0):
@@ -1581,16 +1663,16 @@ def blas_cases():
                         lambda: torch.matmul(a, both),
                         nbytes(a, b, b2) + out_b, 4 * m * n * k, None,
                         (lambda: ffma_launch(a, b, b2=b2, activation="silu")) if on_tc else None,
-                        route)
+                        route, None)
             if epi:
                 bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
                 return (lambda: blas.gemm(a, b, bias=bias, residual=res, epilogue=epi), None,
                         nbytes(a, b, bias, res) + out_b, 2 * m * n * k, None,
                         (lambda: ffma_launch(a, b, bias=bias, residual=res, activation=epi))
-                        if on_tc else None, route)
+                        if on_tc else None, route, None)
             return (lambda: blas.gemm(a, b), lambda: torch.matmul(a, b),
                     nbytes(a, b) + out_b, 2 * m * n * k, None,
-                    (lambda: ffma_launch(a, b)) if on_tc else None, route)
+                    (lambda: ffma_launch(a, b)) if on_tc else None, route, None)
         return make
 
     def gemv_case(dtype, m, n, seed, trans=False):
@@ -1600,33 +1682,39 @@ def blas_cases():
             x = rnd(g, dtype, n)
             at = a.t() if trans else a
             return (lambda: blas.gemv(a, x, trans=trans), lambda: torch.mv(at, x),
-                    nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None, None)
+                    nbytes(a, x) + m * a.element_size(), 2 * m * n, None, None, None, None)
         return make
 
-    def bgemv_case(dtype, b, m, n, seed, trans=False, batched=True, epi=False):
-        """batched_gemv (epi: ops.bgemv with bias, gelu and residual, which
-        batched_gemv does not take) of op(A) (m, n) a member, A ((b,) m, n)
-        or ((b,) n, m) under trans, and x (b, n); the library call is one
-        torch.bmm (F.linear for a broadcast A) on the same operands."""
+    def bgemv_case(dtype, b, m, n, seed, trans=False, batched=True, epi=None, shift=0):
+        """batched_gemv (epi "gelu": ops.bgemv with bias, gelu and residual;
+        "silu": with a second A, bias and residual, the gate; batched_gemv
+        takes neither) of op(A) (m, n) a member, A ((b,) m, n) or ((b,) n,
+        m) under trans, `shift` elements into its allocation, and x (b, n);
+        the library call is one torch.bmm (F.linear for a broadcast A) on
+        the same operands."""
         from repro_torch.kernels import bgemv, ops
-        form = dict(form=bgemv.plan(b, n, m, dtype, trans=trans, batched=batched).form)
+        p = bgemv.plan(b, n, m, dtype, gate=epi == "silu", trans=trans, batched=batched)
+        form = dict(form=p.form, members=p.members)
 
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
             shape = ((b,) if batched else ()) + ((n, m) if trans else (m, n))
-            a, x = rnd(g, dtype, *shape, std=n ** -0.5), rnd(g, dtype, b, n)
+            a = rnd(g, dtype, math.prod(shape) + shift, std=n ** -0.5)[shift:].view(shape)
+            x = rnd(g, dtype, b, n)
             op = a.transpose(-2, -1) if trans else a
             out_b = b * op.shape[-2] * a.element_size()
             flops = 2 * b * m * n
             if epi:
+                a2 = (rnd(g, dtype, *shape, std=n ** -0.5) if epi == "silu" else None)
                 bias, res = rnd(g, dtype, op.shape[-2]), rnd(g, dtype, b, op.shape[-2])
-                return (lambda: ops.bgemv(a, x, bias=bias, residual=res, activation="gelu",
-                                          transpose_a=trans), None,
-                        nbytes(a, x, bias, res) + out_b, flops, None, None, form)
+                kw = dict(a2=a2, bias=bias, residual=res, activation=epi, transpose_a=trans)
+                return (lambda: ops.bgemv(a, x, **kw), None,
+                        nbytes(a, a2, x, bias, res) + out_b, flops * (2 if a2 is not None else 1),
+                        None, None, form, lambda: replaced_bgemv(a, x, **kw))
             lib = (lambda: torch.bmm(op, x[..., None])) if batched else (
                 lambda: F.linear(x, op))
             return (lambda: blas.batched_gemv(a, x, trans=trans), lib, nbytes(a, x) + out_b,
-                    flops, None, None, form)
+                    flops, None, None, form, lambda: replaced_bgemv(a, x, transpose_a=trans))
         return make
 
     def level1_case(routine, dtype, n, seed, offset=0):
@@ -1638,13 +1726,14 @@ def blas_cases():
                 cond = (x.double() * y.double()).abs().sum().item()
                 return (lambda: blas.dot(x, y), lambda: torch.dot(x, y),
                         nbytes(x, y) + size, 2 * n, (cond, lambda: blas.dot(x[:h], y[:h])), None,
-                        None)
+                        None, None)
             if routine == "nrm2":
                 cond = x.double().norm().item()
                 return (lambda: blas.nrm2(x), lambda: torch.linalg.vector_norm(x),
-                        nbytes(x) + size, 2 * n, (cond, lambda: blas.nrm2(x[:h])), None, None)
+                        nbytes(x) + size, 2 * n, (cond, lambda: blas.nrm2(x[:h])), None, None,
+                        None)
             return (lambda: blas.axpy(0.75, x, y), lambda: torch.add(y, x, alpha=0.75),
-                    nbytes(x, y) + n * size, 2 * n, None, None, None)
+                    nbytes(x, y) + n * size, 2 * n, None, None, None, None)
         return make
 
     cases = []
@@ -1688,15 +1777,35 @@ def blas_cases():
         ("bgemv", "batched_gemv", f"{BGEMV_SMALL} trans={trans}", torch.float64,
          bgemv_case(torch.float64, 4096, 32, 32, 76 + trans, trans=trans))
         for trans in (False, True)]
+    # short members (csrc/bgemv_members.cu) in f32 and bf16 too, a longer
+    # short one, ragged rows of elements off 16 bytes, the gate, and members
+    # just at and just past the plan's MEMBER_MAX_BYTES
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        cases += [("bgemv", "batched_gemv", f"{BGEMV_SMALL} trans={trans}", dt,
+                   bgemv_case(dt, 4096, 32, 32, 82 + 2 * i + trans, trans=trans))
+                  for trans in (False, True)]
+    at_n = bgemv_threshold_cols(64, torch.float32)
+    cases += [
+        ("bgemv", "batched_gemv", "per-member (4096,64,64) trans=True", torch.bfloat16,
+         bgemv_case(torch.bfloat16, 4096, 64, 64, 86, trans=True)),
+        *[("bgemv", "batched_gemv", f"{BGEMV_RAGGED} trans={trans}", torch.float32,
+           bgemv_case(torch.float32, 1000, 37, 19, 87 + trans, trans=trans, shift=1))
+          for trans in (False, True)],
+        ("bgemv", "bgemv", f"{BGEMV_SMALL} gate +bias silu +residual trans=True",
+         torch.float32, bgemv_case(torch.float32, 4096, 32, 32, 89, trans=True, epi="silu")),
+        *[("bgemv", "batched_gemv", f"threshold (1024,64,{cols}) trans=False", torch.float32,
+           bgemv_case(torch.float32, 1024, 64, cols, 90 + j))
+          for j, cols in enumerate((at_n, at_n + 4))],
+    ]
     cases += [
         ("bgemv", "batched_gemv", f"{BGEMV_BROADCAST} trans=False", torch.bfloat16,
          bgemv_case(torch.bfloat16, 4, 8192, 8192, 78, batched=False)),
         ("bgemv", "batched_gemv", f"{BGEMV_BROADCAST} trans=True", torch.float64,
          bgemv_case(torch.float64, 4, 8192, 8192, 79, trans=True, batched=False)),
         ("bgemv", "bgemv", "ragged (3,257,131) +bias gelu +residual trans=False", torch.float32,
-         bgemv_case(torch.float32, 3, 257, 131, 80, epi=True)),
+         bgemv_case(torch.float32, 3, 257, 131, 80, epi="gelu")),
         ("bgemv", "bgemv", "ragged (3,257,131) +bias gelu +residual trans=True", torch.float64,
-         bgemv_case(torch.float64, 3, 257, 131, 81, trans=True, epi=True)),
+         bgemv_case(torch.float64, 3, 257, 131, 81, trans=True, epi="gelu")),
     ]
     cases += [
         ("gemv", "gemv", "ragged 16383x16385", torch.float32,
@@ -1723,13 +1832,16 @@ def blas_cases():
 def phase_blas():
     """Drive every case once through core.blas with the launch counts reset
     just before (each call must add exactly one launch to its kernel's
-    count), hold it against its plain version, then time it."""
+    count), hold it against its plain version, then time it; a bgemv case
+    also bitwise on a second launch and beside the first design's plan on the same
+    inputs (replaced_ms), and two short-member shapes bitwise alone and in
+    a batch of 4096 (`bgemv_batch_invariance`)."""
     from repro_torch.kernels import ops
     cases = blas_cases()
     checked = []
     ops.reset_launch_counts()
     for kernel, routine, case, dtype, make in cases:
-        call, _, _, _, sums, _, route = make()
+        call, _, _, _, sums, _, route, _ = make()
         before = ops.launch_counts()
         got = call()
         after = ops.launch_counts()
@@ -1741,8 +1853,10 @@ def phase_blas():
         want_rose = {kernel: 1}
         if kernel == "gemm":  # the route its plan names
             want_rose.update(launch_keys("gemm", route))
-        if kernel == "bgemv":  # the form its plan names
+        if kernel == "bgemv":  # the form its plan names, and the body
             want_rose[f"bgemv_{route['form']}"] = 1
+            if route["members"]:
+                want_rose["bgemv_members"] = 1
         diff = (got.double() - want.double()).abs()
         err = diff.max().item()
         finite = bool(torch.isfinite(got).all())
@@ -1771,8 +1885,12 @@ def phase_blas():
                  max_abs_err=err, tol=chk["tol"], within_tol=ok, launches_added=rose)
             raise AssertionError(f"blas {routine} [{case}] {dtype}: within_tol={ok}, "
                                  f"launches added {rose} (want {want_rose})")
-        chk["route"] = route and (route["form"] if kernel == "bgemv" else route["route"] + (
-            " staged" if route["stage"] else "") + (" copy=8B" if route["copy"] == 8 else ""))
+        chk["route"] = route and (
+            route["form"] + (f" members={route['members']}" if route["members"] else "")
+            if kernel == "bgemv" else route["route"] + (" staged" if route["stage"] else "")
+            + (" copy=8B" if route["copy"] == 8 else ""))
+        if kernel == "bgemv":  # bitwise on a second launch (in the timing pass)
+            chk["got"] = got
         del call, got, want, diff, planted
     counts = ops.launch_counts()
     emit("launches", run="blas", **counts)
@@ -1783,12 +1901,16 @@ def phase_blas():
 
     rows = {}
     for (kernel, routine, case, dtype, make), chk in zip(cases, checked):
-        call, lib, nb, flops, _, ffma, _ = make()
+        call, lib, nb, flops, _, ffma, _, replaced = make()
+        if "got" in chk and not torch.equal(call(), chk.pop("got")):
+            raise AssertionError(f"blas {routine} [{case}] {dtype}: a second launch gave "
+                                 f"other bits")
         ms = time_auto(call)
         with ops.reference_mode():
             plain_ms = time_auto(call)
         lib_ms = time_auto(lib) if lib is not None else None
         ffma_ms = time_auto(ffma) if ffma is not None else None
+        replaced_ms = time_auto(replaced) if replaced is not None else None
         b_ms, by = bound(nb, flops, dtype)
         row = dict(kernel=kernel, routine=routine, case=case, dtype=str(dtype).split(".")[1],
                    route=chk["route"], max_abs_err=chk["err"], tol=chk["tol"],
@@ -1797,12 +1919,37 @@ def phase_blas():
                    cond=chk["cond"], limit=chk.get("limit"),
                    planted_rejected=chk.get("planted_rejected"), within_tol=chk["ok"],
                    kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ffma_ms=ffma_ms,
-                   bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms,
-                   bytes=nb, flops=flops)
+                   replaced_ms=replaced_ms, bound_ms=b_ms, bound_by=by,
+                   share_of_bound=b_ms / ms, bytes=nb, flops=flops)
         emit("blas", **row)
         rows[(routine, case, row["dtype"])] = row
-        del call, lib, ffma
+        del call, lib, ffma, replaced
+    bgemv_batch_invariance()
     return rows, counts
+
+
+def bgemv_batch_invariance():
+    """Two short-member shapes through ops.bgemv: members alone (a batch of
+    1) bitwise the same as in a batch of 4096 (the short-member body sums a
+    member in an order set by its shape alone)."""
+    from repro_torch.kernels import bgemv, ops
+    g = torch.Generator(device="cuda").manual_seed(95)
+    for dtype, trans, (m, n) in ((torch.float64, True, (32, 32)),
+                                 (torch.bfloat16, False, (64, 64))):
+        shape = (4096, n, m) if trans else (4096, m, n)
+        a = (torch.randn(*shape, generator=g, device="cuda") * n ** -0.5).to(dtype)
+        x = torch.randn(4096, n, generator=g, device="cuda").to(dtype)
+        assert bgemv.plan_for(a, x, transpose_a=trans).members
+        full = ops.bgemv(a, x, transpose_a=trans)
+        members = (0, 1, 2047, 4095)
+        alone = [ops.bgemv(a[i:i + 1], x[i:i + 1], transpose_a=trans)[0] for i in members]
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(full[i], y)) for i, y in zip(members, alone)]
+        emit("blas", check="bgemv_batch_invariance", dtype=str(dtype).split(".")[1],
+             trans=trans, member=[m, n], batch=4096, members=list(members), bitwise=same)
+        if not all(same):
+            raise AssertionError(f"bgemv short members {(m, n)} {dtype} trans={trans}: alone "
+                                 f"and in a batch of 4096 differ ({same})")
 
 
 # --------------------------------------------------------------------------
@@ -4659,17 +4806,26 @@ def main() -> int:
                         "launches_head_dim": launches_head_dim,
                         **({"replaced_ms": r["replaced_ms"]} if r["replaced_ms"] else {})})
     # kernel 1's other forms (the BLAS library's batched GEMV), launches
-    # from the blas phase: op = A on csrc/bgemv_rows.cu, a per-member A on
-    # both bodies, f64 on the column body
-    for name, src, (routine, case), dtype, form in (
+    # from the blas phase: short members on csrc/bgemv_members.cu (both ops;
+    # launches: every short-member launch), long members on csrc/bgemv.cu's
+    # per-member body (op = A^T) and csrc/bgemv_rows.cu (op = A), a
+    # broadcast A on the decode bodies; each beside the first design's plan on the same
+    # inputs (replaced_ms: scripts/replaced/bgemv_first.cu for op = A^T)
+    for name, src, (routine, case), dtype, key in (
             ("bgemv_batched_n", "bgemv_rows.cu", ("batched_gemv", f"{BGEMV_MEMBERS} trans=False"),
              "float64", "batched_n"),
             ("bgemv_batched_t", "bgemv.cu", ("batched_gemv", f"{BGEMV_MEMBERS} trans=True"),
              "float64", "batched_t"),
-            ("bgemv_batched_n_small", "bgemv_rows.cu",
-             ("batched_gemv", f"{BGEMV_SMALL} trans=False"), "float64", "batched_n"),
-            ("bgemv_batched_t_small", "bgemv.cu",
-             ("batched_gemv", f"{BGEMV_SMALL} trans=True"), "float64", "batched_t"),
+            ("bgemv_batched_t_bf16", "bgemv.cu",
+             ("batched_gemv", f"{BGEMV_MEMBERS} trans=True"), "bfloat16", "batched_t"),
+            ("bgemv_members_n", "bgemv_members.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=False"), "float64", "members"),
+            ("bgemv_members_t", "bgemv_members.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=True"), "float64", "members"),
+            ("bgemv_members_n_bf16", "bgemv_members.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=False"), "bfloat16", "members"),
+            ("bgemv_members_t_bf16", "bgemv_members.cu",
+             ("batched_gemv", f"{BGEMV_SMALL} trans=True"), "bfloat16", "members"),
             ("bgemv_broadcast_n", "bgemv_rows.cu",
              ("batched_gemv", f"{BGEMV_BROADCAST} trans=False"), "bfloat16", "broadcast_n"),
             ("bgemv_broadcast_t_f64", "bgemv.cu",
@@ -4677,11 +4833,12 @@ def main() -> int:
         r = blas_rows[(routine, case, dtype)]
         summary.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
                         "replaces": "src/repro/kernels/bgemv.py:230",
-                        "launches": blas_counts[f"bgemv_{form}"], "max_abs_err": r["max_abs_err"],
+                        "launches": blas_counts[f"bgemv_{key}"], "max_abs_err": r["max_abs_err"],
                         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": f"{routine} {case}",
-                        "dtype": dtype, "form": form, "launches_from": "blas"})
+                        "library_ms": r["library_ms"], "replaced_ms": r["replaced_ms"],
+                        "shape": f"{routine} {case}", "dtype": dtype, "form": r["route"],
+                        "launches_from": "blas"})
     # kernel 2's flat layout, launches from the attention_flat phase's run
     for name, label in (("attention_mma_flat", FLAT_CASES[0][0]),
                         ("attention_splitkv_flat", FLAT_CASES[1][0]),

@@ -13,6 +13,7 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py qgemv
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py odd
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_rows
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_members
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py packed
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
@@ -97,7 +98,22 @@ one (2048, 2048) A a member for 32 members in f64, f32 and bf16, and 4096
 members of (32, 32) in f64) with one warp a row taking 1 row and
 `bgemv.ROW_BLOCK` rows, and with 2-8 warps a row, each checked against the
 plain version; beside the plan's choice and torch.bmm / F.linear on the
-same operands.  `bgemv.ROW_BLOCK` comes from these.
+same operands; and the broadcast case on variants of the body compiled
+from its source (2 loads a row in flight where a warp takes ROW_BLOCK
+rows).  `bgemv.ROW_BLOCK` comes from these.
+
+bgemv_members: the short-member body (csrc/bgemv_members.cu) over square
+members of 32 to 128 rows in f64, f32 and bf16, both ops, a batch of about
+32 MB of A, at 8, 16, 32 and 64 members a block; beside the bodies of a
+long member (`bgemv.split_plan`), the first design (`first_bgemv_plan`:
+scripts/replaced/bgemv_first.cu for op = A^T) and torch.bmm on the same
+operands, each checked against the plain version, and beside variants of
+the body compiled from its source (2, 3 or 4 blocks an SM for every
+instantiation; 8 chunks a batch; A loads that do not allocate in L1; each
+bitwise the body); then one long member
+(32 of (2048, 2048), op = A^T, each dtype) on csrc/bgemv.cu's per-member
+body at the plan's split and at 2 and 4 splits, beside the first design and
+torch.bmm.  `bgemv.MEMBER_MAX_BYTES` and `MEMBERS` come from these.
 
 packed: the batched tensor-core kernel's packed int8 "kn" form
 (csrc/gemm_sm90.cu, `KnLayout`) at moonshot's decode expert shapes (the
@@ -118,6 +134,7 @@ helpers) and a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -278,6 +295,8 @@ BGEMV_ROWS_SHAPES = [  # (what, batch, M, N, dtype, per-member A)
 
 def bgemv_rows_sweep():
     from repro_torch.kernels import bgemv, ops
+    variants = source_variants("bgemv_rows.cu", ROWS_VARIANTS, "bgemv_rows_launch",
+                               bgemv._ROWS_ARGTYPES)
     g = torch.Generator(device="cuda").manual_seed(8)
     for what, b, m, n, dt, batched in BGEMV_ROWS_SHAPES:
         a = (torch.randn(*((b,) if batched else ()), m, n, generator=g, device="cuda")
@@ -300,6 +319,23 @@ def bgemv_rows_sweep():
             if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
                 raise AssertionError(f"bgemv_rows: {p} at {what} {dt} disagrees with plain")
             us[f"wpr={p.wpr} rows={p.rows} ({p.blocks(b, m)} blocks)"] = cs.time_ms(call) * 1e3
+        if not batched:  # the body's variants at the broadcast case, the plan's split
+            for name, fn in variants.items():
+                out = torch.empty(b, m, dtype=dt, device="cuda")
+
+                def call(fn=fn, out=out):
+                    with torch.cuda.device(x.device):
+                        err = fn(ops._DTYPE_CODES[dt], a.data_ptr(), None, x.data_ptr(), None,
+                                 None, out.data_ptr(), b, m, n, 0, chosen.wpr, chosen.rows, 0,
+                                 torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"bgemv_rows: variant {name!r} error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
+                    raise AssertionError(f"bgemv_rows: variant {name!r} disagrees with plain")
+                us[f"{name} (wpr={chosen.wpr} rows={chosen.rows})"] = cs.time_ms(call) * 1e3
         lib = (lambda: torch.bmm(a, x[..., None])) if batched else (lambda: F.linear(x, a))
         nb = (a.numel() + x.numel() + b * m) * a.element_size()
         print(json.dumps({"shape": what, "dtype": str(dt).split(".")[1],
@@ -308,6 +344,156 @@ def bgemv_rows_sweep():
                           "library_us": cs.time_ms(lib) * 1e3,
                           "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
         del a, x, want, out
+
+
+#: variants of csrc/bgemv_rows.cu and csrc/bgemv_members.cu timed beside
+#: them: (old, new) source edits
+ROWS_VARIANTS = {"2 loads a row at R > 1": [
+    ("constexpr int U = R == 1 ? UNROLL : 1;", "constexpr int U = R == 1 ? UNROLL : 2;")]}
+MEMBERS_VARIANTS = {
+    "2 blocks an SM": [("constexpr int MIN_BLOCKS = TRANS && !GATE ? 3 : 2;",
+                        "constexpr int MIN_BLOCKS = 2;")],
+    "3 blocks an SM": [("constexpr int MIN_BLOCKS = TRANS && !GATE ? 3 : 2;",
+                        "constexpr int MIN_BLOCKS = 3;")],
+    "4 blocks an SM": [("constexpr int MIN_BLOCKS = TRANS && !GATE ? 3 : 2;",
+                        "constexpr int MIN_BLOCKS = 4;")],
+    "8 chunks a batch": [("constexpr int U = GATE ? 2 : 4;", "constexpr int U = GATE ? 4 : 8;")],
+    "A not kept in L1": [("if (aligned) return __ldg(reinterpret_cast<const uint4*>(p));",
+                          "if (aligned) {\n        uint4 r;\n        asm volatile(\"ld.global.nc."
+                          "L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\" : \"=r\"(r.x), "
+                          "\"=r\"(r.y), \"=r\"(r.z), \"=r\"(r.w) : \"l\"(p));\n"
+                          "        return r;\n      }")]}
+
+
+def source_variants(source: str, variants: dict, symbol: str, argtypes: list) -> dict:
+    """{name: `symbol` of a library compiled from csrc/`source` with each
+    variant's edits}, built under build/study_variants in parallel with each
+    other and with the port's own library (`_build.build`)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    out_dir = Path(__file__).resolve().parents[1] / "build" / "study_variants"
+    jobs = {}
+    for name, edits in variants.items():
+        src = (csrc / source).read_text()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"{source}: variant {name!r} does not apply: {old!r}")
+            src = src.replace(old, new)
+        d = out_dir / (Path(source).stem + "_" + "".join(c if c.isalnum() else "_" for c in name))
+        d.mkdir(parents=True, exist_ok=True)
+        (d / source).write_text(src)
+        jobs[name] = (d / "lib.so", subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-shared", "-I", str(csrc), "-o", str(d / "lib.so"),
+             str(d / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    _build.build()
+    fns = {}
+    for name, (path, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{source}: nvcc failed for {name!r}:\n{log[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def bgemv_members_sweep():
+    from repro_torch.kernels import bgemv, ops
+    jobs = cs.replaced_build_start()
+    variants = source_variants("bgemv_members.cu", MEMBERS_VARIANTS, "bgemv_members_launch",
+                               bgemv._MEMBERS_ARGTYPES)
+    cs.replaced_build_finish(jobs)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        elem = torch.finfo(dt).bits // 8
+        for side in (32, 48, 64, 96, 128):
+            b = max(64, (32 << 20) // (side * side * elem))
+            for trans in (False, True):
+                a = (torch.randn(b, side, side, generator=g, device="cuda") * side ** -0.5).to(dt)
+                x = torch.randn(b, side, generator=g, device="cuda").to(dt)
+                with ops.reference_mode():
+                    want = ops.bgemv(a, x, transpose_a=trans)
+                plans = {f"members={m}": bgemv.Plan(0, 1, 0, True, trans, members=m)
+                         for m in (8, 16, 32, 64)}
+                plans["split_plan"] = bgemv.split_plan(b, side, side, dt, trans=trans,
+                                                       batched=True)
+                us, want_kernel = {}, {}
+                for label, p in plans.items():
+                    out = torch.empty_like(want)
+
+                    def call(p=p, out=out):
+                        return bgemv.run(a, x, out, p, w2=None, bias=None, residual=None,
+                                         act_code=0, dtype_code=ops._DTYPE_CODES[dt])
+
+                    call()
+                    torch.cuda.synchronize()
+                    if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
+                        raise AssertionError(f"bgemv_members: {label} at {side} {dt} disagrees")
+                    if p.members:
+                        want_kernel[p.members] = out.clone()
+                    us[label] = cs.time_ms(call) * 1e3
+                for (name, fn), m in itertools.product(variants.items(), (8, 16)):
+                    out = torch.empty_like(want)
+
+                    def call(fn=fn, m=m, out=out):
+                        with torch.cuda.device(x.device):
+                            err = fn(ops._DTYPE_CODES[dt], a.data_ptr(), None, x.data_ptr(), None,
+                                     None, out.data_ptr(), b, side, side, 1, int(trans), m, 0,
+                                     torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"bgemv_members: variant {name!r} error {err}")
+
+                    call()
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, want_kernel[m]):
+                        raise AssertionError(f"bgemv_members: variant {name!r} changed the bits")
+                    us[f"{name} members={m}"] = cs.time_ms(call) * 1e3
+                us["first design"] = cs.time_ms(
+                    lambda: cs.replaced_bgemv(a, x, transpose_a=trans)) * 1e3
+                op = a.transpose(1, 2) if trans else a
+                nb = (a.numel() + x.numel() + b * side) * elem
+                print(json.dumps({"member": f"({side},{side})", "dtype": str(dt).split(".")[1],
+                                  "trans": trans, "batch": b, "member_bytes": side * side * elem,
+                                  "plan": str(bgemv.plan(b, side, side, dt, trans=trans,
+                                                         batched=True)),
+                                  "fastest": min(us, key=us.get), "us": us,
+                                  "bmm_us": cs.time_ms(lambda: torch.bmm(op, x[..., None])) * 1e3,
+                                  "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
+                del a, x, want
+    for dt in (torch.bfloat16, torch.float64, torch.float32):
+        b, k, n = 32, 2048, 2048
+        a = (torch.randn(b, k, n, generator=g, device="cuda") * k ** -0.5).to(dt)
+        x = torch.randn(b, k, generator=g, device="cuda").to(dt)
+        with ops.reference_mode():
+            want = ops.bgemv(a, x, transpose_a=True)
+        chosen = bgemv.plan(b, k, n, dt, batched=True)
+        us = {}
+        for splits in sorted({chosen.splits, 2, 4}):
+            step = bgemv.MEMBER_ROW_STEP
+            rows = bgemv._cdiv(bgemv._cdiv(k, splits), step) * step
+            p = bgemv.Plan(chosen.tile, bgemv._cdiv(k, rows), rows, True)
+            out = torch.empty_like(want)
+
+            def call(p=p, out=out):
+                return bgemv.run(a, x, out, p, w2=None, bias=None, residual=None, act_code=0,
+                                 dtype_code=ops._DTYPE_CODES[dt])
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out.double(), want.double(), **cs.TOL[dt]):
+                raise AssertionError(f"bgemv_members: {p} at (32, 2048, 2048) {dt} disagrees")
+            us[f"{p.splits}x{p.rows} ({p.blocks(b, n)} blocks)"] = cs.time_ms(call) * 1e3
+        us["first design"] = cs.time_ms(
+            lambda: cs.replaced_bgemv(a, x, transpose_a=True)) * 1e3
+        nb = (a.numel() + x.numel() + b * n) * a.element_size()
+        print(json.dumps({"member": "(2048,2048) x 32", "dtype": str(dt).split(".")[1],
+                          "trans": True, "plan": str(chosen), "fastest": min(us, key=us.get),
+                          "us": us, "bmm_us": cs.time_ms(
+                              lambda: torch.bmm(a.transpose(1, 2), x[..., None])) * 1e3,
+                          "bound_us": nb / cs.HBM_BYTES_S * 1e6}), flush=True)
+        del a, x, want
 
 
 def qgemv_sweep():
@@ -590,36 +776,12 @@ PACKED_VARIANTS = {
 
 
 def packed():
-    import ctypes
-
     from repro_torch.core import quant
     from repro_torch.kernels import _build, gemm, ops
-    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
-    out_dir = Path(__file__).resolve().parents[1] / "build" / "study_packed"
-    jobs = {}
-    for name, edits in PACKED_VARIANTS.items():
-        src = (csrc / "gemm_sm90.cu").read_text()
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise RuntimeError(f"packed: variant {name!r} does not apply: {old!r}")
-            src = src.replace(old, new)
-        d = out_dir / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for header in ("common.cuh", "tma.cuh"):
-            (d / header).write_text((csrc / header).read_text())
-        (d / "gemm_sm90.cu").write_text(src)
-        jobs[name] = (d / "lib.so", subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "gemm_sm90.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    lib = _build.build()
-    fns = {"design": _build.function("gemm_tc_launch", gemm._TC_ARGTYPES)}
-    for name, (path, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"packed: nvcc failed for {name!r}:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(path)).gemm_tc_launch
-        fn.argtypes, fn.restype = gemm._TC_ARGTYPES, ctypes.c_int
-        fns[name] = fn
+    variants = source_variants("gemm_sm90.cu", PACKED_VARIANTS, "gemm_tc_launch",
+                               gemm._TC_ARGTYPES)
+    lib = _build.build()  # built beside the variants: the design's library
+    fns = {"design": _build.function("gemm_tc_launch", gemm._TC_ARGTYPES), **variants}
     g = torch.Generator(device="cuda").manual_seed(21)
     e, d, f, m = 64, 2048, 1408, 32
 
@@ -673,7 +835,7 @@ def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
             "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep,
-            "packed": packed}
+            "bgemv_members": bgemv_members_sweep, "packed": packed}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

@@ -49,18 +49,32 @@
 // The partials cost splits * B * N * 4 bytes each way, 3-12% of the weight
 // bytes at the served shapes, and they stay in L2.
 //
-// One W a member (BATCHED, the BLAS library's batched GEMV): no member
-// shares a W element, so there is nothing to amortise, and the bound is
-// every W byte once.  A block takes one member (BMAX 1: the x slice and the
-// accumulators of one batch row) at a 64-bit offset into W, the member
-// folded into grid.x beside the column tile so any batch fits the grid; the
-// K split and its combine are the broadcast form's, one ticket a (member,
-// tile).  f64 (both forms) keeps the design at 16 columns a tile, with
-// double accumulators, x slice and partials.  BATCHED and the accumulator
-// type are template parameters, so the f32 and bf16 broadcast
-// instantiations (every decode projection) carry no term of the other forms
-// (ptxas: the same registers, shared memory and spills;
-// scripts/torch_ptxas_compare.py).
+// One W a member (BATCHED, the BLAS library's batched GEMV) at long members
+// (kernels/bgemv.py::plan sends members of at most MEMBER_MAX_BYTES to
+// csrc/bgemv_members.cu): no member shares a W element, so there is nothing
+// to amortise, and the bound is every W byte once.  The broadcast body's
+// 128-byte tiles strode 4 KB down a (2048, 2048) bf16 member in 128-byte
+// pieces, its 4-wide x slice in shared memory capped a K slice at 1024 rows
+// (so such a member took two K splits and their combine), and it reached 75%
+// of the byte bound where op = A on the same bytes reached 88% (PERF.md §6).
+// So a member runs a body of its own (`batched_body`):
+//  - a block owns a column tile of 512 bytes of one member's rows (256 bf16,
+//    128 f32 or 64 f64 columns): each warp takes one row a step, one 16-byte
+//    load a lane, so every warp load is 512 contiguous bytes, and the block's
+//    8 warps take 8 consecutive rows;
+//  - x[row] is read beside the row's loads (one address for the warp: a
+//    broadcast), two batches of UNROLL rows in flight; nothing is staged, so
+//    a K slice has no length limit and the plan splits K only where the
+//    (member, tile) blocks leave the card idle (one wave at (32, 2048, 2048)
+//    bf16: 256 blocks, no split, no workspace);
+//  - the 8 warps meet in shared memory in warp order, and the K splits, where
+//    there are any, in split order through the workspace and a ticket a
+//    (member, tile), as the broadcast form's.
+// The member is folded into grid.x beside the column tile (64-bit offsets),
+// so any batch fits the grid.  BATCHED and the accumulator type are template
+// parameters, so the f32 and bf16 broadcast instantiations (every decode
+// projection) carry no term of the other forms (ptxas: the same registers,
+// shared memory and spills; scripts/torch_ptxas_compare.py).
 #include <type_traits>
 
 #include "vec.cuh"
@@ -74,6 +88,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int BMAX = 4;
 constexpr int ROW_STEP = WARPS * 4;  // rows a block takes a step (kernels/bgemv.py)
 constexpr int MAX_ROWS = 1024;       // rows a block at most: x's slice in shared memory
+constexpr int MEMBER_STEP = WARPS;   // rows a per-member block takes a step (MEMBER_ROW_STEP)
 
 // 4 batch rows of x in the accumulator type: one shared-memory entry a row
 struct alignas(32) double4x { double x, y, z, w; };
@@ -88,93 +103,78 @@ __device__ __forceinline__ double4x make_x4(const double (&v)[BMAX]) {
 __device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T, bool GATE, bool BATCHED>
-__global__ void __launch_bounds__(THREADS, 2)
-bgemv_kernel(const T* __restrict__ w, const T* __restrict__ w2, const T* __restrict__ x,
-             const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
-             typename Acc<T>::type* __restrict__ ws, int* __restrict__ tickets, int B, int K,
-             int N, int rows, int act, bool vec_ok) {
+// One member's column tile of 512 bytes over the rows of its K slice (see
+// the note above): y[b, tile] = epi(sum over the slice's rows, or the last
+// block of the tile sums the slices' partials in split order).
+template <typename T, bool GATE>
+__device__ __forceinline__ void batched_body(const T* __restrict__ w, const T* __restrict__ w2,
+                                             const T* __restrict__ x, const T* __restrict__ bias,
+                                             const T* __restrict__ res, T* __restrict__ y,
+                                             typename Acc<T>::type* __restrict__ ws,
+                                             int* __restrict__ tickets, int B, int K, int N,
+                                             int rows, int act, bool vec_ok) {
   using A = typename Acc<T>::type;
-  constexpr int VEC = Vec<T>::N, TN = 8 * VEC;  // columns a tile: 8 lanes x 16 bytes
+  constexpr int VEC = Vec<T>::N, TN = 32 * VEC;  // columns a tile: 32 lanes x 16 bytes
   constexpr int NACC = GATE ? 2 : 1;
-  constexpr int UNROLL = GATE ? 2 : 4;          // steps a batch; two batches in flight
-  constexpr int NB = BATCHED ? 1 : BMAX;        // batch rows a block
-  __shared__ X4<A> xs[MAX_ROWS];                // x[b0 + 0..3][r0 + i]
-  __shared__ A red[NACC][WARPS][BMAX][TN];
+  constexpr int UNROLL = GATE ? 2 : 4;           // rows a batch; two batches in flight
+  __shared__ A red[NACC][WARPS][TN];
   __shared__ bool last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tiles = (N + TN - 1) / TN;          // BATCHED: grid.x is (member, tile)
-  const int tile = BATCHED ? blockIdx.x % tiles : blockIdx.x;
+  const int tiles = (N + TN - 1) / TN;           // grid.x is (member, tile)
+  const int tile = blockIdx.x % tiles;
+  const long b = blockIdx.x / tiles;
   const int split = blockIdx.y, splits = gridDim.y;
-  const int c0 = tile * TN + (lane & 7) * VEC;  // this lane's first column
-  const int lr0 = warp * 4 + (lane >> 3);       // this lane's row within a step
-  const int b0 = BATCHED ? blockIdx.x / tiles : blockIdx.z * BMAX;
-  const int nb = BATCHED ? 1 : min(BMAX, B - b0);
+  const int c0 = tile * TN + lane * VEC;         // this lane's first column
   const int r0 = split * rows, r1 = min(K, r0 + rows);
-  const int steps = (r1 - r0 + ROW_STEP - 1) / ROW_STEP;
+  const int steps = (r1 - r0 + MEMBER_STEP - 1) / MEMBER_STEP;  // rows r0 + warp + 8 s
   const bool vec = vec_ok && c0 + VEC <= N;
-
-  const long wo = BATCHED ? (long)b0 * K * N : 0;  // this member's W
+  const long wo = b * K * N;                     // this member's W
   const T* wp[NACC] = {w + wo};
   if constexpr (GATE) wp[1] = w2 + wo;
-  using Batch = uint4[NACC][UNROLL];
-  // the 16-byte loads of steps [s0, s0 + UNROLL); rows past r1 load zeros
+  const T* xb = x + b * K;
+
+  struct Batch {
+    uint4 w[NACC][UNROLL];
+    T x[UNROLL];
+  };
+  // the 16-byte loads of steps [s0, s0 + UNROLL) and their x; rows past r1
+  // load zeros
   auto load = [&](int s0, Batch& raw) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const int r = r0 + (s0 + u) * ROW_STEP + lr0;
+      const int r = r0 + (s0 + u) * MEMBER_STEP + warp;
       const bool live = s0 + u < steps && r < r1;
-      const long off = (long)r * N + c0;
 #pragma unroll
       for (int a = 0; a < NACC; ++a)
-        raw[a][u] = live ? __ldg(reinterpret_cast<const uint4*>(wp[a] + off))
-                         : make_uint4(0, 0, 0, 0);
+        raw.w[a][u] = live ? __ldg(reinterpret_cast<const uint4*>(wp[a] + (long)r * N + c0))
+                           : make_uint4(0, 0, 0, 0);
+      raw.x[u] = live ? xb[r] : T{};
     }
   };
-  Batch ra, rb;
-  if (vec) {  // two batches in flight while x is staged
-    load(0, ra);
-    load(UNROLL, rb);
-  }
-
-  for (int i = tid; i < rows; i += THREADS) {
-    const int r = r0 + i;
-    A v[BMAX];
-#pragma unroll
-    for (int b = 0; b < BMAX; ++b) v[b] = b < nb && r < r1 ? to_f(x[(long)(b0 + b) * K + r]) : A(0);
-    xs[i] = make_x4(v);
-  }
-  __syncthreads();
-
-  A acc[NACC][NB][VEC];
+  A acc[NACC][VEC];
 #pragma unroll
   for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[a][b][i] = A(0);
-  auto fma_row = [&](int a, const A (&f)[VEC], const X4<A>& xv) {
-    const A xb[BMAX] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[a][b][i] = fma_(f[i], xb[b], acc[a][b][i]);
-  };
+    for (int i = 0; i < VEC; ++i) acc[a][i] = A(0);
   auto consume = [&](int s0, const Batch& raw) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      if (s0 + u < steps) {  // xs past `rows` is never written
-        const X4<A> xv = xs[(s0 + u) * ROW_STEP + lr0];
+      if (s0 + u < steps) {
+        const A xv = to_f(raw.x[u]);
 #pragma unroll
         for (int a = 0; a < NACC; ++a) {
           A f[VEC];
-          Vec<T>::unpack(raw[a][u], f);
-          fma_row(a, f, xv);
+          Vec<T>::unpack(raw.w[a][u], f);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[a][i] = fma_(f[i], xv, acc[a][i]);
         }
       }
     }
   };
   if (vec) {  // each batch refilled as soon as it is used: two stay in flight
+    Batch ra, rb;
+    load(0, ra);
+    load(UNROLL, rb);
     for (int s0 = 0; s0 < steps; s0 += 2 * UNROLL) {
       consume(s0, ra);
       if (s0 + 2 * UNROLL < steps) load(s0 + 2 * UNROLL, ra);
@@ -183,41 +183,32 @@ bgemv_kernel(const T* __restrict__ w, const T* __restrict__ w2, const T* __restr
     }
   } else if (c0 < N) {  // a ragged last tile or unaligned rows: element loads
     for (int s = 0; s < steps; ++s) {
-      const int r = r0 + s * ROW_STEP + lr0;
+      const int r = r0 + s * MEMBER_STEP + warp;
       if (r >= r1) continue;
-      const X4<A> xv = xs[s * ROW_STEP + lr0];
+      const A xv = to_f(xb[r]);
 #pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        A f[VEC];
+      for (int a = 0; a < NACC; ++a)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) f[i] = c0 + i < N ? to_f(wp[a][(long)r * N + c0 + i]) : A(0);
-        fma_row(a, f, xv);
-      }
+        for (int i = 0; i < VEC; ++i)
+          acc[a][i] = fma_(c0 + i < N ? to_f(wp[a][(long)r * N + c0 + i]) : A(0), xv, acc[a][i]);
     }
   }
 
-  // the 4 row lanes of each column (lanes xor 8, 16), then the 8 warps
+  // the 8 warps of each column, in warp order
 #pragma unroll
   for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        A v = acc[a][b][i];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < 8) red[a][warp][b][lane * VEC + i] = v;
-      }
+    for (int i = 0; i < VEC; ++i) red[a][warp][lane * VEC + i] = acc[a][i];
   __syncthreads();
-  const int ob = tid / TN, oc = tid % TN, col = tile * TN + oc;
-  const bool mine = ob < nb && col < N;  // this thread's output (b0 + ob, col)
-  const long o = (long)(b0 + ob) * N + col;
+  const int col = tile * TN + tid;  // this thread's output column (tid < TN)
+  const bool mine = tid < TN && col < N;
+  const long o = b * N + col;
   A s[2] = {A(0), A(0)};
   if (mine) {
 #pragma unroll
     for (int a = 0; a < NACC; ++a)
 #pragma unroll
-      for (int wi = 0; wi < WARPS; ++wi) s[a] += red[a][wi][ob][oc];
+      for (int wi = 0; wi < WARPS; ++wi) s[a] += red[a][wi][tid];
   }
   if (splits == 1) {
     if (mine) y[o] = from_f<T>(epilogue<T>(s[0], s[1], bias, res, col, o, act, GATE));
@@ -232,7 +223,7 @@ bgemv_kernel(const T* __restrict__ w, const T* __restrict__ w2, const T* __restr
   }
   __threadfence();
   __syncthreads();
-  int* ticket = tickets + (BATCHED ? blockIdx.x : blockIdx.z * gridDim.x + tile);
+  int* ticket = tickets + blockIdx.x;
   if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
   __syncthreads();
   if (!last) return;
@@ -248,11 +239,175 @@ bgemv_kernel(const T* __restrict__ w, const T* __restrict__ w2, const T* __restr
 }
 
 template <typename T, bool GATE, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, 2)
+bgemv_kernel(const T* __restrict__ w, const T* __restrict__ w2, const T* __restrict__ x,
+             const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
+             typename Acc<T>::type* __restrict__ ws, int* __restrict__ tickets, int B, int K,
+             int N, int rows, int act, bool vec_ok) {
+  if constexpr (BATCHED) {  // one W a member: its own body (above)
+    batched_body<T, GATE>(w, w2, x, bias, res, y, ws, tickets, B, K, N, rows, act, vec_ok);
+  } else {
+    using A = typename Acc<T>::type;
+    constexpr int VEC = Vec<T>::N, TN = 8 * VEC;  // columns a tile: 8 lanes x 16 bytes
+    constexpr int NACC = GATE ? 2 : 1;
+    constexpr int UNROLL = GATE ? 2 : 4;          // steps a batch; two batches in flight
+    constexpr int NB = BMAX;                      // batch rows a block
+    __shared__ X4<A> xs[MAX_ROWS];                // x[b0 + 0..3][r0 + i]
+    __shared__ A red[NACC][WARPS][BMAX][TN];
+    __shared__ bool last;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int tile = blockIdx.x;
+    const int split = blockIdx.y, splits = gridDim.y;
+    const int c0 = tile * TN + (lane & 7) * VEC;  // this lane's first column
+    const int lr0 = warp * 4 + (lane >> 3);       // this lane's row within a step
+    const int b0 = blockIdx.z * BMAX;
+    const int nb = min(BMAX, B - b0);
+    const int r0 = split * rows, r1 = min(K, r0 + rows);
+    const int steps = (r1 - r0 + ROW_STEP - 1) / ROW_STEP;
+    const bool vec = vec_ok && c0 + VEC <= N;
+
+    const T* wp[NACC] = {w};
+    if constexpr (GATE) wp[1] = w2;
+    using Batch = uint4[NACC][UNROLL];
+    // the 16-byte loads of steps [s0, s0 + UNROLL); rows past r1 load zeros
+    auto load = [&](int s0, Batch& raw) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int r = r0 + (s0 + u) * ROW_STEP + lr0;
+        const bool live = s0 + u < steps && r < r1;
+        const long off = (long)r * N + c0;
+#pragma unroll
+        for (int a = 0; a < NACC; ++a)
+          raw[a][u] = live ? __ldg(reinterpret_cast<const uint4*>(wp[a] + off))
+                           : make_uint4(0, 0, 0, 0);
+      }
+    };
+    Batch ra, rb;
+    if (vec) {  // two batches in flight while x is staged
+      load(0, ra);
+      load(UNROLL, rb);
+    }
+
+    for (int i = tid; i < rows; i += THREADS) {
+      const int r = r0 + i;
+      A v[BMAX];
+#pragma unroll
+      for (int b = 0; b < BMAX; ++b) v[b] = b < nb && r < r1 ? to_f(x[(long)(b0 + b) * K + r]) : A(0);
+      xs[i] = make_x4(v);
+    }
+    __syncthreads();
+
+    A acc[NACC][NB][VEC];
+#pragma unroll
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[a][b][i] = A(0);
+    auto fma_row = [&](int a, const A (&f)[VEC], const X4<A>& xv) {
+      const A xb[BMAX] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[a][b][i] = fma_(f[i], xb[b], acc[a][b][i]);
+    };
+    auto consume = [&](int s0, const Batch& raw) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (s0 + u < steps) {  // xs past `rows` is never written
+          const X4<A> xv = xs[(s0 + u) * ROW_STEP + lr0];
+#pragma unroll
+          for (int a = 0; a < NACC; ++a) {
+            A f[VEC];
+            Vec<T>::unpack(raw[a][u], f);
+            fma_row(a, f, xv);
+          }
+        }
+      }
+    };
+    if (vec) {  // each batch refilled as soon as it is used: two stay in flight
+      for (int s0 = 0; s0 < steps; s0 += 2 * UNROLL) {
+        consume(s0, ra);
+        if (s0 + 2 * UNROLL < steps) load(s0 + 2 * UNROLL, ra);
+        consume(s0 + UNROLL, rb);
+        if (s0 + 3 * UNROLL < steps) load(s0 + 3 * UNROLL, rb);
+      }
+    } else if (c0 < N) {  // a ragged last tile or unaligned rows: element loads
+      for (int s = 0; s < steps; ++s) {
+        const int r = r0 + s * ROW_STEP + lr0;
+        if (r >= r1) continue;
+        const X4<A> xv = xs[s * ROW_STEP + lr0];
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) {
+          A f[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) f[i] = c0 + i < N ? to_f(wp[a][(long)r * N + c0 + i]) : A(0);
+          fma_row(a, f, xv);
+        }
+      }
+    }
+
+    // the 4 row lanes of each column (lanes xor 8, 16), then the 8 warps
+#pragma unroll
+    for (int a = 0; a < NACC; ++a)
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          A v = acc[a][b][i];
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 8) red[a][warp][b][lane * VEC + i] = v;
+        }
+    __syncthreads();
+    const int ob = tid / TN, oc = tid % TN, col = tile * TN + oc;
+    const bool mine = ob < nb && col < N;  // this thread's output (b0 + ob, col)
+    const long o = (long)(b0 + ob) * N + col;
+    A s[2] = {A(0), A(0)};
+    if (mine) {
+#pragma unroll
+      for (int a = 0; a < NACC; ++a)
+#pragma unroll
+        for (int wi = 0; wi < WARPS; ++wi) s[a] += red[a][wi][ob][oc];
+    }
+    if (splits == 1) {
+      if (mine) y[o] = from_f<T>(epilogue<T>(s[0], s[1], bias, res, col, o, act, GATE));
+      return;
+    }
+
+    // ws is [NACC][splits][B][N]: this split's partials, then the ticket
+    const long plane = (long)B * N;
+    if (mine) {
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) ws[(long)(a * splits + split) * plane + o] = s[a];
+    }
+    __threadfence();
+    __syncthreads();
+    int* ticket = tickets + blockIdx.z * gridDim.x + tile;
+    if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (tid == 0) *ticket = 0;
+    if (!mine) return;
+    A t[2] = {A(0), A(0)};  // the splits' partials, summed in split order
+#pragma unroll 8
+    for (int k = 0; k < splits; ++k)
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) t[a] += __ldcg(ws + (long)(a * splits + k) * plane + o);
+    y[o] = from_f<T>(epilogue<T>(t[0], t[1], bias, res, col, o, act, GATE));
+  }
+}
+
+template <typename T, bool GATE, bool BATCHED>
 int run(const void* w, const void* w2, const void* x, const void* bias, const void* res,
         void* y, void* ws, int* tickets, int B, int K, int N, int splits, int rows, int act,
         cudaStream_t s) {
-  constexpr int TN = 8 * Vec<T>::N;
-  if (splits < 1 || rows < 1 || rows % ROW_STEP || rows > MAX_ROWS ||
+  // a member (BATCHED) takes 512-byte tiles in 8-row steps with no limit on
+  // a K slice; the broadcast body 128-byte tiles, 32-row steps, x's slice
+  constexpr int TN = (BATCHED ? 32 : 8) * Vec<T>::N;
+  if (splits < 1 || rows < 1 || rows % (BATCHED ? MEMBER_STEP : ROW_STEP) ||
+      (!BATCHED && rows > MAX_ROWS) ||
       (long)splits * rows < K || (splits > 1 && (long)(splits - 1) * rows >= K) ||
       (splits > 1 && (!ws || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -284,10 +439,12 @@ int dispatch(const void* w, const void* w2, const void* x, const void* bias, con
 
 // One launch.  w2, bias and res may be NULL.  batched: w (and w2) is (B, K,
 // N), one a member; else (K, N), broadcast.  K is cut into `splits` slices
-// of `rows` rows (a multiple of 32, at most 1024; the last slice may be
-// short).  With splits > 1, ws holds (w2 ? 2 : 1) * splits * B * N
-// accumulators (float; double for f64) and tickets ceil(N / tile) * (batched
-// ? B : ceil(B / 4)) ints, all zero (the kernel leaves them zero).  Returns
+// of `rows` rows (broadcast: a multiple of 32, at most 1024; batched: a
+// multiple of 8; the last slice may be short).  With splits > 1, ws holds
+// (w2 ? 2 : 1) * splits * B * N accumulators (float; double for f64) and
+// tickets ceil(N / tile) * (batched ? B : ceil(B / 4)) ints (tile: 512 bytes
+// of a row batched, 128 broadcast), all zero (the kernel leaves them zero).
+// Returns
 // cudaErrorInvalidValue for a plan the kernel does not take, else
 // cudaGetLastError() after the launch.
 extern "C" int bgemv_launch(int dtype, const void* w, const void* w2, const void* x,

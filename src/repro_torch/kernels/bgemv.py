@@ -6,21 +6,27 @@ its whole dense contract: y[b] = epi(op(A[b]) x[b] [, op(A2[b]) x[b]])
 with op = A^T (`transpose_a`, A ((batch,) k, n) streamed in its stored
 layout: the decode projection x @ W) or op = A (A ((batch,) n, k)), a 2-D A
 broadcast across the batch (bgemv.py:144, the index maps :195-208), in f32,
-bf16 and f64, summed in max(f32, dtype).  Two CUDA kernels carry it, one
+bf16 and f64, summed in max(f32, dtype).  Three CUDA kernels carry it, one
 launch a call, each with a source note that says what bounds it on the card
 (A over HBM) and what the design does about it:
 
-- op = A^T, `csrc/bgemv.cu`: column tiles of 128 bytes of every row, each
-  A element read once for up to BATCH_CHUNK batch rows (broadcast A) or
-  one member's row (per-member A: one member a block), K split across
-  blocks whose partials the last block of each column tile sums in split
-  order before the epilogue;
+- op = A^T, `csrc/bgemv.cu`: a broadcast A in column tiles of 128 bytes of
+  every row, each A element read once for up to BATCH_CHUNK batch rows, K
+  split across blocks whose partials the last block of each column tile
+  sums in split order before the epilogue; a long member (per-member A) in
+  column tiles of 512 bytes, one row a warp a step, split the same way;
 - op = A, `csrc/bgemv_rows.cu`: gemv.cu's row-dot body, `wpr` warps a row,
   each A row read once for up to BATCH_CHUNK batch rows of x (broadcast A)
-  or one member's x (per-member A).
+  or one long member's x (per-member A);
+- a short member (per-member A of at most MEMBER_MAX_BYTES), both ops,
+  `csrc/bgemv_members.cu`: a warp owns whole members and walks each as one
+  flat stream of 16-byte loads, its lanes meeting by shuffle trees; a
+  member's sums run in an order set by its shape alone, so its bits do not
+  depend on the batch.
 
-`plan` picks the form from the op and A's rank, and its split from the
-shapes alone (op = A^T: the K split; op = A: the warps a row).
+`plan` picks the form from the op and A's rank, the body from a member's
+bytes, and the split from the shapes alone (op = A^T: the K split; op = A:
+the warps a row).
 
 The packed form (`_bgemv_kernel`'s int8 body, bgemv.py:80-83) is
 `csrc/qgemv.cu`, one launch a call: W is a `core.quant.QuantizedTensor`
@@ -55,11 +61,15 @@ launches = 0
 #: csrc/bgemv_rows.cu) over a broadcast A or one A a member
 FORMS = ("broadcast_t", "broadcast_n", "batched_t", "batched_n")
 launches_by_form = dict.fromkeys(FORMS, 0)
+#: the dense launches of the short-member body (csrc/bgemv_members.cu), a
+#: part of launches_by_form's batched_t and batched_n
+launches_members = 0
 #: launches of the packed kernel (csrc/qgemv.cu) through `launch_int8`
 launches_int8 = 0
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _ROWS_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_MEMBERS_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
 #: batch members a block (BMAX in csrc/bgemv.cu)
@@ -78,6 +88,25 @@ MIN_ROWS = {False: 256, True: 128}
 #: rwkv 2048 -> 7168 2 x 1024 (224 blocks) 20.6 us against 23.1 at 4 x 512;
 #: 2048 -> 64 8 x 256 (8 blocks) 8.4 us against 9.9 at 64 x 32
 BLOCKS_PER_SM = 2
+#: rows a per-member block of csrc/bgemv.cu takes a step (MEMBER_STEP
+#: there: a row a warp); a K slice has no upper limit, x not being staged
+MEMBER_ROW_STEP = 8
+
+#: bytes of one member's A at most that take the short-member body
+#: (csrc/bgemv_members.cu).  Measured on the H100 (scripts/torch_gemm_study.py
+#: bgemv_members, PERF.md; us, the short body against `split_plan`'s long
+#: bodies, about 32 MB of A a launch): it wins in every dtype and op up to
+#: 18 KB a member ((48, 48) f64 op = A^T 17.6 against 19.3, op = A 18.7
+#: against 21.4; (96, 96) bf16 19.6 and 19.8 against 21.6 and 25.6; (32, 32)
+#: f64 17.1 and 18.6 against 28.2 and 23.7) but for a tie at (64, 64) f32
+#: op = A^T (17.7 against 17.3), and loses op = A^T at 32 KB ((64, 64) f64
+#: 17.9 against 16.8, (128, 128) bf16 21.1 against 19.3)
+MEMBER_MAX_BYTES = 20 * 1024
+#: members a block of the short-member body (8 warps, one member a warp):
+#: 8 was as fast as 16 or faster at 24 of the 30 measured (shape, dtype, op)
+#: cells and within 1.4 us at the others, 32 and 64 slower still (a warp's
+#: members run one after another)
+MEMBERS = 8
 
 
 #: warps a block of csrc/bgemv_rows.cu (the op = A body), shared by its rows
@@ -97,15 +126,18 @@ ROW_BLOCK = 4
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one bgemv runs.  op = A^T (`trans`, csrc/bgemv.cu): `tile`
-    columns a block (128 bytes of a row), K cut into `splits` slices of
-    `rows` rows (a multiple of ROW_STEP; the last may be short), each slice
-    one block per column tile and batch chunk (one member a chunk when
-    `batched`).  op = A (csrc/bgemv_rows.cu): `wpr` warps a row (the K
-    split, summed in warp order) and `rows` rows a warp (1, or ROW_BLOCK
-    (ROW_BLOCK / 2 under the gate) with wpr 1), ROW_WARPS // wpr * rows rows
-    a block, one
-    block per row group and batch chunk; tile and splits are 0 and 1."""
+    """How one bgemv runs.  A short member (`members` > 0, per-member A,
+    csrc/bgemv_members.cu, either op): `members` members a block, one warp
+    a member; tile, rows and wpr are 0, splits 1.  Otherwise op = A^T
+    (`trans`, csrc/bgemv.cu): `tile` columns a block (128 bytes of a row;
+    512 when `batched`), K cut into `splits` slices of `rows` rows (a
+    multiple of ROW_STEP; of MEMBER_ROW_STEP when `batched`; the last may
+    be short), each slice one block per column tile and batch chunk (one
+    member a chunk when `batched`).  op = A (csrc/bgemv_rows.cu): `wpr`
+    warps a row (the K split, summed in warp order) and `rows` rows a warp
+    (1, or ROW_BLOCK (ROW_BLOCK / 2 under the gate) with wpr 1), ROW_WARPS
+    // wpr * rows rows a block, one block per row group and batch chunk;
+    tile and splits are 0 and 1."""
 
     tile: int
     splits: int
@@ -113,6 +145,7 @@ class Plan:
     batched: bool = False
     trans: bool = True
     wpr: int = 0
+    members: int = 0
 
     @property
     def form(self) -> str:
@@ -121,7 +154,10 @@ class Plan:
 
     def k_slices(self, k: int) -> list:
         """[(k0, k1), ...]: the rows of each split, in the order the last
-        block of a column tile sums their partials."""
+        block of a column tile sums their partials (a short member: all of
+        K at once)."""
+        if self.members:
+            return [(0, k)]
         return [(s * self.rows, min(k, (s + 1) * self.rows)) for s in range(self.splits)]
 
     def chunks(self, b: int) -> int:
@@ -130,6 +166,8 @@ class Plan:
 
     def blocks(self, b: int, n: int) -> int:
         """Blocks of the launch over b batch rows and n outputs."""
+        if self.members:
+            return _cdiv(b, self.members)
         if not self.trans:
             return _cdiv(n, ROW_WARPS // self.wpr * self.rows) * self.chunks(b)
         return _cdiv(n, self.tile) * self.splits * self.chunks(b)
@@ -150,18 +188,31 @@ def warps_per_row(m: int, n: int, elem_size: int, sms: int) -> int:
 @functools.lru_cache(maxsize=1024)  # a serve plans a few dozen shapes
 def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS, *,
          trans: bool = True, batched: bool = False) -> Plan:
-    """The form and split of y (b, n) = op(A) x over a contraction of k
-    (op = A^T: A (k, n), or (b, k, n) when `batched`; op = A: A (n, k) or
+    """The form, body and split of y (b, n) = op(A) x over a contraction of
+    k (op = A^T: A (k, n), or (b, k, n) when `batched`; op = A: A (n, k) or
     (b, n, k)) [with A2], from the shapes and the dtype alone.
+
+    A member (`batched`) of at most MEMBER_MAX_BYTES of A takes the
+    short-member body, MEMBERS members a block: the plan is the same at
+    every b, and so are the member's bits.  Anything else: `split_plan`."""
+    if batched and k * n * (torch.finfo(dtype).bits // 8) <= MEMBER_MAX_BYTES:
+        return Plan(0, 1, 0, True, trans, members=MEMBERS)
+    return split_plan(b, k, n, dtype, gate, sms, trans=trans, batched=batched)
+
+
+def split_plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS, *,
+               trans: bool = True, batched: bool = False) -> Plan:
+    """The split of csrc/bgemv.cu (op = A^T) or csrc/bgemv_rows.cu (op = A),
+    the bodies of a broadcast A and of a long member (`plan`'s arguments).
 
     op = A^T: the column tile and K split; as many splits as keep column
     tiles x batch chunks x splits within BLOCKS_PER_SM blocks an SM, with at
-    least MIN_ROWS[gate] rows each and at most MAX_ROWS; the rows of a split
-    are K / splits rounded up to whole 32-row steps.  op = A: the warps a
-    row, `warps_per_row` over the n rows of every batch chunk, and ROW_BLOCK
-    rows a warp (half as many under the gate) where that is one and A is
-    broadcast or its rows are shorter than a warp's sweep of 16-byte
-    loads."""
+    least MIN_ROWS[gate] rows each (and at most MAX_ROWS under a broadcast
+    A); the rows of a split are K / splits rounded up to whole row steps.
+    op = A: the warps a row, `warps_per_row` over the n rows of every batch
+    chunk, and ROW_BLOCK rows a warp (half as many under the gate) where
+    that is one and A is broadcast or its rows are shorter than a warp's
+    sweep of 16-byte loads."""
     elem = torch.finfo(dtype).bits // 8
     chunks = b if batched else _cdiv(b, BATCH_CHUNK)
     if not trans:
@@ -169,10 +220,12 @@ def plan(b: int, k: int, n: int, dtype, gate: bool = False, sms: int = H100_SMS,
         block = wpr == 1 and (not batched or k * elem < 32 * 16)
         rows = ROW_BLOCK // (2 if gate else 1) if block else 1
         return Plan(0, 1, rows, batched, False, wpr)
-    tile = 128 // elem
+    tile, step = (512 // elem, MEMBER_ROW_STEP) if batched else (128 // elem, ROW_STEP)
     base = _cdiv(n, tile) * chunks
     splits = max(1, min(BLOCKS_PER_SM * sms // max(base, 1), k // MIN_ROWS[bool(gate)]))
-    rows = min(MAX_ROWS, max(ROW_STEP, _cdiv(_cdiv(k, splits), ROW_STEP) * ROW_STEP))
+    rows = max(step, _cdiv(_cdiv(k, splits), step) * step)
+    if not batched:
+        rows = min(MAX_ROWS, rows)
     return Plan(tile, max(1, _cdiv(k, rows)), rows, batched)
 
 
@@ -302,7 +355,8 @@ def reference_int8(qw, x, *, qw2=None, bias=None, residual=None, activation=None
 
 
 def run(w, x, out, p: Plan, *, w2, bias, residual, act_code: int, dtype_code: int):
-    """Launch plan p's kernel on the current stream, uncounted: op = A^T
+    """Launch plan p's kernel on the current stream, uncounted: a short
+    member's `bgemv_members_launch` (csrc/bgemv_members.cu), op = A^T
     `bgemv_launch` (csrc/bgemv.cu; the workspace is allocated here) or op =
     A `bgemv_rows_launch` (csrc/bgemv_rows.cu).  Operands are validated CUDA
     tensors (kernels/ops.py), w ((batch,) k, n) under op = A^T and
@@ -311,7 +365,13 @@ def run(w, x, out, p: Plan, *, w2, bias, residual, act_code: int, dtype_code: in
     batched = int(w.ndim == 3)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if not p.trans:
+        if p.members:  # R stored rows of N elements a member, either op
+            r, n = w.shape[-2:]
+            fn = _build.function("bgemv_members_launch", _MEMBERS_ARGTYPES)
+            err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
+                     _build.ptr(residual), out.data_ptr(), b, r, n, batched, int(p.trans),
+                     p.members, act_code, stream)
+        elif not p.trans:
             n, k = w.shape[-2:]
             fn = _build.function("bgemv_rows_launch", _ROWS_ARGTYPES)
             err = fn(dtype_code, w.data_ptr(), _build.ptr(w2), x.data_ptr(), _build.ptr(bias),
@@ -346,14 +406,15 @@ def plan_for(w, x, gate: bool = False, transpose_a: bool = True, sms: int = H100
 
 def launch(w, x, out, *, w2, bias, residual, act_code: int, dtype_code: int,
            transpose_a: bool = True):
-    """One launch of the kernel over the plan of the shapes, counted (and
-    by form)."""
-    global launches
+    """One launch of the kernel over the plan of the shapes, counted (by
+    form, and the short-member body apart)."""
+    global launches, launches_members
     p = plan_for(w, x, w2 is not None, transpose_a, _build.sm_count(x.device.index or 0))
     run(w, x, out, p, w2=w2, bias=bias, residual=residual, act_code=act_code,
         dtype_code=dtype_code)
     launches += 1
     launches_by_form[p.form] += 1
+    launches_members += bool(p.members)
     return out
 
 

@@ -81,7 +81,9 @@ def launch_counts() -> dict:
     """Kernel launches since the last reset; bgemv counts every dense bgemv
     launch and bgemv_broadcast_t / bgemv_broadcast_n / bgemv_batched_t /
     bgemv_batched_n split them by form (op = A^T or A, over a broadcast A
-    or one A a member; the decode projections are broadcast_t); gemm_int8
+    or one A a member; the decode projections are broadcast_t);
+    bgemv_members counts the batched ones that ran the short-member body
+    (csrc/bgemv_members.cu) among them; gemm_int8
     counts the int8-B variant reached from gemm and from bgemm.  attention counts the dense
     cache in the model dtype, attention_paged every launch through a page
     table and attention_int8 every launch with int8 K/V (a paged int8
@@ -107,6 +109,7 @@ def launch_counts() -> dict:
             "gemv": _gemv.launches, "blas1_reduce": _blas1.reduce_launches,
             "blas1_axpy": _blas1.axpy_launches, "bgemv_int8": _bgemv.launches_int8,
             **{f"bgemv_{form}": n for form, n in _bgemv.launches_by_form.items()},
+            "bgemv_members": _bgemv.launches_members,
             "gemv_int8": _gemv.launches_int8,
             "gemm_int8": _gemm.launches_int8 + _bgemm.launches_int8,
             "rwkv6": _rwkv6.launches, "mamba2_ssd": _mamba2.launches,
@@ -143,6 +146,7 @@ def attention_routes() -> dict:
 def reset_launch_counts() -> None:
     _bgemv.launches = _bgemm.launches = _attention.launches = 0
     _bgemv.launches_by_form.update(dict.fromkeys(_bgemv.FORMS, 0))
+    _bgemv.launches_members = 0
     _attention.launches_paged = _attention.launches_int8 = 0
     _gemm.launches = _gemv.launches = 0
     _blas1.reduce_launches = _blas1.axpy_launches = 0

@@ -97,10 +97,12 @@ def test_batched_gemv_conformance_matches_reference(dtype, batch, m, n):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("trans", [False, True])
-@pytest.mark.parametrize("batch,m,n", [(3, 257, 131), (2, 13, 89), (3, 101, 640)])
+@pytest.mark.parametrize("batch,m,n", [(3, 257, 131), (2, 13, 89), (3, 101, 640), (64, 32, 32),
+                                       (33, 7, 5)])
 def test_batched_gemv_prime_sizes_match_reference(dtype, trans, batch, m, n):
     """The reference's prime shapes (test_kernels.py:300-326), per-member
-    and broadcast A, both ops: ragged m and n, rows off 16 bytes."""
+    and broadcast A, both ops: ragged m and n, rows off 16 bytes; and short
+    members (the short-member body's plan on the card), whole and ragged."""
     rng = np.random.default_rng(batch * m + n)
     a = rng.standard_normal((batch, n, m) if trans else (batch, m, n)) * n ** -0.5
     x = rng.standard_normal((batch, n))
@@ -172,27 +174,41 @@ def test_bgemv_refuses_a_batched_packed_a_as_the_reference():
                                                 (True, True, "batched_t"),
                                                 (False, True, "batched_n")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
-def test_bgemv_plan_names_the_form(trans, batched, form, dtype):
-    """plan picks the body from the op and A's rank: the column body's tile
-    is 128 bytes of a row and its K split covers K in order (a member a
-    batch chunk when batched); the row body's split is 1-8 warps a row,
-    and a warp that takes a row alone takes ROW_BLOCK of them (half as many
-    under the gate) under a broadcast A or rows shorter than one sweep of
-    its 16-byte loads."""
-    b, k, n = 32, 2048, 2048
+@pytest.mark.parametrize("b,k,n", [(32, 2048, 2048), (4096, 32, 32), (4096, 64, 64)])
+def test_bgemv_plan_names_the_form(trans, batched, form, dtype, b, k, n):
+    """plan picks the body from the op, A's rank and a member's bytes: a
+    member of at most MEMBER_MAX_BYTES ((32, 32) in every dtype, (64, 64) in
+    bf16 and f32) takes the short-member body, MEMBERS members a block,
+    under the same plan at every batch and with or without the gate; a
+    longer member ((64, 64) f64, (2048, 2048)) and a broadcast A take
+    `split_plan`.  The column body's tile is 128
+    bytes of a row (512 a member) and its K split covers K in order (a
+    member a batch chunk when batched); the row body's split is 1-8 warps a
+    row, and a warp that takes a row alone takes ROW_BLOCK of them (half as
+    many under the gate) under a broadcast A or rows shorter than one sweep
+    of its 16-byte loads."""
     p = bgemv.plan(b, k, n, dtype, trans=trans, batched=batched)
     assert p.form == form
     elem = torch.finfo(dtype).bits // 8
-    if trans:
-        assert p.tile * elem == 128 and p.k_slices(k)[-1][1] == k
-        assert p.chunks(b) == (b if batched else 8)
+    short = batched and k * n * elem <= bgemv.MEMBER_MAX_BYTES
+    assert short == (batched and (k == 32 or (k == 64 and dtype != torch.float64)))
+    if short:
+        assert (p.members, p.splits, p.tile, p.rows, p.wpr) == (bgemv.MEMBERS, 1, 0, 0, 0)
+        assert p.k_slices(k) == [(0, k)] and p.blocks(b, n) == -(-b // bgemv.MEMBERS)
+        assert {bgemv.plan(batch, k, n, dtype, gate=gate, trans=trans, batched=True)
+                for batch in (1, 7, 4096) for gate in (False, True)} == {p}
+    elif trans:
+        assert p.members == 0 and p.tile * elem == (512 if batched else 128)
+        assert p.k_slices(k)[-1][1] == k
+        assert p.rows % (bgemv.MEMBER_ROW_STEP if batched else bgemv.ROW_STEP) == 0
+        assert p.chunks(b) == (b if batched else -(-b // bgemv.BATCH_CHUNK))
         assert p.blocks(b, n) == -(-n // p.tile) * p.splits * p.chunks(b)
     else:
-        assert p.wpr in (1, 2, 4, 8) and p.splits == 1
+        assert p.members == 0 and p.wpr in (1, 2, 4, 8) and p.splits == 1
         assert p.rows == (bgemv.ROW_BLOCK if p.wpr == 1 and not batched else 1)
         gated = bgemv.plan(b, k, n, dtype, gate=True, trans=trans, batched=batched)
         assert gated.rows == (bgemv.ROW_BLOCK // 2 if p.wpr == 1 and not batched else 1)
-        small = bgemv.plan(4096, 32, 32, torch.float64, trans=False, batched=batched)
+        small = bgemv.split_plan(4096, 32, 32, torch.float64, trans=False, batched=batched)
         assert (small.wpr, small.rows) == (1, bgemv.ROW_BLOCK)  # rows shorter than a sweep
         assert p.blocks(b, n) == -(-n // (bgemv.ROW_WARPS // p.wpr * p.rows)) * p.chunks(b)
     x = torch.empty(b, k, dtype=dtype, device="meta")
@@ -202,12 +218,13 @@ def test_bgemv_plan_names_the_form(trans, batched, form, dtype):
 
 def test_bgemv_forms_count_nothing_on_the_cpu():
     """CPU tensors take the plain version in every form and count no launch;
-    launch_counts has a key for each form."""
+    launch_counts has a key for each form and one for the short-member
+    body."""
     ops.reset_launch_counts()
     a = torch.randn(2, 5, 7)
     for trans in (False, True):
         ops.bgemv(a, torch.randn(2, 5 if trans else 7), transpose_a=trans)
         ops.bgemv(a[0], torch.randn(2, 5 if trans else 7), transpose_a=trans)
     counts = ops.launch_counts()
-    assert {f"bgemv_{f}" for f in bgemv.FORMS} <= set(counts)
+    assert {f"bgemv_{f}" for f in bgemv.FORMS} | {"bgemv_members"} <= set(counts)
     assert set(counts.values()) == {0}

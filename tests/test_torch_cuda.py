@@ -473,7 +473,8 @@ def test_kernels_count_their_launches(cuda):
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
                                    "bgemv_int8": 1, "bgemv_broadcast_t": 1,
                                    "bgemv_broadcast_n": 0, "bgemv_batched_t": 0,
-                                   "bgemv_batched_n": 0, "gemv_int8": 1, "gemm_int8": 2,
+                                   "bgemv_batched_n": 0, "bgemv_members": 0,
+                                   "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
                                    "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
@@ -1513,15 +1514,23 @@ BGEMV_EPILOGUES = [dict(), dict(a2=True, activation="silu"),
                    dict(bias=True, activation="gelu", residual=True)]
 
 
-def _bgemv_operands(gen, dtype, batch, m, n, trans, batched, epi):
+def _bgemv_operands(gen, dtype, batch, m, n, trans, batched, epi, shift=0):
     """A ((batch,) m, n), or ((batch,) n, m) under trans, x (batch, n) and
     the epilogue's operands, bias and residual at the end of their
-    allocations (a kernel reading past m shows)."""
+    allocations (a kernel reading past m shows); A and A2 `shift` elements
+    into theirs (off 16 bytes where shift is not a multiple of 16 bytes)."""
     shape = ((batch,) if batched else ()) + ((n, m) if trans else (m, n))
-    a = _rand(gen, dtype, *shape, std=max(n, 1) ** -0.5)
+
+    def operand():
+        if not shift:
+            return _rand(gen, dtype, *shape, std=max(n, 1) ** -0.5)
+        flat = _rand(gen, dtype, int(np.prod(shape)) + shift, std=max(n, 1) ** -0.5)
+        return flat[shift:].view(shape)
+
+    a = operand()
     kw = dict(activation=epi.get("activation"), transpose_a=trans)
     if epi.get("a2"):
-        kw["a2"] = _rand(gen, dtype, *shape, std=max(n, 1) ** -0.5)
+        kw["a2"] = operand()
     if epi.get("bias"):
         kw["bias"] = _rand(gen, dtype, m + 1)[1:]
     if epi.get("residual"):
@@ -1555,16 +1564,17 @@ def test_bgemv_forms_match_plain(cuda, dtype, trans, batched, batch, m, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", BLAS_DTYPES)
-@pytest.mark.parametrize("splits,rows", [(1, 1024), (2, 512), (7, 160), (32, 32)])
+@pytest.mark.parametrize("splits,rows", [(1, 1024), (2, 512), (7, 160), (32, 32), (125, 8)])
 def test_bgemv_batched_every_split_matches_plain(cuda, dtype, splits, rows):
-    """The column body with a per-member A under plans other than the chosen
-    one (one split, a short last split, 32 rows a split) over K = 1000, with
-    the gate and the residual: the same function, bitwise twice."""
+    """The per-member column body (512-byte tiles, 8-row steps) under plans
+    other than the chosen one (one split, a short last split, 32 rows and
+    one 8-row step a split) over K = 1000, with the gate and the residual:
+    the same function, bitwise twice."""
     from repro_torch.kernels import bgemv
     k, n, b = 1000, 200, 5
     w, w2 = (_rand(cuda, dtype, b, k, n, std=k ** -0.5) for _ in range(2))
     x, res = _rand(cuda, dtype, b, k), _rand(cuda, dtype, b, n)
-    p = bgemv.Plan(128 // (torch.finfo(dtype).bits // 8), splits, rows, batched=True)
+    p = bgemv.Plan(512 // (torch.finfo(dtype).bits // 8), splits, rows, batched=True)
     assert p.k_slices(k)[-1][1] == k
 
     def call():
@@ -1606,6 +1616,65 @@ def test_bgemv_rows_every_split_matches_plain(cuda, dtype, batched, gate, wpr, b
     for bad in (bgemv.Plan(0, 1, 4, batched, False, 2), bgemv.Plan(0, 1, 3, batched, False, 1)):
         with pytest.raises(RuntimeError, match="bgemv kernel launch failed"):
             bgemv.run(a, x, out, bad, **run)
+
+
+# the short-member body (csrc/bgemv_members.cu): a per-member A of at most
+# bgemv.MEMBER_MAX_BYTES, both ops, one warp a member
+BGEMV_SHORT_EPILOGUES = {"plain": dict(), "bias_gelu_res": dict(bias=True, activation="gelu",
+                                                                 residual=True),
+                         "silu_gate": dict(a2=True, activation="silu")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", BLAS_DTYPES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("epi", list(BGEMV_SHORT_EPILOGUES))
+@pytest.mark.parametrize("batch,m,n,shift", [(4096, 32, 32, 0), (257, 7, 129, 0),
+                                             (1000, 37, 19, 1), (2, 1, 1, 0)])
+def test_bgemv_short_members_match_plain(cuda, dtype, trans, epi, batch, m, n, shift):
+    """Short members (whole 16-byte rows; ragged rows longer than a warp's
+    32 chunks; ragged rows of elements with A off 16 bytes; one element)
+    under each epilogue: one launch, counted on its form and as a
+    short-member launch; within TOL of the plain version; bitwise on a
+    second launch; and each of a few members bitwise the same alone (a
+    batch of 1) as in the full batch."""
+    from repro_torch.kernels import bgemv
+    a, x, kw = _bgemv_operands(cuda, dtype, batch, m, n, trans, True, BGEMV_SHORT_EPILOGUES[epi],
+                               shift=shift)
+    assert bgemv.plan_for(a, x, "a2" in kw, trans).members == bgemv.MEMBERS
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.bgemv(a, x, **kw), dtype)
+    counts = ops.launch_counts()
+    form = "batched_t" if trans else "batched_n"
+    assert counts["bgemv"] == counts[f"bgemv_{form}"] == counts["bgemv_members"] == 1, counts
+    first, second = ops.bgemv(a, x, **kw), ops.bgemv(a, x, **kw)
+    for i in sorted({0, batch // 2, batch - 1}):
+        alone = dict(kw, a2=kw["a2"][i:i + 1]) if "a2" in kw else dict(kw)
+        if "residual" in kw:
+            alone["residual"] = kw["residual"][i:i + 1]
+        one = ops.bgemv(a[i:i + 1], x[i:i + 1], **alone)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], first[i]), i
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_bgemv_members_launch_refuses_a_plan_it_was_not_built_for(cuda):
+    """Members a block not a multiple of the block's 8 warps, above 256, or
+    a short-member plan over a broadcast (2-D) A: an error code, and the
+    wrapper raises; the plan's own members run."""
+    from repro_torch.kernels import bgemv
+    a, x, kw = _bgemv_operands(cuda, torch.float32, 20, 32, 32, True, True, {})
+    out = torch.empty(20, 32, device="cuda")
+    run = dict(w2=None, bias=None, residual=None, act_code=0, dtype_code=0)
+    for members, w in ((12, a), (4, a), (264, a), (8, a[0])):
+        with pytest.raises(RuntimeError, match="bgemv kernel launch failed"):
+            bgemv.run(w, x, out, bgemv.Plan(0, 1, 0, True, True, members=members), **run)
+    bgemv.run(a, x, out, bgemv.Plan(0, 1, 0, True, True, members=16), **run)
+    with ops.reference_mode():
+        want = ops.bgemv(a, x, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
 
 
 @pytest.mark.cuda

@@ -185,7 +185,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "gemv": 0, "blas1_reduce": 0, "blas1_axpy": 0,
                                    "bgemv_int8": 0, "bgemv_broadcast_t": 0,
                                    "bgemv_broadcast_n": 0, "bgemv_batched_t": 0,
-                                   "bgemv_batched_n": 0, "gemv_int8": 0, "gemm_int8": 0,
+                                   "bgemv_batched_n": 0, "bgemv_members": 0,
+                                   "gemv_int8": 0, "gemm_int8": 0,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
                                    "gemm_dmma": 0, "gemm_ffma_sm90": 0, "gemm_ffma": 0,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
