@@ -546,14 +546,26 @@ def _mma_name(mangled: str):
 
 
 def _f32_name(mangled: str):
-    """'BMxBN TMxTN [gate] [batched]' for a gemm_f32_kernel instantiation
-    (csrc/gemm_f32.cu), else None."""
-    m = re.search(r"gemm_f32_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE+Lb(\d)E",
+    """'BMxBN TMxTN [gate] [batched] [odd]' for a gemm_f32_kernel
+    instantiation (csrc/gemm_f32.cu, csrc/gemm_f32_odd.cu), else None."""
+    m = re.search(r"gemm_f32_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE+Lb(\d)E"
+                  r"Lb(\d)E", mangled)
+    if m is None:
+        return None
+    bm, bn, tm, tn, gate, batched, odd = (int(v) for v in m.groups())
+    return (f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "") + (" batched" if batched else "")
+            + (" odd" if odd else ""))
+
+
+def _f32_q8_name(mangled: str):
+    """'BMxBN TMxTN [gate] kn|nk' for a gemm_f32_q8_kernel instantiation
+    (csrc/gemm_f32_q8.cu), else None."""
+    m = re.search(r"gemm_f32_q8_kernelI.*?CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EEELi(\d)E",
                   mangled)
     if m is None:
         return None
-    bm, bn, tm, tn, gate, batched = (int(v) for v in m.groups())
-    return f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "") + (" batched" if batched else "")
+    bm, bn, tm, tn, gate, layout = (int(v) for v in m.groups())
+    return f"{bm}x{bn} {tm}x{tn}" + (" gate" if gate else "") + (" nk" if layout else " kn")
 
 
 def phase_sass(lib: Path) -> dict:
@@ -563,10 +575,16 @@ def phase_sass(lib: Path) -> dict:
     ptxas's registers, shared memory, spills and performance notes for them,
     for the split-KV attention kernels and for bgemv (this process's build
     log); FFMA in each f32 GEMM kernel on the TMA ring (csrc/gemm_f32.cu)
-    with its ptxas registers and spills; FFMA and tensor-core instructions
+    (csrc/gemm_f32.cu, its ODD instantiations in csrc/gemm_f32_odd.cu) with
+    its ptxas registers and spills, and in each instantiation of its int8
+    feed (csrc/gemm_f32_q8.cu), with their tensor-core instructions; FFMA
+    and tensor-core instructions
     in each instantiation of the f32 attention route (csrc/attention.cu).
     Fails if a tensor-core kernel holds no HGMMA, HMMA or DMMA, an f32 ring
-    kernel no FFMA, or an f64 or f32 one spills; or unless each of the 40
+    kernel no FFMA, or an f64 or f32 one spills; unless there are 12 ODD
+    ring instantiations and 14 int8 ones, each with FFMA, the int8 ones with
+    no tensor-core instruction and, where this process built them, no
+    spill; or unless each of the 40
     f32 attention instantiations holds FFMA, no tensor-core instruction and,
     where this process built it, spills nothing."""
     from repro_torch.kernels import _build
@@ -575,11 +593,15 @@ def phase_sass(lib: Path) -> dict:
                           check=True).stdout
     hgmma, hmma, dmma, ffma, qhmma, mma, fn = {}, {}, {}, {}, {}, {}, None
     attn_ffma, attn_tc, ffma_fn = {}, {}, None  # csrc/attention.cu: FFMA, tensor cores
+    q8_ffma, q8_tc, q8_fn = {}, {}, None  # csrc/gemm_f32_q8.cu: FFMA, tensor cores
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             ffma_fn = _attn_name(fn) if "attention_kernel" in fn else None
+            q8_fn = _f32_q8_name(fn)
+            if q8_fn:
+                q8_ffma[q8_fn] = q8_tc[q8_fn] = 0
             if "gemm_tc_kernel" in fn:
                 hgmma[_tc_name(fn)] = 0
             elif (_attn_name(fn) or "").startswith("mma"):
@@ -596,6 +618,11 @@ def phase_sass(lib: Path) -> dict:
                 mma[_mma_name(fn)] = 0
         elif fn and _mma_name(fn) in mma and re.search(r"\bHMMA\b", line):
             mma[_mma_name(fn)] += 1
+        elif q8_fn:
+            if re.search(r"\bFFMA\b", line):
+                q8_ffma[q8_fn] += 1
+            elif re.search(r"\b(HMMA|HGMMA|DMMA|IMMA|IGMMA|QGMMA|BMMA|BGMMA)\b", line):
+                q8_tc[q8_fn] += 1
         elif ffma_fn:
             if re.search(r"\bFFMA\b", line):
                 attn_ffma[ffma_fn] += 1
@@ -614,6 +641,7 @@ def phase_sass(lib: Path) -> dict:
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
     ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, f32_ptxas = {}, {}, {}, {}, {}
+    q8_ptxas = {}
     qgemv_ptxas, wkv6_ptxas, mma_ptxas = {}, {}, {}
     notes, entry = [], None
     for line in _build.build_log.splitlines():
@@ -630,6 +658,8 @@ def phase_sass(lib: Path) -> dict:
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
             elif _f32_name(fn):
                 entry = f32_ptxas[_f32_name(fn)] = {}
+            elif _f32_q8_name(fn):
+                entry = q8_ptxas[_f32_q8_name(fn)] = {}
             elif _bgemv_name(fn):
                 entry = bgemv_ptxas[_bgemv_name(fn)] = {}
             elif re.search(r"qgemv\w*_kernel", fn):
@@ -691,7 +721,24 @@ def phase_sass(lib: Path) -> dict:
     emit("sass", what="FFMA in csrc/gemm_f32.cu's kernels (cuobjdump -sass); ptxas for them",
          ffma_total=sum(ffma.values()), ffma_per_kernel=ffma,
          ptxas=f32_ptxas or "not built in this process", f32_spill_bytes=f32_spills)
-    (OUT / "sass_ffma.json").write_text(json.dumps({"ffma": ffma, "ptxas": f32_ptxas}, indent=1))
+    q8_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                   for k, v in q8_ptxas.items()}
+    emit("sass", what="FFMA and tensor-core instructions in csrc/gemm_f32_q8.cu's kernels "
+         "(cuobjdump -sass); ptxas for them",
+         ffma_per_kernel=q8_ffma, tensor_core_per_kernel=q8_tc,
+         registers={k: v.get("registers") for k, v in q8_ptxas.items()},
+         spill_bytes=q8_spills or "not built in this process")
+    (OUT / "sass_ffma.json").write_text(json.dumps({"ffma": ffma, "ptxas": f32_ptxas,
+                                                    "q8_ffma": q8_ffma,
+                                                    "q8_ptxas": q8_ptxas}, indent=1))
+    # 7 tiles (FFMA_SM90_BATCHED_TILES and the gate's) x the 2 layouts
+    layouts = {f: sorted(k for k in q8_ffma if k.endswith(f)) for f in ("kn", "nk")}
+    if (any(len(v) != 7 for v in layouts.values()) or min(q8_ffma.values()) == 0
+            or any(q8_tc.values())
+            or (_build.build_log and (len(q8_spills) != 14 or any(q8_spills.values())))):
+        raise AssertionError(f"f32 int8 instantiations (want 7 a layout, each with FFMA, no "
+                             f"tensor-core instruction, no spill): {layouts}, FFMA {q8_ffma}, "
+                             f"tensor core {q8_tc}, spills {q8_spills}")
     emit("sass", what="HMMA in csrc/qgemv.cu's tensor-core kernels (cuobjdump -sass); ptxas "
          "for csrc/qgemv.cu's and csrc/rwkv6.cu's kernels", qgemv_tc_hmma=qhmma,
          qgemv_ptxas=qgemv_ptxas, wkv6_ptxas=wkv6_ptxas)
@@ -719,10 +766,14 @@ def phase_sass(lib: Path) -> dict:
     batched = sorted(k for k in hgmma if "batched" in k)
     if len(batched) != 12:  # gate x bf16 / f32 out x (2 tiles dense, 64 x 64 int8 "kn" B)
         raise AssertionError(f"batched tensor-core instantiations {batched}, want 12")
-    # f64: 2 tiles x gate x 2 copy widths; f32: FFMA_SM90_BATCHED_TILES and the gate's
-    for kind, names, want in (("f64", dmma, 8), ("f32", ffma, 7)):
-        if len([k for k in names if k.endswith("batched")]) != want:
+    # f64: 2 tiles x gate x 2 copy widths; f32: FFMA_SM90_BATCHED_TILES and
+    # the gate's, and as many ODD ones, with the 5 2-D ODD ones
+    for kind, names, want, end in (("f64", dmma, 8, "batched"), ("f32", ffma, 7, "batched"),
+                                   ("f32 odd", ffma, 7, "batched odd")):
+        if len([k for k in names if k.endswith(end)]) != want:
             raise AssertionError(f"batched {kind} instantiations: {sorted(names)}")
+    if len([k for k in ffma if k.endswith("odd")]) != 12:
+        raise AssertionError(f"f32 ring ODD instantiations (want 12): {sorted(ffma)}")
     if any(tc_spills.values()):
         raise AssertionError(f"tensor-core GEMM kernels spill: {tc_spills}")
     if not hmma or min(hmma.values()) == 0:
@@ -961,12 +1012,16 @@ def replaced_mamba2(x, a, b, c, h0=None, chunk: int = 64):
                              dtype_code=ops._DTYPE_CODES[x.dtype])
 
 
-def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None) -> dict:
+def plan_of(m: int, k: int, n: int, dtype, gate: bool = False, layout=None,
+            aligned: bool = True) -> dict:
     """gemm.plan's route, tile, K slices, copy width and staging for a case
-    (fresh, aligned tensors)."""
+    (fresh, aligned tensors unless said otherwise), and `odd`: a dense
+    launch on "ffma_sm90" that writes C one element a store (N % 4 != 0;
+    a fresh C starts on 16 bytes)."""
     from repro_torch.kernels import gemm
-    p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout)
-    return dict(route=p.route, tile=list(p.tile), splits=p.splits, copy=p.copy, stage=p.stage)
+    p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
+    return dict(route=p.route, tile=list(p.tile), splits=p.splits, copy=p.copy, stage=p.stage,
+                odd=p.route == "ffma_sm90" and layout is None and n % 4 != 0)
 
 
 def launch_keys(kernel: str, plan: dict) -> dict:
@@ -975,9 +1030,11 @@ def launch_keys(kernel: str, plan: dict) -> dict:
     the route took the one for rows off 16 bytes."""
     keys = {f"{kernel}_{plan['route']}": 1}
     if plan["stage"]:
-        keys[f"{kernel}_wgmma_staged"] = 1
-    if plan["copy"] == 8:
+        keys[f"{kernel}_{plan['route']}_staged"] = 1
+    if plan["route"] == "dmma" and plan["copy"] == 8:
         keys[f"{kernel}_dmma_copy8"] = 1
+    if plan.get("odd"):
+        keys[f"{kernel}_ffma_sm90_odd"] = 1
     return keys
 
 
@@ -1630,6 +1687,8 @@ def bgemv_threshold_cols(rows: int, dtype) -> int:
     return bgemv.MEMBER_MAX_BYTES // (rows * (torch.finfo(dtype).bits // 8))
 DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 ODD = "odd (4095,4097)@(4097,4093)"
+F32_OFF = "(4096,4096)@(4096,4096), A one element off 16 bytes"
+F32_SHORT = "ragged (508,2047)@(2047,2001)"
 
 
 def blas_cases():
@@ -1648,12 +1707,15 @@ def blas_cases():
     def rnd(g, dtype, *shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
-    def gemm_case(dtype, m, k, n, seed, epi=None, fused=False):
-        route = plan_of(m, k, n, dtype, gate=fused)
+    def gemm_case(dtype, m, k, n, seed, epi=None, fused=False, shift=0):
+        """shift: A starts that many elements past an aligned base"""
+        off = shift * torch.empty((), dtype=dtype).element_size()
+        route = plan_of(m, k, n, dtype, gate=fused, aligned=off % 16 == 0)
 
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
-            a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
+            a = rnd(g, dtype, m * k + shift)[shift:].view(m, k)
+            b = rnd(g, dtype, k, n, std=k ** -0.5)
             out_b = m * n * a.element_size()
             on_tc = route["route"] != "ffma"
             if fused:  # stablelm gate+up on a flattened (512-token) prefill
@@ -1753,8 +1815,8 @@ def blas_cases():
          gemm_case(torch.float64, 4095, 4098, 4094, 16, epi="gelu")),
         ("gemm", "matmul_fused", "2-D (4096,4096)@(4096,4096) x2 silu-gate", torch.float64,
          gemm_case(torch.float64, 4096, 4096, 4096, 17, fused=True)),
-        # f32: K and N multiples of 4 take the TMA ring ("ffma_sm90"), odd
-        # ones (above) the first CUDA-core kernel; zamba2's LoRA merge
+        # f32: K and N multiples of 4 take the TMA ring ("ffma_sm90") in
+        # place, odd ones (above) on staged operands; zamba2's LoRA merge
         ("gemm", "gemm", "aligned ragged (4095,4096)@(4096,4092) +bias gelu +residual",
          torch.float32, gemm_case(torch.float32, 4095, 4096, 4092, 18, epi="gelu")),
         ("gemm", "gemm", "zamba2 LoRA merge (2048,128)@(128,2048)", torch.float32,
@@ -1766,6 +1828,17 @@ def blas_cases():
     ]
     for i, dt in enumerate(DTYPES):
         cases.append(("gemm", "gemm", ODD, dt, gemm_case(dt, 4095, 4097, 4093, 61 + i)))
+    # f32 TMA cannot address in place (staged): A one element off an
+    # aligned 4096^2, K and N even but not multiples of 4, the ragged bgemm
+    # rows (508, 2047) @ (2047, 2001)
+    cases += [
+        ("gemm", "gemm", F32_OFF, torch.float32,
+         gemm_case(torch.float32, 4096, 4096, 4096, 64, shift=1)),
+        ("gemm", "gemm", "even ragged (4095,4098)@(4098,4094)", torch.float32,
+         gemm_case(torch.float32, 4095, 4098, 4094, 65)),
+        ("gemm", "gemm", F32_SHORT, torch.float32,
+         gemm_case(torch.float32, 508, 2047, 2001, 66)),
+    ]
     for i, dt in enumerate(DTYPES):
         cases.append(("gemv", "gemv", f"{N16K}x{N16K}", dt, gemv_case(dt, N16K, N16K, 20 + i)))
     # batched GEMV (kernel 1's other forms): one A a member, both ops
@@ -1971,12 +2044,14 @@ def quant_cases():
     for every int8 case; make() builds the inputs from a seeded generator and
     returns (call through core.blas, the same call on the dense weight,
     bytes, flops, ffma: csrc/gemm.cu's int8-B kernel on the same inputs where
-    the tensor cores run the call, replaced: the packed GEMV's first design
-    on the same inputs where the call runs csrc/qgemv.cu).  Bytes count the int8 values, the f32
-    scales, the activations and the output once each.  The route key is the
-    launch count each call adds beside its kernel's: bf16 GEMMs over the
-    serving layout ("nk", one scale block across K) on the tensor cores, the
-    rest of the GEMMs on the CUDA cores."""
+    the tensor cores or the f32 ring run the call, replaced: the packed
+    GEMV's first design on the same inputs where the call runs
+    csrc/qgemv.cu).  Bytes count the int8 values, the f32 scales, the
+    activations and the output once each.  The route key is the launch
+    count each call adds beside its kernel's: bf16 GEMMs over the serving
+    layout ("nk", one scale block across K) on the tensor cores, f32 ones
+    whose int8 rows TMA can address on the f32 ring (the dense f32 ring the
+    `dense` call), the rest on the first CUDA-core kernel."""
     from repro_torch.core import blas, quant
 
     def rnd(g, dtype, *shape, std=1.0):
@@ -2036,7 +2111,7 @@ def quant_cases():
                 bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
                 kw, extra = dict(bias=bias, residual=res, epilogue="gelu"), nbytes(bias, res)
             ffma = None
-            if transpose and dtype == torch.bfloat16:
+            if (transpose and dtype == torch.bfloat16) or dtype == torch.float32:
                 ffma = lambda: ffma_launch(a, qb)  # noqa: E731
             return (lambda: blas.gemm(a, qb, **kw), lambda: blas.gemm(a, b, **kw),
                     nbytes(a, qb.values, qb.scales) + extra + m * n * a.element_size(),
@@ -2071,7 +2146,8 @@ def quant_cases():
         ]
     for i, (dt, transpose) in enumerate(((f32, False), (f32, True), (bf16, False), (bf16, True))):
         layout = "nk" if transpose else "kn"
-        route = "gemm_wgmma" if dt == bf16 and transpose else "gemm_ffma"
+        route = ("gemm_wgmma" if dt == bf16 and transpose else "gemm_ffma_sm90" if dt == f32
+                 else "gemm_ffma")
         cases.append(("gemm_int8", "gemm", f'gemm "{layout}" {D8K}x{D8K}x{D8K}', dt,
                       gemm_case(dt, D8K, D8K, D8K, 70 + i, transpose), route))
     for i, dt in enumerate((f32, f64)):
@@ -2202,7 +2278,9 @@ def phase_smoke_int8():
     prompts = [rng.integers(3, cfg.vocab, size=(n,), dtype=np.int32) for n in (8, 14, 5, 11, 8)]
     kw = dict(batch=2, gen_lens=[3, 7, 4, 6, 5], eos=-1, prompts=prompts, quantize="int8",
               params=tf.init_params(cfg, 0, "cuda"), verbose=False, device="cuda")
+    ops.reset_launch_counts()
     got = serve(ARCH, "smoke", **kw)
+    check_f32_routes(ops.launch_counts(), "smoke_int8")
     with ops.reference_mode():
         want = serve(ARCH, "smoke", **kw)
     equal = got["outputs"] == want["outputs"]
@@ -2270,15 +2348,20 @@ def check_prefill_routes(counts: dict, what: str):
 
 
 def check_f32_routes(counts: dict, what: str):
-    """An f32 serve's dense GEMMs: every gemm and bgemm launch on the
-    "ffma_sm90" route (the smoke widths are multiples of 4 and every operand
-    starts on a 16-byte boundary), none on the first CUDA-core kernel."""
+    """An f32 serve's GEMMs, dense and packed: every gemm, bgemm and int8-B
+    launch, and every batched (expert) launch, on the "ffma_sm90" route,
+    none on the first CUDA-core kernel or the tensor cores; at least one
+    prefill projection among them."""
     routes = {k: counts[k] for k in ("gemm", "gemm_ffma_sm90", "gemm_wgmma", "gemm_ffma",
-                                     "bgemm", "bgemm_ffma_sm90", "bgemm_wgmma", "bgemm_ffma")}
+                                     "bgemm", "bgemm_ffma_sm90", "bgemm_wgmma", "bgemm_ffma",
+                                     "gemm_int8", "bgemm_batched", "bgemm_batched_ffma_sm90",
+                                     "bgemm_batched_ffma", "bgemm_batched_wgmma")}
     emit("routes", run=what, **routes)
-    if (counts["bgemm"] == 0 or counts["bgemm_ffma_sm90"] != counts["bgemm"]
-            or counts["gemm_ffma_sm90"] != counts["gemm"] or counts["gemm_ffma"]
-            or counts["bgemm_ffma"]):
+    launched = counts["gemm"] + counts["bgemm"] + counts["gemm_int8"]
+    if (counts["bgemm"] + counts["gemm_int8"] == 0
+            or counts["gemm_ffma_sm90"] + counts["bgemm_ffma_sm90"] != launched
+            or counts["bgemm_batched_ffma_sm90"] != counts["bgemm_batched"]
+            or counts["gemm_ffma"] or counts["bgemm_ffma"] or counts["bgemm_batched_ffma"]):
         raise AssertionError(f"{what}: f32 GEMM routes {routes}: not all on 'ffma_sm90'")
 
 
@@ -3462,8 +3545,10 @@ def moe_cases():
     and prefill (64: 4 x 16), dense and packed (`--quantize int8`'s "kn"
     expert stacks, per-expert scales: one a 64-row k-step across N, and
     one case whose scales vary along N too), on the tensor cores; f32 (the
-    TMA ring), f64 (DMMA) and odd-K bf16 (A staged) at the decode down
-    shape; packed stacks under f32 A (the CUDA-core tile); and one
+    TMA ring), f64 (DMMA), odd-K bf16 (A staged) and odd-K f32 (the ring,
+    A staged) at the decode down shape; packed stacks under
+    f32 A (the ring, dequantized in its staging) and f64 A (the CUDA-core
+    tile); and one
     operation-bound BLAS case a dtype through `blas.batched_gemm`: (16,
     2048, 2048, 2048) in f64 and f32, (16, 2047, 2047, 2048) in bf16.
     Dicts: label, call, lib (torch.bmm on the same operands, products
@@ -3523,13 +3608,20 @@ def moe_cases():
             mid32, wd32 = mid.float(), wd.float()
             case(f"f32 {down}", mid32, wd32, lambda: torch.bmm(mid32, wd32),
                  out_dtype=torch.float32, dense=down)
-            case(f"int8 f32 {down}", mid32, qd, None, out_dtype=torch.float32, dense=down)
+            case(f"int8 f32 {down}", mid32, qd, None, out_dtype=torch.float32,
+                 dense=f"f32 {down}")
             mid64, wd64 = mid.double(), wd.double()
-            case(f"f64 {down.replace('f32 out', 'f64 out')}", mid64, wd64,
-                 lambda: torch.bmm(mid64, wd64), out_dtype=torch.float64, dense=down)
+            down64 = f"f64 {down.replace('f32 out', 'f64 out')}"
+            case(down64, mid64, wd64, lambda: torch.bmm(mid64, wd64), out_dtype=torch.float64,
+                 dense=down)
+            case(f"int8 {down64}", mid64, qd, None, out_dtype=torch.float64, dense=down64)
             odd, wodd = mid[..., :f - 1].contiguous(), wd[:, :f - 1].contiguous()
-            case(f"odd K {what} down ({e},{m},{f - 1})@({e},{f - 1},{d}) f32 out", odd, wodd,
-                 lambda: torch.bmm(odd, wodd), out_dtype=torch.float32, dense=down)
+            odd_down = f"odd K {what} down ({e},{m},{f - 1})@({e},{f - 1},{d}) f32 out"
+            case(odd_down, odd, wodd, lambda: torch.bmm(odd, wodd), out_dtype=torch.float32,
+                 dense=down)
+            odd32, wodd32 = odd.float(), wodd.float()
+            case(f"f32 {odd_down}", odd32, wodd32, lambda: torch.bmm(odd32, wodd32),
+                 out_dtype=torch.float32, dense=f"f32 {down}")
     for dtype, (bb, bm, bk, bn) in ((torch.float64, BLAS_BATCHED), (torch.float32, BLAS_BATCHED),
                                     (torch.bfloat16, BLAS_BATCHED_ODD)):
         x, w = rnd(bb, bm, bk, dtype=dtype), rnd(bb, bk, bn, std=bk ** -0.5, dtype=dtype)
@@ -3626,8 +3718,9 @@ def phase_smoke_moe():
     the plain versions: equal greedy tokens under the continuous scheduler
     (ragged prompts), the batch scheduler and --quantize int8; every expert
     launch batched, on the route `gemm.plan_batched` names for the smoke's
-    f32 expert shapes (the TMA ring, "ffma_sm90"), packed under int8 (f32 A:
-    the CUDA-core tile, "ffma"); the f32 projections on "ffma_sm90".
+    f32 expert shapes (the TMA ring, "ffma_sm90"), packed under int8 too (f32
+    A: the ring, the int8 dequantized in its staging); every f32 projection,
+    dense or packed, on "ffma_sm90" (check_f32_routes).
     Returns the launch counts of the moonshot continuous and int8 serves."""
     from repro_torch.kernels import gemm, ops
     from repro_torch.launch.serve import serve
@@ -3664,11 +3757,10 @@ def phase_smoke_moe():
                 raise AssertionError(f"smoke_moe {arch} {name}: kernels {got['outputs']} != "
                                      f"plain {want['outputs']}")
             # the serve's warm-up runs one prefill and one decode step first
-            route = "ffma" if name == "int8" else next(iter(dense_routes))
             check_moe_launches(counts, f"smoke_moe {arch} {name}", cfg, got["prefills"] + 1,
-                               got["decode_steps"] + 1, route, int8=name == "int8")
-            if name != "int8":
-                check_f32_routes(counts, f"smoke_moe {arch} {name}")
+                               got["decode_steps"] + 1, next(iter(dense_routes)),
+                               int8=name == "int8")
+            check_f32_routes(counts, f"smoke_moe {arch} {name}")
             out[(arch, name)] = counts
         del params
     return out
@@ -4608,16 +4700,20 @@ def main() -> int:
     # the BLAS kernels: f64 (the paper's D-prefix routines) at full size,
     # launches from the blas phase; gemm's four routes apart: f64 on the f64
     # tensor cores, bf16 on the bf16 ones, aligned f32 on the CUDA cores fed
-    # by the TMA ring (also at zamba2's LoRA merge, launches from its serve),
-    # odd-K/N f32 on the first CUDA-core kernel
+    # by the TMA ring (launches: the blas phase's f32 gemm launches on
+    # csrc/gemm_f32.cu's instantiations, in place or staged; also at
+    # zamba2's LoRA merge, launches from its serve), odd-K/N f32 on the same
+    # ring on staged operands, C through the ODD instantiations (launches:
+    # the blas phase's f32 gemm launches that took them: N % 4 != 0 or C
+    # off 16 bytes)
     f32_ragged = "ragged (4095,4097)@(4097,4093) +bias gelu +residual"
     lora = "zamba2 LoRA merge (2048,128)@(128,2048)"
     blas_sources = {
-        "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
-                 ("gemm", f32_ragged), "float32", blas_counts["gemm_ffma"]),
+        "gemm": ("src/repro_torch/csrc/gemm_f32_odd.cu", "src/repro/kernels/gemm.py:184",
+                 ("gemm", f32_ragged), "float32", blas_counts["gemm_ffma_sm90_odd"]),
         "gemm_ffma_sm90": ("src/repro_torch/csrc/gemm_f32.cu", "src/repro/kernels/gemm.py:184",
                            ("gemm", f"{D8K}x{D8K}x{D8K}"), "float32",
-                           blas_counts["gemm_ffma_sm90"]),
+                           blas_counts["gemm_ffma_sm90"] - blas_counts["gemm_ffma_sm90_odd"]),
         "gemm_ffma_sm90_lora": ("src/repro_torch/csrc/gemm_f32.cu",
                                 "src/repro/kernels/gemm.py:184", ("gemm", lora), "float32",
                                 zamba_counts["gemm_ffma_sm90"]),
@@ -4648,8 +4744,9 @@ def main() -> int:
                         **({"launches_from": "serve_zamba"} if name.endswith("_lora") else {})})
     # the packed kernels: launches from the int8 serve (bgemv_int8, gemm_int8:
     # every prefill projection on the tensor cores) and from the packed BLAS
-    # run of phase 10 (gemv_int8; gemm_int8_ffma, the int8-B forms the tensor
-    # cores do not take, there every packed gemm launch on the CUDA cores)
+    # run of phase 10 (gemv_int8; gemm_int8_ffma_sm90, f32 A on the f32 ring,
+    # there every such launch; gemm_int8_ffma, the int8-B forms neither
+    # takes, there every packed gemm launch on the first CUDA-core kernel)
     quant_sources = {
         "bgemv_int8": ("src/repro_torch/csrc/qgemv.cu", "src/repro/kernels/bgemv.py:230",
                        "decode qkv 4x1x2048->2048 +bias", "bfloat16", int8_counts["bgemv_int8"]),
@@ -4657,11 +4754,14 @@ def main() -> int:
                       "prefill qkv 4x128x2048->2048 +bias", "bfloat16", int8_counts["gemm_int8"]),
         "gemm_int8_ffma": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
                            f'gemm "kn" {D8K}x{D8K}x{D8K}', "bfloat16", quant_counts["gemm_ffma"]),
+        "gemm_int8_ffma_sm90": ("src/repro_torch/csrc/gemm_f32_q8.cu",
+                                "src/repro/kernels/gemm.py:184", f'gemm "kn" {D8K}x{D8K}x{D8K}',
+                                "float32", quant_counts["gemm_ffma_sm90"]),
         "gemv_int8": ("src/repro_torch/csrc/qgemv.cu", "src/repro/kernels/gemv.py:146",
                       f"gemv {N16K}x{N16K}", "float32", quant_counts["gemv_int8"]),
     }
     for name, (src, replaces, case, dtype, launches) in quant_sources.items():
-        kernel = "gemm_int8" if name == "gemm_int8_ffma" else name
+        kernel = "gemm_int8" if name.startswith("gemm_int8_") else name
         r = quant_rows[(kernel, case, dtype)]
         summary.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -4728,8 +4828,9 @@ def main() -> int:
     # with launches from the f32 moonshot smoke serve; f64 on DMMA and bf16
     # with A staged with launches from moe_kernels' checked calls (no served
     # model runs them; the BLAS case beside each); packed stacks under f32 A
-    # on the CUDA-core tile with launches from the f32 smoke serve under
-    # --quantize int8
+    # on the f32 ring with launches from the f32 smoke serve under
+    # --quantize int8; packed stacks under f64 A on the CUDA-core tile with
+    # launches from moe_kernels' checked calls
     dec_gu = "decode gate_up (64,32,2048)@(64,2048,1408) x2 silu bf16 out"
     dec_dn = "decode down (64,32,1408)@(64,1408,2048) f32 out"
     blas_label = "blas batched_gemm ({0},{1},{2})@({0},{2},{3}) {4}".format
@@ -4747,8 +4848,12 @@ def main() -> int:
             ("bgemm_batched_wgmma_staged", "gemm_sm90.cu",
              "odd K decode down (64,32,1407)@(64,1407,2048) f32 out", moe_launched,
              "bgemm_batched_staged", "moe_kernels", blas_label(*BLAS_BATCHED_ODD, "bfloat16")),
-            ("bgemm_batched_ffma", "gemm_batched.cu", f"int8 f32 {dec_dn}",
-             moe_smoke[(MOE, "int8")], "bgemm_batched_ffma", "smoke_moe int8 (f32)", None)):
+            ("bgemm_batched_int8_ffma_sm90", "gemm_f32_q8.cu", f"int8 f32 {dec_dn}",
+             moe_smoke[(MOE, "int8")], "bgemm_batched_ffma_sm90", "smoke_moe int8 (f32)",
+             f"f32 odd K {dec_dn.replace('1408', '1407')}"),
+            ("bgemm_batched_ffma", "gemm_batched_f64_q8.cu",
+             f"int8 f64 {dec_dn.replace('f32 out', 'f64 out')}", moe_launched,
+             "bgemm_batched_ffma", "moe_kernels", None)):
         r = moe_rows[case]
         extra = {}
         if side is not None:

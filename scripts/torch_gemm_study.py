@@ -15,6 +15,9 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_rows
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py bgemv_members
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py packed
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32feed
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32q8
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32vec OTHER_TREE
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -126,6 +129,36 @@ an SM) and, without the gate, the registers left as compiled (no
 against the plain version, timed beside the dense batched launch on the
 same bf16 weights.  `KnLayout`'s blocks, stages and registers come from
 these.
+
+f32feed: the dense f32 forms TMA cannot address in place, on the f32 ring
+on staged operands (`Plan.stage`: A and B copied into rows padded to 4
+floats, C one element a store where N % 4 != 0) at every tile
+of `gemm.FFMA_SM90_TILES`, beside the staging copies alone, the first
+CUDA-core kernel (csrc/gemm.cu) and torch.matmul (TF32 off); at the BLAS
+odd shape (4095, 4097) @ (4097, 4093), the ragged bgemm rows (508, 2047) @
+(2047, 2001) and the even (4095, 4098) @ (4098, 4094); each checked
+against the plain version.
+
+f32q8: f32 A against packed int8 B on the f32 ring (csrc/gemm_f32_q8.cu)
+at 8192^3 in the "kn", "nk" and "nk-kblocks" layouts and at moonshot's
+decode expert shapes (64 experts of 32 rows: the down launch and the
+gate+up dual launch, "kn" stacks, one scale a 64-row k-step), each checked
+against the plain version, beside the same launch on the first design
+(csrc/gemm.cu, csrc/gemm_batched.cu), the dense f32 ring on the
+dequantized weights and a variant compiled from the source without the
+conversion (the ring's time without it; its output is not checked).
+
+f32vec: the f32 TMA ring's launch (`gemm_f32_launch`) built from this
+tree's f32 ring sources and from OTHER_TREE's (csrc/gemm_f32*.cu but the
+int8 feed; e.g. an earlier design unpacked by `git archive` under
+build/), each source compiled by its own nvcc, all at once, timed in turns (other, this, this, other) at 8192^3 and
+zamba2's LoRA merge (2048, 128) @ (128, 2048) (C on 16-byte stores), and
+at the BLAS odd shape (4095, 4097) @ (4097, 4093) (element stores), each
+as the plain product and with +bias gelu +residual, on the plan's tile;
+at the odd shape on operands staged once (`gemm.tma_rows`) before the
+timing, beside the staging copies alone and torch.matmul, so that the
+odd form's time splits into staging, ring and epilogue.  Each output is
+checked against the plain version.
 
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
@@ -831,11 +864,230 @@ def packed():
                           "library": str(lib.name)}), flush=True)
 
 
+def f32feed():
+    from repro_torch.kernels import gemm, ops
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for m, k, n in ((4095, 4097, 4093), (508, 2047, 2001), (4095, 4098, 4094)):
+        a = torch.randn(m, k, generator=g, device="cuda")
+        b = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        with ops.reference_mode():
+            want = ops.gemm(a, b)
+        out = torch.empty(m, n, device="cuda")
+        kw = dict(b2=None, bias=None, residual=None, act_code=0, m=m, k=k, n=n)
+        ms = {}
+        for tile in gemm.FFMA_SM90_TILES:
+            def call(tile=tile):
+                return gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", tile, stage=True),
+                                      **kw)
+
+            label = f"{tile[0]}x{tile[1]} staged"
+            call()
+            torch.cuda.synchronize()
+            if not torch.allclose(out, want, **cs.TOL[torch.float32]):
+                raise AssertionError(f"f32feed: {label} at {(m, k, n)} disagrees")
+            ms[label] = cs.time_auto(call)
+        ms["staging copies alone"] = cs.time_auto(lambda: (gemm.tma_rows(a), gemm.tma_rows(b)))
+        ms["ffma (csrc/gemm.cu)"] = cs.time_auto(lambda: cs.ffma_launch(a, b))
+        ms["torch.matmul"] = cs.time_auto(lambda: torch.matmul(a, b))
+        print(json.dumps({"shape": f"({m},{k})@({k},{n})",
+                          "plan": str(gemm.plan(m, k, n, torch.float32)),
+                          "bound_ms": 2 * m * k * n / cs.PEAK_FLOP_S[torch.float32] * 1e3,
+                          "ms": ms}), flush=True)
+        del a, b, want, out
+
+
+# f32q8's variant of csrc/gemm_f32_q8.cu: (old, new) text edits, each found
+# exactly once
+Q8_VARIANTS = {
+    "no conversion": [("  convert_stage<C, LAYOUT>(p, sc, smem, 0, 0, n0, tid);\n", ""),
+                      ("      convert_stage<C, LAYOUT>(p, sc, smem, f % STAGES, f * BK, n0, tid);\n",
+                       "")]}
+
+
+def f32q8():
+    from repro_torch.core import quant
+    from repro_torch.kernels import gemm, ops
+    variants = source_variants("gemm_f32_q8.cu", Q8_VARIANTS, "gemm_f32_q8_launch",
+                               gemm._F32_Q8_ARGTYPES)
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    def launch(fn, a, q, q2, out, p, m, k, n, act, batch):
+        err = fn(a.data_ptr(), q.values.data_ptr(), q.scales.data_ptr(),
+                 None if q2 is None else q2.values.data_ptr(),
+                 None if q2 is None else q2.scales.data_ptr(), *q.block, int(q.transposed), None,
+                 None, out.data_ptr(), batch, int(q.values.ndim == 3), m, k, n, act, *p.tile,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"f32q8: a variant's launch failed ({err})")
+
+    def timed(ms, call, got, want, a, q, q2, p, m, k, n, act, batch):
+        ms["ring (gemm_f32_q8.cu)"] = cs.time_auto(call)
+        for name, fn in variants.items():
+            got.zero_()
+            launch(fn, a, q, q2, got, p, m, k, n, act, batch)
+            torch.cuda.synchronize()
+            if name != "no conversion" and not torch.allclose(got, want, **cs.TOL[torch.float32]):
+                raise AssertionError(f"f32q8: variant {name!r} disagrees")
+            ms[name] = cs.time_auto(lambda fn=fn: launch(fn, a, q, q2, got, p, m, k, n, act,
+                                                         batch))
+
+    n8 = 8192
+    a = rnd(n8, n8)
+    w = rnd(n8, n8, std=n8 ** -0.5)
+    for layout, spec in (("kn", quant.QuantSpec(64, None)),
+                         ("nk", quant.QuantSpec(64, None, transpose=True)),
+                         ("nk-kblocks", quant.QuantSpec(64, 64, transpose=True))):
+        qw = quant.quantize(w, spec)
+        with ops.reference_mode():
+            want = ops.gemm(a, qw)
+        got = ops.gemm(a, qw)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **cs.TOL[torch.float32]):
+            raise AssertionError(f"f32q8: {layout} disagrees")
+        p = gemm.plan(n8, n8, n8, torch.float32, packed_layout=layout)
+        ms = {}
+        timed(ms, lambda: ops.gemm(a, qw), got, want, a, qw, None, p, n8, n8, n8, 0, 1)
+        deq = quant.dequantize_in(qw, torch.float32).contiguous()
+        ms["ffma (csrc/gemm.cu)"] = cs.time_auto(lambda: cs.ffma_launch(a, qw))
+        ms["dense ring"] = cs.time_auto(lambda: ops.gemm(a, deq))
+        print(json.dumps({"case": f"{layout} {n8}^3", "plan": str(p),
+                          "bound_ms": 2 * n8 ** 3 / cs.PEAK_FLOP_S[torch.float32] * 1e3,
+                          "ms": ms}), flush=True)
+        del qw, want, got, deq
+    del a, w
+    e, d, f, m = 64, 2048, 1408, 32
+    spec = quant.QuantSpec(64, None)
+    for label, k, n, gate in (("down", f, d, False), ("gate_up", d, f, True)):
+        x = rnd(e, m, k)
+        q1 = quant.quantize(rnd(e, k, n, std=k ** -0.5), spec)
+        q2 = quant.quantize(rnd(e, k, n, std=k ** -0.5), spec) if gate else None
+        act = "silu" if gate else None
+        kw = dict(b2=q2, activation=act, out_dtype=torch.float32)
+        with ops.reference_mode():
+            want = ops.bgemm(x, q1, **kw)
+        got = ops.bgemm(x, q1, **kw)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **cs.TOL[torch.float32]):
+            raise AssertionError(f"f32q8: batched {label} disagrees")
+        p = gemm.plan_batched(e, m, k, n, torch.float32, torch.float32, gate=gate,
+                              packed_layout="kn", block=q1.block)
+        ms = {}
+        timed(ms, lambda: ops.bgemm(x, q1, **kw), got, want, x, q1, q2, p, m, k, n,
+              ops._ACTS[act], e)
+        out = torch.empty(e, m, n, device="cuda")
+        d1 = quant.dequantize_in(q1, torch.float32).contiguous()
+        d2 = None if q2 is None else quant.dequantize_in(q2, torch.float32).contiguous()
+        first = dict(b2=q2, bias=None, residual=None, act_code=ops._ACTS[act], dtype_code=0,
+                     out_code=0)
+        ms["ffma (csrc/gemm_batched.cu)"] = cs.time_auto(
+            lambda: gemm.batched_ffma(x, q1, out, **first))
+        ms["dense ring"] = cs.time_auto(lambda: ops.bgemm(x, d1, **dict(kw, b2=d2)))
+        nbytes = cs.nbytes(x, q1.values, q1.scales, out) + (
+            0 if q2 is None else cs.nbytes(q2.values, q2.scales))
+        flops = 2 * e * m * k * n * (2 if gate else 1)
+        print(json.dumps({"case": f"batched {label} ({e},{m},{k})@({e},{k},{n})", "plan": str(p),
+                          "bound_ms": cs.bound(nbytes, flops, torch.float32)[0],
+                          "ms": ms}), flush=True)
+        del x, q1, q2, want, got, out, d1, d2
+
+
+#: f32vec's cases: (label, m, k, n)
+VEC_SHAPES = [("8192^3", 8192, 8192, 8192), ("LoRA merge", 2048, 128, 2048),
+              ("odd", 4095, 4097, 4093)]
+
+
+def ring_libraries(other: Path) -> dict:
+    """{"this": gemm_f32_launch of this tree's f32 ring sources (gemm_f32*.cu
+    but the int8 feed), "other": of OTHER's}, every source compiled by its
+    own nvcc, all at once, under build/study_variants."""
+    import ctypes
+
+    from repro_torch.kernels import _build, gemm
+    root = Path(__file__).resolve().parents[1]
+    out_dir = root / "build" / "study_variants" / "f32vec"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trees = {"this": root, "other": other.resolve()}
+    objs, procs = {t: [] for t in trees}, []
+    for tag, tree in trees.items():
+        csrc = tree / "src" / "repro_torch" / "csrc"
+        for src in sorted(csrc.glob("gemm_f32*.cu")):
+            if src.name == "gemm_f32_q8.cu":
+                continue
+            obj = out_dir / f"{tag}_{src.stem}.o"
+            objs[tag].append(obj)
+            procs.append((src, subprocess.Popen(
+                [_build._nvcc(), *_build.FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for src, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"f32vec: nvcc failed for {src}:\n{log[-3000:]}")
+    fns = {}
+    for tag, files in objs.items():
+        lib = out_dir / f"{tag}.so"
+        subprocess.run([_build._nvcc(), "-shared", "-o", str(lib), *map(str, files)], check=True)
+        fn = getattr(ctypes.CDLL(str(lib)), "gemm_f32_launch")
+        fn.argtypes, fn.restype = gemm._F32_ARGTYPES, ctypes.c_int
+        fns[tag] = fn
+    return fns
+
+
+def f32vec():
+    from repro_torch.kernels import gemm, ops
+    if len(sys.argv) < 3:
+        raise SystemExit("f32vec needs OTHER_TREE")
+    fns = ring_libraries(Path(sys.argv[2]))
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for label, m, k, n in VEC_SHAPES:
+        a = torch.randn(m, k, generator=g, device="cuda")
+        b = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+        bias = torch.randn(n, generator=g, device="cuda")
+        res = torch.randn(m, n, generator=g, device="cuda")
+        (sa, lda), (sb, ldb) = gemm.tma_rows(a), gemm.tma_rows(b)
+        p = gemm.plan(m, k, n, torch.float32)
+        out = torch.empty(m, n, device="cuda")
+        row = {"case": f"{label} ({m},{k})@({k},{n})", "plan": str(p),
+               "bound_ms": 2 * m * k * n / cs.PEAK_FLOP_S[torch.float32] * 1e3}
+        for epi in (False, True):
+            kw = dict(bias=bias, residual=res, activation="gelu") if epi else {}
+            with ops.reference_mode():
+                want = ops.gemm(a, b, **kw)
+
+            def launch(fn):
+                err = fn(sa.data_ptr(), sb.data_ptr(), None, bias.data_ptr() if epi else None,
+                         res.data_ptr() if epi else None, out.data_ptr(), m, k, n, lda, ldb,
+                         ops._ACTS["gelu" if epi else None], *p.tile,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"f32vec: launch failed ({err})")
+
+            ms = {"other": [], "this": []}
+            for tag in ("other", "this", "this", "other"):
+                out.zero_()
+                launch(fns[tag])
+                torch.cuda.synchronize()
+                if not torch.allclose(out, want, **cs.TOL[torch.float32]):
+                    raise AssertionError(f"f32vec: {tag} disagrees at {label} (epilogue {epi})")
+                ms[tag].append(cs.time_auto(lambda tag=tag: launch(fns[tag])))
+            row["ring, +bias gelu +residual" if epi else "ring, plain"] = ms
+        if p.stage:
+            row["staging copies alone"] = cs.time_auto(
+                lambda: (gemm.tma_rows(a), gemm.tma_rows(b)))
+            row["ops.gemm plain (staging + ring)"] = cs.time_auto(lambda: ops.gemm(a, b))
+        row["torch.matmul"] = cs.time_auto(lambda: torch.matmul(a, b))
+        print(json.dumps(row), flush=True)
+        del a, b, bias, res, sa, sb, out, want
+
+
 def main() -> int:
     runs = {"tiles": tiles, "witness": lambda: witness("--ffma" in sys.argv), "f64": f64,
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
             "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep,
-            "bgemv_members": bgemv_members_sweep, "packed": packed}
+            "bgemv_members": bgemv_members_sweep, "packed": packed, "f32feed": f32feed,
+            "f32q8": f32q8, "f32vec": f32vec}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

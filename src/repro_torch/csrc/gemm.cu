@@ -1,14 +1,18 @@
-// Dense GEMM with a fused epilogue on the CUDA cores (sm_90a): f32 with K or
-// N not a multiple of 4 or unaligned operands, and the int8-B forms the
-// tensor cores do not take.
+// GEMM with a fused epilogue on the CUDA cores (sm_90a): K = 0 (the
+// epilogue alone) and the int8-B forms no Hopper kernel takes.
 //
 // Replaces, for the forms `kernels/gemm.py::plan` routes to "ffma", two
 // Pallas kernels with one body and two entry points.  Every dense bf16 call
 // runs the tensor cores instead (`csrc/gemm_sm90.cu`, on copies with padded
 // rows where TMA cannot address the operands), every dense f64 call the f64
-// tensor cores (`csrc/gemm_f64.cu`), and aligned f32 `csrc/gemm_f32.cu`;
-// this file's dense bf16 and f64 bodies are reached only by chip_smoke.py's
-// `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick:
+// tensor cores (`csrc/gemm_f64.cu`), every dense f32 call the f32 ring
+// (`csrc/gemm_f32.cu`, on copies with padded rows where TMA cannot address
+// the operands), and f32 A against int8 rows TMA can address the f32 ring
+// too (`csrc/gemm_f32_q8.cu`).  What still runs here: K = 0, packed f64 A, bf16
+// A against "kn" or scales that vary along K, and f32 A whose int8 rows (or
+// A's rows) TMA cannot address.  The dense bodies are reached otherwise only
+// by chip_smoke.py's `ffma_launch` and `scripts/torch_gemm_study.py`, as the
+// yardstick:
 //  - `gemm_launch`: `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
 //    :184) in its dense "kn" form, C = epi( A @ B  [, A @ B2] ), with A
 //    (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
@@ -22,8 +26,8 @@
 //    (qa, qb) over it) or the output-major "nk" layout (stored (N, K), blocks
 //    (qa, qb) over that).  B is dequantized in the accumulator type, deq =
 //    value * scale, as `dequant_tile(..., dtype=acc)` does: never rounded to
-//    A's dtype.  Here: f32 and f64 activations, "kn", and "nk" whose scales
-//    vary along K.
+//    A's dtype.  Here: f64 activations, bf16 with "kn" or "nk" whose scales
+//    vary along K, and f32 whose rows TMA cannot address.
 //
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB (f64),
 // ~700 flops per byte, far above the ridge of the card.  This kernel runs on

@@ -8,13 +8,13 @@
 // B2 (batch, K, N) (or one (K, N) shared by every member), bias (N,),
 // residual and C (batch, M, N).  Since the batched forms moved to the
 // kernels of their 2-D counterparts (bf16 to gemm_sm90.cu, f64 to
-// gemm_f64.cu, f32 to gemm_f32.cu), that is: packed int8 B under f32 or f64
-// A (the f32 smoke serves under `--quantize int8`), packed "nk" stacks and
-// packed "kn" ones whose scale blocks end inside a 64-row k-step, every
-// output dtype other than bf16 and f32 from bf16 (f16, f64), f32 from f64
-// and f64 or bf16 or f16 from f32, bf16 with N % 8 != 0, f32 whose rows TMA
-// cannot address (K or N not a multiple of 4, an operand off 16 bytes), and
-// K = 0 (the epilogue alone).  The sums and the epilogue run in max(f32, A's
+// gemm_f64.cu, f32 with f32 out to the f32 ring of gemm_f32*.cu, dense or
+// packed), that is: packed int8 B under f64 A, packed bf16 "nk" stacks and
+// bf16 "kn" ones whose scale blocks end inside a 64-row k-step, packed f32
+// whose int8 rows (or A's) TMA cannot address, every output dtype other
+// than bf16 and f32 from bf16 (f16, f64), f32 from f64 and f64 or bf16 or
+// f16 from f32, bf16 with N % 8 != 0, and K = 0 (the epilogue alone).  No
+// served model reaches it.  The sums and the epilogue run in max(f32, A's
 // dtype), rounded once to C's dtype (f32, bf16, f64 or f16: a template
 // parameter, so no output type costs the others a branch).
 //
@@ -25,7 +25,7 @@
 // B (and scales) start `sb` (`ss`) elements on, 0 for a shared B.  It keeps
 // gemm.cu's 128 x 128 tile (128 x 64 with the gate), which wastes 3/4 of
 // its rows at M = 32: a simple design that is right for the forms no served
-// bf16 model reaches.  The f32 instantiations are here; bf16's and f64's are
+// model reaches.  The f32 instantiations are here; bf16's and f64's are
 // in gemm_batched_bf16.cu, gemm_batched_f64.cu (dense) and
 // gemm_batched_f64_q8.cu (packed), compiled in parallel.
 #include "gemm_tile.cuh"

@@ -18,19 +18,24 @@ one from the shape, dtype and addresses alone:
   included, over the tile grid chosen as for "wgmma" (no K split): 16-byte
   copies where they can address the rows (K % 2 == 0, N % 2 == 0, 16-byte
   base addresses), 8-byte copies (one double) otherwise;
-- "ffma_sm90": `csrc/gemm_f32.cu`, FFMA on the CUDA cores (TF32 would
-  change the result) fed by a TMA ring, for dense f32 whose rows TMA can
-  address (K % 4 == 0, N % 4 == 0, 16-byte base addresses), the gate's two
-  products included, over a (BM, BN) tile grid chosen as for "wgmma" (no K
-  split): the BLAS f32 gemm, zamba2's LoRA merges and the f32 prefill
-  projections of kernel 3's broadcast-B form;
+- "ffma_sm90": FFMA on the CUDA cores (TF32 would change the result) fed
+  by TMA through a shared-memory ring (`csrc/gemm_f32.cu`), for every dense
+  f32 call with K > 0, the gate's two products included, over a (BM, BN)
+  tile grid chosen as for "wgmma" (no K split): in place where K and N are
+  multiples of 4 and the operands start on 16 bytes, otherwise
+  (`Plan.stage`) on operands copied into rows padded to 4 floats
+  (`tma_rows`), C then written one element at a time where N % 4 != 0
+  or it starts off 16 bytes; and for a packed B under f32 A whose int8 rows
+  TMA can address, the same ring with the int8 dequantized in its staging
+  (`csrc/gemm_f32_q8.cu`): the BLAS f32 gemm, zamba2's LoRA merges and the
+  f32 prefill projections of kernel 3's broadcast-B form, dense or packed;
 - "ffma": `csrc/gemm.cu`, the first design: a shared-memory tiled GEMM on
   the CUDA cores whose threads each own 4 x 4 register blocks (the paper's
-  DOT4 PE), now only for dense f32 whose K or N is not a multiple of 4 or
-  whose operands are off 16 bytes, and every packed form but bf16 "nk"
-  (packed f32 and f64 calls, int8 "kn", scales that vary along K).  Its
-  dense bf16 and f64 bodies are reached only by chip_smoke.py's
-  `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick.
+  DOT4 PE), now only for K = 0 (the epilogue alone) and the packed forms no
+  other route takes: f64 A, bf16 A with "kn" or scales that vary along K,
+  and f32 A whose int8 rows (or A's) TMA cannot address.  Its dense bodies
+  are reached only by chip_smoke.py's `ffma_launch` and
+  `scripts/torch_gemm_study.py`, as the yardstick.
 
 Each source note says what bounds its kernel.  Ragged edges are masked in
 the kernels, where the reference pads in `ops._gemm_call`.
@@ -39,8 +44,10 @@ A packed B (`core.quant.QuantizedTensor`: int8 with f32 block scales, the
 int8 body of `_gemm_kernel`, gemm.py:63-76) in the output-major "nk" layout
 with one scale block across K (`serve --quantize int8`'s) takes the wgmma
 route in bf16, converted to bf16 in shared memory (exact) and scaled in the
-accumulator.  Every other packed form (the "kn" layout, scales that vary
-along K, f32 or f64 activations) runs gemm.cu's int8-B variant
+accumulator.  Under f32 A every packed layout takes "ffma_sm90" where TMA
+can address its int8 rows, each element dequantized once in f32 as the
+plain version rounds it.  The rest (bf16 "kn" or scales that vary along K,
+f64 A, f32 whose rows TMA cannot address) runs gemm.cu's int8-B variant
 (`gemm_q8_launch`), dequantized in the accumulator type on the way into
 shared memory.  `launch_int8` binds both (its own launch count;
 `kernels/bgemm.py` reaches them too) and `reference_int8` is their plain
@@ -54,10 +61,11 @@ its 2-D counterpart: bf16 with bf16 or f32 out and N % 8 == 0 on "wgmma"
 staged where TMA cannot address them in place), the packed "kn" expert
 stacks of `--quantize int8` with bf16 A there too (int8 converted in shared
 memory, each k-step scaled as it is promoted), f64 with f64 out on "dmma"
-(`csrc/gemm_f64.cu`), aligned f32 with f32 out on "ffma_sm90"
-(`csrc/gemm_f32.cu`, rank-3 maps), and the rest on "ffma"
-(`csrc/gemm_batched*.cu`: gemm.cu's tile with per-member strides and the
-output type a template parameter).
+(`csrc/gemm_f64.cu`), f32 with f32 out on "ffma_sm90" (rank-3 maps; dense
+where TMA cannot address it in place, staged; packed stacks whose int8
+rows TMA can address, dequantized in the ring's staging), and the rest on
+"ffma" (`csrc/gemm_batched*.cu`: gemm.cu's tile with per-member strides and
+the output type a template parameter).
 
 `reference` and `reference_int8` are the plain PyTorch versions: CPU
 tensors use them, and on the card only comparisons (`ops.reference_mode`)
@@ -83,8 +91,11 @@ launches_int8 = 0
 #: every launch of `launch` and `launch_int8`, by the route its plan named
 launches_by_route = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
 #: the launches of `launch` that took a route's form for rows off 16 bytes:
-#: "wgmma" with staged operands, "dmma" with 8-byte copies
-launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0}
+#: "wgmma" and "ffma_sm90" with staged operands, "dmma" with 8-byte copies,
+#: "ffma_sm90" with C one element a store (N % 4 != 0 or C off 16 bytes: the
+#: ODD instantiations, csrc/gemm_f32_odd.cu)
+launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0, "ffma_sm90_staged": 0,
+                    "ffma_sm90_odd": 0}
 
 #: the H100's streaming multiprocessors: the plan's default card
 H100_SMS = 132
@@ -152,9 +163,9 @@ class Plan:
     "ffma"), the (BM, BN) output tile, the number of K slices (wgmma only;
     the slices' partials are summed in slice order by a second pass) and,
     on "dmma", the bytes each cp.async copies (16 or 8; 0 elsewhere); on
-    "wgmma", `stage`: an operand whose rows TMA cannot address is first
-    copied into a buffer whose rows are padded to 16 bytes (`tma_rows`),
-    and K is not split."""
+    "wgmma" and "ffma_sm90", `stage`: an operand whose rows TMA cannot address is first copied into
+    a buffer whose rows are padded to 16 bytes (`tma_rows`), and K is not
+    split."""
 
     route: str
     tile: tuple
@@ -185,10 +196,11 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     B (K % 8 != 0, N % 8 != 0 or unaligned), and when B is "nk" and TMA can
     (K % 16 == 0, N % 8 == 0); dense f64 takes "dmma", with 16-byte copies
     when they can address A and B (K % 2 == 0 and N % 2 == 0, the gate
-    too), else 8-byte ones; dense f32 takes "ffma_sm90" when TMA can
-    address A and B (K % 4 == 0 and N % 4 == 0, the gate too); everything
-    else "ffma" (odd-K/N or unaligned f32, every packed form but bf16 "nk",
-    and a K of 0: the epilogue alone).
+    too), else 8-byte ones; dense f32 takes "ffma_sm90", staged where TMA
+    cannot address A or B in place (K % 4 != 0, N % 4 != 0 or unaligned);
+    packed f32 takes "ffma_sm90" where TMA can address A and the stored int8
+    rows (`_q8_tma`, aligned); everything else "ffma" (the other packed
+    forms but bf16 "nk", and a K of 0: the epilogue alone).
     The tile is the largest of the route's tiles (TC_TILES, DMMA_TILES,
     FFMA_SM90_TILES; with the gate GATE_TILES, DMMA_GATE_TILES,
     FFMA_SM90_GATE_TILES) whose grid fills FILL of the `sms` SMs, else the
@@ -203,10 +215,10 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
         wide = some and k % 2 == 0 and n % 2 == 0
         return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0],
                     copy=16 if wide else 8)
-    if (dtype == torch.float32 and some and packed_layout is None and k % 4 == 0
-            and n % 4 == 0):
-        return Plan("ffma_sm90",
-                    _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES, sms)[0])
+    if dtype == torch.float32 and (dense or (some and _q8_tma(k, n, packed_layout))):
+        return Plan("ffma_sm90", _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES,
+                                       sms)[0],
+                    stage=dense and not (aligned and k % 4 == 0 and n % 4 == 0))
     tma = (dtype == torch.bfloat16 and some and n % 8 == 0
            and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
     if not tma and not (dtype == torch.bfloat16 and dense):
@@ -216,6 +228,12 @@ def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
     if tma and tiles < (1 - IDLE) * sms and k >= SPLIT_MIN_K:
         splits = max(2, min(-(-sms // (2 * tiles)), -(-k // BK) // 2))
     return Plan("wgmma", (bm, bn), splits, stage=not tma)
+
+
+def _q8_tma(k: int, n: int, layout: str) -> bool:
+    """TMA can address f32 A (K % 4 == 0) and the stored int8 rows of a
+    packed B (a multiple of 16 bytes: N for "kn", K for "nk")."""
+    return k % 4 == 0 and (n if layout == "kn" else k) % 16 == 0
 
 
 def _fill(m: int, n: int, tiles_largest_first, sms: int):
@@ -253,12 +271,14 @@ def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate
       bytes), out bf16 or f32: "wgmma" (A staged where it is off 16 bytes);
     - dense f64 with f64 out: "dmma", with 16-byte copies where K and N are
       even and every operand starts on 16 bytes (`copy` 16), else 8;
-    - dense f32 with f32 out, k % 4 == 0, n % 4 == 0, A and B on 16 bytes:
-      "ffma_sm90";
-    - everything else (another out dtype, bf16 with n % 8 != 0, packed f32
-      or f64 A, packed "nk" or a scale block inside a k-step, f32 TMA
-      cannot address, K = 0): "ffma", csrc/gemm_batched*.cu's CUDA-core
-      tile, FFMA_TILE.
+    - f32 with f32 out: "ffma_sm90", a dense B with `stage` where TMA
+      cannot address A or B in place (k % 4 != 0, n % 4 != 0 or a base off
+      16 bytes), a packed one (any layout) where TMA can address A and its
+      int8 rows (`_q8_tma`, A and B on 16 bytes);
+    - everything else (another out dtype, bf16 with n % 8 != 0, packed f64
+      A, packed bf16 "nk" or a scale block inside a k-step, packed f32
+      whose rows TMA cannot address, K = 0): "ffma", csrc/gemm_batched*.cu's
+      CUDA-core tile, FFMA_TILE.
     The tile is the largest of the route's tiles (BATCHED_TILES or
     PACKED_BATCHED_TILES, DMMA_TILES,
     FFMA_SM90_BATCHED_TILES; with the gate DMMA_GATE_TILES,
@@ -272,10 +292,13 @@ def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate
             wide = a_aligned and b_aligned and k % 2 == 0 and n % 2 == 0
             return Plan("dmma", _fill_batched(batch, m, n, DMMA_GATE_TILES if gate else DMMA_TILES,
                                               sms), copy=16 if wide else 8)
-        if (packed_layout is None and dtype == out == torch.float32 and a_aligned and b_aligned
-                and k % 4 == 0 and n % 4 == 0):
+        both = a_aligned and b_aligned
+        if dtype == out == torch.float32 and (
+                packed_layout is None or (both and _q8_tma(k, n, packed_layout))):
             tiles = FFMA_SM90_BATCHED_GATE_TILES if gate else FFMA_SM90_BATCHED_TILES
-            return Plan("ffma_sm90", _fill_batched(batch, m, n, tiles, sms))
+            return Plan("ffma_sm90", _fill_batched(batch, m, n, tiles, sms),
+                        stage=packed_layout is None and not (both and k % 4 == 0
+                                                             and n % 4 == 0))
         if dtype == torch.bfloat16 and out in TC_OUT_DTYPES:
             dense = packed_layout is None and n % 8 == 0
             kn = (packed_layout == "kn" and block[0] % BK == 0 and n % 16 == 0 and b_aligned)
@@ -314,14 +337,15 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] *
 
 
 def tma_rows(x):
-    """(x, its row stride) for a bf16 x of rows r, columns c whose rows TMA
-    can address (c % 8 == 0, base on 16 bytes); else (a copy of x into a
-    buffer of rows padded to a multiple of 8 elements, that stride).  The
-    padding is never read: TMA loads what lies past column c as zeros."""
-    c = x.shape[-1]
-    if c % 8 == 0 and x.data_ptr() % 16 == 0:
+    """(x, its row stride) for a bf16 or f32 x of rows r, columns c whose
+    rows TMA can address (16-byte rows: c a multiple of 8 bf16 or 4 f32;
+    base on 16 bytes); else (a copy of x into a buffer of rows padded to 16
+    bytes, that stride).  The padding is never read: TMA loads what lies
+    past column c as zeros."""
+    c, per = x.shape[-1], 16 // x.element_size()
+    if c % per == 0 and x.data_ptr() % 16 == 0:
         return x, c
-    buf = torch.empty(x.numel() // c, -(-c // 8) * 8, dtype=x.dtype, device=x.device)
+    buf = torch.empty(x.numel() // c, -(-c // per) * per, dtype=x.dtype, device=x.device)
     buf[:, :c].copy_(x.reshape(-1, c))
     return buf, buf.shape[1]
 
@@ -363,10 +387,16 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
 
 
 _DMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-#: the batched entries of both: (..., c, batch, b_batched, M, K, N, act, bm, bn[, copy], stream)
+#: gemm_f32_launch: (a, b, b2, bias, res, c, M, K, N, lda, ldb, act, bm, bn, stream)
+_F32_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+#: the batched entries of both: (..., c, batch, b_batched, M, K, N[, lda, ldb], act, bm, bn[,
+#: copy], stream)
 _DMMA_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_F32_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_F32_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+#: gemm_f32_q8_launch: (a, b, bs, b2, b2s, qa, qb, nk, bias, res, c, batch, b_batched, M, K,
+#: N, act, bm, bn, stream)
+_F32_Q8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
@@ -396,33 +426,57 @@ def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: in
 
 def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
               n: int, batch: int = 0):
-    """Launch `gemm_f32_launch` (csrc/gemm_f32.cu) on the current stream over
-    m rows of f32 a with p's tile; batch >= 1: `gemm_f32_batched_launch`, as
-    `dmma`'s."""
+    """Launch the f32 ring on the current stream over m rows of f32 a with
+    p's tile: a packed b (and b2; `QuantizedTensor`, a stack of one a member
+    when 3-D) `gemm_f32_q8_launch` (csrc/gemm_f32_q8.cu), a dense one
+    `gemm_f32_launch` (csrc/gemm_f32.cu; batch >= 1:
+    `gemm_f32_batched_launch`, as `dmma`'s), with `p.stage` on a, b and b2
+    through `tma_rows` (which copies only an operand TMA cannot address).
+    batch >= 1: a, out and residual `batch` matrices, b and b2 `batch` of
+    (k, n) when 3-D, else one shared by every member."""
     bm, bn = p.tile
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
+        if is_quantized(b):
+            fn = _build.function("gemm_f32_q8_launch", _F32_Q8_ARGTYPES)
+            err = fn(a.data_ptr(), b.values.data_ptr(), b.scales.data_ptr(),
+                     None if b2 is None else b2.values.data_ptr(),
+                     None if b2 is None else b2.scales.data_ptr(), *b.block, int(b.transposed),
+                     _build.ptr(bias), _build.ptr(residual), out.data_ptr(), max(batch, 1),
+                     int(b.values.ndim == 3), m, k, n, act_code, bm, bn, stream)
+            if err:
+                raise RuntimeError(f"gemm f32 int8 ring kernel launch failed ({p}): CUDA error "
+                                   f"{err}")
+            return out
+        lda, ldb, per_member = k, n, int(b.ndim == 3)
+        if p.stage:  # (a 3-D operand comes back as rows: per_member is b's)
+            a, lda = tma_rows(a)
+            b, ldb = tma_rows(b)
+            if b2 is not None:
+                b2, _ = tma_rows(b2)
         ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
                 _build.ptr(residual), out.data_ptr())
         if batch:
             fn = _build.function("gemm_f32_batched_launch", _F32_BATCHED_ARGTYPES)
-            err = fn(*ptrs, batch, int(b.ndim == 3), m, k, n, act_code, bm, bn, stream)
+            err = fn(*ptrs, batch, per_member, m, k, n, lda, ldb, act_code, bm, bn, stream)
         else:
             fn = _build.function("gemm_f32_launch", _F32_ARGTYPES)
-            err = fn(*ptrs, m, k, n, act_code, bm, bn, stream)
+            err = fn(*ptrs, m, k, n, lda, ldb, act_code, bm, bn, stream)
     if err:
         raise RuntimeError(f"gemm f32 TMA-ring kernel launch failed ({p}): CUDA error {err}")
     return out
 
 
-def tally(p: Plan, by_route: dict, by_form: dict) -> None:
-    """Count one launch of plan p in a module's launches_by_route and
-    launches_by_form."""
+def tally(p: Plan, by_route: dict, by_form: dict, out) -> None:
+    """Count one launch of plan p into C `out` in a module's
+    launches_by_route and launches_by_form."""
     by_route[p.route] += 1
     if p.stage:
-        by_form["wgmma_staged"] += 1
+        by_form[f"{p.route}_staged"] += 1
     if p.copy == 8:
         by_form["dmma_copy8"] += 1
+    if p.route == "ffma_sm90" and (out.shape[-1] % 4 or out.data_ptr() % 16):
+        by_form["ffma_sm90_odd"] += 1
 
 
 def dense(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int, m: int) -> Plan:
@@ -480,8 +534,11 @@ def batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
         else:
             tc(a, w, out, p, **epi, batch=batch)
         return p
-    if p.route in ("dmma", "ffma_sm90"):
-        {"dmma": dmma, "ffma_sm90": ffma_sm90}[p.route](a, w, out, p, **epi, batch=batch)
+    if p.route == "dmma":
+        dmma(a, w, out, p, **epi, batch=batch)
+        return p
+    if p.route == "ffma_sm90":  # b and b2 as given: dense, or packed
+        ffma_sm90(a, b, out, p, **dict(epi, b2=b2), batch=batch)
         return p
     batched_ffma(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
                  dtype_code=dtype_code, out_code=out_code)
@@ -524,7 +581,7 @@ def launch(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int):
     p = dense(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
               dtype_code=dtype_code, m=a.shape[0])
     launches += 1
-    tally(p, launches_by_route, launches_by_form)
+    tally(p, launches_by_route, launches_by_form, out)
     return out
 
 
@@ -545,6 +602,7 @@ def q8(a, qb, out, *, qb2, bias, residual, m: int, act_code: int, dtype_code: in
     """One int8-B launch over m rows of a (the batch * M rows of bgemm's
     broadcast form) through the kernel `plan` names: the tensor-core kernel
     for bf16 activations and "nk" weights with one scale block across K,
+    the f32 ring for f32 activations whose int8 rows TMA can address,
     else `gemm_q8_launch`.  Returns the route; operands are validated CUDA
     tensors (kernels/ops.py)."""
     k, n = qb.shape
@@ -555,6 +613,10 @@ def q8(a, qb, out, *, qb2, bias, residual, m: int, act_code: int, dtype_code: in
     if p.route == "wgmma":
         tc(a, qb.values, out, p, b2=b2v, bias=bias, residual=residual, act_code=act_code,
            m=m, k=k, n=n, scales=qb.scales, scales2=None if qb2 is None else qb2.scales, qa=qa)
+        return p.route
+    if p.route == "ffma_sm90":
+        ffma_sm90(a, qb, out, p, b2=qb2, bias=bias, residual=residual, act_code=act_code, m=m,
+                  k=k, n=n)
         return p.route
     fn = _build.function("gemm_q8_launch", _Q_ARGTYPES)
     with torch.cuda.device(a.device):

@@ -17,9 +17,10 @@ or a per-member 3-D one, in f32, bf16 and f64.
 
 A block-scaled int8 `core.quant.QuantizedTensor` weight (bgemv's `a`,
 gemm/bgemm's `b`, gemv's `a`) takes the packed kernels: bgemv and gemv the
-row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm gemm.cu's
-int8-B variant in the "nk" layout if the weight is stored transposed, else
-"kn".  Outputs are in the activation's dtype, summed and dequantized in
+row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm the int8-B
+routes `kernels/gemm.py::plan` names (the tensor cores for bf16 "nk", the
+f32 ring for f32 activations, gemm.cu's int8-B variant for the rest), in
+the "nk" layout if the weight is stored transposed, else "kn".  Outputs are in the activation's dtype, summed and dequantized in
 max(f32, dtype); the two operands of a dual GEMM must share one spec.
 
 `bgemm` also takes a per-member B (batch, k, n), dense or packed with
@@ -93,10 +94,12 @@ def launch_counts() -> dict:
     one on a TMA ring, or the first CUDA-core one), bgemm_wgmma /
     bgemm_dmma / bgemm_ffma_sm90 / bgemm_ffma every launch of `bgemm`
     (whose f32 and bf16 operands never take "dmma": the key is there for
-    the same dict shape).  gemm_wgmma_staged / gemm_dmma_copy8 (and
-    bgemm_...) count the dense launches among those that took the route's
-    form for rows off 16 bytes: operands copied to padded rows first, and
-    8-byte copies.  bgemm_batched counts bgemm's batched launches (a
+    the same dict shape).  gemm_wgmma_staged / gemm_ffma_sm90_staged /
+    gemm_dmma_copy8 (and bgemm_...) count the dense launches among those
+    that took the route's form for rows off 16 bytes: operands copied to
+    padded rows first, and 8-byte copies; gemm_ffma_sm90_odd (and bgemm_)
+    those on "ffma_sm90" that wrote C one element a store (the ODD
+    instantiations: N % 4 != 0 or C off 16 bytes).  bgemm_batched counts bgemm's batched launches (a
     per-member B, or an out_dtype given: the MoE experts), apart from
     bgemm, and bgemm_batched_wgmma / bgemm_batched_dmma /
     bgemm_batched_ffma_sm90 / bgemm_batched_ffma split them by the route
@@ -157,7 +160,8 @@ def reset_launch_counts() -> None:
     _bgemm.launches_batched_int8 = _bgemm.launches_batched_staged = 0
     for mod in (_gemm, _bgemm):
         mod.launches_by_route.update(wgmma=0, dmma=0, ffma_sm90=0, ffma=0)
-        mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0)
+        mod.launches_by_form.update(wgmma_staged=0, dmma_copy8=0, ffma_sm90_staged=0,
+                                    ffma_sm90_odd=0)
     _attention.launches_by_route_mask.update(dict.fromkeys(_attention.launches_by_route_mask, 0))
     _attention.launches_by_route_layout.update(
         dict.fromkeys(_attention.launches_by_route_layout, 0))

@@ -468,6 +468,7 @@ def test_kernels_count_their_launches(cuda):
         ops.dot(x[0], x[1])
         ops.bgemv(qt, x, transpose_a=True)
         ops.gemm(x, qn)
+    # the packed f32 products (int8 rows of 64 and 32 bytes) on the f32 ring
     assert ops.launch_counts() == {"bgemv": 1, "bgemm": 1, "attention": 0,
                                    "attention_paged": 0, "attention_int8": 0, "gemm": 1,
                                    "gemv": 1, "blas1_reduce": 2, "blas1_axpy": 1,
@@ -476,11 +477,14 @@ def test_kernels_count_their_launches(cuda):
                                    "bgemv_batched_n": 0, "bgemv_members": 0,
                                    "gemv_int8": 1, "gemm_int8": 2,
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
-                                   "gemm_dmma": 0, "gemm_ffma_sm90": 1, "gemm_ffma": 1,
+                                   "gemm_dmma": 0, "gemm_ffma_sm90": 2, "gemm_ffma": 0,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
-                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 1,
-                                   "bgemm_ffma": 1, "bgemm_wgmma_staged": 0,
-                                   "bgemm_dmma_copy8": 0, "bgemm_batched": 1,
+                                   "gemm_ffma_sm90_staged": 0, "gemm_ffma_sm90_odd": 0,
+                                   "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 2,
+                                   "bgemm_ffma": 0, "bgemm_wgmma_staged": 0,
+                                   "bgemm_dmma_copy8": 0, "bgemm_ffma_sm90_staged": 0,
+                                   "bgemm_ffma_sm90_odd": 0,
+                                   "bgemm_batched": 1,
                                    "bgemm_batched_int8": 0, "bgemm_batched_staged": 0,
                                    "bgemm_batched_wgmma": 0, "bgemm_batched_dmma": 0,
                                    "bgemm_batched_ffma_sm90": 1, "bgemm_batched_ffma": 0}
@@ -1854,21 +1858,200 @@ def test_ffma_sm90_every_tile_matches_plain(cuda, tile, gate):
 
 @pytest.mark.cuda
 def test_odd_unaligned_or_packed_f32_takes_the_ffma_route(cuda):
-    """Odd K, N % 4 != 0, an A one element off a 16-byte boundary and a
-    packed B: the first CUDA-core kernel, and the counts say so."""
+    """What of f32 the ring does not take: a packed B whose stored int8 rows
+    TMA cannot address ("kn" with N % 16 != 0, "nk" with K % 16 != 0), a
+    packed B under an A one element off a 16-byte boundary, and K = 0 (the
+    epilogue alone): the first CUDA-core kernel, and the counts say so."""
     a, a37 = _rand(cuda, torch.float32, 9, 64), _rand(cuda, torch.float32, 9, 37)
-    b, b37 = _rand(cuda, torch.float32, 64, 64, std=0.125), _rand(cuda, torch.float32, 37, 64)
-    b_n = _rand(cuda, torch.float32, 64, 66, std=0.125)
     shifted = _rand(cuda, torch.float32, 9 * 64 + 1)[1:].view(9, 64)
-    qb = quant.quantize(_rand(cuda, torch.float32, 64, 64),
-                        quant.QuantSpec(16, None, transpose=True))
+    spec = quant.QuantSpec(16, None)
+    q_n66 = quant.quantize(_rand(cuda, torch.float32, 64, 66), spec)
+    q_k37 = quant.quantize(_rand(cuda, torch.float32, 37, 64), quant.QuantSpec(16, None, transpose=True))
+    qb = quant.quantize(_rand(cuda, torch.float32, 64, 64), spec)
+    a0, b0 = _rand(cuda, torch.float32, 9, 0), _rand(cuda, torch.float32, 0, 64)
+    bias = _rand(cuda, torch.float32, 64)
     ops.reset_launch_counts()
-    _against_plain(lambda: ops.gemm(a37, b37), torch.float32)
-    _against_plain(lambda: ops.gemm(a, b_n), torch.float32)
-    _against_plain(lambda: ops.gemm(shifted, b), torch.float32)
-    _against_plain(lambda: ops.gemm(a, qb), torch.float32)
+    _against_plain(lambda: ops.gemm(a, q_n66), torch.float32)
+    _against_plain(lambda: ops.gemm(a37, q_k37), torch.float32)
+    _against_plain(lambda: ops.gemm(shifted, qb), torch.float32)
+    _against_plain(lambda: ops.gemm(a0, b0, bias=bias, activation="gelu"), torch.float32)
     assert _routes(gemm_ffma=4), _routes()
-    assert ops.launch_counts()["gemm_int8"] == 1
+    assert ops.launch_counts()["gemm_int8"] == 3
+
+
+# the f32 ring on staged operands (csrc/gemm_f32.cu):
+# (m, k, n, elements A starts past a 16-byte boundary): odd K and N, K and N
+# even but not multiples of 4, A off 16 bytes by 8 and by 4 bytes, one row,
+# K of 1, a ragged fringe over several k-steps, N % 4 only
+F32_STAGED_CASES = [(70, 37, 53, 0), (132, 66, 70, 0), (64, 64, 64, 2), (64, 64, 64, 1),
+                    (1, 3, 5, 0), (300, 1, 7, 0), (130, 100, 131, 0), (257, 256, 130, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n,shift", F32_STAGED_CASES)
+def test_ffma_sm90_staged_matches_plain(cuda, epi, m, k, n, shift):
+    """Dense f32 TMA cannot address in place: one launch on "ffma_sm90" on
+    staged operands (`Plan.stage`; C one element a store where N % 4 !=
+    0), counted as such, within f32 TOL of the plain version, two
+    launches bitwise equal; bgemm over the same rows as a batch of 2 where
+    m is even."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _f32_operands(cuda, m, k, n, epi)
+    if shift:
+        a = _rand(cuda, torch.float32, m * k + shift)[shift:].view(m, k).copy_(a)
+    p = gemm.plan(m, k, n, torch.float32, gate="b2" in kw,
+                  aligned=gemm.aligned(a, b, kw.get("b2")))
+    assert (p.route, p.stage, p.copy) == ("ffma_sm90", True, 0)
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, b, **kw), torch.float32)
+    want = {"gemm_ffma_sm90": 1}
+    if m % 2 == 0 and not shift:
+        kw3 = dict(kw, residual=kw["residual"].view(2, m // 2, n)) if "residual" in kw else kw
+        _against_plain(lambda: ops.bgemm(a.view(2, m // 2, k), b, **kw3), torch.float32)
+        want["bgemm_ffma_sm90"] = 1
+    assert _routes(**want), _routes()
+    c = ops.launch_counts()
+    assert (c["gemm_ffma_sm90_staged"], c["bgemm_ffma_sm90_staged"]) == (1, len(want) - 1)
+    assert (c["gemm_ffma_sm90_odd"], c["bgemm_ffma_sm90_odd"]) == (
+        n % 4 != 0, (n % 4 != 0) * (len(want) - 1))
+    first, second = ops.gemm(a, b, **kw), ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,gate", [((128, 128), False), ((128, 64), False),
+                                       ((64, 64), False), ((128, 64), True), ((64, 64), True)])
+@pytest.mark.parametrize("n,c_off", [(514, 0), (516, 1)])
+def test_ffma_sm90_odd_every_tile_matches_plain(cuda, tile, gate, n, c_off):
+    """Every 2-D tile's element stores (C's width picked at run time),
+    without and with the gate, on a ragged (300, 130) @ (130, n) + bias gelu [gate]
+    + residual on staged operands: N % 4 != 0, and N % 4 == 0 with C one
+    element off a 16-byte boundary."""
+    from repro_torch.kernels import gemm
+    m, k = 300, 130
+    a, b, kw = _f32_operands(cuda, m, k, n, ("gelu", True, gate, True))
+    out = _rand(cuda, torch.float32, m * n + c_off)[c_off:].view(m, n)
+    gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", tile, stage=True),
+                   b2=kw.get("b2"), bias=kw["bias"], residual=kw["residual"],
+                   act_code=ops._ACTS["gelu"], m=m, k=k, n=n)
+    with ops.reference_mode():
+        want = ops.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("batch,m,k,n", [(4, 32, 37, 66), (3, 33, 130, 98), (64, 32, 71, 40)])
+def test_ffma_sm90_staged_batched_member_bits(cuda, shared, batch, m, k, n):
+    """The batched launch on staged operands (f32 out, K or N not a
+    multiple of 4), a B a member or one shared: within f32 TOL of the plain
+    version, and each member's bits the same as in a launch of that member
+    alone."""
+    from repro_torch.kernels import gemm
+    a, b, kw = _batched_case(cuda, torch.float32, batch, m, k, n, "silu", True, True, True,
+                             shared=shared)
+    p = gemm.plan_batched(batch, m, k, n, torch.float32, torch.float32, gate=True)
+    assert (p.route, p.stage) == ("ffma_sm90", True)
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, b, out_dtype=torch.float32, **kw)
+    c = ops.launch_counts()
+    assert (c["bgemm_batched_ffma_sm90"], c["bgemm_batched_staged"]) == (1, 1)
+    with ops.reference_mode():
+        want = ops.bgemm(a, b, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    for z in (0, batch - 1):
+        one = {key: (v if v.ndim == 1 or (shared and key == "b2") else v[z:z + 1])
+               for key, v in kw.items() if torch.is_tensor(v)}
+        alone = ops.bgemm(a[z:z + 1], b if shared else b[z:z + 1], out_dtype=torch.float32,
+                          activation="silu", **one)
+        assert torch.equal(alone[0], got[z])
+
+
+# (m, k, n, block_m, block_n, layout): the serving specs ("nk" one scale
+# block across K, "kn" one a 64-row k-step across N), scales along K
+# ("nk-kblocks"), blocks that end inside a unit of 4 (block_n 2 / 6, block_m
+# 6), a ragged K (one k-step and a half), odd M and N ("nk")
+F32_Q8_CASES = [(130, 128, 96, 64, None, "nk"), (70, 96, 64, 64, None, "kn"),
+                (33, 128, 80, 32, 32, "nk-kblocks"), (9, 48, 96, 6, 2, "kn"),
+                (40, 64, 67, 6, 2, "nk-kblocks"), (1, 16, 16, 16, None, "nk"),
+                (300, 160, 144, 40, 48, "kn")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("m,k,n,block_m,block_n,layout", F32_Q8_CASES)
+def test_ffma_sm90_packed_matches_plain(cuda, gate, m, k, n, block_m, block_n, layout):
+    """f32 A against a packed B whose int8 rows TMA can address: one launch
+    on "ffma_sm90" (gemm, and bgemm over the same rows), each element
+    dequantized as `reference_int8` does, within f32 TOL of it, with bias,
+    the activation and the residual, two launches bitwise equal."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(block_m, block_n, transpose=layout != "kn")
+    ramp = torch.linspace(0.25, 4.0, k * n, device="cuda").view(k, n)
+    qb, qb2 = (quant.quantize(_rand(cuda, torch.float32, k, n, std=k ** -0.5) * ramp, spec)
+               for _ in range(2))
+    assert gemm.packed_layout(qb) == layout
+    a, bias, res = (_rand(cuda, torch.float32, m, k), _rand(cuda, torch.float32, n),
+                    _rand(cuda, torch.float32, m, n))
+    kw = dict(b2=qb2 if gate else None, bias=bias, residual=res,
+              activation="silu" if gate else "gelu")
+    assert gemm.plan(m, k, n, torch.float32, gate=gate, packed_layout=layout).route == "ffma_sm90"
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, qb), torch.float32)
+    _against_plain(lambda: ops.gemm(a, qb, **kw), torch.float32)
+    _against_plain(lambda: ops.bgemm(a[None], qb, **dict(kw, residual=res[None])),
+                   torch.float32)
+    assert _routes(gemm_ffma_sm90=2, bgemm_ffma_sm90=1), _routes()
+    assert ops.launch_counts()["gemm_int8"] == 3
+    first, second = ops.gemm(a, qb, **kw), ops.gemm(a, qb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("e,m,k,n,shared", [(4, 32, 128, 96, False), (3, 33, 96, 160, False),
+                                            (64, 32, 64, 64, False), (2, 65, 160, 48, True)])
+def test_ffma_sm90_packed_batched_matches_plain(cuda, layout, gate, e, m, k, n, shared):
+    """Packed stacks (a stack a member, or one shared) under f32 A with f32
+    out: one batched launch on "ffma_sm90", counted as packed, within f32
+    TOL of the plain version, bitwise a second launch, and each member's
+    bits the same alone."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(64 if layout == "kn" else 32, None, transpose=layout == "nk")
+    lead = () if shared else (e,)
+    qb, qb2 = (quant.quantize(_rand(cuda, torch.float32, *lead, k, n, std=k ** -0.5), spec)
+               for _ in range(2))
+    a, res = _rand(cuda, torch.float32, e, m, k), _rand(cuda, torch.float32, e, m, n)
+    kw = dict(b2=qb2 if gate else None, residual=res, activation="silu" if gate else None)
+    p = gemm.plan_batched(e, m, k, n, torch.float32, torch.float32, gate=gate,
+                          packed_layout=layout, block=qb.block)
+    assert (p.route, p.copy) == ("ffma_sm90", 0)
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, qb, out_dtype=torch.float32, **kw)
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched_ffma_sm90"], counts["bgemm_batched_int8"]) == (1, 1)
+    with ops.reference_mode():
+        want = ops.bgemm(a, qb, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert torch.equal(ops.bgemm(a, qb, out_dtype=torch.float32, **kw), got)
+    z = e - 1
+
+    def member(q):
+        if q is None or shared:
+            return q
+        return quant.QuantizedTensor(q.values[z:z + 1], q.scales[z:z + 1], q.block, q.transposed)
+
+    alone = ops.bgemm(a[z:z + 1], member(qb), out_dtype=torch.float32,
+                      **dict(kw, b2=member(kw["b2"]), residual=res[z:z + 1]))
+    assert torch.equal(alone[0], got[z])
 
 
 @pytest.mark.cuda
@@ -1890,6 +2073,38 @@ def test_a_launch_the_ffma_sm90_kernel_refuses_raises(cuda):
         gemm.ffma_sm90(shifted, b, out, gemm.Plan("ffma_sm90", (64, 64)), b2=None, **kw)
     gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", (64, 64)), b2=None, **kw)  # aligned
     torch.testing.assert_close(out, a @ b, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_a_launch_the_f32_feed_kernels_refuse_raises(cuda):
+    """What the staged and int8 forms of the ring do not take comes back as
+    an error code, and the wrapper raises: an ODD launch at a tile none is
+    built for (64 x 128, the gate at 128 x 128), "kn" int8 rows of 40 bytes,
+    a tile the int8 kernel is not built for, an A off 16 bytes under a
+    packed B."""
+    from repro_torch.kernels import gemm
+    a, b = _rand(cuda, torch.float32, 64, 34), _rand(cuda, torch.float32, 34, 66)
+    out = torch.empty(64, 66, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=64, k=34, n=66)
+    for plan, extra in ((gemm.Plan("ffma_sm90", (64, 128), stage=True), dict(b2=None)),
+                        (gemm.Plan("ffma_sm90", (128, 128), stage=True), dict(b2=b))):
+        with pytest.raises(RuntimeError, match="f32 TMA-ring"):
+            gemm.ffma_sm90(a, b, out, plan, **dict(kw, **extra))
+    gemm.ffma_sm90(a, b, out, gemm.Plan("ffma_sm90", (64, 64), stage=True), b2=None,
+                   **kw)
+    torch.testing.assert_close(out, a @ b, **TOL[torch.float32])
+    a32, out64 = _rand(cuda, torch.float32, 64, 32), torch.empty(64, 64, device="cuda")
+    q40 = quant.quantize(_rand(cuda, torch.float32, 32, 40), quant.QuantSpec(16, None))
+    q64 = quant.quantize(_rand(cuda, torch.float32, 32, 64), quant.QuantSpec(16, None))
+    packed = dict(kw, k=32, n=64, b2=None)
+    with pytest.raises(RuntimeError, match="int8 ring"):
+        gemm.ffma_sm90(a32, q40, torch.empty(64, 40, device="cuda"),
+                       gemm.Plan("ffma_sm90", (64, 64)), **dict(packed, n=40))
+    with pytest.raises(RuntimeError, match="int8 ring"):
+        gemm.ffma_sm90(a32, q64, out64, gemm.Plan("ffma_sm90", (64, 128)), **packed)
+    a_off = _rand(cuda, torch.float32, 64 * 32 + 1)[1:].view(64, 32)
+    with pytest.raises(RuntimeError, match="int8 ring"):
+        gemm.ffma_sm90(a_off, q64, out64, gemm.Plan("ffma_sm90", (64, 64)), **packed)
 
 
 # --------------------------------------------------------------------------
@@ -1966,8 +2181,9 @@ def test_batched_bgemm_matches_plain(cuda, dtype, out_dtype, batch, m, k, n, act
                                      res):
     """One launch over the batch on the route `gemm.plan_batched` names
     (bf16 with N % 8 == 0 and bf16 or f32 out: "wgmma", staged where K %
-    8 != 0; f64 out from f64: "dmma"; f32 out from f32 with K and N
-    multiples of 4: "ffma_sm90"; the rest "ffma"), in out_dtype, within
+    8 != 0; f64 out from f64: "dmma"; f32 out from f32: "ffma_sm90", on
+    staged operands where K or N is not a multiple of 4; the rest
+    "ffma"), in out_dtype, within
     tolerance of the plain version, and bitwise a second launch."""
     from repro_torch.kernels import gemm
     a, b, kw = _batched_case(cuda, dtype, batch, m, k, n, act, bias, gate, res)
@@ -2072,9 +2288,9 @@ def test_batched_wgmma_every_tile(cuda, out_dtype, gate):
 def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
     """Packed expert stacks (E, k, n) with per-expert block scales ("kn",
     `quantize_weights`' expert rule, and "nk"): one batched launch on the
-    route `gemm.plan_batched` names (bf16 "kn": the tensor cores; the rest
-    the CUDA-core tile), out in A's dtype and in f32, within TOL of the
-    plain version."""
+    route `gemm.plan_batched` names (bf16 "kn": the tensor cores; f32 A
+    with f32 out, either layout: the f32 ring; the rest the CUDA-core
+    tile), out in A's dtype and in f32, within TOL of the plain version."""
     from repro_torch.kernels import gemm
     e, m, k, n = 4, 32, 128, 96
     spec = quant.QuantSpec(64, None, transpose=transpose)
@@ -2084,7 +2300,8 @@ def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
     for out_dtype in (dtype, torch.float32):
         route = gemm.plan_batched(e, m, k, n, dtype, out_dtype, gate=gate,
                                   packed_layout=gemm.packed_layout(qb), block=qb.block).route
-        assert route == ("wgmma" if dtype == torch.bfloat16 and not transpose else "ffma")
+        assert route == ("wgmma" if dtype == torch.bfloat16 and not transpose
+                         else "ffma_sm90" if dtype == out_dtype == torch.float32 else "ffma")
         ops.reset_launch_counts()
         got = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None, out_dtype=out_dtype)
         counts = ops.launch_counts()

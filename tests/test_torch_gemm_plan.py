@@ -3,16 +3,19 @@
 The plan decides from the shape, the dtype and the addresses alone which
 kernel runs a GEMM: the bf16 tensor-core one (`csrc/gemm_sm90.cu`,
 "wgmma"), the f64 one (`csrc/gemm_f64.cu`, "dmma"), the f32 CUDA-core one
-on a TMA ring (`csrc/gemm_f32.cu`, "ffma_sm90") or the first CUDA-core one
+on a shared-memory ring (`csrc/gemm_f32*.cu`, "ffma_sm90", its feed in
+`Plan.stage` where it copies operands first) or the first CUDA-core one
 (`csrc/gemm.cu`, "ffma").  These tests hold it to its contract on the CPU:
 every served projection shape routes to "wgmma" in place; every other
 dense bf16 call (odd K or N, unaligned) to "wgmma" on staged operands
 (rows copied to 16-byte strides first, no K split); `gemm.tma_rows` pads
 only what TMA cannot address; every dense f64 call to "dmma", with
 16-byte copies for even K and N on 16-byte boundaries and 8-byte ones
-otherwise; dense f32 with K and N multiples of 4 on 16-byte boundaries to
-"ffma_sm90"; odd-K/N or unaligned f32, a K of 0 and the packed forms the
-tensor cores do not take (every packed f32 and f64 call) route to "ffma";
+otherwise; every dense f32 call with K > 0 to "ffma_sm90", in place where
+K and N are multiples of 4 on 16-byte boundaries, else on staged operands;
+packed f32 whose A and int8 rows TMA can address to "ffma_sm90"; a K of 0 and
+the packed forms no other route takes (f64 A, bf16 "kn" or scales along
+K, f32 rows TMA cannot address) to "ffma";
 the K slices cover K exactly in whole k-steps; the grid fills at least
 half the card or K is split.
 
@@ -78,16 +81,17 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
 
 
 @pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned", [
-    (512, 2047, 2048, F32, False, None, True),       # f32, odd K (TMA's 16-byte rows)
-    (512, 2046, 2048, F32, False, None, True),       # f32, K % 4
-    (512, 2048, 2046, F32, True, None, True),        # f32, N % 4, the gate
-    (4095, 4097, 4093, F32, False, None, True),      # the BLAS ragged f32 case
-    (512, 2048, 2048, F32, False, None, False),      # f32, a base address off 16 bytes
-    (512, 2048, 2048, F32, False, "kn", True),       # f32 activations, packed B
-    (512, 2048, 2048, F32, True, "nk-kblocks", True),
-    (1, 3, 5, F32, False, None, True),               # f32, tiny odd shape
-    (512, 2048, 2047, F32, True, None, True),        # f32, odd N, the gate
-    (512, 2048, 2048, F32, True, None, False),       # f32 unaligned, the gate
+    (512, 0, 2048, F32, False, None, True),          # f32, K = 0: the epilogue alone
+    (512, 2048, 2040, F32, False, "kn", True),       # f32 A, int8 rows of 2040 bytes
+    (512, 2056, 2048, F32, False, "nk", True),       # f32 A, stored rows of 2056 bytes
+    (512, 2056, 2048, F32, True, "nk-kblocks", True),
+    (4095, 4097, 4093, F32, False, "kn", True),      # the BLAS ragged int8 case
+    (512, 2047, 2048, F32, False, "kn", True),       # odd K: A's rows off 16 bytes
+    (512, 2046, 2048, F32, True, "kn", True),        # K % 4, the gate
+    (1, 3, 5, F32, False, "kn", True),               # f32, tiny odd packed shape
+    (512, 2048, 2056, F32, True, "kn", True),        # N % 16, the gate
+    (512, 2048, 2048, F32, True, "nk-kblocks", False),  # f32 A, packed, unaligned
+    (512, 2048, 2048, F32, False, "nk", False),
     (512, 2048, 2048, F32, False, "kn", False),      # f32 A, packed B, unaligned
     (512, 2048, 2048, F64, False, "kn", True),       # f64 activations, packed B
     (512, 2048, 2048, F64, True, "nk", True),
@@ -100,7 +104,6 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
     (512, 2048, 2048, BF16, False, "kn", True),      # int8 stored (K, N)
     (512, 2048, 2048, BF16, False, "nk-kblocks", True),  # scales vary along K
     (512, 2056, 2048, BF16, False, "nk", True),      # int8 K % 16
-    (512, 2048, 2048, F32, True, "nk", True),        # f32 activations
     (0, 2048, 2048, BF16, False, None, True),        # nothing to compute
 ])
 def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
@@ -179,6 +182,50 @@ def test_f32_plan_takes_the_large_tile_where_it_fills_the_card():
     assert gemm.plan(512, 2048, 2048, F32) == gemm.Plan("ffma_sm90", (128, 64), 1)
     assert gemm.plan(28, 64, 296, F32) == gemm.Plan("ffma_sm90", (64, 64), 1)
     assert gemm.plan(512, 2048, 5632, F32, gate=True) == gemm.Plan("ffma_sm90", (128, 64), 1)
+
+
+# (m, k, n, gate, aligned): odd K, K % 4, N % 4 with the gate, the BLAS
+# ragged case, a base off 16 bytes, a tiny odd shape, odd N with the gate,
+# the gate off 16 bytes, K of 1, the served gate+up shape off 16 bytes
+@pytest.mark.parametrize("m,k,n,gate,aligned", [
+    (512, 2047, 2048, False, True),
+    (512, 2046, 2048, False, True),
+    (512, 2048, 2046, True, True),
+    (4095, 4097, 4093, False, True),
+    (512, 2048, 2048, False, False),
+    (1, 3, 5, False, True),
+    (512, 2048, 2047, True, True),
+    (512, 2048, 2048, True, False),
+    (300, 1, 7, False, True),
+    (512, 2048, 5632, True, False),
+    (508, 2047, 2001, False, True)])
+def test_dense_f32_tma_cannot_address_routes_to_ffma_sm90_staged(m, k, n, gate, aligned):
+    """Every dense f32 call TMA cannot address in place runs the f32 ring on
+    staged operands (rows copied to 16-byte strides first: faster than an
+    element-copy feed of the ring), on the tile the aligned shape takes, no
+    K split."""
+    p = gemm.plan(m, k, n, F32, gate=gate, aligned=aligned)
+    tiles = gemm.FFMA_SM90_GATE_TILES if gate else gemm.FFMA_SM90_TILES
+    assert (p.route, p.copy, p.splits, p.stage) == ("ffma_sm90", 0, 1, True)
+    assert p.tile in tiles and p.tile == gemm.plan(m, k + -k % 4, n + -n % 4, F32, gate=gate).tile
+
+
+@pytest.mark.parametrize("m,k,n,gate,layout", [
+    (512, 2048, 2048, False, "kn"),         # f32 activations, packed B
+    (512, 2048, 2048, True, "nk-kblocks"),  # scales along K, the gate
+    (512, 2048, 2048, True, "nk"),          # the serving layout under f32 A
+    (8192, 8192, 8192, False, "kn"),        # the BLAS int8 cells
+    (8192, 8192, 8192, False, "nk"),
+    (28, 64, 64, False, "nk"),              # the f32 int8 smoke serve's prefill
+    (513, 2052, 2048, True, "kn"),          # ragged M, K % 16 (A's rows of 16 bytes)
+    (1, 16, 16, False, "nk")])
+def test_packed_f32_routes_to_ffma_sm90(m, k, n, gate, layout):
+    """f32 A against int8 B whose rows TMA can address (K % 4 == 0; the
+    stored int8 rows a multiple of 16 bytes): the f32 ring, the int8
+    dequantized in its staging, on the dense plan's tile."""
+    p = gemm.plan(m, k, n, F32, gate=gate, packed_layout=layout)
+    assert (p.route, p.copy, p.splits, p.stage) == ("ffma_sm90", 0, 1, False)
+    assert p.tile == gemm.plan(m, k, n, F32, gate=gate).tile
 
 
 @pytest.mark.parametrize("m,k,n,gate", [(8192, 8192, 8192, False), (4095, 4098, 4094, False),

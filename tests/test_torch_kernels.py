@@ -190,9 +190,12 @@ def test_cpu_tensors_take_the_plain_versions():
                                    "rwkv6": 0, "mamba2_ssd": 0, "gemm_wgmma": 0,
                                    "gemm_dmma": 0, "gemm_ffma_sm90": 0, "gemm_ffma": 0,
                                    "gemm_wgmma_staged": 0, "gemm_dmma_copy8": 0,
+                                   "gemm_ffma_sm90_staged": 0, "gemm_ffma_sm90_odd": 0,
                                    "bgemm_wgmma": 0, "bgemm_dmma": 0, "bgemm_ffma_sm90": 0,
                                    "bgemm_ffma": 0, "bgemm_wgmma_staged": 0,
-                                   "bgemm_dmma_copy8": 0, "bgemm_batched": 0,
+                                   "bgemm_dmma_copy8": 0, "bgemm_ffma_sm90_staged": 0,
+                                   "bgemm_ffma_sm90_odd": 0,
+                                   "bgemm_batched": 0,
                                    "bgemm_batched_int8": 0, "bgemm_batched_staged": 0,
                                    "bgemm_batched_wgmma": 0, "bgemm_batched_dmma": 0,
                                    "bgemm_batched_ffma_sm90": 0, "bgemm_batched_ffma": 0}

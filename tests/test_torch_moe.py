@@ -321,6 +321,53 @@ def test_packed_per_expert_b_matches_pallas(dtype, transpose, gate, k, n, block_
             _close(got, np.asarray(want), tol)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("act,bias,gate,res", [(None, False, False, False),
+                                               ("gelu", True, False, True),
+                                               ("silu", True, True, True)])
+@pytest.mark.parametrize("k,n,block_m,block_n", [(128, 48, 64, None), (96, 64, 32, 16)])
+def test_packed_f32_kn_stacks_match_the_pallas_bgemm(shared, act, bias, gate, res, k, n,
+                                                     block_m, block_n):
+    """f32 A against packed "kn" stacks (a stack a member, or one shared)
+    with f32 out and the epilogue: the port's batched plain path
+    (`reference_batched_int8`, what the f32 ring computes in another order)
+    and, for a per-member stack, each member through `reference_int8`,
+    against `repro.kernels.bgemm.bgemm` itself in interpret mode, fed the
+    same int8 values and scales."""
+    from repro.core.epilogue import Epilogue as JEpilogue
+    from repro.kernels.bgemm import bgemm as pallas_bgemm
+    from repro_torch.kernels import bgemm as tbgemm
+    rng = np.random.default_rng(k + n + block_m)
+    lead = () if shared else (E,)
+    spec = dict(block_m=block_m, block_n=block_n)
+    ws = [(rng.standard_normal(lead + (k, n)) * k ** -0.5).astype(np.float32) for _ in range(2)]
+    tq = [quant.quantize(torch.from_numpy(w), quant.QuantSpec(**spec)) for w in ws]
+    a = rng.standard_normal((E, M, k)).astype(np.float32)
+    bias_v = rng.standard_normal(n).astype(np.float32) if bias else None
+    res_v = rng.standard_normal((E, M, n)).astype(np.float32) if res else None
+    j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    want = pallas_bgemm(
+        jnp.asarray(a), j(tq[0].values.numpy()), b2=j(tq[1].values.numpy()) if gate else None,
+        bias=None if bias_v is None else jnp.asarray(bias_v)[None], residual=j(res_v),
+        epilogue=JEpilogue(act, bias, gate, res), scales=j(tq[0].scales.numpy()),
+        b2_scales=j(tq[1].scales.numpy()) if gate else None, q_block=tq[0].block,
+        b_layout="kn", block_m=8, block_n=16, block_k=32, out_dtype=jnp.float32,
+        interpret=True)
+    t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    kw = dict(qb2=tq[1] if gate else None, bias=t(bias_v), residual=t(res_v), activation=act)
+    got = tbgemm.reference_batched_int8(torch.from_numpy(a), tq[0], out_dtype=torch.float32,
+                                        **kw)
+    _close(got, want, "float32")
+    if not shared:
+        for z in range(E):
+            member = [quant.QuantizedTensor(q.values[z], q.scales[z], q.block) for q in tq]
+            one = gemm.reference_int8(torch.from_numpy(a[z]), member[0],
+                                      qb2=member[1] if gate else None, bias=t(bias_v),
+                                      residual=None if res_v is None else t(res_v[z]),
+                                      activation=act)
+            _close(one, np.asarray(want)[z], "float32")
+
+
 def test_batched_wrapper_checks_its_operands():
     a, b = torch.randn(3, 4, 8), torch.randn(3, 8, 5)
     with pytest.raises(ValueError, match="shape"):
@@ -356,6 +403,17 @@ BATCHED_PLANS = [
     (64, 32, 1408, 2048, F64, F64, False, None, "dmma", (64, 64), False),
     (16, 2048, 2048, 2048, F64, None, False, None, "dmma", (128, 128), False),
     (4, 70, 95, 63, F64, None, True, None, "dmma", (64, 64), False),
+    # f32 TMA cannot address in place: the ring on staged operands (K or N
+    # odd, or even but not multiples of 4)
+    (8, 16, 66, 96, F32, F32, False, None, "ffma_sm90", (32, 64), True),
+    (8, 16, 64, 98, F32, F32, True, None, "ffma_sm90", (32, 64), True),
+    (64, 32, 1407, 2048, F32, F32, False, None, "ffma_sm90", (32, 64), True),
+    (16, 2047, 2047, 2048, F32, None, False, None, "ffma_sm90", (128, 128), True),
+    # packed stacks under f32 A whose int8 rows TMA can address: the ring,
+    # dequantized in its staging
+    (64, 32, 2048, 1408, F32, F32, True, EXPERT_KN, "ffma_sm90", (32, 64), False),
+    (64, 32, 1408, 2048, F32, F32, False, ("kn", (64, 2048)), "ffma_sm90", (32, 64), False),
+    (64, 32, 2048, 1408, F32, F32, False, ("nk", (64, 2048)), "ffma_sm90", (32, 64), False),
     # odd K bf16: A staged
     (64, 32, 2047, 1408, BF16, None, False, None, "wgmma", (64, 64), True),
     (64, 32, 1407, 2048, BF16, F32, False, None, "wgmma", (64, 64), True),
@@ -364,15 +422,15 @@ BATCHED_PLANS = [
     (64, 32, 1408, 2048, BF16, F32, False, ("kn", (64, 2048)), "wgmma", (64, 64), False),
     (64, 64, 1408, 2048, BF16, F32, False, ("kn", (128, 64)), "wgmma", (64, 64), False),
     # what stays on the CUDA-core tile
-    (64, 32, 2048, 1408, F32, F32, True, EXPERT_KN, "ffma", (128, 64), False),
+    (64, 32, 2048, 1400, F32, F32, True, ("kn", (64, 1400)), "ffma", (128, 64), False),
+    (64, 32, 2040, 1408, F32, F32, False, ("nk", (64, 2040)), "ffma", (128, 128), False),
     (64, 32, 2048, 1408, F64, F64, False, EXPERT_KN, "ffma", (128, 128), False),
     (64, 32, 1440, 1408, BF16, BF16, False, ("kn", (48, 1408)), "ffma", (128, 128), False),
     (64, 32, 2048, 1400, BF16, BF16, False, ("kn", (64, 1400)), "ffma", (128, 128), False),
     (64, 32, 2048, 1408, BF16, BF16, False, ("nk", (64, 2048)), "ffma", (128, 128), False),
     (64, 32, 2048, 1408, BF16, torch.float16, False, None, "ffma", (128, 128), False),
     (64, 32, 2048, 1404, BF16, BF16, False, None, "ffma", (128, 128), False),
-    (8, 16, 66, 96, F32, F32, False, None, "ffma", (128, 128), False),
-    (8, 16, 64, 98, F32, F32, True, None, "ffma", (128, 64), False),
+    (8, 16, 0, 96, F32, F32, True, None, "ffma", (128, 64), False),
     (8, 16, 96, 64, F64, F32, False, None, "ffma", (128, 128), False),
     (8, 16, 64, 96, F32, BF16, False, None, "ffma", (128, 128), False),
     (4, 8, 0, 16, BF16, None, False, None, "ffma", (128, 128), False),
@@ -381,15 +439,17 @@ BATCHED_PLANS = [
 
 @pytest.mark.parametrize("batch,m,k,n,dtype,out,gate,packed,route,tile,stage", BATCHED_PLANS)
 def test_plan_batched_routes(batch, m, k, n, dtype, out, gate, packed, route, tile, stage):
-    """Each form's route, tile and staging; the f64 copy width; and where an
-    operand starts off 16 bytes: A staged on "wgmma" (the packed form's
-    int8 B refused there), 8-byte copies on "dmma", the CUDA-core tile for
-    f32."""
+    """Each form's route, tile and staging; the copy width (f64: 16 or 8);
+    and where an operand starts off 16 bytes: A
+    staged on "wgmma" (the packed form's int8 B refused there) and on the
+    f32 ring (dense B), 8-byte copies on "dmma", the CUDA-core tile for
+    packed f32."""
     layout, block = packed or (None, None)
     kw = dict(gate=gate, packed_layout=layout, block=block)
     p = gemm.plan_batched(batch, m, k, n, dtype, out, **kw)
     assert (p.route, p.tile, p.splits, p.stage) == (route, tile, 1, stage)
-    assert p.copy == (0 if route != "dmma" else 16 if k % 2 == 0 and n % 2 == 0 else 8)
+    even = k % 2 == 0 and n % 2 == 0
+    assert p.copy == ((16 if even else 8) if route == "dmma" else 0)
     off_a = gemm.plan_batched(batch, m, k, n, dtype, out, a_aligned=False, **kw)
     off_b = gemm.plan_batched(batch, m, k, n, dtype, out, b_aligned=False, **kw)
     if route == "wgmma":
@@ -397,6 +457,8 @@ def test_plan_batched_routes(batch, m, k, n, dtype, out, gate, packed, route, ti
         assert (off_b.route, off_b.stage) == (("ffma", False) if packed else ("wgmma", True))
     elif route == "dmma":
         assert (off_a.route, off_a.copy, off_b.route, off_b.copy) == ("dmma", 8, "dmma", 8)
+    elif route == "ffma_sm90" and not packed:
+        assert (off_a.route, off_a.stage) == (off_b.route, off_b.stage) == ("ffma_sm90", True)
     else:
         assert off_a.route == off_b.route == "ffma" and not off_a.stage
 
