@@ -32,6 +32,9 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              kernel, with ptxas for the file (no HMMA, or a spill, fails),
              and DMMA in csrc/gemm_f64.cu
              kernels of both copy widths (16 and 8 bytes) or the run fails;
+             HGMMA in the 4 2-D int8 "kn" instantiations of
+             csrc/gemm_sm90.cu and DMMA in the 6 of csrc/gemm_f64_q8.cu
+             (packed B under f64 A), none spilling, or the run fails;
              FFMA in each of csrc/attention.cu's 40 instantiations (the f32
              route "ffma"), with no tensor-core instruction and no spill, or
              the run fails;
@@ -115,11 +118,16 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              beside the first CUDA-core kernel);
 10. quant_kernels - block-scaled int8 weights through core.blas: the decode
              projections (packed bgemv), the prefill projections (int8-B
-             bgemm, "nk"), gemm "kn"/"nk" 8192^3 and gemv 16384^2 with packed
-             operands, and ragged awkward-block cases; each counted as one
-             launch of its packed kernel, held against its plain version,
-             then timed beside its bound and the dense kernel at the same
-             shape; each packed GEMV also prints its plan
+             bgemm, "nk"), gemm "kn"/"nk" 8192^3 under f32, bf16 and f64 A
+             and gemv 16384^2 with packed operands, ragged awkward-block
+             cases (bf16 "kn" with the gate and with the epilogue; f32 on
+             the CUDA-core tile, f64 on staged rows); each counted as one
+             launch of its packed
+             kernel, held against its plain version (under f64 A also
+             bitwise against the dense launch on the dequantized B), then
+             timed beside its bound, the dense kernel at the same shape and,
+             a GEMM, csrc/gemm.cu's int8-B kernel (ffma_ms), each GEMM
+             bitwise a second launch; each packed GEMV also prints its plan
              (`kernels.bgemv.plan_int8`: rows, K splits, columns), is held
              bitwise against a second launch and timed beside the first
              design (replaced_ms);
@@ -226,11 +234,14 @@ Phases, each printing one JSON line; any failure raises (nonzero exit):
              moonshot-v1-16b-a3b FULL's expert shapes (64 experts, d 2048, f
              1408; 32 rows an expert at decode, 64 at prefill): the gate+up
              dual launch (silu, bf16 out) and the down launch (f32 out) on
-             the tensor cores, the packed expert stacks, f32, f64 and odd K
-             on the CUDA-core tile (csrc/gemm_batched*.cu); each one launch
-             on its plan's route, against its plain version, bitwise a
-             second launch, timed beside its bound, the plain version and
-             torch.bmm on the same operands (products only);
+             the tensor cores, the packed expert stacks, f32, f64 (packed
+             stacks too, bitwise the dense launch on the dequantized
+             stacks) and odd K on the kernels of their 2-D counterparts,
+             output-major packed stacks under bf16 A on the CUDA-core tile
+             (csrc/gemm_batched*.cu); each one launch on its plan's route,
+             against its plain version, bitwise a second launch, timed
+             beside its bound, the plain version, torch.bmm on the same
+             operands (products only) and the CUDA-core tile;
 29. smoke_moe - moonshot and grok-1-314b SMOKE (f32), continuous and batch
              schedulers and --quantize int8, kernels vs plain versions equal
              greedy tokens, two batched expert launches a layer a forward;
@@ -446,25 +457,25 @@ def bound(bytes_moved: int, flops: float, dtype) -> tuple:
 
 def _tc_config(mangled: str):
     """(BM, BN, GATE, Q) of a mangled gemm_tc_kernel<BM, BN, GATE, Q, ODD, BATCHED, TO>
-    name."""
-    m = re.search(r"gemm_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", mangled)
+    name (Q: 0 bf16 B, 1 int8 "nk", 2 int8 "kn")."""
+    m = re.search(r"gemm_tc_kernelILi(\d+)ELi(\d+)ELb(\d)ELi(\d)E", mangled)
     return tuple(int(v) for v in m.groups()) if m else None
 
 
 def _tc_name(mangled: str) -> str:
-    """'BMxBN [gate] [int8] [odd] [batched] [f32 out]' for a gemm_tc_kernel
-    instantiation (odd: the epilogue for an odd N or a C off 4 bytes;
-    batched: the batched-B form's rank-3 maps; f32 out: C in f32, the MoE's
-    down projection)."""
+    """'BMxBN [gate] [int8 nk|kn] [odd] [batched] [f32 out]' for a
+    gemm_tc_kernel instantiation (odd: the epilogue for an odd N or a C off
+    4 bytes; batched: the batched-B form's rank-3 maps; f32 out: C in f32,
+    the MoE's down projection)."""
     cfg = _tc_config(mangled)
     if cfg is None:
         return mangled[:60]
     bm, bn, gate, q = cfg
-    head = r"gemm_tc_kernelILi\d+ELi\d+ELb\dELb\d"
+    head = r"gemm_tc_kernelILi\d+ELi\d+ELb\dELi\d"
     odd = re.search(head + r"ELb1E", mangled)
     batched = re.search(head + r"ELb\dELb1E", mangled)
     f32 = re.search(head + r"ELb\dELb\dEfE", mangled)
-    return (f"{bm}x{bn}" + (" gate" if gate else "") + (" int8" if q else "")
+    return (f"{bm}x{bn}" + (" gate" if gate else "") + ("", " int8 nk", " int8 kn")[q]
             + (" odd" if odd else "") + (" batched" if batched else "")
             + (" f32 out" if f32 else ""))
 
@@ -533,6 +544,17 @@ def _f64_name(mangled: str):
             f" copy={8 * vec}B" + (" batched" if batched else ""))
 
 
+def _f64_q8_name(mangled: str):
+    """'BMxBN [gate] kn|nk' for a gemm_f64_q8_kernel instantiation
+    (csrc/gemm_f64_q8.cu), else None."""
+    m = re.search(r"gemm_f64_q8_kernelI.*?TileILi(\d+)ELi(\d+)ELi\d+ELi\d+ELi\d+ELb(\d)EEELi(\d)E",
+                  mangled)
+    if m is None:
+        return None
+    bm, bn, gate, layout = (int(v) for v in m.groups())
+    return f"{bm}x{bn}" + (" gate" if gate else "") + (" nk" if layout else " kn")
+
+
 def _mma_name(mangled: str):
     """'ssd outputs bf16|f32' / 'ssd states ..' / 'ssd scan V=.. U=..' for
     csrc/mamba2.cu's kernels, else None."""
@@ -592,6 +614,7 @@ def phase_sass(lib: Path) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     hgmma, hmma, dmma, ffma, qhmma, mma, fn = {}, {}, {}, {}, {}, {}, None
+    dmma_q8 = {}  # csrc/gemm_f64_q8.cu
     attn_ffma, attn_tc, ffma_fn = {}, {}, None  # csrc/attention.cu: FFMA, tensor cores
     q8_ffma, q8_tc, q8_fn = {}, {}, None  # csrc/gemm_f32_q8.cu: FFMA, tensor cores
     for line in sass.splitlines():
@@ -610,6 +633,8 @@ def phase_sass(lib: Path) -> dict:
                 attn_ffma[ffma_fn] = attn_tc[ffma_fn] = 0
             elif _f64_name(fn):
                 dmma[_f64_name(fn)] = 0
+            elif _f64_q8_name(fn):
+                dmma_q8[_f64_q8_name(fn)] = 0
             elif _f32_name(fn):
                 ffma[_f32_name(fn)] = 0
             elif "qgemv_tc_kernel" in fn:
@@ -634,6 +659,8 @@ def phase_sass(lib: Path) -> dict:
             hmma[_attn_name(fn)] += 1
         elif fn and _f64_name(fn) in dmma and re.search(r"\bDMMA\b", line):
             dmma[_f64_name(fn)] += 1
+        elif fn and _f64_q8_name(fn) in dmma_q8 and re.search(r"\bDMMA\b", line):
+            dmma_q8[_f64_q8_name(fn)] += 1
         elif fn and _f32_name(fn) in ffma and re.search(r"\bFFMA\b", line):
             ffma[_f32_name(fn)] += 1
         elif fn and "qgemv_tc_kernel" in fn and re.search(r"\bHMMA\b", line):
@@ -641,7 +668,7 @@ def phase_sass(lib: Path) -> dict:
     smem = _build.function("gemm_tc_smem_bytes", [ctypes.c_int] * 4)
     attn_smem = _build.function("attention_mma_smem_bytes", [ctypes.c_int] * 2)
     ptxas, attn_ptxas, f64_ptxas, bgemv_ptxas, f32_ptxas = {}, {}, {}, {}, {}
-    q8_ptxas = {}
+    q8_ptxas, f64_q8_ptxas = {}, {}
     qgemv_ptxas, wkv6_ptxas, mma_ptxas = {}, {}, {}
     notes, entry = [], None
     for line in _build.build_log.splitlines():
@@ -656,6 +683,8 @@ def phase_sass(lib: Path) -> dict:
                 bm, bn, bk, stages, _, _, gate, _, _ = _f64_config(fn)
                 ring = stages * (bm * (bk + 4) + (1 + gate) * bk * (bn + 4)) * 8  # padded rows
                 entry = f64_ptxas[_f64_name(fn)] = {"dynamic_smem_bytes": ring}
+            elif _f64_q8_name(fn):
+                entry = f64_q8_ptxas[_f64_q8_name(fn)] = {}
             elif _f32_name(fn):
                 entry = f32_ptxas[_f32_name(fn)] = {}
             elif _f32_q8_name(fn):
@@ -714,8 +743,21 @@ def phase_sass(lib: Path) -> dict:
          dmma_total=sum(dmma.values()),
          dmma_per_kernel=dmma, ptxas=f64_ptxas or "not built in this process",
          bgemv_ptxas=bgemv_ptxas, f64_spill_bytes=f64_spills, bgemv_spill_bytes=bgemv_spills)
+    f64_q8_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                     for k, v in f64_q8_ptxas.items()}
+    emit("sass", what="DMMA in csrc/gemm_f64_q8.cu's kernels (cuobjdump -sass); ptxas for them",
+         dmma_per_kernel=dmma_q8,
+         registers={k: v.get("registers") for k, v in f64_q8_ptxas.items()},
+         spill_bytes=f64_q8_spills or "not built in this process")
     (OUT / "sass_dmma.json").write_text(json.dumps({"dmma": dmma, "ptxas": f64_ptxas,
-                                                    "bgemv_ptxas": bgemv_ptxas}, indent=1))
+                                                    "bgemv_ptxas": bgemv_ptxas,
+                                                    "dmma_q8": dmma_q8,
+                                                    "q8_ptxas": f64_q8_ptxas}, indent=1))
+    # the 2 stored layouts x 3 tiles (DMMA_TILES and DMMA_Q8_GATE_TILES)
+    if (len(dmma_q8) != 6 or min(dmma_q8.values()) == 0
+            or (_build.build_log and (len(f64_q8_spills) != 6 or any(f64_q8_spills.values())))):
+        raise AssertionError(f"f64 int8 instantiations (want 6, each with DMMA, no spill): "
+                             f"DMMA {dmma_q8}, spills {f64_q8_spills}")
     f32_spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
                   for k, v in f32_ptxas.items()}
     emit("sass", what="FFMA in csrc/gemm_f32.cu's kernels (cuobjdump -sass); ptxas for them",
@@ -766,6 +808,9 @@ def phase_sass(lib: Path) -> dict:
     batched = sorted(k for k in hgmma if "batched" in k)
     if len(batched) != 12:  # gate x bf16 / f32 out x (2 tiles dense, 64 x 64 int8 "kn" B)
         raise AssertionError(f"batched tensor-core instantiations {batched}, want 12")
+    kn_2d = sorted(k for k in hgmma if "int8 kn" in k and "batched" not in k)
+    if len(kn_2d) != 4:  # the 2-D int8 "kn" form: PACKED_TILES and PACKED_GATE_TILES
+        raise AssertionError(f"2-D int8 kn tensor-core instantiations {kn_2d}, want 4")
     # f64: 2 tiles x gate x 2 copy widths; f32: FFMA_SM90_BATCHED_TILES and
     # the gate's, and as many ODD ones, with the 5 2-D ODD ones
     for kind, names, want, end in (("f64", dmma, 8, "batched"), ("f32", ffma, 7, "batched"),
@@ -2031,6 +2076,9 @@ def bgemv_batch_invariance():
 
 SERVE_SPEC = dict(block_m=64, block_n=None)   # layers.quantize_weights' spec
 AWKWARD_SPEC = dict(block_m=61, block_n=None)  # _fit_block shrinks 61 to a divisor
+RAGGED_KN_F32 = 'ragged gemm "kn" (4095,4097)@(4097,4093) block (61->17, N) +bias gelu +res'
+RAGGED_KN_F64 = RAGGED_KN_F32.replace("ragged gemm", "ragged f64 gemm")
+RAGGED_KN_BF16 = 'ragged gemm "kn" (4095,4096)@(4096,2064) block (64, N)'
 
 
 def int8_plan(b: int, k: int, n: int, dtype, gate: bool) -> dict:
@@ -2044,14 +2092,19 @@ def quant_cases():
     for every int8 case; make() builds the inputs from a seeded generator and
     returns (call through core.blas, the same call on the dense weight,
     bytes, flops, ffma: csrc/gemm.cu's int8-B kernel on the same inputs where
-    the tensor cores or the f32 ring run the call, replaced: the packed
-    GEMV's first design on the same inputs where the call runs
-    csrc/qgemv.cu).  Bytes count the int8 values, the f32 scales, the
-    activations and the output once each.  The route key is the launch
-    count each call adds beside its kernel's: bf16 GEMMs over the serving
-    layout ("nk", one scale block across K) on the tensor cores, f32 ones
-    whose int8 rows TMA can address on the f32 ring (the dense f32 ring the
-    `dense` call), the rest on the first CUDA-core kernel."""
+    a GEMM runs, replaced: the packed GEMV's first design on the same inputs
+    where the call runs csrc/qgemv.cu, plan: the packed GEMV's, deq: under
+    f64 A the same call on the dequantized B (`dequantize_in(B, float64)`),
+    whose bits the packed launch must give).  Bytes count the int8 values,
+    the f32 scales, the activations and the output once each.  The route key
+    is the launch count each call adds beside its kernel's: bf16 GEMMs over
+    the serving layout ("nk", one scale block across K) and over "kn" with a
+    scale block of whole k-steps on the tensor cores (8192^3, and ragged
+    with the gate and with bias, gelu and the residual), f32 ones whose int8
+    rows TMA can address on the f32 ring (the dense f32 ring the `dense`
+    call), f64 ones on the f64 tensor cores (every layout; the ragged one on
+    operands staged into rows padded to 16 bytes), the rest on the first
+    CUDA-core kernel."""
     from repro_torch.core import blas, quant
 
     def rnd(g, dtype, *shape, std=1.0):
@@ -2098,24 +2151,36 @@ def quant_cases():
                     lambda: blas.matmul_fused(x, w, **dense_kw),
                     nbytes(x, qw.values, qw.scales) + extra + out,
                     2 * 4 * rows * d * f * (2 if epi == "gate" else 1), ffma, replaced,
-                    int8_plan(4, d, f, dtype, epi == "gate") if rows == 1 else None)
+                    int8_plan(4, d, f, dtype, epi == "gate") if rows == 1 else None, None)
         return make
 
-    def gemm_case(dtype, m, k, n, seed, transpose, spec=SERVE_SPEC, epi=False):
+    def gemm_case(dtype, m, k, n, seed, transpose, spec=SERVE_SPEC, epi=None):
+        """epi: None, "all" (bias, gelu, residual) or "gate" (B2, silu)"""
         def make():
             g = torch.Generator(device="cuda").manual_seed(seed)
             a, b = rnd(g, dtype, m, k), rnd(g, dtype, k, n, std=k ** -0.5)
             qb = pack(b, spec, transpose)
-            kw, extra = {}, 0
-            if epi:
+            kw, fkw, dense_kw, extra, qb2 = {}, {}, {}, 0, None
+            if epi == "all":
                 bias, res = rnd(g, dtype, n), rnd(g, dtype, m, n)
-                kw, extra = dict(bias=bias, residual=res, epilogue="gelu"), nbytes(bias, res)
-            ffma = None
-            if (transpose and dtype == torch.bfloat16) or dtype == torch.float32:
-                ffma = lambda: ffma_launch(a, qb)  # noqa: E731
-            return (lambda: blas.gemm(a, qb, **kw), lambda: blas.gemm(a, b, **kw),
+                kw = dense_kw = dict(bias=bias, residual=res, epilogue="gelu")
+                fkw, extra = dict(bias=bias, residual=res, activation="gelu"), nbytes(bias, res)
+            elif epi == "gate":
+                b2 = rnd(g, dtype, k, n, std=k ** -0.5)
+                qb2 = pack(b2, spec, transpose)
+                kw, dense_kw = dict(B2=qb2, epilogue="silu"), dict(B2=b2, epilogue="silu")
+                fkw, extra = dict(b2=qb2, activation="silu"), nbytes(qb2.values, qb2.scales)
+            deq = None
+            if dtype == torch.float64:  # the dense launch on the dequantized B (and B2)
+                def deq():
+                    d2 = {} if qb2 is None else dict(
+                        B2=quant.dequantize_in(qb2, dtype).contiguous())
+                    return blas.gemm(a, quant.dequantize_in(qb, dtype).contiguous(),
+                                     **dict(kw, **d2))
+            return (lambda: blas.gemm(a, qb, **kw), lambda: blas.gemm(a, b, **dense_kw),
                     nbytes(a, qb.values, qb.scales) + extra + m * n * a.element_size(),
-                    2 * m * n * k, ffma, None, None)
+                    2 * m * n * k * (2 if epi == "gate" else 1),
+                    lambda: ffma_launch(a, qb, **fkw), None, None, deq)
         return make
 
     def gemv_case(dtype, m, n, seed, spec=SERVE_SPEC):
@@ -2125,7 +2190,7 @@ def quant_cases():
             qa = pack(a, spec, False)
             return (lambda: blas.gemv(qa, x), lambda: blas.gemv(a, x),
                     nbytes(qa.values, qa.scales, x) + m * x.element_size(), 2 * m * n, None,
-                    lambda: replaced_qgemv(qa, x[None]), int8_plan(1, n, m, dtype, False))
+                    lambda: replaced_qgemv(qa, x[None]), int8_plan(1, n, m, dtype, False), None)
         return make
 
     bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
@@ -2144,10 +2209,10 @@ def quant_cases():
             (kernel, dense, f"{what} down {shape}5632->2048 +residual", bf16,
              proj_case(bf16, rows, 5632, 2048, 63 + rows, "residual"), route),
         ]
-    for i, (dt, transpose) in enumerate(((f32, False), (f32, True), (bf16, False), (bf16, True))):
+    for i, (dt, transpose) in enumerate(((f32, False), (f32, True), (bf16, False), (bf16, True),
+                                         (f64, False), (f64, True))):
         layout = "nk" if transpose else "kn"
-        route = ("gemm_wgmma" if dt == bf16 and transpose else "gemm_ffma_sm90" if dt == f32
-                 else "gemm_ffma")
+        route = {bf16: "gemm_wgmma", f32: "gemm_ffma_sm90", f64: "gemm_dmma"}[dt]
         cases.append(("gemm_int8", "gemm", f'gemm "{layout}" {D8K}x{D8K}x{D8K}', dt,
                       gemm_case(dt, D8K, D8K, D8K, 70 + i, transpose), route))
     for i, dt in enumerate((f32, f64)):
@@ -2156,9 +2221,14 @@ def quant_cases():
     cases += [
         ("bgemv_int8", "bgemv", "ragged decode 4x4097->4095 block (61->45, K) +bias gelu +res", f32,
          proj_case(f32, 1, 4097, 4095, 90, "all", AWKWARD_SPEC), None),
-        ("gemm_int8", "gemm", 'ragged gemm "kn" (4095,4097)@(4097,4093) block (61->17, N) '
-         "+bias gelu +res", f32, gemm_case(f32, 4095, 4097, 4093, 91, False, AWKWARD_SPEC, True),
-         "gemm_ffma"),
+        ("gemm_int8", "gemm", RAGGED_KN_F32, f32,
+         gemm_case(f32, 4095, 4097, 4093, 91, False, AWKWARD_SPEC, "all"), "gemm_ffma"),
+        ("gemm_int8", "gemm", RAGGED_KN_F64, f64,
+         gemm_case(f64, 4095, 4097, 4093, 93, False, AWKWARD_SPEC, "all"), "gemm_dmma"),
+        ("gemm_int8", "gemm", f"{RAGGED_KN_BF16} x2 silu-gate", bf16,
+         gemm_case(bf16, 4095, 4096, 2064, 94, False, epi="gate"), "gemm_wgmma"),
+        ("gemm_int8", "gemm", f"{RAGGED_KN_BF16} +bias gelu +res", bf16,
+         gemm_case(bf16, 4095, 4096, 2064, 95, False, epi="all"), "gemm_wgmma"),
         ("gemv_int8", "gemv", "ragged gemv 4095x4097 block (61->45, K)", f32,
          gemv_case(f32, 4095, 4097, 92, AWKWARD_SPEC), None),
     ]
@@ -2168,21 +2238,26 @@ def quant_cases():
 def phase_quant_kernels():
     """Drive every int8 case once through core.blas with the launch counts
     reset just before (each call must add exactly one launch to its packed
-    kernel's count), hold it against its plain version, then time it beside
-    its bound, its plain version, the dense kernel at the same shape and,
-    for a packed GEMV, the design it replaced (`replaced_ms`) and its plan;
-    a split plan's launch is held bitwise against a second launch."""
+    kernel's count), hold it against its plain version (under f64 A also
+    bitwise against the dense launch on the dequantized B), then time it
+    beside its bound, its plain version, the dense kernel at the same shape,
+    for a GEMM `gemm.cu`'s int8-B kernel (`ffma_ms`) and, for a packed GEMV,
+    the design it replaced (`replaced_ms`) and its plan; a GEMM's or a split
+    plan's launch is held bitwise against a second launch.  Returns (rows,
+    the phase's launch counts, the launches each case added)."""
     from repro_torch.kernels import ops
     cases = quant_cases()
-    errs = []
+    errs, added = [], {}
     ops.reset_launch_counts()
     for kernel, _, case, dtype, make, route in cases:
-        call = make()[0]
+        made = make()
+        call, deq = made[0], made[7]
         before = ops.launch_counts()
         got = call()
         after = ops.launch_counts()
         with ops.reference_mode():
             want = call()
+        dense_bits = bool(torch.equal(got, deq())) if deq is not None else None
         torch.cuda.synchronize()
         rose = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         want_rose = {kernel: 1, **({route: 1} if route else {})}
@@ -2190,13 +2265,16 @@ def phase_quant_kernels():
         tol = TOL[dtype]
         ok = (bool(torch.isfinite(got).all()) and got.dtype == dtype and got.shape == want.shape
               and torch.allclose(got.double(), want.double(), **tol))
-        errs.append((err, ok))
-        if not ok or rose != want_rose:
+        errs.append((err, ok, dense_bits))
+        added[(case, str(dtype).split(".")[1])] = rose
+        if not ok or rose != want_rose or dense_bits is False:
             emit("quant_kernels", kernel=kernel, case=case, dtype=str(dtype).split(".")[1],
-                 max_abs_err=err, tol=tol, within_tol=ok, launches_added=rose)
+                 max_abs_err=err, tol=tol, within_tol=ok, launches_added=rose,
+                 bitwise_dense_on_dequantized=dense_bits)
             raise AssertionError(f"int8 [{case}] {dtype}: within_tol={ok}, launches added "
-                                 f"{rose} (want {want_rose})")
-        del call, got, want
+                                 f"{rose} (want {want_rose}), bitwise the dense launch on the "
+                                 f"dequantized B: {dense_bits}")
+        del call, got, want, made
     counts = ops.launch_counts()
     emit("launches", run="quant_kernels", **counts)
     for kernel in ("bgemv_int8", "gemm_int8", "gemv_int8"):
@@ -2205,14 +2283,15 @@ def phase_quant_kernels():
             raise AssertionError(f"int8 launches {counts}: {kernel} {counts[kernel]} != {expected}")
 
     rows = {}
-    for (kernel, dense, case, dtype, make, route), (err, ok) in zip(cases, errs):
-        call, dense_call, nb, flops, ffma, replaced, plan = make()
+    for (kernel, dense, case, dtype, make, route), (err, ok, dense_bits) in zip(cases, errs):
+        call, dense_call, nb, flops, ffma, replaced, plan, _ = make()
         same = replaced_err = None
-        if replaced is not None:  # the packed GEMV: two launches' bits, its first design
-            got = call()
+        if replaced is not None or kernel == "gemm_int8" and ffma is not None:
+            got = call()  # two launches' bits; the packed GEMV's first design
             same = split_deterministic(call, got)
-            replaced_err = (replaced().double() - got.reshape(-1, got.shape[-1]).double()
-                            ).abs().max().item()
+            if replaced is not None:
+                replaced_err = (replaced().double() - got.reshape(-1, got.shape[-1]).double()
+                                ).abs().max().item()
             del got
         ms = time_auto(call)
         with ops.reference_mode():
@@ -2227,13 +2306,14 @@ def phase_quant_kernels():
                    dense_ms=dense_ms, replaced_ms=replaced_ms,
                    replaced="scripts/replaced/qgemv_rows4.cu" if replaced else None,
                    replaced_max_abs_diff=replaced_err, plan=plan, bitwise_deterministic=same,
+                   bitwise_dense_on_dequantized=dense_bits,
                    bound_ms=b_ms, bound_by=by, share_of_bound=b_ms / ms, bytes=nb, flops=flops)
         emit("quant_kernels", **row)
         rows[(kernel, case, row["dtype"])] = row
         if same is False:
             raise AssertionError(f"int8 [{case}] {dtype}: two launches differ")
         del call, dense_call, ffma, replaced
-    return rows, counts
+    return rows, counts, added
 
 
 def phase_quantize(params):
@@ -3547,8 +3627,10 @@ def moe_cases():
     one case whose scales vary along N too), on the tensor cores; f32 (the
     TMA ring), f64 (DMMA), odd-K bf16 (A staged) and odd-K f32 (the ring,
     A staged) at the decode down shape; packed stacks under
-    f32 A (the ring, dequantized in its staging) and f64 A (the CUDA-core
-    tile); and one
+    f32 A (the ring, dequantized in its staging) and f64 A (DMMA, bitwise
+    the dense launch on the dequantized stacks), and output-major ("nk")
+    packed stacks under bf16 A (the CUDA-core tile: no Hopper kernel takes
+    them); and one
     operation-bound BLAS case a dtype through `blas.batched_gemm`: (16,
     2048, 2048, 2048) in f64 and f32, (16, 2047, 2047, 2048) in bf16.
     Dicts: label, call, lib (torch.bmm on the same operands, products
@@ -3556,6 +3638,7 @@ def moe_cases():
     csrc/gemm_batched*.cu, the first design), bytes, flops, dtype,
     out_dtype, packed, gate, shape, plan_kw (`gemm.plan_batched`'s packed
     layout and block), dense (the label of the dense case at that shape, or
+    None), deq (under f64 A the same launch on the dequantized stacks, or
     None)."""
     from repro_torch.core import blas, quant
     from repro_torch.kernels import gemm, ops
@@ -3574,6 +3657,12 @@ def moe_cases():
 
     def case(label, a, b, lib, *, b2=None, activation=None, out_dtype, dense=None, call=None):
         packed = quant.is_quantized(b)
+        deq = None
+        if packed and a.dtype == torch.float64:
+            def deq():
+                d2 = None if b2 is None else quant.dequantize_in(b2, a.dtype).contiguous()
+                return ops.bgemm(a, quant.dequantize_in(b, a.dtype).contiguous(), b2=d2,
+                                 activation=activation, out_dtype=out_dtype)
         batch, m, k = a.shape
         n = b.shape[-1]
         out_b = batch * m * n * torch.empty((), dtype=out_dtype).element_size()
@@ -3589,7 +3678,8 @@ def moe_cases():
             bytes=nbytes(a) + w_b + out_b,
             flops=2 * batch * m * k * n * (2 if b2 is not None else 1), dtype=a.dtype,
             out_dtype=out_dtype, packed=packed, gate=b2 is not None, shape=(batch, m, k, n),
-            plan_kw=dict(packed_layout="kn", block=b.block) if packed else {}, dense=dense))
+            plan_kw=dict(packed_layout=gemm.packed_layout(b), block=b.block) if packed else {},
+            dense=dense, deq=deq))
 
     for m, what in ((32, "decode"), (64, "prefill")):
         h, mid = rnd(e, m, d), rnd(e, m, f)
@@ -3615,6 +3705,8 @@ def moe_cases():
             case(down64, mid64, wd64, lambda: torch.bmm(mid64, wd64), out_dtype=torch.float64,
                  dense=down)
             case(f"int8 {down64}", mid64, qd, None, out_dtype=torch.float64, dense=down64)
+            qd_nk = quant.quantize(wd, quant.QuantSpec(block_m=64, block_n=None, transpose=True))
+            case(f"int8 nk {down}", mid, qd_nk, None, out_dtype=torch.float32, dense=down)
             odd, wodd = mid[..., :f - 1].contiguous(), wd[:, :f - 1].contiguous()
             odd_down = f"odd K {what} down ({e},{m},{f - 1})@({e},{f - 1},{d}) f32 out"
             case(odd_down, odd, wodd, lambda: torch.bmm(odd, wodd), out_dtype=torch.float32,
@@ -3638,8 +3730,10 @@ def phase_moe_kernels():
     differing in order only), bitwise a second launch; timed beside its
     bound, the plain version, torch.bmm on the same operands (products
     only) and, off the "ffma" route, the same launch on the CUDA-core tile
-    (`first_tile_ms`, the design these forms left).  Returns (rows by label,
-    the launches of the checked calls by key)."""
+    (`first_tile_ms`, the design these forms left); under f64 A a packed
+    launch is held bitwise against the dense launch on the dequantized
+    stacks.  Returns (rows by label, the launches of the checked calls by
+    key, with `bgemm_batched_{route}_int8` the packed ones among a route's)."""
     from repro_torch.kernels import gemm, ops
     rows, launched = {}, {}
     for c in moe_cases():
@@ -3658,8 +3752,12 @@ def phase_moe_kernels():
                                  f"plan {p}")
         for key, v in rose.items():
             launched[key] = launched.get(key, 0) + v
+        if c["packed"]:
+            key = f"bgemm_batched_{p.route}_int8"
+            launched[key] = launched.get(key, 0) + rose[f"bgemm_batched_{p.route}"]
         with ops.reference_mode():
             want = c["call"]()
+        dense_bits = bool(torch.equal(got, c["deq"]())) if c["deq"] is not None else None
         torch.cuda.synchronize()
         tol = TOL[c["out_dtype"] if c["out_dtype"] in TOL else c["dtype"]]
         err = (got.double() - want.double()).abs().max().item()
@@ -3681,11 +3779,12 @@ def phase_moe_kernels():
                    else None, first_tile_ms=first_ms, bound_ms=b_ms, bound_by=by,
                    share_of_bound=b_ms / ms,
                    dense_ms=rows[c["dense"]]["kernel_ms"] if c["dense"] else None,
-                   bytes=c["bytes"], flops=c["flops"])
+                   bitwise_dense_on_dequantized=dense_bits, bytes=c["bytes"], flops=c["flops"])
         emit("moe_kernels", **row)
-        if not ok or not same:
+        if not ok or not same or dense_bits is False:
             raise AssertionError(f"moe_kernels [{c['label']}]: max |kernel - plain| {err} "
-                                 f"(tol {tol}), second launch bitwise {same}")
+                                 f"(tol {tol}), second launch bitwise {same}, bitwise the "
+                                 f"dense launch on the dequantized stacks {dense_bits}")
         rows[c["label"]] = row
     emit("launches", run="moe_kernels", **launched)
     torch.cuda.empty_cache()
@@ -4658,7 +4757,7 @@ def main() -> int:
             del fparams
             torch.cuda.empty_cache()
         blas_rows, blas_counts = phase_blas()
-        quant_rows, quant_counts = phase_quant_kernels()
+        quant_rows, quant_counts, quant_added = phase_quant_kernels()
 
     # the prefill projections: every bgemm launch of the serve on the
     # tensor-core kernel (check_prefill_routes)
@@ -4745,15 +4844,28 @@ def main() -> int:
     # the packed kernels: launches from the int8 serve (bgemv_int8, gemm_int8:
     # every prefill projection on the tensor cores) and from the packed BLAS
     # run of phase 10 (gemv_int8; gemm_int8_ffma_sm90, f32 A on the f32 ring,
-    # there every such launch; gemm_int8_ffma, the int8-B forms neither
-    # takes, there every packed gemm launch on the first CUDA-core kernel)
+    # there every such launch; gemm_int8_wgmma_kn, bf16 A against "kn" B on
+    # the tensor cores, its three launches there; gemm_int8_dmma, f64 A on
+    # the f64 tensor cores, its three; gemm_int8_ffma, the int8-B
+    # forms none takes, there every packed gemm launch on the first
+    # CUDA-core kernel)
+    kn_launches = sum(rose.get("gemm_wgmma", 0) for (case, dtype), rose in quant_added.items()
+                      if dtype == "bfloat16" and '"kn"' in case)
+    f64_launches = sum(rose.get("gemm_dmma", 0) for (_, dtype), rose in quant_added.items()
+                       if dtype == "float64")  # (the dense launches on the dequantized B apart)
     quant_sources = {
         "bgemv_int8": ("src/repro_torch/csrc/qgemv.cu", "src/repro/kernels/bgemv.py:230",
                        "decode qkv 4x1x2048->2048 +bias", "bfloat16", int8_counts["bgemv_int8"]),
         "gemm_int8": ("src/repro_torch/csrc/gemm_sm90.cu", "src/repro/kernels/bgemm.py:217",
                       "prefill qkv 4x128x2048->2048 +bias", "bfloat16", int8_counts["gemm_int8"]),
         "gemm_int8_ffma": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:184",
-                           f'gemm "kn" {D8K}x{D8K}x{D8K}', "bfloat16", quant_counts["gemm_ffma"]),
+                           RAGGED_KN_F32, "float32", quant_counts["gemm_ffma"]),
+        "gemm_int8_wgmma_kn": ("src/repro_torch/csrc/gemm_sm90.cu",
+                               "src/repro/kernels/gemm.py:184", f'gemm "kn" {D8K}x{D8K}x{D8K}',
+                               "bfloat16", kn_launches),
+        "gemm_int8_dmma": ("src/repro_torch/csrc/gemm_f64_q8.cu",
+                           "src/repro/kernels/gemm.py:184", f'gemm "kn" {D8K}x{D8K}x{D8K}',
+                           "float64", f64_launches),
         "gemm_int8_ffma_sm90": ("src/repro_torch/csrc/gemm_f32_q8.cu",
                                 "src/repro/kernels/gemm.py:184", f'gemm "kn" {D8K}x{D8K}x{D8K}',
                                 "float32", quant_counts["gemm_ffma_sm90"]),
@@ -4829,8 +4941,11 @@ def main() -> int:
     # with A staged with launches from moe_kernels' checked calls (no served
     # model runs them; the BLAS case beside each); packed stacks under f32 A
     # on the f32 ring with launches from the f32 smoke serve under
-    # --quantize int8; packed stacks under f64 A on the CUDA-core tile with
-    # launches from moe_kernels' checked calls
+    # --quantize int8; packed stacks under f64 A on DMMA, and output-major
+    # packed stacks under bf16 A on the CUDA-core tile, with launches from
+    # moe_kernels' checked calls
+    moe_launched["bgemm_batched_dmma_dense"] = (moe_launched.get("bgemm_batched_dmma", 0)
+                                                - moe_launched.get("bgemm_batched_dmma_int8", 0))
     dec_gu = "decode gate_up (64,32,2048)@(64,2048,1408) x2 silu bf16 out"
     dec_dn = "decode down (64,32,1408)@(64,1408,2048) f32 out"
     blas_label = "blas batched_gemm ({0},{1},{2})@({0},{2},{3}) {4}".format
@@ -4843,16 +4958,18 @@ def main() -> int:
              moe_smoke[(MOE, "continuous")], "bgemm_batched_ffma_sm90", "smoke_moe (f32)",
              blas_label(*BLAS_BATCHED, "float32")),
             ("bgemm_batched_dmma", "gemm_f64.cu",
-             f"f64 {dec_dn.replace('f32 out', 'f64 out')}", moe_launched, "bgemm_batched_dmma",
-             "moe_kernels", blas_label(*BLAS_BATCHED, "float64")),
+             f"f64 {dec_dn.replace('f32 out', 'f64 out')}", moe_launched,
+             "bgemm_batched_dmma_dense", "moe_kernels", blas_label(*BLAS_BATCHED, "float64")),
             ("bgemm_batched_wgmma_staged", "gemm_sm90.cu",
              "odd K decode down (64,32,1407)@(64,1407,2048) f32 out", moe_launched,
              "bgemm_batched_staged", "moe_kernels", blas_label(*BLAS_BATCHED_ODD, "bfloat16")),
             ("bgemm_batched_int8_ffma_sm90", "gemm_f32_q8.cu", f"int8 f32 {dec_dn}",
              moe_smoke[(MOE, "int8")], "bgemm_batched_ffma_sm90", "smoke_moe int8 (f32)",
              f"f32 odd K {dec_dn.replace('1408', '1407')}"),
-            ("bgemm_batched_ffma", "gemm_batched_f64_q8.cu",
+            ("bgemm_batched_int8_dmma", "gemm_f64_q8.cu",
              f"int8 f64 {dec_dn.replace('f32 out', 'f64 out')}", moe_launched,
+             "bgemm_batched_dmma_int8", "moe_kernels", None),
+            ("bgemm_batched_ffma", "gemm_batched_bf16.cu", f"int8 nk {dec_dn}", moe_launched,
              "bgemm_batched_ffma", "moe_kernels", None)):
         r = moe_rows[case]
         extra = {}

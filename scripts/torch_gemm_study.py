@@ -18,6 +18,8 @@
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32feed
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32q8
     PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f32vec OTHER_TREE
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f64q8
+    PYTHONPATH=src:. python3 scripts/torch_gemm_study.py f64vs OTHER_TREE
 
 tiles: the tensor-core kernel (csrc/gemm_sm90.cu) at every tile it
 instantiates, and at K splits where the tiles leave half the card idle, at
@@ -118,17 +120,24 @@ bitwise the body); then one long member
 body at the plan's split and at 2 and 4 splits, beside the first design and
 torch.bmm.  `bgemv.MEMBER_MAX_BYTES` and `MEMBERS` come from these.
 
-packed: the batched tensor-core kernel's packed int8 "kn" form
-(csrc/gemm_sm90.cu, `KnLayout`) at moonshot's decode expert shapes (the
-gate+up dual launch and the down launch, 64 experts of 32 rows, scales one
-a 64-row k-step) as the tree builds it and in two variants compiled from
-its source beside it: the launch bound 1 (blocks an SM as the registers
-allow, no `setmaxnreg`), 6 staging stages (shared memory for fewer blocks
-an SM) and, without the gate, the registers left as compiled (no
-`setmaxnreg`); each checked
-against the plain version, timed beside the dense batched launch on the
-same bf16 weights.  `KnLayout`'s blocks, stages and registers come from
-these.
+packed: the tensor-core kernel's packed int8 "kn" form (csrc/gemm_sm90.cu,
+`KnLayout`) as the tree builds it and in variants compiled from its source
+beside it.  Batched, at moonshot's decode expert shapes (the gate+up dual
+launch and the down launch, 64 experts of 32 rows, scales one a 64-row
+k-step): the launch bound 1 (blocks an SM as the registers allow, no
+`setmaxnreg`), 6 staging stages (shared memory for fewer blocks an SM)
+and, without the gate, the registers left as compiled (no `setmaxnreg`),
+beside the dense batched launch on the same bf16 weights.  2-D, at 8192^3
+(one scale a k-step across N, and one every 16 columns) and at the ragged
+(4095, 4096) @ (4096, 2064) with the gate, at every tile of
+`gemm.PACKED_TILES` (the gate's `PACKED_GATE_TILES`): the BM = 128 form
+with 4 staging stages, with the whole tile's partial a step (not half),
+with 3 bf16 stages (not 2), with one converter warpgroup (not two), and
+(timing only, output not checked) with no conversion,
+beside the dense 2-D launch at the plan's tile and the first CUDA-core
+kernel (csrc/gemm.cu).  Each other launch is checked against the plain
+version.  `KnLayout`'s blocks, stages, registers and partial and
+`gemm.PACKED_TILES` come from these.
 
 f32feed: the dense f32 forms TMA cannot address in place, on the f32 ring
 on staged operands (`Plan.stage`: A and B copied into rows padded to 4
@@ -160,6 +169,30 @@ timing, beside the staging copies alone and torch.matmul, so that the
 odd form's time splits into staging, ring and epilogue.  Each output is
 checked against the plain version.
 
+f64q8: f64 A against packed int8 B on the f64 tensor cores
+(csrc/gemm_f64_q8.cu) at 8192^3 in the "kn" and "nk" layouts, at the BLAS
+ragged case (4095, 4097) @ (4097, 4093), block (17, N) (its operands
+staged once into rows padded to 16 bytes before the timing, beside the
+whole `ops.gemm` call, staging included, and csrc/gemm.cu's int8-B kernel
+on the same inputs) and at moonshot's decode down stacks (64 experts of 32
+rows, "kn", one scale a 64-row k-step), as the tree builds it and in
+variants compiled from its source beside it: two blocks an SM at BM = 64
+(less registers a warpgroup), and (timing only) no conversion; each
+variant's nvcc log (ptxas's registers and spills) is kept beside its
+library under build/study_variants/; each held bitwise against the dense
+launch on the dequantized B and timed beside it.  The kernel's order of
+conversion and products and its blocks an SM come from these.
+
+f64vs: the dense f64 DMMA launch (`gemm_f64_launch`) built from this
+tree's csrc/gemm_f64.cu and from OTHER_TREE's (e.g. a parent commit
+unpacked by `git archive` under build/), each by its own nvcc, both at
+once, timed in turns (other, this, this, other) at 8192^3, at the BLAS
+odd shape (4095, 4097) @ (4097, 4093) (8-byte copies) and at 8192^3 with
++bias gelu +residual, on the plan's tile; each output held against the
+plain version and the two trees' products bitwise against each other
+where no epilogue runs; ptxas's registers and spills of both builds are
+printed.
+
 Needs chip_smoke.py at the repository root (its timing and forced-run
 helpers) and a CUDA device.
 """
@@ -180,6 +213,74 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke as cs
+
+
+def f64q8():
+    from repro_torch.core import quant
+    from repro_torch.kernels import _build, gemm, ops
+    variants = source_variants("gemm_f64_q8.cu", F64Q8_VARIANTS, "gemm_f64_q8_launch",
+                               gemm._F64_Q8_ARGTYPES)
+    fns = {"design": _build.function("gemm_f64_q8_launch", gemm._F64_Q8_ARGTYPES), **variants}
+    g = torch.Generator(device="cuda").manual_seed(23)
+    f64 = torch.float64
+    n8 = 8192
+    e, m, k, n = 64, 32, 1408, 2048
+    cases = [(f"8192^3 {lay}", torch.randn(n8, n8, generator=g, device="cuda", dtype=f64),
+              quant.quantize(torch.randn(n8, n8, generator=g, device="cuda") * n8 ** -0.5,
+                             quant.QuantSpec(64, None, transpose=lay == "nk")))
+             for lay in ("kn", "nk")]
+    cases.append(("ragged (4095,4097)@(4097,4093) block (17, N)",
+                  torch.randn(4095, 4097, generator=g, device="cuda", dtype=f64),
+                  quant.quantize(torch.randn(4097, 4093, generator=g, device="cuda") * 4097 ** -0.5,
+                                 quant.QuantSpec(17, None))))
+    cases.append((f"decode down ({e},{m},{k})@({e},{k},{n})",
+                  torch.randn(e, m, k, generator=g, device="cuda", dtype=f64),
+                  quant.quantize(torch.randn(e, k, n, generator=g, device="cuda") * k ** -0.5,
+                                 quant.QuantSpec(64, None))))
+    for label, a, qb in cases:
+        batch = a.shape[0] if a.ndim == 3 else 1
+        mm, kk = a.shape[-2:]
+        nn = qb.shape[-1]
+        out = torch.empty(*a.shape[:-1], nn, dtype=f64, device="cuda")
+        deq = quant.dequantize_in(qb, f64).contiguous()
+        dense = (lambda: ops.gemm(a, deq)) if a.ndim == 2 else (
+            lambda: ops.bgemm(a, deq, out_dtype=f64))
+        want = dense()
+        p = (gemm.plan(mm, kk, nn, f64, packed_layout=gemm.packed_layout(qb), block=qb.block)
+             if a.ndim == 2 else gemm.plan_batched(batch, mm, kk, nn, f64, f64,
+                                                   packed_layout="kn", block=qb.block))
+        (sa, lda), (sv, ldq) = gemm.tma_rows(a, zero_pad=True), gemm.tma_rows(qb.values)
+
+        def launch(fn):
+            err = fn(sa.data_ptr(), sv.data_ptr(), qb.scales.data_ptr(), None, None,
+                     *qb.block, int(qb.transposed), None, None, out.data_ptr(), batch,
+                     int(qb.values.ndim == 3), mm, kk, nn, lda, ldq, 0, *p.tile,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"f64q8: launch failed ({err})")
+
+        us = {}
+        for name, fn in fns.items():
+            launch(fn)
+            torch.cuda.synchronize()
+            if not name.startswith("timing only") and not torch.equal(out, want):
+                raise AssertionError(f"f64q8: {name} is not the dense launch's bits at {label}")
+            us[name] = 1e3 * cs.time_ms(lambda fn=fn: launch(fn), iters=5 if batch == 1 else 20)
+        us["dense DMMA on the dequantized B"] = 1e3 * cs.time_ms(dense, iters=5 if batch == 1
+                                                                 else 20)
+        if p.stage:
+            got = ops.gemm(a, qb)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"f64q8: ops.gemm is not the dense launch's bits at {label}")
+            us["ops.gemm (staging + kernel)"] = 1e3 * cs.time_ms(lambda: ops.gemm(a, qb), iters=5)
+            us["staging copies alone"] = 1e3 * cs.time_ms(
+                lambda: (gemm.tma_rows(a, zero_pad=True), gemm.tma_rows(qb.values)), iters=5)
+        if a.ndim == 2:
+            us["csrc/gemm.cu int8-B kernel"] = 1e3 * cs.time_ms(lambda: cs.ffma_launch(a, qb),
+                                                                iters=3)
+        print(json.dumps({"case": label, "plan": str(p), "us": us}), flush=True)
+        del out, deq, want, sa, sv
 
 
 def tiles():
@@ -398,10 +499,12 @@ MEMBERS_VARIANTS = {
                           "        return r;\n      }")]}
 
 
-def source_variants(source: str, variants: dict, symbol: str, argtypes: list) -> dict:
+def source_variants(source: str, variants: dict, symbol: str, argtypes: list,
+                    units: tuple = ()) -> dict:
     """{name: `symbol` of a library compiled from csrc/`source` with each
-    variant's edits}, built under build/study_variants in parallel with each
-    other and with the port's own library (`_build.build`)."""
+    variant's edits (a header: compiled through the csrc sources `units`,
+    which include it), built under build/study_variants in parallel with
+    each other and with the port's own library (`_build.build`)."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -417,13 +520,17 @@ def source_variants(source: str, variants: dict, symbol: str, argtypes: list) ->
         d = out_dir / (Path(source).stem + "_" + "".join(c if c.isalnum() else "_" for c in name))
         d.mkdir(parents=True, exist_ok=True)
         (d / source).write_text(src)
+        for unit in units:  # (their include of `source` finds the edited copy first)
+            (d / unit).write_text((csrc / unit).read_text())
         jobs[name] = (d / "lib.so", subprocess.Popen(
             [_build._nvcc(), *_build.FLAGS, "-shared", "-I", str(csrc), "-o", str(d / "lib.so"),
-             str(d / source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             *(str(d / u) for u in (units or (source,)))], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     _build.build()
     fns = {}
     for name, (path, proc) in jobs.items():
         log = proc.communicate()[0]
+        (path.parent / "nvcc.log").write_text(log)  # ptxas's registers and spills
         if proc.returncode:
             raise RuntimeError(f"{source}: nvcc failed for {name!r}:\n{log[-3000:]}")
         fn = getattr(ctypes.CDLL(str(path)), symbol)
@@ -796,25 +903,52 @@ def odd():
 
 # the packed study's variants of csrc/gemm_sm90.cu: (old, new) text edits,
 # each found exactly once
-PACKED_VARIANTS = {
+PACKED_VARIANTS = {  # the batched form's (BM = 64)
     "launch bound 1": [
-        ("Q&& BATCHED ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)", "1)"),
-        ("static constexpr bool SPLIT_REGS = !C::GATE;",
-         "static constexpr bool SPLIT_REGS = false;")],
-    "6 staging stages": [("static constexpr int STAGES = 4, BUFS = 2;",
+        ("Q == INT8_KN ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)", "1)"),
+        ("static constexpr bool SPLIT_REGS = WIDE || !C::GATE;",
+         "static constexpr bool SPLIT_REGS = WIDE;")],
+    "6 staging stages": [("static constexpr int STAGES = WIDE ? 6 : 4, BUFS = 2;",
                           "static constexpr int STAGES = 6, BUFS = 2;")],
-    "registers not moved": [("static constexpr bool SPLIT_REGS = !C::GATE;",
-                             "static constexpr bool SPLIT_REGS = false;")],
+    "registers not moved": [("static constexpr bool SPLIT_REGS = WIDE || !C::GATE;",
+                             "static constexpr bool SPLIT_REGS = WIDE;")],
+}
+PACKED_2D_VARIANTS = {  # the 2-D form's at BM = 128 ("timing only": results not checked)
+    "wide: 4 staging stages": [("static constexpr int STAGES = WIDE ? 6 : 4, BUFS = 2;",
+                                "static constexpr int STAGES = 4, BUFS = 2;")],
+    "wide: the whole tile's partial": [("static constexpr int HALVES = WIDE ? C::BN / 64 : 2;",
+                                        "static constexpr int HALVES = WIDE ? 1 : 2;")],
+    "wide: 3 bf16 stages": [("static constexpr int STAGES = WIDE ? 6 : 4, BUFS = 2;",
+                             "static constexpr int STAGES = WIDE ? 6 : 4, BUFS = WIDE ? 3 : 2;")],
+    "wide: one converter warpgroup": [
+        ("static constexpr int CONVERTERS = (WIDE ? 2 : 1) * 128;",
+         "static constexpr int CONVERTERS = 128;"),
+        ("static constexpr int CONVERTER_REGS = WIDE ? 72 : 56, CONSUMER_REGS = WIDE ? 184 : 104;",
+         "static constexpr int CONVERTER_REGS = WIDE ? 88 : 56, CONSUMER_REGS = WIDE ? 208 : 104;")],
+    "timing only: no conversion": [("        convert_kn<BN, C::NB,",
+                                    "        if (K < 0) convert_kn<BN, C::NB,")],
+}
+F64Q8_VARIANTS = {
+    "BM = 64: two blocks an SM (96 and 48 registers)": [
+        ("static constexpr int BLOCKS = 1;", "static constexpr int BLOCKS = T::BM == 64 ? 2 : 1;"),
+        ("static constexpr int CONSUMER_REGS = T::BM == 64 ? 128 : 192;",
+         "static constexpr int CONSUMER_REGS = T::BM == 64 ? 96 : 192;"),
+        ("static constexpr int CONVERTER_REGS = T::BM == 64 ? 248 : 120;",
+         "static constexpr int CONVERTER_REGS = T::BM == 64 ? 48 : 120;")],
+    "timing only: no conversion": [
+        ("      if (kt + 1 < KT)\n        convert_q8<T, LAYOUT>(land((kt + 1) % STAGES)",
+         "      if (K < 0)\n        convert_q8<T, LAYOUT>(land((kt + 1) % STAGES)")],
 }
 
 
 def packed():
     from repro_torch.core import quant
     from repro_torch.kernels import _build, gemm, ops
-    variants = source_variants("gemm_sm90.cu", PACKED_VARIANTS, "gemm_tc_launch",
-                               gemm._TC_ARGTYPES)
+    variants = source_variants("gemm_sm90.cu", {**PACKED_VARIANTS, **PACKED_2D_VARIANTS},
+                               "gemm_tc_launch", gemm._TC_ARGTYPES)
     lib = _build.build()  # built beside the variants: the design's library
-    fns = {"design": _build.function("gemm_tc_launch", gemm._TC_ARGTYPES), **variants}
+    design = _build.function("gemm_tc_launch", gemm._TC_ARGTYPES)
+    fns = {"design": design, **{k: variants[k] for k in PACKED_VARIANTS}}
     g = torch.Generator(device="cuda").manual_seed(21)
     e, d, f, m = 64, 2048, 1408, 32
 
@@ -862,6 +996,55 @@ def packed():
         print(json.dumps({"case": f"{label} ({e},{m},{k})@({e},{k},{n})", "us": us,
                           "bound_us": nbytes / cs.HBM_BYTES_S * 1e6,
                           "library": str(lib.name)}), flush=True)
+    packed_2d({"design": design, **{k: variants[k] for k in PACKED_2D_VARIANTS}})
+
+
+def packed_2d(fns: dict):
+    """`packed`'s 2-D half: bf16 A against int8 "kn" B at every tile of the
+    plan's tile set, through each library's gemm_tc_launch."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import gemm, ops
+    g = torch.Generator(device="cuda").manual_seed(22)
+    for m, k, n, block_n, gate in ((8192, 8192, 8192, None, False), (8192, 8192, 8192, 16, False),
+                                   (4095, 4096, 2064, None, True)):
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        w = [torch.randn(k, n, generator=g, device="cuda") * k ** -0.5 for _ in range(1 + gate)]
+        q = [quant.quantize(x, quant.QuantSpec(64, block_n)) for x in w]
+        qb, qb2 = q[0], q[1] if gate else None
+        act = "silu" if gate else None
+        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        with ops.reference_mode():
+            want = ops.gemm(a, qb, b2=qb2, activation=act)
+
+        def launch(fn, tile):
+            err = fn(a.data_ptr(), qb.values.data_ptr(), 0 if qb2 is None else qb2.values.data_ptr(),
+                     qb.scales.data_ptr(), 0 if qb2 is None else qb2.scales.data_ptr(), *qb.block,
+                     None, None, out.data_ptr(), None, 1, 0, m, k, n, k, n, ops._ACTS[act], 0,
+                     *tile, 1, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"packed_2d: launch failed ({err}) at {tile}")
+
+        us = {}
+        for name, fn in fns.items():
+            for tile in gemm.PACKED_GATE_TILES if gate else gemm.PACKED_TILES:
+                if name != "design" and tile[0] != 128:
+                    continue  # the variants change the BM = 128 form only
+                launch(fn, tile)
+                torch.cuda.synchronize()
+                if not name.startswith("timing only") and not torch.allclose(
+                        out.float(), want.float(), **cs.TOL[torch.bfloat16]):
+                    raise AssertionError(f"packed_2d: {name} {tile} disagrees at {(m, k, n)}")
+                us[f"{name} {tile[0]}x{tile[1]}"] = 1e3 * cs.time_ms(
+                    lambda fn=fn, tile=tile: launch(fn, tile), iters=5)
+        dense = [x.bfloat16() for x in w]
+        us["dense bf16 (plan)"] = 1e3 * cs.time_ms(
+            lambda: ops.gemm(a, dense[0], b2=dense[1] if gate else None, activation=act), iters=5)
+        us["gemm.cu"] = 1e3 * cs.time_ms(lambda: cs.ffma_launch(a, qb, b2=qb2, activation=act),
+                                         iters=5)
+        plan = gemm.plan(m, k, n, torch.bfloat16, gate=gate, packed_layout="kn", block=qb.block)
+        print(json.dumps({"case": f"2-D kn ({m},{k})@({k},{n}) block {qb.block}"
+                          + (" gate" if gate else ""), "plan": str(plan),
+                          "fastest": min(us, key=us.get), "us": us}), flush=True)
 
 
 def f32feed():
@@ -1035,6 +1218,85 @@ def ring_libraries(other: Path) -> dict:
     return fns
 
 
+def f64vs():
+    """The dense f64 DMMA kernel of this tree and of OTHER_TREE in one run
+    (see the module notes)."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build, gemm, ops
+    if len(sys.argv) < 3:
+        raise SystemExit("f64vs needs OTHER_TREE")
+    root = Path(__file__).resolve().parents[1]
+    out_dir = root / "build" / "study_variants" / "f64vs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trees = {"this": root, "other": Path(sys.argv[2]).resolve()}
+    procs = {}
+    for tag, tree in trees.items():
+        csrc = tree / "src" / "repro_torch" / "csrc"
+        procs[tag] = subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-shared", "-I", str(csrc), "-o",
+             str(out_dir / f"{tag}.so"), str(csrc / "gemm_f64.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for tag, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"f64vs: nvcc failed for {tag}:\n{log[-3000:]}")
+        # ptxas's line pairs: the entry function, then its registers / spills
+        ptxas, fn_name = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn_name = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn_name:
+                ptxas.setdefault(fn_name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn_name:
+                ptxas.setdefault(fn_name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        named = {cs._f64_name(k): v for k, v in ptxas.items() if cs._f64_name(k)}
+        print(json.dumps({"tree": tag, "ptxas": named}), flush=True)
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{tag}.so")), "gemm_f64_launch")
+        fn.argtypes, fn.restype = gemm._DMMA_ARGTYPES, ctypes.c_int
+        fns[tag] = fn
+    g = torch.Generator(device="cuda").manual_seed(37)
+    f64 = torch.float64
+    for label, m, k, n, epi in (("8192^3", 8192, 8192, 8192, False),
+                                ("odd", 4095, 4097, 4093, False),
+                                ("8192^3 +bias gelu +residual", 8192, 8192, 8192, True)):
+        a = torch.randn(m, k, generator=g, device="cuda", dtype=f64)
+        b = torch.randn(k, n, generator=g, device="cuda", dtype=f64) * k ** -0.5
+        bias = torch.randn(n, generator=g, device="cuda", dtype=f64) if epi else None
+        res = torch.randn(m, n, generator=g, device="cuda", dtype=f64) if epi else None
+        kw = dict(bias=bias, residual=res, activation="gelu" if epi else None)
+        with ops.reference_mode():
+            want = ops.gemm(a, b, **kw)
+        p = gemm.plan(m, k, n, f64)
+        outs = {t: torch.empty(m, n, dtype=f64, device="cuda") for t in fns}
+
+        def launch(tag):
+            err = fns[tag](a.data_ptr(), b.data_ptr(), None, _build.ptr(bias), _build.ptr(res),
+                           outs[tag].data_ptr(), m, k, n, ops._ACTS[kw["activation"]], *p.tile,
+                           0, p.copy, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"f64vs: {tag} launch failed ({err})")
+
+        ms = {"other": [], "this": []}
+        for tag in ("other", "this", "this", "other"):
+            launch(tag)
+            torch.cuda.synchronize()
+            if not torch.allclose(outs[tag], want, **cs.TOL[f64]):
+                raise AssertionError(f"f64vs: {tag} disagrees with plain at {label}")
+            ms[tag].append(cs.time_ms(lambda tag=tag: launch(tag), iters=5))
+        same = bool(torch.equal(outs["this"], outs["other"]))
+        if not epi and not same:
+            raise AssertionError(f"f64vs: the two trees' products differ at {label}")
+        print(json.dumps({"case": f"{label} ({m},{k})@({k},{n})", "plan": str(p), "ms": ms,
+                          "bitwise_equal": same}), flush=True)
+        del a, b, bias, res, want, outs
+
+
 def f32vec():
     from repro_torch.kernels import gemm, ops
     if len(sys.argv) < 3:
@@ -1087,7 +1349,7 @@ def main() -> int:
             "bgemv": bgemv_sweep, "flush": flush, "f32": f32, "axpy": axpy_sweep,
             "host": host, "qgemv": qgemv_sweep, "odd": odd, "bgemv_rows": bgemv_rows_sweep,
             "bgemv_members": bgemv_members_sweep, "packed": packed, "f32feed": f32feed,
-            "f32q8": f32q8, "f32vec": f32vec}
+            "f32q8": f32q8, "f32vec": f32vec, "f64q8": f64q8, "f64vs": f64vs}
     if not torch.cuda.is_available() or len(sys.argv) < 2 or sys.argv[1] not in runs:
         print(__doc__, file=sys.stderr)
         return 1

@@ -7,12 +7,17 @@
 // rows where TMA cannot address the operands), every dense f64 call the f64
 // tensor cores (`csrc/gemm_f64.cu`), every dense f32 call the f32 ring
 // (`csrc/gemm_f32.cu`, on copies with padded rows where TMA cannot address
-// the operands), and f32 A against int8 rows TMA can address the f32 ring
-// too (`csrc/gemm_f32_q8.cu`).  What still runs here: K = 0, packed f64 A, bf16
-// A against "kn" or scales that vary along K, and f32 A whose int8 rows (or
-// A's rows) TMA cannot address.  The dense bodies are reached otherwise only
-// by chip_smoke.py's `ffma_launch` and `scripts/torch_gemm_study.py`, as the
-// yardstick:
+// the operands), f32 A against int8 rows TMA can address the f32 ring too
+// (`csrc/gemm_f32_q8.cu`), f64 A against any packed B the f64 tensor cores
+// (`csrc/gemm_f64_q8.cu`) and bf16 A against "kn" B with a scale block of
+// whole 64-row k-steps the bf16 ones (`csrc/gemm_sm90.cu`).  What still
+// runs here: K = 0, bf16 A against "kn" whose scale block ends inside a
+// k-step or whose rows TMA cannot address, or "nk" with scales that vary
+// along K, and f32 A whose int8 rows (or A's rows) TMA cannot address.  The
+// dense bodies and the packed f64 one are reached otherwise only by
+// chip_smoke.py's `ffma_launch` and `scripts/torch_gemm_study.py`, as the
+// yardstick (the packed f64 instantiations leave as ROADMAP §2.2 item 1
+// says):
 //  - `gemm_launch`: `repro/kernels/gemm.py` (`_gemm_kernel`, pallas_call at
 //    :184) in its dense "kn" form, C = epi( A @ B  [, A @ B2] ), with A
 //    (M, K), B and B2 (K, N) row-major, bias (N,), residual (M, N) and C
@@ -26,8 +31,8 @@
 //    (qa, qb) over it) or the output-major "nk" layout (stored (N, K), blocks
 //    (qa, qb) over that).  B is dequantized in the accumulator type, deq =
 //    value * scale, as `dequant_tile(..., dtype=acc)` does: never rounded to
-//    A's dtype.  Here: f64 activations, bf16 with "kn" or "nk" whose scales
-//    vary along K, and f32 whose rows TMA cannot address.
+//    A's dtype.  Here: bf16 with "kn" the tensor cores cannot take or "nk"
+//    whose scales vary along K, and f32 whose rows TMA cannot address.
 //
 // Bound: operations.  At 8192^3 the product does 1.1e12 flops on 1.6 GB (f64),
 // ~700 flops per byte, far above the ridge of the card.  This kernel runs on

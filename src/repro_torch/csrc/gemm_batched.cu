@@ -8,9 +8,10 @@
 // B2 (batch, K, N) (or one (K, N) shared by every member), bias (N,),
 // residual and C (batch, M, N).  Since the batched forms moved to the
 // kernels of their 2-D counterparts (bf16 to gemm_sm90.cu, f64 to
-// gemm_f64.cu, f32 with f32 out to the f32 ring of gemm_f32*.cu, dense or
-// packed), that is: packed int8 B under f64 A, packed bf16 "nk" stacks and
-// bf16 "kn" ones whose scale blocks end inside a 64-row k-step, packed f32
+// gemm_f64.cu and gemm_f64_q8.cu, dense or packed, f32 with f32 out to the
+// f32 ring of gemm_f32*.cu, dense or packed), that is: packed bf16
+// "nk" stacks and bf16 "kn" ones whose scale blocks end inside a 64-row
+// k-step, packed f32
 // whose int8 rows (or A's) TMA cannot address, every output dtype other
 // than bf16 and f32 from bf16 (f16, f64), f32 from f64 and f64 or bf16 or
 // f16 from f32, bf16 with N % 8 != 0, and K = 0 (the epilogue alone).  No

@@ -13,8 +13,9 @@
 // registers.  Every dense f64 call takes it: where K and N are even and
 // every operand starts on a 16-byte boundary the ring copies 16 bytes (a
 // row pair) at a time, otherwise 8 (one double: any K or N, any base, since
-// an f64 operand is always 8-byte aligned).  Packed B stays on csrc/gemm.cu
-// ("ffma").
+// an f64 operand is always 8-byte aligned).  A packed int8 B takes the
+// same tiles, mma shape, k order and epilogue (gemm_f64.cuh) in
+// csrc/gemm_f64_q8.cu, dequantized into the B tile this ring copies.
 //
 // It also replaces `repro/kernels/bgemm.py` (`_bgemm_kernel`, pallas_call at
 // :217) in its batched-B form (`bgemm.py:180-182`) in f64 with f64 out
@@ -57,83 +58,12 @@
 // No split-K: the f64 calls are BLAS calls, large enough to fill the card,
 // and each output is summed over all of K in one order (two launches give
 // the same bits).
-#include "mma.cuh"
-#include "vec.cuh"
-
-using namespace rt;
+#include "gemm_f64.cuh"
 
 namespace {
 
-constexpr int THREADS = 256, GROUP = 8, PAD = 4;
-constexpr int WARPS_M = 2, WARPS_N = 4;
 // gemm_f64_launch's `variant`: the plan's kernels, or one of the sweep's
 enum { PLANNED = 0, M8N8K4 = 1, M16N8K4 = 2, M16N8K8 = 3, M16N8K16 = 4, BK32 = 5 };
-
-// VEC doubles (16 or 8 bytes) global -> shared; zero-filled (and src not
-// read) unless live
-template <int VEC>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool live) {
-  if constexpr (VEC == 2)
-    cp_async16(dst, src, live);
-  else
-    cp_async8(dst, src, live);
-}
-
-// One f64 mma.sync shape, MI x 8 x KI, C += A B.  Fragments (PTX ISA, the
-// f64 mma shapes; CuTe's mma_traits_sm80/sm90 layouts), g = lane / 4,
-// t = lane % 4:  A[i] at (row g + 8 (i % (MI / 8)), col t + 4 (i / (MI / 8))),
-// B[i] at (k t + 4 i, col g), C[i] at (row g + 8 (i / 2), col 2 t + i % 2).
-template <int MI, int KI> struct Mma;
-
-template <> struct Mma<8, 4> {
-  static constexpr int A = 1, B = 1, C = 2;
-  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
-                                             const double (&b)[B]) {
-    asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
-                 "{%0, %1};\n"
-                 : "+d"(c[0]), "+d"(c[1])
-                 : "d"(a[0]), "d"(b[0]));
-  }
-};
-
-template <> struct Mma<16, 4> {
-  static constexpr int A = 2, B = 1, C = 4;
-  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
-                                             const double (&b)[B]) {
-    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-                 "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-                 : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-  }
-};
-
-template <> struct Mma<16, 8> {
-  static constexpr int A = 4, B = 2, C = 4;
-  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
-                                             const double (&b)[B]) {
-    asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-                 "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-  }
-};
-
-template <> struct Mma<16, 16> {
-  static constexpr int A = 8, B = 4, C = 4;
-  __device__ __forceinline__ static void run(double (&c)[C], const double (&a)[A],
-                                             const double (&b)[B]) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-                 "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
-                 "{%0, %1, %2, %3};\n"
-                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-                   "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
-  }
-};
-
-// what the plan's launches take (the sweep's fastest): the mma shape, k per
-// stage and the ring's depth
-constexpr int DEFAULT_MI = 16, DEFAULT_KI = 4, DEFAULT_BK = 16, DEFAULT_STAGES = 4;
 
 template <int BM, int BN, int BK, int STAGES, bool GATE>
 constexpr int smem_bytes() {
@@ -149,30 +79,18 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
                 const double* __restrict__ b2, const double* __restrict__ bias,
                 const double* __restrict__ res, double* __restrict__ c, int M, int K, int N,
                 int act, int b_batched) {
-  using MMA = Mma<MI, KI>;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int MT = WM / MI, NT = WN / 8, RB = MI / 8;  // RB: 8-row halves of an mma tile
-  constexpr int LDA = BK + PAD, LDB = BN + PAD;
-  constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-  constexpr int STAGE = A_ELEMS + (GATE ? 2 : 1) * B_ELEMS;
-  constexpr int CH_A = BM * BK / VEC / THREADS, CH_B = BK * BN / VEC / THREADS;  // copies a thread
-  static_assert(WM % MI == 0 && WN % 8 == 0 && BK % KI == 0, "tile / mma shape mismatch");
-  static_assert(CH_A * THREADS * VEC == BM * BK && CH_B * THREADS * VEC == BK * BN, "copy split");
+  using T = Tile<BM, BN, BK, MI, KI, GATE>;
+  constexpr int LDB = T::LDB, A_ELEMS = T::A_ELEMS, B_ELEMS = T::B_ELEMS;
+  constexpr int STAGE = A_ELEMS + T::NB * B_ELEMS;
+  constexpr int CH_B = BK * BN / VEC / THREADS;  // B copies a thread
+  static_assert(CH_B * THREADS * VEC == BK * BN, "copy split");
   extern __shared__ __align__(16) double smem[];
 
-  // grouped raster: GROUP tile rows sweep the tile columns together
-  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  const int per_group = GROUP * tiles_n;
-  const int group = blockIdx.x / per_group;
-  const int first = group * GROUP;
-  const int rows_here = min(tiles_m - first, GROUP);
-  const int in_group = blockIdx.x % per_group;
-  const int m0 = (first + in_group % rows_here) * BM;
-  const int n0 = (in_group / rows_here) * BN;
-
+  int m0, n0;
+  tile_origin<T>(blockIdx.x, M, N, m0, n0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  const int wm = (warp / WARPS_N) * T::WM, wn = (warp % WARPS_N) * T::WN;
   if constexpr (BATCHED) {  // member z's operands (64-bit offsets)
     const long long z = blockIdx.z, mk = (long long)M * K, mn = (long long)M * N;
     a += z * mk;
@@ -189,13 +107,7 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   auto stage = [&](int s, int k0) {
     double* As = smem + s * STAGE;
     double* Bs = As + A_ELEMS;
-#pragma unroll
-    for (int j = 0; j < CH_A; ++j) {
-      const int e = tid + j * THREADS, r = e / (BK / VEC), ch = e % (BK / VEC);
-      const int gm = m0 + r, gk = k0 + VEC * ch;
-      const bool live = gm < M && gk < K;
-      cp_async<VEC>(As + r * LDA + VEC * ch, live ? a + (long long)gm * K + gk : a, live);
-    }
+    copy_a_tile<T, VEC>(As, a, m0, k0, M, K, tid);
 #pragma unroll
     for (int j = 0; j < CH_B; ++j) {
       const int e = tid + j * THREADS, r = e / (BN / VEC), ch = e % (BN / VEC);
@@ -207,16 +119,9 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
     }
   };
 
-  double acc[MT][NT][MMA::C], acc2[GATE ? MT : 1][GATE ? NT : 1][MMA::C];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int i = 0; i < MMA::C; ++i) {
-        acc[m][n][i] = 0.0;
-        if constexpr (GATE) acc2[m][n][i] = 0.0;
-      }
+  typename T::Acc acc;
+  typename T::Acc2 acc2;
+  zero<T>(acc, acc2);
 
   const int KT = (K + BK - 1) / BK;
 #pragma unroll
@@ -230,66 +135,11 @@ gemm_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
     const int next = kt + STAGES - 1;
     if (next < KT) stage(next % STAGES, next * BK);
     cp_async_commit();
-    const double* As = smem + (kt % STAGES) * STAGE + (wm + g) * LDA + t;
-    const double* Bs = smem + (kt % STAGES) * STAGE + A_ELEMS + t * LDB + wn + g;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += KI) {
-      double bf[NT][MMA::B], bf2[GATE ? NT : 1][MMA::B];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int i = 0; i < MMA::B; ++i) {
-          bf[n][i] = Bs[(kk + 4 * i) * LDB + n * 8];
-          if constexpr (GATE) bf2[n][i] = Bs[B_ELEMS + (kk + 4 * i) * LDB + n * 8];
-        }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        double af[MMA::A];
-#pragma unroll
-        for (int i = 0; i < MMA::A; ++i)
-          af[i] = As[(m * MI + 8 * (i % RB)) * LDA + kk + 4 * (i / RB)];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          MMA::run(acc[m][n], af, bf[n]);
-          if constexpr (GATE) MMA::run(acc2[m][n], af, bf2[n]);
-        }
-      }
-    }
+    const double* As = smem + (kt % STAGES) * STAGE;
+    multiply_stage<T>(As, As + A_ELEMS, acc, acc2, wm, wn, g, t);
   }
   cp_async_wait<0>();  // only empty groups remain; drained before exit
-
-  // epilogue from the registers: C[i] and C[i + 1] are two adjacent columns
-  // (with VEC = 2, col and N are even: both in range together, one 16-byte
-  // store; with VEC = 1 each is checked and stored alone, and a column at N
-  // is neither computed nor read: bias[N] and the residual's next element
-  // lie outside their operands)
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int h = 0; h < RB; ++h) {
-      const int row = m0 + wm + m * MI + g + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int col = n0 + wn + n * 8 + 2 * t;
-        if (col >= N) continue;
-        const long long o = (long long)row * N + col;
-        double v[2] = {0.0, 0.0};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (VEC == 1 && col + j >= N) continue;
-          double gv = 0.0;
-          if constexpr (GATE) gv = acc2[m][n][2 * h + j];
-          v[j] = epilogue<double>(acc[m][n][2 * h + j], gv, bias, res, col + j, o + j, act, GATE);
-        }
-        if constexpr (VEC == 2) {
-          *reinterpret_cast<double2*>(c + o) = make_double2(v[0], v[1]);
-        } else {
-          c[o] = v[0];
-          if (col + 1 < N) c[o + 1] = v[1];
-        }
-      }
-    }
+  store_tile<T, VEC>(acc, acc2, bias, res, c, m0 + wm + g, n0 + wn + 2 * t, M, N, act);
 }
 
 template <int BM, int BN, int BK, int STAGES, int MI, int KI, bool GATE, int VEC, bool BATCHED>

@@ -18,10 +18,12 @@
 //    output-major "nk" layout of `serve --quantize int8`: B and B2 stored
 //    (N, K) int8 with one f32 scale for every `qa` output columns across all
 //    of K (`QuantSpec(block_m=64, block_n=None, transpose=True)`);
-//  - that int8 body in the batched-B form, the packed expert stacks of a
-//    `--quantize int8` MoE: B and B2 stored (batch, K, N) int8 ("kn") with
-//    one f32 scale per (qa, qb) block of each member's (K, N), qa a multiple
-//    of BK, applied to each k-step's partial as it is promoted.
+//  - that int8 body in the "kn" layout, stored (K, N) with one f32 scale
+//    per (qa, qb) block, qa a multiple of BK, applied to each k-step's
+//    partial as it is promoted: the 2-D GEMM (`quantize(w)`'s default
+//    layout, a BLAS call) and the batched-B form, the packed expert stacks
+//    of a `--quantize int8` MoE (B and B2 (batch, K, N), a member's scales
+//    its own).
 // bias (N,) and residual (M, N) are bf16, C (M, N) bf16 or f32.  The
 // epilogue is common.cuh's `epilogue<T>` on the f32 accumulator (bias, then
 // silu, gelu or relu, then the gate multiply, then the residual), rounded
@@ -31,8 +33,9 @@
 // Dense bf16 that TMA cannot address in place (K or N not a multiple of 8,
 // a base off 16 bytes) runs here too, on copies of A and B whose rows the
 // wrapper pads to 16 bytes (`kernels/gemm.py::tma_rows`), the batched form
-// too (N % 8 == 0 there); f32 and f64 have kernels of their own; 2-D int8
-// "kn" or with scales that vary along K, and batched "nk", stay on the
+// too (N % 8 == 0 there); f32 and f64 have kernels of their own; int8 "kn"
+// whose scale block ends inside a k-step or whose rows TMA cannot address,
+// "nk" with scales that vary along K, and batched "nk" stay on the
 // CUDA-core loop (gemm.cu, gemm_batched*.cu).
 // `kernels/gemm.py::plan` picks the route, the tile and the K split from
 // the shape alone.
@@ -64,17 +67,20 @@
 //    enters through wgmma's transpose bit, in 64-column TMA boxes; the int8
 //    "nk" B (N, K) is K-major: TMA brings it into a staging buffer and the
 //    consumers convert it to bf16 (exact: |v| <= 127) into the swizzled
-//    layout, so the same wgmma reads both; the batched int8 "kn" B (K, N) is
+//    layout, so the same wgmma reads both; the int8 "kn" B (K, N) is
 //    N-major: its staging tile (BK k-rows of BN bytes) is converted into the
 //    dense B's swizzled N-major boxes, read through the transpose bit as
 //    the dense B is, and each k-step's partial is multiplied by its scale
 //    row (qa % BK == 0: one per k-step) as it is added to the accumulator.
-//    There a second warpgroup converts (exact, by byte permutes and an f32
-//    subtraction; I2F runs at a quarter rate) into a ring of bf16 stages a
-//    stage ahead of the consumers, who only multiply, and 2 or 3 blocks
-//    share an SM (KnLayout): the first design, converted in line by the
-//    consumers as the 2-D "nk" body does, one block an SM, ran moonshot's
-//    decode gate+up in 603 us, against 276 now (PERF.md);
+//    There a warpgroup of its own converts (exact, by byte permutes and an
+//    f32 subtraction; I2F runs at a quarter rate) into a ring of bf16
+//    stages a stage ahead of the consumers, who only multiply (KnLayout):
+//    at BM = 64, 2 or 3 blocks share an SM (the first design, converted in
+//    line by the consumers as the "nk" body does, one block an SM, ran
+//    moonshot's decode gate+up in 603 us, against 276 now, PERF.md); at BM
+//    = 128 (2-D only) one block of two consumer warpgroups, registers moved
+//    to them by setmaxnreg, a whole k-step's partial each.  "kn" never
+//    splits K: every output is summed over all of K in one order;
 //  - TMA fills out-of-bounds rows and columns with zeros, so ragged M, N and
 //    K need no padding; the stores skip the fringe.  The batched form
 //    (BATCHED, instantiations of their own: made the one body, rank-3 maps
@@ -116,10 +122,14 @@ constexpr int GROUP = 8;           // tile rows of the grouped raster
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may use (227 KB)
 constexpr int SW = 1024;           // the 128-byte swizzle repeats every 8 rows
 
-template <int BM_, int BN_, bool GATE_, bool Q_>
+// B's form: bf16 (K, N), or int8 stored (N, K) ("nk") or (K, N) ("kn")
+enum { DENSE = 0, INT8_NK = 1, INT8_KN = 2 };
+
+template <int BM_, int BN_, bool GATE_, int Q_>
 struct Cfg {
   static constexpr int BM = BM_, BN = BN_;
-  static constexpr bool GATE = GATE_, Q = Q_;
+  static constexpr bool GATE = GATE_;
+  static constexpr int Q = Q_;  // DENSE, INT8_NK or INT8_KN
   static constexpr int NC = BM / 64;                  // consumer warpgroups
   static constexpr int THREADS = 128 * (NC + 1);      // + the producer warpgroup
   static constexpr int NB = GATE ? 2 : 1;             // B operands
@@ -136,29 +146,45 @@ struct Cfg {
   static_assert(STAGE % SW == 0, "every bf16 tile must start on a swizzle period");
 };
 
-// The batched int8 "kn" form's shared memory: STAGES staging stages (A |
-// int8 B | int8 B2, filled by TMA), then BUFS bf16 stages (B | B2, filled by
-// the converter warpgroup from the staging stages), then the barriers (full
+// The int8 "kn" form's shared memory: STAGES staging stages (A | int8 B |
+// int8 B2, filled by TMA), then BUFS bf16 stages (B | B2, filled by the
+// converter warpgroup from the staging stages), then the barriers (full
 // and empty a staging stage, conv and free a bf16 stage) and each bf16
-// stage's column scales [BUFS][NB][BN].  BLOCKS blocks share an SM (98 KB
-// of shared memory with the gate, 66 KB without), so that one block's
-// loads, conversion and wgmma overlap another's; 6 staging stages, which
-// leave room for fewer, ran slower (`scripts/torch_gemm_study.py packed`).
+// stage's column scales [BUFS][NB][BN].  BM = 64 (one consumer warpgroup,
+// the batched form's tile): BLOCKS blocks share an SM (98 KB of shared
+// memory with the gate, 66 KB without), so that one block's loads,
+// conversion and wgmma overlap another's; 6 staging stages, which leave
+// room for fewer, ran slower (`scripts/torch_gemm_study.py packed`).  BM =
+// 128 (WIDE: two consumer warpgroups, 2-D only): one block an SM, whose two
+// consumer warpgroups overlap each other's promotion, two converter
+// warpgroups (one could not convert a 64 x 128 stage as fast as the
+// consumers multiply it: PERF.md) and 6 staging stages (the loads are
+// issued by a converter thread, 4 steps ahead of it).
 template <class C>
 struct KnLayout {
-  static constexpr int STAGES = 4, BUFS = 2;  // a bf16 stage is staging stage s % BUFS's
+  static constexpr bool WIDE = C::NC == 2;
+  static constexpr int STAGES = WIDE ? 6 : 4, BUFS = 2;  // a bf16 stage is staging stage s % BUFS's
   static_assert(STAGES % BUFS == 0, "bf16 stage of a staging stage");
-  static constexpr int BLOCKS = C::GATE ? 2 : 3;
-  // Without the gate (80 registers a thread at 3 blocks) the consumers take
-  // 104 and the converters 56 (setmaxnreg): the down launch ran slower in
-  // 80 each (`scripts/torch_gemm_study.py packed`).  The gate's warpgroups
-  // keep the 128 of 2 blocks (its consumers hold two accumulators and half
-  // a partial; with the registers moved, ptxas spilled one in the
-  // converters, whatever their share).
-  static constexpr bool SPLIT_REGS = !C::GATE;
-  static constexpr int CONVERTER_REGS = 56, CONSUMER_REGS = 104;
-  static_assert(!SPLIT_REGS || (CONVERTER_REGS + CONSUMER_REGS) * 128 * BLOCKS <= 65536,
+  static constexpr int BLOCKS = WIDE ? 1 : C::GATE ? 2 : 3;
+  static constexpr int CONVERTERS = (WIDE ? 2 : 1) * 128;  // converter threads
+  static constexpr int THREADS = C::NC * 128 + CONVERTERS;
+  // BM = 64 without the gate (80 registers a thread at 3 blocks): the
+  // consumers take 104 and the converters 56 (setmaxnreg): the down launch
+  // ran slower in 80 each (`scripts/torch_gemm_study.py packed`).  The
+  // gate's warpgroups keep the 128 of 2 blocks (its consumers hold two
+  // accumulators and half a partial; with the registers moved, ptxas
+  // spilled one in the converters, whatever their share).  WIDE: 128 a
+  // thread at one block of 512 threads; each consumer holds a 64 x BN
+  // accumulator (two with the gate) and a partial of 64 columns
+  static constexpr bool SPLIT_REGS = WIDE || !C::GATE;
+  static constexpr int CONVERTER_REGS = WIDE ? 72 : 56, CONSUMER_REGS = WIDE ? 184 : 104;
+  static_assert(!SPLIT_REGS ||
+                    (CONVERTERS * CONVERTER_REGS + C::NC * 128 * CONSUMER_REGS) * BLOCKS <= 65536,
                 "register file");
+  // a k-step's partial covers BN / HALVES columns, one wgmma group each: 32
+  // at BM = 64 (the registers of 2 or 3 blocks an SM), 64 at BM = 128 (half
+  // of a 128-column tile ran faster than all of it, PERF.md)
+  static constexpr int HALVES = WIDE ? C::BN / 64 : 2;
   static constexpr int STAGE = C::A_BYTES + C::NB * C::Q_BYTES;
   static constexpr int BUF = C::NB * C::B_BYTES;
   static constexpr int BARRIERS = STAGES * STAGE + BUFS * BUF;
@@ -335,18 +361,19 @@ __device__ __forceinline__ void store_pair(TO* c, float h0, float h1) {
 
 // One C tile, or one K slice of it (grid.y = split); BATCHED: of batch
 // member blockIdx.z (B's member z if b_batched, else its only one), one K
-// slice, rank-3 maps.  Q: B, B2 int8 "nk"
-// through tb/tb2 with scales bs/b2s (column n's is bs[n / qa]); Q and
-// BATCHED: int8 "kn" (K, N) a member, member z's scales (K / qa, N / qb)
-// starting z * (K / qa) * (N / qb) on (b_batched), the scale of (k, n) at
-// [k / qa][n / qb]; else bf16 (K, N).  splits > 1: f32 partials to ws
+// slice, rank-3 maps.  Q == INT8_NK: B, B2 int8 "nk" through tb/tb2 with
+// scales bs/b2s (column n's is bs[n / qa]); Q == INT8_KN: int8 "kn" (K, N)
+// (a member), scales (K / qa, N / qb) (BATCHED: member z's, starting z *
+// (K / qa) * (N / qb) on if b_batched), the scale of (k, n) at [k / qa][n /
+// qb], one K slice; DENSE: bf16 (K, N).  splits > 1: f32 partials to ws
 // [(GATE ? 2 : 1) * splits][M][N] (the gate's after B's) and
 // splitk_epilogue finishes.  ODD: N is odd or C
 // is off 4 bytes (dense B only, one K slice; int8 B is never ODD).  TO: C's
 // type, bf16 or float (float: BATCHED only).
-template <int BM, int BN, bool GATE, bool Q, bool ODD, bool BATCHED, typename TO>
-__global__ void __launch_bounds__(Cfg<BM, BN, GATE, Q>::THREADS,
-                                  Q&& BATCHED ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)
+template <int BM, int BN, bool GATE, int Q, bool ODD, bool BATCHED, typename TO>
+__global__ void __launch_bounds__(Q == INT8_KN ? KnLayout<Cfg<BM, BN, GATE, Q>>::THREADS
+                                               : Cfg<BM, BN, GATE, Q>::THREADS,
+                                  Q == INT8_KN ? KnLayout<Cfg<BM, BN, GATE, Q>>::BLOCKS : 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tb2, const float* __restrict__ bs,
                const float* __restrict__ b2s, int qa, int qb, const bf16* __restrict__ bias,
@@ -354,16 +381,18 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
                int b_batched, int M, int K, int N, int act, int splits) {
   using C = Cfg<BM, BN, GATE, Q>;
   // KN: int8 stored (K, N), scaled each k-step, on KnLayout's two rings:
-  // the second warpgroup converts each staging stage's int8 into a bf16
+  // the last warpgroup converts each staging stage's int8 into a bf16
   // stage (and writes its column scales) and arrives on its `conv` barrier,
-  // so the consumers only multiply while the next stages convert; the
-  // consumer thread that frees a staging stage loads the next step into it
-  constexpr bool KN = Q && BATCHED;
+  // so the consumers only multiply while the next stages convert.  Each
+  // consumer warpgroup frees a bf16 stage (and with it its staging stage)
+  // on its own; with one, its first thread loads the next step into the
+  // staging stage, with two, the first converter thread does once both
+  // have freed it
+  constexpr bool KN = Q == INT8_KN;
   using L = KnLayout<C>;
   constexpr int NC = C::NC, STAGES = KN ? L::STAGES : C::STAGES;
   constexpr int STAGE = KN ? L::STAGE : C::STAGE;
-  constexpr int CONVERTERS = 128;
-  static_assert(!KN || NC == 1, "the converters' registers: the int8 kn form takes BM = 64");
+  constexpr int CONVERTERS = KN ? L::CONVERTERS : 128;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((SW - (smem_u32(smem_raw) & (SW - 1))) & (SW - 1));
   const uint32_t base = smem_u32(smem);
@@ -411,21 +440,29 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
   }
   __syncthreads();
 
-  // KN: step kt's loads into staging stage s, issued by the consumer thread
-  // that frees the stage (the whole second warpgroup converts)
+  // KN: step kt's loads into staging stage s
   auto kn_load = [&](int kt, int s) {
     const uint32_t full = full0 + 8 * s;
     mbar_expect_tx(full, C::TX);
-    tma_load3(a_at(s), &ta, full, kt * BK, m0, z);
-    tma_load3(q_at(s, 0), &tb, full, n0, kt * BK, bz);
-    if constexpr (GATE) tma_load3(q_at(s, 1), &tb2, full, n0, kt * BK, bz);
+    if constexpr (BATCHED) {
+      tma_load3(a_at(s), &ta, full, kt * BK, m0, z);
+      tma_load3(q_at(s, 0), &tb, full, n0, kt * BK, bz);
+      if constexpr (GATE) tma_load3(q_at(s, 1), &tb2, full, n0, kt * BK, bz);
+    } else {
+      tma_load(a_at(s), &ta, full, kt * BK, m0);
+      tma_load(q_at(s, 0), &tb, full, n0, kt * BK);
+      if constexpr (GATE) tma_load(q_at(s, 1), &tb2, full, n0, kt * BK);
+    }
   };
   const int wg = threadIdx.x / 128;
-  if (wg == NC) {
-    // ---- producer: one thread keeps the ring full ----
-    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if constexpr (KN && L::SPLIT_REGS)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(L::CONVERTER_REGS));
+  if (wg >= NC) {
+    // ---- producer: one thread keeps the ring full (KN: converters) ----
+    if constexpr (KN) {
+      if constexpr (L::SPLIT_REGS)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(L::CONVERTER_REGS));
+    } else if constexpr (NC == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    }
     if (!KN && threadIdx.x == NC * 128) {
       for (int kt = kt0; kt < kt1; ++kt) {
         const int i = kt - kt0, s = i % STAGES;
@@ -443,7 +480,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
           }
         } else {
           tma_load(a_at(s), &ta, full, k0, m0);
-          if constexpr (Q) {
+          if constexpr (Q == INT8_NK) {
             tma_load(q_at(s, 0), &tb, full, k0, n0);
             if constexpr (GATE) tma_load(q_at(s, 1), &tb2, full, k0, n0);
           } else {
@@ -457,7 +494,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         }
       }
     } else if (KN) {
-      // ---- converters (KN): this whole warpgroup ----
+      // ---- converters (KN): the warpgroups past the consumers ----
       const int ct = threadIdx.x - NC * 128;
       // this converter's column scales (u < NB * BN: B's column u, or B2's
       // u - BN; a column clamped at N - 1, whose products are 0), member z's,
@@ -482,8 +519,12 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       for (int kt = kt0; kt < kt1; ++kt) {
         const int i = kt - kt0, s = i % STAGES, t = s % L::BUFS;
         scales(kt + 1, next);
-        mbar_wait(full0 + 8 * s, (i / STAGES) & 1);               // int8 landed
-        mbar_wait(free0 + 8 * t, ((i / L::BUFS) & 1) ^ 1);       // bf16 stage free
+        mbar_wait(free0 + 8 * t, ((i / L::BUFS) & 1) ^ 1);  // bf16 stage free: step i - BUFS done
+        // two consumer warpgroups: step i - BUFS's staging stage takes the
+        // step STAGES on
+        if (NC == 2 && ct == 0 && i >= L::BUFS && kt - L::BUFS + STAGES < kt1)
+          kn_load(kt - L::BUFS + STAGES, (s + STAGES - L::BUFS) % STAGES);
+        mbar_wait(full0 + 8 * s, (i / STAGES) & 1);  // int8 landed
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int u = ct + h * CONVERTERS;
@@ -500,9 +541,12 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     }
   } else {
     // ---- consumers: warpgroup wg multiplies rows wg*64 .. wg*64+63 ----
-    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    if constexpr (KN && L::SPLIT_REGS)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(L::CONSUMER_REGS));
+    if constexpr (KN) {
+      if constexpr (L::SPLIT_REGS)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(L::CONSUMER_REGS));
+    } else if constexpr (NC == 2) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    }
     // A k-step's four k16 products of each B operand accumulate in the tensor
     // core into `part` (`part2`), which is then added to the f32 accumulator
     // with round-to-nearest (promotion): the tensor core's own f32
@@ -510,15 +554,16 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
     // 5-7x more outputs off the correctly rounded product than the CUDA cores
     // do (PERF.md).
     constexpr int R = BN / 2;  // accumulators a thread
-    // KN: a partial of half the tile's columns (the gate's consumers keep to
-    // the registers that let two blocks share an SM)
-    float acc[R], acc2[GATE ? R : 1], part[KN ? R / 2 : R], part2[GATE && !KN ? R : 1];
+    // KN: a partial of BN / HALVES columns (at BM = 64 half the tile's: the
+    // gate's consumers keep to the registers that let two blocks share an SM)
+    constexpr int W = KN ? BN / L::HALVES : BN;
+    float acc[R], acc2[GATE ? R : 1], part[W / 2], part2[GATE && !KN ? R : 1];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       acc[i] = 0.f;
       if constexpr (GATE) acc2[i] = 0.f;
     }
-    constexpr bool NK = Q && !BATCHED;  // int8 stored (N, K): read K-major
+    constexpr bool NK = Q == INT8_NK;  // int8 stored (N, K): read K-major
     constexpr int TB = NK ? 0 : 1;
     constexpr uint32_t B_LEAD = NK ? 16 : BK * 128;
     if (KN && threadIdx.x == 0)
@@ -537,26 +582,27 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
         asm volatile("bar.sync 1, %0;" ::"n"(NC * 128) : "memory");
       }
       if constexpr (KN) {
-        // B's k-step (j = 0), then B2's, each in two halves of 32 columns
+        // B's k-step (j = 0), then B2's, each in HALVES parts of W columns
         // (h) through one partial, added as acc += s[k / qa][n / qb] * partial
-        static_assert(BN == 64, "the int8 kn form's tile is 64 x 64");
         auto multiply = [&](float (&d)[R], int j) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
+          for (int h = 0; h < L::HALVES; ++h) {
             fence_acc(part);
             wg_fence();
+            // columns W h..: in 64-column box W h / 64, 2 (W h % 64) bytes on in its rows
+            const uint32_t hb = (h * W / 64) * BK * 128 + (h * W % 64) * 2;
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk)  // columns 32h..: 64 bytes on in the swizzled row
-              wgmma<32, 1>(part, sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW),
-                           sw128_desc(kb_at(t, j) + kk * 16 * 128 + h * 64, BK * 128, SW), kk > 0);
+            for (int kk = 0; kk < BK / 16; ++kk)
+              wgmma<W, 1>(part, sw128_desc(a_at(s) + wg * 64 * 128 + kk * 32, 16, SW),
+                          sw128_desc(kb_at(t, j) + kk * 16 * 128 + hb, BK * 128, SW), kk > 0);
             wg_commit();
             wg_wait<0>();
             fence_acc(part);
-            const float* row = sc + (t * C::NB + j) * BN + h * 32 + (threadIdx.x & 3) * 2;
+            const float* row = sc + (t * C::NB + j) * BN + h * W + (threadIdx.x & 3) * 2;
 #pragma unroll
-            for (int c = 0; c < R / 2; c += 4) {  // columns 32h + 8 (c / 4) + 2 (lane % 4) + {0, 1}
+            for (int c = 0; c < W / 2; c += 4) {  // columns W h + 8 (c / 4) + 2 (lane % 4) + {0, 1}
               const float2 v = *reinterpret_cast<const float2*>(row + (c >> 2) * 8);
-              float* o = d + h * (R / 2) + c;
+              float* o = d + h * (W / 2) + c;
               o[0] = fmaf(v.x, part[c], o[0]);
               o[1] = fmaf(v.y, part[c + 1], o[1]);
               o[2] = fmaf(v.x, part[c + 2], o[2]);
@@ -591,13 +637,17 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ C
       // this step's products are done: free its stage.  (Keeping a group in
       // flight across the loop's back edge, where the compiler may move
       // registers, makes ptxas serialize every wgmma, C7515.)  KN: once every
-      // consumer warp has read the stage's A, B and scales, free its bf16
-      // stage and load the step STAGES on into its staging stage
+      // warp of this consumer warpgroup has read the stage's A, B and
+      // scales, free its bf16 stage (and its staging stage) and, one
+      // consumer warpgroup, load the step STAGES on into its staging stage
       if constexpr (KN) {
-        asm volatile("bar.sync 1, %0;" ::"n"(NC * 128) : "memory");
-        if (threadIdx.x == 0) {
+        if (wg == 0)  // named barriers 1 and 2 (an immediate id: a register one reserves all 16)
+          asm volatile("bar.sync 1, 128;" ::: "memory");
+        else
+          asm volatile("bar.sync 2, 128;" ::: "memory");
+        if (threadIdx.x % 128 == 0) {
           mbar_arrive(free0 + 8 * t);
-          if (kt + STAGES < kt1) kn_load(kt + STAGES, s);
+          if (NC == 1 && kt + STAGES < kt1) kn_load(kt + STAGES, s);
         }
       } else if (threadIdx.x % 128 == 0) {
         mbar_arrive(empty0 + 8 * s);
@@ -714,7 +764,8 @@ template <class C, bool ODD, bool BATCHED, typename TO>
 int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
                  const CUtensorMap& tb2) {
   auto kernel = gemm_tc_kernel<C::BM, C::BN, C::GATE, C::Q, ODD, BATCHED, TO>;
-  constexpr int SMEM = C::Q && BATCHED ? KnLayout<C>::SMEM : C::SMEM;
+  constexpr int SMEM = C::Q == INT8_KN ? KnLayout<C>::SMEM : C::SMEM;
+  constexpr int THREADS = C::Q == INT8_KN ? KnLayout<C>::THREADS : C::THREADS;
   static_assert(SMEM <= SMEM_MAX, "shared memory");
   static bool sized = false;  // once per instantiation
   if (!sized) {
@@ -726,17 +777,18 @@ int launch_tiles(const Args& g, const CUtensorMap& ta, const CUtensorMap& tb,
   const long tiles = static_cast<long>((g.M + C::BM - 1) / C::BM) * ((g.N + C::BN - 1) / C::BN);
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(g.splits),
                   static_cast<unsigned>(g.batch));
-  kernel<<<grid, C::THREADS, SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.qb, g.bias,
+  kernel<<<grid, THREADS, SMEM, g.stream>>>(ta, tb, tb2, g.bs, g.b2s, g.qa, g.qb, g.bias,
                                                   g.res, static_cast<TO*>(g.c), g.ws,
                                                   g.b_batched, g.M, g.K, g.N, g.act, g.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 2-D launch: rank-2 maps, C bf16, K split in `splits` slices.
+// The 2-D launch: rank-2 maps, C bf16, K split in `splits` slices (not
+// with int8 "kn" B, stored (K, N) in boxes of BN bytes).
 template <class C>
 int run(const Args& g) {
-  constexpr int BM = C::BM, BN = C::BN;
-  constexpr bool GATE = C::GATE, Q = C::Q;
+  constexpr int BM = C::BM, BN = C::BN, Q = C::Q;
+  constexpr bool GATE = C::GATE;
   const EncodeTiled fn = encoder();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap ta, tb, tb2;
@@ -746,10 +798,12 @@ int run(const Args& g) {
   for (int j = 0; j < (GATE ? 2 : 1) && !err; ++j) {
     CUtensorMap* map = j ? &tb2 : &tb;
     const void* ptr = j ? g.b2 : g.b;
-    err = Q ? encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.N, BK, BN,
-                     CU_TENSOR_MAP_SWIZZLE_NONE)
-            : encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N, g.K, 64, BK,
-                     CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
+    err = Q == INT8_NK ? encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.K, g.N, BK, BN,
+                                CU_TENSOR_MAP_SWIZZLE_NONE)
+        : Q == INT8_KN ? encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.N, g.K, BN, BK,
+                                CU_TENSOR_MAP_SWIZZLE_NONE)
+                       : encode(fn, map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g.N, g.K, 64,
+                                BK, CU_TENSOR_MAP_SWIZZLE_128B, g.ldb);
   }
   if (err) return ENCODE_FAILED + err;
   int e;
@@ -760,9 +814,9 @@ int run(const Args& g) {
     e = odd ? launch_tiles<C, true, false, bf16>(g, ta, tb, tb2)
             : launch_tiles<C, false, false, bf16>(g, ta, tb, tb2);
   }
-  if (e != cudaSuccess || g.splits == 1) return e;
+  if (e != cudaSuccess || g.splits == 1 || Q == INT8_KN) return e;
   const long pairs = static_cast<long>(g.M) * g.N / 2;
-  splitk_epilogue<GATE, Q><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, g.stream>>>(
+  splitk_epilogue<GATE, Q == INT8_NK><<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, g.stream>>>(
       g.ws, g.splits, g.bs, g.b2s, g.qa, g.bias, g.res, static_cast<bf16*>(g.c), g.M, g.N, g.act);
   return static_cast<int>(cudaGetLastError());
 }
@@ -788,9 +842,12 @@ int run_batched(const Args& g) {
 }
 
 // f(Cfg<...>{}) for the instantiated configuration, or -1 if there is none
-template <bool GATE, bool Q, class F>
+// (int8 "kn" without the gate: no 128 x 64, which lost to 64 x 64)
+template <bool GATE, int Q, class F>
 int by_tile(int bm, int bn, F f) {
-  if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, Q>{});
+  if constexpr (GATE || Q != INT8_KN) {
+    if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, Q>{});
+  }
   if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, Q>{});
   if constexpr (!GATE) {  // the gate's four register tiles stop at BN = 64
     if (bm == 128 && bn == 128) return f(Cfg<128, 128, GATE, Q>{});
@@ -799,11 +856,11 @@ int by_tile(int bm, int bn, F f) {
 }
 
 // The batched launch's tiles: BN = 64 (the MoE experts' 32 or 64 rows a
-// member take BM = 64), B bf16 or int8 "kn" (Q: BM = 64 only, the producer
-// warpgroup's converter warps keep their registers)
-template <bool GATE, bool Q, class F>
+// member take BM = 64), B bf16 or int8 "kn" (BM = 64 only: 2 or 3 blocks an
+// SM, whose converters and consumers overlap)
+template <bool GATE, int Q, class F>
 int by_batched_tile(int bm, int bn, F f) {
-  if constexpr (!Q) {
+  if constexpr (Q == DENSE) {
     if (bm == 128 && bn == 64) return f(Cfg<128, 64, GATE, Q>{});
   }
   if (bm == 64 && bn == 64) return f(Cfg<64, 64, GATE, Q>{});
@@ -811,9 +868,12 @@ int by_batched_tile(int bm, int bn, F f) {
 }
 
 template <class F>
-int by_config(int bm, int bn, bool gate, bool q, F f) {
-  if (q) return gate ? by_tile<true, true>(bm, bn, f) : by_tile<false, true>(bm, bn, f);
-  return gate ? by_tile<true, false>(bm, bn, f) : by_tile<false, false>(bm, bn, f);
+int by_config(int bm, int bn, bool gate, int q, F f) {
+  if (q == INT8_NK)
+    return gate ? by_tile<true, INT8_NK>(bm, bn, f) : by_tile<false, INT8_NK>(bm, bn, f);
+  if (q == INT8_KN)
+    return gate ? by_tile<true, INT8_KN>(bm, bn, f) : by_tile<false, INT8_KN>(bm, bn, f);
+  return gate ? by_tile<true, DENSE>(bm, bn, f) : by_tile<false, DENSE>(bm, bn, f);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -829,14 +889,16 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // >= N; bases on 16 bytes), `batch` of them if b_batched, else one shared
 // by every member.  Else, with qb == 0 (batch 1), B, B2 int8 stored (N, K)
 // with f32 scales bs, b2s, one for every qa columns (K % 16 == 0, lda == K,
-// ldb unused); with qb >= 1 (the batched launch), B, B2 int8 stored (K, N)
-// ("kn", ldb == N, N % 16 == 0), `batch` of them if b_batched, with f32
-// scales (K / qa, N / qb) a member (qa % 64 == 0, K % qa == 0, N % qb == 0).
-// out_f32 = 0: C bf16 (batch, M, N), contiguous, on any bf16; K splits and
-// int8 B need an even N and C on 4 bytes.  out_f32 = 1 (one K slice): C
-// f32, N even, C on 8 bytes.  batch > 1, out_f32 or qb >= 1 is the batched
-// launch: dense or "kn" B, N % 8 == 0, C on 16 bytes, one K slice, BN = 64
-// tiles (BM = 64 with "kn" B).  bias (N,) and res (batch, M, N) are bf16; b2/b2s, bias and res
+// ldb unused); with qb >= 1, B, B2 int8 stored (K, N) ("kn", ldb == N, N %
+// 16 == 0, one K slice), `batch` of them if b_batched, with f32 scales (K /
+// qa, N / qb) a member (qa % 64 == 0, K % qa == 0, N % qb == 0).  out_f32 =
+// 0: C bf16 (batch, M, N), contiguous, on any bf16; K splits and int8 B
+// need an even N and C on 4 bytes.  out_f32 = 1 (one K slice): C f32, N
+// even, C on 8 bytes.  batch > 1 or out_f32 is the batched launch (rank-3
+// maps): dense or "kn" B, N % 8 == 0, C on 16 bytes, one K slice, BN = 64
+// tiles (BM = 64 with "kn" B); else the 2-D launch (rank-2 maps: 128 x 128,
+// 128 x 64, 64 x 64 tiles, the gate's the last two, "kn" B too).  bias (N,)
+// and res (batch, M, N) are bf16; b2/b2s, bias and res
 // may be NULL.  Returns cudaErrorInvalidValue
 // for a shape, tile or address the kernel does not take, 1000 + a CUresult
 // if a TMA descriptor is refused, else cudaGetLastError() after the
@@ -851,14 +913,14 @@ extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, cons
   const uintptr_t ca = reinterpret_cast<uintptr_t>(c);
   const bool pairs = N % 2 == 0 && (ca & 3) == 0;
   const bool kn = q && qb >= 1;
-  const bool batched = batch > 1 || out_f32 || kn;
+  const bool batched = batch > 1 || out_f32;
   const bool ok = batch >= 1 && batch <= 65535 && M > 0 && N > 0 && K > 0 && lda >= K &&
                   lda % 8 == 0 && aligned16(a) && aligned16(b) && (!gate || aligned16(b2)) &&
                   (ca & 1) == 0 && splits >= 1 && splits <= kts &&
-                  (splits == 1 || (ws != nullptr && pairs && !batched)) &&
+                  (splits == 1 || (ws != nullptr && pairs && !batched && !kn)) &&
                   (!batched || ((!q || kn) && N % 8 == 0 && (ca & 15) == 0)) &&
                   (kn   ? qa % BK == 0 && K % qa == 0 && N % qb == 0 && N % 16 == 0 &&
-                              ldb == N && (!gate || b2s != nullptr)
+                              ldb == N && pairs && (!gate || b2s != nullptr)
                    : q  ? K % 16 == 0 && lda == K && N % 8 == 0 && pairs && qa >= 1 &&
                               N % qa == 0 && (!gate || b2s != nullptr)
                         : ldb >= N && ldb % 8 == 0);
@@ -872,20 +934,26 @@ extern "C" int gemm_tc_launch(const void* a, const void* b, const void* b2, cons
     auto launch = [&](auto cfg) {
       return out_f32 ? run_batched<decltype(cfg), float>(g) : run_batched<decltype(cfg), bf16>(g);
     };
-    if (q)
-      err = gate ? by_batched_tile<true, true>(bm, bn, launch)
-                 : by_batched_tile<false, true>(bm, bn, launch);
+    if (kn)
+      err = gate ? by_batched_tile<true, INT8_KN>(bm, bn, launch)
+                 : by_batched_tile<false, INT8_KN>(bm, bn, launch);
     else
-      err = gate ? by_batched_tile<true, false>(bm, bn, launch)
-                 : by_batched_tile<false, false>(bm, bn, launch);
+      err = gate ? by_batched_tile<true, DENSE>(bm, bn, launch)
+                 : by_batched_tile<false, DENSE>(bm, bn, launch);
   } else {
-    err = by_config(bm, bn, gate, q, [&](auto cfg) { return run<decltype(cfg)>(g); });
+    err = by_config(bm, bn, gate, !q ? DENSE : kn ? INT8_KN : INT8_NK,
+                    [&](auto cfg) { return run<decltype(cfg)>(g); });
   }
   return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 
-// Dynamic shared memory a block of that configuration takes (its ring of
-// stages), or -1 if it is not instantiated.
+// Dynamic shared memory a block of that configuration (q: 0 bf16 B, 1 int8
+// "nk", 2 int8 "kn") takes (its rings of stages), or -1 if it is not
+// instantiated.
 extern "C" int gemm_tc_smem_bytes(int bm, int bn, int gate, int q) {
-  return by_config(bm, bn, gate, q, [](auto cfg) { return decltype(cfg)::SMEM; });
+  return by_config(bm, bn, gate, q, [](auto cfg) {
+    using C = decltype(cfg);
+    if constexpr (C::Q == INT8_KN) return KnLayout<C>::SMEM;
+    else return C::SMEM;
+  });
 }

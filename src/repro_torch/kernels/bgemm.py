@@ -15,9 +15,11 @@ what bounds it.  It keeps its own launch counts.
 A packed B (`core.quant.QuantizedTensor`, the int8 body of
 `_bgemm_kernel`, bgemm.py:80-90, "kn" or the output-major "nk" layout of
 `serve --quantize int8`) runs gemm.py's int8-B routes over the same batch
-* M rows (`launch_int8`, its own launch count): the serving layout on the
-tensor cores in bf16, every layout on the f32 ring (`csrc/gemm_f32_q8.cu`)
-under f32 A; `reference_int8` is its plain version.
+* M rows (`launch_int8`, its own launch count): the serving layout and "kn"
+with a scale block of whole k-steps on the tensor cores in bf16, every
+layout on the f32 ring (`csrc/gemm_f32_q8.cu`) under f32 A and on the f64
+tensor cores (`csrc/gemm_f64_q8.cu`) under f64 A; `reference_int8` is its
+plain version.
 
 The batched-B form (`bgemm.py:180-182`: a per-member B (batch, K, N), the
 MoE's expert stacks) and any `out_dtype` run `launch_batched`: one launch
@@ -26,11 +28,13 @@ kernel of its 2-D counterpart with a batch coordinate: the tensor-core
 kernel of `csrc/gemm_sm90.cu` (bf16, out bf16 or f32: every expert launch
 of a bf16 MoE serve, the packed "kn" expert stacks of an int8 one with
 per-member scales, and bf16 TMA cannot address in place, staged), the f64
-tensor cores of `csrc/gemm_f64.cu` (f64 out), the f32 ring (f32 out; fed
+tensor cores of `csrc/gemm_f64.cu` (f64 out; packed stacks
+`csrc/gemm_f64_q8.cu`), the f32 ring (f32 out; fed
 by TMA, on staged copies where TMA cannot address the rows in place, or
 from packed int8 stacks dequantized in its staging) or the CUDA-core tile of
-`csrc/gemm_batched*.cu` (the rest: other out dtypes, packed f64 A, packed
-bf16 "nk", packed f32 whose int8 rows TMA cannot address).  The kernel writes the accumulator,
+`csrc/gemm_batched*.cu` (the rest: other out dtypes, packed bf16 "nk" or
+"kn" the tensor cores cannot take, packed f32 whose int8 rows TMA cannot
+address).  The kernel writes the accumulator,
 rounded once, in `out_dtype`; its launches count apart
 (`launches_batched`, `launches_batched_staged`, `launches_batched_int8`).
 
@@ -59,8 +63,8 @@ launches_by_form = {"wgmma_staged": 0, "dmma_copy8": 0, "ffma_sm90_staged": 0,
                     "ffma_sm90_odd": 0}
 #: launches through `launch_batched`, by the route `gemm.plan_batched` named
 launches_batched = {"wgmma": 0, "dmma": 0, "ffma_sm90": 0, "ffma": 0}
-#: the "wgmma" ones among them whose operands were first copied into rows
-#: TMA can address (`gemm.Plan.stage`)
+#: the ones among them whose operands were first copied into rows padded to
+#: 16 bytes (`gemm.Plan.stage`: "wgmma", "ffma_sm90", packed "dmma")
 launches_batched_staged = 0
 #: the packed ones among them (any route)
 launches_batched_int8 = 0

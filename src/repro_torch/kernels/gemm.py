@@ -6,7 +6,8 @@ its dense "kn" form: C = epi(A @ B [, A @ B2]) with A (M, K), B and B2
 one from the shape, dtype and addresses alone:
 
 - "wgmma": `csrc/gemm_sm90.cu`, the tensor cores fed by TMA, for every
-  dense bf16 call, over a (BM, BN) tile grid chosen to fill the card's SMs.
+  dense bf16 call and bf16 A against the packed "nk" and "kn" layouts TMA
+  can address, over a (BM, BN) tile grid chosen to fill the card's SMs.
   TMA needs 16-byte row strides and base addresses: where K and N are
   multiples of 8 and the operands start on 16 bytes it reads them in place
   and K is split into deterministic slices where the grid is too small;
@@ -14,10 +15,14 @@ one from the shape, dtype and addresses alone:
   into a buffer whose rows are padded to 16 bytes (`tma_rows`, one
   `Tensor.copy_` each) and K is not split;
 - "dmma": `csrc/gemm_f64.cu`, the f64 tensor cores (mma.sync .f64) fed by
-  a cp.async ring, for every dense f64 call, the gate's two products
-  included, over the tile grid chosen as for "wgmma" (no K split): 16-byte
-  copies where they can address the rows (K % 2 == 0, N % 2 == 0, 16-byte
-  base addresses), 8-byte copies (one double) otherwise;
+  a cp.async ring, for every f64 call with K > 0, the gate's two products
+  included, over the tile grid chosen as for "wgmma" (no K split): dense,
+  16-byte copies where they can address the rows (K % 2 == 0, N % 2 == 0,
+  16-byte base addresses), 8-byte copies (one double) otherwise; packed
+  (`csrc/gemm_f64_q8.cu`, every layout), A and the int8 rows copied 16
+  bytes at a time (`Plan.stage`: first copied into rows padded to 16 bytes
+  where they are not laid out so) and dequantized into the dense kernel's
+  B tile (the dense launch's bits on the dequantized B);
 - "ffma_sm90": FFMA on the CUDA cores (TF32 would change the result) fed
   by TMA through a shared-memory ring (`csrc/gemm_f32.cu`), for every dense
   f32 call with K > 0, the gate's two products included, over a (BM, BN)
@@ -32,26 +37,31 @@ one from the shape, dtype and addresses alone:
 - "ffma": `csrc/gemm.cu`, the first design: a shared-memory tiled GEMM on
   the CUDA cores whose threads each own 4 x 4 register blocks (the paper's
   DOT4 PE), now only for K = 0 (the epilogue alone) and the packed forms no
-  other route takes: f64 A, bf16 A with "kn" or scales that vary along K,
-  and f32 A whose int8 rows (or A's) TMA cannot address.  Its dense bodies
-  are reached only by chip_smoke.py's `ffma_launch` and
-  `scripts/torch_gemm_study.py`, as the yardstick.
+  other route takes: bf16 A against "kn" whose scale block ends inside a
+  k-step or whose rows TMA cannot address, or "nk" with scales that vary
+  along K, and f32 A whose int8 rows (or A's) TMA cannot address.  Its
+  dense bodies and its f64 packed ones are reached only by chip_smoke.py's
+  `ffma_launch` and `scripts/torch_gemm_study.py`, as the yardstick.
 
 Each source note says what bounds its kernel.  Ragged edges are masked in
 the kernels, where the reference pads in `ops._gemm_call`.
 
 A packed B (`core.quant.QuantizedTensor`: int8 with f32 block scales, the
-int8 body of `_gemm_kernel`, gemm.py:63-76) in the output-major "nk" layout
-with one scale block across K (`serve --quantize int8`'s) takes the wgmma
-route in bf16, converted to bf16 in shared memory (exact) and scaled in the
-accumulator.  Under f32 A every packed layout takes "ffma_sm90" where TMA
-can address its int8 rows, each element dequantized once in f32 as the
-plain version rounds it.  The rest (bf16 "kn" or scales that vary along K,
-f64 A, f32 whose rows TMA cannot address) runs gemm.cu's int8-B variant
-(`gemm_q8_launch`), dequantized in the accumulator type on the way into
-shared memory.  `launch_int8` binds both (its own launch count;
-`kernels/bgemm.py` reaches them too) and `reference_int8` is their plain
-version.
+int8 body of `_gemm_kernel`, gemm.py:63-76) under bf16 A takes the wgmma
+route in the output-major "nk" layout with one scale block across K
+(`serve --quantize int8`'s), converted to bf16 in shared memory (exact) and
+scaled in the accumulator, and in the "kn" layout (`quantize(w)`'s
+default) where its scale block spans whole k-steps, converted by a
+warpgroup of its own and each k-step's partial scaled as it is promoted.
+Under f32 A every packed layout takes "ffma_sm90" where TMA can address
+its int8 rows, each element dequantized once in f32 as the plain version
+rounds it; under f64 A every layout takes "dmma".  The rest (bf16 "kn"
+with a scale block inside a k-step or rows TMA cannot address, "nk" with
+scales that vary along K, f32 whose rows TMA cannot address) runs
+gemm.cu's int8-B variant (`gemm_q8_launch`), dequantized in the
+accumulator type on the way into shared memory.  `launch_int8` binds them
+(its own launch count; `kernels/bgemm.py` reaches them too) and
+`reference_int8` is their plain version.
 
 Kernel 3's batched-B form (`kernels/bgemm.py::launch_batched`: a B per
 batch member, any output dtype) goes through `batched`, routed by
@@ -61,7 +71,8 @@ its 2-D counterpart: bf16 with bf16 or f32 out and N % 8 == 0 on "wgmma"
 staged where TMA cannot address them in place), the packed "kn" expert
 stacks of `--quantize int8` with bf16 A there too (int8 converted in shared
 memory, each k-step scaled as it is promoted), f64 with f64 out on "dmma"
-(`csrc/gemm_f64.cu`), f32 with f32 out on "ffma_sm90" (rank-3 maps; dense
+(`csrc/gemm_f64.cu`; packed stacks `csrc/gemm_f64_q8.cu`), f32 with f32
+out on "ffma_sm90" (rank-3 maps; dense
 where TMA cannot address it in place, staged; packed stacks whose int8
 rows TMA can address, dequantized in the ring's staging), and the rest on
 "ffma" (`csrc/gemm_batched*.cu`: gemm.cu's tile with per-member strides and
@@ -113,6 +124,15 @@ GATE_TILES = ((128, 64), (64, 64))
 #: the registers a 128-row tile's second consumer warpgroup takes)
 BATCHED_TILES = ((128, 64), (64, 64))
 PACKED_BATCHED_TILES = ((64, 64),)
+#: (BM, BN) tiles of the tensor-core kernel's 2-D int8 "kn" form, without
+#: and with the gate: BM = 128 runs two consumer warpgroups beside two
+#: converter warpgroups, one block an SM; BM = 64 the batched form's body.
+#: Measured on the H100 (`scripts/torch_gemm_study.py packed`, PERF.md):
+#: 8192^3 in 3.69 ms at 128 x 128, 4.86 at 64 x 64 and 5.94 at 128 x 64
+#: (so no 128 x 64 without the gate); the gate at (4095, 4096) @ (4096,
+#: 2064) in 0.504 ms at 128 x 64, 0.736 at 64 x 64
+PACKED_TILES = ((128, 128), (64, 64))
+PACKED_GATE_TILES = ((128, 64), (64, 64))
 #: (BM, BN) tiles of the f64 tensor-core kernel (csrc/gemm_f64.cu), largest
 #: first, and its gate's (two f64 accumulators: BN <= 64).  Measured on the
 #: H100 (scripts/torch_gemm_study.py f64, PERF.md): 128 x 128 runs 8192^3
@@ -121,6 +141,10 @@ PACKED_BATCHED_TILES = ((64, 64),)
 #: ms against 49.7-55.8 at 64 x 64)
 DMMA_TILES = ((128, 128), (64, 64))
 DMMA_GATE_TILES = ((128, 64), (64, 64))
+#: the packed f64 kernel's gate tiles (csrc/gemm_f64_q8.cu; without the gate
+#: DMMA_TILES): 64 x 64 only, since at 128 x 64 ptxas spilled 12 bytes in
+#: the "kn" form at every register split tried (PERF.md, PR 30)
+DMMA_Q8_GATE_TILES = ((64, 64),)
 #: (BM, BN) tiles of the f32 CUDA-core kernel on the TMA ring
 #: (csrc/gemm_f32.cu), largest first, and its gate's (two accumulators: BN
 #: <= 64).  Measured on the H100 (`scripts/torch_gemm_study.py f32`,
@@ -162,10 +186,12 @@ class Plan:
     """How one GEMM runs: the route ("wgmma", "dmma", "ffma_sm90" or
     "ffma"), the (BM, BN) output tile, the number of K slices (wgmma only;
     the slices' partials are summed in slice order by a second pass) and,
-    on "dmma", the bytes each cp.async copies (16 or 8; 0 elsewhere); on
-    "wgmma" and "ffma_sm90", `stage`: an operand whose rows TMA cannot address is first copied into
-    a buffer whose rows are padded to 16 bytes (`tma_rows`), and K is not
-    split."""
+    on "dmma", the bytes each cp.async of B's rows copies (dense 16 or 8,
+    packed int8 16; 0 elsewhere); `stage`: an operand whose rows the
+    kernel cannot address is first copied into a buffer whose rows are
+    padded to 16 bytes (`tma_rows`), and K is not split ("wgmma" and
+    "ffma_sm90": rows TMA cannot address; packed "dmma": A or int8 rows
+    that are not a multiple of 16 bytes on 16 bytes)."""
 
     route: str
     tile: tuple
@@ -182,43 +208,60 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=4096)  # a serve plans a few dozen shapes
-def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None,
-         aligned: bool = True, sms: int = H100_SMS) -> Plan:
+def plan(m: int, k: int, n: int, dtype, gate: bool = False, packed_layout=None, block=None,
+         aligned: bool = True, b_aligned: bool = True, sms: int = H100_SMS) -> Plan:
     """The route, tile and K split of C (m, n) = A (m, k) @ B, from the shape,
     the dtype and the addresses alone.
 
     packed_layout: None for a dense B; for a packed B "nk" when it is stored
     output-major with one scale block across all of K (the serving layout),
     "kn" when stored (K, N), "nk-kblocks" when output-major with scales that
-    vary along K.  aligned: every operand's base address is 16-byte aligned.
+    vary along K; block: its scale block (qa, qb) over the stored layout.
+    aligned: every operand's base address is 16-byte aligned; b_aligned: a
+    packed B's (and B2's) int8 values are.
 
     bf16 takes "wgmma" when B is dense, staged where TMA cannot address A or
-    B (K % 8 != 0, N % 8 != 0 or unaligned), and when B is "nk" and TMA can
-    (K % 16 == 0, N % 8 == 0); dense f64 takes "dmma", with 16-byte copies
-    when they can address A and B (K % 2 == 0 and N % 2 == 0, the gate
-    too), else 8-byte ones; dense f32 takes "ffma_sm90", staged where TMA
+    B (K % 8 != 0, N % 8 != 0 or unaligned), when B is "nk" and TMA can
+    (K % 16 == 0, N % 8 == 0, aligned), and when B is "kn" with a scale
+    block of whole k-steps (qa % BK == 0) and int8 rows TMA can address (N
+    % 16 == 0, b_aligned), A staged where it is off 16 bytes (on the
+    PACKED_TILES, never splitting K); f64 takes "dmma": dense with 16-byte
+    copies when they can address A and B (K % 2 == 0 and N % 2 == 0, the
+    gate too), else 8-byte ones; packed (every layout) with 16-byte
+    copies on the dense plan's tile (the gate's: 64 x 64), staged where A's rows or the stored
+    int8 rows are not a multiple of 16 bytes on 16 bytes (`_q8_in_place`);
+    dense f32 takes "ffma_sm90", staged where TMA
     cannot address A or B in place (K % 4 != 0, N % 4 != 0 or unaligned);
     packed f32 takes "ffma_sm90" where TMA can address A and the stored int8
     rows (`_q8_tma`, aligned); everything else "ffma" (the other packed
-    forms but bf16 "nk", and a K of 0: the epilogue alone).
-    The tile is the largest of the route's tiles (TC_TILES, DMMA_TILES,
-    FFMA_SM90_TILES; with the gate GATE_TILES, DMMA_GATE_TILES,
-    FFMA_SM90_GATE_TILES) whose grid fills FILL of the `sms` SMs, else the
-    smallest; on "wgmma" unstaged, where that grid leaves more than IDLE of
-    them idle and K >= SPLIT_MIN_K, K is split so that tiles x splits is
-    about half a wave (at least 2 slices, at most one per 2 k-steps: the
-    second pass reads every slice's partials)."""
+    bf16 forms and f32 forms, and a K of 0: the epilogue alone).
+    The tile is the largest of the route's tiles (TC_TILES or PACKED_TILES,
+    DMMA_TILES, FFMA_SM90_TILES; with the gate GATE_TILES or
+    PACKED_GATE_TILES, DMMA_GATE_TILES or, packed, DMMA_Q8_GATE_TILES,
+    FFMA_SM90_GATE_TILES) whose grid
+    fills FILL of the `sms` SMs, else the smallest; on "wgmma" unstaged and
+    unpacked or "nk", where that grid leaves more than IDLE of them idle
+    and K >= SPLIT_MIN_K, K is split so that tiles x splits is about half a
+    wave (at least 2 slices, at most one per 2 k-steps: the second pass
+    reads every slice's partials)."""
     nonempty = min(m, k, n) > 0
     some = aligned and nonempty
     dense = nonempty and packed_layout is None
-    if dtype == torch.float64 and dense:
-        wide = some and k % 2 == 0 and n % 2 == 0
-        return Plan("dmma", _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0],
-                    copy=16 if wide else 8)
+    if dtype == torch.float64 and nonempty:
+        if dense:
+            tile = _fill(m, n, DMMA_GATE_TILES if gate else DMMA_TILES, sms)[0]
+            return Plan("dmma", tile, copy=16 if some and k % 2 == 0 and n % 2 == 0 else 8)
+        tile = _fill(m, n, DMMA_Q8_GATE_TILES if gate else DMMA_TILES, sms)[0]
+        return Plan("dmma", tile, copy=16,
+                    stage=not _q8_in_place(k, n, packed_layout, aligned, b_aligned))
     if dtype == torch.float32 and (dense or (some and _q8_tma(k, n, packed_layout))):
         return Plan("ffma_sm90", _fill(m, n, FFMA_SM90_GATE_TILES if gate else FFMA_SM90_TILES,
                                        sms)[0],
                     stage=dense and not (aligned and k % 4 == 0 and n % 4 == 0))
+    if (dtype == torch.bfloat16 and nonempty and packed_layout == "kn"
+            and _kn_tma(n, block, b_aligned)):
+        tiles = PACKED_GATE_TILES if gate else PACKED_TILES
+        return Plan("wgmma", _fill(m, n, tiles, sms)[0], stage=not aligned)
     tma = (dtype == torch.bfloat16 and some and n % 8 == 0
            and packed_layout in (None, "nk") and k % (16 if packed_layout else 8) == 0)
     if not tma and not (dtype == torch.bfloat16 and dense):
@@ -234,6 +277,21 @@ def _q8_tma(k: int, n: int, layout: str) -> bool:
     """TMA can address f32 A (K % 4 == 0) and the stored int8 rows of a
     packed B (a multiple of 16 bytes: N for "kn", K for "nk")."""
     return k % 4 == 0 and (n if layout == "kn" else k) % 16 == 0
+
+
+def _kn_tma(n: int, block, b_aligned: bool) -> bool:
+    """The tensor-core kernel takes a packed "kn" B under bf16 A: its scale
+    block spans whole k-steps (qa % BK == 0, so a k-step's partial takes one
+    scale row) and TMA can address its int8 rows (N % 16 == 0, B and B2 on
+    16 bytes)."""
+    return block is not None and block[0] % BK == 0 and n % 16 == 0 and b_aligned
+
+
+def _q8_in_place(k: int, n: int, layout: str, a_aligned: bool, b_aligned: bool) -> bool:
+    """The packed f64 kernel's 16-byte copies can read f64 A (K even, on 16
+    bytes) and the stored int8 rows of a packed B (N bytes for "kn", K for
+    "nk": a multiple of 16, on 16 bytes) where they lie."""
+    return a_aligned and b_aligned and k % 2 == 0 and (n if layout == "kn" else k) % 16 == 0
 
 
 def _fill(m: int, n: int, tiles_largest_first, sms: int):
@@ -269,29 +327,38 @@ def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate
     - bf16 A and a packed "kn" B whose scale block spans whole k-steps (qa
       % BK == 0) and whose int8 rows TMA can address (n % 16 == 0, B on 16
       bytes), out bf16 or f32: "wgmma" (A staged where it is off 16 bytes);
-    - dense f64 with f64 out: "dmma", with 16-byte copies where K and N are
-      even and every operand starts on 16 bytes (`copy` 16), else 8;
+    - f64 with f64 out: "dmma"; dense with 16-byte copies where K and N
+      are even and every operand starts on 16 bytes (`copy` 16), else 8;
+      packed (every layout) with 16-byte copies, staged as `plan` stages
+      them;
     - f32 with f32 out: "ffma_sm90", a dense B with `stage` where TMA
       cannot address A or B in place (k % 4 != 0, n % 4 != 0 or a base off
       16 bytes), a packed one (any layout) where TMA can address A and its
       int8 rows (`_q8_tma`, A and B on 16 bytes);
-    - everything else (another out dtype, bf16 with n % 8 != 0, packed f64
-      A, packed bf16 "nk" or a scale block inside a k-step, packed f32
+    - everything else (another out dtype, bf16 with n % 8 != 0, packed
+      bf16 "nk" or a scale block inside a k-step, packed f32
       whose rows TMA cannot address, K = 0): "ffma", csrc/gemm_batched*.cu's
       CUDA-core tile, FFMA_TILE.
     The tile is the largest of the route's tiles (BATCHED_TILES or
     PACKED_BATCHED_TILES, DMMA_TILES,
-    FFMA_SM90_BATCHED_TILES; with the gate DMMA_GATE_TILES,
+    FFMA_SM90_BATCHED_TILES; with the gate DMMA_GATE_TILES (packed
+    DMMA_Q8_GATE_TILES),
     FFMA_SM90_BATCHED_GATE_TILES) whose batch x tiles grid fills FILL of the
     `sms` SMs and whose BM is under 2 m (at most half its rows past m),
     else the smallest; K is never split (the grid has batch x tiles
     blocks)."""
     out = out_dtype or dtype
     if min(batch, m, k, n) > 0:
-        if packed_layout is None and dtype == out == torch.float64:
-            wide = a_aligned and b_aligned and k % 2 == 0 and n % 2 == 0
-            return Plan("dmma", _fill_batched(batch, m, n, DMMA_GATE_TILES if gate else DMMA_TILES,
-                                              sms), copy=16 if wide else 8)
+        if dtype == out == torch.float64:
+            tiles = DMMA_GATE_TILES if gate else DMMA_TILES
+            if packed_layout is not None and gate:
+                tiles = DMMA_Q8_GATE_TILES
+            tile = _fill_batched(batch, m, n, tiles, sms)
+            if packed_layout is None:
+                wide = a_aligned and b_aligned and k % 2 == 0 and n % 2 == 0
+                return Plan("dmma", tile, copy=16 if wide else 8)
+            return Plan("dmma", tile, copy=16,
+                        stage=not _q8_in_place(k, n, packed_layout, a_aligned, b_aligned))
         both = a_aligned and b_aligned
         if dtype == out == torch.float32 and (
                 packed_layout is None or (both and _q8_tma(k, n, packed_layout))):
@@ -301,7 +368,7 @@ def plan_batched(batch: int, m: int, k: int, n: int, dtype, out_dtype=None, gate
                                                              and n % 4 == 0))
         if dtype == torch.bfloat16 and out in TC_OUT_DTYPES:
             dense = packed_layout is None and n % 8 == 0
-            kn = (packed_layout == "kn" and block[0] % BK == 0 and n % 16 == 0 and b_aligned)
+            kn = packed_layout == "kn" and _kn_tma(n, block, b_aligned)
             if dense or kn:
                 stage = not (a_aligned and k % 8 == 0 and (kn or b_aligned))
                 tiles = PACKED_BATCHED_TILES if kn else BATCHED_TILES
@@ -336,17 +403,20 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] *
                 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
-def tma_rows(x):
-    """(x, its row stride) for a bf16 or f32 x of rows r, columns c whose
-    rows TMA can address (16-byte rows: c a multiple of 8 bf16 or 4 f32;
-    base on 16 bytes); else (a copy of x into a buffer of rows padded to 16
-    bytes, that stride).  The padding is never read: TMA loads what lies
-    past column c as zeros."""
+def tma_rows(x, zero_pad: bool = False):
+    """(x, its row stride) for an x of rows r, columns c whose rows are 16
+    bytes a multiple on a 16-byte base (c a multiple of 8 bf16, 4 f32, 2
+    f64 or 16 int8); else (a copy of x into a buffer of rows padded to 16
+    bytes, that stride).  TMA never reads the padding (it loads what lies
+    past column c as zeros); `zero_pad` zeroes it for the packed f64
+    kernel, whose 16-byte copies of A's last odd column read it."""
     c, per = x.shape[-1], 16 // x.element_size()
     if c % per == 0 and x.data_ptr() % 16 == 0:
         return x, c
     buf = torch.empty(x.numel() // c, -(-c // per) * per, dtype=x.dtype, device=x.device)
     buf[:, :c].copy_(x.reshape(-1, c))
+    if zero_pad:
+        buf[:, c:].zero_()
     return buf, buf.shape[1]
 
 
@@ -355,13 +425,13 @@ def tc(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int,
     """Launch `gemm_tc_launch` (csrc/gemm_sm90.cu) on the current stream over
     m rows of a, with p's tile and K slices; b (b2) are bf16 (k, n), or int8
     stored (n, k) with f32 `scales` one per qa columns (qb == 0), or int8
-    stored (k, n) with f32 scales one per (qa, qb) block (qb >= 1, the
-    batched form).  With `p.stage`, a, b and b2 first go through `tma_rows`
+    stored (k, n) with f32 scales one per (qa, qb) block (qb >= 1, "kn",
+    unsplit).  With `p.stage`, a, b and b2 first go through `tma_rows`
     (which copies only an operand TMA cannot address).  The split-K
-    workspace is allocated here.  batch > 1, qb >= 1 or an f32 out (the
-    batched-B form, unsplit): a holds `batch` matrices of m rows, out and
-    residual `batch` of (m, n), b and b2 `batch` of (k, n) when 3-D (their
-    scales `batch` of theirs), else one shared by every member."""
+    workspace is allocated here.  batch > 1 or an f32 out (the batched-B
+    form, unsplit, rank-3 maps): a holds `batch` matrices of m rows, out
+    and residual `batch` of (m, n), b and b2 `batch` of (k, n) when 3-D
+    (their scales `batch` of theirs), else one shared by every member."""
     lda, ldb = k, n
     per_member = int(b.ndim == 3)
     if p.stage:
@@ -397,20 +467,53 @@ _F32_BATCHED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_
 #: N, act, bm, bn, stream)
 _F32_Q8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+#: gemm_f64_q8_launch: (a, b, bs, b2, b2s, qa, qb, nk, bias, res, c, batch, b_batched, M, K,
+#: N, lda, ldq, act, bm, bn, stream)
+_F64_Q8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
+def _q8_operands(b, b2) -> tuple:
+    """The packed int8-B kernels' leading arguments for a packed b (and b2):
+    values, scales, b2's values and scales (or NULL), the scale block and
+    whether b is stored output-major."""
+    return (b.values.data_ptr(), b.scales.data_ptr(),
+            None if b2 is None else b2.values.data_ptr(),
+            None if b2 is None else b2.scales.data_ptr(), *b.block, int(b.transposed))
 
 
 def dmma(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, k: int, n: int,
          variant: int = 0, batch: int = 0):
-    """Launch `gemm_f64_launch` (csrc/gemm_f64.cu) on the current stream over
-    m rows of f64 a with p's tile and copy width; `variant` 0 is the plan's
-    kernel (1-4: the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK
-    = 32 in 3 stages, at 128 x 128 with 16-byte copies and without the gate,
-    for the sweep).  batch >= 1: `gemm_f64_batched_launch`, a, out and
-    residual `batch` matrices, b and b2 `batch` of (k, n) when 3-D, else one
-    shared by every member."""
+    """Launch the f64 tensor-core kernel on the current stream over m rows of
+    f64 a with p's tile and copy width: a packed b (and b2;
+    `QuantizedTensor`, a stack of one a member when 3-D) `gemm_f64_q8_launch`
+    (csrc/gemm_f64_q8.cu, batch 1 for the 2-D GEMM; with `p.stage` a, b's
+    and b2's values first go through `tma_rows`, a's padding zeroed), a dense one
+    `gemm_f64_launch` (csrc/gemm_f64.cu); `variant` 0 is the plan's kernel
+    (1-4: the mma shapes m8n8k4, m16n8k4, m16n8k8, m16n8k16 and 5: BK = 32
+    in 3 stages, at 128 x 128 with 16-byte copies and without the gate, for
+    the sweep).  batch >= 1: `gemm_f64_batched_launch`, a, out and residual
+    `batch` matrices, b and b2 `batch` of (k, n) when 3-D, else one shared
+    by every member."""
     bm, bn = p.tile
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
+        if is_quantized(b):
+            v, v2 = b.values, None if b2 is None else b2.values
+            lda, ldq = k, v.shape[-1]
+            if p.stage:
+                a, lda = tma_rows(a, zero_pad=True)
+                v, ldq = tma_rows(v)
+                v2 = None if v2 is None else tma_rows(v2)[0]
+            fn = _build.function("gemm_f64_q8_launch", _F64_Q8_ARGTYPES)
+            err = fn(a.data_ptr(), v.data_ptr(), b.scales.data_ptr(), _build.ptr(v2),
+                     None if b2 is None else b2.scales.data_ptr(), *b.block, int(b.transposed),
+                     _build.ptr(bias), _build.ptr(residual), out.data_ptr(), max(batch, 1),
+                     int(b.values.ndim == 3), m, k, n, lda, ldq, act_code, bm, bn, stream)
+            if err:
+                raise RuntimeError(f"gemm f64 int8 tensor-core kernel launch failed ({p}): "
+                                   f"CUDA error {err}")
+            return out
         ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(b2), _build.ptr(bias),
                 _build.ptr(residual), out.data_ptr())
         if batch:
@@ -439,9 +542,7 @@ def ffma_sm90(a, b, out, p: Plan, *, b2, bias, residual, act_code: int, m: int, 
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if is_quantized(b):
             fn = _build.function("gemm_f32_q8_launch", _F32_Q8_ARGTYPES)
-            err = fn(a.data_ptr(), b.values.data_ptr(), b.scales.data_ptr(),
-                     None if b2 is None else b2.values.data_ptr(),
-                     None if b2 is None else b2.scales.data_ptr(), *b.block, int(b.transposed),
+            err = fn(a.data_ptr(), *_q8_operands(b, b2),
                      _build.ptr(bias), _build.ptr(residual), out.data_ptr(), max(batch, 1),
                      int(b.values.ndim == 3), m, k, n, act_code, bm, bn, stream)
             if err:
@@ -534,11 +635,9 @@ def batched(a, b, out, *, b2, bias, residual, act_code: int, dtype_code: int,
         else:
             tc(a, w, out, p, **epi, batch=batch)
         return p
-    if p.route == "dmma":
-        dmma(a, w, out, p, **epi, batch=batch)
-        return p
-    if p.route == "ffma_sm90":  # b and b2 as given: dense, or packed
-        ffma_sm90(a, b, out, p, **dict(epi, b2=b2), batch=batch)
+    if p.route in ("dmma", "ffma_sm90"):  # b and b2 as given: dense, or packed
+        run = {"dmma": dmma, "ffma_sm90": ffma_sm90}[p.route]
+        run(a, b, out, p, **dict(epi, b2=b2), batch=batch)
         return p
     batched_ffma(a, b, out, b2=b2, bias=bias, residual=residual, act_code=act_code,
                  dtype_code=dtype_code, out_code=out_code)
@@ -601,22 +700,26 @@ def reference_int8(a, qb, *, qb2=None, bias=None, residual=None, activation=None
 def q8(a, qb, out, *, qb2, bias, residual, m: int, act_code: int, dtype_code: int) -> str:
     """One int8-B launch over m rows of a (the batch * M rows of bgemm's
     broadcast form) through the kernel `plan` names: the tensor-core kernel
-    for bf16 activations and "nk" weights with one scale block across K,
-    the f32 ring for f32 activations whose int8 rows TMA can address,
-    else `gemm_q8_launch`.  Returns the route; operands are validated CUDA
-    tensors (kernels/ops.py)."""
+    for bf16 activations and "nk" weights with one scale block across K or
+    "kn" weights with a scale block of whole k-steps, the f32 ring for f32
+    activations whose int8 rows TMA can address, the f64 tensor cores for
+    f64 activations, else `gemm_q8_launch`.  Returns the route; operands
+    are validated CUDA tensors (kernels/ops.py)."""
     k, n = qb.shape
     qa, qbk = qb.block
     b2v = None if qb2 is None else qb2.values
     p = plan(m, k, n, a.dtype, gate=qb2 is not None, packed_layout=packed_layout(qb),
-             aligned=aligned(a, qb.values, b2v, out), sms=_build.sm_count(a.device.index or 0))
+             block=qb.block, aligned=aligned(a, qb.values, b2v, out),
+             b_aligned=aligned(qb.values, b2v), sms=_build.sm_count(a.device.index or 0))
     if p.route == "wgmma":
         tc(a, qb.values, out, p, b2=b2v, bias=bias, residual=residual, act_code=act_code,
-           m=m, k=k, n=n, scales=qb.scales, scales2=None if qb2 is None else qb2.scales, qa=qa)
+           m=m, k=k, n=n, scales=qb.scales, scales2=None if qb2 is None else qb2.scales, qa=qa,
+           qb=0 if qb.transposed else qbk)
         return p.route
-    if p.route == "ffma_sm90":
-        ffma_sm90(a, qb, out, p, b2=qb2, bias=bias, residual=residual, act_code=act_code, m=m,
-                  k=k, n=n)
+    if p.route in ("dmma", "ffma_sm90"):
+        run = {"dmma": dmma, "ffma_sm90": ffma_sm90}[p.route]
+        run(a, qb, out, p, b2=qb2, bias=bias, residual=residual, act_code=act_code, m=m, k=k,
+            n=n)
         return p.route
     fn = _build.function("gemm_q8_launch", _Q_ARGTYPES)
     with torch.cuda.device(a.device):

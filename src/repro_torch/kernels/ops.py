@@ -18,9 +18,11 @@ or a per-member 3-D one, in f32, bf16 and f64.
 A block-scaled int8 `core.quant.QuantizedTensor` weight (bgemv's `a`,
 gemm/bgemm's `b`, gemv's `a`) takes the packed kernels: bgemv and gemv the
 row-dot `csrc/qgemv.cu` over the stored rows, gemm and bgemm the int8-B
-routes `kernels/gemm.py::plan` names (the tensor cores for bf16 "nk", the
-f32 ring for f32 activations, gemm.cu's int8-B variant for the rest), in
-the "nk" layout if the weight is stored transposed, else "kn".  Outputs are in the activation's dtype, summed and dequantized in
+routes `kernels/gemm.py::plan` names (the tensor cores for bf16 "nk" and
+"kn" with a scale block of whole k-steps, the f32 ring for f32
+activations, the f64 tensor cores for f64 ones, gemm.cu's int8-B variant
+for the rest), in the "nk" layout if the weight is stored transposed, else
+"kn".  Outputs are in the activation's dtype, summed and dequantized in
 max(f32, dtype); the two operands of a dual GEMM must share one spec.
 
 `bgemm` also takes a per-member B (batch, k, n), dense or packed with

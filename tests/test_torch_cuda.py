@@ -1375,8 +1375,9 @@ def test_dmma_8_byte_copies_match_plain(cuda, epi, m, k, n, shift):
 @pytest.mark.cuda
 def test_odd_or_unaligned_f64_takes_dmma_and_packed_f64_ffma(cuda):
     """Odd K, odd N and an A one element off a 16-byte boundary run the f64
-    tensor cores with 8-byte copies; a packed B the CUDA-core kernel; the
-    counts say so."""
+    tensor cores with 8-byte copies; a packed B the f64 tensor cores too
+    (csrc/gemm_f64_q8.cu, no longer the CUDA-core kernel); the counts say
+    so."""
     a, a37 = _rand(cuda, torch.float64, 9, 64), _rand(cuda, torch.float64, 9, 37)
     b, b37 = _rand(cuda, torch.float64, 64, 64, std=0.125), _rand(cuda, torch.float64, 37, 64)
     b_odd_n = _rand(cuda, torch.float64, 64, 37, std=0.125)
@@ -1389,7 +1390,7 @@ def test_odd_or_unaligned_f64_takes_dmma_and_packed_f64_ffma(cuda):
     _against_plain(lambda: ops.gemm(shifted, b), torch.float64)
     _against_plain(lambda: ops.gemm(a, qb), torch.float64)
     c = ops.launch_counts()
-    assert (c["gemm_dmma"], c["gemm_dmma_copy8"], c["gemm_ffma"], c["gemm_int8"]) == (3, 3, 1, 1)
+    assert (c["gemm_dmma"], c["gemm_dmma_copy8"], c["gemm_ffma"], c["gemm_int8"]) == (4, 3, 0, 1)
 
 
 @pytest.mark.cuda
@@ -1423,6 +1424,274 @@ def test_a_launch_the_dmma_kernel_refuses_raises(cuda):
     torch.testing.assert_close(out, shifted @ b, **TOL[torch.float64])
     gemm.dmma(a, b, out, wide, b2=None, **kw)  # the same, aligned
     torch.testing.assert_close(out, a @ b, **TOL[torch.float64])
+
+
+# --------------------------------------------------------------------------
+# f64 A against packed int8 B (csrc/gemm_f64_q8.cu): "dmma" too
+# --------------------------------------------------------------------------
+
+# (m, k, n, layout, block, stage): the stored int8 rows (N bytes "kn", K
+# bytes "nk") a multiple of 16 bytes and K even (read in place), or not
+# (staged into rows padded to 16 bytes: rows of 8, 4 or an odd number of
+# bytes, odd K); one scale a 64-row block across N, scales along both
+# axes, tiny and awkward blocks, "nk" with one block across K and with
+# scales along K; the last two take the 128-row tile without the gate
+# (128 x 128; the gate's is 64 x 64)
+F64_Q8_CASES = [(130, 96, 144, "kn", (64, None), False), (70, 100, 136, "kn", (50, 17), True),
+                (129, 64, 132, "kn", (16, 33), True), (65, 37, 67, "kn", (37, None), True),
+                (130, 160, 96, "nk", (32, None), False), (33, 72, 70, "nk", (7, None), True),
+                (200, 100, 130, "nk-kblocks", (13, 25), True),
+                (9, 37, 20, "nk-kblocks", (4, 3), True), (1, 16, 8, "nk", (8, None), False),
+                (257, 130, 200, "kn", (2, 8), True), (1536, 256, 1408, "kn", (64, None), False),
+                (1100, 160, 1040, "nk", (16, None), False)]
+
+
+def _f64_packed(gen, k, n, layout, block):
+    """A packed (k, n) B in `layout` whose scales vary block to block."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(block[0], block[1], transpose=layout != "kn")
+    ramp = torch.linspace(0.25, 4.0, k * n, device="cuda").view(k, n)
+    qb = quant.quantize(_rand(gen, torch.float32, k, n, std=k ** -0.5) * ramp, spec)
+    assert gemm.packed_layout(qb) == layout
+    return qb
+
+
+def _deq64(qb):
+    """dequantize_in(qb, float64), contiguous (the dense launch's B)."""
+    return None if qb is None else quant.dequantize_in(qb, torch.float64).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", [(None, False, False, False), ("gelu", True, False, True),
+                                 ("silu", False, True, False), ("relu", True, True, True)])
+@pytest.mark.parametrize("m,k,n,layout,block,stage", F64_Q8_CASES)
+def test_dmma_packed_is_bitwise_the_dense_launch(cuda, epi, m, k, n, layout, block, stage):
+    """f64 A against a packed B, every layout, in place or staged: one launch on
+    "dmma" (counted as int8), bitwise the dense launch on
+    `dequantize_in(B, float64)` (the same tile and k order: each dequantized
+    element is exact), within f64 TOL of the plain version, bitwise a
+    second launch."""
+    from repro_torch.kernels import gemm
+    act, bias, gate, res = epi
+    qb, qb2 = (_f64_packed(cuda, k, n, layout, block) for _ in range(2))
+    a = _rand(cuda, torch.float64, m, k)
+    kw = dict(activation=act, b2=qb2 if gate else None,
+              bias=_rand(cuda, torch.float64, n) if bias else None,
+              residual=_rand(cuda, torch.float64, m, n) if res else None)
+    p = gemm.plan(m, k, n, torch.float64, gate=gate, packed_layout=layout, block=qb.block)
+    assert (p.route, p.copy, p.stage) == ("dmma", 16, stage)
+    ops.reset_launch_counts()
+    got = ops.gemm(a, qb, **kw)
+    c = ops.launch_counts()
+    assert (c["gemm_int8"], c["gemm_dmma"], c["gemm_ffma"]) == (1, 1, 0)
+    dense = ops.gemm(a, _deq64(qb), **dict(kw, b2=_deq64(kw["b2"])))
+    with ops.reference_mode():
+        want = ops.gemm(a, qb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    torch.testing.assert_close(got, want, **TOL[torch.float64])
+    assert torch.equal(ops.gemm(a, qb, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("e,m,k,n,layout,block,shared", [
+    (4, 32, 128, 96, "kn", (64, None), False), (3, 33, 100, 72, "nk", (25, None), False),
+    (64, 32, 64, 64, "kn", (64, None), False), (2, 65, 96, 67, "kn", (32, 67), True),
+    (3, 20, 40, 48, "nk-kblocks", (16, 8), False)])
+def test_dmma_packed_batched_is_bitwise_the_dense_launch(cuda, gate, e, m, k, n, layout, block,
+                                                         shared):
+    """Packed stacks under f64 A with f64 out (a stack a member, or one
+    shared): one batched launch on "dmma" counted as packed, bitwise the
+    dense batched launch on the dequantized stacks, within f64 TOL of the
+    plain version, and each member's bits the same alone."""
+    from repro_torch.kernels import gemm
+    spec = quant.QuantSpec(block[0], block[1], transpose=layout != "kn")
+    lead = () if shared else (e,)
+    qb, qb2 = (quant.quantize(_rand(cuda, torch.float32, *lead, k, n, std=k ** -0.5), spec)
+               for _ in range(2))
+    a, res = _rand(cuda, torch.float64, e, m, k), _rand(cuda, torch.float64, e, m, n)
+    kw = dict(b2=qb2 if gate else None, residual=res, activation="silu" if gate else None)
+    p = gemm.plan_batched(e, m, k, n, torch.float64, torch.float64, gate=gate,
+                          packed_layout=layout, block=qb.block)
+    assert p.route == "dmma"
+    ops.reset_launch_counts()
+    got = ops.bgemm(a, qb, out_dtype=torch.float64, **kw)
+    counts = ops.launch_counts()
+    assert (counts["bgemm_batched_dmma"], counts["bgemm_batched_int8"]) == (1, 1)
+    dense = ops.bgemm(a, _deq64(qb), out_dtype=torch.float64, **dict(kw, b2=_deq64(kw["b2"])))
+    with ops.reference_mode():
+        want = ops.bgemm(a, qb, out_dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    torch.testing.assert_close(got, want, **TOL[torch.float64])
+    z = e - 1
+
+    def member(q):
+        if q is None or shared:
+            return q
+        return quant.QuantizedTensor(q.values[z:z + 1], q.scales[z:z + 1], q.block, q.transposed)
+
+    alone = ops.bgemm(a[z:z + 1], member(qb), out_dtype=torch.float64,
+                      **dict(kw, b2=member(kw["b2"]), residual=res[z:z + 1]))
+    assert torch.equal(alone[0], got[z])
+
+
+@pytest.mark.cuda
+def test_dmma_packed_stages_operands_off_16_bytes(cuda):
+    """int8 values that start one byte past a 16-byte boundary, and an A one
+    double past one: the plan stages them, and the launch gives the aligned
+    operands' bits, one launch each."""
+    from repro_torch.kernels import gemm
+    qb = _f64_packed(cuda, 96, 144, "kn", (64, None))
+    buf = torch.empty(qb.values.numel() + 1, dtype=torch.int8, device="cuda")
+    buf[1:].copy_(qb.values.view(-1))
+    off = quant.QuantizedTensor(buf[1:].view(96, 144), qb.scales, qb.block, qb.transposed)
+    a = _rand(cuda, torch.float64, 70, 96)
+    a_off = _rand(cuda, torch.float64, 70 * 96 + 1)[1:].view(70, 96).copy_(a)
+    assert gemm.plan(70, 96, 144, torch.float64, packed_layout="kn", block=qb.block,
+                     b_aligned=gemm.aligned(off.values)).stage
+    want = ops.gemm(a, qb)
+    ops.reset_launch_counts()
+    got_b, got_a = ops.gemm(a, off), ops.gemm(a_off, qb)
+    torch.cuda.synchronize()
+    assert (ops.launch_counts()["gemm_int8"], ops.launch_counts()["gemm_dmma"]) == (2, 2)
+    assert torch.equal(got_b, want) and torch.equal(got_a, want)
+
+
+@pytest.mark.cuda
+def test_a_launch_the_f64_int8_kernel_refuses_raises(cuda):
+    """What csrc/gemm_f64_q8.cu does not take comes back as an error code and
+    the wrapper raises: int8 rows that are not a multiple of 16 bytes, or A
+    rows of an odd K, left in place; the gate at BN = 128 or BM = 128, a
+    128 x 64 tile without it.  Staged, the same operands run."""
+    from repro_torch.kernels import gemm
+    qb = _f64_packed(cuda, 64, 72, "kn", (64, None))  # rows of 72 bytes
+    q16 = _f64_packed(cuda, 63, 80, "kn", (63, None))  # rows of 80 bytes, odd K
+    a, a63 = _rand(cuda, torch.float64, 64, 64), _rand(cuda, torch.float64, 64, 63)
+    out = torch.empty(64, 72, dtype=torch.float64, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=64, k=64, n=72)
+    for p, b2 in ((gemm.Plan("dmma", (64, 64), copy=16), None),
+                  (gemm.Plan("dmma", (128, 128), copy=16, stage=True), qb),
+                  (gemm.Plan("dmma", (128, 64), copy=16, stage=True), qb),
+                  (gemm.Plan("dmma", (128, 64), copy=16, stage=True), None)):
+        with pytest.raises(RuntimeError, match="f64 int8 tensor-core"):
+            gemm.dmma(a, qb, out, p, b2=b2, **kw)
+    with pytest.raises(RuntimeError, match="f64 int8 tensor-core"):
+        gemm.dmma(a63, q16, torch.empty(64, 80, dtype=torch.float64, device="cuda"),
+                  gemm.Plan("dmma", (64, 64), copy=16), b2=None, **dict(kw, k=63, n=80))
+    gemm.dmma(a, qb, out, gemm.Plan("dmma", (64, 64), copy=16, stage=True), b2=None, **kw)
+    torch.testing.assert_close(out, a @ _deq64(qb), **TOL[torch.float64])
+
+
+# --------------------------------------------------------------------------
+# bf16 A against packed "kn" B on the tensor cores (csrc/gemm_sm90.cu)
+# --------------------------------------------------------------------------
+
+# (m, k, n, block_m, block_n): one scale a k-step across N (quantize(w)'s
+# default), scales every 16 or 32 columns, two k-steps a scale row, ragged
+# M, one row
+KN_CASES = [(300, 256, 192, 64, None), (257, 384, 160, 128, 32), (130, 192, 80, 64, 16),
+            (1, 64, 16, 64, None)]
+
+
+def _kn_operands(gen, m, k, n, block_m, block_n, epi, shift=0):
+    """bf16 a (m, k), starting `shift` elements past its allocation's start,
+    packed "kn" B and B2 whose scales vary block to block, ops keywords."""
+    act, bias, gate, res = epi
+    ramp = torch.linspace(0.25, 4.0, k * n, device="cuda").view(k, n)
+    spec = quant.QuantSpec(block_m, block_n)
+    qb, qb2 = (quant.quantize(_rand(gen, torch.float32, k, n, std=k ** -0.5) * ramp, spec)
+               for _ in range(2))
+    a = _shifted(gen, torch.bfloat16, m, k, by=shift)
+    kw = dict(activation=act, b2=qb2 if gate else None,
+              bias=_rand(gen, torch.bfloat16, n) if bias else None,
+              residual=_rand(gen, torch.bfloat16, m, n) if res else None)
+    return a, qb, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,gate", [((128, 128), False), ((64, 64), False), ((128, 64), True),
+                                       ((64, 64), True)])
+@pytest.mark.parametrize("m,k,n,block_m,block_n", KN_CASES)
+@pytest.mark.parametrize("full", [False, True])
+def test_wgmma_int8_kn_every_tile_matches_plain(cuda, tile, gate, m, k, n, block_m, block_n,
+                                                full):
+    """The 2-D "kn" form at each of its tiles (BM = 128: two consumer and
+    two converter warpgroups; BM = 64: the batched form's body), with and without the
+    gate, the plain product or bias, gelu and the residual: within bf16 TOL
+    of the plain version (which dequantizes B in f32), bitwise a second
+    launch."""
+    from repro_torch.kernels import gemm
+    epi = ("gelu" if full else ("silu" if gate else None), full, gate, full)
+    a, qb, kw = _kn_operands(cuda, m, k, n, block_m, block_n, epi)
+    b2 = kw["b2"]
+    out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+
+    def launch():
+        gemm.tc(a, qb.values, out, gemm.Plan("wgmma", tile), b2=None if b2 is None else b2.values,
+                bias=kw["bias"], residual=kw["residual"], act_code=ops._ACTS[kw["activation"]],
+                m=m, k=k, n=n, scales=qb.scales, scales2=None if b2 is None else b2.scales,
+                qa=qb.block[0], qb=qb.block[1])
+        return out.clone()
+
+    got = launch()
+    with ops.reference_mode():
+        want = ops.gemm(a, qb, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    assert torch.equal(launch(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", TC_EPILOGUES)
+@pytest.mark.parametrize("m,k,n,block_m,block_n,shift", [
+    (300, 256, 192, 64, None, 0), (257, 384, 160, 128, 32, 0), (130, 192, 80, 64, 16, 1),
+    (2048, 512, 1024, 64, None, 0), (4, 64, 48, 64, 16, 3)])
+def test_wgmma_int8_kn_route_matches_plain(cuda, epi, m, k, n, block_m, block_n, shift):
+    """bf16 A against packed "kn" B through gemm and bgemm: one launch each
+    on "wgmma" (counted as int8; A staged where it starts off 16 bytes,
+    never K split), within bf16 TOL of the plain version, bitwise a second
+    launch."""
+    from repro_torch.kernels import gemm
+    a, qb, kw = _kn_operands(cuda, m, k, n, block_m, block_n, epi, shift)
+    p = gemm.plan(m, k, n, torch.bfloat16, gate=kw["b2"] is not None, packed_layout="kn",
+                  block=qb.block, aligned=gemm.aligned(a))
+    assert (p.route, p.splits, p.stage) == ("wgmma", 1, shift != 0)
+    ops.reset_launch_counts()
+    _against_plain(lambda: ops.gemm(a, qb, **kw), torch.bfloat16)
+    kw3 = dict(kw, residual=None if kw["residual"] is None else kw["residual"][None])
+    _against_plain(lambda: ops.bgemm(a[None], qb, **kw3), torch.bfloat16)
+    assert _routes(gemm_wgmma=1, bgemm_wgmma=1), _routes()
+    assert ops.launch_counts()["gemm_int8"] == 2
+    first, second = ops.gemm(a, qb, **kw), ops.gemm(a, qb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_a_2d_kn_launch_the_wgmma_kernel_refuses_raises(cuda):
+    """The 2-D "kn" form refuses a K split, a scale block inside a k-step,
+    N % 16 != 0, the gate at 128 x 128 and 128 x 64 without the gate (not
+    instantiated: 64 x 64 beat it), and the wrapper raises."""
+    from repro_torch.kernels import gemm
+    a = _rand(cuda, torch.bfloat16, 128, 2048)
+    qb = quant.quantize(_rand(cuda, torch.float32, 2048, 64), quant.QuantSpec(64, None))
+    out = torch.empty(128, 64, dtype=torch.bfloat16, device="cuda")
+    kw = dict(bias=None, residual=None, act_code=0, m=128, k=2048, n=64, scales=qb.scales,
+              qa=64, qb=64)
+    for p, extra in ((gemm.Plan("wgmma", (64, 64), splits=2), {}),
+                     (gemm.Plan("wgmma", (64, 64)), dict(qa=32)),
+                     (gemm.Plan("wgmma", (64, 64)), dict(n=56, qb=56)),
+                     (gemm.Plan("wgmma", (128, 128)), dict(scales2=qb.scales)),
+                     (gemm.Plan("wgmma", (128, 64)), {})):
+        b2 = qb.values if "scales2" in extra else None
+        with pytest.raises(RuntimeError, match="tensor-core"):
+            gemm.tc(a, qb.values, out, p, b2=b2, **dict(kw, **extra))
+    gemm.tc(a, qb.values, out, gemm.Plan("wgmma", (64, 64)), b2=None, **kw)
+    torch.testing.assert_close(out.float(), a.float() @ quant.dequantize_in(qb, torch.float32),
+                               **TOL[torch.bfloat16])
 
 
 # --------------------------------------------------------------------------
@@ -2289,8 +2558,9 @@ def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
     """Packed expert stacks (E, k, n) with per-expert block scales ("kn",
     `quantize_weights`' expert rule, and "nk"): one batched launch on the
     route `gemm.plan_batched` names (bf16 "kn": the tensor cores; f32 A
-    with f32 out, either layout: the f32 ring; the rest the CUDA-core
-    tile), out in A's dtype and in f32, within TOL of the plain version."""
+    with f32 out, either layout: the f32 ring; f64 A with f64 out: the f64
+    tensor cores; the rest the CUDA-core tile), out in A's dtype and in
+    f32, within TOL of the plain version."""
     from repro_torch.kernels import gemm
     e, m, k, n = 4, 32, 128, 96
     spec = quant.QuantSpec(64, None, transpose=transpose)
@@ -2301,7 +2571,8 @@ def test_packed_batched_bgemm_matches_plain(cuda, dtype, transpose, gate):
         route = gemm.plan_batched(e, m, k, n, dtype, out_dtype, gate=gate,
                                   packed_layout=gemm.packed_layout(qb), block=qb.block).route
         assert route == ("wgmma" if dtype == torch.bfloat16 and not transpose
-                         else "ffma_sm90" if dtype == out_dtype == torch.float32 else "ffma")
+                         else "ffma_sm90" if dtype == out_dtype == torch.float32
+                         else "dmma" if dtype == out_dtype == torch.float64 else "ffma")
         ops.reset_launch_counts()
         got = ops.bgemm(a, qb, b2=qb2, activation="silu" if gate else None, out_dtype=out_dtype)
         counts = ops.launch_counts()

@@ -13,9 +13,12 @@ only what TMA cannot address; every dense f64 call to "dmma", with
 16-byte copies for even K and N on 16-byte boundaries and 8-byte ones
 otherwise; every dense f32 call with K > 0 to "ffma_sm90", in place where
 K and N are multiples of 4 on 16-byte boundaries, else on staged operands;
-packed f32 whose A and int8 rows TMA can address to "ffma_sm90"; a K of 0 and
-the packed forms no other route takes (f64 A, bf16 "kn" or scales along
-K, f32 rows TMA cannot address) to "ffma";
+packed f32 whose A and int8 rows TMA can address to "ffma_sm90"; packed
+bf16 "kn" with a scale block of whole k-steps and int8 rows TMA can address
+to "wgmma" (A staged where it is off 16 bytes); every packed f64 call to
+"dmma" with the widest copy its int8 rows allow; a K of 0 and the packed
+forms no other route takes (bf16 "kn" TMA or the k-step cannot take, "nk"
+with scales along K, f32 rows TMA cannot address) to "ffma";
 the K slices cover K exactly in whole k-steps; the grid fills at least
 half the card or K is split.
 
@@ -80,35 +83,101 @@ def test_serving_int8_layout_routes_to_wgmma(k, n, gate):
     assert gemm.plan(512, k, n, BF16, gate=gate, packed_layout="nk").route == "wgmma"
 
 
-@pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned", [
-    (512, 0, 2048, F32, False, None, True),          # f32, K = 0: the epilogue alone
-    (512, 2048, 2040, F32, False, "kn", True),       # f32 A, int8 rows of 2040 bytes
-    (512, 2056, 2048, F32, False, "nk", True),       # f32 A, stored rows of 2056 bytes
-    (512, 2056, 2048, F32, True, "nk-kblocks", True),
-    (4095, 4097, 4093, F32, False, "kn", True),      # the BLAS ragged int8 case
-    (512, 2047, 2048, F32, False, "kn", True),       # odd K: A's rows off 16 bytes
-    (512, 2046, 2048, F32, True, "kn", True),        # K % 4, the gate
-    (1, 3, 5, F32, False, "kn", True),               # f32, tiny odd packed shape
-    (512, 2048, 2056, F32, True, "kn", True),        # N % 16, the gate
-    (512, 2048, 2048, F32, True, "nk-kblocks", False),  # f32 A, packed, unaligned
-    (512, 2048, 2048, F32, False, "nk", False),
-    (512, 2048, 2048, F32, False, "kn", False),      # f32 A, packed B, unaligned
-    (512, 2048, 2048, F64, False, "kn", True),       # f64 activations, packed B
-    (512, 2048, 2048, F64, True, "nk", True),
-    (512, 2048, 2048, F64, False, "nk-kblocks", True),
-    (512, 0, 2048, F64, False, None, True),          # K = 0: the epilogue alone
-    (512, 0, 2048, BF16, False, None, True),
-    (512, 0, 2048, F32, True, None, True),
-    (512, 2048, 2048, BF16, True, "kn", True),       # int8 stored (K, N), the gate
-    (512, 2048, 2048, BF16, False, "nk", False),     # int8 "nk" off 16 bytes
-    (512, 2048, 2048, BF16, False, "kn", True),      # int8 stored (K, N)
-    (512, 2048, 2048, BF16, False, "nk-kblocks", True),  # scales vary along K
-    (512, 2056, 2048, BF16, False, "nk", True),      # int8 K % 16
-    (0, 2048, 2048, BF16, False, None, True),        # nothing to compute
+@pytest.mark.parametrize("m,k,n,dtype,gate,layout,aligned,block", [
+    (512, 0, 2048, F32, False, None, True, None),          # f32, K = 0: the epilogue alone
+    (512, 2048, 2040, F32, False, "kn", True, None),       # f32 A, int8 rows of 2040 bytes
+    (512, 2056, 2048, F32, False, "nk", True, None),       # f32 A, stored rows of 2056 bytes
+    (512, 2056, 2048, F32, True, "nk-kblocks", True, None),
+    (4095, 4097, 4093, F32, False, "kn", True, None),      # the BLAS ragged int8 case
+    (512, 2047, 2048, F32, False, "kn", True, None),       # odd K: A's rows off 16 bytes
+    (512, 2046, 2048, F32, True, "kn", True, None),        # K % 4, the gate
+    (1, 3, 5, F32, False, "kn", True, None),               # f32, tiny odd packed shape
+    (512, 2048, 2056, F32, True, "kn", True, None),        # N % 16, the gate
+    (512, 2048, 2048, F32, True, "nk-kblocks", False, None),  # f32 A, packed, unaligned
+    (512, 2048, 2048, F32, False, "nk", False, None),
+    (512, 2048, 2048, F32, False, "kn", False, None),      # f32 A, packed B, unaligned
+    (512, 0, 2048, F64, False, None, True, None),          # K = 0: the epilogue alone
+    (512, 0, 2048, F64, False, "kn", True, (64, 2048)),
+    (512, 0, 2048, BF16, False, None, True, None),
+    (512, 0, 2048, F32, True, None, True, None),
+    (512, 2048, 2048, BF16, False, "nk", False, None),     # int8 "nk" off 16 bytes
+    (512, 2048, 2048, BF16, False, "nk-kblocks", True, None),  # scales vary along K
+    (512, 2056, 2048, BF16, False, "nk", True, None),      # int8 K % 16
+    (0, 2048, 2048, BF16, False, None, True, None),        # nothing to compute
+    # bf16 "kn" the tensor cores cannot take: a scale block ending inside a
+    # 64-row k-step, int8 rows TMA cannot address (N % 16, B off 16 bytes)
+    (512, 2016, 2048, BF16, False, "kn", True, (48, 2048)),
+    (512, 2016, 2048, BF16, True, "kn", True, (96, 2048)),
+    (512, 2048, 2056, BF16, False, "kn", True, (64, 2056)),
+    (512, 2048, 2040, BF16, True, "kn", True, (64, 1020)),
+    (512, 2048, 2048, BF16, False, "kn", False, (64, 2048)),
+    (4095, 4096, 2064, BF16, True, "kn", False, (64, 2064)),
+    (512, 2048, 2048, BF16, True, "nk-kblocks", True, (64, 64)),
 ])
-def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned):
-    p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, aligned=aligned)
+def test_the_rest_routes_to_ffma(m, k, n, dtype, gate, layout, aligned, block):
+    """aligned: every operand on 16 bytes, the packed B's values too."""
+    p = gemm.plan(m, k, n, dtype, gate=gate, packed_layout=layout, block=block, aligned=aligned,
+                  b_aligned=aligned)
     assert p == gemm.Plan("ffma", gemm.FFMA_TILE[gate], 1)
+
+
+@pytest.mark.parametrize("m,k,n,gate,block,aligned", [
+    (512, 2048, 2048, True, (64, 2048), True),      # int8 stored (K, N), the gate
+    (512, 2048, 2048, False, (64, 2048), True),     # int8 stored (K, N)
+    (8192, 8192, 8192, False, (64, 8192), True),    # the BLAS cell, quantize(w)'s default
+    (4095, 4096, 2064, True, (64, 2064), True),     # ragged M, the gate
+    (4095, 4096, 2064, False, (64, 2064), True),
+    (1024, 1024, 1024, False, (64, 16), True),      # scales that vary along N
+    (1024, 1024, 1024, True, (128, 64), True),      # two k-steps a scale row
+    (512, 2048, 2048, False, (64, 2048), False),    # A off 16 bytes: staged
+    (130, 192, 80, False, (64, 80), True),
+    (1, 64, 16, True, (64, 16), False)])
+def test_packed_bf16_kn_routes_to_wgmma(m, k, n, gate, block, aligned):
+    """bf16 A against int8 stored (K, N) whose scale block spans whole
+    k-steps (qa % 64 == 0) and whose rows TMA can address (N % 16 == 0, the
+    values on 16 bytes): the tensor cores, A staged where it is off 16 bytes,
+    on the largest of PACKED_TILES (the gate's PACKED_GATE_TILES) whose
+    grid fills FILL of the card, else the smallest; K never split."""
+    p = gemm.plan(m, k, n, BF16, gate=gate, packed_layout="kn", block=block, aligned=aligned,
+                  b_aligned=True)
+    tiles = gemm.PACKED_GATE_TILES if gate else gemm.PACKED_TILES
+    assert (p.route, p.splits, p.copy, p.stage) == ("wgmma", 1, 0, not aligned)
+    assert p.tile in tiles
+    larger = tiles[:tiles.index(p.tile)]
+    assert all(-(-m // b0) * -(-n // b1) < gemm.FILL * 132 for b0, b1 in larger)
+    assert -(-m // p.tile[0]) * -(-n // p.tile[1]) >= gemm.FILL * 132 or p.tile == tiles[-1]
+    if m == k == n == 8192:
+        assert p.tile[0] * p.tile[1] > 64 * 64
+
+
+@pytest.mark.parametrize("m,k,n,gate,layout,b_aligned,fits", [
+    (512, 2048, 2048, False, "kn", True, 16),       # f64 activations, packed B
+    (512, 2048, 2048, True, "nk", True, 16),
+    (512, 2048, 2048, False, "nk-kblocks", True, 16),
+    (8192, 8192, 8192, False, "kn", True, 16),      # the BLAS cells
+    (8192, 8192, 8192, False, "nk", True, 16),
+    (512, 2048, 2056, False, "kn", True, 8),        # rows of 2056 bytes
+    (512, 2056, 2048, True, "nk", True, 8),
+    (512, 2048, 2052, True, "kn", True, 4),         # rows of 2052 bytes
+    (300, 2052, 64, False, "nk-kblocks", True, 4),
+    (4095, 4097, 4093, False, "kn", True, 1),       # the BLAS ragged case
+    (130, 37, 67, True, "nk", True, 1),
+    (512, 2048, 2048, False, "kn", False, 1),       # the values off 16 bytes
+    (1, 1, 1, False, "nk", True, 1)])
+def test_packed_f64_routes_to_dmma_with_its_copy_width(m, k, n, gate, layout, b_aligned, fits):
+    """f64 A against a packed B, every layout: the f64 tensor cores on the
+    dense plan's tile (with the gate 64 x 64), every copy 16 bytes.  `fits` is the widest copy the
+    stored int8 rows (N bytes "kn", K bytes "nk") take where they lie (1:
+    none, or the values off 16 bytes); where it is under 16, K is odd or A
+    is off 16 bytes, the operands are first staged into rows padded to 16
+    bytes."""
+    for aligned in (True, False):
+        p = gemm.plan(m, k, n, F64, gate=gate, packed_layout=layout, block=(1, 1),
+                      aligned=aligned and b_aligned, b_aligned=b_aligned)
+        in_place = fits == 16 and k % 2 == 0 and aligned
+        assert (p.route, p.copy, p.splits, p.stage) == ("dmma", 16, 1, not in_place)
+        assert p.tile == (gemm.DMMA_Q8_GATE_TILES[0] if gate
+                          else gemm.plan(m, k, n, F64, gate=gate).tile)
 
 
 @pytest.mark.parametrize("m,k,n,gate,aligned", [

@@ -414,6 +414,17 @@ BATCHED_PLANS = [
     (64, 32, 2048, 1408, F32, F32, True, EXPERT_KN, "ffma_sm90", (32, 64), False),
     (64, 32, 1408, 2048, F32, F32, False, ("kn", (64, 2048)), "ffma_sm90", (32, 64), False),
     (64, 32, 2048, 1408, F32, F32, False, ("nk", (64, 2048)), "ffma_sm90", (32, 64), False),
+    # packed stacks under f64 A, every layout: DMMA, 16-byte copies, the
+    # operands staged where the int8 rows are not a multiple of 16 bytes or K
+    # is odd
+    (64, 32, 2048, 1408, F64, F64, False, EXPERT_KN, "dmma", (64, 64), False),
+    (64, 32, 1408, 2048, F64, F64, True, ("kn", (64, 2048)), "dmma", (64, 64), False),
+    (64, 32, 2048, 1408, F64, F64, False, ("nk", (64, 2048)), "dmma", (64, 64), False),
+    (16, 2048, 2048, 2048, F64, F64, False, ("nk-kblocks", (64, 64)), "dmma", (128, 128),
+     False),
+    (8, 16, 96, 72, F64, F64, True, ("kn", (32, 72)), "dmma", (64, 64), True),
+    (8, 16, 100, 64, F64, F64, False, ("nk", (64, 100)), "dmma", (64, 64), True),
+    (4, 70, 95, 63, F64, F64, False, ("kn", (19, 63)), "dmma", (64, 64), True),
     # odd K bf16: A staged
     (64, 32, 2047, 1408, BF16, None, False, None, "wgmma", (64, 64), True),
     (64, 32, 1407, 2048, BF16, F32, False, None, "wgmma", (64, 64), True),
@@ -424,7 +435,6 @@ BATCHED_PLANS = [
     # what stays on the CUDA-core tile
     (64, 32, 2048, 1400, F32, F32, True, ("kn", (64, 1400)), "ffma", (128, 64), False),
     (64, 32, 2040, 1408, F32, F32, False, ("nk", (64, 2040)), "ffma", (128, 128), False),
-    (64, 32, 2048, 1408, F64, F64, False, EXPERT_KN, "ffma", (128, 128), False),
     (64, 32, 1440, 1408, BF16, BF16, False, ("kn", (48, 1408)), "ffma", (128, 128), False),
     (64, 32, 2048, 1400, BF16, BF16, False, ("kn", (64, 1400)), "ffma", (128, 128), False),
     (64, 32, 2048, 1408, BF16, BF16, False, ("nk", (64, 2048)), "ffma", (128, 128), False),
@@ -439,22 +449,26 @@ BATCHED_PLANS = [
 
 @pytest.mark.parametrize("batch,m,k,n,dtype,out,gate,packed,route,tile,stage", BATCHED_PLANS)
 def test_plan_batched_routes(batch, m, k, n, dtype, out, gate, packed, route, tile, stage):
-    """Each form's route, tile and staging; the copy width (f64: 16 or 8);
-    and where an operand starts off 16 bytes: A
-    staged on "wgmma" (the packed form's int8 B refused there) and on the
-    f32 ring (dense B), 8-byte copies on "dmma", the CUDA-core tile for
-    packed f32."""
+    """Each form's route, tile and staging; the copy width (dense f64: 16 or
+    8; packed f64: 16); and where an operand starts off 16 bytes: A staged
+    on "wgmma" (the packed form's int8 B refused there), on the f32 ring
+    (dense B) and on packed "dmma" (A or B, on the same tile), 8-byte
+    copies on dense "dmma", the CUDA-core tile for packed f32."""
     layout, block = packed or (None, None)
     kw = dict(gate=gate, packed_layout=layout, block=block)
     p = gemm.plan_batched(batch, m, k, n, dtype, out, **kw)
     assert (p.route, p.tile, p.splits, p.stage) == (route, tile, 1, stage)
     even = k % 2 == 0 and n % 2 == 0
-    assert p.copy == ((16 if even else 8) if route == "dmma" else 0)
+    assert p.copy == ((16 if even or packed else 8) if route == "dmma" else 0)
     off_a = gemm.plan_batched(batch, m, k, n, dtype, out, a_aligned=False, **kw)
     off_b = gemm.plan_batched(batch, m, k, n, dtype, out, b_aligned=False, **kw)
     if route == "wgmma":
         assert (off_a.route, off_a.stage) == ("wgmma", True)
         assert (off_b.route, off_b.stage) == (("ffma", False) if packed else ("wgmma", True))
+    elif route == "dmma" and packed:  # A or B off 16 bytes: staged, on the same tile
+        assert (off_a.route, off_a.copy, off_a.stage) == (off_b.route, off_b.copy, off_b.stage) \
+            == ("dmma", 16, True)
+        assert off_a.tile == off_b.tile == p.tile
     elif route == "dmma":
         assert (off_a.route, off_a.copy, off_b.route, off_b.copy) == ("dmma", 8, "dmma", 8)
     elif route == "ffma_sm90" and not packed:

@@ -260,9 +260,13 @@ def test_packed_bgemm_nk_matches_pallas(dtype, act, bias, gate, res, batch, m, k
 @pytest.mark.parametrize("transpose", [True, False])
 @pytest.mark.parametrize("act,bias,gate,res", [EPILOGUES[0], EPILOGUES[2], EPILOGUES[4],
                                                EPILOGUES[5]])
-@pytest.mark.parametrize("m,k,n,block", [(13, 48, 40, (64, None)), (9, 45, 36, (9, 12))])
+@pytest.mark.parametrize("m,k,n,block", [(13, 48, 40, (64, None)), (9, 45, 36, (9, 12)),
+                                         (130, 192, 80, (64, None)), (130, 192, 80, (64, 16))])
 def test_packed_gemm_matches_pallas(dtype, transpose, act, bias, gate, res, m, k, n, block):
-    """int8 B in both layouts ("nk" for transposed storage, else "kn")."""
+    """int8 B in both layouts ("nk" for transposed storage, else "kn"); K %
+    64 == 0 and N % 16 == 0 with a 64-row scale block are the shapes the
+    tensor cores take under bf16 A ("kn", one scale a k-step across N or
+    every 16 columns)."""
     rng = np.random.default_rng(m * 100 + k)
     spec = _spec(block, transpose)
     with precision(dtype):
